@@ -1,0 +1,606 @@
+// Causal GQA flash attention, forward and backward, for NVIDIA Hopper
+// (sm_90a).  Plain C interface, loaded from Python with ctypes
+// (ddl_tpu_torch/ops/flash_attention.py builds and binds it).
+//
+// Replaces the Pallas TPU kernels of ddl_tpu/ops/flash_attention.py:
+//   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse)
+//   K2 flash_dq_kernel     <- _dq_kernel   (dQ = sum_kv dS K * scale)
+//   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q)
+//
+// What it computes is the TPU kernels' math, not their block structure:
+// - The TPU grid's sequential KV axis (K1/K2) is a loop inside the thread
+//   block that stops at the global causal diagonal; K3's sequential Q axis
+//   is a loop that starts at it.  Blocks above the diagonal cost nothing.
+// - Each thread block computes its own offsets from blockIdx and the
+//   (B, T, H, D) strides; query head h reads KV head h / rep.  The ragged
+//   sequence tail is masked here instead of padded.
+// - (q_off, k_off) are global token offsets, so the with-lse form and a
+//   later ring attention reuse the same kernels.
+// - Masked scores take the finite -1e30 and the safe-max rule of the TPU
+//   kernel, so a fully masked row gives out = 0, lse = -1e30 and zero
+//   gradients (a -inf would turn the backward into NaNs).
+// - Rounding points follow the TPU kernels: p is rounded to the input type
+//   before p.V, and ds before ds.K / ds^T.Q, with fp32 accumulation.
+//   K3 loops over the rep query heads of its KV head and accumulates dK/dV
+//   over the group in fp32 (the TPU version writes per-head dK/dV in the
+//   input type and sums the group outside the kernel).
+//
+// What bounds it on this card: as written, the FP32 FMA pipes fed from
+// shared memory.  Causal attention at the slice's shapes (T = 2048, D = 128)
+// does ~4*T*D flops per key-value row it reads, far above the H100's
+// ~295 flops/byte ridge, so it is bound by operations, and the fast form of
+// this kernel runs its products on the tensor cores (mma.sync / wgmma).
+// This first version keeps every product in fp32 FMAs over shared-memory
+// tiles (64 x 64 tiles, 256 threads, each thread owning a 4 x 4 score tile
+// and 4 output rows): simple, exact in fp32, and the reference point for
+// the tensor-core version a later change brings.  The design answers the
+// bound only by skipping dead blocks and by never writing the (T, T)
+// score matrix to device memory.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int NT = 256;       // threads per block (16 x 16)
+constexpr int LDP = BK + 1;   // padded row stride of the score tiles
+constexpr float NEG = -1e30f; // the TPU kernel's finite mask value
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Round through the input type (the TPU kernel's `.astype(v.dtype)`).
+template <typename T> __device__ __forceinline__ float round_t(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// Reductions over the 16 lanes that share a score row (tx = lane % 16).
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Load `rows` rows of D values (row r at src + r * stride) into a float tile
+// with leading dimension `ld`; rows at or past `valid` are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+                                          long stride, int rows, int valid) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
+    const int r = idx / D, c = idx - r * D;
+    dst[r * ld + c] = r < valid ? to_f(src[(long)r * stride + c]) : 0.f;
+  }
+}
+
+// Number of key blocks a query tile [q0, q0 + BQ) must visit.
+__device__ __forceinline__ int kv_blocks(int Tk, int q0, int q_off, int k_off,
+                                         int causal) {
+  int n = (Tk + BK - 1) / BK;
+  if (causal) {
+    const int lim = q_off + q0 + BQ - 1 - k_off;  // last key position seen
+    n = lim < 0 ? 0 : min(n, lim / BK + 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ bool masked(int ql, int kl, int Tq, int Tk,
+                                       int q_off, int k_off, int causal) {
+  return kl >= Tk || ql >= Tq || (causal && k_off + kl > q_off + ql);
+}
+
+// ---------------------------------------------------------------- K1 ----
+// grid (ceil(Tq / BQ), H, B).  out (B, Tq, H, D) in T; lse (B, H, Tq) fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
+                 int q_off, int k_off, int causal, float scale) {
+  constexpr int LDK = D + 1;
+  constexpr int DC = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;            // BQ x LDK
+  float* Ks = Qs + BQ * LDK;   // BK x LDK
+  float* Vs = Ks + BK * LDK;   // BK x D
+  float* Ps = Vs + BK * D;     // BQ x LDP
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long qs = (long)H * D, ks = (long)Hkv * D;
+
+  load_tile<T, D>(Qs, LDK, q + ((long)b * Tq + q0) * qs + (long)h * D, qs, BQ,
+                  Tq - q0);
+
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nkb = kv_blocks(Tk, q0, q_off, k_off, causal);
+  for (int j = 0; j < nkb; ++j) {
+    const int k0 = j * BK;
+    __syncthreads();  // the previous block is done with Ks / Vs / Ps
+    const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
+    load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+    load_tile<T, D>(Vs, D, v + kbase, ks, BK, Tk - k0);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LDK + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LDK + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ql = q0 + ty * 4 + i;
+      float mc = NEG;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kl = k0 + tx + 16 * c;
+        s[i][c] = masked(ql, kl, Tq, Tk, q_off, k_off, causal) ? NEG : s[i][c] * scale;
+        mc = fmaxf(mc, s[i][c]);
+      }
+      const float m_next = fmaxf(m[i], row_max(mc));
+      // Fully-masked-so-far rows keep m at -1e30: shift by 0 instead, so
+      // exp() sees finite arguments and masked scores underflow to 0.
+      const float safe = m_next <= NEG / 2 ? 0.f : m_next;
+      const float alpha = expf(m[i] <= NEG / 2 ? NEG : m[i] - safe);
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[i][c] - safe);
+        psum += p;
+        Ps[(ty * 4 + i) * LDP + tx + 16 * c] = round_t<T>(p);
+      }
+      l[i] = alpha * l[i] + row_sum(psum);
+      m[i] = m_next;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float vv = Vs[kk * D + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ql = q0 + ty * 4 + i;
+    if (ql >= Tq) continue;
+    const float lse_v =
+        l[i] > 0.f ? (m[i] <= NEG / 2 ? 0.f : m[i]) + logf(l[i]) : NEG;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    if (tx == 0) lse[((long)b * H + h) * Tq + ql] = lse_v;
+    T* o = out + ((long)b * Tq + ql) * qs + (long)h * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
+  }
+}
+
+// ---------------------------------------------------------------- K2 ----
+// grid (ceil(Tq / BQ), H, B).  dq (B, Tq, H, D) in T.
+// lse / delta / dlse: (B, H, Tq) fp32; delta = rowsum(dO * O).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ dlse, T* __restrict__ dq, int Tq,
+                int Tk, int H, int Hkv, int q_off, int k_off, int causal,
+                float scale) {
+  constexpr int LDK = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // BQ x LDK
+  float* dOs = Qs + BQ * LDK;   // BQ x LDK
+  float* Ks = dOs + BQ * LDK;   // BK x LDK
+  float* Vs = Ks + BK * LDK;    // BK x LDK
+  float* dSs = Vs + BK * LDK;   // BQ x LDP
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long qs = (long)H * D, ks = (long)Hkv * D;
+  const long qbase = ((long)b * Tq + q0) * qs + (long)h * D;
+
+  load_tile<T, D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
+  load_tile<T, D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
+
+  float row_lse[4], row_c[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ql = q0 + ty * 4 + i;
+    const long r = ((long)b * H + h) * Tq + ql;
+    row_lse[i] = ql < Tq ? lse[r] : NEG;
+    row_c[i] = ql < Tq ? dlse[r] - delta[r] : 0.f;  // (dp - delta + dlse)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nkb = kv_blocks(Tk, q0, q_off, k_off, causal);
+  for (int j = 0; j < nkb; ++j) {
+    const int k0 = j * BK;
+    __syncthreads();
+    const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
+    load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+    load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty * 4 + i) * LDK + d];
+        ov[i] = dOs[(ty * 4 + i) * LDK + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        kv[c] = Ks[(tx + 16 * c) * LDK + d];
+        vv[c] = Vs[(tx + 16 * c) * LDK + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+          dp[i][c] = fmaf(ov[i], vv[c], dp[i][c]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ql = q0 + ty * 4 + i;
+      const bool empty = row_lse[i] <= NEG / 2;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kl = k0 + tx + 16 * c;
+        const float p = (empty || masked(ql, kl, Tq, Tk, q_off, k_off, causal))
+                            ? 0.f
+                            : expf(s[i][c] * scale - row_lse[i]);
+        dSs[(ty * 4 + i) * LDP + tx + 16 * c] =
+            round_t<T>(p * (dp[i][c] + row_c[i]) * scale);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kv = Ks[kk * LDK + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ql = q0 + ty * 4 + i;
+    if (ql >= Tq) continue;
+    T* o = dq + ((long)b * Tq + ql) * qs + (long)h * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c]);
+  }
+}
+
+// ---------------------------------------------------------------- K3 ----
+// grid (ceil(Tk / BK), Hkv, B).  dk, dv (B, Tk, Hkv, D) in T, summed over
+// the rep query heads of the KV head in fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const float* __restrict__ dlse, T* __restrict__ dk,
+                 T* __restrict__ dv, int Tq, int Tk, int H, int Hkv, int q_off,
+                 int k_off, int causal, float scale) {
+  constexpr int LDK = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;              // BK x LDK
+  float* Vs = Ks + BK * LDK;     // BK x LDK
+  float* Qs = Vs + BK * LDK;     // BQ x LDK
+  float* dOs = Qs + BQ * LDK;    // BQ x LDK
+  float* Pt = dOs + BQ * LDK;    // BK x LDP  (P transposed)
+  float* dSt = Pt + BK * LDP;    // BK x LDP  (dS transposed)
+  float* lse_s = dSt + BK * LDP; // BQ
+  float* c_s = lse_s + BQ;       // BQ: dlse - delta
+
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long qs = (long)H * D, ks = (long)Hkv * D;
+  const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
+
+  load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+  load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+
+  float dka[4][DC], dva[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  // First query tile whose rows can see this key tile (the diagonal).
+  int i0 = 0;
+  if (causal) {
+    const int need = k_off + k0 - q_off - BQ + 1;  // q0 >= need
+    i0 = need <= 0 ? 0 : (need + BQ - 1) / BQ;
+  }
+  const int nqb = (Tq + BQ - 1) / BQ;
+
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = hk * rep + hh;
+    for (int it = i0; it < nqb; ++it) {
+      const int q0 = it * BQ;
+      __syncthreads();  // the previous tile is done with Qs / dOs / Pt / dSt
+      const long qbase = ((long)b * Tq + q0) * qs + (long)h * D;
+      load_tile<T, D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
+      load_tile<T, D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
+      for (int r = threadIdx.x; r < BQ; r += NT) {
+        const int ql = q0 + r;
+        const long ri = ((long)b * H + h) * Tq + ql;
+        lse_s[r] = ql < Tq ? lse[ri] : NEG;
+        c_s[r] = ql < Tq ? dlse[ri] - delta[ri] : 0.f;
+      }
+      __syncthreads();
+
+      // Transposed tiles: thread rows are keys (ty), columns queries (tx).
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[i][c] = dpt[i][c] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = Ks[(ty * 4 + i) * LDK + d];
+          vv[i] = Vs[(ty * 4 + i) * LDK + d];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          qv[c] = Qs[(tx + 16 * c) * LDK + d];
+          ov[c] = dOs[(tx + 16 * c) * LDK + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            st[i][c] = fmaf(kv[i], qv[c], st[i][c]);
+            dpt[i][c] = fmaf(vv[i], ov[c], dpt[i][c]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = k0 + ty * 4 + i;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = tx + 16 * c;
+          const int ql = q0 + r;
+          const float lr = lse_s[r];
+          const float p =
+              (lr <= NEG / 2 || masked(ql, kl, Tq, Tk, q_off, k_off, causal))
+                  ? 0.f
+                  : expf(st[i][c] * scale - lr);
+          Pt[(ty * 4 + i) * LDP + r] = round_t<T>(p);
+          dSt[(ty * 4 + i) * LDP + r] =
+              round_t<T>(p * (dpt[i][c] + c_s[r]) * scale);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int kk = 0; kk < BQ; ++kk) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = Pt[(ty * 4 + i) * LDP + kk];
+          dsv[i] = dSt[(ty * 4 + i) * LDP + kk];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float ov = dOs[kk * LDK + tx + 16 * c];
+          const float qv = Qs[kk * LDK + tx + 16 * c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dva[i][c] = fmaf(pv[i], ov, dva[i][c]);
+            dka[i][c] = fmaf(dsv[i], qv, dka[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kl = k0 + ty * 4 + i;
+    if (kl >= Tk) continue;
+    const long o = ((long)b * Tk + kl) * ks + (long)hk * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk[o + tx + 16 * c] = from_f<T>(dka[i][c]);
+      dv[o + tx + 16 * c] = from_f<T>(dva[i][c]);
+    }
+  }
+}
+
+constexpr size_t fwd_smem(int D) {
+  return sizeof(float) * ((size_t)BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * LDP);
+}
+constexpr size_t dq_smem(int D) {
+  return sizeof(float) * (2 * (size_t)BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP);
+}
+constexpr size_t dkv_smem(int D) {
+  return sizeof(float) *
+         (2 * (size_t)BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * LDP + 2 * BQ);
+}
+
+struct Geom {
+  int B, Tq, Tk, H, Hkv, D, q_off, k_off, causal;
+  float scale;
+};
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, const Geom& g, cudaStream_t st) {
+  const size_t sm = fwd_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
+  flash_fwd_kernel<T, D><<<grid, NT, sm, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, g.Tq, g.Tk, g.H,
+      g.Hkv, g.q_off, g.k_off, g.causal, g.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, const float* dlse,
+              void* dq, const Geom& g, cudaStream_t st) {
+  const size_t sm = dq_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
+  flash_dq_kernel<T, D><<<grid, NT, sm, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
+      (T*)dq, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal, g.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const float* dlse,
+               void* dk, void* dv, const Geom& g, cudaStream_t st) {
+  const size_t sm = dkv_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((g.Tk + BK - 1) / BK, g.Hkv, g.B);
+  flash_dkv_kernel<T, D><<<grid, NT, sm, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
+      (T*)dk, (T*)dv, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal,
+      g.scale);
+  return (int)cudaGetLastError();
+}
+
+// dtype codes shared with the Python wrapper.
+constexpr int DT_F32 = 0;
+constexpr int DT_BF16 = 1;
+constexpr int ERR_BAD_ARGS = -1;
+
+#define DISPATCH(FN, ...)                                                     \
+  if (dtype == DT_F32) {                                                      \
+    if (g.D == 64) return FN<float, 64>(__VA_ARGS__);                         \
+    if (g.D == 128) return FN<float, 128>(__VA_ARGS__);                       \
+  } else if (dtype == DT_BF16) {                                              \
+    if (g.D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
+    if (g.D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
+  }                                                                           \
+  return ERR_BAD_ARGS
+
+Geom geom(int B, int Tq, int Tk, int H, int Hkv, int D, int q_off, int k_off,
+          int causal, float scale) {
+  return Geom{B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale};
+}
+
+bool bad(const Geom& g) {
+  return g.B < 1 || g.Tq < 1 || g.Tk < 1 || g.Hkv < 1 || g.H % g.Hkv != 0 ||
+         g.B > 65535 || g.H > 65535;
+}
+
+}  // namespace
+
+// Each entry point launches one kernel on `stream` and returns
+// cudaGetLastError() (0 on success), or -1 for arguments it does not take.
+extern "C" int ddl_flash_fwd(int dtype, const void* q, const void* k,
+                             const void* v, void* out, float* lse, int B,
+                             int Tq, int Tk, int H, int Hkv, int D, int q_off,
+                             int k_off, int causal, float scale, void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_fwd, q, k, v, out, lse, g, st);
+}
+
+extern "C" int ddl_flash_bwd_dq(int dtype, const void* q, const void* k,
+                                const void* v, const void* dout,
+                                const float* lse, const float* delta,
+                                const float* dlse, void* dq, int B, int Tq,
+                                int Tk, int H, int Hkv, int D, int q_off,
+                                int k_off, int causal, float scale,
+                                void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_dq, q, k, v, dout, lse, delta, dlse, dq, g, st);
+}
+
+extern "C" int ddl_flash_bwd_dkv(int dtype, const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* lse, const float* delta,
+                                 const float* dlse, void* dk, void* dv, int B,
+                                 int Tq, int Tk, int H, int Hkv, int D,
+                                 int q_off, int k_off, int causal, float scale,
+                                 void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dlse, dk, dv, g, st);
+}

@@ -1,0 +1,153 @@
+"""ddl_tpu_torch on an NVIDIA card: the hand-written kernels against
+their plain versions, the pinned-slot window stream, and a tiny fit.
+
+Every test here is marked ``cuda`` and skips where no card is present.
+The file imports no JAX (the card's machine has none), so it runs there
+without the repo's conftest::
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances: fp32 — both sides take exact fp32 products, only the
+summation order differs: 1e-4.  bf16 — the kernels round ``p`` and ``ds``
+to bf16 before their products (as the TPU kernels do), the plain version
+keeps fp32: ``out`` atol 2e-2, ``lse`` 1e-3, gradients relative Frobenius
+error 2e-2.
+
+Rounding that differs from the JAX package: K3 sums dK/dV over a KV
+head's ``rep`` query heads in fp32 inside the kernel and rounds once,
+where the JAX package rounds each head's dK/dV to bf16 and sums the group
+afterwards (``ddl_tpu/ops/flash_attention.py:598-600``).  In bf16 that
+is up to ``rep`` extra half-ulp roundings per element in the JAX package
+— ``4 x 2^-9`` ~ 0.8% relative at the main path's rep = 4 — which the
+kernel does not incur; in fp32 the two agree to summation order.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import ddl_tpu_torch
+from ddl_tpu_torch.ops import flash_attention as tfa
+from ddl_tpu_torch.readers import TokenStreamProducer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _inputs(seed, B, Tq, Tk, H, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in (
+        (B, Tq, H, D), (B, Tk, Hkv, D), (B, Tk, Hkv, D), (B, Tq, H, D),
+        (B, H, Tq))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernels_match_plain(dtype, D):
+    """K1-K3 against the plain version: out, lse and the three gradients,
+    with a nonzero lse cotangent and fully masked rows (k_off = 30)."""
+    dt = getattr(torch, dtype)
+    q, k, v, g_out, g_lse = _inputs(5, 2, 200, 200, 8, 2, D)
+
+    def run(fn):
+        ts = [torch.tensor(x, device="cuda").to(dt).requires_grad_(True)
+              for x in (q, k, v)]
+        out, lse = fn(*ts)
+        live = lse > -1e29
+        loss = (out.float() * torch.tensor(g_out, device="cuda")).sum() + (
+            torch.where(live, lse * torch.tensor(g_lse, device="cuda"),
+                        torch.zeros_like(lse)).sum())
+        loss.backward()
+        return [t.detach().float().cpu().numpy()
+                for t in (out, lse, *(x.grad for x in ts))]
+
+    before = [fn.launches for fn in tfa.KERNELS]
+    got = run(lambda a, b, c: tfa.flash_attention_with_lse(a, b, c, 0, 30, True, 4))
+    assert [fn.launches - n for fn, n in zip(tfa.KERNELS, before)] == [1, 1, 1]
+    want = run(lambda a, b, c: tfa.attention_plain(a, b, c, 0, 30, True, 4))
+    out_tol, grad_tol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(got[0], want[0], atol=out_tol, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
+    for g, w in zip(got[2:], want[2:]):
+        assert np.linalg.norm(g - w) <= grad_tol * np.linalg.norm(w)
+    assert (got[1][..., :30] == -1e30).all() and not got[0][:, :30].any()
+
+
+def test_kernels_refuse_what_they_do_not_take():
+    q = torch.zeros(1, 8, 2, 64, device="cuda")
+    k = torch.zeros(1, 8, 1, 64, device="cuda")
+    with pytest.raises(TypeError):
+        tfa.flash_fwd(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                      k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd(q.transpose(1, 2), k, k)
+
+
+def _stream(path, device, epochs):
+    @ddl_tpu_torch.distributed_dataloader(
+        n_producers=2, mode="thread", nslots=2,
+        pin_memory=device == "cuda")
+    def run(env):
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            TokenStreamProducer(path, 256, 8, seed=4),
+            batch_size=4, connection=env.connection, n_epochs=epochs,
+            output="device", device=device,
+        )
+        out = []
+        for win in loader.windows(lookahead=2):
+            # A consumer on the compute stream, gated like the fused loop.
+            out.append((win.long() * 3).sum(dim=-1).cpu().numpy())
+            ev = torch.cuda.Event() if device == "cuda" else None
+            if ev is not None:
+                ev.record()
+            loader.gate_release_on(ev)
+            loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        return out
+
+    return run()
+
+
+def test_pinned_window_stream_equals_cpu_stream(tmp_path):
+    """Windows copied asynchronously out of page-locked slots, with the
+    slot release gated on the copy (and step) events, land byte-for-byte
+    like the CPU stream: a premature release would show torn windows."""
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(0).integers(0, 1 << 20, 200_000,
+                                      dtype=np.int32).tofile(path)
+    got = _stream(path, "cuda", 24)
+    want = _stream(path, "cpu", 24)
+    assert len(got) == len(want) == 24
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_tiny_fit_runs_through_the_kernels(tmp_path):
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    cfg = llama.LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512)
+    trainer = Trainer(lambda p, b: llama.next_token_loss(p, b[0], cfg),
+                      adamw(1e-3), llama.init_params(cfg, seed=0),
+                      metrics=Metrics())
+    tfa.reset_launch_counts()
+    res = trainer.fit(TokenStreamProducer(path, 128, 8), config=LoaderConfig(
+        batch_size=4, n_epochs=4, window_stream=True))
+    assert len(res.losses) == 4 and all(np.isfinite(res.losses))
+    steps = 4 * 2
+    assert [fn.launches for fn in tfa.KERNELS] == [cfg.n_layers * steps] * 3
+    assert res.metrics.counter("ingest.fused_gated") == 4
