@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Drive the ddl_tpu_torch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # the three phases below
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one fit
+    python3 chip_smoke.py            # the phases below
+    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each fit
 
 Phase 1 builds the hand-written CUDA kernels from the sources in this
 checkout (``ddl_tpu_torch/ops/csrc``) and identifies the card.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's attention shapes (plus a ragged length, fp32, and a call whose
 query rows are all masked), times kernel, plain version and the PyTorch
-library call, and computes each kernel's bound.
-Phase 3 runs the port's main path: ``Trainer.fit`` in THREAD mode over a
-``TokenStreamProducer`` window stream, at Llama-3-8B's published widths
-cut to 2 layers, with random weights from a seed; it also checks the
-model's loss and gradients through the kernels against the dense path on
-a small input.
+library call, and computes each kernel's bound.  The packed-segment
+kernels K4-K6 get the same treatment on packed-document ids, plus key ids
+that leave some queries without a key and one-token segments.
+Phase 3 checks the model's loss and gradients through the kernels
+against the dense path on a small input, unpacked and packed, and the
+remat policies against "none" (with their forward launch counts).
+Phase 4 runs the port's two paths at Llama-3-8B's published widths cut
+to 2 layers, with random weights from a seed: ``Trainer.fit`` in THREAD
+mode over a ``TokenStreamProducer`` window stream (K1-K3), then over a
+``PackedTokenProducer`` stream of documents (K4-K6).
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -45,6 +49,9 @@ SEED = 0
 MAIN = dict(B=4, T=2048, H=32, Hkv=8, D=128)  # the slice's attention shape
 TRAIN = dict(seq_len=2048, batch_size=4, window_rows=8, n_producers=2,
              n_epochs=3, n_layers=2, n_tokens=4_000_000)
+#: Llama-3's <|end_of_text|>: the document delimiter of the packed path.
+EOT = 128001
+VOCAB = 128256
 
 
 def log(msg: str) -> None:
@@ -112,9 +119,55 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen):
+def documents(n_tokens: int, seed: int = SEED):
+    """A web-text-like stream of packed documents: lengths log-normal with
+    median 300 tokens and sigma 1.0, clipped to [16, 8192]; bodies are
+    Zipf(1.2) ranks mod the vocabulary (draws of the delimiter remapped);
+    every document ends in ``EOT``.  int32, ``n_tokens`` long."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = np.zeros(0, np.int64)
+    while lens.sum() < n_tokens:
+        draw = rng.lognormal(np.log(300.0), 1.0, n_tokens // 300 + 16)
+        lens = np.concatenate([lens, np.clip(np.rint(draw), 16, 8192)
+                               .astype(np.int64)])
+    ends = np.cumsum(lens) - 1
+    tokens = (rng.zipf(1.2, n_tokens) - 1) % VOCAB
+    tokens[tokens == EOT] = (EOT + 1) % VOCAB
+    tokens[ends[ends < n_tokens]] = EOT
+    return tokens.astype(np.int32)
+
+
+def seg_ids(tokens):
+    """Row-local segment ids of (rows, T) tokens, as PackedTokenProducer
+    writes them: a new document starts after each ``EOT``."""
+    import numpy as np
+
+    seg = np.zeros_like(tokens)
+    seg[:, 1:] = np.cumsum(tokens[:, :-1] == EOT, axis=1)
+    return seg
+
+
+def _in_segment_causal_pairs(ids) -> int:
+    """(q, k) pairs with k <= q in the same segment, per head, over the
+    rows of contiguous row-local ids."""
+    import numpy as np
+
+    total = 0
+    for row in ids:
+        _, n = np.unique(row, return_counts=True)
+        total += int((n * (n + 1) // 2).sum())
+    return total
+
+
+def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
+          seg=None):
     """One kernel-vs-plain comparison: forward out/lse, then dq/dk/dv of a
-    loss that weighs both outputs (so the lse cotangent is nonzero)."""
+    loss that weighs both outputs (so the lse cotangent is nonzero).
+    ``seg``: (query, key) segment ids, int32 on the card — the packed
+    kernels K4-K6.  Rows whose every key is masked must give out = 0,
+    lse = -1e30 and dq = 0.  Returns (ok, errors, kernel outputs, v)."""
     import torch
 
     from ddl_tpu_torch.ops import flash_attention as fa
@@ -136,10 +189,12 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen):
         loss.backward()
         return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
 
+    sq, sk = seg if seg is not None else (None, None)
     kern = run(lambda a, b, c: fa.flash_attention_with_lse(
-        a, b, c, q_off, k_off, causal, rep))
+        a, b, c, q_off, k_off, causal, rep, segment_ids=sq,
+        kv_segment_ids=sk))
     plain = run(lambda a, b, c: fa.attention_plain(
-        a, b, c, q_off, k_off, causal, rep))
+        a, b, c, q_off, k_off, causal, rep, sq, sk))
     torch.cuda.synchronize()
     errs = {
         "out_abs": float((kern[0].float() - plain[0].float()).abs().max()),
@@ -158,14 +213,17 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen):
     log(f"[check] {name}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" | tol out<={tol['out']} lse<={tol['lse']} grad_rel<={tol['grad']}"
         + f" finite={finite} -> {'ok' if ok else 'FAIL'}")
-    if q_off < k_off and causal:
-        empty = kern[1][..., : k_off - q_off]
-        if not (bool((empty <= -1e29).all())
-                and float(kern[0][:, : k_off - q_off].abs().max()) == 0.0
-                and float(kern[2][:, : k_off - q_off].abs().max()) == 0.0):
-            log(f"[check] {name}: fully masked rows not zero / -1e30 -> FAIL")
-            ok = False
-    return ok, errs
+    # Rows with no key: the plain version's verdict, from the masks alone.
+    empty = plain[1][:, 0] <= -1e29  # (B, Tq)
+    if bool(empty.any()):
+        lse_rows = kern[1].transpose(1, 2)[empty]
+        held = (bool((lse_rows == -1e30).all())
+                and float(kern[0][empty].abs().max()) == 0.0
+                and float(kern[2][empty].abs().max()) == 0.0)
+        log(f"[check] {name}: {int(empty.sum())} query rows with no key: "
+            f"out = 0, lse = -1e30, dq = 0 -> {'ok' if held else 'FAIL'}")
+        ok &= held
+    return ok, errs, kern, v
 
 
 #: Tolerances and why.  bf16: the kernel rounds p (and ds) to bf16 before
@@ -204,13 +262,74 @@ def phase_kernels():
     ok = True
     errs_main = None
     for c in cases:
-        c_ok, errs = _case(*c, gen)
+        c_ok, errs, _, _ = _case(*c, gen)
         ok &= c_ok
         if errs_main is None:
             errs_main = errs
     if not ok:
         raise PhaseFailed("a kernel disagrees with its plain version")
-    return time_kernels(gen, errs_main)
+    rows = time_kernels(gen, errs_main)
+    return rows + packed_kernels(gen)
+
+
+def _ids(a):
+    import torch
+
+    return torch.tensor(a, dtype=torch.int32, device="cuda")
+
+
+def packed_kernels(gen):
+    """K4-K6 against the plain version: (a) the main shape with ids from
+    the document generator, (b) a ragged bf16 length, (c) fp32, (d) key ids
+    that differ from the query ids so that some queries have no key,
+    (e) every token its own segment, where out must equal the
+    rep-expanded v.  Then their times at the main shape."""
+    import numpy as np
+    import torch
+
+    m = MAIN
+    bf16, f32 = torch.bfloat16, torch.float32
+    docs = documents(m["B"] * m["T"] + 4096, seed=SEED + 1)
+    main_ids = seg_ids(docs[: m["B"] * m["T"]].reshape(m["B"], m["T"]))
+
+    def doc_ids(B, T, off):
+        return seg_ids(docs[off: off + B * T].reshape(B, T))
+
+    ids_d = doc_ids(2, 512, 100)
+    keys_d = np.where(ids_d % 3 == 1, -7, ids_d)  # those documents lose their keys
+    own = np.broadcast_to(np.arange(256, dtype=np.int32), (2, 256))
+    cases = [
+        ("(a) packed main bf16 B=4 T=2048 H=32/8 D=128", m["B"], m["T"], m["T"],
+         m["H"], m["Hkv"], m["D"], bf16, 0, 0, True, TOL_BF16,
+         (main_ids, main_ids)),
+        ("(b) packed ragged bf16 T=1000", 1, 1000, 1000, m["H"], m["Hkv"],
+         m["D"], bf16, 0, 0, True, TOL_BF16, (doc_ids(1, 1000, 7),) * 2),
+        ("(c) packed fp32 T=333 H=8/2 D=64", 2, 333, 333, 8, 2, 64, f32, 0, 0,
+         True, TOL_F32, (doc_ids(2, 333, 3000),) * 2),
+        ("(d) packed bf16 kv ids != q ids T=512", 2, 512, 512, m["H"],
+         m["Hkv"], m["D"], bf16, 0, 0, True, TOL_BF16, (ids_d, keys_d)),
+        ("(e) packed bf16 one-token segments T=256", 2, 256, 256, m["H"],
+         m["Hkv"], m["D"], bf16, 0, 0, True, TOL_BF16, (own, own)),
+    ]
+    ok = True
+    errs_main = None
+    for *c, (sq, sk) in cases:
+        c_ok, errs, kern, v = _case(*c, gen, seg=(_ids(sq), _ids(sk)))
+        ok &= c_ok
+        errs_main = errs_main or errs
+        if c[0].startswith("(d)"):
+            n_empty = int(np.isin(sq, sk, invert=True).sum())
+            log(f"[check] (d): {n_empty} queries' documents have no key")
+            ok &= n_empty > 0
+        if c[0].startswith("(e)"):
+            want = v.float().repeat_interleave(c[4] // c[5], dim=2)
+            err = float((kern[0].float() - want).abs().max())
+            log(f"[check] (e): out vs rep-expanded v max abs err {err:.3g} "
+                f"| tol 0 -> {'ok' if err == 0.0 else 'FAIL'}")
+            ok &= err == 0.0
+    if not ok:
+        raise PhaseFailed("a packed kernel disagrees with its plain version")
+    return time_packed_kernels(gen, main_ids, errs_main)
 
 
 def time_kernels(gen, errs):
@@ -283,17 +402,30 @@ def time_kernels(gen, errs):
         "dq": ("flash_bwd_dq", "_dq_kernel", 251),
         "dkv": ("flash_bwd_dkv", "_dkv_kernel", 287),
     }
-    # Largest elementwise difference from the plain version in the main
-    # case, and (backward) the relative Frobenius error the check holds.
+    rows_out = _kernel_rows(info, work, errs, ms, plain_ms, library_fwd)
+    log(f"[time] sdpa backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
+    return rows_out
+
+
+def _bound(flops, nbytes):
+    """(bound ms, what bounds it) on the H100's published peaks."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
+    """The kernels-JSON rows of one fwd/dq/dkv triple.  ``max_abs_err`` is
+    the largest elementwise difference from the plain version in the main
+    case, ``rel_err`` (backward) the relative Frobenius error the check
+    holds."""
     abs_err = {"fwd": errs["out_abs"], "dq": errs["dq_abs"],
                "dkv": max(errs["dk_abs"], errs["dv_abs"])}
     rel_err = {"fwd": None, "dq": errs["dq_rel"],
                "dkv": max(errs["dk_rel"], errs["dv_rel"])}
     rows_out = []
     for key in ("fwd", "dq", "dkv"):
-        flops, nbytes = work[key]
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = _bound(*work[key])
         name, tpu_fn, line = info[key]
         rows_out.append({
             "name": name,
@@ -305,25 +437,132 @@ def time_kernels(gen, errs):
             "rel_err": rel_err[key],
             "ms": ms[key],
             "plain_ms": plain_ms[key],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": library_fwd if key == "fwd" else None,
+            **(extra[key] if extra else {}),
         })
         log(f"[time] {name}: {ms[key]:.3f} ms  plain {plain_ms[key]:.3f} ms  "
-            f"bound {max(t_ops, t_bytes):.4f} ms ({rows_out[-1]['bound_by']})"
+            f"bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"  causal-only bound {extra[key]['causal_bound_ms']:.4f} ms"
+               if extra else "")
             + (f"  sdpa {library_fwd:.3f} ms" if key == "fwd" else ""))
-    log(f"[time] sdpa backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
+    return rows_out
+
+
+def time_packed_kernels(gen, ids_np, errs):
+    """K4-K6's kernel, plain and library times at the main shape on the
+    packed-document ids of case (a), with the bound of the in-segment
+    causal pairs (the work these ids need) and, beside it, the causal-only
+    bound (the work the kernels do today: they skip no tile for its ids)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, Hkv, D = (MAIN[k] for k in ("B", "T", "H", "Hkv", "D"))
+    dt = torch.bfloat16
+    rep = H // Hkv
+    q = _rand((B, T, H, D), dt, gen, "cuda")
+    k = _rand((B, T, Hkv, D), dt, gen, "cuda")
+    v = _rand((B, T, Hkv, D), dt, gen, "cuda")
+    dout = _rand((B, T, H, D), dt, gen, "cuda")
+    sid = _ids(ids_np)
+    out, lse = fa.flash_fwd_seg(q, k, v, sid, sid)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dlse = torch.zeros_like(lse)
+    ms = {
+        "fwd": _time_ms(lambda: fa.flash_fwd_seg(q, k, v, sid, sid)),
+        "dq": _time_ms(lambda: fa.flash_bwd_dq_seg(
+            q, k, v, dout, lse, delta, dlse, sid, sid)),
+        "dkv": _time_ms(lambda: fa.flash_bwd_dkv_seg(
+            q, k, v, dout, lse, delta, dlse, sid, sid)),
+    }
+
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    plain_ms = {"fwd": _time_ms(lambda: fa.attention_plain(
+        q, k, v, kv_repeat=rep, seg_q=sid, seg_k=sid), reps=5)}
+    o, _ = fa.attention_plain(qq, kk, vv, kv_repeat=rep, seg_q=sid, seg_k=sid)
+    plain_ms["dq"] = _time_ms(lambda: torch.autograd.grad(
+        o, qq, dout, retain_graph=True), reps=5)
+    plain_ms["dkv"] = _time_ms(lambda: torch.autograd.grad(
+        o, (kk, vv), dout, retain_graph=True), reps=5)
+    del o, qq, kk, vv
+    torch.cuda.empty_cache()
+
+    # The library yardstick: one scaled_dot_product_attention call with a
+    # boolean (B, 1, T, T) mask, causal AND same segment (timed here only;
+    # the port never calls it).
+    pos = torch.arange(T, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (sid[:, :, None] == sid[:, None, :]))[:, None]
+    # k/v go in expanded to the query heads (outside the timed call): the
+    # masked call then takes SDPA's memory-efficient kernel, not its math
+    # fallback.
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
+    library_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    qs, ks_, vs = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    so = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+        so, (qs, ks_, vs), dout.transpose(1, 2), retain_graph=True))
+    del so, qs, ks_, vs, mask
+
+    pairs = H * _in_segment_causal_pairs(ids_np)
+    causal_pairs = B * H * T * (T + 1) // 2
+    isz = 2
+    rows = B * H * T * 4
+    n_q, n_kv = B * T * H * D * isz, B * T * Hkv * D * isz
+    n_ids = 2 * B * T * 4  # the two int32 id arrays
+
+    def work_of(p):
+        return {
+            "fwd": (4 * D * p, n_q + 2 * n_kv + n_ids + n_q + rows),
+            "dq": (6 * D * p, n_q + 2 * n_kv + n_q + 3 * rows + n_ids + n_q),
+            "dkv": (8 * D * p, n_q + 2 * n_kv + n_q + 3 * rows + n_ids + 2 * n_kv),
+        }
+
+    causal = work_of(causal_pairs)
+    extra = {key: {"causal_bound_ms": _bound(*causal[key])[0],
+                   "in_segment_pairs": pairs, "causal_pairs": causal_pairs}
+             for key in causal}
+    log(f"[time] packed ids: {pairs} in-segment causal pairs of "
+        f"{causal_pairs} causal ({pairs / causal_pairs:.3%})")
+    info = {
+        "fwd": ("flash_fwd_seg", "_fwd_kernel_seg", 334),
+        "dq": ("flash_bwd_dq_seg", "_dq_kernel_seg", 340),
+        "dkv": ("flash_bwd_dkv_seg", "_dkv_kernel_seg", 347),
+    }
+    rows_out = _kernel_rows(info, work_of(pairs), errs, ms, plain_ms,
+                            library_fwd, extra)
+    log(f"[time] sdpa masked backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
     return rows_out
 
 
 # ------------------------------------------------------------- phase 3 ---
 
+def _loss_and_grads(params, tokens, cfg, seg=None):
+    """Loss and every parameter gradient, from fresh leaves."""
+    from ddl_tpu_torch.models import llama
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in _leaves(params)]
+    tree = _rebuild(params, iter(leaves))
+    loss = llama.next_token_loss(tree, tokens, cfg, segment_ids=seg)
+    loss.backward()
+    return float(loss.detach()), [t.grad for t in leaves]
+
+
 def phase_model_check():
     """The model's loss and every gradient through the kernels against the
-    dense path, on a small fp32 input (the repo's own oracle)."""
+    dense path on a small fp32 input (the repo's own oracle), unpacked
+    and with packed-document ids; then each remat policy against "none"
+    on the packed input, with its forward launch counts."""
+    import numpy as np
     import torch
 
     from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
 
     cfg = llama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
                             n_kv_heads=2, d_ff=512, dtype=torch.float32,
@@ -331,22 +570,45 @@ def phase_model_check():
     params = llama.init_params(cfg, seed=SEED, device="cuda")
     tokens = torch.randint(0, cfg.vocab, (2, 200), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
-    grads = []
-    losses = []
-    for impl in ("flash", "dense"):
-        leaves = [t.detach().clone().requires_grad_(True) for t in _leaves(params)]
-        tree = _rebuild(params, iter(leaves))
-        loss = llama.next_token_loss(tree, tokens, dataclasses.replace(cfg, attn_impl=impl))
-        loss.backward()
-        losses.append(float(loss.detach()))
-        grads.append([t.grad for t in leaves])
-    worst = max(_rel(a, b) for a, b in zip(*grads))
-    ok = abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]) and worst <= 1e-4
-    log(f"[check] llama fp32 flash vs dense: loss {losses[0]:.6f} vs "
-        f"{losses[1]:.6f}, worst grad rel err {worst:.3g} | tol loss rel<=1e-5 "
-        f"grad rel<=1e-4 -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise PhaseFailed("model through the kernels disagrees with the dense path")
+    # Documents of ~40 tokens: a delimiter ends a document w.p. 1/40.
+    ends = np.random.default_rng(SEED).random((2, 200)) < 1 / 40
+    seg_np = np.zeros((2, 200), np.int64)
+    seg_np[:, 1:] = np.cumsum(ends[:, :-1], axis=1)
+    seg = torch.tensor(seg_np, device="cuda")
+    for label, ids in (("unpacked", None), ("packed", seg)):
+        (l_f, g_f), (l_d, g_d) = (
+            _loss_and_grads(params, tokens,
+                            dataclasses.replace(cfg, attn_impl=impl), ids)
+            for impl in ("flash", "dense"))
+        worst = max(_rel(a, b) for a, b in zip(g_f, g_d))
+        ok = abs(l_f - l_d) <= 1e-5 * abs(l_d) and worst <= 1e-4
+        log(f"[check] llama fp32 {label} flash vs dense: loss {l_f:.6f} vs "
+            f"{l_d:.6f}, worst grad rel err {worst:.3g} | tol loss rel<=1e-5 "
+            f"grad rel<=1e-4 -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed(f"{label} model through the kernels disagrees "
+                              "with the dense path")
+
+    # Forward kernel launches per layer: the backward re-runs attention
+    # under "full" and "dots", never under "selective".
+    fwd_per_layer = {"none": 1, "selective": 1, "full": 2, "dots": 2}
+    base = None
+    for policy, n in fwd_per_layer.items():
+        fa.reset_launch_counts()
+        loss, grads = _loss_and_grads(
+            params, tokens, dataclasses.replace(cfg, remat=policy), seg)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in fa.KERNELS]
+        base = base or (loss, grads)
+        worst = max(_rel(a, b) for a, b in zip(grads, base[1]))
+        want = [0, 0, 0, cfg.n_layers * n, cfg.n_layers, cfg.n_layers]
+        ok = (abs(loss - base[0]) <= 1e-6 * abs(base[0]) and worst <= 1e-6
+              and counts == want)
+        log(f"[check] remat={policy}: loss {loss:.6f}, worst grad rel err vs "
+            f"none {worst:.3g}, launches K1-K6 {counts} (expected {want}) "
+            f"| tol rel<=1e-6 -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed(f"remat={policy} disagrees with remat=none")
 
 
 def _leaves(tree):
@@ -406,7 +668,25 @@ def profile_fit(fit) -> None:
             f"{e.count:5d}x  {e.key[:90]}")
 
 
-def phase_train(tmpdir: str, profile: bool = False):
+def _corpus_stats(token_file: str, seq_len: int):
+    """Mean segments per row and the share of positions the boundary mask
+    drops, over the file's rows of ``seq_len`` tokens (the rows the
+    producers draw from)."""
+    import numpy as np
+
+    tokens = np.fromfile(token_file, np.int32)
+    rows = tokens[: len(tokens) // seq_len * seq_len].reshape(-1, seq_len)
+    seg = seg_ids(rows)
+    boundary = (seg[:, :-1] != seg[:, 1:]).sum()
+    return float((seg[:, -1] + 1).mean()), float(boundary / seg.size)
+
+
+def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
+    """One of the port's paths at full width: ``Trainer.fit`` over a
+    ``TokenStreamProducer`` stream (K1-K3) or, ``packed``, over a
+    ``PackedTokenProducer`` stream of documents into the segment-masked
+    loss (K4-K6).  The launch counts are set to 0 just before the
+    measured fit and read just after it."""
     import numpy as np
     import torch
 
@@ -414,25 +694,44 @@ def phase_train(tmpdir: str, profile: bool = False):
     from ddl_tpu_torch.models import llama
     from ddl_tpu_torch.ops import flash_attention as fa
     from ddl_tpu_torch.parallel.train import adamw
-    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
     from ddl_tpu_torch.trainer import Trainer
 
     tr = TRAIN
+    tag = "[train-packed]" if packed else "[train]"
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=tr["n_layers"])
-    # A Zipf-distributed token stream (the rank-frequency law of text):
-    # its unigram skew is learnable within a few steps, so the losses
-    # should fall from the random-init level.
-    token_file = os.path.join(tmpdir, "tokens.bin")
-    ranks = np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1
-    (ranks % cfg.vocab).astype(np.int32).tofile(token_file)
-    log(f"[train] llama3_8b widths, {cfg.n_layers} layers, "
+    token_file = os.path.join(tmpdir, "docs.bin" if packed else "tokens.bin")
+    if packed:
+        documents(tr["n_tokens"]).tofile(token_file)
+        segs, dropped = _corpus_stats(token_file, tr["seq_len"])
+        log(f"{tag} {tr['n_tokens']} tokens of documents: {segs:.2f} segments "
+            f"per {tr['seq_len']}-token row, boundary mask drops {dropped:.3%} "
+            f"of positions")
+        producer = PackedTokenProducer(token_file, tr["seq_len"],
+                                       tr["window_rows"], delimiter=EOT,
+                                       seed=SEED)
+
+        def loss_fn(p, b):
+            return llama.next_token_loss(p, b[0], cfg, segment_ids=b[1])
+    else:
+        # A Zipf-distributed token stream (the rank-frequency law of
+        # text): its unigram skew is learnable within a few steps, so the
+        # losses should fall from the random-init level.
+        ranks = np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1
+        (ranks % cfg.vocab).astype(np.int32).tofile(token_file)
+        producer = TokenStreamProducer(token_file, tr["seq_len"],
+                                       tr["window_rows"], seed=SEED)
+
+        def loss_fn(p, b):
+            return llama.next_token_loss(p, b[0], cfg)
+    log(f"{tag} llama3_8b widths, {cfg.n_layers} layers, "
         f"{llama.param_count(cfg) / 1e9:.3f} B params, dtype {cfg.dtype}, "
-        f"attn_impl {cfg.attn_impl}")
+        f"attn_impl {cfg.attn_impl}, remat {cfg.remat}")
 
     params = llama.init_params(cfg, seed=SEED, device="cuda")
     trainer = Trainer(
-        loss_fn=lambda p, b: llama.next_token_loss(p, b[0], cfg),
+        loss_fn=loss_fn,
         # No warm-up schedule in a 6-step smoke: a small rate keeps Adam's
         # first, sign-like steps from overshooting at this width.
         optimizer=adamw(1e-5),
@@ -440,8 +739,6 @@ def phase_train(tmpdir: str, profile: bool = False):
         device="cuda",
     )
     del params
-    producer = TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
-                                   seed=SEED)
 
     def run(n_epochs):
         return trainer.fit(producer, config=LoaderConfig(
@@ -465,27 +762,47 @@ def phase_train(tmpdir: str, profile: bool = False):
     steps = tr["n_epochs"] * steps_per_window
     tokens = steps * tr["batch_size"] * tr["seq_len"]
     peak = torch.cuda.max_memory_allocated()
-    log(f"[train] per-window losses {result.losses}")
-    log(f"[train] {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
-        f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
-    log(f"[train] kernel launches in this run: {launches} "
-        f"(expected {cfg.n_layers} layers x {steps} steps = {cfg.n_layers * steps} each)")
     expected = cfg.n_layers * steps
+    ran, idle = ((fa.KERNELS[3:], fa.KERNELS[:3]) if packed
+                 else (fa.KERNELS[:3], fa.KERNELS[3:]))
+    log(f"{tag} per-window losses {result.losses}")
+    log(f"{tag} {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
+        f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    log(f"{tag} kernel launches in this run: {launches} (expected "
+        f"{cfg.n_layers} layers x {steps} steps = {expected} for "
+        f"{[fn.__name__ for fn in ran]}, 0 for the others)")
     ok = (
         len(result.losses) == tr["n_epochs"]
         and all(math.isfinite(x) for x in result.losses)
-        and all(n == expected for n in launches.values())
+        and all(fn.launches == expected for fn in ran)
+        and all(fn.launches == 0 for fn in idle)
     )
     if not ok:
-        raise PhaseFailed("training run failed its checks")
+        raise PhaseFailed(f"{tag} training run failed its checks")
     summary = {
         "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
         "peak_bytes": peak, "losses": result.losses, "steps": steps,
     }
+    if packed:
+        summary.update(segments_per_row=segs, boundary_dropped=dropped)
     del result
     if profile:
         profile_fit(lambda: run(tr["n_epochs"]))
     return launches, summary
+
+
+def free_device_memory() -> None:
+    """Drop what a finished fit left cached, so the next full-width fit
+    (~43 GiB peak each) starts on an empty card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[mem] after freeing: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
 
 def main(argv=None) -> int:
@@ -515,12 +832,19 @@ def main(argv=None) -> int:
     try:
         card = phase_build()
         kernels = phase_kernels()
+        free_device_memory()
         phase_model_check()
         with tempfile.TemporaryDirectory() as tmp:
             launches, summary = phase_train(tmp, args.profile)
+            free_device_memory()
+            packed_launches, packed_summary = phase_train(
+                tmp, args.profile, packed=True)
+        # Each kernel's launches come from the run of its own path.
         for row in kernels:
-            row["launches"] = launches[row["name"]]
+            row["launches"] = (packed_launches if row["name"].endswith("_seg")
+                               else launches)[row["name"]]
         log(f"[summary] {json.dumps(summary)}")
+        log(f"[summary-packed] {json.dumps(packed_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,14 +7,17 @@ weights ``(in, out)`` applied as ``x @ W`` — so weights carry across as a
 copy (:func:`params_from_numpy`), never a transpose.  Parameters are
 stored in ``cfg.param_dtype`` (fp32) and cast to ``cfg.dtype`` at each
 use; RMSNorm accumulates in fp32; RoPE, grouped-query attention and
-SwiGLU make the Llama-3 block.  Decode/generate, remat, packed segments
-and pipeline/tensor parallelism are later slices.
+SwiGLU make the Llama-3 block.  Packed-document batches pass
+``segment_ids`` (attention stays within each document; RoPE positions
+stay row-global, the JAX package's convention), and ``cfg.remat`` picks
+the named remat policy around each layer (:mod:`.remat`).
+Decode/generate and pipeline/tensor parallelism are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +39,10 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     #: Storage dtype of the params (fp32 master weights).
     param_dtype: Any = torch.float32
+    #: Rematerialisation policy for the backward pass
+    #: (:mod:`ddl_tpu_torch.models.remat`): "none" | "full" | "selective"
+    #: | "dots"; bools accepted (True == "full", False == "none").
+    remat: Any = False
     #: "auto": the flash kernels on CUDA, dense elsewhere; "flash" /
     #: "dense" force one path.
     attn_impl: str = "auto"
@@ -46,6 +53,9 @@ class LlamaConfig:
                 f"attn_impl must be 'auto', 'flash', or 'dense', "
                 f"got {self.attn_impl!r}"
             )
+        from ddl_tpu_torch.models import remat as _remat
+
+        _remat.resolve(self.remat)  # fail on junk at config build time
 
     @property
     def head_dim(self) -> int:
@@ -159,18 +169,22 @@ def _attn_qkv(layer: Params, h: torch.Tensor, cfg: LlamaConfig,
 
 
 def _attn_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention sub-block (norm → qkv/rope → attention → wo residual).
-    GQA k/v stay compact: the kernels expand them per query-head group."""
+    GQA k/v stay compact: the kernels expand them per query-head group.
+    The attention call is the piece remat="selective" keeps."""
+    from ddl_tpu_torch.models import remat as _remat
     from ddl_tpu_torch.parallel.ring_attention import attention
 
     B, T = x.shape[:2]
     dt = x.dtype
     h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     q, k, v = _attn_qkv(layer, h, cfg, positions)
-    attn = attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), impl=cfg.attn_impl,
-        causal=True, kv_repeat=cfg.n_heads // cfg.n_kv_heads,
+    attn = _remat.keep(
+        attention, q.contiguous(), k.contiguous(), v.contiguous(),
+        impl=cfg.attn_impl, causal=True,
+        kv_repeat=cfg.n_heads // cfg.n_kv_heads, segment_ids=segment_ids,
     )
     return x + attn.reshape(B, T, -1) @ layer["wo"].to(dt)
 
@@ -188,31 +202,54 @@ def _mlp_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor
 
 
 def _layer_apply(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block on the residual stream."""
-    return _mlp_block(layer, _attn_block(layer, x, cfg, positions), cfg)
+    x = _attn_block(layer, x, cfg, positions, segment_ids)
+    return _mlp_block(layer, x, cfg)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Next-token logits, (B, T, vocab) fp32."""
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token logits, (B, T, vocab) fp32.
+
+    ``segment_ids`` (B, T): packed-pretraining batches — attention stays
+    within each packed document; RoPE positions remain row-global.  The
+    ids may come as any integer view (the trainer hands each column as a
+    strided view of the window); they become one contiguous int32 tensor
+    here, once for all layers.
+    """
+    from ddl_tpu_torch.models import remat as _remat
+
     T = tokens.shape[1]
     dt = cfg.dtype
     positions = torch.arange(T, device=tokens.device)
+    seg = (None if segment_ids is None
+           else segment_ids.to(torch.int32).contiguous())
     # Gather, then cast: the same values as the JAX package's
     # cast-then-gather, without a full-vocab cast per step.
     x = params["embed"][tokens.long()].to(dt)  # (B, T, D)
+
+    def layer_fn(x: torch.Tensor, layer: Params) -> torch.Tensor:
+        return _layer_apply(layer, x, cfg, positions, seg)
+
+    layer_fn = _remat.wrap(layer_fn, cfg.remat)
     for layer in params["layers"]:
-        x = _layer_apply(layer, x, cfg, positions)
+        x = layer_fn(x, layer)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(dt)).float()
 
 
-def next_token_loss(params: Params, tokens: torch.Tensor,
-                    cfg: LlamaConfig) -> torch.Tensor:
-    """Mean cross-entropy of next-token prediction over (B, T) tokens."""
+def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                    segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy of next-token prediction over (B, T) tokens.
+    With ``segment_ids`` (packed batches) attention is segment-masked and
+    the loss also drops the positions whose next token belongs to another
+    document."""
     from ddl_tpu_torch.models.losses import next_token_cross_entropy
 
-    return next_token_cross_entropy(forward(params, tokens, cfg), tokens)
+    logits = forward(params, tokens, cfg, segment_ids=segment_ids)
+    return next_token_cross_entropy(logits, tokens, segment_ids=segment_ids)
 
 
 def param_count(cfg: LlamaConfig) -> int:

@@ -6,6 +6,19 @@
 //   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse)
 //   K2 flash_dq_kernel     <- _dq_kernel   (dQ = sum_kv dS K * scale)
 //   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q)
+// and, instantiated with PACKED = true, the packed-segment kernels
+//   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg
+//   K5 flash_dq_kernel<.., true>   <- _dq_kernel_seg
+//   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg
+// which take (B, Tq) / (B, Tk) int32 segment ids and also mask
+// seg_q[q] != seg_k[k].  Each tile stages its BQ query ids and BK key ids in
+// shared memory.  The causal block limits are unchanged (a packed tile is
+// visited whenever the causal mask alone would visit it), and a query whose
+// segment has no key gets out = 0, lse = -1e30 and zero gradients through
+// the same finite-mask and safe-max rules.  The PACKED = false
+// instantiations run the same instructions as before the flag existed: the
+// id loads and the extra mask term are `if constexpr` code, and the two id
+// pointers are trailing kernel arguments they never read.
 //
 // What it computes is the TPU kernels' math, not their block structure:
 // - The TPU grid's sequential KV axis (K1/K2) is a loop inside the thread
@@ -102,14 +115,36 @@ __device__ __forceinline__ bool masked(int ql, int kl, int Tq, int Tk,
   return kl >= Tk || ql >= Tq || (causal && k_off + kl > q_off + ql);
 }
 
+// Stage `n` segment ids (src[0..valid)) in shared memory; rows at or past
+// `valid` get -1 (they are masked by position already).
+__device__ __forceinline__ void load_ids(int* dst, const int32_t* src, int n,
+                                         int valid) {
+  for (int r = threadIdx.x; r < n; r += NT) dst[r] = r < valid ? src[r] : -1;
+}
+
+// The packed-segment term of the mask: query tile row r and key tile row c
+// lie in different documents.
+template <bool PACKED>
+__device__ __forceinline__ bool seg_differs(const int* sq, const int* sk,
+                                            int r, int c) {
+  if constexpr (PACKED) {
+    return sq[r] != sk[c];
+  } else {
+    return false;
+  }
+}
+
 // ---------------------------------------------------------------- K1 ----
 // grid (ceil(Tq / BQ), H, B).  out (B, Tq, H, D) in T; lse (B, H, Tq) fp32.
-template <typename T, int D>
+// PACKED (K4): seg_q (B, Tq), seg_k (B, Tk) int32.
+template <typename T, int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
-                 int q_off, int k_off, int causal, float scale) {
+                 int q_off, int k_off, int causal, float scale,
+                 const int32_t* __restrict__ seg_q,
+                 const int32_t* __restrict__ seg_k) {
   constexpr int LDK = D + 1;
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -117,6 +152,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = Qs + BQ * LDK;   // BK x LDK
   float* Vs = Ks + BK * LDK;   // BK x D
   float* Ps = Vs + BK * D;     // BQ x LDP
+  int* sq_s = reinterpret_cast<int*>(Ps + BQ * LDP);  // BQ ids (PACKED)
+  int* sk_s = sq_s + BQ;                              // BK ids (PACKED)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -125,6 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Qs, LDK, q + ((long)b * Tq + q0) * qs + (long)h * D, qs, BQ,
                   Tq - q0);
+  if constexpr (PACKED) load_ids(sq_s, seg_q + (long)b * Tq + q0, BQ, Tq - q0);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -142,6 +180,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
     load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
     load_tile<T, D>(Vs, D, v + kbase, ks, BK, Tk - k0);
+    if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
     __syncthreads();
 
     float s[4][4];
@@ -169,7 +208,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kl = k0 + tx + 16 * c;
-        s[i][c] = masked(ql, kl, Tq, Tk, q_off, k_off, causal) ? NEG : s[i][c] * scale;
+        s[i][c] = (masked(ql, kl, Tq, Tk, q_off, k_off, causal) ||
+                   seg_differs<PACKED>(sq_s, sk_s, ty * 4 + i, tx + 16 * c))
+                      ? NEG
+                      : s[i][c] * scale;
         mc = fmaxf(mc, s[i][c]);
       }
       const float m_next = fmaxf(m[i], row_max(mc));
@@ -222,14 +264,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------- K2 ----
 // grid (ceil(Tq / BQ), H, B).  dq (B, Tq, H, D) in T.
 // lse / delta / dlse: (B, H, Tq) fp32; delta = rowsum(dO * O).
-template <typename T, int D>
+// PACKED (K5): seg_q (B, Tq), seg_k (B, Tk) int32.
+template <typename T, int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const float* __restrict__ dlse, T* __restrict__ dq, int Tq,
                 int Tk, int H, int Hkv, int q_off, int k_off, int causal,
-                float scale) {
+                float scale, const int32_t* __restrict__ seg_q,
+                const int32_t* __restrict__ seg_k) {
   constexpr int LDK = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -238,6 +282,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ks = dOs + BQ * LDK;   // BK x LDK
   float* Vs = Ks + BK * LDK;    // BK x LDK
   float* dSs = Vs + BK * LDK;   // BQ x LDP
+  int* sq_s = reinterpret_cast<int*>(dSs + BQ * LDP);  // BQ ids (PACKED)
+  int* sk_s = sq_s + BQ;                               // BK ids (PACKED)
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -247,6 +293,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
   load_tile<T, D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
+  if constexpr (PACKED) load_ids(sq_s, seg_q + (long)b * Tq + q0, BQ, Tq - q0);
 
   float row_lse[4], row_c[4], acc[4][DC];
 #pragma unroll
@@ -266,6 +313,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
     load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
     load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+    if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -302,9 +350,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kl = k0 + tx + 16 * c;
-        const float p = (empty || masked(ql, kl, Tq, Tk, q_off, k_off, causal))
-                            ? 0.f
-                            : expf(s[i][c] * scale - row_lse[i]);
+        const float p =
+            (empty || masked(ql, kl, Tq, Tk, q_off, k_off, causal) ||
+             seg_differs<PACKED>(sq_s, sk_s, ty * 4 + i, tx + 16 * c))
+                ? 0.f
+                : expf(s[i][c] * scale - row_lse[i]);
         dSs[(ty * 4 + i) * LDP + tx + 16 * c] =
             round_t<T>(p * (dp[i][c] + row_c[i]) * scale);
       }
@@ -338,14 +388,17 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------- K3 ----
 // grid (ceil(Tk / BK), Hkv, B).  dk, dv (B, Tk, Hkv, D) in T, summed over
 // the rep query heads of the KV head in fp32.
-template <typename T, int D>
+// PACKED (K6): seg_q (B, Tq), seg_k (B, Tk) int32.
+template <typename T, int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const float* __restrict__ dlse, T* __restrict__ dk,
                  T* __restrict__ dv, int Tq, int Tk, int H, int Hkv, int q_off,
-                 int k_off, int causal, float scale) {
+                 int k_off, int causal, float scale,
+                 const int32_t* __restrict__ seg_q,
+                 const int32_t* __restrict__ seg_k) {
   constexpr int LDK = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -357,6 +410,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSt = Pt + BK * LDP;    // BK x LDP  (dS transposed)
   float* lse_s = dSt + BK * LDP; // BQ
   float* c_s = lse_s + BQ;       // BQ: dlse - delta
+  int* sq_s = reinterpret_cast<int*>(c_s + BQ);  // BQ ids (PACKED)
+  int* sk_s = sq_s + BQ;                         // BK ids (PACKED)
 
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
@@ -366,6 +421,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
   load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+  if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
 
   float dka[4][DC], dva[4][DC];
 #pragma unroll
@@ -394,6 +450,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const long ri = ((long)b * H + h) * Tq + ql;
         lse_s[r] = ql < Tq ? lse[ri] : NEG;
         c_s[r] = ql < Tq ? dlse[ri] - delta[ri] : 0.f;
+        if constexpr (PACKED) sq_s[r] = ql < Tq ? seg_q[(long)b * Tq + ql] : -1;
       }
       __syncthreads();
 
@@ -434,7 +491,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int ql = q0 + r;
           const float lr = lse_s[r];
           const float p =
-              (lr <= NEG / 2 || masked(ql, kl, Tq, Tk, q_off, k_off, causal))
+              (lr <= NEG / 2 || masked(ql, kl, Tq, Tk, q_off, k_off, causal) ||
+               seg_differs<PACKED>(sq_s, sk_s, r, ty * 4 + i))
                   ? 0.f
                   : expf(st[i][c] * scale - lr);
           Pt[(ty * 4 + i) * LDP + r] = round_t<T>(p);
@@ -479,15 +537,22 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-constexpr size_t fwd_smem(int D) {
-  return sizeof(float) * ((size_t)BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * LDP);
+// Shared memory of each kernel; a packed one adds its BQ + BK staged ids.
+constexpr size_t ids_smem(bool packed) {
+  return packed ? sizeof(int) * (size_t)(BQ + BK) : 0;
 }
-constexpr size_t dq_smem(int D) {
-  return sizeof(float) * (2 * (size_t)BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP);
+constexpr size_t fwd_smem(int D, bool packed) {
+  return sizeof(float) * ((size_t)BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * LDP) +
+         ids_smem(packed);
 }
-constexpr size_t dkv_smem(int D) {
+constexpr size_t dq_smem(int D, bool packed) {
+  return sizeof(float) * (2 * (size_t)BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP) +
+         ids_smem(packed);
+}
+constexpr size_t dkv_smem(int D, bool packed) {
   return sizeof(float) *
-         (2 * (size_t)BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * LDP + 2 * BQ);
+             (2 * (size_t)BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * LDP + 2 * BQ) +
+         ids_smem(packed);
 }
 
 struct Geom {
@@ -495,48 +560,55 @@ struct Geom {
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool PACKED>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, const Geom& g, cudaStream_t st) {
-  const size_t sm = fwd_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+               float* lse, const int32_t* sq, const int32_t* sk,
+               const Geom& g, cudaStream_t st) {
+  const size_t sm = fwd_smem(D, PACKED);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, PACKED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
-  flash_fwd_kernel<T, D><<<grid, NT, sm, st>>>(
+  flash_fwd_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, g.Tq, g.Tk, g.H,
-      g.Hkv, g.q_off, g.k_off, g.causal, g.scale);
+      g.Hkv, g.q_off, g.k_off, g.causal, g.scale, sq, sk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PACKED>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* dlse,
-              void* dq, const Geom& g, cudaStream_t st) {
-  const size_t sm = dq_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+              void* dq, const int32_t* sq, const int32_t* sk, const Geom& g,
+              cudaStream_t st) {
+  const size_t sm = dq_smem(D, PACKED);
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<T, D, PACKED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
-  flash_dq_kernel<T, D><<<grid, NT, sm, st>>>(
+  flash_dq_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
-      (T*)dq, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal, g.scale);
+      (T*)dq, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal, g.scale, sq,
+      sk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PACKED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* dlse,
-               void* dk, void* dv, const Geom& g, cudaStream_t st) {
-  const size_t sm = dkv_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+               void* dk, void* dv, const int32_t* sq, const int32_t* sk,
+               const Geom& g, cudaStream_t st) {
+  const size_t sm = dkv_smem(D, PACKED);
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel<T, D, PACKED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tk + BK - 1) / BK, g.Hkv, g.B);
-  flash_dkv_kernel<T, D><<<grid, NT, sm, st>>>(
+  flash_dkv_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
       (T*)dk, (T*)dv, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal,
-      g.scale);
+      g.scale, sq, sk);
   return (int)cudaGetLastError();
 }
 
@@ -545,13 +617,13 @@ constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
 constexpr int ERR_BAD_ARGS = -1;
 
-#define DISPATCH(FN, ...)                                                     \
+#define DISPATCH(FN, P, ...)                                                  \
   if (dtype == DT_F32) {                                                      \
-    if (g.D == 64) return FN<float, 64>(__VA_ARGS__);                         \
-    if (g.D == 128) return FN<float, 128>(__VA_ARGS__);                       \
+    if (g.D == 64) return FN<float, 64, P>(__VA_ARGS__);                      \
+    if (g.D == 128) return FN<float, 128, P>(__VA_ARGS__);                    \
   } else if (dtype == DT_BF16) {                                              \
-    if (g.D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
-    if (g.D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
+    if (g.D == 64) return FN<__nv_bfloat16, 64, P>(__VA_ARGS__);              \
+    if (g.D == 128) return FN<__nv_bfloat16, 128, P>(__VA_ARGS__);            \
   }                                                                           \
   return ERR_BAD_ARGS
 
@@ -565,18 +637,54 @@ bool bad(const Geom& g) {
          g.B > 65535 || g.H > 65535;
 }
 
+template <bool PACKED>
+int fwd_entry(int dtype, const void* q, const void* k, const void* v,
+              void* out, float* lse, const int32_t* sq, const int32_t* sk,
+              int B, int Tq, int Tk, int H, int Hkv, int D, int q_off,
+              int k_off, int causal, float scale, void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_fwd, PACKED, q, k, v, out, lse, sq, sk, g, st);
+}
+
+template <bool PACKED>
+int dq_entry(int dtype, const void* q, const void* k, const void* v,
+             const void* dout, const float* lse, const float* delta,
+             const float* dlse, void* dq, const int32_t* sq, const int32_t* sk,
+             int B, int Tq, int Tk, int H, int Hkv, int D, int q_off, int k_off,
+             int causal, float scale, void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_dq, PACKED, q, k, v, dout, lse, delta, dlse, dq, sq, sk, g, st);
+}
+
+template <bool PACKED>
+int dkv_entry(int dtype, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              const float* dlse, void* dk, void* dv, const int32_t* sq,
+              const int32_t* sk, int B, int Tq, int Tk, int H, int Hkv, int D,
+              int q_off, int k_off, int causal, float scale, void* stream) {
+  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
+  if (bad(g)) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_dkv, PACKED, q, k, v, dout, lse, delta, dlse, dk, dv, sq, sk,
+           g, st);
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() (0 on success), or -1 for arguments it does not take.
+// The _seg entry points take the (B, Tq) / (B, Tk) int32 segment ids after
+// the tensors (K4-K6).
 extern "C" int ddl_flash_fwd(int dtype, const void* q, const void* k,
                              const void* v, void* out, float* lse, int B,
                              int Tq, int Tk, int H, int Hkv, int D, int q_off,
                              int k_off, int causal, float scale, void* stream) {
-  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
-  if (bad(g)) return ERR_BAD_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_fwd, q, k, v, out, lse, g, st);
+  return fwd_entry<false>(dtype, q, k, v, out, lse, nullptr, nullptr, B, Tq,
+                          Tk, H, Hkv, D, q_off, k_off, causal, scale, stream);
 }
 
 extern "C" int ddl_flash_bwd_dq(int dtype, const void* q, const void* k,
@@ -586,10 +694,9 @@ extern "C" int ddl_flash_bwd_dq(int dtype, const void* q, const void* k,
                                 int Tk, int H, int Hkv, int D, int q_off,
                                 int k_off, int causal, float scale,
                                 void* stream) {
-  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
-  if (bad(g)) return ERR_BAD_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_dq, q, k, v, dout, lse, delta, dlse, dq, g, st);
+  return dq_entry<false>(dtype, q, k, v, dout, lse, delta, dlse, dq, nullptr,
+                         nullptr, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
+                         scale, stream);
 }
 
 extern "C" int ddl_flash_bwd_dkv(int dtype, const void* q, const void* k,
@@ -599,8 +706,44 @@ extern "C" int ddl_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                  int Tq, int Tk, int H, int Hkv, int D,
                                  int q_off, int k_off, int causal, float scale,
                                  void* stream) {
-  const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
-  if (bad(g)) return ERR_BAD_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dlse, dk, dv, g, st);
+  return dkv_entry<false>(dtype, q, k, v, dout, lse, delta, dlse, dk, dv,
+                          nullptr, nullptr, B, Tq, Tk, H, Hkv, D, q_off, k_off,
+                          causal, scale, stream);
+}
+
+extern "C" int ddl_flash_fwd_seg(int dtype, const void* q, const void* k,
+                                 const void* v, void* out, float* lse,
+                                 const int32_t* seg_q, const int32_t* seg_k,
+                                 int B, int Tq, int Tk, int H, int Hkv, int D,
+                                 int q_off, int k_off, int causal, float scale,
+                                 void* stream) {
+  return fwd_entry<true>(dtype, q, k, v, out, lse, seg_q, seg_k, B, Tq, Tk, H,
+                         Hkv, D, q_off, k_off, causal, scale, stream);
+}
+
+extern "C" int ddl_flash_bwd_dq_seg(int dtype, const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    const float* dlse, void* dq,
+                                    const int32_t* seg_q, const int32_t* seg_k,
+                                    int B, int Tq, int Tk, int H, int Hkv,
+                                    int D, int q_off, int k_off, int causal,
+                                    float scale, void* stream) {
+  return dq_entry<true>(dtype, q, k, v, dout, lse, delta, dlse, dq, seg_q,
+                        seg_k, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
+                        scale, stream);
+}
+
+extern "C" int ddl_flash_bwd_dkv_seg(int dtype, const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     const float* dlse, void* dk, void* dv,
+                                     const int32_t* seg_q,
+                                     const int32_t* seg_k, int B, int Tq,
+                                     int Tk, int H, int Hkv, int D, int q_off,
+                                     int k_off, int causal, float scale,
+                                     void* stream) {
+  return dkv_entry<true>(dtype, q, k, v, dout, lse, delta, dlse, dk, dv, seg_q,
+                         seg_k, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
+                         scale, stream);
 }

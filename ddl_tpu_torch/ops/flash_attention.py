@@ -1,9 +1,12 @@
 """Causal flash attention (port of ``ddl_tpu/ops/flash_attention.py``).
 
-Three hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the
+Hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the
 Pallas TPU kernels: K1 the online-softmax forward (``_fwd_kernel``), K2
 the dQ backward (``_dq_kernel``) and K3 the dK/dV backward
-(``_dkv_kernel``).  ``torch.autograd.Function`` carries the gradient, as
+(``_dkv_kernel``); K4-K6 are the same kernels with the packed-segment
+mask (``_fwd_kernel_seg``, ``_dq_kernel_seg``, ``_dkv_kernel_seg``),
+behind their own wrappers as the JAX package keeps separate ``_seg``
+entry points.  ``torch.autograd.Function`` carries the gradient, as
 ``jax.custom_vjp`` did; ``delta = rowsum(dO * O)`` stays plain torch
 outside the kernels, as in the JAX package.
 
@@ -15,7 +18,8 @@ reaches the kernels or raises.  Each kernel wrapper counts its launches
 (``.launches``), so a run can show that it went through the kernel.
 
 Layouts follow the JAX package: q ``(B, T, H, D)``, k/v compact GQA
-``(B, T, H / kv_repeat, D)``, lse ``(B, H, T)`` fp32.
+``(B, T, H / kv_repeat, D)``, lse ``(B, H, T)`` fp32, segment ids
+``(B, Tq)`` / ``(B, Tk)`` (int32, contiguous, for the kernels).
 """
 
 from __future__ import annotations
@@ -42,12 +46,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_ddl_bound", False):
         geom = [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-        lib.ddl_flash_fwd.argtypes = [_I, _P, _P, _P, _P, _P] + geom
-        lib.ddl_flash_bwd_dq.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P] + geom
-        lib.ddl_flash_bwd_dkv.argtypes = (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P] + geom
-        )
-        for fn in (lib.ddl_flash_fwd, lib.ddl_flash_bwd_dq, lib.ddl_flash_bwd_dkv):
+        fwd, dq, dkv = [_I] + [_P] * 5, [_I] + [_P] * 8, [_I] + [_P] * 9
+        ids = [_P, _P]
+        for fn, args in (
+            (lib.ddl_flash_fwd, fwd), (lib.ddl_flash_bwd_dq, dq),
+            (lib.ddl_flash_bwd_dkv, dkv), (lib.ddl_flash_fwd_seg, fwd + ids),
+            (lib.ddl_flash_bwd_dq_seg, dq + ids),
+            (lib.ddl_flash_bwd_dkv_seg, dkv + ids),
+        ):
+            fn.argtypes = args + geom
             fn.restype = _I
         lib._ddl_bound = True
     return lib
@@ -91,36 +98,90 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_fwd(q, k, v, q_offset=0, k_offset=0, causal=True):
-    """K1: ``(out, lse)`` of causal GQA attention, on the current stream."""
+def _validate_ids(q, k, seg_q, seg_k) -> Tuple[int, int]:
+    """Segment ids the packed kernels take: int32, contiguous, ``(B, Tq)``
+    and ``(B, Tk)``, on q's device; raises on the rest.  Returns their
+    data pointers."""
+    B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
+    for name, t, T in (("seg_q", seg_q, Tq), ("seg_k", seg_k, Tk)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if tuple(t.shape) != (B, T):
+            raise ValueError(f"{name} must be {(B, T)}, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return seg_q.data_ptr(), seg_k.data_ptr()
+
+
+def _fwd(q, k, v, q_offset, k_offset, causal, seg):
+    """Launch K1 (``seg is None``) or K4 (``seg = (seg_q, seg_k)``)."""
     B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
+    ids = () if seg is None else _validate_ids(q, k, *seg)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    rc = _lib().ddl_flash_fwd(
+    lib = _lib()
+    rc = (lib.ddl_flash_fwd if seg is None else lib.ddl_flash_fwd_seg)(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, Hkv, D,
+        out.data_ptr(), lse.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D,
         int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
         _stream(q),
     )
     _check(rc, "flash forward")
-    flash_fwd.launches += 1
     return out, lse
+
+
+def _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal, seg):
+    """Launch K2 or K5."""
+    B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
+    _validate_rows(dout, q, lse, delta, dlse)
+    ids = () if seg is None else _validate_ids(q, k, *seg)
+    dq = torch.empty_like(q)
+    lib = _lib()
+    rc = (lib.ddl_flash_bwd_dq if seg is None else lib.ddl_flash_bwd_dq_seg)(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
+        dq.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D, int(q_offset),
+        int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5), _stream(q),
+    )
+    _check(rc, "flash dq")
+    return dq
+
+
+def _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
+             seg):
+    """Launch K3 or K6."""
+    B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
+    _validate_rows(dout, q, lse, delta, dlse)
+    ids = () if seg is None else _validate_ids(q, k, *seg)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _lib()
+    rc = (lib.ddl_flash_bwd_dkv if seg is None else lib.ddl_flash_bwd_dkv_seg)(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D,
+        int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
+        _stream(q),
+    )
+    _check(rc, "flash dkv")
+    return dk, dv
+
+
+def flash_fwd(q, k, v, q_offset=0, k_offset=0, causal=True):
+    """K1: ``(out, lse)`` of causal GQA attention, on the current stream."""
+    out = _fwd(q, k, v, q_offset, k_offset, causal, None)
+    flash_fwd.launches += 1
+    return out
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
                  causal=True):
     """K2: dQ from the saved lse, ``delta = rowsum(dO * O)`` and the lse
     cotangent ``dlse`` (all ``(B, H, Tq)`` fp32)."""
-    B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
-    _validate_rows(dout, q, lse, delta, dlse)
-    dq = torch.empty_like(q)
-    rc = _lib().ddl_flash_bwd_dq(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
-        dq.data_ptr(), B, Tq, Tk, H, Hkv, D, int(q_offset), int(k_offset),
-        int(bool(causal)), 1.0 / (D ** 0.5), _stream(q),
-    )
-    _check(rc, "flash dq")
+    dq = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
+                 None)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -129,27 +190,42 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
                   causal=True):
     """K3: ``(dk, dv)`` in the compact GQA layout, summed over each KV
     head's query-head group inside the kernel."""
-    B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
-    _validate_rows(dout, q, lse, delta, dlse)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    rc = _lib().ddl_flash_bwd_dkv(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, Hkv, D, int(q_offset),
-        int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5), _stream(q),
-    )
-    _check(rc, "flash dkv")
+    dkv = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
+                   causal, None)
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return dkv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+def flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
+    """K4: K1 that also masks ``seg_q[q] != seg_k[k]`` (packed documents)."""
+    out = _fwd(q, k, v, q_offset, k_offset, causal, (seg_q, seg_k))
+    flash_fwd_seg.launches += 1
+    return out
 
-#: The three kernel wrappers, in K1..K3 order.
-KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+
+def flash_bwd_dq_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
+                     q_offset=0, k_offset=0, causal=True):
+    """K5: K2 under the packed-segment mask."""
+    dq = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
+                 (seg_q, seg_k))
+    flash_bwd_dq_seg.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
+                      q_offset=0, k_offset=0, causal=True):
+    """K6: K3 under the packed-segment mask."""
+    dkv = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
+                   causal, (seg_q, seg_k))
+    flash_bwd_dkv_seg.launches += 1
+    return dkv
+
+
+#: The kernel wrappers, in K1..K6 order.
+KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+           flash_fwd_seg, flash_bwd_dq_seg, flash_bwd_dkv_seg)
+for _fn in KERNELS:
+    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -167,8 +243,17 @@ def _validate_rows(dout, q, lse, delta, dlse) -> None:
             raise ValueError(f"{name} must be contiguous fp32 {rows} on {q.device}")
 
 
+def _bwd_rows(dout, out, dlse):
+    """The backward's row terms: contiguous ``dout``, ``delta_i =
+    rowsum(dO_i * O_i)`` (the softmax-jacobian diagonal term) and the lse
+    cotangent, both ``(B, H, T)`` fp32."""
+    dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return dout, delta, dlse.float().contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernels as one differentiable op returning ``(out, lse)``."""
+    """K1-K3 as one differentiable op returning ``(out, lse)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, k_offset, causal):
@@ -180,25 +265,45 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        # delta_i = rowsum(dO_i * O_i), the softmax-jacobian diagonal term.
-        delta = (
-            (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        )
-        dlse = dlse.float().contiguous()
+        dout, delta, dlse = _bwd_rows(dout, out, dlse)
         dq = flash_bwd_dq(q, k, v, dout, lse, delta, dlse, *ctx.args)
         dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, dlse, *ctx.args)
         return dq, dk, dv, None, None, None
 
 
+class _FlashAttentionSeg(torch.autograd.Function):
+    """K4-K6 as one differentiable op returning ``(out, lse)``; the
+    segment ids get no gradient (JAX gives them a float0 cotangent)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, q_offset, k_offset, causal):
+        out, lse = flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset, k_offset,
+                                 causal)
+        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_k)
+        ctx.args = (q_offset, k_offset, causal)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, seg_q, seg_k = ctx.saved_tensors
+        dout, delta, dlse = _bwd_rows(dout, out, dlse)
+        dq = flash_bwd_dq_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
+                              *ctx.args)
+        dk, dv = flash_bwd_dkv_seg(q, k, v, dout, lse, delta, dlse, seg_q,
+                                   seg_k, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention_plain(q, k, v, q_offset=0, k_offset=0, causal=True,
-                    kv_repeat=1):
+                    kv_repeat=1, seg_q=None, seg_k=None):
     """Dense PyTorch version of the kernels' function: ``(out, lse)``.
 
     Scores in fp32 from the input values, scale ``1/sqrt(D)``, the causal
-    mask on global positions with the finite ``-1e30``; a fully masked
-    row gives ``out = 0`` and ``lse = -1e30`` (and zero gradients).
-    Differentiable through torch autograd, ``lse`` included.
+    mask on global positions and (given ``seg_q (B, Tq)`` and ``seg_k
+    (B, Tk)``) the packed-segment mask ``seg_q[q] != seg_k[k]``, both with
+    the finite ``-1e30``; a fully masked row gives ``out = 0`` and
+    ``lse = -1e30`` (and zero gradients).  Differentiable through torch
+    autograd, ``lse`` included.
     """
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -211,6 +316,9 @@ def attention_plain(q, k, v, q_offset=0, k_offset=0, causal=True,
             q_offset + torch.arange(Tq, device=dev)
         )[:, None]
         s = s.masked_fill(mask, _NEG_INF)
+    if seg_q is not None:
+        s = s.masked_fill((seg_q[:, None, :, None] != seg_k[:, None, None, :]),
+                          _NEG_INF)
     m = s.amax(-1)
     empty = m <= _NEG_INF / 2
     # The shift is a constant for the gradient (logsumexp's identity).
@@ -226,23 +334,39 @@ def attention_plain(q, k, v, q_offset=0, k_offset=0, causal=True,
 
 
 def flash_attention_with_lse(q, k, v, q_offset=0, k_offset=0, causal=True,
-                             kv_repeat=1):
+                             kv_repeat=1, segment_ids=None,
+                             kv_segment_ids=None):
     """Flash attention returning ``(out, logsumexp (B, H, T) fp32)``.
 
     ``q_offset`` / ``k_offset`` are GLOBAL token offsets for the causal
     mask.  Rows with every key masked return ``out == 0`` and
-    ``lse == -1e30``.  CPU tensors take :func:`attention_plain`; CUDA
-    tensors the kernels.
+    ``lse == -1e30``.  ``segment_ids`` (B, Tq) / ``kv_segment_ids`` (B, Tk;
+    defaults to ``segment_ids``): packed-sequence masking, tokens attend
+    only within their own segment (K4-K6 on the card, which take int32
+    contiguous ids and raise on others).  CPU tensors take
+    :func:`attention_plain`; CUDA tensors the kernels.
     """
     if q.shape[2] != k.shape[2] * kv_repeat:
         raise ValueError(f"{q.shape[2]} heads != {k.shape[2]} x {kv_repeat}")
+    if kv_segment_ids is not None and segment_ids is None:
+        # Key-only ids have no sound default for the queries.
+        raise ValueError(
+            "kv_segment_ids requires segment_ids (the query-side ids)"
+        )
+    seg_k = kv_segment_ids if kv_segment_ids is not None else segment_ids
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, q_offset, k_offset, causal, kv_repeat)
+        return attention_plain(q, k, v, q_offset, k_offset, causal, kv_repeat,
+                               segment_ids, seg_k)
+    if segment_ids is not None:
+        return _FlashAttentionSeg.apply(q, k, v, segment_ids, seg_k, q_offset,
+                                        k_offset, causal)
     return _FlashAttention.apply(q, k, v, q_offset, k_offset, causal)
 
 
-def flash_attention(q, k, v, causal=True, kv_repeat=1):
+def flash_attention(q, k, v, causal=True, kv_repeat=1, segment_ids=None):
     """Flash attention over ``(B, T, H, D)`` queries with compact GQA k/v
-    ``(B, T, H / kv_repeat, D)``; differentiable."""
-    out, _ = flash_attention_with_lse(q, k, v, 0, 0, causal, kv_repeat)
+    ``(B, T, H / kv_repeat, D)``; differentiable.  ``segment_ids`` (B, T):
+    packed-sequence masking (causality still applies on top)."""
+    out, _ = flash_attention_with_lse(q, k, v, 0, 0, causal, kv_repeat,
+                                      segment_ids=segment_ids)
     return out

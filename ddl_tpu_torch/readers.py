@@ -1,5 +1,6 @@
 """Producer-function library (port of ``ddl_tpu/readers.py``:
-:class:`TokenStreamProducer` only; the other readers are later slices).
+:class:`TokenStreamProducer` and :class:`PackedTokenProducer`; the other
+readers are later slices).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ class TokenStreamProducer(ProducerFunctionSkeleton):
     and bytes equal the JAX package's reader for the same file and seed.
     """
 
-    #: Row-wise full rewrite per refill — live-slot safe.
+    #: Row-wise full rewrite per refill (and PackedTokenProducer's
+    #: segment pass reads only what the same call wrote) — live-slot safe.
     supports_inplace_fill = True
 
     def __init__(self, token_file: str, seq_len: int, window_rows: int,
@@ -73,3 +75,51 @@ class TokenStreamProducer(ProducerFunctionSkeleton):
 
     def execute_function(self, my_ary, **kw):
         self._fill(my_ary)
+
+
+class PackedTokenProducer(TokenStreamProducer):
+    """Token stream with PACKED-DOCUMENT segment ids.
+
+    Streaming packing, the standard LM-pretraining layout: each row is
+    ``seq_len`` consecutive tokens spanning document boundaries, and a
+    second column block carries row-local segment ids that increment
+    after every ``delimiter`` token (EOS).  Feed the columns to the
+    segment-aware loss so attention resets at document boundaries::
+
+        loss = lambda p, b: llama.next_token_loss(
+            p, b[0], cfg, segment_ids=b[1])
+
+    Window layout: ``(window_rows, 2*seq_len)``, splits ``(seq_len,
+    seq_len)`` — column 0 tokens, column 1 segment ids.  Bytes equal the
+    JAX package's reader for the same file and seed.
+    """
+
+    def __init__(self, token_file: str, seq_len: int, window_rows: int,
+                 delimiter: int = 0, dtype: Any = np.int32, seed: int = 0):
+        super().__init__(token_file, seq_len, window_rows, dtype, seed)
+        self.delimiter = int(delimiter)
+
+    def on_init(self, producer_idx=0, n_producers=1, instance_idx=0,
+                n_instances=1, **kw) -> DataProducerOnInitReturn:
+        base = super().on_init(
+            producer_idx=producer_idx, n_producers=n_producers,
+            instance_idx=instance_idx, n_instances=n_instances, **kw,
+        )
+        return DataProducerOnInitReturn(
+            nData=base.nData,
+            nValues=2 * self.seq_len,
+            shape=(self.window_rows, 2 * self.seq_len),
+            splits=(self.seq_len, self.seq_len),
+            dtype=self.dtype,
+        )
+
+    def _fill(self, my_ary: np.ndarray) -> None:
+        tokens = my_ary[:, : self.seq_len]
+        super()._fill(tokens)
+        # Row-local segment ids: a token belongs to the document OPENED
+        # by the most recent delimiter strictly before it (the delimiter
+        # itself closes its document).
+        ends = tokens == self.delimiter
+        seg = np.zeros_like(tokens)
+        seg[:, 1:] = np.cumsum(ends[:, :-1], axis=1)
+        my_ary[:, self.seq_len :] = seg

@@ -1,5 +1,6 @@
 """ddl_tpu_torch on an NVIDIA card: the hand-written kernels against
-their plain versions, the pinned-slot window stream, and a tiny fit.
+their plain versions, the pinned-slot window stream, tiny fits (unpacked
+and packed-document), and the remat policies' launch counts.
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -30,7 +31,7 @@ import torch
 
 import ddl_tpu_torch
 from ddl_tpu_torch.ops import flash_attention as tfa
-from ddl_tpu_torch.readers import TokenStreamProducer
+from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
 
 pytestmark = pytest.mark.cuda
 
@@ -71,7 +72,8 @@ def test_kernels_match_plain(dtype, D):
 
     before = [fn.launches for fn in tfa.KERNELS]
     got = run(lambda a, b, c: tfa.flash_attention_with_lse(a, b, c, 0, 30, True, 4))
-    assert [fn.launches - n for fn, n in zip(tfa.KERNELS, before)] == [1, 1, 1]
+    assert ([fn.launches - n for fn, n in zip(tfa.KERNELS, before)]
+            == [1, 1, 1, 0, 0, 0])
     want = run(lambda a, b, c: tfa.attention_plain(a, b, c, 0, 30, True, 4))
     out_tol, grad_tol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
     np.testing.assert_allclose(got[0], want[0], atol=out_tol, rtol=0)
@@ -149,5 +151,143 @@ def test_tiny_fit_runs_through_the_kernels(tmp_path):
         batch_size=4, n_epochs=4, window_stream=True))
     assert len(res.losses) == 4 and all(np.isfinite(res.losses))
     steps = 4 * 2
-    assert [fn.launches for fn in tfa.KERNELS] == [cfg.n_layers * steps] * 3
+    assert ([fn.launches for fn in tfa.KERNELS]
+            == [cfg.n_layers * steps] * 3 + [0, 0, 0])
     assert res.metrics.counter("ingest.fused_gated") == 4
+
+
+def _doc_ids(rng, B, T, mean_len):
+    """Row-local segment ids of packed documents with random lengths."""
+    ids = np.zeros((B, T), np.int32)
+    for b in range(B):
+        ends = rng.random(T) < 1.0 / mean_len
+        ids[b, 1:] = np.cumsum(ends[:-1])
+    return ids
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_kernels_match_plain(dtype, D):
+    """K4-K6 against the plain version on random documents, with key ids
+    that differ from the query ids: the queries of segment 1 have no key,
+    so their rows must give out = 0, lse = -1e30 and dq = 0."""
+    dt = getattr(torch, dtype)
+    q, k, v, g_out, g_lse = _inputs(6, 2, 200, 200, 8, 2, D)
+    sq = _doc_ids(np.random.default_rng(7), 2, 200, 40)
+    sk = np.where(sq == 1, 99, sq).astype(np.int32)
+    seg_q, seg_k = (torch.tensor(x, device="cuda") for x in (sq, sk))
+
+    def run(fn):
+        ts = [torch.tensor(x, device="cuda").to(dt).requires_grad_(True)
+              for x in (q, k, v)]
+        out, lse = fn(*ts)
+        live = lse > -1e29
+        loss = (out.float() * torch.tensor(g_out, device="cuda")).sum() + (
+            torch.where(live, lse * torch.tensor(g_lse, device="cuda"),
+                        torch.zeros_like(lse)).sum())
+        loss.backward()
+        return [t.detach().float().cpu().numpy()
+                for t in (out, lse, *(x.grad for x in ts))]
+
+    before = [fn.launches for fn in tfa.KERNELS]
+    got = run(lambda a, b, c: tfa.flash_attention_with_lse(
+        a, b, c, 0, 0, True, 4, segment_ids=seg_q, kv_segment_ids=seg_k))
+    assert ([fn.launches - n for fn, n in zip(tfa.KERNELS, before)]
+            == [0, 0, 0, 1, 1, 1])
+    want = run(lambda a, b, c: tfa.attention_plain(a, b, c, 0, 0, True, 4,
+                                                   seg_q, seg_k))
+    out_tol, grad_tol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    np.testing.assert_allclose(got[0], want[0], atol=out_tol, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
+    for g, w in zip(got[2:], want[2:]):
+        assert np.linalg.norm(g - w) <= grad_tol * np.linalg.norm(w)
+    empty = sq == 1  # (B, T)
+    assert empty.any()
+    assert (got[1].transpose(0, 2, 1)[empty] == -1e30).all()
+    assert not got[0][empty].any() and not got[2][empty].any()
+
+
+def test_packed_kernels_refuse_bad_ids():
+    q = torch.zeros(1, 8, 2, 64, device="cuda")
+    k = torch.zeros(1, 8, 1, 64, device="cuda")
+    ids = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        tfa.flash_fwd_seg(q, k, k, ids.long(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd_seg(q, k, k, ids, torch.zeros(
+            1, 16, dtype=torch.int32, device="cuda")[:, ::2])
+    with pytest.raises(ValueError):
+        tfa.flash_fwd_seg(q, k, k, ids[:, :4].contiguous(), ids)
+    with pytest.raises(ValueError, match="on cuda"):
+        tfa.flash_fwd_seg(q, k, k, ids.cpu(), ids)
+
+
+def _packed_file(path, vocab, n_tokens, seed):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, vocab, n_tokens, dtype=np.int32)
+    tokens[rng.random(n_tokens) < 1 / 30] = 0  # document ends
+    tokens.tofile(path)
+
+
+def test_tiny_packed_fit_runs_through_packed_kernels(tmp_path):
+    """The packed path end to end: PackedTokenProducer -> window stream ->
+    segment-masked loss.  K4-K6 launch once per layer per step; K1-K3
+    never."""
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    path = os.path.join(tmp_path, "docs.bin")
+    _packed_file(path, 256, 50_000, 2)
+    cfg = llama.LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512)
+    trainer = Trainer(
+        lambda p, b: llama.next_token_loss(p, b[0], cfg, segment_ids=b[1]),
+        adamw(1e-3), llama.init_params(cfg, seed=0), metrics=Metrics())
+    tfa.reset_launch_counts()
+    res = trainer.fit(PackedTokenProducer(path, 128, 8, delimiter=0),
+                      config=LoaderConfig(batch_size=4, n_epochs=4,
+                                          window_stream=True))
+    assert len(res.losses) == 4 and all(np.isfinite(res.losses))
+    steps = 4 * 2
+    assert ([fn.launches for fn in tfa.KERNELS]
+            == [0, 0, 0] + [cfg.n_layers * steps] * 3)
+
+
+@pytest.mark.parametrize("policy,fwd_per_layer",
+                         [("none", 1), ("selective", 1), ("full", 2),
+                          ("dots", 2)])
+def test_remat_policy_launch_counts(policy, fwd_per_layer):
+    """Per layer and step the forward kernel runs once under "none" and
+    "selective" (the attention output is kept) and twice under "full" and
+    "dots" (the backward recomputes attention); the backward kernels run
+    once.  Every policy gives the loss and gradients of "none"."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.train import tree_leaves, tree_map
+
+    rng = np.random.default_rng(3)
+    tokens = torch.tensor(rng.integers(0, 128, (2, 96)), device="cuda")
+    seg = torch.tensor(_doc_ids(rng, 2, 96, 20), device="cuda")
+
+    def grads(remat):
+        cfg = llama.LlamaConfig(vocab=128, d_model=128, n_layers=2,
+                                n_heads=2, n_kv_heads=1, d_ff=256,
+                                dtype=torch.float32, remat=remat)
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          llama.init_params(cfg, seed=1))
+        tfa.reset_launch_counts()
+        loss = llama.next_token_loss(params, tokens, cfg, segment_ids=seg)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in tfa.KERNELS]
+        grads = [t.grad for t in tree_leaves(params)]
+        return float(loss.detach()), grads, counts
+
+    base_loss, base_grads, _ = grads("none")
+    loss, got, counts = grads(policy)
+    assert counts == [0, 0, 0, 2 * fwd_per_layer, 2, 2]
+    assert loss == pytest.approx(base_loss, rel=1e-6)
+    for g, w in zip(got, base_grads):
+        assert float((g - w).norm()) <= 1e-6 * float(w.norm()) + 1e-12

@@ -12,7 +12,8 @@ gradients relative Frobenius error <= 2e-2.  The CUDA kernels themselves
 run only on a card: tests/test_torch_cuda.py holds them against this plain
 version there (and states where the kernels round differently from the
 JAX package: K3's GQA group sum), and chip_smoke.py at the main path's
-shapes.
+shapes.  The packed-segment cases (K4-K6's function) use the same
+tolerances, with ids of random documents.
 """
 
 import jax
@@ -42,13 +43,17 @@ def _inputs(seed, B, Tq, Tk, H, Hkv, D):
     return q, k, v, g_out, g_lse
 
 
-def _jax_run(q, k, v, g_out, g_lse, q_off, k_off, causal, rep, dtype):
+def _jax_run(q, k, v, g_out, g_lse, q_off, k_off, causal, rep, dtype,
+             seg=None):
     """JAX flash (interpret) out/lse and the grads of a loss weighing
-    both outputs (a nonzero lse cotangent on live rows)."""
+    both outputs (a nonzero lse cotangent on live rows).  ``seg``: the
+    (query, key) segment ids as numpy arrays."""
+    ids = {} if seg is None else dict(
+        segment_ids=jnp.asarray(seg[0]), kv_segment_ids=jnp.asarray(seg[1]))
 
     def loss(q, k, v):
         out, lse = jax_flash_lse(q, k, v, q_off, k_off, causal=causal,
-                                 kv_repeat=rep, block_q=32, block_k=32)
+                                 kv_repeat=rep, block_q=32, block_k=32, **ids)
         live = lse > -1e29
         return (out.astype(jnp.float32) * g_out).sum() + jnp.where(
             live, lse * g_lse, 0.0).sum(), (out, lse)
@@ -59,9 +64,13 @@ def _jax_run(q, k, v, g_out, g_lse, q_off, k_off, causal, rep, dtype):
     return [np.asarray(jnp.asarray(x, jnp.float32)) for x in (out, lse, *grads)]
 
 
-def _torch_run(q, k, v, g_out, g_lse, q_off, k_off, causal, rep, dtype):
+def _torch_run(q, k, v, g_out, g_lse, q_off, k_off, causal, rep, dtype,
+               seg=None):
     ts = [torch.tensor(x).to(dtype).requires_grad_(True) for x in (q, k, v)]
-    out, lse = tfa.flash_attention_with_lse(*ts, q_off, k_off, causal, rep)
+    ids = {} if seg is None else dict(
+        segment_ids=torch.tensor(seg[0]), kv_segment_ids=torch.tensor(seg[1]))
+    out, lse = tfa.flash_attention_with_lse(*ts, q_off, k_off, causal, rep,
+                                            **ids)
     live = lse > -1e29
     loss = (out.float() * torch.tensor(g_out)).sum() + torch.where(
         live, lse * torch.tensor(g_lse), torch.zeros_like(lse)).sum()
@@ -155,3 +164,113 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfa.flash_bwd_dq(q, k, k, q, rows, rows, rows)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_dkv(q, k, k, q, rows, rows, rows)
+
+
+def _doc_ids(rng, B, T, mean_len):
+    """Row-local segment ids of packed documents with random lengths
+    (a document ends after each position with probability 1/mean_len)."""
+    ids = np.zeros((B, T), np.int32)
+    ends = rng.random((B, T)) < 1.0 / mean_len
+    ids[:, 1:] = np.cumsum(ends[:, :-1], axis=1)
+    return ids
+
+
+PACKED_CASES = {
+    # name: (B, Tq, Tk, H, Hkv, D, q_off, k_off, kv ids)
+    "docs": (2, 64, 64, 4, 4, 32, 0, 0, "same"),
+    "docs_gqa2": (1, 64, 64, 4, 2, 32, 0, 0, "same"),
+    "docs_ragged": (1, 50, 50, 4, 2, 16, 0, 0, "same"),
+    # Ids of global positions, each side cut at its own offset.
+    "docs_offsets": (1, 48, 64, 2, 2, 16, 40, 8, "global"),
+    # Key ids differ: the queries of segment 1 find no key (empty rows).
+    "docs_empty_rows": (2, 64, 64, 2, 1, 16, 0, 0, "differ"),
+}
+
+
+def _packed_ids(seed, B, Tq, Tk, q_off, k_off, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "global":
+        ids = _doc_ids(rng, B, max(q_off + Tq, k_off + Tk), 12)
+        return ids[:, q_off:q_off + Tq], ids[:, k_off:k_off + Tk]
+    sq = _doc_ids(rng, B, Tq, 12)
+    sk = np.where(sq == 1, 99, sq).astype(np.int32) if kind == "differ" else sq
+    return sq, sk
+
+
+@pytest.mark.parametrize("name", sorted(PACKED_CASES))
+def test_packed_fp32_matches_jax_flash(name):
+    B, Tq, Tk, H, Hkv, D, q_off, k_off, kind = PACKED_CASES[name]
+    data = _inputs(5, B, Tq, Tk, H, Hkv, D)
+    seg = _packed_ids(6, B, Tq, Tk, q_off, k_off, kind)
+    args = (q_off, k_off, True, H // Hkv)
+    want = _jax_run(*data, *args, jnp.float32, seg=seg)
+    got = _torch_run(*data, *args, torch.float32, seg=seg)
+    for label, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=label, **F32_TOL)
+    if kind == "differ":
+        empty = seg[0] == 1  # (B, Tq): rows with no key of their segment
+        assert empty.any()
+        assert (got[1].transpose(0, 2, 1)[empty] == -1e30).all()
+        assert not got[0][empty].any() and not got[2][empty].any()
+
+
+def test_packed_bf16_matches_jax_flash():
+    B, Tq, Tk, H, Hkv, D, q_off, k_off, kind = PACKED_CASES["docs_gqa2"]
+    data = _inputs(7, B, Tq, Tk, H, Hkv, D)
+    seg = _packed_ids(8, B, Tq, Tk, q_off, k_off, kind)
+    args = (q_off, k_off, True, H // Hkv)
+    want = _jax_run(*data, *args, jnp.bfloat16, seg=seg)
+    got = _torch_run(*data, *args, torch.bfloat16, seg=seg)
+    np.testing.assert_allclose(got[0], want[0], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
+    for g, w in zip(got[2:], want[2:]):
+        assert np.linalg.norm(g - w) <= 2e-2 * np.linalg.norm(w)
+
+
+@pytest.mark.parametrize("rep", [1, 2])
+def test_packed_flash_and_dense_match_jax_dense(rep):
+    """``attention_reference`` and ``flash_attention`` with
+    ``segment_ids`` against JAX's dense reference and its flash kernel."""
+    q, k, v, _, _ = _inputs(9, 2, 40, 40, 4, 4 // rep, 32)
+    ids = _doc_ids(np.random.default_rng(10), 2, 40, 8)
+    jq, jk, jv, jids = (jnp.asarray(x) for x in (q, k, v, ids))
+    want = np.asarray(jax_dense(jq, jk, jv, causal=True, kv_repeat=rep,
+                                segment_ids=jids))
+    jf = np.asarray(jax_flash(jq, jk, jv, causal=True, kv_repeat=rep,
+                              block_q=32, block_k=32, segment_ids=jids))
+    tq, tk, tv, tids = (torch.tensor(x) for x in (q, k, v, ids))
+    dense = attention_reference(tq, tk, tv, kv_repeat=rep, segment_ids=tids)
+    flash = tfa.flash_attention(tq, tk, tv, kv_repeat=rep, segment_ids=tids)
+    routed = attention(tq, tk, tv, impl="flash", kv_repeat=rep,
+                       segment_ids=tids)
+    np.testing.assert_allclose(dense.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(flash.numpy(), jf, **F32_TOL)
+    np.testing.assert_allclose(routed.numpy(), jf, **F32_TOL)
+
+
+def test_kv_segment_ids_require_segment_ids():
+    q, k, v, _, _ = _inputs(11, 1, 16, 16, 2, 2, 16)
+    ids = np.zeros((1, 16), np.int32)
+    with pytest.raises(ValueError, match="kv_segment_ids requires"):
+        jax_flash_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      kv_segment_ids=jnp.asarray(ids))
+    with pytest.raises(ValueError, match="kv_segment_ids requires"):
+        tfa.flash_attention_with_lse(torch.tensor(q), torch.tensor(k),
+                                     torch.tensor(v),
+                                     kv_segment_ids=torch.tensor(ids))
+
+
+def test_packed_kernel_wrappers_refuse_cpu_tensors():
+    """K4-K6's wrappers launch on CUDA tensors or raise, like K1-K3's."""
+    q = torch.zeros(1, 8, 2, 64)
+    k = torch.zeros(1, 8, 1, 64)
+    rows = torch.zeros(1, 2, 8)
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    before = [fn.launches for fn in tfa.KERNELS]
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd_seg(q, k, k, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq_seg(q, k, k, q, rows, rows, rows, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv_seg(q, k, k, q, rows, rows, rows, ids, ids)
+    assert [fn.launches for fn in tfa.KERNELS] == before

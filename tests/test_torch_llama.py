@@ -6,6 +6,10 @@ parameter gradient must agree (``atol = rtol = 2e-5`` on logits and
 loss, relative Frobenius error <= 1e-4 per gradient — same math, the
 summation order of the matmuls differs).  One AdamW step of
 ``parallel.train.adamw`` is held against ``optax.adamw`` at ``rtol 1e-6``.
+Packed-document batches (``segment_ids``) are held to the JAX package at
+the same tolerances, and each remat policy to the port's "none" (loss and
+gradients at ``rtol 1e-6``: the recompute repeats the same float ops) and
+to the JAX package under the same policy.
 """
 
 import dataclasses
@@ -27,10 +31,11 @@ JCFG = jllama.LlamaConfig(vocab=128, d_model=64, n_layers=2, n_heads=4,
                           dtype=jnp.float32, attn_impl="dense")
 
 
-def _tcfg(attn_impl="auto"):
+def _tcfg(attn_impl="auto", remat=False):
     return tllama.LlamaConfig(vocab=128, d_model=64, n_layers=2, n_heads=4,
                               n_kv_heads=2, d_ff=128, max_seq=64,
-                              dtype=torch.float32, attn_impl=attn_impl)
+                              dtype=torch.float32, attn_impl=attn_impl,
+                              remat=remat)
 
 
 def _np_tree(tree):
@@ -147,3 +152,116 @@ def test_adamw_step_matches_optax(weights):
     for t, j in zip(tp, jp):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
                                    rtol=1e-6, atol=1e-7)
+
+
+def _doc_ids(seed, B, T, mean_len=10):
+    """Row-local ids of packed documents with random lengths."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((B, T), np.int32)
+    ids[:, 1:] = np.cumsum(rng.random((B, T - 1)) < 1.0 / mean_len, axis=1)
+    return ids
+
+
+def _jax_grads(np_params, tokens, jcfg, seg):
+    kw = {} if seg is None else {"segment_ids": jnp.asarray(seg)}
+    loss, grads = jax.value_and_grad(jllama.next_token_loss)(
+        np_params, jnp.asarray(tokens), jcfg, **kw)
+    return float(loss), tree_leaves(_np_tree(grads))
+
+
+def _torch_grads(np_params, tokens, cfg, seg):
+    tp = _torch_params(np_params)
+    kw = {} if seg is None else {"segment_ids": torch.tensor(seg)}
+    loss = tllama.next_token_loss(tp, torch.tensor(tokens), cfg, **kw)
+    loss.backward()
+    return float(loss.detach()), [t.grad.numpy() for t in tree_leaves(tp)]
+
+
+def _assert_grads_close(got, want, rel):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.linalg.norm(g - w) <= rel * np.linalg.norm(w) + 1e-12
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_packed_logits_loss_and_grads_match(weights, impl):
+    """forward and next_token_loss with segment_ids, dense ("auto" on the
+    CPU) and flash, against the JAX package."""
+    np_params, tokens = weights
+    seg = _doc_ids(1, *tokens.shape)
+    jcfg = dataclasses.replace(JCFG, attn_impl="dense" if impl == "auto" else "flash")
+    jlogits = np.asarray(jllama.forward(np_params, jnp.asarray(tokens), jcfg,
+                                        segment_ids=jnp.asarray(seg)))
+    logits = tllama.forward(_torch_params(np_params), torch.tensor(tokens),
+                            _tcfg(impl), segment_ids=torch.tensor(seg))
+    np.testing.assert_allclose(logits.detach().numpy(), jlogits,
+                               atol=2e-5, rtol=2e-5)
+    jloss, jgrads = _jax_grads(np_params, tokens, jcfg, seg)
+    loss, grads = _torch_grads(np_params, tokens, _tcfg(impl), seg)
+    np.testing.assert_allclose(loss, jloss, atol=2e-5, rtol=2e-5)
+    _assert_grads_close(grads, jgrads, 1e-4)
+
+
+def test_packed_ids_may_be_a_strided_int_view(weights):
+    """The trainer hands the ids as a strided view of the window (and the
+    reader's dtype may be any int): the loss is that of contiguous int32
+    ids."""
+    np_params, tokens = weights
+    seg = _doc_ids(2, *tokens.shape)
+    window = np.concatenate([tokens, seg], axis=1).astype(np.int64)
+    view = torch.tensor(window)[:, tokens.shape[1]:]
+    assert not view.is_contiguous()
+    cfg = _tcfg("flash")
+    tp = tllama.params_from_numpy(np_params, device="cpu")
+    got = tllama.next_token_loss(tp, torch.tensor(tokens), cfg, segment_ids=view)
+    want = tllama.next_token_loss(tp, torch.tensor(tokens), cfg,
+                                  segment_ids=torch.tensor(seg))
+    assert float(got) == float(want)
+
+
+def test_next_token_cross_entropy_segments_match_jax():
+    from ddl_tpu.models.losses import next_token_cross_entropy as jnce
+    from ddl_tpu_torch.models.losses import next_token_cross_entropy
+
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((3, 12, 17)).astype(np.float32)
+    tokens = rng.integers(0, 17, (3, 12))
+    seg = _doc_ids(5, 3, 12, mean_len=4)
+    extra = rng.random((3, 12)) < 0.2
+    want = jnce(jnp.asarray(logits), jnp.asarray(tokens),
+                extra_mask=jnp.asarray(extra), segment_ids=jnp.asarray(seg))
+    got = next_token_cross_entropy(torch.tensor(logits), torch.tensor(tokens),
+                                   extra_mask=torch.tensor(extra),
+                                   segment_ids=torch.tensor(seg))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["full", "selective", "dots"])
+def test_remat_policy_matches_none_and_jax(weights, policy):
+    """Each policy gives the loss and gradients of "none" (packed batch,
+    flash path), and of the JAX package under the same policy."""
+    np_params, tokens = weights
+    seg = _doc_ids(3, *tokens.shape)
+    base_loss, base = _torch_grads(np_params, tokens, _tcfg("flash"), seg)
+    loss, grads = _torch_grads(np_params, tokens, _tcfg("flash", policy), seg)
+    np.testing.assert_allclose(loss, base_loss, rtol=1e-6)
+    _assert_grads_close(grads, base, 1e-6)
+    jcfg = dataclasses.replace(JCFG, attn_impl="flash", remat=policy)
+    jloss, jgrads = _jax_grads(np_params, tokens, jcfg, seg)
+    np.testing.assert_allclose(loss, jloss, atol=2e-5, rtol=2e-5)
+    _assert_grads_close(grads, jgrads, 1e-4)
+
+
+def test_remat_resolve_matches_jax():
+    from ddl_tpu.models import remat as jremat
+    from ddl_tpu_torch.models import remat as tremat
+
+    assert tremat.POLICIES == jremat.POLICIES
+    for value in (True, False, None, *tremat.POLICIES):
+        assert tremat.resolve(value) == jremat.resolve(value)
+    for junk in ("some", 1, "Full"):
+        with pytest.raises(ValueError):
+            tremat.resolve(junk)
+        with pytest.raises(ValueError):
+            tllama.LlamaConfig(remat=junk)

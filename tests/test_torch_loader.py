@@ -2,7 +2,8 @@
 
 Both packages serve the same ``TokenStreamProducer`` file with the same
 seeds, integrity on; the port's ``windows()`` stream (lookahead 2) and its
-batch stream must be byte-identical to the JAX package's.  Integrity
+batch stream must be byte-identical to the JAX package's, and so must the
+two-column ``PackedTokenProducer`` stream (tokens and segment ids).  Integrity
 trailers are byte-identical too: a window stamped by either package
 verifies in the other's ``verify_window``, and a flipped byte fails both.
 """
@@ -15,8 +16,10 @@ import pytest
 import ddl_tpu
 import ddl_tpu_torch
 from ddl_tpu import integrity as jint
+from ddl_tpu.readers import PackedTokenProducer as JaxPacked
 from ddl_tpu.readers import TokenStreamProducer as JaxTokens
 from ddl_tpu_torch import integrity as tint
+from ddl_tpu_torch.readers import PackedTokenProducer as TorchPacked
 from ddl_tpu_torch.readers import TokenStreamProducer as TorchTokens
 from ddl_tpu_torch.transport.ring import ThreadRing
 
@@ -30,11 +33,11 @@ def token_file(tmp_path_factory):
     return path
 
 
-def _jax_windows(path, lookahead):
+def _jax_windows(path, lookahead, producer=None):
     @ddl_tpu.distributed_dataloader(n_producers=2, mode="thread", nslots=2)
     def run(env):
         loader = ddl_tpu.DistributedDataLoader(
-            JaxTokens(path, SEQ, ROWS, seed=3), batch_size=BATCH,
+            producer or JaxTokens(path, SEQ, ROWS, seed=3), batch_size=BATCH,
             connection=env.connection, n_epochs=EPOCHS, output="jax",
         )
         out = []
@@ -46,12 +49,12 @@ def _jax_windows(path, lookahead):
     return run()
 
 
-def _torch_windows(path, lookahead):
+def _torch_windows(path, lookahead, producer=None):
     @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="thread",
                                           nslots=2, pin_memory=False)
     def run(env):
         loader = ddl_tpu_torch.DistributedDataLoader(
-            TorchTokens(path, SEQ, ROWS, seed=3), batch_size=BATCH,
+            producer or TorchTokens(path, SEQ, ROWS, seed=3), batch_size=BATCH,
             connection=env.connection, n_epochs=EPOCHS, output="device",
             device="cpu",
         )
@@ -75,6 +78,27 @@ def test_window_stream_byte_identical(token_file, lookahead):
         assert g.shape == w.shape == (ROWS // BATCH, BATCH, SEQ)
         assert g.dtype == w.dtype
         assert g.tobytes() == w.tobytes()
+
+
+def test_packed_window_stream_byte_identical(tmp_path):
+    """PackedTokenProducer windows, both column blocks (tokens, then
+    row-local segment ids), byte-identical to the JAX package's."""
+    rng = np.random.default_rng(6)
+    docs = [rng.integers(1, 60, size=int(n)).tolist() + [0]
+            for n in rng.integers(4, 30, size=600)]
+    path = str(tmp_path / "docs.bin")
+    np.asarray([t for d in docs for t in d], np.int32).tofile(path)
+    want = _jax_windows(path, 2, JaxPacked(path, SEQ, ROWS, delimiter=0,
+                                           seed=3))
+    got, corrupt = _torch_windows(path, 2, TorchPacked(path, SEQ, ROWS,
+                                                       delimiter=0, seed=3))
+    assert corrupt == 0
+    assert len(got) == len(want) == EPOCHS
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (ROWS // BATCH, BATCH, 2 * SEQ)
+        assert g.tobytes() == w.tobytes()
+    seg = np.concatenate(got)[..., SEQ:]
+    assert seg.max() > 0 and (np.diff(seg, axis=-1) >= 0).all()
 
 
 def _batches(pkg, tokens_cls, path, **kw):
