@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py            # the phases below
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each fit
+                                     # and of a device-fabric drain
 
 Phase 1 builds the hand-written CUDA kernels from the sources in this
-checkout (``ddl_tpu_torch/ops/csrc``) and identifies the card.
+checkout (``ddl_tpu_torch/ops/csrc``, one ``nvcc`` per source, all
+started together) and identifies the card.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's attention shapes (plus a ragged length, fp32, and a call whose
 query rows are all masked), times kernel, plain version and the PyTorch
@@ -15,10 +17,21 @@ that leave some queries without a key and one-token segments.
 Phase 3 checks the model's loss and gradients through the kernels
 against the dense path on a small input, unpacked and packed, and the
 remat policies against "none" (with their forward launch counts).
-Phase 4 runs the port's two paths at Llama-3-8B's published widths cut
-to 2 layers, with random weights from a seed: ``Trainer.fit`` in THREAD
-mode over a ``TokenStreamProducer`` window stream (K1-K3), then over a
-``PackedTokenProducer`` stream of documents (K4-K6).
+Phase 4 is the global shuffle: the exchange kernel K9 held byte for
+byte against its plain version (n = 2, 3, 4, 8; fp32, int32, uint8, bf16;
+rows that are not a multiple of 16 bytes; an odd exchange count; the
+bench geometry), timed at the bench geometry (4 instances, pools of
+8192 x 256 fp32, 4096 rows exchanged), with one fabric round's parts on
+the host clock, then the path: four THREAD instances in this process,
+each a ``DataPusher`` over a pool producer and a
+``DistributedDataLoader``, drained in turn over the host exchange, the
+one-card ``DeviceExchangeFabric`` twice, and the host exchange again —
+the served streams must be byte-identical, mixed across instances, with
+no device fallback and one K9 launch per fabric round.
+Phase 5 runs the port's two training paths at Llama-3-8B's published
+widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
+in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
+over a ``PackedTokenProducer`` stream of documents (K4-K6).
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -49,6 +62,11 @@ SEED = 0
 MAIN = dict(B=4, T=2048, H=32, Hkv=8, D=128)  # the slice's attention shape
 TRAIN = dict(seq_len=2048, batch_size=4, window_rows=8, n_producers=2,
              n_epochs=3, n_layers=2, n_tokens=4_000_000)
+#: The global-shuffle path's geometry (bench.py's _run_shuffle_ab): 4
+#: instances, pools of 8192 rows x 256 fp32 values, half of each window
+#: exchanged per refill.
+SHUFFLE = dict(n=4, rows=8192, cols=256, fraction=0.5, batch_size=2048,
+               n_epochs=8)
 #: Llama-3's <|end_of_text|>: the document delimiter of the packed path.
 EOT = 128001
 VOCAB = 128256
@@ -64,18 +82,27 @@ class PhaseFailed(Exception):
 
 # ------------------------------------------------------------- phase 1 ---
 
+#: The kernel sources, one library each.
+SOURCES = ("flash_attention", "device_shuffle")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from ddl_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
-    log(f"[build] flash_attention.cu -> {os.path.basename(lib)} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    report = lib.parent / f"{lib.name}.log"
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[ptxas] {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    for name, lib in zip(SOURCES, libs):
+        log(f"[build] {name}.cu -> {os.path.basename(lib)}")
+        report = lib.parent / f"{lib.name}.log"
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    log(f"[ptxas] {line.strip()}")
+    log(f"[build] {len(SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -623,19 +650,412 @@ def _rebuild(tree, it):
     return tree_map(lambda _: next(it), tree)
 
 
-def profile_fit(fit) -> None:
-    """Where a fit's device time goes: ``torch.profiler`` over one more
-    measured-size fit.  Device-side events only (kernels, copies, sets),
-    grouped; busy share is their summed time over the profiled fit's
-    wall (the side stream's copies overlap compute, so the sum can
-    slightly exceed true occupancy)."""
+# ------------------------------------------------------------- phase 4 ---
+
+def _bytes(t):
+    """A tensor's bytes, for byte-exact comparisons whatever its dtype."""
+    import torch
+
+    return t.contiguous().view(torch.uint8)
+
+
+def _exchange_case(n, rows, num_exchange, cols, dtype, gen, normal=False):
+    """The global input of one round: n pools of ``rows`` rows on the
+    card, of which each contributes its first ``2 * half`` rows (an odd
+    ``num_exchange`` leaves its last exchange row at home).  Random bytes,
+    or standard-normal values (``normal``, as the path's pools hold)."""
+    import torch
+
+    half = num_exchange // 2
+    if normal:
+        pools = torch.randn((n, rows, cols), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype)
+    else:
+        isz = torch.empty(0, dtype=dtype).element_size()
+        pools = torch.randint(0, 256, (n, rows, cols * isz), generator=gen,
+                              device="cuda", dtype=torch.uint8).view(dtype)
+    return pools[:, :2 * half].reshape(n * 2 * half, cols).contiguous()
+
+
+def _routes(n, round_):
+    import numpy as np
+
+    from ddl_tpu_torch.shuffle import exchange_permutation, inverse_permutation
+
+    p = exchange_permutation(n, SEED, round_)
+    return p, np.stack([p, inverse_permutation(p)])
+
+
+def _time_cold_ms(fn, flush, reps: int = 31, warmup: int = 5) -> float:
+    """Median device time of ``fn`` with the L2 cache flushed before each
+    call (the exchange's 32 MiB of traffic fits the 50 MB L2, which the
+    path's freshly landed input would not find warm).  The flush must
+    keep the card busy for longer than ``fn``'s host work, so that the
+    start event does not time the card waiting for the launch."""
+    import torch
+
+    times = []
+    for i in range(warmup + reps):
+        flush()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def shuffle_kernel_checks():
+    """K9 against its plain version, byte for byte, then its times at the
+    bench geometry.  Returns the kernels-JSON row (launches filled in by
+    the path)."""
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, i32, u8, bf16 = torch.float32, torch.int32, torch.uint8, torch.bfloat16
+    sh = SHUFFLE
+    cases = [(f"n={n} fp32 x 256", n, 64, 64, 256, f32) for n in (2, 3, 4, 8)]
+    cases += [
+        ("odd num_exchange 7 of 16 rows, n=2, fp32 x 3", 2, 16, 7, 3, f32),
+        ("12-byte rows (fp32 x 3), n=5", 5, 9, 5, 3, f32),
+        ("10-byte rows (bf16 x 5), n=3", 3, 10, 10, 5, bf16),
+        ("7-byte rows (uint8 x 7), n=8", 8, 12, 6, 7, u8),
+        ("132-byte rows (int32 x 33), n=4", 4, 40, 22, 33, i32),
+        ("int32 x 256, n=4", 4, 64, 64, 256, i32),
+        ("uint8 x 256, n=4", 4, 64, 64, 256, u8),
+        ("bf16 x 256, n=4", 4, 64, 64, 256, bf16),
+        ("uint8 x 1000 (one lane of 2 rows), n=3", 3, 5, 5, 1000, u8),
+    ]
+    ok = True
+    for i, (label, n, rows, nex, cols, dt) in enumerate(cases):
+        gin = _exchange_case(n, rows, nex, cols, dt, gen)
+        before = _bytes(gin).clone()
+        _, routes = _routes(n, i)
+        got = dsh.exchange_ring(gin, ["cuda:0"] * n, routes)
+        want = dsh.exchange_plain(gin, routes)
+        torch.cuda.synchronize()
+        same = torch.equal(_bytes(got), _bytes(want))
+        kept = torch.equal(_bytes(gin), before)
+        log(f"[check] K9 {label}: byte-equal to plain {same}, input kept "
+            f"{kept} -> {'ok' if same and kept else 'FAIL'}")
+        ok &= same and kept
+
+    n, half, cols = sh["n"], sh["rows"] // 2 // 2, sh["cols"]
+    nex = int(sh["rows"] * sh["fraction"])
+    gin = _exchange_case(n, sh["rows"], nex, cols, f32, gen, normal=True)
+    _, routes = _routes(n, 0)
+    devs = ["cuda:0"] * n
+    got = dsh.exchange_ring(gin, devs, routes)
+    want = dsh.exchange_plain(gin, routes)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same = torch.equal(_bytes(got), _bytes(want))
+    log(f"[check] K9 bench n={n} {sh['rows']}x{cols} fp32, num_exchange "
+        f"{nex}: byte-equal {same}, max abs err {err} | tol 0 -> "
+        f"{'ok' if same else 'FAIL'}")
+    ok &= same
+    if not ok:
+        raise PhaseFailed("K9 disagrees with its plain version")
+
+    # The library yardstick: two index_copy_ calls on precomputed indices
+    # (timed here only; nothing in the port runs them).
+    rows = 2 * half
+    g = gin.view(n, rows, cols)
+    out = torch.empty_like(g)
+    r = torch.as_tensor(routes, dtype=torch.long, device="cuda")
+
+    def library():
+        out[:, :half].index_copy_(0, r[0], g[:, :half])
+        out[:, half:].index_copy_(0, r[1], g[:, half:])
+
+    # 1 GiB: ~0.3 ms of writes, several times the wrapper's host work.
+    scratch = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    ms = _time_cold_ms(lambda: dsh.exchange_ring(gin, devs, routes), flush)
+    plain_ms = _time_cold_ms(lambda: dsh.exchange_plain(gin, routes), flush)
+    library_ms = _time_cold_ms(library, flush)
+    # Back to back, a call costs the wrapper's host work (argument checks,
+    # the pointer table, the output's allocation), not the kernel's time.
+    call_ms = _time_ms(lambda: dsh.exchange_ring(gin, devs, routes), reps=50,
+                       warmup=5)
+    library()
+    torch.cuda.synchronize()
+    ok = torch.equal(_bytes(out.view_as(gin)), _bytes(want))
+    del scratch
+    if not ok:
+        raise PhaseFailed("the library yardstick disagrees with K9")
+    nbytes = 2 * n * rows * cols * 4  # each byte read once, written once
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"[time] exchange_ring (K9): {ms:.4f} ms (L2 cold; {call_ms:.4f} ms "
+        f"a call back to back)  plain {plain_ms:.4f} ms  index_copy_ x2 {library_ms:.4f} ms"
+        f"  bound {bound_ms:.4f} ms (bytes, {nbytes / 2**20:.0f} MiB)")
+    return {
+        "name": "exchange_ring",
+        "route": "cuda",
+        "source": "ddl_tpu_torch/ops/csrc/device_shuffle.cu",
+        "replaces": "ddl_tpu/ops/device_shuffle.py:78 (_exchange_kernel)",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "back_to_back_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _pool_producer_class():
+    import numpy as np
+
+    from ddl_tpu_torch import DataProducerOnInitReturn, ProducerFunctionSkeleton
+
+    class PoolProducer(ProducerFunctionSkeleton):
+        """A producer that keeps a pool (``examples/global_shuffle.py``'s
+        shape): column 0 is ``instance * 1e6 + row``, the rest seeded
+        standard-normal values; each refill shuffles the rows in place,
+        so exchanged rows spread through the window."""
+
+        def __init__(self, instance_idx, rows, cols):
+            self.instance_idx, self.rows, self.cols = instance_idx, rows, cols
+
+        def on_init(self, **kw):
+            self._rng = np.random.default_rng([SEED, self.instance_idx])
+            return DataProducerOnInitReturn(
+                nData=self.rows, nValues=self.cols,
+                shape=(self.rows, self.cols), splits=(self.cols,))
+
+        def post_init(self, my_ary, **kw):
+            my_ary[:, 1:] = self._rng.standard_normal(
+                (self.rows, self.cols - 1), dtype=np.float32)
+            my_ary[:, 0] = self.instance_idx * 1e6 + np.arange(self.rows)
+
+        def execute_function(self, my_ary, **kw):
+            self._rng.shuffle(my_ary)
+
+    return PoolProducer
+
+
+def drain_instances(factory_of):
+    """Four THREAD instances in this process, one producer each, drained
+    to the card: returns (served streams, pushers, drain seconds)."""
+    import threading
+
+    import torch
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, RunMode, Topology
+    from ddl_tpu_torch.datapusher import DataPusher
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.transport.connection import (
+        ConsumerConnection, ProducerConnection, ThreadChannel,
+    )
+
+    sh = SHUFFLE
+    Pool = _pool_producer_class()
+    streams, pushers, errors = {}, {}, []
+
+    def run_instance(i):
+        try:
+            topo = Topology(n_instances=sh["n"], instance_idx=i,
+                            n_producers=1, mode=RunMode.THREAD)
+            cons_end, prod_end = ThreadChannel.pair()
+            pconn = ProducerConnection(prod_end, 1, pin_memory=True)
+
+            def producer():
+                try:
+                    pushers[i] = DataPusher(pconn, topo, 1,
+                                            shuffler_factory=factory_of(),
+                                            metrics=Metrics())
+                    pushers[i].push_data()
+                except Exception as e:  # reported by the main thread
+                    errors.append((f"producer {i}", repr(e)))
+
+            pt = threading.Thread(target=producer, daemon=True)
+            pt.start()
+            loader = DistributedDataLoader(
+                Pool(i, sh["rows"], sh["cols"]), batch_size=sh["batch_size"],
+                connection=ConsumerConnection([cons_end]),
+                n_epochs=sh["n_epochs"],
+                global_shuffle_fraction_exchange=sh["fraction"],
+                output="device", device="cuda", metrics=Metrics(),
+                timeout_s=120.0,
+            )
+            batches = []
+            for _ in range(sh["n_epochs"]):
+                for (b,) in loader:
+                    batches.append(b)
+                    loader.mark(Marker.END_OF_BATCH)
+                loader.mark(Marker.END_OF_EPOCH)
+            streams[i] = torch.cat(batches)
+            torch.cuda.current_stream().synchronize()
+            loader.shutdown()
+            pt.join(60)
+            if pt.is_alive():
+                errors.append((f"producer {i}", "did not exit"))
+        except Exception as e:  # reported by the main thread
+            errors.append((f"instance {i}", repr(e)))
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=run_instance, args=(i,))
+          for i in range(sh["n"])]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts) or errors:
+        raise PhaseFailed(f"global-shuffle drain failed: {errors or 'hung'}")
+    return streams, pushers, wall
+
+
+def fabric_leg_parts(reps: int = 10):
+    """Host-clock time of one device-fabric leg at the path's geometry,
+    part by part, each part ending in a synchronise: the landing (the
+    page-locked staging copy and the H2D copy), the exchange (K9), the
+    hand-back (the D2H copy and the copies out to the producers).  In the
+    path the landing runs into the exchange on one stream with no
+    synchronise between them."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+
+    sh = SHUFFLE
+    n, half = sh["n"], int(sh["rows"] * sh["fraction"]) // 2
+    rng = np.random.default_rng(SEED)
+    blocks = [rng.standard_normal((2 * half, sh["cols"]), dtype=np.float32)
+              for _ in range(n)]
+    devs = ["cuda:0"] * n
+    _, routes = _routes(n, 0)
+    parts = dict(land=[], exchange=[], hand_back=[])
+    for _ in range(reps + 2):
+        t0 = time.perf_counter()
+        gin = dsh.as_exchange_input(blocks, devs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = dsh.exchange_ring(gin, devs, routes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dsh.exchange_output_blocks(out, devs)
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v * 1e3)
+    return {k: sorted(v[2:])[reps // 2] for k, v in parts.items()}
+
+
+def phase_shuffle(profile: bool = False):
+    """K9's checks and times, then the global-shuffle path: drained over
+    the host exchange, the one-card device fabric, the fabric again and
+    the host exchange again (turns, so neither side gains from going
+    first).  Each device drain has the launch count set to 0 just before
+    it and read just after."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+    from ddl_tpu_torch.shuffle import (
+        DeviceExchangeFabric, DeviceExchangeShuffler, Rendezvous,
+        ThreadExchangeShuffler,
+    )
+
+    row = shuffle_kernel_checks()
+    sh = SHUFFLE
+    n = sh["n"]
+    nex = int(sh["rows"] * sh["fraction"])
+    round_bytes = dsh.exchange_wire_bytes(n, nex // 2, sh["cols"], np.float32)
+    leg = fabric_leg_parts()
+    log(f"[shuffle] one fabric leg, median of 10 (host clock, ms): "
+        f"landing {leg['land']:.3f}, K9 round {leg['exchange']:.3f}, "
+        f"hand-back {leg['hand_back']:.3f}")
+
+    def host_drain():
+        rdv = Rendezvous()
+        return drain_instances(lambda: ThreadExchangeShuffler.factory(rdv))
+
+    def device_drain():
+        fabric = DeviceExchangeFabric(devices=["cuda:0"] * n)
+        dsh.reset_launch_counts()
+        streams, pushers, wall = drain_instances(
+            lambda: DeviceExchangeShuffler.factory(fabric=fabric))
+        torch.cuda.synchronize()
+        return streams, pushers, wall, fabric, dsh.exchange_ring.launches
+
+    host, host_pushers, host_s = host_drain()
+    device_runs = [device_drain(), device_drain()]
+    host2, _, host2_s = host_drain()
+
+    ok = all(torch.equal(_bytes(host[i]), _bytes(host2[i])) for i in range(n))
+    log(f"[shuffle] the two host-exchange drains serve the same streams {ok}")
+    for k, (dev, pushers, _, fabric, launches) in enumerate(device_runs):
+        for i in range(n):
+            same = torch.equal(_bytes(host[i]), _bytes(dev[i]))
+            origin = (dev[i][:, 0] / 1e6).floor().long().view(
+                sh["n_epochs"], -1)
+            mixed = all(bool((e != i).any()) for e in origin[1:])
+            m = pushers[i].metrics
+            fallbacks = m.counter("shuffle.device_fallbacks")
+            rounds = m.counter("shuffle.device_rounds")
+            inst_ok = (same and mixed and fallbacks == 0
+                       and rounds >= sh["n_epochs"])
+            log(f"[shuffle] device drain {k + 1}, instance {i}: stream "
+                f"{tuple(dev[i].shape)} byte-identical to the host "
+                f"exchange's {same}, epochs 1+ hold other instances' rows "
+                f"{mixed}, device rounds {rounds:.0f}, fallbacks "
+                f"{fallbacks:.0f} -> {'ok' if inst_ok else 'FAIL'}")
+            ok &= inst_ok
+        counted = launches == fabric.legs and launches > 0
+        log(f"[shuffle] device drain {k + 1}: K9 launches {launches}, "
+            f"fabric rounds {fabric.legs} -> {'ok' if counted else 'FAIL'}")
+        ok &= counted
+    host_rounds = min(p.shuffler.exchange_round for p in host_pushers.values())
+    dev_rounds = [run[3].legs for run in device_runs]
+    host_walls = [host_s, host2_s]
+    dev_walls = [run[2] for run in device_runs]
+    summary = {
+        "host_drain_s": host_walls, "device_drain_s": dev_walls,
+        "host_rounds": host_rounds, "device_rounds": dev_rounds,
+        "round_bytes": round_bytes,
+        "host_exchanged_bytes_per_s": [host_rounds * round_bytes / s
+                                       for s in host_walls],
+        "device_exchanged_bytes_per_s": [r * round_bytes / s for r, s
+                                         in zip(dev_rounds, dev_walls)],
+        "fabric_leg_ms": leg,
+    }
+    log(f"[shuffle] drains in turn (host, device, device, host): "
+        f"{host_s:.3f}, {dev_walls[0]:.3f}, {dev_walls[1]:.3f}, "
+        f"{host2_s:.3f} s; {host_rounds} / {dev_rounds[0]} / "
+        f"{dev_rounds[1]} / {host_rounds} rounds of "
+        f"{round_bytes / 2**20:.0f} MiB")
+    if not ok:
+        raise PhaseFailed("the global-shuffle path failed its checks")
+    row["launches"] = device_runs[0][4]
+    if profile:
+        profile_run(device_drain, "device-fabric drain")
+    return row, summary
+
+
+# ------------------------------------------------------------- phase 5 ---
+
+def profile_run(run, what: str) -> None:
+    """Where a run's device time goes: ``torch.profiler`` over one more
+    measured-size run (a fit, a drain).  Device-side events only
+    (kernels, copies, sets), grouped; busy share is their summed time over
+    the profiled run's wall (the side stream's copies overlap compute, so
+    the sum can slightly exceed true occupancy)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fit()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side work only: not the CPU ops' attributed time, not the
@@ -653,13 +1073,14 @@ def profile_fit(fit) -> None:
         name = e.key.lower()
         group = next((g for g, keys in (
             ("flash kernels", ("flash_",)),
+            ("exchange kernel K9", ("exchange_kernel",)),
             ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
             ("optimizer", ("multi_tensor_apply",)),
             ("copies", ("memcpy", "memset")),
         ) if any(k in name for k in keys)), "other elementwise / reductions")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     busy = sum(groups.values())
-    log(f"[profile] profiled fit {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+    log(f"[profile] profiled {what} {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
         f"({busy / (wall * 1e3):.1%})")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile] {ms:9.2f} ms  {ms / busy:6.1%}  {g}")
@@ -787,7 +1208,7 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
         summary.update(segments_per_row=segs, boundary_dropped=dropped)
     del result
     if profile:
-        profile_fit(lambda: run(tr["n_epochs"]))
+        profile_run(lambda: run(tr["n_epochs"]), f"{tag} fit")
     return launches, summary
 
 
@@ -808,7 +1229,8 @@ def free_device_memory() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more fit with torch.profiler")
+                    help="also profile one more of each fit and of the "
+                    "device-fabric drain with torch.profiler")
     args = ap.parse_args(argv)
 
     try:
@@ -834,6 +1256,8 @@ def main(argv=None) -> int:
         kernels = phase_kernels()
         free_device_memory()
         phase_model_check()
+        shuffle_row, shuffle_summary = phase_shuffle(args.profile)
+        free_device_memory()
         with tempfile.TemporaryDirectory() as tmp:
             launches, summary = phase_train(tmp, args.profile)
             free_device_memory()
@@ -843,6 +1267,8 @@ def main(argv=None) -> int:
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
                                else launches)[row["name"]]
+        kernels.append(shuffle_row)
+        log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
         log(f"[summary] {json.dumps(summary)}")
         log(f"[summary-packed] {json.dumps(packed_summary)}")
     except PhaseFailed as e:

@@ -15,6 +15,11 @@ from typing import Any, Tuple
 LOCK_ORDER: Tuple[str, ...] = (
     "transport.connection",
     "transport.ring.cond",
+    # The device-tier exchange board ranks above the host board: the
+    # device tier latches to the host exchange, never the reverse.
+    "shuffle.device.cond",
+    "shuffle.device.landing",
+    "shuffle.exchange.cond",
     "obs.metrics",
 )
 

@@ -71,6 +71,8 @@ class DistributedDataLoader:
         batch_size: int,
         connection: ConsumerConnection,
         n_epochs: int = 1,
+        global_shuffle_fraction_exchange: float = 0.0,
+        exchange_method: str = "sendrecv_replace",
         output: str = "torch",
         device: Any = "cuda",
         metrics: Optional[Metrics] = None,
@@ -112,6 +114,8 @@ class DistributedDataLoader:
                 data_producer_function=data_producer_function,
                 batch_size=batch_size,
                 n_epochs=n_epochs,
+                global_shuffle_fraction_exchange=global_shuffle_fraction_exchange,
+                exchange_method=exchange_method,
             )
         )
         replies = connection.recv_metadata_as_consumer()

@@ -6,8 +6,12 @@ The window the user fills (``my_ary``) is either a private array whose
 committed copy lands in the next free ring slot, or — for producers that
 set ``inplace_fill`` or advertise ``supports_inplace_fill`` — a view of
 the next free slot itself (write-once fill: acquire before fill, trailer
-stamped strictly after it).  Global shuffle, wire encoding, quarantine
-replay, elastic rejoin and cross-process observability are later slices.
+stamped strictly after it).
+
+With a ``shuffler_factory`` and several instances, each refill first runs
+the cross-instance exchange (``global_shuffle``) on the private array,
+then the user's ``execute_function``.  Wire encoding, quarantine replay,
+elastic rejoin and cross-process observability are later slices.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ class DataPusher:
         producer_idx: int,
         nslots: int = DEFAULT_NSLOTS,
         metrics: Optional[Metrics] = None,
+        shuffler_factory: Any = None,
     ):
         self.connection = connection
         self.topology = topology
@@ -95,8 +100,47 @@ class DataPusher:
         self.window_nbytes = int(np.prod(self.shape)) * self.dtype.itemsize
 
         fn = meta.data_producer_function
-        self.inplace_fill = bool(getattr(fn, "inplace_fill", False)) or (
+        forced_inplace = bool(getattr(fn, "inplace_fill", False))
+
+        # Global shuffler: an extra callback when the topology and the
+        # consumer's handshake ask for one.
+        self.shuffler = None
+        if (
+            topology.n_instances > 1
+            and meta.global_shuffle_fraction_exchange > 0.0
+            and shuffler_factory is not None
+        ):
+            num_exchange = int(
+                init_ret.nData * meta.global_shuffle_fraction_exchange
+            )
+            if num_exchange > 0:
+                if forced_inplace:
+                    # The exchange would work on nslots-stale slot content
+                    # and the required full rewrite would then destroy it.
+                    raise DoesNotMatchError(
+                        type(fn).__name__,
+                        "global shuffle is incompatible with inplace_fill "
+                        "producers (the exchange needs a persistent my_ary; "
+                        "use the default copy fill)",
+                    )
+                self.shuffler = shuffler_factory(
+                    topology=topology,
+                    producer_idx=producer_idx,
+                    num_exchange=num_exchange,
+                    exchange_method=meta.exchange_method,
+                )
+                # Degradation events land in THIS pipeline's registry
+                # (factories stay picklable, so it is injected here).
+                if hasattr(self.shuffler, "metrics"):
+                    self.shuffler.metrics = self.metrics
+                self.callbacks.append(self.shuffler)
+
+        # Write-once producers fill ring slots directly unless a shuffler
+        # needs my_ary to persist across refills (the exchange mutates it
+        # between fills) or DDL_TORCH_INPLACE=0 opts out.
+        self.inplace_fill = forced_inplace or (
             bool(getattr(fn, "supports_inplace_fill", False))
+            and self.shuffler is None
             and inplace_enabled()
         )
         self._fill_slot: Optional[int] = None
@@ -188,6 +232,16 @@ class DataPusher:
                 self._poll_control()
                 if self.ring.is_shutdown():
                     raise ShutdownRequested()
+                # Exchange across instances, then the user's refill.  The
+                # exchange wait observes shutdown: a partner tearing down
+                # may never post its half.
+                execute_callbacks(
+                    self.callbacks,
+                    "global_shuffle",
+                    my_ary=self.my_ary,
+                    iteration=self._iteration,
+                    should_abort=self.ring.is_shutdown,
+                )
                 execute_callbacks(
                     self.callbacks,
                     "execute_function",

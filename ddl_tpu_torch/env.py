@@ -49,13 +49,14 @@ def detect_topology(
 
 def _producer_main(
     conn: ProducerConnection, topology: Topology, producer_idx: int,
-    nslots: int,
+    nslots: int, shuffler_factory: Any = None,
 ) -> None:
     """Body of one producer worker thread."""
     from ddl_tpu_torch.datapusher import DataPusher
 
     try:
-        pusher = DataPusher(conn, topology, producer_idx, nslots=nslots)
+        pusher = DataPusher(conn, topology, producer_idx, nslots=nslots,
+                            shuffler_factory=shuffler_factory)
     except (TransportError, ShutdownRequested) as e:
         # Consumer aborted before/during the handshake (ABORT arrives as
         # non-metadata) or the run is tearing down: a clean exit.
@@ -79,7 +80,7 @@ class WorkerSet:
     """The producer worker threads + the consumer-side connection."""
 
     def __init__(self, topology: Topology, nslots: int,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, shuffler_factory: Any = None):
         self.topology = topology
         self.nslots = nslots
         self.threads: List[threading.Thread] = []
@@ -91,7 +92,7 @@ class WorkerSet:
             )
             t = threading.Thread(
                 target=_producer_main,
-                args=(conn, topology, idx + 1, nslots),
+                args=(conn, topology, idx + 1, nslots, shuffler_factory),
                 name=f"ddl-torch-producer-{idx + 1}",
                 daemon=True,
             )
@@ -119,6 +120,7 @@ def distributed_dataloader(
     mode: Optional[RunMode | str] = None,
     nslots: Optional[int] = None,
     pin_memory: Optional[bool] = None,
+    shuffler_factory: Any = None,
 ) -> Callable[..., Any]:
     """Decorator running ``func`` as the consumer with producer threads
     alongside; ``func`` receives a :class:`DDL_Env` as its last argument
@@ -127,6 +129,8 @@ def distributed_dataloader(
     Explicit arguments win over the ``DDL_TORCH_*`` environment.
     ``pin_memory`` page-locks the ring slots so window copies to a CUDA
     card run asynchronously (default: whenever CUDA is available).
+    ``shuffler_factory`` reaches every producer's ``DataPusher`` (the
+    global-shuffle hook, e.g. ``ThreadExchangeShuffler.factory(...)``).
     """
 
     def deco(f: Callable[..., Any]) -> Callable[..., Any]:
@@ -139,7 +143,8 @@ def distributed_dataloader(
                 import torch
 
                 pin = torch.cuda.is_available()
-            workers = WorkerSet(topology, depth, pin_memory=pin)
+            workers = WorkerSet(topology, depth, pin_memory=pin,
+                                shuffler_factory=shuffler_factory)
             env = DDL_Env(
                 topology=topology, connection=workers.connection,
                 workers=workers,

@@ -46,6 +46,10 @@ REGISTRY: Dict[str, Knob] = {
              "Device transfers kept in flight by the batch prefetcher."),
         Knob("DDL_TORCH_FUSED", "bool", True,
              "Fused compute/ingest stream loop (0 = synchronous loop)."),
+        Knob("DDL_TORCH_DEVICE_SHUFFLE", "str", "auto",
+             "Device-tier exchange gate: auto = engage when plannable "
+             "(THREAD topology, raw wire, in-process fabric), "
+             "0/off/false = host exchange only."),
     )
 }
 

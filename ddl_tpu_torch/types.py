@@ -40,6 +40,8 @@ class MetaData_Consumer_To_Producer:
     data_producer_function: "ProducerFunctionSkeleton"
     batch_size: int
     n_epochs: int = 1
+    global_shuffle_fraction_exchange: float = 0.0
+    exchange_method: str = "sendrecv_replace"
 
 
 @dataclasses.dataclass

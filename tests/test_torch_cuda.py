@@ -1,6 +1,8 @@
 """ddl_tpu_torch on an NVIDIA card: the hand-written kernels against
 their plain versions, the pinned-slot window stream, tiny fits (unpacked
-and packed-document), and the remat policies' launch counts.
+and packed-document), the remat policies' launch counts, and the
+global-shuffle exchange kernel K9 (byte-exact against its plain version,
+and the one-card fabric against the host exchange).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -30,6 +32,8 @@ import pytest
 import torch
 
 import ddl_tpu_torch
+from ddl_tpu_torch import shuffle as tsh
+from ddl_tpu_torch.ops import device_shuffle as tdsh
 from ddl_tpu_torch.ops import flash_attention as tfa
 from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
 
@@ -291,3 +295,116 @@ def test_remat_policy_launch_counts(policy, fwd_per_layer):
     assert loss == pytest.approx(base_loss, rel=1e-6)
     for g, w in zip(got, base_grads):
         assert float((g - w).norm()) <= 1e-6 * float(w.norm()) + 1e-12
+
+
+# -- K9: the global-shuffle exchange kernel ----------------------------------
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _exchange_input(n, half, cols, dtype, seed):
+    """(n * 2*half, cols) random bytes of ``dtype`` on the card."""
+    isz = torch.empty(0, dtype=dtype).element_size()
+    raw = np.random.default_rng(seed).integers(
+        0, 256, (n * 2 * half, cols * isz), dtype=np.uint8)
+    return torch.from_numpy(raw).cuda().view(dtype)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "uint8", "bfloat16"])
+@pytest.mark.parametrize("cols", [256, 5])
+def test_exchange_kernel_matches_plain(n, dtype, cols):
+    """Byte-exact over dtypes, n and row sizes that are (cols 256) and
+    are not (cols 5: 20, 5 or 10 bytes) a multiple of 16 bytes."""
+    gin = _exchange_input(n, 3, cols, getattr(torch, dtype), n)
+    before = _bytes(gin).clone()
+    p = tsh.exchange_permutation(n, 7, 2)
+    routes = np.stack([p, tsh.inverse_permutation(p)])
+    got = tdsh.exchange_ring(gin, ["cuda:0"] * n, routes)
+    want = tdsh.exchange_plain(gin, routes)
+    torch.cuda.synchronize()
+    assert got.data_ptr() != gin.data_ptr()
+    assert torch.equal(_bytes(got), _bytes(want))
+    assert torch.equal(_bytes(gin), before)  # the input is left as it was
+
+
+def test_exchange_kernel_counts_its_launches():
+    gin = _exchange_input(4, 8, 16, torch.float32, 0)
+    routes = np.stack([np.array([1, 2, 3, 0]), np.array([3, 0, 1, 2])])
+    tdsh.reset_launch_counts()
+    for _ in range(3):
+        tdsh.exchange_ring(gin, ["cuda:0"] * 4, routes)
+    tdsh.exchange_plain(gin, routes)
+    assert tdsh.exchange_ring.launches == 3
+
+
+def test_exchange_kernel_refuses_what_it_does_not_take():
+    """A CUDA tensor reaches the kernel or raises; it never takes the
+    plain version."""
+    gin = _exchange_input(2, 4, 8, torch.float32, 1)
+    routes = [[1, 0], [1, 0]]
+    tdsh.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        tdsh.exchange_ring(gin.t().contiguous().t(), ["cuda:0"] * 2, routes)
+    with pytest.raises(ValueError, match="2\\*half"):
+        tdsh.exchange_ring(gin[:6], ["cuda:0"] * 2, routes)
+    with pytest.raises(ValueError, match="do not hold"):
+        tdsh.exchange_ring(gin, ["cpu"] * 2, routes)
+    with pytest.raises(ValueError, match="permutations"):
+        tdsh.exchange_ring(gin, ["cuda:0"] * 2, [[0, 0], [1, 0]])
+    big = _exchange_input(66, 1, 4, torch.float32, 2)
+    ring = np.roll(np.arange(66), 1)
+    with pytest.raises(ValueError, match="at most 64"):
+        tdsh.exchange_ring(big, ["cuda:0"] * 66, [ring, np.argsort(ring)])
+    assert tdsh.exchange_ring.launches == 0
+
+
+@pytest.mark.parametrize("n,rows,num_exchange",
+                         [(2, 16, 7), (3, 10, 10), (5, 9, 5), (8, 12, 6)])
+def test_one_card_fabric_rounds_equal_the_host_exchange(n, rows, num_exchange):
+    """``devices=[cuda:0] * n``: every round rides K9 (one launch per
+    fabric leg) and the pools equal the host exchange's."""
+    import threading
+
+    from ddl_tpu_torch.observability import Metrics
+
+    def run(make):
+        arys = [np.arange(rows * 3, dtype=np.float32).reshape(rows, 3)
+                + 10_000.0 * i for i in range(n)]
+        shufs = [make(i) for i in range(n)]
+        ts = [threading.Thread(target=lambda i=i: [
+            shufs[i].global_shuffle(arys[i]) for _ in range(3)])
+            for i in range(n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        assert not any(t.is_alive() for t in ts)
+        return arys, shufs
+
+    def topo(i):
+        return ddl_tpu_torch.Topology(n_instances=n, instance_idx=i,
+                                      n_producers=1)
+
+    rdv = tsh.Rendezvous()
+    host, _ = run(lambda i: tsh.ThreadExchangeShuffler(
+        topo(i), 1, num_exchange, rendezvous=rdv, seed=7))
+    fabric = tsh.DeviceExchangeFabric(devices=["cuda:0"] * n)
+
+    def make(i):
+        s = tsh.DeviceExchangeShuffler(topo(i), 1, num_exchange,
+                                       rendezvous=tsh.Rendezvous(),
+                                       fabric=fabric, seed=7)
+        s.metrics = Metrics()
+        return s
+
+    tdsh.reset_launch_counts()
+    dev, shufs = run(make)
+    for a, b in zip(dev, host):
+        assert a.tobytes() == b.tobytes()
+    assert fabric.legs == 3 and tdsh.exchange_ring.launches == 3
+    for s in shufs:
+        assert s.metrics.counter("shuffle.device_fallbacks") == 0
+        assert s.metrics.counter("shuffle.device_rounds") == 3
