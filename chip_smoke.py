@@ -2,8 +2,8 @@
 """Drive the ddl_tpu_torch port on one NVIDIA card and check it.
 
     python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each fit
-                                     # and of a device-fabric drain
+    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of each fit,
+                                     # of a device-fabric drain and of an ICI drain
 
 Phase 1 builds the hand-written CUDA kernels from the sources in this
 checkout (``ddl_tpu_torch/ops/csrc``, one ``nvcc`` per source, all
@@ -28,7 +28,21 @@ each a ``DataPusher`` over a pool producer and a
 one-card ``DeviceExchangeFabric`` twice, and the host exchange again —
 the served streams must be byte-identical, mixed across instances, with
 no device fallback and one K9 launch per fabric round.
-Phase 5 runs the port's two training paths at Llama-3-8B's published
+Phase 5 is the ICI ingest tier: the fan-out kernels K7 (broadcast) and K8
+(scatter) held byte for byte against their plain versions (n = 2, 3, 4,
+8; fp32, int32, uint8, bf16; 7-byte rows; row counts that leave the
+reference's chunk pipeline a tail or undercut its chunks; src != 0;
+sources off 16-byte alignment; the 2-D views the path hands them; the
+full-size (65536, 256) fp32 block), timed there with the ``copy_``
+yardstick, then the path: 64 MiB ``ArrayProducer`` windows (32, 2048,
+256) fp32 drained in THREAD mode through ``DistributedDataLoader(...,
+sharding=..., distribute="ici")`` onto three meshes of positions of
+cuda:0 (dp=4 split, dp=2 x fsdp=2 split, dp=4 replicated) and a token
+stream at the Llama path's window, every position's shard byte-equal to
+its slice of the host window, one K7/K8 launch per window and no
+fallback; a ragged geometry through the plain route; and the A/B of the
+tier against the plain per-position route.
+Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
 in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
 over a ``PackedTokenProducer`` stream of documents (K4-K6).
@@ -67,6 +81,13 @@ TRAIN = dict(seq_len=2048, batch_size=4, window_rows=8, n_producers=2,
 #: exchanged per refill.
 SHUFFLE = dict(n=4, rows=8192, cols=256, fraction=0.5, batch_size=2048,
                n_epochs=8)
+#: The ICI ingest path's geometry (bench.py's ICI A/B, :74-75): an
+#: ArrayProducer over 131072 x 256 fp32 values, windows of 65536 rows in
+#: batches of 2048, so (32, 2048, 256) fp32 = 64 MiB a window; 4 ring
+#: positions; 6 windows per mesh.  The kernels' standalone block is the
+#: window's 2-D view on dim 0, (65536, 256).
+ICI = dict(n=4, n_rows=131072, rows=65536, cols=256, window=65536,
+           batch_size=2048, n_epochs=6)
 #: Llama-3's <|end_of_text|>: the document delimiter of the packed path.
 EOT = 128001
 VOCAB = 128256
@@ -83,7 +104,7 @@ class PhaseFailed(Exception):
 # ------------------------------------------------------------- phase 1 ---
 
 #: The kernel sources, one library each.
-SOURCES = ("flash_attention", "device_shuffle")
+SOURCES = ("flash_attention", "device_shuffle", "ici_fanout")
 
 
 def phase_build():
@@ -1043,6 +1064,423 @@ def phase_shuffle(profile: bool = False):
 
 # ------------------------------------------------------------- phase 5 ---
 
+def _fanout_case(rows, cols, dtype, gen, offset=0):
+    """A contiguous (rows, cols) block of random bytes of ``dtype`` on the
+    card, starting ``offset`` bytes into its allocation (an offset that is
+    not a multiple of 16 sends the kernels down their narrower paths)."""
+    import torch
+
+    isz = torch.empty(0, dtype=dtype).element_size()
+    n = rows * cols * isz
+    raw = torch.randint(0, 256, (n + offset,), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    return raw[offset:].view(dtype).view(rows, cols)
+
+
+def _same_blocks(got, want):
+    import torch
+
+    return len(got.shards) == len(want) and all(
+        torch.equal(_bytes(s.data), _bytes(w)) for s, w in zip(got.shards, want))
+
+
+def fanout_kernel_checks():
+    """K7 and K8 against their plain versions, byte for byte, on the shapes
+    of phase (a) and on the 2-D views the main path hands them, then their
+    times at the path's full-size geometry.  Returns the two kernels-JSON
+    rows (launches filled in by the path)."""
+    import torch
+
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.ici import _to2d
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, i32, u8, bf16 = torch.float32, torch.int32, torch.uint8, torch.bfloat16
+    # (label, n, rows, cols, dtype, src, byte offset).  The reference
+    # pipelines K7 in 4 chunks; its tail (10 rows) and its clamp (2 rows,
+    # fewer than 16 chunks) are shapes here too.
+    cases = [(f"n={n} fp32 x 256, src={n - 1}", n, 64, 256, f32, n - 1, 0)
+             for n in (2, 3, 4, 8)]
+    cases += [
+        ("int32 x 256, n=4", 4, 64, 256, i32, 1, 0),
+        ("uint8 x 256, n=4", 4, 64, 256, u8, 2, 0),
+        ("bf16 x 256, n=4", 4, 64, 256, bf16, 3, 0),
+        ("7-byte rows (uint8 x 7), n=8", 8, 24, 7, u8, 5, 0),
+        ("10 rows (rows % 4 chunks != 0), n=2", 2, 10, 33, f32, 1, 0),
+        ("2 rows (fewer than 16 chunks), n=2", 2, 2, 64, i32, 0, 0),
+        ("source 3 bytes off 16-byte alignment, uint8 x 40, n=4", 4, 12, 40,
+         u8, 1, 3),
+        ("source 4 bytes off 16-byte alignment, fp32 x 9, n=3", 3, 6, 9, f32,
+         2, 4),
+    ]
+    blocks = [(label, n, _fanout_case(rows, cols, dt, gen, offset), src)
+              for label, n, rows, cols, dt, src, offset in cases]
+    # The main path's own views (ici._to2d of its windows, on the anchor):
+    # the 64 MiB window split on dim 1 (dp=4 and dp=2 x fsdp=2) and
+    # flattened whole (replicated), and the token window split on dim 1.
+    g = ICI
+    window = (g["window"] // g["batch_size"], g["batch_size"], g["cols"])
+    tokens = (TRAIN["window_rows"] // TRAIN["batch_size"],
+              TRAIN["batch_size"], TRAIN["seq_len"])
+    for label, shape, dt, split_dim in (
+            ("window split on dim 1", window, f32, 1),
+            ("window replicated", window, f32, 0),
+            ("token window split on dim 1", tokens, i32, 1)):
+        win = _fanout_case(math.prod(shape[:-1]), shape[-1], dt, gen).view(shape)
+        view = _to2d(win, split_dim)
+        blocks.append((f"path view {tuple(view.shape)} of the {shape} {label}",
+                       g["n"], view, 0))
+        del win
+    ok = True
+    for label, n, block, src in blocks:
+        before = _bytes(block).clone()
+        rows = block.shape[0]
+        devs = ["cuda:0"] * n
+        rep = fan.fanout_replicate(block, devs, src=src)
+        shard = (fan.fanout_shard(block, devs, src=src) if rows % n == 0
+                 else None)
+        torch.cuda.synchronize()
+        same_rep = _same_blocks(rep, fan.replicate_plain(block, n, src))
+        same_shard = shard is None or _same_blocks(shard, fan.shard_plain(block, n))
+        kept = torch.equal(_bytes(block), before)
+        log(f"[check] K7/K8 {label}: K7 byte-equal to plain {same_rep}, K8 "
+            + ("skipped (rows % n != 0)" if shard is None
+               else f"byte-equal to plain {same_shard}")
+            + f", input kept {kept} -> "
+            + ("ok" if same_rep and same_shard and kept else "FAIL"))
+        ok &= same_rep and same_shard and kept
+    del blocks, block, rep, shard
+
+    n, rows, cols = g["n"], g["rows"], g["cols"]
+    block = torch.randn((rows, cols), generator=gen, device="cuda")
+    devs = ["cuda:0"] * n
+    rep = fan.fanout_replicate(block, devs)
+    shard = fan.fanout_shard(block, devs)
+    rep_want = fan.replicate_plain(block, n)
+    shard_want = fan.shard_plain(block, n)
+    torch.cuda.synchronize()
+    errs = {
+        "replicate": max(float((s.data - w).abs().max())
+                         for s, w in zip(rep.shards, rep_want)),
+        "shard": max(float((s.data - w).abs().max())
+                     for s, w in zip(shard.shards, shard_want)),
+    }
+    full = _same_blocks(rep, rep_want) and _same_blocks(shard, shard_want)
+    log(f"[check] K7/K8 full size n={n} ({rows}, {cols}) fp32: byte-equal "
+        f"{full}, max abs err K7 {errs['replicate']} K8 {errs['shard']} | "
+        f"tol 0 -> {'ok' if full else 'FAIL'}")
+    ok &= full
+    if not ok:
+        raise PhaseFailed("K7/K8 disagree with their plain versions")
+    del rep, shard, rep_want, shard_want
+
+    # The library yardstick: one Tensor.copy_ per destination (timed here
+    # only; nothing in the port runs it).
+    block_rows = rows // n
+    rep_dst = [torch.empty_like(block) for _ in range(n - 1)]
+    shard_dst = [torch.empty((block_rows, cols), device="cuda")
+                 for _ in range(n)]
+
+    def copies_replicate():
+        for d in rep_dst:
+            d.copy_(block)
+
+    def copies_shard():
+        for i, d in enumerate(shard_dst):
+            d.copy_(block[i * block_rows:(i + 1) * block_rows])
+
+    # 4 GiB: ~1.3 ms of writes.  K7 launches only after allocating its
+    # outputs (0.10-0.19 ms of host work a call, more on a slow host);
+    # the flush must outlast that, or the start event times the wait.
+    scratch = torch.empty(4 << 30, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    nbytes = rows * cols * 4
+    timed = {
+        "replicate": (lambda: fan.fanout_replicate(block, devs),
+                      lambda: fan.replicate_plain(block, n), copies_replicate,
+                      nbytes + (n - 1) * nbytes, f"copy_ x{n - 1}"),
+        "shard": (lambda: fan.fanout_shard(block, devs),
+                  lambda: fan.shard_plain(block, n), copies_shard,
+                  2 * nbytes, f"copy_ x{n}"),
+    }
+    info = {"replicate": ("fanout_replicate", "_bcast_kernel", 99),
+            "shard": ("fanout_shard", "_scatter_kernel", 155)}
+    rows_out = []
+    for mode, (kernel, plain, library, moved, lib_name) in timed.items():
+        ms = _time_cold_ms(kernel, flush)
+        plain_ms = _time_cold_ms(plain, flush)
+        library_ms = _time_cold_ms(library, flush)
+        call_ms = _time_ms(kernel, reps=50, warmup=5)
+        bound_ms = moved / PEAK_BYTES * 1e3
+        name, tpu_fn, line = info[mode]
+        log(f"[time] {name}: {ms:.4f} ms (L2 cold; {call_ms:.4f} ms a call "
+            f"back to back)  plain {plain_ms:.4f} ms  {lib_name} "
+            f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes, "
+            f"{moved / 2**20:.0f} MiB)")
+        rows_out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ddl_tpu_torch/ops/csrc/ici_fanout.cu",
+            "replaces": f"ddl_tpu/ops/ici_fanout.py:{line} ({tpu_fn})",
+            "launches": 0,
+            "max_abs_err": errs[mode],
+            "ms": ms,
+            "back_to_back_ms": call_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": library_ms,
+            "library": lib_name,
+        })
+    del scratch, rep_dst, shard_dst
+    return rows_out
+
+
+def _sharding(axes, spec):
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+
+    n = int(math.prod(axes.values()))
+    return NamedSharding(make_mesh(axes, ["cuda:0"] * n), P(*spec))
+
+
+def _ici_drain(producer, batch_size, n_epochs, host_windows=None, axes=None,
+               spec=None, distribute="ici"):
+    """Drain ``n_epochs`` windows of ``producer`` through a THREAD loader
+    (2 producers).  Without ``axes`` the windows go to the host and are
+    returned; with them each window lands on that mesh of positions of
+    cuda:0, and every position's shard is held against its slice of
+    ``host_windows``.  Returns (windows or checks, metrics, wall s)."""
+    import torch
+
+    import ddl_tpu_torch
+    from ddl_tpu_torch.observability import Metrics
+
+    on_card = axes is not None
+    metrics = Metrics()
+
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="thread",
+                                          nslots=2, pin_memory=on_card)
+    def run(env):
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            producer, batch_size=batch_size, connection=env.connection,
+            n_epochs=n_epochs, output="device",
+            device="cuda" if on_card else "cpu",
+            sharding=_sharding(axes, spec) if on_card else None,
+            distribute=distribute, metrics=metrics, timeout_s=120.0,
+        )
+        out = []
+        t0 = time.perf_counter()
+        for k, win in enumerate(loader.windows(lookahead=1)):
+            if not on_card:
+                out.append(win.clone())
+            else:
+                host = host_windows[k]
+                out.append(all(
+                    s.data.is_contiguous() and torch.equal(
+                        _bytes(s.data), _bytes(host[s.index].contiguous().cuda()))
+                    for s in win.shards) and tuple(win.shape) == tuple(host.shape))
+            loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, wall = run()
+    return out, metrics, wall
+
+
+def ici_ab(reps: int = 5):
+    """The A/B of the JAX package's ICI bench: ``put_window`` of one 64 MiB
+    window from page-locked memory through the ICI tier and through the
+    plain per-position route, for the dp=4 and the replicated layouts,
+    interleaved, each timed to a synchronise on the host clock; the
+    minimum of ``reps``.  Then one window's parts, each synchronised."""
+    import torch
+
+    from ddl_tpu_torch.ingest import DeviceIngestor, device_put
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel import ici as ici_mod
+
+    g = ICI
+    shape = (g["window"] // g["batch_size"], g["batch_size"], g["cols"])
+    window = torch.randn(shape, generator=torch.Generator().manual_seed(SEED))
+    window = window.pin_memory()
+    nbytes = window.numel() * 4
+    out = {}
+    for label, (axes, spec) in (("dp4", ({"dp": 4}, (None, "dp"))),
+                                ("replicated", ({"dp": 4}, (None, None, None)))):
+        sh = _sharding(axes, spec)
+        ings = {d: DeviceIngestor(sharding=sh, distribute=d, metrics=Metrics())
+                for d in ("ici", "xla")}
+        times = {"ici": [], "xla": []}
+        results = {}
+        for _ in range(reps + 1):  # the first round warms both up
+            for d, ing in ings.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results[d] = ing.hand_off(ing.put_window(window.numpy()))
+                torch.cuda.synchronize()
+                times[d].append(time.perf_counter() - t0)
+        best = {d: min(t[1:]) for d, t in times.items()}
+        same = all(torch.equal(_bytes(a.data), _bytes(b.data)) for a, b in
+                   zip(results["ici"].shards, results["xla"].shards))
+        fallbacks = ings["ici"].ici().metrics.counter("ici.fallbacks")
+        out[label] = {
+            "ici_bytes_per_s": nbytes / best["ici"],
+            "plain_bytes_per_s": nbytes / best["xla"],
+            "vs_plain": best["xla"] / best["ici"],
+            "ici_ms": best["ici"] * 1e3, "plain_ms": best["xla"] * 1e3,
+            "byte_identical": same, "fallbacks": fallbacks,
+        }
+        log(f"[ici-ab] {label} 64 MiB window, min of {reps}: ICI tier "
+            f"{nbytes / best['ici'] / 1e9:.2f} GB/s ({best['ici'] * 1e3:.3f} ms), "
+            f"plain route {nbytes / best['xla'] / 1e9:.2f} GB/s "
+            f"({best['xla'] * 1e3:.3f} ms), vs_plain {best['xla'] / best['ici']:.3f}, "
+            f"byte_identical {same}")
+        if not same or fallbacks:
+            raise PhaseFailed(f"ICI A/B {label}: byte_identical {same}, "
+                              f"fallbacks {fallbacks}")
+
+    # One dp=4 window's parts, each ending in a synchronise.
+    sh = _sharding({"dp": 4}, (None, "dp"))
+    dist = ici_mod.IciDistributor(sh, metrics=Metrics())
+    plan = dist.plan(shape, torch.float32)
+    ring = [sh.mesh.device_list[p] for p in plan.ring_positions]
+    parts = dict(h2d=[], view_2d=[], kernel=[], finish=[])
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = device_put(window, dist.anchor(shape, torch.float32))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flat = ici_mod._to2d(block, plan.split_dim)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ring_out = fan.fanout_shard(flat, ring)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ici_mod._finish_shard(ring_out, plan, sh)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(v * 1e3)
+    out["dp4_parts_ms"] = {k: sorted(v[2:])[reps // 2] for k, v in parts.items()}
+    log(f"[ici-ab] one dp=4 window's parts, median of {reps} (host clock, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["dp4_parts_ms"].items()))
+    return out
+
+
+def phase_ici(tmpdir: str, profile: bool = False):
+    """K7/K8's checks and times, then the ICI ingest path: the 64 MiB
+    windows of an ArrayProducer drained on three meshes of positions of
+    cuda:0 (K8, K8 with the gather leg, K7) and a token stream at the
+    Llama path's window (K8), every position's shard held against its
+    slice of the host window; one ragged geometry through the plain route;
+    the A/B.  Each drain has the launch counts set to 0 just before it and
+    read just after."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ingest import DeviceIngestor
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.readers import ArrayProducer, TokenStreamProducer
+
+    rows = fanout_kernel_checks()
+    g = ICI
+    data = np.random.default_rng(SEED).standard_normal(
+        (g["n_rows"], g["cols"]), dtype=np.float32)
+
+    def array_producer():
+        return ArrayProducer(data, window_size=g["window"], seed=SEED)
+
+    host, _, host_s = _ici_drain(array_producer(), g["batch_size"], g["n_epochs"])
+    log(f"[ici] host stream: {len(host)} windows of {tuple(host[0].shape)} "
+        f"fp32 ({host[0].numel() * 4 / 2**20:.0f} MiB) in {host_s:.3f} s")
+    token_file = os.path.join(tmpdir, "ici_tokens.bin")
+    ranks = np.random.default_rng(SEED).zipf(1.2, 1 << 20) - 1
+    (ranks % VOCAB).astype(np.int32).tofile(token_file)
+
+    def token_producer():
+        return TokenStreamProducer(token_file, TRAIN["seq_len"],
+                                   TRAIN["window_rows"], seed=SEED)
+
+    tokens, _, _ = _ici_drain(token_producer(), TRAIN["batch_size"],
+                              g["n_epochs"])
+    runs = [
+        ("dp=4, P(None, 'dp')", array_producer, g["batch_size"], host,
+         {"dp": 4}, (None, "dp"), fan.fanout_shard),
+        ("dp=2 x fsdp=2, P(None, 'dp')", array_producer, g["batch_size"], host,
+         {"dp": 2, "fsdp": 2}, (None, "dp"), fan.fanout_shard),
+        ("dp=4, replicated", array_producer, g["batch_size"], host,
+         {"dp": 4}, (None, None, None), fan.fanout_replicate),
+        ("token stream (2, 4, 2048) int32, dp=4, P(None, 'dp')", token_producer,
+         TRAIN["batch_size"], tokens, {"dp": 4}, (None, "dp"), fan.fanout_shard),
+    ]
+    ok = True
+    launches = {fn.__name__: 0 for fn in fan.KERNELS}
+    summary = {"host_drain_s": host_s}
+    for label, make, batch, want, axes, spec, kernel in runs:
+        torch.cuda.synchronize()
+        fan.reset_launch_counts()
+        checks, m, wall = _ici_drain(make(), batch, g["n_epochs"], want, axes,
+                                     spec)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in fan.KERNELS}
+        windows = m.counter("ici.windows")
+        fallbacks = m.counter("ici.fallbacks")
+        idle = [fn for fn in fan.KERNELS if fn is not kernel]
+        run_ok = (all(checks) and len(checks) == g["n_epochs"]
+                  and fallbacks == 0 and windows == g["n_epochs"]
+                  and counts[kernel.__name__] == windows
+                  and all(counts[fn.__name__] == 0 for fn in idle))
+        for name, c in counts.items():
+            launches[name] += c
+        log(f"[ici] {label}: {len(checks)} windows, every shard byte-equal to "
+            f"its slice of the host window {all(checks)}, ici.windows "
+            f"{windows:.0f}, ici.fallbacks {fallbacks:.0f}, launches {counts}, "
+            f"drain {wall:.3f} s, ici.fanout {m.timer('ici.fanout').total_s * 1e3:.2f} ms"
+            f", ici.redistribute {m.timer('ici.redistribute').total_s * 1e3:.2f} ms"
+            f" (host clock, dispatch) -> {'ok' if run_ok else 'FAIL'}")
+        summary[label] = {"drain_s": wall, "windows": windows,
+                          "launches": counts}
+        ok &= run_ok
+
+    # A ragged geometry: a window whose batch dim (2) the dp=2 target
+    # splits but the 4-position ring does not — no bounded plan, so it
+    # takes the plain route, counted once.
+    sh = _sharding({"dp": 2, "fsdp": 2}, (None, "dp"))
+    ing = DeviceIngestor(sharding=sh, distribute="ici", metrics=Metrics())
+    ragged = np.ascontiguousarray(host[0].numpy()[:, :2])
+    fan.reset_launch_counts()
+    got = [ing.hand_off(ing.put_window(ragged)) for _ in range(2)]
+    torch.cuda.synchronize()
+    fb = ing.metrics.counter("ici.fallbacks")
+    same = all(torch.equal(_bytes(s.data), _bytes(
+        torch.from_numpy(ragged)[s.index].contiguous().cuda()))
+        for w in got for s in w.shards)
+    ragged_ok = same and fb == 1 and sum(fn.launches for fn in fan.KERNELS) == 0
+    log(f"[ici] ragged {ragged.shape} on dp=2 x fsdp=2: plain route, shards "
+        f"byte-equal {same}, ici.fallbacks {fb:.0f} over 2 windows, no kernel "
+        f"launch -> {'ok' if ragged_ok else 'FAIL'}")
+    ok &= ragged_ok
+    if not ok:
+        raise PhaseFailed("the ICI ingest path failed its checks")
+    if profile:
+        profile_run(lambda: _ici_drain(array_producer(), g["batch_size"],
+                                       g["n_epochs"], host, {"dp": 4},
+                                       (None, "dp")), "ICI dp=4 drain")
+    del host, tokens, got
+    summary["ab"] = ici_ab()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    return rows, summary
+
+
+# ------------------------------------------------------------- phase 6 ---
+
 def profile_run(run, what: str) -> None:
     """Where a run's device time goes: ``torch.profiler`` over one more
     measured-size run (a fit, a drain).  Device-side events only
@@ -1074,6 +1512,7 @@ def profile_run(run, what: str) -> None:
         group = next((g for g, keys in (
             ("flash kernels", ("flash_",)),
             ("exchange kernel K9", ("exchange_kernel",)),
+            ("fan-out kernels K7/K8", ("fanout_kernel",)),
             ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
             ("optimizer", ("multi_tensor_apply",)),
             ("copies", ("memcpy", "memset")),
@@ -1229,8 +1668,9 @@ def free_device_memory() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more of each fit and of the "
-                    "device-fabric drain with torch.profiler")
+                    help="also profile one more of each fit, of the "
+                    "device-fabric drain and of a dp=4 ICI drain with "
+                    "torch.profiler")
     args = ap.parse_args(argv)
 
     try:
@@ -1259,6 +1699,8 @@ def main(argv=None) -> int:
         shuffle_row, shuffle_summary = phase_shuffle(args.profile)
         free_device_memory()
         with tempfile.TemporaryDirectory() as tmp:
+            ici_rows, ici_summary = phase_ici(tmp, args.profile)
+            free_device_memory()
             launches, summary = phase_train(tmp, args.profile)
             free_device_memory()
             packed_launches, packed_summary = phase_train(
@@ -1268,7 +1710,9 @@ def main(argv=None) -> int:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
                                else launches)[row["name"]]
         kernels.append(shuffle_row)
+        kernels.extend(ici_rows)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
+        log(f"[summary-ici] {json.dumps(ici_summary)}")
         log(f"[summary] {json.dumps(summary)}")
         log(f"[summary-packed] {json.dumps(packed_summary)}")
     except PhaseFailed as e:

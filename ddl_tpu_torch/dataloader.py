@@ -11,6 +11,9 @@
   the slot release is deferred onto the copy's event (the release
   backlog), and a fused-step caller can gate it on its consuming step as
   well (:meth:`DistributedDataLoader.gate_release_on`).
+- Sharded targets (``sharding=``, ``distribute=``): windows and batches
+  land on a mesh of positions, through the ICI fan-out tier or the plain
+  route (:class:`~ddl_tpu_torch.ingest.DeviceIngestor`).
 
 Every acquire verifies the window's integrity trailer.  A corrupt head
 window raises :class:`IntegrityError`; the quarantine-and-replay ladder,
@@ -77,6 +80,8 @@ class DistributedDataLoader:
         device: Any = "cuda",
         metrics: Optional[Metrics] = None,
         timeout_s: float = 300.0,
+        sharding: Any = None,
+        distribute: str = "auto",
     ):
         if output not in ("torch", "numpy", "device"):
             raise ValueError(f"output must be torch|numpy|device, got {output!r}")
@@ -106,7 +111,14 @@ class DistributedDataLoader:
         if output == "device":
             from ddl_tpu_torch.ingest import DeviceIngestor
 
-            self._ingestor = DeviceIngestor(device=device, metrics=self.metrics)
+            # ``sharding`` (a NamedSharding) lands windows and batches as
+            # ShardedArrays over its mesh positions; ``distribute="auto"``
+            # takes the ICI fan-out tier on a CUDA mesh and the plain route
+            # on the CPU.
+            self._ingestor = DeviceIngestor(
+                device=device, metrics=self.metrics, sharding=sharding,
+                distribute=distribute,
+            )
 
         # -- handshake -----------------------------------------------------
         connection.send_metadata(
@@ -212,8 +224,10 @@ class DistributedDataLoader:
         producers to take effect.
 
         Yields tensors of shape ``(batches_per_window, batch_size,
-        *features)``; the caller calls ``mark(Marker.END_OF_EPOCH)`` after
-        each.  One live stream per loader: a new call supersedes the old.
+        *features)`` — :class:`~ddl_tpu_torch.parallel.mesh.ShardedArray`
+        s of that global shape under a ``sharding`` — and the caller calls
+        ``mark(Marker.END_OF_EPOCH)`` after each.  One live stream per
+        loader: a new call supersedes the old.
         """
         if self._ingestor is None:
             raise LoaderStateError("windows() requires output='device'")

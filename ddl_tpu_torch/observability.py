@@ -1,5 +1,5 @@
-"""Counters and timers (port of ``ddl_tpu/observability.py``'s
-:class:`Metrics`: the counters and timers the slice records; gauges,
+"""Counters, gauges and timers (port of ``ddl_tpu/observability.py``'s
+:class:`Metrics`: the counters, gauges and timers the slices record;
 histograms, snapshots, cross-process adoption and the event tap serve
 later slices).
 
@@ -31,16 +31,29 @@ class Timer:
 
 
 class Metrics:
-    """Thread-safe counter/timer registry."""
+    """Thread-safe counter/gauge/timer registry."""
 
     def __init__(self) -> None:
         self._lock = named_lock("obs.metrics")
         self._counters: Dict[str, float] = collections.defaultdict(float)
+        self._gauges: Dict[str, float] = {}
         self._timers: Dict[str, Timer] = collections.defaultdict(Timer)
 
     def incr(self, name: str, value: float = 1.0) -> None:
         with self._lock:
             self._counters[name] += value
+
+    def set_gauge(self, name: str, value: float) -> None:
+        """Point-in-time level.  The high-water mark rides along as
+        ``<name>.max``, so a peak between reads stays visible."""
+        with self._lock:
+            self._gauges[name] = value
+            peak = self._gauges.get(f"{name}.max", value)
+            self._gauges[f"{name}.max"] = max(peak, value)
+
+    def gauge(self, name: str) -> float:
+        with self._lock:
+            return self._gauges.get(name, 0.0)
 
     def add_time(self, name: str, seconds: float) -> None:
         with self._lock:

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds.  Builds run at first use,
 from the sources in the checkout, into ``ddl_tpu_torch/_build/`` (listed
-in ``.gitignore``), keyed by a hash of the source and the flags so an
-edited source rebuilds.  Nothing here runs at import.
+in ``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -47,10 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to for the current source."""
-    src = CSRC / f"{name}.cu"
+    """Where ``csrc/<name>.cu`` builds to for the current source and
+    headers."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

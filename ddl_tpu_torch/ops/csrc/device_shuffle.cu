@@ -28,15 +28,13 @@
 //   to the same kernel.
 // - Byte-exact whatever the dtype: lanes move as bytes (fp32 pools, int32
 //   token rows, uint8 images, bf16 all alike).  Each (lane, position) copy
-//   takes the widest access both of its ends allow: 16-byte vectors when
-//   source and destination agree in their address mod 16 (after a byte
-//   head up to the boundary), else 4-byte words when they agree mod 4, else
-//   bytes; a byte tail finishes the lane.
+//   is copy.cuh's copy_any: the widest access both of its ends allow
+//   (16-byte vectors, else 4-byte words, else bytes) and a byte tail.
 //
 // What bounds it on this card: bytes.  It does no arithmetic, and each byte
 // is read once and written once, so the least time of a round is
 // 2 * n * 2*half * row_bytes / 3.35 TB/s.  The design answers that with
-// coalesced 16-byte accesses, UNROLL loads in flight per thread before its
+// coalesced 16-byte accesses, COPY_UNROLL loads in flight per thread before its
 // stores, and enough blocks (up to MAX_CHUNKS per lane copy) to cover the
 // 132 SMs; the lane copies of one round are independent, so they all run
 // in the one launch.
@@ -44,11 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "copy.cuh"
+
 namespace {
 
 constexpr int MAX_RING = 64;     // ring positions a launch can address
-constexpr int THREADS = 256;     // threads per block
-constexpr int UNROLL = 4;        // accesses in flight per thread
 constexpr int MAX_CHUNKS = 1024; // blocks per (lane, position) copy
 
 struct ExchangeArgs {
@@ -58,60 +56,14 @@ struct ExchangeArgs {
   long long lane_bytes;                // half * row_bytes
 };
 
-// Grid-strided copy of nv elements of V over the blocks of this lane copy.
-template <typename V>
-__device__ __forceinline__ void copy_body(const V* __restrict__ s,
-                                          V* __restrict__ d, long long nv) {
-  const long long step = (long long)gridDim.x * THREADS * UNROLL;
-  for (long long base = (long long)blockIdx.x * THREADS * UNROLL + threadIdx.x;
-       base < nv; base += step) {
-    V r[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long v = base + (long long)u * THREADS;
-      if (v < nv) r[u] = s[v];
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long v = base + (long long)u * THREADS;
-      if (v < nv) d[v] = r[u];
-    }
-  }
-}
-
-// Copy n bytes from s to d, where s and d agree in their address mod W:
-// a byte head up to the first W-aligned address, W-byte accesses, a byte
-// tail.  Block 0 of the lane copy moves the head and the tail.
-template <int W, typename V>
-__device__ __forceinline__ void copy_lane(const unsigned char* s,
-                                          unsigned char* d, long long n) {
-  long long head = (W - (long long)((uintptr_t)s & (W - 1))) & (W - 1);
-  if (head > n) head = n;
-  const long long nv = (n - head) / W;
-  const long long tail = head + nv * W;
-  if (blockIdx.x == 0) {
-    for (long long b = threadIdx.x; b < head; b += THREADS) d[b] = s[b];
-    for (long long b = tail + threadIdx.x; b < n; b += THREADS) d[b] = s[b];
-  }
-  copy_body<V>(reinterpret_cast<const V*>(s + head),
-               reinterpret_cast<V*>(d + head), nv);
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ddl::COPY_THREADS)
     exchange_kernel(const __grid_constant__ ExchangeArgs a) {
   const int lane = blockIdx.y;
   const int pos = blockIdx.z;
   const long long off = (long long)lane * a.lane_bytes;
   const unsigned char* s = a.src[pos] + off;
   unsigned char* d = a.dst[a.route[lane][pos]] + off;
-  const uintptr_t mis = (uintptr_t)s ^ (uintptr_t)d;
-  if ((mis & 15) == 0) {
-    copy_lane<16, uint4>(s, d, a.lane_bytes);
-  } else if ((mis & 3) == 0) {
-    copy_lane<4, unsigned int>(s, d, a.lane_bytes);
-  } else {
-    copy_lane<1, unsigned char>(s, d, a.lane_bytes);
-  }
+  ddl::copy_any(s, &d, 1, a.lane_bytes);
 }
 
 }  // namespace
@@ -134,11 +86,9 @@ extern "C" int ddl_exchange_round(const void* const* src, void* const* dst,
     a.route[1][i] = bwd;
   }
   a.lane_bytes = lane_bytes;
-  const long long per_block = (long long)THREADS * UNROLL * 16;
-  long long chunks = (lane_bytes + per_block - 1) / per_block;
-  if (chunks < 1) chunks = 1;
-  if (chunks > MAX_CHUNKS) chunks = MAX_CHUNKS;
-  const dim3 grid((unsigned)chunks, 2, (unsigned)n);
-  exchange_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid((unsigned)ddl::copy_chunks(lane_bytes, MAX_CHUNKS), 2,
+                  (unsigned)n);
+  exchange_kernel<<<grid, ddl::COPY_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

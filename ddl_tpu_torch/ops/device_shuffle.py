@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ddl_tpu_torch.concurrency import named_lock
+from ddl_tpu_torch.parallel.mesh import one_card
 
 #: Held by a caller from a round's landing to its hand-back: the landing
 #: buffers of a geometry are reused by its next round.
@@ -63,27 +64,6 @@ def _lib() -> ctypes.CDLL:
         lib.ddl_exchange_round.restype = ctypes.c_int
         lib._ddl_bound = True
     return lib
-
-
-def ring_device(devices: Sequence[Any]) -> torch.device:
-    """The one device every ring position lives on.  A ring over several
-    distinct cards is the multi-card slice (peer-mapped pointers and
-    flag semaphores) and raises; a ring mixing the CPU and a card is
-    an error."""
-    devs = {torch.device(d) for d in devices}
-    devs = {torch.device("cuda", torch.cuda.current_device())
-            if d.type == "cuda" and d.index is None else d for d in devs}
-    if len(devs) > 1:
-        if all(d.type == "cuda" for d in devs):
-            raise NotImplementedError(
-                "a device-shuffle ring over several distinct cards is the "
-                "multi-card slice (peer-mapped pointers with flag "
-                "semaphores); pass devices=[cuda:k] * n for one card"
-            )
-        raise ValueError(f"ring devices mix device types: {sorted(map(str, devs))}")
-    if not devs:
-        raise ValueError("a ring needs at least one device")
-    return devs.pop()
 
 
 def _routes(routes: Any, n: int) -> np.ndarray:
@@ -138,7 +118,7 @@ def exchange_ring(gin: torch.Tensor, devices: Sequence[Any],
         return exchange_plain(gin, routes)
     if gin.device.type != "cuda":
         raise ValueError(f"unsupported device {gin.device}")
-    if ring_device(devices) != gin.device:
+    if one_card(devices) != gin.device:
         raise ValueError(f"ring devices {devices} do not hold the input "
                          f"on {gin.device}")
     if n > MAX_RING:
@@ -222,7 +202,7 @@ def as_exchange_input(blocks: Sequence[np.ndarray],
     for b in blocks:
         if b.shape != (rows, cols) or b.dtype != blocks[0].dtype:
             raise ValueError("lane blocks must share shape and dtype")
-    device = ring_device(devices)
+    device = one_card(devices)
     if device.type == "cpu":
         return torch.from_numpy(np.concatenate(blocks))
     buf = _landing(device, n, rows, cols, _torch_dtype(blocks[0].dtype))

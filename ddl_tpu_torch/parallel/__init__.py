@@ -1,2 +1,4 @@
-"""One-device training steps and attention dispatch (slice 1 of the
-port of ``ddl_tpu/parallel``)."""
+"""Parallel layers of the port of ``ddl_tpu/parallel``: one-device
+training steps and attention dispatch (``train``, ``ring_attention``),
+meshes of positions and sharded arrays (``mesh``), and the ICI ingest
+tier (``ici``)."""

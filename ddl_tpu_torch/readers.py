@@ -1,11 +1,11 @@
 """Producer-function library (port of ``ddl_tpu/readers.py``:
-:class:`TokenStreamProducer` and :class:`PackedTokenProducer`; the other
-readers are later slices).
+:class:`ArrayProducer`, :class:`TokenStreamProducer` and
+:class:`PackedTokenProducer`; the other readers are later slices).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -21,6 +21,58 @@ def _my_shard(n_items: int, producer_idx: int, n_producers: int,
     worker = instance_idx * n_producers + (producer_idx - 1)
     total = n_instances * n_producers
     return np.arange(worker % total, n_items, total)
+
+
+class ArrayProducer(ProducerFunctionSkeleton):
+    """Serve a host-resident (N, F) array — the ``TensorDataset`` analog.
+
+    Each worker owns a strided shard; every window is a fresh sample of
+    ``window_size`` rows from the shard (reshuffled per refill).  Draws
+    and bytes equal the JAX package's reader for the same data and seed.
+    """
+
+    #: Every fill fully rewrites the window — safe to hand a live ring
+    #: slot (write-once producer discipline).
+    supports_inplace_fill = True
+
+    def __init__(self, data: np.ndarray, window_size: int,
+                 splits: Optional[Sequence[int]] = None, seed: int = 0):
+        self.data = np.ascontiguousarray(data)
+        self.window_size = window_size
+        self.splits = tuple(splits) if splits else (data.shape[1],)
+        self.seed = seed
+
+    def on_init(self, producer_idx=0, n_producers=1, instance_idx=0,
+                n_instances=1, **kw) -> DataProducerOnInitReturn:
+        idx = _my_shard(len(self.data), producer_idx, n_producers,
+                        instance_idx, n_instances)
+        self._shard = self.data[idx]
+        if len(self._shard) < self.window_size:
+            reps = -(-self.window_size // max(len(self._shard), 1))
+            self._shard = np.tile(self._shard, (reps, 1))
+        self._rng = np.random.default_rng(
+            [self.seed, instance_idx, producer_idx]
+        )
+        return DataProducerOnInitReturn(
+            nData=self.window_size,
+            nValues=self.data.shape[1],
+            shape=(self.window_size, self.data.shape[1]),
+            splits=self.splits,
+            dtype=self.data.dtype,
+        )
+
+    def _fill(self, my_ary: np.ndarray) -> None:
+        pick = self._rng.choice(len(self._shard), self.window_size,
+                                replace=False)
+        # Gather straight into the (possibly ring-slot) window; mode="clip"
+        # (indices are in range) keeps numpy from buffering the output.
+        self._shard.take(pick, axis=0, out=my_ary, mode="clip")
+
+    def post_init(self, my_ary, **kw):
+        self._fill(my_ary)
+
+    def execute_function(self, my_ary, **kw):
+        self._fill(my_ary)
 
 
 class TokenStreamProducer(ProducerFunctionSkeleton):

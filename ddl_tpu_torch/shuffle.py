@@ -435,7 +435,7 @@ def _resolve_devices(devices: Optional[Sequence[Any]]) -> Tuple[Any, ...]:
     version's."""
     import torch
 
-    from ddl_tpu_torch.ops import device_shuffle as _dsh
+    from ddl_tpu_torch.parallel.mesh import one_card
 
     if devices is None:
         devices = [torch.device("cuda", i)
@@ -446,7 +446,7 @@ def _resolve_devices(devices: Optional[Sequence[Any]]) -> Tuple[Any, ...]:
                 "for the plain version"
             )
     devices = tuple(torch.device(d) for d in devices)
-    _dsh.ring_device(devices)  # raises on distinct cards / mixed types / none
+    one_card(devices)  # raises on distinct cards / mixed types / none
     return devices
 
 

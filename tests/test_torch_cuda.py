@@ -408,3 +408,160 @@ def test_one_card_fabric_rounds_equal_the_host_exchange(n, rows, num_exchange):
     for s in shufs:
         assert s.metrics.counter("shuffle.device_fallbacks") == 0
         assert s.metrics.counter("shuffle.device_rounds") == 3
+
+
+# -- K7/K8: the ICI tier's fan-out kernels ------------------------------------
+
+
+def _fanout_block(rows, cols, dtype, seed, offset=0):
+    """(rows, cols) random bytes of ``dtype`` on the card, ``offset`` bytes
+    into its allocation."""
+    isz = torch.empty(0, dtype=dtype).element_size()
+    raw = np.random.default_rng(seed).integers(
+        0, 256, rows * cols * isz + offset, dtype=np.uint8)
+    return torch.from_numpy(raw).cuda()[offset:].view(dtype).view(rows, cols)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "uint8", "bfloat16"])
+@pytest.mark.parametrize("cols", [256, 7])
+def test_fanout_kernels_match_plain(n, dtype, cols):
+    """K7 and K8 byte-exact against their plain versions, over dtypes, n
+    and rows that are (256 columns) and are not (7) a multiple of 16
+    bytes, from a source position other than 0."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    block = _fanout_block(4 * n, cols, getattr(torch, dtype), n)
+    before = _bytes(block).clone()
+    devs = ["cuda:0"] * n
+    fan.reset_launch_counts()
+    rep = fan.fanout_replicate(block, devs, src=n - 1)
+    shard = fan.fanout_shard(block, devs, src=1)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fan.KERNELS] == [1, 1]
+    assert rep.shards[n - 1].data is block
+    for got, want in ((rep, fan.replicate_plain(block, n, n - 1)),
+                      (shard, fan.shard_plain(block, n))):
+        for s, w in zip(got.shards, want):
+            assert s.data.is_contiguous()
+            assert torch.equal(_bytes(s.data), _bytes(w))
+    assert torch.equal(_bytes(block), before)
+
+
+@pytest.mark.parametrize("offset,dtype", [(3, "uint8"), (4, "float32"),
+                                          (8, "int32")])
+def test_fanout_kernels_take_misaligned_sources(offset, dtype):
+    """A source off 16-byte alignment takes the kernels' narrower paths
+    (4-byte words, bytes) and their byte heads and tails."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    block = _fanout_block(12, 37, getattr(torch, dtype), offset, offset)
+    assert block.data_ptr() % 16 == offset
+    devs = ["cuda:0"] * 4
+    rep = fan.fanout_replicate(block, devs)
+    shard = fan.fanout_shard(block, devs)
+    torch.cuda.synchronize()
+    for got, want in ((rep, fan.replicate_plain(block, 4)),
+                      (shard, fan.shard_plain(block, 4))):
+        assert all(torch.equal(_bytes(s.data), _bytes(w))
+                   for s, w in zip(got.shards, want))
+
+
+def test_fanout_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor reaches the kernel or raises; it never takes the
+    plain version."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    block = _fanout_block(8, 16, torch.float32, 0)
+    fan.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        fan.fanout_shard(block.t(), ["cuda:0"] * 2)
+    with pytest.raises(ValueError, match="do not hold"):
+        fan.fanout_replicate(block, ["cpu"] * 2)
+    with pytest.raises(ValueError, match="divisible"):
+        fan.fanout_shard(block, ["cuda:0"] * 3)
+    with pytest.raises(ValueError, match="at most 64"):
+        fan.fanout_replicate(block, ["cuda:0"] * 65)
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        fan.fanout_shard(block, ["cuda:0", "cuda:1"])
+    assert [fn.launches for fn in fan.KERNELS] == [0, 0]
+
+
+def _mesh_sharding(axes, spec, devices=None):
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+
+    n = int(np.prod(list(axes.values())))
+    return NamedSharding(make_mesh(axes, devices or ["cuda:0"] * n), P(*spec))
+
+
+def test_ici_distinct_card_mesh_is_the_multi_card_slice():
+    from ddl_tpu_torch.ingest import DeviceIngestor
+
+    sh = _mesh_sharding({"dp": 2}, ("dp",), ["cuda:0", "cuda:1"])
+    for distribute in ("ici", "xla", "auto"):
+        with pytest.raises(NotImplementedError, match="multi-card"):
+            DeviceIngestor(sharding=sh, distribute=distribute)
+
+
+def test_ici_auto_engages_on_a_card_mesh():
+    from ddl_tpu_torch.ingest import DeviceIngestor
+
+    sh = _mesh_sharding({"dp": 4}, (None, "dp"))
+    assert DeviceIngestor(sharding=sh).ici_active
+    assert not DeviceIngestor(sharding=sh, distribute="xla").ici_active
+
+
+def _sharded_stream(tmp_path, device, axes, spec, distribute):
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import ArrayProducer
+
+    data = np.random.default_rng(9).standard_normal((512, 24)).astype(np.float32)
+    metrics = Metrics()
+
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="thread",
+                                          nslots=2, pin_memory=device == "cuda")
+    def run(env):
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            ArrayProducer(data, window_size=128, seed=2), batch_size=16,
+            connection=env.connection, n_epochs=6, output="device",
+            device=device,
+            sharding=_mesh_sharding(axes, spec) if device == "cuda" else None,
+            distribute=distribute, metrics=metrics,
+        )
+        out = []
+        for win in loader.windows(lookahead=2):
+            if device == "cuda":
+                assert all(s.data.is_contiguous() for s in win.shards)
+                # A consumer on the compute stream reads every shard.
+                out.append([s.data.sum().item() for s in win.shards] + [
+                    win.numpy()])
+            else:
+                out.append(win.numpy().copy())
+            loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        return out
+
+    return run(), metrics
+
+
+@pytest.mark.parametrize("axes,spec,kernel", [
+    ({"dp": 4}, (None, "dp"), "fanout_shard"),
+    ({"dp": 2, "fsdp": 2}, (None, "dp"), "fanout_shard"),
+    ({"dp": 4}, (None, None, None), "fanout_replicate"),
+])
+def test_ici_loader_windows_ride_the_fanout_kernels(tmp_path, axes, spec, kernel):
+    """``DistributedDataLoader(..., sharding=, distribute="ici")`` on
+    positions of cuda:0: one K7/K8 launch per window, no fallback, and
+    windows byte-equal to the host stream."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    want, _ = _sharded_stream(tmp_path, "cpu", axes, spec, "xla")
+    fan.reset_launch_counts()
+    got, m = _sharded_stream(tmp_path, "cuda", axes, spec, "ici")
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in fan.KERNELS}
+    assert counts[kernel] == m.counter("ici.windows") == 6
+    assert sum(counts.values()) == 6
+    assert m.counter("ici.fallbacks") == 0
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g[-1].tobytes() == w.tobytes()

@@ -28,6 +28,7 @@ from ddl_tpu_torch import shuffle as tsh
 from ddl_tpu_torch.exceptions import DDLError, ShutdownRequested
 from ddl_tpu_torch.observability import Metrics
 from ddl_tpu_torch.ops import device_shuffle as tdsh
+from ddl_tpu_torch.parallel import mesh as tmesh
 from test_torch_shuffle import (
     GEOMETRIES,
     SEED,
@@ -143,11 +144,11 @@ def test_exchange_surface_refuses_bad_arguments():
         tdsh.as_exchange_input([np.zeros((2, 2)), np.zeros((2, 3))],
                                ["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="multi-card"):
-        tdsh.ring_device(["cuda:0", "cuda:1"])
+        tmesh.one_card(["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="mix"):
-        tdsh.ring_device(["cpu", "cuda:0"])
+        tmesh.one_card(["cpu", "cuda:0"])
     with pytest.raises(ValueError, match="at least one"):
-        tdsh.ring_device([])
+        tmesh.one_card([])
 
 
 @pytest.mark.parametrize("n,nex,cols,dtype",
