@@ -9,14 +9,21 @@ Phase 1 builds the hand-written CUDA kernels from the sources in this
 checkout (``ddl_tpu_torch/ops/csrc``, one ``nvcc`` per source, all
 started together) and identifies the card.
 Phase 2 holds each kernel against its plain PyTorch version at the main
-path's attention shapes (plus a ragged length, fp32, and a call whose
-query rows are all masked), times kernel, plain version and the PyTorch
-library call, and computes each kernel's bound.  The packed-segment
-kernels K4-K6 get the same treatment on packed-document ids, plus key ids
-that leave some queries without a key and one-token segments.
+path's attention shapes (plus a ragged length, fp32, a call whose query
+rows are all masked, and bf16 at head dims 16, 32 and 64), times kernel,
+plain version and the PyTorch library call, and computes each kernel's
+bound.  The packed-segment kernels K4-K6 get the same treatment on
+packed-document ids, plus key ids that leave some queries without a key
+and one-token segments.  Every case checks the forward's route by its
+counters: bf16 on the wgmma kernel (``flash_fwd_sm90.cu``), fp32 on the
+FMA kernel.  The timed K1/K4 calls run with the kernel's own count of the
+key tiles it loads: K1's is the causal loop's, K4's what its document
+skip leaves, and K4's row gives the share; both must equal the count that
+``live_tiles`` (the skip's rule in Python) gives.
 Phase 3 checks the model's loss and gradients through the kernels
-against the dense path on a small input, unpacked and packed, and the
-remat policies against "none" (with their forward launch counts).
+against the dense path on a small input, unpacked and packed, at head_dim
+64 and at the widths of examples/train_llama.py (head_dim 32), and the remat
+policies against "none" (with their forward launch counts).
 Phase 4 is the global shuffle: the exchange kernel K9 held byte for
 byte against its plain version (n = 2, 3, 4, 8; fp32, int32, uint8, bf16;
 rows that are not a multiple of 16 bytes; an odd exchange count; the
@@ -45,7 +52,8 @@ tier against the plain per-position route.
 Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
 in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
-over a ``PackedTokenProducer`` stream of documents (K4-K6).
+over a ``PackedTokenProducer`` stream of documents (K4-K6); every forward
+launch of both fits must ride the wgmma kernel.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -104,7 +112,7 @@ class PhaseFailed(Exception):
 # ------------------------------------------------------------- phase 1 ---
 
 #: The kernel sources, one library each.
-SOURCES = ("flash_attention", "device_shuffle", "ici_fanout")
+SOURCES = ("flash_fwd_sm90", "flash_attention", "device_shuffle", "ici_fanout")
 
 
 def phase_build():
@@ -162,6 +170,24 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _timed_tile_visits(fwd, *args, rule: int):
+    """``fwd`` (the bf16 K1 or K4 wrapper) timed by ``_time_ms`` with the
+    kernel's tile counter on: (ms, key tiles the kernel loaded per call).
+    Fails unless every call loaded ``rule`` tiles."""
+    import torch
+
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    reps, warmup = 10, 2
+    ms = _time_ms(lambda: fwd(*args, visited=visited), reps, warmup)
+    total = int(visited)
+    log(f"[time] {fwd.__name__}: the kernel loaded {total} key tiles in "
+        f"{reps + warmup} calls; live_tiles (computed) gives {rule} a call")
+    if total != (reps + warmup) * rule:
+        raise PhaseFailed(f"{fwd.__name__} loaded {total / (reps + warmup)} "
+                          f"key tiles a call, its rule says {rule}")
+    return ms, total // (reps + warmup)
+
+
 def _rel(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -215,7 +241,9 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     loss that weighs both outputs (so the lse cotangent is nonzero).
     ``seg``: (query, key) segment ids, int32 on the card — the packed
     kernels K4-K6.  Rows whose every key is masked must give out = 0,
-    lse = -1e30 and dq = 0.  Returns (ok, errors, kernel outputs, v)."""
+    lse = -1e30 and dq = 0.  The forward must take the wgmma kernel in
+    bf16 and the FMA kernel in fp32 (its ``sm90_launches`` counter).
+    Returns (ok, errors, kernel outputs, v)."""
     import torch
 
     from ddl_tpu_torch.ops import flash_attention as fa
@@ -238,9 +266,13 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
         return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
 
     sq, sk = seg if seg is not None else (None, None)
+    fwd = fa.flash_fwd if seg is None else fa.flash_fwd_seg
+    before = (fwd.launches, fwd.sm90_launches)
     kern = run(lambda a, b, c: fa.flash_attention_with_lse(
         a, b, c, q_off, k_off, causal, rep, segment_ids=sq,
         kv_segment_ids=sk))
+    route = (fwd.launches - before[0], fwd.sm90_launches - before[1])
+    want_route = (1, 1 if dtype == torch.bfloat16 else 0)
     plain = run(lambda a, b, c: fa.attention_plain(
         a, b, c, q_off, k_off, causal, rep, sq, sk))
     torch.cuda.synchronize()
@@ -254,13 +286,15 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     finite = all(bool(torch.isfinite(t).all()) for t in kern)
     ok = (
         finite
+        and route == want_route
         and errs["out_abs"] <= tol["out"]
         and errs["lse_abs"] <= tol["lse"]
         and max(errs["dq_rel"], errs["dk_rel"], errs["dv_rel"]) <= tol["grad"]
     )
     log(f"[check] {name}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" | tol out<={tol['out']} lse<={tol['lse']} grad_rel<={tol['grad']}"
-        + f" finite={finite} -> {'ok' if ok else 'FAIL'}")
+        + f" finite={finite} route={'sm90' if route[1] else 'fma'}"
+        + f" -> {'ok' if ok else 'FAIL'}")
     # Rows with no key: the plain version's verdict, from the masks alone.
     empty = plain[1][:, 0] <= -1e29  # (B, Tq)
     if bool(empty.any()):
@@ -306,6 +340,10 @@ def phase_kernels():
          False, TOL_F32),
         ("offsets q_off<k_off bf16 T=256", 1, 256, 256, m["H"], m["Hkv"],
          m["D"], bf16, 0, 100, True, TOL_BF16),
+    ] + [
+        # The head dims of the reference's smaller configs (16, 32) and 64.
+        (f"bf16 D={d} T=300 H=8/2 q_off<k_off", 2, 300, 300, 8, 2, d, bf16,
+         0, 20, True, TOL_BF16) for d in (16, 32, 64)
     ]
     ok = True
     errs_main = None
@@ -317,7 +355,7 @@ def phase_kernels():
     if not ok:
         raise PhaseFailed("a kernel disagrees with its plain version")
     rows = time_kernels(gen, errs_main)
-    return rows + packed_kernels(gen)
+    return rows + packed_kernels(gen, causal_tiles=rows[0]["tiles_visited"])
 
 
 def _ids(a):
@@ -326,7 +364,7 @@ def _ids(a):
     return torch.tensor(a, dtype=torch.int32, device="cuda")
 
 
-def packed_kernels(gen):
+def packed_kernels(gen, causal_tiles):
     """K4-K6 against the plain version: (a) the main shape with ids from
     the document generator, (b) a ragged bf16 length, (c) fp32, (d) key ids
     that differ from the query ids so that some queries have no key,
@@ -358,6 +396,9 @@ def packed_kernels(gen):
          m["Hkv"], m["D"], bf16, 0, 0, True, TOL_BF16, (ids_d, keys_d)),
         ("(e) packed bf16 one-token segments T=256", 2, 256, 256, m["H"],
          m["Hkv"], m["D"], bf16, 0, 0, True, TOL_BF16, (own, own)),
+    ] + [
+        (f"packed bf16 D={d} T=333 H=8/2", 2, 333, 333, 8, 2, d, bf16, 0, 0,
+         True, TOL_BF16, (doc_ids(2, 333, 3000),) * 2) for d in (16, 32, 64)
     ]
     ok = True
     errs_main = None
@@ -377,7 +418,7 @@ def packed_kernels(gen):
             ok &= err == 0.0
     if not ok:
         raise PhaseFailed("a packed kernel disagrees with its plain version")
-    return time_packed_kernels(gen, main_ids, errs_main)
+    return time_packed_kernels(gen, main_ids, errs_main, causal_tiles)
 
 
 def time_kernels(gen, errs):
@@ -399,8 +440,12 @@ def time_kernels(gen, errs):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dlse = torch.zeros_like(lse)
 
+    # K1 visits every tile of the causal loop: live_tiles with one id.
+    zeros = torch.zeros(B, T, dtype=torch.int32)
+    fwd_ms, tiles = _timed_tile_visits(
+        fa.flash_fwd, q, k, v, rule=H * int(fa.live_tiles(zeros, zeros).sum()))
     ms = {
-        "fwd": _time_ms(lambda: fa.flash_fwd(q, k, v)),
+        "fwd": fwd_ms,
         "dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, dlse)),
         "dkv": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, dlse)),
     }
@@ -450,7 +495,8 @@ def time_kernels(gen, errs):
         "dq": ("flash_bwd_dq", "_dq_kernel", 251),
         "dkv": ("flash_bwd_dkv", "_dkv_kernel", 287),
     }
-    rows_out = _kernel_rows(info, work, errs, ms, plain_ms, library_fwd)
+    rows_out = _kernel_rows(info, work, errs, ms, plain_ms, library_fwd,
+                            {"fwd": {"tiles_visited": tiles}})
     log(f"[time] sdpa backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
     return rows_out
 
@@ -466,7 +512,7 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
     """The kernels-JSON rows of one fwd/dq/dkv triple.  ``max_abs_err`` is
     the largest elementwise difference from the plain version in the main
     case, ``rel_err`` (backward) the relative Frobenius error the check
-    holds."""
+    holds.  The bf16 forward is the wgmma kernel of its own source."""
     abs_err = {"fwd": errs["out_abs"], "dq": errs["dq_abs"],
                "dkv": max(errs["dk_abs"], errs["dv_abs"])}
     rel_err = {"fwd": None, "dq": errs["dq_rel"],
@@ -478,7 +524,9 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
         rows_out.append({
             "name": name,
             "route": "cuda",
-            "source": "ddl_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": ("ddl_tpu_torch/ops/csrc/flash_fwd_sm90.cu"
+                       if key == "fwd" else
+                       "ddl_tpu_torch/ops/csrc/flash_attention.cu"),
             "replaces": f"ddl_tpu/ops/flash_attention.py:{line} ({tpu_fn})",
             "launches": 0,
             "max_abs_err": abs_err[key],
@@ -488,21 +536,27 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_fwd if key == "fwd" else None,
-            **(extra[key] if extra else {}),
+            **(extra.get(key, {}) if extra else {}),
         })
         log(f"[time] {name}: {ms[key]:.3f} ms  plain {plain_ms[key]:.3f} ms  "
             f"bound {bound_ms:.4f} ms ({bound_by})"
             + (f"  causal-only bound {extra[key]['causal_bound_ms']:.4f} ms"
-               if extra else "")
+               if extra and key in extra and "causal_bound_ms" in extra[key]
+               else "")
+            + (f"  key tiles loaded {extra[key]['tiles_visited']} (counted)"
+               if extra and key in extra and "tiles_visited" in extra[key]
+               else "")
             + (f"  sdpa {library_fwd:.3f} ms" if key == "fwd" else ""))
     return rows_out
 
 
-def time_packed_kernels(gen, ids_np, errs):
+def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     """K4-K6's kernel, plain and library times at the main shape on the
     packed-document ids of case (a), with the bound of the in-segment
     causal pairs (the work these ids need) and, beside it, the causal-only
-    bound (the work the kernels do today: they skip no tile for its ids)."""
+    bound (the work of every causal tile: the backward kernels skip no
+    tile for its ids).  K4's key tiles loaded, counted by the kernel, over
+    ``causal_tiles``, those K1 loaded at the same shape."""
     import torch
     import torch.nn.functional as F
 
@@ -519,8 +573,11 @@ def time_packed_kernels(gen, ids_np, errs):
     out, lse = fa.flash_fwd_seg(q, k, v, sid, sid)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dlse = torch.zeros_like(lse)
+    fwd_ms, tiles = _timed_tile_visits(
+        fa.flash_fwd_seg, q, k, v, sid, sid,
+        rule=H * int(fa.live_tiles(sid, sid).sum()))
     ms = {
-        "fwd": _time_ms(lambda: fa.flash_fwd_seg(q, k, v, sid, sid)),
+        "fwd": fwd_ms,
         "dq": _time_ms(lambda: fa.flash_bwd_dq_seg(
             q, k, v, dout, lse, delta, dlse, sid, sid)),
         "dkv": _time_ms(lambda: fa.flash_bwd_dkv_seg(
@@ -575,8 +632,14 @@ def time_packed_kernels(gen, ids_np, errs):
     extra = {key: {"causal_bound_ms": _bound(*causal[key])[0],
                    "in_segment_pairs": pairs, "causal_pairs": causal_pairs}
              for key in causal}
+    # The forward's tile skip on these ids, as both kernels counted it:
+    # the key tiles K4 loaded against those K1 loaded at this shape.
+    extra["fwd"].update(tiles_visited=tiles, causal_tiles=causal_tiles,
+                        visited_share=tiles / causal_tiles)
     log(f"[time] packed ids: {pairs} in-segment causal pairs of "
-        f"{causal_pairs} causal ({pairs / causal_pairs:.3%})")
+        f"{causal_pairs} causal ({pairs / causal_pairs:.3%}); K4 loaded "
+        f"{tiles} of the {causal_tiles} key tiles K1 loaded "
+        f"({tiles / causal_tiles:.3%})")
     info = {
         "fwd": ("flash_fwd_seg", "_fwd_kernel_seg", 334),
         "dq": ("flash_bwd_dq_seg", "_dq_kernel_seg", 340),
@@ -604,8 +667,10 @@ def _loss_and_grads(params, tokens, cfg, seg=None):
 def phase_model_check():
     """The model's loss and every gradient through the kernels against the
     dense path on a small fp32 input (the repo's own oracle), unpacked
-    and with packed-document ids; then each remat policy against "none"
-    on the packed input, with its forward launch counts."""
+    and with packed-document ids, at head_dim 64 and at the widths of
+    ``examples/train_llama.py`` (d_model 128, 4 heads, 2 KV heads, d_ff
+    256, so head_dim 32); then each remat policy against
+    "none" on the packed input, with its forward launch counts."""
     import numpy as np
     import torch
 
@@ -623,19 +688,24 @@ def phase_model_check():
     seg_np = np.zeros((2, 200), np.int64)
     seg_np[:, 1:] = np.cumsum(ends[:, :-1], axis=1)
     seg = torch.tensor(seg_np, device="cuda")
-    for label, ids in (("unpacked", None), ("packed", seg)):
-        (l_f, g_f), (l_d, g_d) = (
-            _loss_and_grads(params, tokens,
-                            dataclasses.replace(cfg, attn_impl=impl), ids)
-            for impl in ("flash", "dense"))
-        worst = max(_rel(a, b) for a, b in zip(g_f, g_d))
-        ok = abs(l_f - l_d) <= 1e-5 * abs(l_d) and worst <= 1e-4
-        log(f"[check] llama fp32 {label} flash vs dense: loss {l_f:.6f} vs "
-            f"{l_d:.6f}, worst grad rel err {worst:.3g} | tol loss rel<=1e-5 "
-            f"grad rel<=1e-4 -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise PhaseFailed(f"{label} model through the kernels disagrees "
-                              "with the dense path")
+    example = dataclasses.replace(cfg, d_model=128, d_ff=256)
+    example_params = llama.init_params(example, seed=SEED, device="cuda")
+    for c, p in ((cfg, params), (example, example_params)):
+        for label, ids in (("unpacked", None), ("packed", seg)):
+            (l_f, g_f), (l_d, g_d) = (
+                _loss_and_grads(p, tokens,
+                                dataclasses.replace(c, attn_impl=impl), ids)
+                for impl in ("flash", "dense"))
+            worst = max(_rel(a, b) for a, b in zip(g_f, g_d))
+            ok = abs(l_f - l_d) <= 1e-5 * abs(l_d) and worst <= 1e-4
+            log(f"[check] llama fp32 head_dim {c.head_dim} {label} flash vs "
+                f"dense: loss {l_f:.6f} vs {l_d:.6f}, worst grad rel err "
+                f"{worst:.3g} | tol loss rel<=1e-5 grad rel<=1e-4 -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed(f"{label} model at head_dim {c.head_dim} "
+                                  "through the kernels disagrees with the "
+                                  "dense path")
 
     # Forward kernel launches per layer: the backward re-runs attention
     # under "full" and "dots", never under "selective".
@@ -1617,6 +1687,8 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    fwd = fa.flash_fwd_seg if packed else fa.flash_fwd
+    sm90 = fwd.sm90_launches
 
     steps_per_window = tr["window_rows"] // tr["batch_size"]
     steps = tr["n_epochs"] * steps_per_window
@@ -1630,10 +1702,12 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
         f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     log(f"{tag} kernel launches in this run: {launches} (expected "
         f"{cfg.n_layers} layers x {steps} steps = {expected} for "
-        f"{[fn.__name__ for fn in ran]}, 0 for the others)")
+        f"{[fn.__name__ for fn in ran]}, 0 for the others); "
+        f"{fwd.__name__} on the wgmma kernel: {sm90} (expected {expected})")
     ok = (
         len(result.losses) == tr["n_epochs"]
         and all(math.isfinite(x) for x in result.losses)
+        and sm90 == expected
         and all(fn.launches == expected for fn in ran)
         and all(fn.launches == 0 for fn in idle)
     )
@@ -1642,6 +1716,7 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     summary = {
         "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
         "peak_bytes": peak, "losses": result.losses, "steps": steps,
+        "sm90_launches": sm90,
     }
     if packed:
         summary.update(segments_per_row=segs, boundary_dropped=dropped)

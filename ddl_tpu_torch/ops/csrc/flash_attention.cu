@@ -3,11 +3,13 @@
 // (ddl_tpu_torch/ops/flash_attention.py builds and binds it).
 //
 // Replaces the Pallas TPU kernels of ddl_tpu/ops/flash_attention.py:
-//   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse)
+//   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse;
+//                             fp32 inputs only: bf16 inputs take the wgmma
+//                             kernel of flash_fwd_sm90.cu)
 //   K2 flash_dq_kernel     <- _dq_kernel   (dQ = sum_kv dS K * scale)
 //   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q)
 // and, instantiated with PACKED = true, the packed-segment kernels
-//   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg
+//   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg (fp32, as K1)
 //   K5 flash_dq_kernel<.., true>   <- _dq_kernel_seg
 //   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg
 // which take (B, Tq) / (B, Tk) int32 segment ids and also mask
@@ -37,6 +39,10 @@
 //   K3 loops over the rep query heads of its KV head and accumulates dK/dV
 //   over the group in fp32 (the TPU version writes per-head dK/dV in the
 //   input type and sums the group outside the kernel).
+//
+// Every kernel is instantiated for head dims 16, 32, 64 and 128 (the FMA
+// tiles take any multiple of 16), in fp32 and bf16 except the forward,
+// which is fp32 only.
 //
 // What bounds it on this card: as written, the FP32 FMA pipes fed from
 // shared memory.  Causal attention at the slice's shapes (T = 2048, D = 128)
@@ -617,13 +623,18 @@ constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
 constexpr int ERR_BAD_ARGS = -1;
 
+// The head dims every kernel is instantiated for.
+#define DISPATCH_D(FN, T, P, ...)                                             \
+  if (g.D == 16) return FN<T, 16, P>(__VA_ARGS__);                            \
+  if (g.D == 32) return FN<T, 32, P>(__VA_ARGS__);                            \
+  if (g.D == 64) return FN<T, 64, P>(__VA_ARGS__);                            \
+  if (g.D == 128) return FN<T, 128, P>(__VA_ARGS__)
+
 #define DISPATCH(FN, P, ...)                                                  \
   if (dtype == DT_F32) {                                                      \
-    if (g.D == 64) return FN<float, 64, P>(__VA_ARGS__);                      \
-    if (g.D == 128) return FN<float, 128, P>(__VA_ARGS__);                    \
+    DISPATCH_D(FN, float, P, __VA_ARGS__);                                    \
   } else if (dtype == DT_BF16) {                                              \
-    if (g.D == 64) return FN<__nv_bfloat16, 64, P>(__VA_ARGS__);              \
-    if (g.D == 128) return FN<__nv_bfloat16, 128, P>(__VA_ARGS__);            \
+    DISPATCH_D(FN, __nv_bfloat16, P, __VA_ARGS__);                            \
   }                                                                           \
   return ERR_BAD_ARGS
 
@@ -645,7 +656,11 @@ int fwd_entry(int dtype, const void* q, const void* k, const void* v,
   const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
   if (bad(g)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_fwd, PACKED, q, k, v, out, lse, sq, sk, g, st);
+  // fp32 only: bf16 takes the wgmma kernel of flash_fwd_sm90.cu.
+  if (dtype == DT_F32) {
+    DISPATCH_D(launch_fwd, float, PACKED, q, k, v, out, lse, sq, sk, g, st);
+  }
+  return ERR_BAD_ARGS;
 }
 
 template <bool PACKED>

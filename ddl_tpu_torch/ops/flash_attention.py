@@ -1,12 +1,16 @@
 """Causal flash attention (port of ``ddl_tpu/ops/flash_attention.py``).
 
-Hand-written CUDA kernels (``csrc/flash_attention.cu``) replace the
-Pallas TPU kernels: K1 the online-softmax forward (``_fwd_kernel``), K2
-the dQ backward (``_dq_kernel``) and K3 the dK/dV backward
-(``_dkv_kernel``); K4-K6 are the same kernels with the packed-segment
-mask (``_fwd_kernel_seg``, ``_dq_kernel_seg``, ``_dkv_kernel_seg``),
-behind their own wrappers as the JAX package keeps separate ``_seg``
-entry points.  ``torch.autograd.Function`` carries the gradient, as
+Hand-written CUDA kernels replace the Pallas TPU kernels: K1 the
+online-softmax forward (``_fwd_kernel``), K2 the dQ backward
+(``_dq_kernel``) and K3 the dK/dV backward (``_dkv_kernel``); K4-K6 are
+the same kernels with the packed-segment mask (``_fwd_kernel_seg``,
+``_dq_kernel_seg``, ``_dkv_kernel_seg``), behind their own wrappers as the
+JAX package keeps separate ``_seg`` entry points.  The forward has one
+route per dtype: bf16 takes the wgmma + TMA kernel of
+``csrc/flash_fwd_sm90.cu`` (which also skips key tiles whose document ids
+cannot meet the query tile's, :func:`live_tiles`), fp32 the exact FMA
+kernel of ``csrc/flash_attention.cu``, which also holds K2/K3/K5/K6 for
+both dtypes.  ``torch.autograd.Function`` carries the gradient, as
 ``jax.custom_vjp`` did; ``delta = rowsum(dO * O)`` stays plain torch
 outside the kernels, as in the JAX package.
 
@@ -15,11 +19,15 @@ densely in PyTorch — masked with the same finite ``-1e30``, the same
 empty-row rule, returning ``(out, lse)``, differentiated by autograd.
 The public wrappers take it only for tensors on the CPU; a CUDA tensor
 reaches the kernels or raises.  Each kernel wrapper counts its launches
-(``.launches``), so a run can show that it went through the kernel.
+(``.launches``), so a run can show that it went through the kernel; the
+two forward wrappers also count the launches the bf16 wgmma kernel served
+(``.sm90_launches``), so a run shows which route it took.
 
 Layouts follow the JAX package: q ``(B, T, H, D)``, k/v compact GQA
 ``(B, T, H / kv_repeat, D)``, lse ``(B, H, T)`` fp32, segment ids
-``(B, Tq)`` / ``(B, Tk)`` (int32, contiguous, for the kernels).
+``(B, Tq)`` / ``(B, Tk)`` (int32, contiguous, for the kernels).  Head dims
+16, 32, 64 and 128; the bf16 forward's TMA also needs q, k and v 16-byte
+aligned.
 """
 
 from __future__ import annotations
@@ -31,7 +39,11 @@ import torch
 
 _NEG_INF = -1e30
 #: Head dims the kernels are instantiated for.
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
+#: Query rows and key rows of the bf16 forward's tiles (flash_fwd_sm90.cu's
+#: BQ and BK; the kernel's tile counter holds :func:`live_tiles` to them).
+SM90_BLOCK_Q = 128
+SM90_BLOCK_K = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -60,12 +72,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_sm90() -> ctypes.CDLL:
+    """The bf16 forward's library, built at first use."""
+    from ddl_tpu_torch.ops import _build
+
+    lib = _build.load("flash_fwd_sm90")
+    if not getattr(lib, "_ddl_bound", False):
+        lib.ddl_flash_fwd_sm90.argtypes = (
+            [_P] * 9 + [_I] * 9 + [_F, _P])
+        lib.ddl_flash_fwd_sm90.restype = _I
+        lib._ddl_bound = True
+    return lib
+
+
+_ERRORS = {-1: "unsupported arguments",
+           -2: "the CUDA driver's tensor-map encoder is missing or "
+               "refused a map"}
+
+
 def _check(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: "
-            + ("unsupported arguments" if rc < 0 else f"CUDA error {rc}")
-        )
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + _ERRORS.get(rc, f"CUDA error {rc}"))
 
 
 def _validate(q, k, v) -> Tuple[int, int, int, int, int, int]:
@@ -115,12 +143,23 @@ def _validate_ids(q, k, seg_q, seg_k) -> Tuple[int, int]:
     return seg_q.data_ptr(), seg_k.data_ptr()
 
 
-def _fwd(q, k, v, q_offset, k_offset, causal, seg):
-    """Launch K1 (``seg is None``) or K4 (``seg = (seg_q, seg_k)``)."""
+def _fwd(q, k, v, q_offset, k_offset, causal, seg, visited):
+    """Launch K1 (``seg is None``) or K4 (``seg = (seg_q, seg_k)``): the
+    wgmma kernel for bf16, the FMA kernel for fp32.  Returns ``(out, lse,
+    sm90)``, ``sm90`` telling which route ran."""
     B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
     ids = () if seg is None else _validate_ids(q, k, *seg)
+    if visited is not None and (
+            q.dtype != torch.bfloat16 or visited.dtype != torch.int64
+            or visited.numel() != 1 or visited.device != q.device):
+        raise ValueError("visited counts the bf16 kernel's key tiles: a "
+                         f"one-element int64 tensor on {q.device}, with bf16 "
+                         "q, k, v")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        return (*_fwd_sm90(q, k, v, out, lse, ids, q_offset, k_offset,
+                           causal, visited), True)
     lib = _lib()
     rc = (lib.ddl_flash_fwd if seg is None else lib.ddl_flash_fwd_seg)(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -129,7 +168,69 @@ def _fwd(q, k, v, q_offset, k_offset, causal, seg):
         _stream(q),
     )
     _check(rc, "flash forward")
+    return out, lse, False
+
+
+def _fwd_sm90(q, k, v, out, lse, ids, q_offset, k_offset, causal, visited):
+    """Launch the bf16 wgmma kernel (and, for K4, its id-range pre-pass
+    into a scratch of ``2 * B * (ceil(Tq / 64) + ceil(Tk / 128))`` int32)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the TMA "
+                             f"copies, got address {t.data_ptr():#x}")
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    ranges = None
+    if ids:
+        n = 2 * B * (-(-Tq // 64) + -(-Tk // SM90_BLOCK_K))
+        ranges = torch.empty(n, dtype=torch.int32, device=q.device)
+    rc = _lib_sm90().ddl_flash_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *(ids or (None, None)),
+        None if ranges is None else ranges.data_ptr(),
+        None if visited is None else visited.data_ptr(), B, Tq, Tk, H, Hkv, D,
+        int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
+        _stream(q),
+    )
+    _check(rc, "flash forward (sm90)")
     return out, lse
+
+
+def live_tiles(seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
+    """Which (query tile, key tile) pairs the bf16 packed forward visits:
+    ``(B, ceil(Tq / SM90_BLOCK_Q), ceil(Tk / SM90_BLOCK_K))`` bool.
+
+    A pair is visited when the causal loop reaches it (key tile j while
+    ``j * BK <= q_offset + q0 + BQ - 1 - k_offset``, ``q0`` the tile's
+    first row) and the tiles' id ranges ``[min, max]`` overlap.  A pair
+    with ``seg_q[q] == seg_k[k]`` puts that id in both ranges, so no pair
+    the masks allow is ever skipped, whatever the ids.  The plain
+    statement of the kernel's rule, on any device; with ids all equal it
+    gives the tiles of the causal loop alone (what K1 visits).
+    """
+    block_q, block_k = SM90_BLOCK_Q, SM90_BLOCK_K
+    seg_q, seg_k = torch.as_tensor(seg_q), torch.as_tensor(seg_k)
+
+    def ranges(ids, block):
+        B, T = ids.shape
+        n = -(-T // block)
+        pad = n * block - T
+        ids = ids.to(torch.int64)
+        lo = torch.nn.functional.pad(ids, (0, pad), value=2 ** 62)
+        hi = torch.nn.functional.pad(ids, (0, pad), value=-(2 ** 62))
+        return (lo.view(B, n, block).amin(-1), hi.view(B, n, block).amax(-1))
+
+    q_lo, q_hi = ranges(seg_q, block_q)
+    k_lo, k_hi = ranges(seg_k, block_k)
+    live = ((q_lo[:, :, None] <= k_hi[:, None, :])
+            & (k_lo[:, None, :] <= q_hi[:, :, None]))
+    if causal:
+        dev = live.device
+        q_last = q_offset + torch.arange(live.shape[1], device=dev) * block_q \
+            + block_q - 1 - k_offset
+        k_first = torch.arange(live.shape[2], device=dev) * block_k
+        live &= (k_first[None, :] <= q_last[:, None])[None]
+    return live
 
 
 def _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal, seg):
@@ -169,11 +270,15 @@ def _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
     return dk, dv
 
 
-def flash_fwd(q, k, v, q_offset=0, k_offset=0, causal=True):
-    """K1: ``(out, lse)`` of causal GQA attention, on the current stream."""
-    out = _fwd(q, k, v, q_offset, k_offset, causal, None)
+def flash_fwd(q, k, v, q_offset=0, k_offset=0, causal=True, visited=None):
+    """K1: ``(out, lse)`` of causal GQA attention, on the current stream.
+    ``visited`` (bf16 only): a one-element int64 tensor on the card that
+    gains the number of key tiles the kernel loads, summed over every
+    (batch row, head, query tile)."""
+    out, lse, sm90 = _fwd(q, k, v, q_offset, k_offset, causal, None, visited)
     flash_fwd.launches += 1
-    return out
+    flash_fwd.sm90_launches += sm90
+    return out, lse
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
@@ -196,11 +301,15 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
     return dkv
 
 
-def flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
-    """K4: K1 that also masks ``seg_q[q] != seg_k[k]`` (packed documents)."""
-    out = _fwd(q, k, v, q_offset, k_offset, causal, (seg_q, seg_k))
+def flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset=0, k_offset=0, causal=True,
+                  visited=None):
+    """K4: K1 that also masks ``seg_q[q] != seg_k[k]`` (packed documents);
+    ``visited`` as for K1 counts the key tiles its skip leaves to load."""
+    out, lse, sm90 = _fwd(q, k, v, q_offset, k_offset, causal, (seg_q, seg_k),
+                          visited)
     flash_fwd_seg.launches += 1
-    return out
+    flash_fwd_seg.sm90_launches += sm90
+    return out, lse
 
 
 def flash_bwd_dq_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
@@ -224,13 +333,15 @@ def flash_bwd_dkv_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
 #: The kernel wrappers, in K1..K6 order.
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
            flash_fwd_seg, flash_bwd_dq_seg, flash_bwd_dkv_seg)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    flash_fwd.sm90_launches = flash_fwd_seg.sm90_launches = 0
+
+
+reset_launch_counts()
 
 
 def _validate_rows(dout, q, lse, delta, dlse) -> None:

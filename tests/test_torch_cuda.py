@@ -14,7 +14,10 @@ Tolerances: fp32 — both sides take exact fp32 products, only the
 summation order differs: 1e-4.  bf16 — the kernels round ``p`` and ``ds``
 to bf16 before their products (as the TPU kernels do), the plain version
 keeps fp32: ``out`` atol 2e-2, ``lse`` 1e-3, gradients relative Frobenius
-error 2e-2.
+error 2e-2.  The forward takes the wgmma kernel in bf16 and the FMA kernel
+in fp32; every head dim the kernels take (16, 32, 64, 128) is checked.
+The flash tests alone: ``python -m pytest tests/test_torch_cuda.py
+--noconftest -q -k flash``.
 
 Rounding that differs from the JAX package: K3 sums dK/dV over a KV
 head's ``rep`` query heads in fp32 inside the kernel and rounds once,
@@ -25,6 +28,7 @@ is up to ``rep`` extra half-ulp roundings per element in the JAX package
 kernel does not incur; in fp32 the two agree to summation order.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -54,8 +58,9 @@ def _inputs(seed, B, Tq, Tk, H, Hkv, D):
         (B, H, Tq))]
 
 
+@pytest.mark.flash
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_kernels_match_plain(dtype, D):
     """K1-K3 against the plain version: out, lse and the three gradients,
     with a nonzero lse cotangent and fully masked rows (k_off = 30)."""
@@ -87,6 +92,7 @@ def test_kernels_match_plain(dtype, D):
     assert (got[1][..., :30] == -1e30).all() and not got[0][:, :30].any()
 
 
+@pytest.mark.flash
 def test_kernels_refuse_what_they_do_not_take():
     q = torch.zeros(1, 8, 2, 64, device="cuda")
     k = torch.zeros(1, 8, 1, 64, device="cuda")
@@ -97,6 +103,94 @@ def test_kernels_refuse_what_they_do_not_take():
                       k[..., :48].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_fwd(q.transpose(1, 2), k, k)
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+def test_forward_route_follows_the_dtype(packed):
+    """bf16 reaches the wgmma kernel (``sm90_launches``), fp32 the FMA
+    kernel; both count as K1 (K4 packed)."""
+    fwd = tfa.flash_fwd_seg if packed else tfa.flash_fwd
+    q, k, v, _, _ = _inputs(8, 1, 130, 130, 4, 2, 64)
+    ids = torch.tensor(_doc_ids(np.random.default_rng(8), 1, 130, 30),
+                       device="cuda")
+    seg = (ids, ids) if packed else ()
+    tfa.reset_launch_counts()
+    # Cumulative counts: the bf16 call moves both, the fp32 one .launches.
+    for dt, counts in ((torch.bfloat16, (1, 1)), (torch.float32, (2, 1))):
+        ts = [torch.tensor(x, device="cuda").to(dt) for x in (q, k, v)]
+        fwd(*ts, *seg)
+        torch.cuda.synchronize()
+        assert (fwd.launches, fwd.sm90_launches) == counts
+    other = tfa.flash_fwd if packed else tfa.flash_fwd_seg
+    assert other.launches == other.sm90_launches == 0
+    # The tile counter belongs to the wgmma kernel alone.
+    with pytest.raises(ValueError, match="visited"):
+        fwd(*ts, *seg, visited=torch.zeros(1, dtype=torch.int64,
+                                           device="cuda"))
+
+
+@pytest.mark.flash
+def test_bf16_forward_refuses_misaligned_tensors():
+    """The TMA copies need 16-byte aligned bases: a contiguous view 2 bytes
+    into its storage raises, and launches nothing."""
+    buf = torch.zeros(1 * 8 * 2 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    q = buf[1:].view(1, 8, 2, 64)
+    k = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16, device="cuda")
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(q, k, k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(k.expand(1, 8, 2, 64).contiguous(), buf[1:513].view(
+            1, 8, 1, 64), k)
+    assert tfa.flash_fwd.launches == tfa.flash_fwd.sm90_launches == 0
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+def test_example_llama_widths_run_through_the_kernels(packed):
+    """The model of ``examples/train_llama.py`` (d_model
+    128, 2 layers, 4 heads, 2 KV heads, d_ff 256, so head_dim 32) through
+    the kernels against ``attn_impl="dense"``: loss and every gradient, in
+    fp32 at the model check's tolerances (loss rel 1e-5, grads rel 1e-4);
+    then the bf16 forward at those widths rides the wgmma kernel."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.train import tree_leaves, tree_map
+
+    rng = np.random.default_rng(11)
+    tokens = torch.tensor(rng.integers(0, 256, (2, 160)), device="cuda")
+    seg = (torch.tensor(_doc_ids(rng, 2, 160, 30), device="cuda")
+           if packed else None)
+    cfg = llama.LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, dtype=torch.float32)
+    assert cfg.head_dim == 32
+
+    def run(impl):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          llama.init_params(c, seed=3))
+        loss = llama.next_token_loss(params, tokens, c, segment_ids=seg)
+        loss.backward()
+        return float(loss.detach()), [t.grad for t in tree_leaves(params)]
+
+    tfa.reset_launch_counts()
+    l_f, g_f = run("flash")
+    ran = tfa.KERNELS[3:] if packed else tfa.KERNELS[:3]
+    assert all(fn.launches == cfg.n_layers for fn in ran)
+    l_d, g_d = run("dense")
+    assert l_f == pytest.approx(l_d, rel=1e-5)
+    for g, w in zip(g_f, g_d):
+        assert float((g - w).norm()) <= 1e-4 * float(w.norm()) + 1e-12
+    bf = dataclasses.replace(cfg, dtype=torch.bfloat16, attn_impl="flash")
+    fwd = tfa.flash_fwd_seg if packed else tfa.flash_fwd
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        logits = llama.forward(llama.init_params(bf, seed=3), tokens, bf,
+                               segment_ids=seg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
+    assert fwd.sm90_launches == fwd.launches == cfg.n_layers
 
 
 def _stream(path, device, epochs):
@@ -136,6 +230,7 @@ def test_pinned_window_stream_equals_cpu_stream(tmp_path):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.flash
 def test_tiny_fit_runs_through_the_kernels(tmp_path):
     from ddl_tpu_torch.config import LoaderConfig
     from ddl_tpu_torch.models import llama
@@ -169,8 +264,9 @@ def _doc_ids(rng, B, T, mean_len):
     return ids
 
 
+@pytest.mark.flash
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_packed_kernels_match_plain(dtype, D):
     """K4-K6 against the plain version on random documents, with key ids
     that differ from the query ids: the queries of segment 1 have no key,
@@ -211,6 +307,54 @@ def test_packed_kernels_match_plain(dtype, D):
     assert not got[0][empty].any() and not got[2][empty].any()
 
 
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("causal,Tq,Tk,H,Hkv,q_off,k_off", [
+    (False, 200, 260, 4, 4, 0, 0),    # no causal loop bound, Tq != Tk
+    (True, 48, 300, 4, 1, 240, 8),    # queries late in the keys
+    (True, 130, 130, 2, 2, 0, 0),     # rep 1, a ragged second query tile
+])
+def test_bf16_forward_geometries(packed, causal, Tq, Tk, H, Hkv, q_off, k_off):
+    """The wgmma forward (K1, K4 packed) against the plain version on the
+    geometries the model path does not take: non-causal, q_off > k_off
+    with Tq != Tk, one query head per KV head.  The key tiles the kernel
+    loads (its ``visited`` counter) are those :func:`live_tiles` names,
+    in every head: the rule and the kernel's tile sizes agree."""
+    q, k, v, _, _ = _inputs(12, 2, Tq, Tk, H, Hkv, 64)
+    ts = [torch.tensor(x, device="cuda").bfloat16() for x in (q, k, v)]
+    seg = {}
+    if packed:
+        ids = _doc_ids(np.random.default_rng(12), 2, q_off + Tq + k_off + Tk,
+                       25)
+        seg = dict(segment_ids=torch.tensor(ids[:, q_off:q_off + Tq],
+                                            device="cuda").contiguous(),
+                   kv_segment_ids=torch.tensor(ids[:, k_off:k_off + Tk],
+                                               device="cuda").contiguous())
+    fwd = tfa.flash_fwd_seg if packed else tfa.flash_fwd
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        out, lse = tfa.flash_attention_with_lse(*ts, q_off, k_off, causal,
+                                                H // Hkv, **seg)
+        want_out, want_lse = tfa.attention_plain(
+            *ts, q_off, k_off, causal, H // Hkv, seg.get("segment_ids"),
+            seg.get("kv_segment_ids"))
+    torch.cuda.synchronize()
+    assert fwd.sm90_launches == 1
+    live = want_lse > -1e29
+    assert float((out.float() - want_out.float()).abs().max()) <= 2e-2
+    assert float((lse - want_lse)[live].abs().max()) <= 1e-3
+    assert bool((lse[~live] == -1e30).all())
+    assert not out.transpose(1, 2)[~live].any()
+    ids = (seg["segment_ids"], seg["kv_segment_ids"]) if packed else (
+        torch.zeros(2, Tq, dtype=torch.int32), torch.zeros(2, Tk,
+                                                           dtype=torch.int32))
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    fwd(*ts, *(ids if packed else ()), q_off, k_off, causal, visited=visited)
+    rule = int(tfa.live_tiles(*ids, q_off, k_off, causal).sum())
+    assert int(visited) == H * rule > 0
+
+
+@pytest.mark.flash
 def test_packed_kernels_refuse_bad_ids():
     q = torch.zeros(1, 8, 2, 64, device="cuda")
     k = torch.zeros(1, 8, 1, 64, device="cuda")
@@ -233,6 +377,7 @@ def _packed_file(path, vocab, n_tokens, seed):
     tokens.tofile(path)
 
 
+@pytest.mark.flash
 def test_tiny_packed_fit_runs_through_packed_kernels(tmp_path):
     """The packed path end to end: PackedTokenProducer -> window stream ->
     segment-masked loss.  K4-K6 launch once per layer per step; K1-K3
@@ -260,6 +405,7 @@ def test_tiny_packed_fit_runs_through_packed_kernels(tmp_path):
             == [0, 0, 0] + [cfg.n_layers * steps] * 3)
 
 
+@pytest.mark.flash
 @pytest.mark.parametrize("policy,fwd_per_layer",
                          [("none", 1), ("selective", 1), ("full", 2),
                           ("dots", 2)])
