@@ -14,12 +14,16 @@ rows are all masked, and bf16 at head dims 16, 32 and 64), times kernel,
 plain version and the PyTorch library call, and computes each kernel's
 bound.  The packed-segment kernels K4-K6 get the same treatment on
 packed-document ids, plus key ids that leave some queries without a key
-and one-token segments.  Every case checks the forward's route by its
-counters: bf16 on the wgmma kernel (``flash_fwd_sm90.cu``), fp32 on the
-FMA kernel.  The timed K1/K4 calls run with the kernel's own count of the
-key tiles it loads: K1's is the causal loop's, K4's what its document
-skip leaves, and K4's row gives the share; both must equal the count that
-``live_tiles`` (the skip's rule in Python) gives.
+and one-token segments.  Every case checks the routes of the forward and
+of the dK/dV backward by their counters: bf16 on the wgmma kernels
+(``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``), fp32 on the FMA kernels;
+and that keys no query reaches get dk = dv = 0 exactly.  The timed K1/K4
+calls run with the kernel's own count of the key tiles it loads, the
+timed K3/K6 calls with its count of the query tiles it loads: K1's and
+K3's are the causal loop's, K4's and K6's what their document skip
+leaves, and the packed rows give the share; each must equal the count
+that ``live_tiles`` / ``live_tiles_dkv`` (the skips' rules in Python)
+give.
 Phase 3 checks the model's loss and gradients through the kernels
 against the dense path on a small input, unpacked and packed, at head_dim
 64 and at the widths of examples/train_llama.py (head_dim 32), and the remat
@@ -53,7 +57,7 @@ Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
 in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
 over a ``PackedTokenProducer`` stream of documents (K4-K6); every forward
-launch of both fits must ride the wgmma kernel.
+and dK/dV launch of both fits must ride the wgmma kernels.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -112,7 +116,8 @@ class PhaseFailed(Exception):
 # ------------------------------------------------------------- phase 1 ---
 
 #: The kernel sources, one library each.
-SOURCES = ("flash_fwd_sm90", "flash_attention", "device_shuffle", "ici_fanout")
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention",
+           "device_shuffle", "ici_fanout")
 
 
 def phase_build():
@@ -170,21 +175,24 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _timed_tile_visits(fwd, *args, rule: int):
-    """``fwd`` (the bf16 K1 or K4 wrapper) timed by ``_time_ms`` with the
-    kernel's tile counter on: (ms, key tiles the kernel loaded per call).
-    Fails unless every call loaded ``rule`` tiles."""
+def _timed_tile_visits(fn, *args, rule: int):
+    """``fn`` (the bf16 K1/K4 or K3/K6 wrapper) timed by ``_time_ms`` with
+    the kernel's tile counter on: (ms, tiles the kernel loaded per call —
+    key tiles for the forward, query tiles for the dK/dV backward).  Fails
+    unless every call loaded ``rule`` tiles."""
     import torch
 
     visited = torch.zeros(1, dtype=torch.int64, device="cuda")
     reps, warmup = 10, 2
-    ms = _time_ms(lambda: fwd(*args, visited=visited), reps, warmup)
+    ms = _time_ms(lambda: fn(*args, visited=visited), reps, warmup)
     total = int(visited)
-    log(f"[time] {fwd.__name__}: the kernel loaded {total} key tiles in "
-        f"{reps + warmup} calls; live_tiles (computed) gives {rule} a call")
+    what, rule_fn = (("query tiles", "live_tiles_dkv") if "dkv" in fn.__name__
+                     else ("key tiles", "live_tiles"))
+    log(f"[time] {fn.__name__}: the kernel loaded {total} {what} in "
+        f"{reps + warmup} calls; {rule_fn} (computed) gives {rule} a call")
     if total != (reps + warmup) * rule:
-        raise PhaseFailed(f"{fwd.__name__} loaded {total / (reps + warmup)} "
-                          f"key tiles a call, its rule says {rule}")
+        raise PhaseFailed(f"{fn.__name__} loaded {total / (reps + warmup)} "
+                          f"{what} a call, its rule says {rule}")
     return ms, total // (reps + warmup)
 
 
@@ -241,9 +249,10 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     loss that weighs both outputs (so the lse cotangent is nonzero).
     ``seg``: (query, key) segment ids, int32 on the card — the packed
     kernels K4-K6.  Rows whose every key is masked must give out = 0,
-    lse = -1e30 and dq = 0.  The forward must take the wgmma kernel in
-    bf16 and the FMA kernel in fp32 (its ``sm90_launches`` counter).
-    Returns (ok, errors, kernel outputs, v)."""
+    lse = -1e30 and dq = 0; keys that no query reaches, dk = dv = 0
+    exactly.  The forward and the dK/dV backward must take their wgmma
+    kernels in bf16 and the FMA kernels in fp32 (their ``sm90_launches``
+    counters).  Returns (ok, errors, kernel outputs, v)."""
     import torch
 
     from ddl_tpu_torch.ops import flash_attention as fa
@@ -266,13 +275,15 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
         return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
 
     sq, sk = seg if seg is not None else (None, None)
-    fwd = fa.flash_fwd if seg is None else fa.flash_fwd_seg
-    before = (fwd.launches, fwd.sm90_launches)
+    routed = ((fa.flash_fwd, fa.flash_bwd_dkv) if seg is None
+              else (fa.flash_fwd_seg, fa.flash_bwd_dkv_seg))
+    before = [(f.launches, f.sm90_launches) for f in routed]
     kern = run(lambda a, b, c: fa.flash_attention_with_lse(
         a, b, c, q_off, k_off, causal, rep, segment_ids=sq,
         kv_segment_ids=sk))
-    route = (fwd.launches - before[0], fwd.sm90_launches - before[1])
-    want_route = (1, 1 if dtype == torch.bfloat16 else 0)
+    route = [(f.launches - n, f.sm90_launches - m)
+             for f, (n, m) in zip(routed, before)]
+    want_route = [(1, 1 if dtype == torch.bfloat16 else 0)] * 2
     plain = run(lambda a, b, c: fa.attention_plain(
         a, b, c, q_off, k_off, causal, rep, sq, sk))
     torch.cuda.synchronize()
@@ -293,7 +304,8 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     )
     log(f"[check] {name}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" | tol out<={tol['out']} lse<={tol['lse']} grad_rel<={tol['grad']}"
-        + f" finite={finite} route={'sm90' if route[1] else 'fma'}"
+        + f" finite={finite} route fwd/dkv="
+        + "/".join("sm90" if r[1] else "fma" for r in route)
         + f" -> {'ok' if ok else 'FAIL'}")
     # Rows with no key: the plain version's verdict, from the masks alone.
     empty = plain[1][:, 0] <= -1e29  # (B, Tq)
@@ -304,6 +316,21 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
                 and float(kern[2][empty].abs().max()) == 0.0)
         log(f"[check] {name}: {int(empty.sum())} query rows with no key: "
             f"out = 0, lse = -1e30, dq = 0 -> {'ok' if held else 'FAIL'}")
+        ok &= held
+    # Keys that no query reaches, from the masks alone.
+    allowed = torch.ones(B, Tq, Tk, dtype=torch.bool, device=dev)
+    if causal:
+        allowed &= ((k_off + torch.arange(Tk, device=dev))[None, :]
+                    <= (q_off + torch.arange(Tq, device=dev))[:, None])
+    if seg is not None:
+        allowed &= sq.long()[:, :, None] == sk.long()[:, None, :]
+    unreached = ~allowed.any(1)  # (B, Tk)
+    del allowed
+    if bool(unreached.any()):
+        held = (float(kern[3][unreached].abs().max()) == 0.0
+                and float(kern[4][unreached].abs().max()) == 0.0)
+        log(f"[check] {name}: {int(unreached.sum())} keys no query reaches: "
+            f"dk = dv = 0 exactly -> {'ok' if held else 'FAIL'}")
         ok &= held
     return ok, errs, kern, v
 
@@ -355,7 +382,9 @@ def phase_kernels():
     if not ok:
         raise PhaseFailed("a kernel disagrees with its plain version")
     rows = time_kernels(gen, errs_main)
-    return rows + packed_kernels(gen, causal_tiles=rows[0]["tiles_visited"])
+    return rows + packed_kernels(gen, causal_tiles={
+        row["name"]: row["tiles_visited"] for row in rows
+        if "tiles_visited" in row})
 
 
 def _ids(a):
@@ -440,14 +469,18 @@ def time_kernels(gen, errs):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dlse = torch.zeros_like(lse)
 
-    # K1 visits every tile of the causal loop: live_tiles with one id.
+    # K1 and K3 visit every tile of the causal loop: live_tiles and
+    # live_tiles_dkv with one id.
     zeros = torch.zeros(B, T, dtype=torch.int32)
     fwd_ms, tiles = _timed_tile_visits(
         fa.flash_fwd, q, k, v, rule=H * int(fa.live_tiles(zeros, zeros).sum()))
+    dkv_ms, dkv_tiles = _timed_tile_visits(
+        fa.flash_bwd_dkv, q, k, v, dout, lse, delta, dlse,
+        rule=H * int(fa.live_tiles_dkv(zeros, zeros).sum()))
     ms = {
         "fwd": fwd_ms,
         "dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, dlse)),
-        "dkv": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, dlse)),
+        "dkv": dkv_ms,
     }
 
     # Plain versions: the dense forward, and its autograd backward asked
@@ -496,7 +529,8 @@ def time_kernels(gen, errs):
         "dkv": ("flash_bwd_dkv", "_dkv_kernel", 287),
     }
     rows_out = _kernel_rows(info, work, errs, ms, plain_ms, library_fwd,
-                            {"fwd": {"tiles_visited": tiles}})
+                            {"fwd": {"tiles_visited": tiles},
+                             "dkv": {"tiles_visited": dkv_tiles}})
     log(f"[time] sdpa backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
     return rows_out
 
@@ -512,7 +546,8 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
     """The kernels-JSON rows of one fwd/dq/dkv triple.  ``max_abs_err`` is
     the largest elementwise difference from the plain version in the main
     case, ``rel_err`` (backward) the relative Frobenius error the check
-    holds.  The bf16 forward is the wgmma kernel of its own source."""
+    holds.  The bf16 forward and dK/dV backward are the wgmma kernels of
+    their own sources."""
     abs_err = {"fwd": errs["out_abs"], "dq": errs["dq_abs"],
                "dkv": max(errs["dk_abs"], errs["dv_abs"])}
     rel_err = {"fwd": None, "dq": errs["dq_rel"],
@@ -524,9 +559,9 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
         rows_out.append({
             "name": name,
             "route": "cuda",
-            "source": ("ddl_tpu_torch/ops/csrc/flash_fwd_sm90.cu"
-                       if key == "fwd" else
-                       "ddl_tpu_torch/ops/csrc/flash_attention.cu"),
+            "source": "ddl_tpu_torch/ops/csrc/" + {
+                "fwd": "flash_fwd_sm90.cu", "dq": "flash_attention.cu",
+                "dkv": "flash_bwd_sm90.cu"}[key],
             "replaces": f"ddl_tpu/ops/flash_attention.py:{line} ({tpu_fn})",
             "launches": 0,
             "max_abs_err": abs_err[key],
@@ -543,7 +578,8 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
             + (f"  causal-only bound {extra[key]['causal_bound_ms']:.4f} ms"
                if extra and key in extra and "causal_bound_ms" in extra[key]
                else "")
-            + (f"  key tiles loaded {extra[key]['tiles_visited']} (counted)"
+            + (f"  {'query' if key == 'dkv' else 'key'} tiles loaded "
+               f"{extra[key]['tiles_visited']} (counted)"
                if extra and key in extra and "tiles_visited" in extra[key]
                else "")
             + (f"  sdpa {library_fwd:.3f} ms" if key == "fwd" else ""))
@@ -554,9 +590,10 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     """K4-K6's kernel, plain and library times at the main shape on the
     packed-document ids of case (a), with the bound of the in-segment
     causal pairs (the work these ids need) and, beside it, the causal-only
-    bound (the work of every causal tile: the backward kernels skip no
-    tile for its ids).  K4's key tiles loaded, counted by the kernel, over
-    ``causal_tiles``, those K1 loaded at the same shape."""
+    bound (the work of every causal tile: K5 skips no tile for its ids).
+    K4's key tiles and K6's query tiles loaded, counted by the kernels,
+    over ``causal_tiles`` (by unpacked wrapper name), those K1 and K3
+    loaded at the same shape."""
     import torch
     import torch.nn.functional as F
 
@@ -576,12 +613,14 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     fwd_ms, tiles = _timed_tile_visits(
         fa.flash_fwd_seg, q, k, v, sid, sid,
         rule=H * int(fa.live_tiles(sid, sid).sum()))
+    dkv_ms, dkv_tiles = _timed_tile_visits(
+        fa.flash_bwd_dkv_seg, q, k, v, dout, lse, delta, dlse, sid, sid,
+        rule=H * int(fa.live_tiles_dkv(sid, sid).sum()))
     ms = {
         "fwd": fwd_ms,
         "dq": _time_ms(lambda: fa.flash_bwd_dq_seg(
             q, k, v, dout, lse, delta, dlse, sid, sid)),
-        "dkv": _time_ms(lambda: fa.flash_bwd_dkv_seg(
-            q, k, v, dout, lse, delta, dlse, sid, sid)),
+        "dkv": dkv_ms,
     }
 
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -632,14 +671,20 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     extra = {key: {"causal_bound_ms": _bound(*causal[key])[0],
                    "in_segment_pairs": pairs, "causal_pairs": causal_pairs}
              for key in causal}
-    # The forward's tile skip on these ids, as both kernels counted it:
-    # the key tiles K4 loaded against those K1 loaded at this shape.
-    extra["fwd"].update(tiles_visited=tiles, causal_tiles=causal_tiles,
-                        visited_share=tiles / causal_tiles)
+    # The tile skips on these ids, as the kernels counted them: the key
+    # tiles K4 loaded against those K1 loaded at this shape, the query
+    # tiles K6 loaded against K3's.
+    for key, n, unpacked in (("fwd", tiles, "flash_fwd"),
+                             ("dkv", dkv_tiles, "flash_bwd_dkv")):
+        extra[key].update(tiles_visited=n,
+                          causal_tiles=causal_tiles[unpacked],
+                          visited_share=n / causal_tiles[unpacked])
     log(f"[time] packed ids: {pairs} in-segment causal pairs of "
         f"{causal_pairs} causal ({pairs / causal_pairs:.3%}); K4 loaded "
-        f"{tiles} of the {causal_tiles} key tiles K1 loaded "
-        f"({tiles / causal_tiles:.3%})")
+        f"{tiles} of the {causal_tiles['flash_fwd']} key tiles K1 loaded "
+        f"({tiles / causal_tiles['flash_fwd']:.3%}); K6 loaded {dkv_tiles} "
+        f"of the {causal_tiles['flash_bwd_dkv']} query tiles K3 loaded "
+        f"({dkv_tiles / causal_tiles['flash_bwd_dkv']:.3%})")
     info = {
         "fwd": ("flash_fwd_seg", "_fwd_kernel_seg", 334),
         "dq": ("flash_bwd_dq_seg", "_dq_kernel_seg", 340),
@@ -1580,7 +1625,8 @@ def profile_run(run, what: str) -> None:
     for e in events:
         name = e.key.lower()
         group = next((g for g, keys in (
-            ("flash kernels", ("flash_",)),
+            ("flash kernels", ("flash_", "id_range_kernel",
+                               "row_terms_kernel")),
             ("exchange kernel K9", ("exchange_kernel",)),
             ("fan-out kernels K7/K8", ("fanout_kernel",)),
             ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1687,8 +1733,9 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
-    fwd = fa.flash_fwd_seg if packed else fa.flash_fwd
-    sm90 = fwd.sm90_launches
+    fwd, dkv = ((fa.flash_fwd_seg, fa.flash_bwd_dkv_seg) if packed
+                else (fa.flash_fwd, fa.flash_bwd_dkv))
+    sm90, dkv_sm90 = fwd.sm90_launches, dkv.sm90_launches
 
     steps_per_window = tr["window_rows"] // tr["batch_size"]
     steps = tr["n_epochs"] * steps_per_window
@@ -1702,12 +1749,14 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
         f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     log(f"{tag} kernel launches in this run: {launches} (expected "
         f"{cfg.n_layers} layers x {steps} steps = {expected} for "
-        f"{[fn.__name__ for fn in ran]}, 0 for the others); "
-        f"{fwd.__name__} on the wgmma kernel: {sm90} (expected {expected})")
+        f"{[fn.__name__ for fn in ran]}, 0 for the others); on the wgmma "
+        f"kernels: {fwd.__name__} {sm90}, {dkv.__name__} {dkv_sm90} "
+        f"(expected {expected} each)")
     ok = (
         len(result.losses) == tr["n_epochs"]
         and all(math.isfinite(x) for x in result.losses)
         and sm90 == expected
+        and dkv_sm90 == expected
         and all(fn.launches == expected for fn in ran)
         and all(fn.launches == 0 for fn in idle)
     )
@@ -1716,7 +1765,7 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     summary = {
         "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
         "peak_bytes": peak, "losses": result.losses, "steps": steps,
-        "sm90_launches": sm90,
+        "sm90_launches": sm90, "dkv_sm90_launches": dkv_sm90,
     }
     if packed:
         summary.update(segments_per_row=segs, boundary_dropped=dropped)

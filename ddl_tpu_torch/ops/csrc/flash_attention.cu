@@ -7,11 +7,13 @@
 //                             fp32 inputs only: bf16 inputs take the wgmma
 //                             kernel of flash_fwd_sm90.cu)
 //   K2 flash_dq_kernel     <- _dq_kernel   (dQ = sum_kv dS K * scale)
-//   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q)
+//   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q;
+//                             fp32 inputs only: bf16 inputs take the wgmma
+//                             kernel of flash_bwd_sm90.cu)
 // and, instantiated with PACKED = true, the packed-segment kernels
 //   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg (fp32, as K1)
 //   K5 flash_dq_kernel<.., true>   <- _dq_kernel_seg
-//   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg
+//   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg (fp32, as K3)
 // which take (B, Tq) / (B, Tk) int32 segment ids and also mask
 // seg_q[q] != seg_k[k].  Each tile stages its BQ query ids and BK key ids in
 // shared memory.  The causal block limits are unchanged (a packed tile is
@@ -41,8 +43,8 @@
 //   input type and sums the group outside the kernel).
 //
 // Every kernel is instantiated for head dims 16, 32, 64 and 128 (the FMA
-// tiles take any multiple of 16), in fp32 and bf16 except the forward,
-// which is fp32 only.
+// tiles take any multiple of 16), in fp32 and bf16 except the forward and
+// the dK/dV backward, which are fp32 only.
 //
 // What bounds it on this card: as written, the FP32 FMA pipes fed from
 // shared memory.  Causal attention at the slice's shapes (T = 2048, D = 128)
@@ -684,8 +686,12 @@ int dkv_entry(int dtype, const void* q, const void* k, const void* v,
   const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
   if (bad(g)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_dkv, PACKED, q, k, v, dout, lse, delta, dlse, dk, dv, sq, sk,
-           g, st);
+  // fp32 only: bf16 takes the wgmma kernel of flash_bwd_sm90.cu.
+  if (dtype == DT_F32) {
+    DISPATCH_D(launch_dkv, float, PACKED, q, k, v, dout, lse, delta, dlse, dk,
+               dv, sq, sk, g, st);
+  }
+  return ERR_BAD_ARGS;
 }
 
 }  // namespace

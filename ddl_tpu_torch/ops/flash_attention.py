@@ -5,14 +5,23 @@ online-softmax forward (``_fwd_kernel``), K2 the dQ backward
 (``_dq_kernel``) and K3 the dK/dV backward (``_dkv_kernel``); K4-K6 are
 the same kernels with the packed-segment mask (``_fwd_kernel_seg``,
 ``_dq_kernel_seg``, ``_dkv_kernel_seg``), behind their own wrappers as the
-JAX package keeps separate ``_seg`` entry points.  The forward has one
-route per dtype: bf16 takes the wgmma + TMA kernel of
-``csrc/flash_fwd_sm90.cu`` (which also skips key tiles whose document ids
-cannot meet the query tile's, :func:`live_tiles`), fp32 the exact FMA
-kernel of ``csrc/flash_attention.cu``, which also holds K2/K3/K5/K6 for
-both dtypes.  ``torch.autograd.Function`` carries the gradient, as
-``jax.custom_vjp`` did; ``delta = rowsum(dO * O)`` stays plain torch
-outside the kernels, as in the JAX package.
+JAX package keeps separate ``_seg`` entry points.  Each kernel has one
+route per dtype:
+
+- the forward (K1/K4): bf16 takes the wgmma + TMA kernel of
+  ``csrc/flash_fwd_sm90.cu`` (which also skips key tiles whose document
+  ids cannot meet the query tile's, :func:`live_tiles`), fp32 the exact
+  FMA kernel of ``csrc/flash_attention.cu``;
+- the dK/dV backward (K3/K6): bf16 takes the wgmma + TMA kernel of
+  ``csrc/flash_bwd_sm90.cu`` (the GQA group summed in registers; K6 skips
+  query tiles whose ids cannot meet the key tile's, :func:`live_tiles_dkv`),
+  fp32 the FMA kernel of ``csrc/flash_attention.cu``;
+- the dQ backward (K2/K5): the FMA kernel of ``csrc/flash_attention.cu``
+  for both dtypes.
+
+``torch.autograd.Function`` carries the gradient, as ``jax.custom_vjp``
+did; ``delta = rowsum(dO * O)`` stays plain torch outside the kernels, as
+in the JAX package.
 
 Beside the kernels, :func:`attention_plain` is the same function written
 densely in PyTorch — masked with the same finite ``-1e30``, the same
@@ -20,14 +29,14 @@ empty-row rule, returning ``(out, lse)``, differentiated by autograd.
 The public wrappers take it only for tensors on the CPU; a CUDA tensor
 reaches the kernels or raises.  Each kernel wrapper counts its launches
 (``.launches``), so a run can show that it went through the kernel; the
-two forward wrappers also count the launches the bf16 wgmma kernel served
-(``.sm90_launches``), so a run shows which route it took.
+forward and dK/dV wrappers also count the launches their bf16 wgmma kernel
+served (``.sm90_launches``), so a run shows which route it took.
 
 Layouts follow the JAX package: q ``(B, T, H, D)``, k/v compact GQA
 ``(B, T, H / kv_repeat, D)``, lse ``(B, H, T)`` fp32, segment ids
 ``(B, Tq)`` / ``(B, Tk)`` (int32, contiguous, for the kernels).  Head dims
-16, 32, 64 and 128; the bf16 forward's TMA also needs q, k and v 16-byte
-aligned.
+16, 32, 64 and 128; the bf16 wgmma kernels' TMA also needs q, k, v (and
+the backward's ``dout``) 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -44,6 +53,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: BQ and BK; the kernel's tile counter holds :func:`live_tiles` to them).
 SM90_BLOCK_Q = 128
 SM90_BLOCK_K = 128
+#: Query rows and key rows of the bf16 dK/dV backward's tiles
+#: (flash_bwd_sm90.cu's BQ and BK; its tile counter holds
+#: :func:`live_tiles_dkv` to them).
+SM90_DKV_BLOCK_Q = 64
+SM90_DKV_BLOCK_K = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -81,6 +95,21 @@ def _lib_sm90() -> ctypes.CDLL:
         lib.ddl_flash_fwd_sm90.argtypes = (
             [_P] * 9 + [_I] * 9 + [_F, _P])
         lib.ddl_flash_fwd_sm90.restype = _I
+        lib._ddl_bound = True
+    return lib
+
+
+def _lib_sm90_bwd() -> ctypes.CDLL:
+    """The bf16 dK/dV backward's library, built at first use."""
+    from ddl_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd_sm90")
+    if not getattr(lib, "_ddl_bound", False):
+        lib.ddl_flash_bwd_dkv_sm90.argtypes = (
+            [_P] * 13 + [_I] * 9 + [_F, _P])
+        lib.ddl_flash_bwd_dkv_sm90.restype = _I
+        lib.ddl_flash_bwd_dkv_sm90_scratch.argtypes = [_I] * 5
+        lib.ddl_flash_bwd_dkv_sm90_scratch.restype = ctypes.c_longlong
         lib._ddl_bound = True
     return lib
 
@@ -143,18 +172,31 @@ def _validate_ids(q, k, seg_q, seg_k) -> Tuple[int, int]:
     return seg_q.data_ptr(), seg_k.data_ptr()
 
 
+def _validate_visited(visited, q, tiles: str) -> None:
+    """``visited``, where given, is a one-element int64 tensor on q's card
+    and the inputs are bf16 (only the wgmma kernels count tiles)."""
+    if visited is not None and (
+            q.dtype != torch.bfloat16 or visited.dtype != torch.int64
+            or visited.numel() != 1 or visited.device != q.device):
+        raise ValueError(f"visited counts the bf16 kernel's {tiles}: a "
+                         f"one-element int64 tensor on {q.device}, with bf16 "
+                         "inputs")
+
+
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the TMA "
+                             f"copies, got address {t.data_ptr():#x}")
+
+
 def _fwd(q, k, v, q_offset, k_offset, causal, seg, visited):
     """Launch K1 (``seg is None``) or K4 (``seg = (seg_q, seg_k)``): the
     wgmma kernel for bf16, the FMA kernel for fp32.  Returns ``(out, lse,
     sm90)``, ``sm90`` telling which route ran."""
     B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
     ids = () if seg is None else _validate_ids(q, k, *seg)
-    if visited is not None and (
-            q.dtype != torch.bfloat16 or visited.dtype != torch.int64
-            or visited.numel() != 1 or visited.device != q.device):
-        raise ValueError("visited counts the bf16 kernel's key tiles: a "
-                         f"one-element int64 tensor on {q.device}, with bf16 "
-                         "q, k, v")
+    _validate_visited(visited, q, "key tiles")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if q.dtype == torch.bfloat16:
@@ -174,10 +216,7 @@ def _fwd(q, k, v, q_offset, k_offset, causal, seg, visited):
 def _fwd_sm90(q, k, v, out, lse, ids, q_offset, k_offset, causal, visited):
     """Launch the bf16 wgmma kernel (and, for K4, its id-range pre-pass
     into a scratch of ``2 * B * (ceil(Tq / 64) + ceil(Tk / 128))`` int32)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the TMA "
-                             f"copies, got address {t.data_ptr():#x}")
+    _check_aligned(q=q, k=k, v=v)
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     ranges = None
@@ -208,7 +247,30 @@ def live_tiles(seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
     statement of the kernel's rule, on any device; with ids all equal it
     gives the tiles of the causal loop alone (what K1 visits).
     """
-    block_q, block_k = SM90_BLOCK_Q, SM90_BLOCK_K
+    return _live_pairs(seg_q, seg_k, q_offset, k_offset, causal,
+                       SM90_BLOCK_Q, SM90_BLOCK_K)
+
+
+def live_tiles_dkv(seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
+    """Which (key tile, query tile) pairs the bf16 packed dK/dV backward
+    visits: ``(B, ceil(Tk / SM90_DKV_BLOCK_K), ceil(Tq / SM90_DKV_BLOCK_Q))``
+    bool.
+
+    The forward's rule transposed, at the backward's tiles: a key tile
+    loads query tile i from the causal diagonal on (``q_offset + q0 + BQ -
+    1 >= k_offset + k0``) when the tiles' id ranges overlap, so no pair the
+    masks allow is ever skipped.  With ids all equal it gives the causal
+    loop alone (what K3 visits).  The kernel visits these tiles once per
+    query head.
+    """
+    return _live_pairs(seg_q, seg_k, q_offset, k_offset, causal,
+                       SM90_DKV_BLOCK_Q, SM90_DKV_BLOCK_K).transpose(1, 2)
+
+
+def _live_pairs(seg_q, seg_k, q_offset, k_offset, causal, block_q, block_k):
+    """``(B, n_query_tiles, n_key_tiles)``: the causal loop's tile pairs
+    (key tile first row <= query tile last row, in global positions) whose
+    id ranges overlap."""
     seg_q, seg_k = torch.as_tensor(seg_q), torch.as_tensor(seg_k)
 
     def ranges(ids, block):
@@ -251,13 +313,18 @@ def _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal, seg):
 
 
 def _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
-             seg):
-    """Launch K3 or K6."""
+             seg, visited):
+    """Launch K3 or K6: the wgmma kernel for bf16, the FMA kernel for fp32.
+    Returns ``(dk, dv, sm90)``, ``sm90`` telling which route ran."""
     B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
     _validate_rows(dout, q, lse, delta, dlse)
     ids = () if seg is None else _validate_ids(q, k, *seg)
+    _validate_visited(visited, q, "query tiles")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        return (*_bwd_dkv_sm90(q, k, v, dout, lse, delta, dlse, dk, dv, ids,
+                               q_offset, k_offset, causal, visited), True)
     lib = _lib()
     rc = (lib.ddl_flash_bwd_dkv if seg is None else lib.ddl_flash_bwd_dkv_seg)(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -267,6 +334,30 @@ def _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
         _stream(q),
     )
     _check(rc, "flash dkv")
+    return dk, dv, False
+
+
+def _bwd_dkv_sm90(q, k, v, dout, lse, delta, dlse, dk, dv, ids, q_offset,
+                  k_offset, causal, visited):
+    """Launch the bf16 wgmma dK/dV kernel and its pre-passes (the row
+    terms and, for K6, the id ranges) into a byte scratch the library
+    sizes."""
+    _check_aligned(q=q, k=k, v=v, dout=dout)
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    lib = _lib_sm90_bwd()
+    scratch = torch.empty(
+        lib.ddl_flash_bwd_dkv_sm90_scratch(B, Tq, Tk, H, int(bool(ids))),
+        dtype=torch.uint8, device=q.device)
+    rc = lib.ddl_flash_bwd_dkv_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *(ids or (None, None)), scratch.data_ptr(),
+        None if visited is None else visited.data_ptr(), B, Tq, Tk, H, Hkv, D,
+        int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
+        _stream(q),
+    )
+    _check(rc, "flash dkv (sm90)")
     return dk, dv
 
 
@@ -292,13 +383,17 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
-                  causal=True):
+                  causal=True, visited=None):
     """K3: ``(dk, dv)`` in the compact GQA layout, summed over each KV
-    head's query-head group inside the kernel."""
-    dkv = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
-                   causal, None)
+    head's query-head group inside the kernel.  ``visited`` (bf16 only): a
+    one-element int64 tensor on the card that gains the number of query
+    tiles the kernel loads, summed over every (batch row, KV head, key
+    tile)."""
+    dk, dv, sm90 = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset,
+                            k_offset, causal, None, visited)
     flash_bwd_dkv.launches += 1
-    return dkv
+    flash_bwd_dkv.sm90_launches += sm90
+    return dk, dv
 
 
 def flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset=0, k_offset=0, causal=True,
@@ -322,12 +417,14 @@ def flash_bwd_dq_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
 
 
 def flash_bwd_dkv_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
-                      q_offset=0, k_offset=0, causal=True):
-    """K6: K3 under the packed-segment mask."""
-    dkv = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
-                   causal, (seg_q, seg_k))
+                      q_offset=0, k_offset=0, causal=True, visited=None):
+    """K6: K3 under the packed-segment mask; ``visited`` as for K3 counts
+    the query tiles its skip leaves to load."""
+    dk, dv, sm90 = _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset,
+                            k_offset, causal, (seg_q, seg_k), visited)
     flash_bwd_dkv_seg.launches += 1
-    return dkv
+    flash_bwd_dkv_seg.sm90_launches += sm90
+    return dk, dv
 
 
 #: The kernel wrappers, in K1..K6 order.
@@ -338,7 +435,8 @@ KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    flash_fwd.sm90_launches = flash_fwd_seg.sm90_launches = 0
+    for fn in (flash_fwd, flash_fwd_seg, flash_bwd_dkv, flash_bwd_dkv_seg):
+        fn.sm90_launches = 0
 
 
 reset_launch_counts()
@@ -355,10 +453,13 @@ def _validate_rows(dout, q, lse, delta, dlse) -> None:
 
 
 def _bwd_rows(dout, out, dlse):
-    """The backward's row terms: contiguous ``dout``, ``delta_i =
-    rowsum(dO_i * O_i)`` (the softmax-jacobian diagonal term) and the lse
-    cotangent, both ``(B, H, T)`` fp32."""
+    """The backward's row terms: contiguous, 16-byte aligned ``dout`` (a
+    copy where autograd hands a view off alignment; the bf16 kernel's TMA
+    needs it), ``delta_i = rowsum(dO_i * O_i)`` (the softmax-jacobian
+    diagonal term) and the lse cotangent, both ``(B, H, T)`` fp32."""
     dout = dout.contiguous()
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return dout, delta, dlse.float().contiguous()
 
