@@ -14,16 +14,18 @@ rows are all masked, and bf16 at head dims 16, 32 and 64), times kernel,
 plain version and the PyTorch library call, and computes each kernel's
 bound.  The packed-segment kernels K4-K6 get the same treatment on
 packed-document ids, plus key ids that leave some queries without a key
-and one-token segments.  Every case checks the routes of the forward and
-of the dK/dV backward by their counters: bf16 on the wgmma kernels
+and one-token segments.  Every case checks the routes of the forward, the
+dQ and the dK/dV backward by their counters: bf16 on the wgmma kernels
 (``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu``), fp32 on the FMA kernels;
-and that keys no query reaches get dk = dv = 0 exactly.  The timed K1/K4
-calls run with the kernel's own count of the key tiles it loads, the
-timed K3/K6 calls with its count of the query tiles it loads: K1's and
-K3's are the causal loop's, K4's and K6's what their document skip
-leaves, and the packed rows give the share; each must equal the count
-that ``live_tiles`` / ``live_tiles_dkv`` (the skips' rules in Python)
-give.
+that query rows with no key get dq = 0 and keys no query reaches dk = dv
+= 0 exactly.  The timed K1/K4 and K2/K5 calls run with the kernel's own
+count of the key tiles it loads, the timed K3/K6 calls with its count of
+the query tiles it loads: K1's, K2's and K3's are the causal loop's, K4's,
+K5's and K6's what their document skip leaves, and the packed rows give
+the share; each must equal the count that ``live_tiles`` /
+``live_tiles_dkv`` (the skips' rules in Python) give.  Phase 1 prints
+the ptxas report of every instantiation and fails if the backward's
+library spills or any wgmma kernel's products are serialized.
 Phase 3 checks the model's loss and gradients through the kernels
 against the dense path on a small input, unpacked and packed, at head_dim
 64 and at the widths of examples/train_llama.py (head_dim 32), and the remat
@@ -56,8 +58,8 @@ tier against the plain per-position route.
 Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
 in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
-over a ``PackedTokenProducer`` stream of documents (K4-K6); every forward
-and dK/dV launch of both fits must ride the wgmma kernels.
+over a ``PackedTokenProducer`` stream of documents (K4-K6); every forward,
+dQ and dK/dV launch of both fits must ride the wgmma kernels.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -72,6 +74,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,6 +121,12 @@ class PhaseFailed(Exception):
 #: The kernel sources, one library each.
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention",
            "device_shuffle", "ici_fanout")
+#: The wgmma sources: their ptxas report must show no serialized wgmma
+#: (C7512: too few registers; C7520: a wgmma in a divergent branch), and
+#: the backward's (dK/dV and dQ) no spill.  The forward's K4 at head dim
+#: 128 spills a few bytes at its 168-register cap: reported, not failed.
+WGMMA_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
+NO_SPILL_SOURCES = ("flash_bwd_sm90",)
 
 
 def phase_build():
@@ -128,15 +137,26 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = list(pool.map(_build.build, SOURCES))
+    faults = []
     for name, lib in zip(SOURCES, libs):
         log(f"[build] {name}.cu -> {os.path.basename(lib)}")
         report = lib.parent / f"{lib.name}.log"
         if report.exists():
             for line in report.read_text().splitlines():
                 if ("registers" in line or "spill" in line
-                        or "Compiling entry" in line):
+                        or "Compiling entry" in line or "warning" in line):
                     log(f"[ptxas] {line.strip()}")
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line)
+                if ((name in NO_SPILL_SOURCES and spill
+                     and spill.groups() != ("0", "0"))
+                        or (name in WGMMA_SOURCES
+                            and ("C7512" in line or "C7520" in line))):
+                    faults.append(f"{name}: {line.strip()}")
     log(f"[build] {len(SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
+    if faults:
+        raise PhaseFailed("ptxas spills or serializes a wgmma kernel: "
+                          + "; ".join(faults))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -176,10 +196,10 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def _timed_tile_visits(fn, *args, rule: int):
-    """``fn`` (the bf16 K1/K4 or K3/K6 wrapper) timed by ``_time_ms`` with
-    the kernel's tile counter on: (ms, tiles the kernel loaded per call —
-    key tiles for the forward, query tiles for the dK/dV backward).  Fails
-    unless every call loaded ``rule`` tiles."""
+    """``fn`` (a bf16 flash wrapper, K1-K6) timed by ``_time_ms`` with the
+    kernel's tile counter on: (ms, tiles the kernel loaded per call — key
+    tiles for the forward and dQ, query tiles for the dK/dV backward).
+    Fails unless every call loaded ``rule`` tiles."""
     import torch
 
     visited = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -250,9 +270,9 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     ``seg``: (query, key) segment ids, int32 on the card — the packed
     kernels K4-K6.  Rows whose every key is masked must give out = 0,
     lse = -1e30 and dq = 0; keys that no query reaches, dk = dv = 0
-    exactly.  The forward and the dK/dV backward must take their wgmma
-    kernels in bf16 and the FMA kernels in fp32 (their ``sm90_launches``
-    counters).  Returns (ok, errors, kernel outputs, v)."""
+    exactly.  The forward, the dQ and the dK/dV backward must take their
+    wgmma kernels in bf16 and the FMA kernels in fp32 (their
+    ``sm90_launches`` counters).  Returns (ok, errors, kernel outputs, v)."""
     import torch
 
     from ddl_tpu_torch.ops import flash_attention as fa
@@ -275,15 +295,14 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
         return out.detach(), lse.detach(), qq.grad, kk.grad, vv.grad
 
     sq, sk = seg if seg is not None else (None, None)
-    routed = ((fa.flash_fwd, fa.flash_bwd_dkv) if seg is None
-              else (fa.flash_fwd_seg, fa.flash_bwd_dkv_seg))
+    routed = fa.KERNELS[:3] if seg is None else fa.KERNELS[3:]
     before = [(f.launches, f.sm90_launches) for f in routed]
     kern = run(lambda a, b, c: fa.flash_attention_with_lse(
         a, b, c, q_off, k_off, causal, rep, segment_ids=sq,
         kv_segment_ids=sk))
     route = [(f.launches - n, f.sm90_launches - m)
              for f, (n, m) in zip(routed, before)]
-    want_route = [(1, 1 if dtype == torch.bfloat16 else 0)] * 2
+    want_route = [(1, 1 if dtype == torch.bfloat16 else 0)] * 3
     plain = run(lambda a, b, c: fa.attention_plain(
         a, b, c, q_off, k_off, causal, rep, sq, sk))
     torch.cuda.synchronize()
@@ -304,7 +323,7 @@ def _case(name, B, Tq, Tk, H, Hkv, D, dtype, q_off, k_off, causal, tol, gen,
     )
     log(f"[check] {name}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
         + f" | tol out<={tol['out']} lse<={tol['lse']} grad_rel<={tol['grad']}"
-        + f" finite={finite} route fwd/dkv="
+        + f" finite={finite} route fwd/dq/dkv="
         + "/".join("sm90" if r[1] else "fma" for r in route)
         + f" -> {'ok' if ok else 'FAIL'}")
     # Rows with no key: the plain version's verdict, from the masks alone.
@@ -469,19 +488,17 @@ def time_kernels(gen, errs):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dlse = torch.zeros_like(lse)
 
-    # K1 and K3 visit every tile of the causal loop: live_tiles and
+    # K1, K2 and K3 visit every tile of the causal loop: live_tiles and
     # live_tiles_dkv with one id.
     zeros = torch.zeros(B, T, dtype=torch.int32)
-    fwd_ms, tiles = _timed_tile_visits(
-        fa.flash_fwd, q, k, v, rule=H * int(fa.live_tiles(zeros, zeros).sum()))
+    causal_rule = H * int(fa.live_tiles(zeros, zeros).sum())
+    fwd_ms, tiles = _timed_tile_visits(fa.flash_fwd, q, k, v, rule=causal_rule)
+    dq_ms, dq_tiles = _timed_tile_visits(
+        fa.flash_bwd_dq, q, k, v, dout, lse, delta, dlse, rule=causal_rule)
     dkv_ms, dkv_tiles = _timed_tile_visits(
         fa.flash_bwd_dkv, q, k, v, dout, lse, delta, dlse,
         rule=H * int(fa.live_tiles_dkv(zeros, zeros).sum()))
-    ms = {
-        "fwd": fwd_ms,
-        "dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, dlse)),
-        "dkv": dkv_ms,
-    }
+    ms = {"fwd": fwd_ms, "dq": dq_ms, "dkv": dkv_ms}
 
     # Plain versions: the dense forward, and its autograd backward asked
     # for dq alone (K2's function) or for dk, dv (K3's).
@@ -530,6 +547,7 @@ def time_kernels(gen, errs):
     }
     rows_out = _kernel_rows(info, work, errs, ms, plain_ms, library_fwd,
                             {"fwd": {"tiles_visited": tiles},
+                             "dq": {"tiles_visited": dq_tiles},
                              "dkv": {"tiles_visited": dkv_tiles}})
     log(f"[time] sdpa backward (dq, dk, dv together): {sdpa_bwd:.3f} ms")
     return rows_out
@@ -546,7 +564,7 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
     """The kernels-JSON rows of one fwd/dq/dkv triple.  ``max_abs_err`` is
     the largest elementwise difference from the plain version in the main
     case, ``rel_err`` (backward) the relative Frobenius error the check
-    holds.  The bf16 forward and dK/dV backward are the wgmma kernels of
+    holds.  The bf16 forward and backward kernels are the wgmma kernels of
     their own sources."""
     abs_err = {"fwd": errs["out_abs"], "dq": errs["dq_abs"],
                "dkv": max(errs["dk_abs"], errs["dv_abs"])}
@@ -560,7 +578,7 @@ def _kernel_rows(info, work, errs, ms, plain_ms, library_fwd, extra=None):
             "name": name,
             "route": "cuda",
             "source": "ddl_tpu_torch/ops/csrc/" + {
-                "fwd": "flash_fwd_sm90.cu", "dq": "flash_attention.cu",
+                "fwd": "flash_fwd_sm90.cu", "dq": "flash_bwd_sm90.cu",
                 "dkv": "flash_bwd_sm90.cu"}[key],
             "replaces": f"ddl_tpu/ops/flash_attention.py:{line} ({tpu_fn})",
             "launches": 0,
@@ -590,10 +608,10 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     """K4-K6's kernel, plain and library times at the main shape on the
     packed-document ids of case (a), with the bound of the in-segment
     causal pairs (the work these ids need) and, beside it, the causal-only
-    bound (the work of every causal tile: K5 skips no tile for its ids).
-    K4's key tiles and K6's query tiles loaded, counted by the kernels,
-    over ``causal_tiles`` (by unpacked wrapper name), those K1 and K3
-    loaded at the same shape."""
+    bound (the work of every causal tile).  K4's and K5's key tiles and
+    K6's query tiles loaded, counted by the kernels, over ``causal_tiles``
+    (by unpacked wrapper name), those K1, K2 and K3 loaded at the same
+    shape."""
     import torch
     import torch.nn.functional as F
 
@@ -610,18 +628,16 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     out, lse = fa.flash_fwd_seg(q, k, v, sid, sid)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dlse = torch.zeros_like(lse)
-    fwd_ms, tiles = _timed_tile_visits(
-        fa.flash_fwd_seg, q, k, v, sid, sid,
-        rule=H * int(fa.live_tiles(sid, sid).sum()))
+    live_rule = H * int(fa.live_tiles(sid, sid).sum())
+    fwd_ms, tiles = _timed_tile_visits(fa.flash_fwd_seg, q, k, v, sid, sid,
+                                       rule=live_rule)
+    dq_ms, dq_tiles = _timed_tile_visits(
+        fa.flash_bwd_dq_seg, q, k, v, dout, lse, delta, dlse, sid, sid,
+        rule=live_rule)
     dkv_ms, dkv_tiles = _timed_tile_visits(
         fa.flash_bwd_dkv_seg, q, k, v, dout, lse, delta, dlse, sid, sid,
         rule=H * int(fa.live_tiles_dkv(sid, sid).sum()))
-    ms = {
-        "fwd": fwd_ms,
-        "dq": _time_ms(lambda: fa.flash_bwd_dq_seg(
-            q, k, v, dout, lse, delta, dlse, sid, sid)),
-        "dkv": dkv_ms,
-    }
+    ms = {"fwd": fwd_ms, "dq": dq_ms, "dkv": dkv_ms}
 
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
     plain_ms = {"fwd": _time_ms(lambda: fa.attention_plain(
@@ -672,9 +688,10 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
                    "in_segment_pairs": pairs, "causal_pairs": causal_pairs}
              for key in causal}
     # The tile skips on these ids, as the kernels counted them: the key
-    # tiles K4 loaded against those K1 loaded at this shape, the query
-    # tiles K6 loaded against K3's.
+    # tiles K4 and K5 loaded against those K1 and K2 loaded at this shape,
+    # the query tiles K6 loaded against K3's.
     for key, n, unpacked in (("fwd", tiles, "flash_fwd"),
+                             ("dq", dq_tiles, "flash_bwd_dq"),
                              ("dkv", dkv_tiles, "flash_bwd_dkv")):
         extra[key].update(tiles_visited=n,
                           causal_tiles=causal_tiles[unpacked],
@@ -682,7 +699,9 @@ def time_packed_kernels(gen, ids_np, errs, causal_tiles):
     log(f"[time] packed ids: {pairs} in-segment causal pairs of "
         f"{causal_pairs} causal ({pairs / causal_pairs:.3%}); K4 loaded "
         f"{tiles} of the {causal_tiles['flash_fwd']} key tiles K1 loaded "
-        f"({tiles / causal_tiles['flash_fwd']:.3%}); K6 loaded {dkv_tiles} "
+        f"({tiles / causal_tiles['flash_fwd']:.3%}); K5 loaded {dq_tiles} "
+        f"of the {causal_tiles['flash_bwd_dq']} key tiles K2 loaded "
+        f"({dq_tiles / causal_tiles['flash_bwd_dq']:.3%}); K6 loaded {dkv_tiles} "
         f"of the {causal_tiles['flash_bwd_dkv']} query tiles K3 loaded "
         f"({dkv_tiles / causal_tiles['flash_bwd_dkv']:.3%})")
     info = {
@@ -1626,7 +1645,7 @@ def profile_run(run, what: str) -> None:
         name = e.key.lower()
         group = next((g for g, keys in (
             ("flash kernels", ("flash_", "id_range_kernel",
-                               "row_terms_kernel")),
+                               "row_terms_kernel", "pad_ids_kernel")),
             ("exchange kernel K9", ("exchange_kernel",)),
             ("fan-out kernels K7/K8", ("fanout_kernel",)),
             ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1733,9 +1752,9 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
-    fwd, dkv = ((fa.flash_fwd_seg, fa.flash_bwd_dkv_seg) if packed
-                else (fa.flash_fwd, fa.flash_bwd_dkv))
-    sm90, dkv_sm90 = fwd.sm90_launches, dkv.sm90_launches
+    fwd, dq, dkv = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
+    sm90, dq_sm90, dkv_sm90 = (fwd.sm90_launches, dq.sm90_launches,
+                               dkv.sm90_launches)
 
     steps_per_window = tr["window_rows"] // tr["batch_size"]
     steps = tr["n_epochs"] * steps_per_window
@@ -1750,12 +1769,14 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     log(f"{tag} kernel launches in this run: {launches} (expected "
         f"{cfg.n_layers} layers x {steps} steps = {expected} for "
         f"{[fn.__name__ for fn in ran]}, 0 for the others); on the wgmma "
-        f"kernels: {fwd.__name__} {sm90}, {dkv.__name__} {dkv_sm90} "
+        f"kernels: {fwd.__name__} {sm90}, {dq.__name__} {dq_sm90}, "
+        f"{dkv.__name__} {dkv_sm90} "
         f"(expected {expected} each)")
     ok = (
         len(result.losses) == tr["n_epochs"]
         and all(math.isfinite(x) for x in result.losses)
         and sm90 == expected
+        and dq_sm90 == expected
         and dkv_sm90 == expected
         and all(fn.launches == expected for fn in ran)
         and all(fn.launches == 0 for fn in idle)
@@ -1765,7 +1786,8 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
     summary = {
         "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
         "peak_bytes": peak, "losses": result.losses, "steps": steps,
-        "sm90_launches": sm90, "dkv_sm90_launches": dkv_sm90,
+        "sm90_launches": sm90, "dq_sm90_launches": dq_sm90,
+        "dkv_sm90_launches": dkv_sm90,
     }
     if packed:
         summary.update(segments_per_row=segs, boundary_dropped=dropped)

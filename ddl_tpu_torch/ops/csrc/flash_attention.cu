@@ -1,19 +1,16 @@
-// Causal GQA flash attention, forward and backward, for NVIDIA Hopper
-// (sm_90a).  Plain C interface, loaded from Python with ctypes
+// Causal GQA flash attention, forward and backward, in fp32 for NVIDIA
+// Hopper (sm_90a); bf16 inputs take the wgmma kernels of flash_fwd_sm90.cu
+// and flash_bwd_sm90.cu.  Plain C interface, loaded from Python with ctypes
 // (ddl_tpu_torch/ops/flash_attention.py builds and binds it).
 //
 // Replaces the Pallas TPU kernels of ddl_tpu/ops/flash_attention.py:
-//   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse;
-//                             fp32 inputs only: bf16 inputs take the wgmma
-//                             kernel of flash_fwd_sm90.cu)
+//   K1 flash_fwd_kernel    <- _fwd_kernel  (online-softmax forward, out + lse)
 //   K2 flash_dq_kernel     <- _dq_kernel   (dQ = sum_kv dS K * scale)
-//   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q;
-//                             fp32 inputs only: bf16 inputs take the wgmma
-//                             kernel of flash_bwd_sm90.cu)
+//   K3 flash_dkv_kernel    <- _dkv_kernel  (dV = sum_q P^T dO, dK = sum_q dS^T Q)
 // and, instantiated with PACKED = true, the packed-segment kernels
-//   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg (fp32, as K1)
+//   K4 flash_fwd_kernel<.., true>  <- _fwd_kernel_seg
 //   K5 flash_dq_kernel<.., true>   <- _dq_kernel_seg
-//   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg (fp32, as K3)
+//   K6 flash_dkv_kernel<.., true>  <- _dkv_kernel_seg
 // which take (B, Tq) / (B, Tk) int32 segment ids and also mask
 // seg_q[q] != seg_k[k].  Each tile stages its BQ query ids and BK key ids in
 // shared memory.  The causal block limits are unchanged (a packed tile is
@@ -36,15 +33,13 @@
 // - Masked scores take the finite -1e30 and the safe-max rule of the TPU
 //   kernel, so a fully masked row gives out = 0, lse = -1e30 and zero
 //   gradients (a -inf would turn the backward into NaNs).
-// - Rounding points follow the TPU kernels: p is rounded to the input type
-//   before p.V, and ds before ds.K / ds^T.Q, with fp32 accumulation.
-//   K3 loops over the rep query heads of its KV head and accumulates dK/dV
-//   over the group in fp32 (the TPU version writes per-head dK/dV in the
-//   input type and sums the group outside the kernel).
+// - The TPU kernels round p and ds to the input type before their
+//   products, which in fp32 changes nothing.  K3 loops over the rep query
+//   heads of its KV head and accumulates dK/dV over the group (the TPU
+//   version writes per-head dK/dV and sums the group outside the kernel).
 //
 // Every kernel is instantiated for head dims 16, 32, 64 and 128 (the FMA
-// tiles take any multiple of 16), in fp32 and bf16 except the forward and
-// the dK/dV backward, which are fp32 only.
+// tiles take any multiple of 16).
 //
 // What bounds it on this card: as written, the FP32 FMA pipes fed from
 // shared memory.  Causal attention at the slice's shapes (T = 2048, D = 128)
@@ -59,7 +54,6 @@
 // score matrix to device memory.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -69,20 +63,6 @@ constexpr int BK = 64;        // key rows per tile
 constexpr int NT = 256;       // threads per block (16 x 16)
 constexpr int LDP = BK + 1;   // padded row stride of the score tiles
 constexpr float NEG = -1e30f; // the TPU kernel's finite mask value
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round through the input type (the TPU kernel's `.astype(v.dtype)`).
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Reductions over the 16 lanes that share a score row (tx = lane % 16).
 __device__ __forceinline__ float row_max(float v) {
@@ -98,12 +78,12 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // Load `rows` rows of D values (row r at src + r * stride) into a float tile
 // with leading dimension `ld`; rows at or past `valid` are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
                                           long stride, int rows, int valid) {
   for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
     const int r = idx / D, c = idx - r * D;
-    dst[r * ld + c] = r < valid ? to_f(src[(long)r * stride + c]) : 0.f;
+    dst[r * ld + c] = r < valid ? src[(long)r * stride + c] : 0.f;
   }
 }
 
@@ -143,12 +123,12 @@ __device__ __forceinline__ bool seg_differs(const int* sq, const int* sk,
 }
 
 // ---------------------------------------------------------------- K1 ----
-// grid (ceil(Tq / BQ), H, B).  out (B, Tq, H, D) in T; lse (B, H, Tq) fp32.
+// grid (ceil(Tq / BQ), H, B).  out (B, Tq, H, D), lse (B, H, Tq) fp32.
 // PACKED (K4): seg_q (B, Tq), seg_k (B, Tk) int32.
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
                  int q_off, int k_off, int causal, float scale,
                  const int32_t* __restrict__ seg_q,
@@ -168,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long qs = (long)H * D, ks = (long)Hkv * D;
 
-  load_tile<T, D>(Qs, LDK, q + ((long)b * Tq + q0) * qs + (long)h * D, qs, BQ,
+  load_tile<D>(Qs, LDK, q + ((long)b * Tq + q0) * qs + (long)h * D, qs, BQ,
                   Tq - q0);
   if constexpr (PACKED) load_ids(sq_s, seg_q + (long)b * Tq + q0, BQ, Tq - q0);
 
@@ -186,8 +166,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = j * BK;
     __syncthreads();  // the previous block is done with Ks / Vs / Ps
     const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
-    load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
-    load_tile<T, D>(Vs, D, v + kbase, ks, BK, Tk - k0);
+    load_tile<D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+    load_tile<D>(Vs, D, v + kbase, ks, BK, Tk - k0);
     if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
     __syncthreads();
 
@@ -232,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[i][c] - safe);
         psum += p;
-        Ps[(ty * 4 + i) * LDP + tx + 16 * c] = round_t<T>(p);
+        Ps[(ty * 4 + i) * LDP + tx + 16 * c] = p;
       }
       l[i] = alpha * l[i] + row_sum(psum);
       m[i] = m_next;
@@ -263,22 +243,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[i] > 0.f ? (m[i] <= NEG / 2 ? 0.f : m[i]) + logf(l[i]) : NEG;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
     if (tx == 0) lse[((long)b * H + h) * Tq + ql] = lse_v;
-    T* o = out + ((long)b * Tq + ql) * qs + (long)h * D;
+    float* o = out + ((long)b * Tq + ql) * qs + (long)h * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] * inv);
+    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c] * inv;
   }
 }
 
 // ---------------------------------------------------------------- K2 ----
-// grid (ceil(Tq / BQ), H, B).  dq (B, Tq, H, D) in T.
+// grid (ceil(Tq / BQ), H, B).  dq (B, Tq, H, D) fp32.
 // lse / delta / dlse: (B, H, Tq) fp32; delta = rowsum(dO * O).
 // PACKED (K5): seg_q (B, Tq), seg_k (B, Tk) int32.
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ dlse, T* __restrict__ dq, int Tq,
+                const float* __restrict__ dlse, float* __restrict__ dq, int Tq,
                 int Tk, int H, int Hkv, int q_off, int k_off, int causal,
                 float scale, const int32_t* __restrict__ seg_q,
                 const int32_t* __restrict__ seg_k) {
@@ -299,8 +279,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long qs = (long)H * D, ks = (long)Hkv * D;
   const long qbase = ((long)b * Tq + q0) * qs + (long)h * D;
 
-  load_tile<T, D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
-  load_tile<T, D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
+  load_tile<D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
+  load_tile<D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
   if constexpr (PACKED) load_ids(sq_s, seg_q + (long)b * Tq + q0, BQ, Tq - q0);
 
   float row_lse[4], row_c[4], acc[4][DC];
@@ -319,8 +299,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = j * BK;
     __syncthreads();
     const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
-    load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
-    load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+    load_tile<D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+    load_tile<D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
     if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
     __syncthreads();
 
@@ -364,7 +344,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 ? 0.f
                 : expf(s[i][c] * scale - row_lse[i]);
         dSs[(ty * 4 + i) * LDP + tx + 16 * c] =
-            round_t<T>(p * (dp[i][c] + row_c[i]) * scale);
+            p * (dp[i][c] + row_c[i]) * scale;
       }
     }
     __syncthreads();
@@ -387,24 +367,24 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int ql = q0 + ty * 4 + i;
     if (ql >= Tq) continue;
-    T* o = dq + ((long)b * Tq + ql) * qs + (long)h * D;
+    float* o = dq + ((long)b * Tq + ql) * qs + (long)h * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c];
   }
 }
 
 // ---------------------------------------------------------------- K3 ----
-// grid (ceil(Tk / BK), Hkv, B).  dk, dv (B, Tk, Hkv, D) in T, summed over
+// grid (ceil(Tk / BK), Hkv, B).  dk, dv (B, Tk, Hkv, D) fp32, summed over
 // the rep query heads of the KV head in fp32.
 // PACKED (K6): seg_q (B, Tq), seg_k (B, Tk) int32.
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NT, 1)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 const float* __restrict__ dlse, T* __restrict__ dk,
-                 T* __restrict__ dv, int Tq, int Tk, int H, int Hkv, int q_off,
-                 int k_off, int causal, float scale,
+                 const float* __restrict__ dlse, float* __restrict__ dk,
+                 float* __restrict__ dv, int Tq, int Tk, int H, int Hkv,
+                 int q_off, int k_off, int causal, float scale,
                  const int32_t* __restrict__ seg_q,
                  const int32_t* __restrict__ seg_k) {
   constexpr int LDK = D + 1;
@@ -427,8 +407,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long qs = (long)H * D, ks = (long)Hkv * D;
   const long kbase = ((long)b * Tk + k0) * ks + (long)hk * D;
 
-  load_tile<T, D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
-  load_tile<T, D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
+  load_tile<D>(Ks, LDK, k + kbase, ks, BK, Tk - k0);
+  load_tile<D>(Vs, LDK, v + kbase, ks, BK, Tk - k0);
   if constexpr (PACKED) load_ids(sk_s, seg_k + (long)b * Tk + k0, BK, Tk - k0);
 
   float dka[4][DC], dva[4][DC];
@@ -451,8 +431,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int q0 = it * BQ;
       __syncthreads();  // the previous tile is done with Qs / dOs / Pt / dSt
       const long qbase = ((long)b * Tq + q0) * qs + (long)h * D;
-      load_tile<T, D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
-      load_tile<T, D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
+      load_tile<D>(Qs, LDK, q + qbase, qs, BQ, Tq - q0);
+      load_tile<D>(dOs, LDK, dout + qbase, qs, BQ, Tq - q0);
       for (int r = threadIdx.x; r < BQ; r += NT) {
         const int ql = q0 + r;
         const long ri = ((long)b * H + h) * Tq + ql;
@@ -503,9 +483,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                seg_differs<PACKED>(sq_s, sk_s, r, ty * 4 + i))
                   ? 0.f
                   : expf(st[i][c] * scale - lr);
-          Pt[(ty * 4 + i) * LDP + r] = round_t<T>(p);
+          Pt[(ty * 4 + i) * LDP + r] = p;
           dSt[(ty * 4 + i) * LDP + r] =
-              round_t<T>(p * (dpt[i][c] + c_s[r]) * scale);
+              p * (dpt[i][c] + c_s[r]) * scale;
         }
       }
       __syncthreads();
@@ -539,8 +519,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long o = ((long)b * Tk + kl) * ks + (long)hk * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dk[o + tx + 16 * c] = from_f<T>(dka[i][c]);
-      dv[o + tx + 16 * c] = from_f<T>(dva[i][c]);
+      dk[o + tx + 16 * c] = dka[i][c];
+      dv[o + tx + 16 * c] = dva[i][c];
     }
   }
 }
@@ -568,77 +548,66 @@ struct Geom {
   float scale;
 };
 
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, const int32_t* sq, const int32_t* sk,
                const Geom& g, cudaStream_t st) {
   const size_t sm = fwd_smem(D, PACKED);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, PACKED>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, PACKED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
-  flash_fwd_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, g.Tq, g.Tk, g.H,
-      g.Hkv, g.q_off, g.k_off, g.causal, g.scale, sq, sk);
+  flash_fwd_kernel<D, PACKED><<<grid, NT, sm, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+      g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal, g.scale, sq, sk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const float* dlse,
               void* dq, const int32_t* sq, const int32_t* sk, const Geom& g,
               cudaStream_t st) {
   const size_t sm = dq_smem(D, PACKED);
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<T, D, PACKED>,
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<D, PACKED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, g.H, g.B);
-  flash_dq_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
-      (T*)dq, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal, g.scale, sq,
-      sk);
+  flash_dq_kernel<D, PACKED><<<grid, NT, sm, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, dlse, (float*)dq, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off,
+      g.causal, g.scale, sq, sk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool PACKED>
+template <int D, bool PACKED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const float* dlse,
                void* dk, void* dv, const int32_t* sq, const int32_t* sk,
                const Geom& g, cudaStream_t st) {
   const size_t sm = dkv_smem(D, PACKED);
-  cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel<T, D, PACKED>,
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel<D, PACKED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)sm);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tk + BK - 1) / BK, g.Hkv, g.B);
-  flash_dkv_kernel<T, D, PACKED><<<grid, NT, sm, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dlse,
-      (T*)dk, (T*)dv, g.Tq, g.Tk, g.H, g.Hkv, g.q_off, g.k_off, g.causal,
-      g.scale, sq, sk);
+  flash_dkv_kernel<D, PACKED><<<grid, NT, sm, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, dlse, (float*)dk, (float*)dv, g.Tq, g.Tk, g.H, g.Hkv,
+      g.q_off, g.k_off, g.causal, g.scale, sq, sk);
   return (int)cudaGetLastError();
 }
 
-// dtype codes shared with the Python wrapper.
-constexpr int DT_F32 = 0;
-constexpr int DT_BF16 = 1;
 constexpr int ERR_BAD_ARGS = -1;
 
 // The head dims every kernel is instantiated for.
-#define DISPATCH_D(FN, T, P, ...)                                             \
-  if (g.D == 16) return FN<T, 16, P>(__VA_ARGS__);                            \
-  if (g.D == 32) return FN<T, 32, P>(__VA_ARGS__);                            \
-  if (g.D == 64) return FN<T, 64, P>(__VA_ARGS__);                            \
-  if (g.D == 128) return FN<T, 128, P>(__VA_ARGS__)
-
-#define DISPATCH(FN, P, ...)                                                  \
-  if (dtype == DT_F32) {                                                      \
-    DISPATCH_D(FN, float, P, __VA_ARGS__);                                    \
-  } else if (dtype == DT_BF16) {                                              \
-    DISPATCH_D(FN, __nv_bfloat16, P, __VA_ARGS__);                            \
-  }                                                                           \
-  return ERR_BAD_ARGS
+#define DISPATCH_D(FN, P, ...)                                                \
+  if (g.D == 16) return FN<16, P>(__VA_ARGS__);                               \
+  if (g.D == 32) return FN<32, P>(__VA_ARGS__);                               \
+  if (g.D == 64) return FN<64, P>(__VA_ARGS__);                               \
+  if (g.D == 128) return FN<128, P>(__VA_ARGS__)
 
 Geom geom(int B, int Tq, int Tk, int H, int Hkv, int D, int q_off, int k_off,
           int causal, float scale) {
@@ -651,22 +620,19 @@ bool bad(const Geom& g) {
 }
 
 template <bool PACKED>
-int fwd_entry(int dtype, const void* q, const void* k, const void* v,
+int fwd_entry(const void* q, const void* k, const void* v,
               void* out, float* lse, const int32_t* sq, const int32_t* sk,
               int B, int Tq, int Tk, int H, int Hkv, int D, int q_off,
               int k_off, int causal, float scale, void* stream) {
   const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
   if (bad(g)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  // fp32 only: bf16 takes the wgmma kernel of flash_fwd_sm90.cu.
-  if (dtype == DT_F32) {
-    DISPATCH_D(launch_fwd, float, PACKED, q, k, v, out, lse, sq, sk, g, st);
-  }
+  DISPATCH_D(launch_fwd, PACKED, q, k, v, out, lse, sq, sk, g, st);
   return ERR_BAD_ARGS;
 }
 
 template <bool PACKED>
-int dq_entry(int dtype, const void* q, const void* k, const void* v,
+int dq_entry(const void* q, const void* k, const void* v,
              const void* dout, const float* lse, const float* delta,
              const float* dlse, void* dq, const int32_t* sq, const int32_t* sk,
              int B, int Tq, int Tk, int H, int Hkv, int D, int q_off, int k_off,
@@ -674,11 +640,13 @@ int dq_entry(int dtype, const void* q, const void* k, const void* v,
   const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
   if (bad(g)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH(launch_dq, PACKED, q, k, v, dout, lse, delta, dlse, dq, sq, sk, g, st);
+  DISPATCH_D(launch_dq, PACKED, q, k, v, dout, lse, delta, dlse, dq, sq,
+             sk, g, st);
+  return ERR_BAD_ARGS;
 }
 
 template <bool PACKED>
-int dkv_entry(int dtype, const void* q, const void* k, const void* v,
+int dkv_entry(const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
               const float* dlse, void* dk, void* dv, const int32_t* sq,
               const int32_t* sk, int B, int Tq, int Tk, int H, int Hkv, int D,
@@ -686,63 +654,62 @@ int dkv_entry(int dtype, const void* q, const void* k, const void* v,
   const Geom g = geom(B, Tq, Tk, H, Hkv, D, q_off, k_off, causal, scale);
   if (bad(g)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  // fp32 only: bf16 takes the wgmma kernel of flash_bwd_sm90.cu.
-  if (dtype == DT_F32) {
-    DISPATCH_D(launch_dkv, float, PACKED, q, k, v, dout, lse, delta, dlse, dk,
-               dv, sq, sk, g, st);
-  }
+  DISPATCH_D(launch_dkv, PACKED, q, k, v, dout, lse, delta, dlse, dk,
+             dv, sq, sk, g, st);
   return ERR_BAD_ARGS;
 }
 
 }  // namespace
 
-// Each entry point launches one kernel on `stream` and returns
-// cudaGetLastError() (0 on success), or -1 for arguments it does not take.
+// Each entry point launches one kernel over fp32 tensors on `stream` (bf16
+// takes the wgmma kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu) and
+// returns cudaGetLastError() (0 on success), or -1 for arguments it does
+// not take.
 // The _seg entry points take the (B, Tq) / (B, Tk) int32 segment ids after
 // the tensors (K4-K6).
-extern "C" int ddl_flash_fwd(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_fwd(const void* q, const void* k,
                              const void* v, void* out, float* lse, int B,
                              int Tq, int Tk, int H, int Hkv, int D, int q_off,
                              int k_off, int causal, float scale, void* stream) {
-  return fwd_entry<false>(dtype, q, k, v, out, lse, nullptr, nullptr, B, Tq,
+  return fwd_entry<false>(q, k, v, out, lse, nullptr, nullptr, B, Tq,
                           Tk, H, Hkv, D, q_off, k_off, causal, scale, stream);
 }
 
-extern "C" int ddl_flash_bwd_dq(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_bwd_dq(const void* q, const void* k,
                                 const void* v, const void* dout,
                                 const float* lse, const float* delta,
                                 const float* dlse, void* dq, int B, int Tq,
                                 int Tk, int H, int Hkv, int D, int q_off,
                                 int k_off, int causal, float scale,
                                 void* stream) {
-  return dq_entry<false>(dtype, q, k, v, dout, lse, delta, dlse, dq, nullptr,
+  return dq_entry<false>(q, k, v, dout, lse, delta, dlse, dq, nullptr,
                          nullptr, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
                          scale, stream);
 }
 
-extern "C" int ddl_flash_bwd_dkv(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_bwd_dkv(const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const float* lse, const float* delta,
                                  const float* dlse, void* dk, void* dv, int B,
                                  int Tq, int Tk, int H, int Hkv, int D,
                                  int q_off, int k_off, int causal, float scale,
                                  void* stream) {
-  return dkv_entry<false>(dtype, q, k, v, dout, lse, delta, dlse, dk, dv,
+  return dkv_entry<false>(q, k, v, dout, lse, delta, dlse, dk, dv,
                           nullptr, nullptr, B, Tq, Tk, H, Hkv, D, q_off, k_off,
                           causal, scale, stream);
 }
 
-extern "C" int ddl_flash_fwd_seg(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_fwd_seg(const void* q, const void* k,
                                  const void* v, void* out, float* lse,
                                  const int32_t* seg_q, const int32_t* seg_k,
                                  int B, int Tq, int Tk, int H, int Hkv, int D,
                                  int q_off, int k_off, int causal, float scale,
                                  void* stream) {
-  return fwd_entry<true>(dtype, q, k, v, out, lse, seg_q, seg_k, B, Tq, Tk, H,
+  return fwd_entry<true>(q, k, v, out, lse, seg_q, seg_k, B, Tq, Tk, H,
                          Hkv, D, q_off, k_off, causal, scale, stream);
 }
 
-extern "C" int ddl_flash_bwd_dq_seg(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_bwd_dq_seg(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const float* lse, const float* delta,
                                     const float* dlse, void* dq,
@@ -750,12 +717,12 @@ extern "C" int ddl_flash_bwd_dq_seg(int dtype, const void* q, const void* k,
                                     int B, int Tq, int Tk, int H, int Hkv,
                                     int D, int q_off, int k_off, int causal,
                                     float scale, void* stream) {
-  return dq_entry<true>(dtype, q, k, v, dout, lse, delta, dlse, dq, seg_q,
+  return dq_entry<true>(q, k, v, dout, lse, delta, dlse, dq, seg_q,
                         seg_k, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
                         scale, stream);
 }
 
-extern "C" int ddl_flash_bwd_dkv_seg(int dtype, const void* q, const void* k,
+extern "C" int ddl_flash_bwd_dkv_seg(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* lse, const float* delta,
                                      const float* dlse, void* dk, void* dv,
@@ -764,7 +731,7 @@ extern "C" int ddl_flash_bwd_dkv_seg(int dtype, const void* q, const void* k,
                                      int Tk, int H, int Hkv, int D, int q_off,
                                      int k_off, int causal, float scale,
                                      void* stream) {
-  return dkv_entry<true>(dtype, q, k, v, dout, lse, delta, dlse, dk, dv, seg_q,
+  return dkv_entry<true>(q, k, v, dout, lse, delta, dlse, dk, dv, seg_q,
                          seg_k, B, Tq, Tk, H, Hkv, D, q_off, k_off, causal,
                          scale, stream);
 }

@@ -12,12 +12,14 @@ route per dtype:
   ``csrc/flash_fwd_sm90.cu`` (which also skips key tiles whose document
   ids cannot meet the query tile's, :func:`live_tiles`), fp32 the exact
   FMA kernel of ``csrc/flash_attention.cu``;
+- the dQ backward (K2/K5): bf16 takes the wgmma + TMA kernel of
+  ``csrc/flash_bwd_sm90.cu`` (dQ of a query tile in registers; K5 skips
+  key tiles whose ids cannot meet the query tile's, at the forward's tiles:
+  :func:`live_tiles`), fp32 the FMA kernel of ``csrc/flash_attention.cu``;
 - the dK/dV backward (K3/K6): bf16 takes the wgmma + TMA kernel of
   ``csrc/flash_bwd_sm90.cu`` (the GQA group summed in registers; K6 skips
   query tiles whose ids cannot meet the key tile's, :func:`live_tiles_dkv`),
-  fp32 the FMA kernel of ``csrc/flash_attention.cu``;
-- the dQ backward (K2/K5): the FMA kernel of ``csrc/flash_attention.cu``
-  for both dtypes.
+  fp32 the FMA kernel of ``csrc/flash_attention.cu``.
 
 ``torch.autograd.Function`` carries the gradient, as ``jax.custom_vjp``
 did; ``delta = rowsum(dO * O)`` stays plain torch outside the kernels, as
@@ -28,9 +30,9 @@ densely in PyTorch — masked with the same finite ``-1e30``, the same
 empty-row rule, returning ``(out, lse)``, differentiated by autograd.
 The public wrappers take it only for tensors on the CPU; a CUDA tensor
 reaches the kernels or raises.  Each kernel wrapper counts its launches
-(``.launches``), so a run can show that it went through the kernel; the
-forward and dK/dV wrappers also count the launches their bf16 wgmma kernel
-served (``.sm90_launches``), so a run shows which route it took.
+(``.launches``), so a run can show that it went through the kernel, and
+the launches its bf16 wgmma kernel served (``.sm90_launches``), so a run
+shows which route it took.
 
 Layouts follow the JAX package: q ``(B, T, H, D)``, k/v compact GQA
 ``(B, T, H / kv_repeat, D)``, lse ``(B, H, T)`` fp32, segment ids
@@ -50,7 +52,8 @@ _NEG_INF = -1e30
 #: Head dims the kernels are instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
 #: Query rows and key rows of the bf16 forward's tiles (flash_fwd_sm90.cu's
-#: BQ and BK; the kernel's tile counter holds :func:`live_tiles` to them).
+#: BQ and BK), which the bf16 dQ backward shares (flash_bwd_sm90.cu's DQ_BQ
+#: and DQ_BK); both kernels' tile counters hold :func:`live_tiles` to them.
 SM90_BLOCK_Q = 128
 SM90_BLOCK_K = 128
 #: Query rows and key rows of the bf16 dK/dV backward's tiles
@@ -58,7 +61,7 @@ SM90_BLOCK_K = 128
 #: :func:`live_tiles_dkv` to them).
 SM90_DKV_BLOCK_Q = 64
 SM90_DKV_BLOCK_K = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,13 +69,14 @@ _F = ctypes.c_float
 
 
 def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures."""
+    """The fp32 kernel library, built at first use, with its C
+    signatures."""
     from ddl_tpu_torch.ops import _build
 
     lib = _build.load("flash_attention")
     if not getattr(lib, "_ddl_bound", False):
         geom = [_I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-        fwd, dq, dkv = [_I] + [_P] * 5, [_I] + [_P] * 8, [_I] + [_P] * 9
+        fwd, dq, dkv = [_P] * 5, [_P] * 8, [_P] * 9
         ids = [_P, _P]
         for fn, args in (
             (lib.ddl_flash_fwd, fwd), (lib.ddl_flash_bwd_dq, dq),
@@ -100,7 +104,7 @@ def _lib_sm90() -> ctypes.CDLL:
 
 
 def _lib_sm90_bwd() -> ctypes.CDLL:
-    """The bf16 dK/dV backward's library, built at first use."""
+    """The bf16 backward's library (dK/dV and dQ), built at first use."""
     from ddl_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd_sm90")
@@ -110,6 +114,11 @@ def _lib_sm90_bwd() -> ctypes.CDLL:
         lib.ddl_flash_bwd_dkv_sm90.restype = _I
         lib.ddl_flash_bwd_dkv_sm90_scratch.argtypes = [_I] * 5
         lib.ddl_flash_bwd_dkv_sm90_scratch.restype = ctypes.c_longlong
+        lib.ddl_flash_bwd_dq_sm90.argtypes = (
+            [_P] * 12 + [_I] * 9 + [_F, _P])
+        lib.ddl_flash_bwd_dq_sm90.restype = _I
+        lib.ddl_flash_bwd_dq_sm90_scratch.argtypes = [_I] * 4
+        lib.ddl_flash_bwd_dq_sm90_scratch.restype = ctypes.c_longlong
         lib._ddl_bound = True
     return lib
 
@@ -131,7 +140,7 @@ def _validate(q, k, v) -> Tuple[int, int, int, int, int, int]:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in _DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError("q, k and v must share dtype and device")
@@ -204,7 +213,7 @@ def _fwd(q, k, v, q_offset, k_offset, causal, seg, visited):
                            causal, visited), True)
     lib = _lib()
     rc = (lib.ddl_flash_fwd if seg is None else lib.ddl_flash_fwd_seg)(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D,
         int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
         _stream(q),
@@ -245,7 +254,9 @@ def live_tiles(seg_q, seg_k, q_offset=0, k_offset=0, causal=True):
     with ``seg_q[q] == seg_k[k]`` puts that id in both ranges, so no pair
     the masks allow is ever skipped, whatever the ids.  The plain
     statement of the kernel's rule, on any device; with ids all equal it
-    gives the tiles of the causal loop alone (what K1 visits).
+    gives the tiles of the causal loop alone (what K1 visits).  The bf16
+    packed dQ backward (K5) loads the same key tiles for each query tile
+    (K2 those of the causal loop), once per query head.
     """
     return _live_pairs(seg_q, seg_k, q_offset, k_offset, causal,
                        SM90_BLOCK_Q, SM90_BLOCK_K)
@@ -295,20 +306,51 @@ def _live_pairs(seg_q, seg_k, q_offset, k_offset, causal, block_q, block_k):
     return live
 
 
-def _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal, seg):
-    """Launch K2 or K5."""
+def _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal, seg,
+            visited):
+    """Launch K2 or K5: the wgmma kernel for bf16, the FMA kernel for fp32.
+    Returns ``(dq, sm90)``, ``sm90`` telling which route ran."""
     B, Tq, Tk, H, Hkv, D = _validate(q, k, v)
     _validate_rows(dout, q, lse, delta, dlse)
     ids = () if seg is None else _validate_ids(q, k, *seg)
+    _validate_visited(visited, q, "key tiles")
     dq = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        return _bwd_dq_sm90(q, k, v, dout, lse, delta, dlse, dq, ids, q_offset,
+                            k_offset, causal, visited), True
     lib = _lib()
     rc = (lib.ddl_flash_bwd_dq if seg is None else lib.ddl_flash_bwd_dq_seg)(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
         dq.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D, int(q_offset),
         int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5), _stream(q),
     )
     _check(rc, "flash dq")
+    return dq, False
+
+
+def _bwd_dq_sm90(q, k, v, dout, lse, delta, dlse, dq, ids, q_offset, k_offset,
+                 causal, visited):
+    """Launch the bf16 wgmma dQ kernel and, for K5, its pre-passes (the
+    padded key ids and the id ranges) into a byte scratch the library
+    sizes."""
+    _check_aligned(q=q, k=k, v=v, dout=dout)
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    lib = _lib_sm90_bwd()
+    scratch = None
+    if ids:
+        scratch = torch.empty(lib.ddl_flash_bwd_dq_sm90_scratch(B, Tq, Tk, 1),
+                              dtype=torch.uint8, device=q.device)
+    rc = lib.ddl_flash_bwd_dq_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(), dq.data_ptr(),
+        *(ids or (None, None)), None if scratch is None else scratch.data_ptr(),
+        None if visited is None else visited.data_ptr(), B, Tq, Tk, H, Hkv, D,
+        int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
+        _stream(q),
+    )
+    _check(rc, "flash dq (sm90)")
     return dq
 
 
@@ -327,7 +369,7 @@ def _bwd_dkv(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
                                q_offset, k_offset, causal, visited), True)
     lib = _lib()
     rc = (lib.ddl_flash_bwd_dkv if seg is None else lib.ddl_flash_bwd_dkv_seg)(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *ids, B, Tq, Tk, H, Hkv, D,
         int(q_offset), int(k_offset), int(bool(causal)), 1.0 / (D ** 0.5),
@@ -373,12 +415,16 @@ def flash_fwd(q, k, v, q_offset=0, k_offset=0, causal=True, visited=None):
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset=0, k_offset=0,
-                 causal=True):
+                 causal=True, visited=None):
     """K2: dQ from the saved lse, ``delta = rowsum(dO * O)`` and the lse
-    cotangent ``dlse`` (all ``(B, H, Tq)`` fp32)."""
-    dq = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
-                 None)
+    cotangent ``dlse`` (all ``(B, H, Tq)`` fp32).  ``visited`` (bf16
+    only): a one-element int64 tensor on the card that gains the number of
+    key tiles the kernel loads, summed over every (batch row, head, query
+    tile)."""
+    dq, sm90 = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
+                       causal, None, visited)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.sm90_launches += sm90
     return dq
 
 
@@ -408,11 +454,13 @@ def flash_fwd_seg(q, k, v, seg_q, seg_k, q_offset=0, k_offset=0, causal=True,
 
 
 def flash_bwd_dq_seg(q, k, v, dout, lse, delta, dlse, seg_q, seg_k,
-                     q_offset=0, k_offset=0, causal=True):
-    """K5: K2 under the packed-segment mask."""
-    dq = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset, causal,
-                 (seg_q, seg_k))
+                     q_offset=0, k_offset=0, causal=True, visited=None):
+    """K5: K2 under the packed-segment mask; ``visited`` as for K2 counts
+    the key tiles its skip leaves to load."""
+    dq, sm90 = _bwd_dq(q, k, v, dout, lse, delta, dlse, q_offset, k_offset,
+                       causal, (seg_q, seg_k), visited)
     flash_bwd_dq_seg.launches += 1
+    flash_bwd_dq_seg.sm90_launches += sm90
     return dq
 
 
@@ -435,7 +483,6 @@ KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in (flash_fwd, flash_fwd_seg, flash_bwd_dkv, flash_bwd_dkv_seg):
         fn.sm90_launches = 0
 
 

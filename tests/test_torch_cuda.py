@@ -14,9 +14,9 @@ Tolerances: fp32 — both sides take exact fp32 products, only the
 summation order differs: 1e-4.  bf16 — the kernels round ``p`` and ``ds``
 to bf16 before their products (as the TPU kernels do), the plain version
 keeps fp32: ``out`` atol 2e-2, ``lse`` 1e-3, gradients relative Frobenius
-error 2e-2.  The forward and the dK/dV backward take their wgmma kernels
-in bf16 and the FMA kernels in fp32; every head dim the kernels take (16,
-32, 64, 128) is checked.
+error 2e-2.  The forward, the dQ and the dK/dV backward take their wgmma
+kernels in bf16 and the FMA kernels in fp32; every head dim the kernels
+take (16, 32, 64, 128) is checked.
 The flash tests alone: ``python -m pytest tests/test_torch_cuda.py
 --noconftest -q -k flash``.
 
@@ -490,6 +490,129 @@ def test_bf16_dkv_refuses_misaligned_dout():
     out = torch.zeros_like(dout)
     aligned, _, _ = tfa._bwd_rows(bad, out, torch.zeros_like(lse))
     assert aligned.data_ptr() % 16 == 0 and torch.equal(aligned, dout)
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+def test_dq_route_follows_the_dtype(packed):
+    """bf16 reaches the wgmma dQ kernel (``sm90_launches``), fp32 the FMA
+    kernel; both count as K2 (K5 packed).  The tile counter belongs to the
+    wgmma kernel alone."""
+    dq = tfa.flash_bwd_dq_seg if packed else tfa.flash_bwd_dq
+    ids = torch.tensor(_doc_ids(np.random.default_rng(16), 1, 130, 30),
+                       device="cuda")
+    seg = (ids, ids) if packed else ()
+    q, k, v, dout, lse, delta, dlse = _dkv_inputs(16, 1, 130, 130, 4, 2, 64,
+                                                  0, 0, True, seg)
+    tfa.reset_launch_counts()
+    dq(q, k, v, dout, lse, delta, dlse, *seg)
+    torch.cuda.synchronize()
+    assert (dq.launches, dq.sm90_launches) == (1, 1)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    dq(*f32, lse, delta, dlse, *seg)
+    torch.cuda.synchronize()
+    assert (dq.launches, dq.sm90_launches) == (2, 1)
+    other = tfa.flash_bwd_dq if packed else tfa.flash_bwd_dq_seg
+    assert other.launches == other.sm90_launches == 0
+    with pytest.raises(ValueError, match="visited"):
+        dq(*f32, lse, delta, dlse, *seg,
+           visited=torch.zeros(1, dtype=torch.int64, device="cuda"))
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("causal,Tq,Tk,H,Hkv,q_off,k_off,mean_len", [
+    (False, 200, 260, 4, 4, 0, 0, 25),   # no causal loop bound, Tq != Tk
+    (True, 48, 300, 4, 1, 240, 8, 25),   # queries late in the keys
+    (True, 130, 130, 2, 2, 0, 0, 25),    # rep 1, a ragged query tile
+    (True, 100, 100, 8, 2, 0, 30, 25),   # T not a multiple of 64, rows with no key
+    (True, 200, 200, 8, 2, 0, 0, 1),     # one-token documents (packed)
+])
+def test_bf16_dq_geometries(packed, causal, Tq, Tk, H, Hkv, q_off, k_off,
+                            mean_len):
+    """The wgmma dQ kernel (K2, K5 packed) against the plain version
+    through autograd on the geometries the model path does not take, at
+    the bf16 tolerance (grads rel 2e-2).  Rows with no key give dq = 0
+    exactly; the key tiles the kernel loads (its ``visited`` counter) are
+    those :func:`live_tiles` names, in every query head."""
+    q, k, v, g_out, g_lse = _inputs(17, 2, Tq, Tk, H, Hkv, 64)
+    seg = {}
+    if packed:
+        ids = _doc_ids(np.random.default_rng(17), 2, q_off + Tq + k_off + Tk,
+                       mean_len)
+        if mean_len == 1:
+            ids = np.broadcast_to(np.arange(ids.shape[1], dtype=np.int32),
+                                  ids.shape)
+        seg = dict(segment_ids=torch.tensor(ids[:, q_off:q_off + Tq],
+                                            device="cuda").contiguous(),
+                   kv_segment_ids=torch.tensor(ids[:, k_off:k_off + Tk],
+                                               device="cuda").contiguous())
+
+    def run(fn):
+        ts = [torch.tensor(x, device="cuda").bfloat16().requires_grad_(True)
+              for x in (q, k, v)]
+        out, lse = fn(*ts)
+        live = lse > -1e29
+        loss = (out.float() * torch.tensor(g_out, device="cuda")).sum() + (
+            torch.where(live, lse * torch.tensor(g_lse, device="cuda"),
+                        torch.zeros_like(lse)).sum())
+        loss.backward()
+        return ts[0].grad.float(), lse.detach()
+
+    dq = tfa.flash_bwd_dq_seg if packed else tfa.flash_bwd_dq
+    tfa.reset_launch_counts()
+    got, _ = run(lambda a, b, c: tfa.flash_attention_with_lse(
+        a, b, c, q_off, k_off, causal, H // Hkv, **seg))
+    assert (dq.launches, dq.sm90_launches) == (1, 1)
+    want, want_lse = run(lambda a, b, c: tfa.attention_plain(
+        a, b, c, q_off, k_off, causal, H // Hkv, seg.get("segment_ids"),
+        seg.get("kv_segment_ids")))
+    assert float((got - want).norm()) <= 2e-2 * float(want.norm())
+    empty = (want_lse <= -1e29).transpose(1, 2)  # (B, Tq, H)
+    assert bool(empty.any()) == (k_off > q_off and causal)
+    assert not got[empty].any()
+    ids = (seg["segment_ids"], seg["kv_segment_ids"]) if packed else ()
+    inputs = _dkv_inputs(17, 2, Tq, Tk, H, Hkv, 64, q_off, k_off, causal, ids)
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    dq(*inputs, *ids, q_off, k_off, causal, visited=visited)
+    rule_ids = ids or (torch.zeros(2, Tq, dtype=torch.int32),
+                       torch.zeros(2, Tk, dtype=torch.int32))
+    rule = int(tfa.live_tiles(*rule_ids, q_off, k_off, causal).sum())
+    assert int(visited) == H * rule > 0
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_dq_is_deterministic(packed):
+    """No atomics: two calls on the same inputs give bit-identical dq."""
+    dq = tfa.flash_bwd_dq_seg if packed else tfa.flash_bwd_dq
+    ids = torch.tensor(_doc_ids(np.random.default_rng(18), 2, 300, 60),
+                       device="cuda")
+    seg = (ids, ids) if packed else ()
+    inputs = _dkv_inputs(18, 2, 300, 300, 8, 2, 128, 0, 0, True, seg)
+    first = dq(*inputs, *seg)
+    second = dq(*inputs, *seg)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.flash
+def test_bf16_dq_refuses_misaligned_dout():
+    """Called directly, the wgmma dQ kernel raises on a dout 2 bytes into
+    its storage (its TMA needs 16-byte aligned bases) and launches
+    nothing; the autograd path copies such a dout first."""
+    q, k, v, dout, lse, delta, dlse = _dkv_inputs(19, 1, 64, 64, 2, 1, 64,
+                                                  0, 0, True)
+    buf = torch.zeros(dout.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    bad = buf[1:].view(dout.shape)
+    bad.copy_(dout)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_bwd_dq(q, k, v, bad, lse, delta, dlse)
+    assert tfa.flash_bwd_dq.launches == tfa.flash_bwd_dq.sm90_launches == 0
+    tfa.flash_bwd_dq(q, k, v, bad.clone(), lse, delta, dlse)
+    assert tfa.flash_bwd_dq.launches == tfa.flash_bwd_dq.sm90_launches == 1
 
 
 @pytest.mark.flash

@@ -163,7 +163,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_dq(q, k, k, q, rows, rows, rows)
     with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq(q.bfloat16(), k.bfloat16(), k.bfloat16(),
+                         q.bfloat16(), rows, rows, rows,
+                         visited=torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_dkv(q, k, k, q, rows, rows, rows)
+
+
+def test_reset_launch_counts_zeroes_both_counters():
+    """Every kernel wrapper, K1-K6, counts its launches and those its bf16
+    wgmma kernel served; ``reset_launch_counts`` zeroes both."""
+    assert len(tfa.KERNELS) == 6
+    saved = [(fn.launches, fn.sm90_launches) for fn in tfa.KERNELS]
+    try:
+        for fn in tfa.KERNELS:
+            fn.launches, fn.sm90_launches = 5, 3
+        tfa.reset_launch_counts()
+        assert [(fn.launches, fn.sm90_launches) for fn in tfa.KERNELS] == [
+            (0, 0)] * 6
+    finally:
+        for fn, (n, m) in zip(tfa.KERNELS, saved):
+            fn.launches, fn.sm90_launches = n, m
 
 
 def _doc_ids(rng, B, T, mean_len):
@@ -271,6 +291,10 @@ def test_packed_kernel_wrappers_refuse_cpu_tensors():
         tfa.flash_fwd_seg(q, k, k, ids, ids)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_dq_seg(q, k, k, q, rows, rows, rows, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq_seg(q.bfloat16(), k.bfloat16(), k.bfloat16(),
+                             q.bfloat16(), rows, rows, rows, ids, ids,
+                             visited=torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_dkv_seg(q, k, k, q, rows, rows, rows, ids, ids)
     assert [fn.launches for fn in tfa.KERNELS] == before
