@@ -7,7 +7,9 @@
 
 Phase 1 builds the hand-written CUDA kernels from the sources in this
 checkout (``ddl_tpu_torch/ops/csrc``, one ``nvcc`` per source, all
-started together) and identifies the card.
+started together), the host-registration library beside them and the
+native shared-memory ring (``g++``, ``transport/csrc/shm_ring.cpp``),
+and identifies the card.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's attention shapes (plus a ragged length, fp32, a call whose query
 rows are all masked, and bf16 at head dims 16, 32 and 64), times kernel,
@@ -57,9 +59,20 @@ fallback; a ragged geometry through the plain route; and the A/B of the
 tier against the plain per-position route.
 Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
-in THREAD mode over a ``TokenStreamProducer`` window stream (K1-K3), then
-over a ``PackedTokenProducer`` stream of documents (K4-K6); every forward,
-dQ and dK/dV launch of both fits must ride the wgmma kernels.
+over a ``TokenStreamProducer`` window stream (K1-K3), then over a
+``PackedTokenProducer`` stream of documents (K4-K6), each twice from the
+same parameters: with THREAD producers, then with spawned PROCESS
+producers over native shared-memory rings that the loader page-locks
+with ``cudaHostRegister``.  Every forward, dQ and dK/dV launch of every
+fit must ride the wgmma kernels; every window must take the staged
+engine's alias route (its copy to the card sourcing the page-locked
+slot) with no fallback, drop, CRC failure or salvage; a PROCESS fit's
+rings must be native and registered, its producers must exit 0, and
+its losses must equal its THREAD twin's (relative 1e-5).  Each fit
+prints its wall-time ms/step and, apart, its time to the first window
+(spawn and handshake included), its steady state (every step, from the
+first window to the end of the last steps, on the card's clock) and its
+teardown.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
@@ -120,7 +133,7 @@ class PhaseFailed(Exception):
 
 #: The kernel sources, one library each.
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention",
-           "device_shuffle", "ici_fanout")
+           "device_shuffle", "ici_fanout", "host_register")
 #: The wgmma sources: their ptxas report must show no serialized wgmma
 #: (C7512: too few registers; C7520: a wgmma in a divergent branch), and
 #: the backward's (dK/dV and dQ) no spill.  The forward's K4 at head dim
@@ -133,10 +146,16 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from ddl_tpu_torch.ops import _build
+    from ddl_tpu_torch.transport import shm_ring
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        ring = pool.submit(shm_ring.build_native)
         libs = list(pool.map(_build.build, SOURCES))
+        # A failed g++ build raises here: PROCESS mode must not fall back
+        # to the Python ring in this run.
+        log(f"[build] transport/csrc/shm_ring.cpp -> "
+            f"{os.path.basename(ring.result())} (g++)")
     faults = []
     for name, lib in zip(SOURCES, libs):
         log(f"[build] {name}.cu -> {os.path.basename(lib)}")
@@ -153,7 +172,8 @@ def phase_build():
                         or (name in WGMMA_SOURCES
                             and ("C7512" in line or "C7520" in line))):
                     faults.append(f"{name}: {line.strip()}")
-    log(f"[build] {len(SOURCES)} sources in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(SOURCES) + 1} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
     if faults:
         raise PhaseFailed("ptxas spills or serializes a wgmma kernel: "
                           + "; ".join(faults))
@@ -1676,21 +1696,124 @@ def _corpus_stats(token_file: str, seq_len: int):
     return float((seg[:, -1] + 1).mean()), float(boundary / seg.size)
 
 
-def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
-    """One of the port's paths at full width: ``Trainer.fit`` over a
-    ``TokenStreamProducer`` stream (K1-K3) or, ``packed``, over a
-    ``PackedTokenProducer`` stream of documents into the segment-masked
-    loss (K4-K6).  The launch counts are set to 0 just before the
-    measured fit and read just after it."""
-    import numpy as np
+def _shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False):
+    """One training path in one producer mode at full width: a fresh
+    ``Trainer`` from ``init_params(seed=0)``, a one-window warm-up fit
+    (cuBLAS handles, allocator pools, the producers' first spawn), then
+    the measured fit with the flash launch counts set to 0 just before it
+    and read just after.  Everything it allocated is dropped on return."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
     from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
     from ddl_tpu_torch.ops import flash_attention as fa
     from ddl_tpu_torch.parallel.train import adamw
-    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
     from ddl_tpu_torch.trainer import Trainer
+
+    tr = TRAIN
+    trainer = Trainer(
+        loss_fn=loss_fn,
+        # No warm-up schedule in a 6-step smoke: a small rate keeps Adam's
+        # first, sign-like steps from overshooting at this width.
+        optimizer=adamw(1e-5),
+        init_params=llama.init_params(cfg, seed=SEED, device="cuda"),
+        device="cuda",
+        metrics=Metrics(),
+    )
+
+    def run(n_epochs):
+        return trainer.fit(producer, config=LoaderConfig(
+            batch_size=tr["batch_size"], n_epochs=n_epochs,
+            n_producers=tr["n_producers"], mode=mode, window_stream=True))
+
+    warm = run(1)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.metrics = m = Metrics()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run(tr["n_epochs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+    sm90 = {fn.__name__: fn.sm90_launches for fn in fa.KERNELS}
+    steps_per_window = tr["window_rows"] // tr["batch_size"]
+    steps = tr["n_epochs"] * steps_per_window
+    tokens = steps * tr["batch_size"] * tr["seq_len"]
+    # trainer.first_window: fit() to the first window handed to the steps
+    # (spawn, handshake, first fill and copy); trainer.windows: from there
+    # to the end of the last window's steps on the card's clock, every
+    # step of the fit: the steady state.  The rest of the wall time is
+    # teardown (loader shutdown, unregistering, joining the producers).
+    first = m.timer("trainer.first_window").total_s
+    steady_steps = steps
+    steady_s = m.timer("trainer.windows").total_s
+    summary = {
+        "mode": mode, "losses": result.losses, "steps": steps,
+        "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
+        "first_window_s": first,
+        "handshake_s": m.timer("consumer.handshake").total_s,
+        "teardown_s": wall - first - steady_s,
+        "steady_step_ms": steady_s / steady_steps * 1e3,
+        "steady_tokens_per_s": (steady_steps * tr["batch_size"]
+                                * tr["seq_len"] / steady_s),
+        "ingest_overlap_s": m.timer("trainer.ingest_overlap").total_s,
+        "window_wait_s": m.timer("trainer.window_wait").total_s,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "counters": {k: m.counter(k) for k in (
+            "transport.rings.NativeShmRing", "transport.rings.PyShmRing",
+            "transport.rings.ThreadRing", "ingest.registered_rings",
+            "consumer.windows", "staging.alias_windows",
+            "staging.alias_fallbacks", "staging.pool_alias_drops",
+            "integrity.staging_verify_failures", "staging.inline_fallbacks",
+            "staging.pool_hits", "staging.pool_misses",
+            "integrity.corrupt_windows", "producer.exits_clean",
+            "producer.exits_failed")},
+        "launches": launches, "sm90_launches": sm90,
+    }
+    log(f"{tag} {mode}: per-window losses {result.losses}")
+    log(f"{tag} {mode}: {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} "
+        f"ms/step, {tokens / wall:.0f} tokens/s, peak memory "
+        f"{summary['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"{tag} {mode}: first window at the steps {first:.3f} s after "
+        f"fit() (handshake {summary['handshake_s']:.3f} s); steady state, "
+        f"the {steady_steps} steps from there, "
+        f"{summary['steady_step_ms']:.1f} ms/step, "
+        f"{summary['steady_tokens_per_s']:.0f} tokens/s; teardown "
+        f"{summary['teardown_s']:.3f} s; "
+        f"trainer.ingest_overlap {summary['ingest_overlap_s'] * 1e3:.2f} ms, "
+        f"trainer.window_wait {summary['window_wait_s'] * 1e3:.2f} ms; "
+        f"/dev/shm free {_shm_free_bytes()} bytes ({card})")
+    log(f"{tag} {mode}: counters {json.dumps(summary['counters'])}")
+    del result
+    if profile:
+        profile_run(lambda: run(tr["n_epochs"]), f"{tag} {mode} fit")
+    del trainer
+    free_device_memory()
+    return summary
+
+
+def phase_train(tmpdir: str, card: str, profile: bool = False,
+                packed: bool = False):
+    """One of the port's paths at full width: ``Trainer.fit`` over a
+    ``TokenStreamProducer`` stream (K1-K3) or, ``packed``, over a
+    ``PackedTokenProducer`` stream of documents into the segment-masked
+    loss (K4-K6), first with THREAD producers, then with spawned PROCESS
+    producers over native shm rings that the loader page-locks.  Both
+    fits start from the same parameters and must see the same windows,
+    run the same kernels and give the same losses."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
 
     tr = TRAIN
     tag = "[train-packed]" if packed else "[train]"
@@ -1724,77 +1847,68 @@ def phase_train(tmpdir: str, profile: bool = False, packed: bool = False):
         f"{llama.param_count(cfg) / 1e9:.3f} B params, dtype {cfg.dtype}, "
         f"attn_impl {cfg.attn_impl}, remat {cfg.remat}")
 
-    params = llama.init_params(cfg, seed=SEED, device="cuda")
-    trainer = Trainer(
-        loss_fn=loss_fn,
-        # No warm-up schedule in a 6-step smoke: a small rate keeps Adam's
-        # first, sign-like steps from overshooting at this width.
-        optimizer=adamw(1e-5),
-        init_params=params,
-        device="cuda",
-    )
-    del params
+    thread = _fit_mode("thread", producer, loss_fn, cfg, tag, card, profile)
+    proc = _fit_mode("process", producer, loss_fn, cfg, tag, card)
 
-    def run(n_epochs):
-        return trainer.fit(producer, config=LoaderConfig(
-            batch_size=tr["batch_size"], n_epochs=n_epochs,
-            n_producers=tr["n_producers"], mode="thread", window_stream=True))
-
-    # Warm-up fit (one window: cuBLAS handles, allocator pools), then the
-    # measured run with the launch counts set to 0 just before it.
-    warm = run(1)
-    del warm
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = run(tr["n_epochs"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
-    fwd, dq, dkv = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
-    sm90, dq_sm90, dkv_sm90 = (fwd.sm90_launches, dq.sm90_launches,
-                               dkv.sm90_launches)
-
-    steps_per_window = tr["window_rows"] // tr["batch_size"]
-    steps = tr["n_epochs"] * steps_per_window
-    tokens = steps * tr["batch_size"] * tr["seq_len"]
-    peak = torch.cuda.max_memory_allocated()
+    steps = thread["steps"]
     expected = cfg.n_layers * steps
+    fwd, dq, dkv = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
     ran, idle = ((fa.KERNELS[3:], fa.KERNELS[:3]) if packed
                  else (fa.KERNELS[:3], fa.KERNELS[3:]))
-    log(f"{tag} per-window losses {result.losses}")
-    log(f"{tag} {steps} steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
-        f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
-    log(f"{tag} kernel launches in this run: {launches} (expected "
-        f"{cfg.n_layers} layers x {steps} steps = {expected} for "
-        f"{[fn.__name__ for fn in ran]}, 0 for the others); on the wgmma "
-        f"kernels: {fwd.__name__} {sm90}, {dq.__name__} {dq_sm90}, "
-        f"{dkv.__name__} {dkv_sm90} "
-        f"(expected {expected} each)")
-    ok = (
-        len(result.losses) == tr["n_epochs"]
-        and all(math.isfinite(x) for x in result.losses)
-        and sm90 == expected
-        and dq_sm90 == expected
-        and dkv_sm90 == expected
-        and all(fn.launches == expected for fn in ran)
-        and all(fn.launches == 0 for fn in idle)
-    )
-    if not ok:
-        raise PhaseFailed(f"{tag} training run failed its checks")
+    faults = []
+    for s in (thread, proc):
+        mode, c = s["mode"], s["counters"]
+        log(f"{tag} {mode}: kernel launches in this run: {s['launches']} "
+            f"(expected {cfg.n_layers} layers x {steps} steps = {expected} "
+            f"for {[fn.__name__ for fn in ran]}, 0 for the others); on the "
+            f"wgmma kernels: {s['sm90_launches']}")
+        if not (len(s["losses"]) == tr["n_epochs"]
+                and all(math.isfinite(x) for x in s["losses"])):
+            faults.append(f"{mode}: losses {s['losses']}")
+        if not (all(s["launches"][fn.__name__] == expected for fn in ran)
+                and all(s["launches"][fn.__name__] == 0 for fn in idle)
+                and all(s["sm90_launches"][fn.__name__] == expected
+                        for fn in (fwd, dq, dkv))):
+            faults.append(f"{mode}: flash launches {s['launches']} / "
+                          f"{s['sm90_launches']}")
+        windows = c["consumer.windows"]
+        if not (windows == tr["n_epochs"]
+                and c["staging.alias_windows"] == windows
+                and c["staging.alias_fallbacks"] == 0
+                and c["staging.pool_alias_drops"] == 0
+                and c["integrity.staging_verify_failures"] == 0
+                and c["staging.inline_fallbacks"] == 0
+                and c["integrity.corrupt_windows"] == 0):
+            faults.append(f"{mode}: staging counters {c}")
+    c = proc["counters"]
+    n = tr["n_producers"]
+    if not (c["transport.rings.NativeShmRing"] == n
+            and c["transport.rings.PyShmRing"] == 0
+            and c["ingest.registered_rings"] == n
+            and c["producer.exits_clean"] == n
+            and c["producer.exits_failed"] == 0):
+        faults.append(f"process: rings, registration or exits {c}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(proc["losses"],
+                                                   thread["losses"]))
+    log(f"{tag} process vs thread losses: max relative difference {rel:.3e} "
+        f"({'bit-equal' if proc['losses'] == thread['losses'] else 'not bit-equal'})")
+    if not rel <= 1e-5:
+        faults.append(f"process losses {proc['losses']} vs thread "
+                      f"{thread['losses']}")
+    if faults:
+        raise PhaseFailed(f"{tag} training runs failed their checks: "
+                          + "; ".join(faults))
     summary = {
-        "step_ms": wall / steps * 1e3, "tokens_per_s": tokens / wall,
-        "peak_bytes": peak, "losses": result.losses, "steps": steps,
-        "sm90_launches": sm90, "dq_sm90_launches": dq_sm90,
-        "dkv_sm90_launches": dkv_sm90,
+        "step_ms": thread["step_ms"], "tokens_per_s": thread["tokens_per_s"],
+        "peak_bytes": thread["peak_bytes"], "losses": thread["losses"],
+        "steps": steps, "sm90_launches": thread["sm90_launches"][fwd.__name__],
+        "dq_sm90_launches": thread["sm90_launches"][dq.__name__],
+        "dkv_sm90_launches": thread["sm90_launches"][dkv.__name__],
+        "thread": thread, "process": proc,
     }
     if packed:
         summary.update(segments_per_row=segs, boundary_dropped=dropped)
-    del result
-    if profile:
-        profile_run(lambda: run(tr["n_epochs"]), f"{tag} fit")
-    return launches, summary
+    return thread["launches"], summary
 
 
 def free_device_memory() -> None:
@@ -1847,10 +1961,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ici_rows, ici_summary = phase_ici(tmp, args.profile)
             free_device_memory()
-            launches, summary = phase_train(tmp, args.profile)
-            free_device_memory()
+            launches, summary = phase_train(tmp, card, args.profile)
             packed_launches, packed_summary = phase_train(
-                tmp, args.profile, packed=True)
+                tmp, card, args.profile, packed=True)
         # Each kernel's launches come from the run of its own path.
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")

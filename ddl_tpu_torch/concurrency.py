@@ -15,6 +15,11 @@ from typing import Any, Tuple
 LOCK_ORDER: Tuple[str, ...] = (
     "transport.connection",
     "transport.ring.cond",
+    # The staging engine's queue, then its buffer pool; the ingestor's
+    # transfer lock is taken by either thread that runs a staged job.
+    "staging.executor.cv",
+    "staging.pool",
+    "ingest.transfer",
     # The device-tier exchange board ranks above the host board: the
     # device tier latches to the host exchange, never the reverse.
     "shuffle.device.cond",

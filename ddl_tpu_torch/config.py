@@ -1,7 +1,7 @@
 """Run configuration (the slice's subset of ``ddl_tpu/config.py``).
 
-``LoaderConfig`` keeps the fields the THREAD-mode window-stream path
-reads; ``TrainConfig`` the one training field the slice's ``Trainer``
+``LoaderConfig`` keeps the fields the window-stream path reads, in
+THREAD or PROCESS mode; ``TrainConfig`` the one training field the slice's ``Trainer``
 reads.  The other fields of the JAX package (cache, wire, shuffle,
 host identity, remat, pipeline and distributed-optimizer knobs) belong
 to later slices.
@@ -18,7 +18,7 @@ from ddl_tpu_torch.types import RunMode
 class LoaderConfig:
     """Everything the pipeline needs, in one place."""
 
-    # topology
+    # topology: "thread" or "process" (spawned producers over shm rings)
     mode: str = RunMode.THREAD.value
     n_producers: int = 2
     nslots: int = 2

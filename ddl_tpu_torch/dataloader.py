@@ -7,24 +7,31 @@
   the user calls ``mark(END_OF_BATCH)`` / ``mark(END_OF_EPOCH)``.
 - Window streaming (``windows(lookahead)``): each epoch-window crosses
   to the device as ONE copy straight out of the ring slot, the next
-  window's copy already in flight while the caller computes.  On CUDA
-  the slot release is deferred onto the copy's event (the release
-  backlog), and a fused-step caller can gate it on its consuming step as
-  well (:meth:`DistributedDataLoader.gate_release_on`).
+  window's copy already in flight while the caller computes.  Staged
+  (the default on the card), a background worker runs the copies and a
+  slot returns to its producer as soon as nothing reads it; inline, the
+  slot release is deferred onto the copy's event (the release backlog),
+  and a fused-step caller can gate it on its consuming step as well
+  (:meth:`DistributedDataLoader.gate_release_on`).
+- PROCESS mode: the rings are shared-memory rings of spawned producer
+  processes.  A loader feeding a card page-locks each one it attaches
+  (``cudaHostRegister``) and unlocks it at shutdown, after every copy
+  that may read a slot has completed.
 - Sharded targets (``sharding=``, ``distribute=``): windows and batches
   land on a mesh of positions, through the ICI fan-out tier or the plain
   route (:class:`~ddl_tpu_torch.ingest.DeviceIngestor`).
 
 Every acquire verifies the window's integrity trailer.  A corrupt head
 window raises :class:`IntegrityError`; the quarantine-and-replay ladder,
-the staged ingest engine, loader pools, admission and observability
-shipping of the JAX package are later slices.
+loader pools, admission and observability shipping of the JAX package
+are later slices.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import time
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +89,7 @@ class DistributedDataLoader:
         timeout_s: float = 300.0,
         sharding: Any = None,
         distribute: str = "auto",
+        staged: Optional[bool] = None,
     ):
         if output not in ("torch", "numpy", "device"):
             raise ValueError(f"output must be torch|numpy|device, got {output!r}")
@@ -108,6 +116,14 @@ class DistributedDataLoader:
         self._last_stream_entry: Any = None
         self._last_acquired_seq: Optional[int] = None
         self._last_window_key: Any = None
+        # Staged windows whose slots were released early (nothing reads
+        # them any more) but which no stream has yielded yet: an abandoned
+        # stream's lookahead survives here and the next stream serves it
+        # first (the break-resume contract, kept under staging).
+        self._staged_orphans: list = []
+        # Shared-memory rings this loader page-locked (unlocked at
+        # shutdown).
+        self._page_locked: list = []
         if output == "device":
             from ddl_tpu_torch.ingest import DeviceIngestor
 
@@ -117,10 +133,11 @@ class DistributedDataLoader:
             # on the CPU.
             self._ingestor = DeviceIngestor(
                 device=device, metrics=self.metrics, sharding=sharding,
-                distribute=distribute,
+                distribute=distribute, staged=staged,
             )
 
         # -- handshake -----------------------------------------------------
+        t0 = time.perf_counter()
         connection.send_metadata(
             MetaData_Consumer_To_Producer(
                 data_producer_function=data_producer_function,
@@ -139,7 +156,25 @@ class DistributedDataLoader:
         self.splits_per_producer = [tuple(r.splits) for r in replies]
         self.shapes = [tuple(r.shape) for r in replies]
         self.dtypes = [np.dtype(r.dtype) for r in replies]
-        connection.attach_rings()
+        rings = connection.attach_rings()
+        self.metrics.add_time("consumer.handshake", time.perf_counter() - t0)
+        for ring in rings:
+            self.metrics.incr(f"transport.rings.{type(ring).__name__}")
+        if self._ingestor is not None and self._ingestor.device.type == "cuda":
+            self._page_lock(rings)
+
+    def _page_lock(self, rings) -> None:
+        """Register each attached shared-memory ring's whole mapping with
+        the card (once per ring, not per window), so a window's copy is a
+        DMA out of its slot.  A failed registration raises."""
+        from ddl_tpu_torch.ops import host_register
+
+        for ring in rings:
+            if ring.page_locked or not hasattr(ring, "mapping"):
+                continue
+            host_register.page_lock(ring, self._ingestor.device)
+            self._page_locked.append(ring)
+            self.metrics.incr("ingest.registered_rings")
 
     # -- iteration protocol ------------------------------------------------
 
@@ -202,21 +237,37 @@ class DistributedDataLoader:
             for idx in range(self._lens[self._target]):
                 yield self._host_batch(idx)
 
+        # A staged ingestor enqueues slot views to the background
+        # executor and pops ready device batches; ``put`` serves the
+        # inline path and the staged iterator's direct fills.
         return PrefetchIterator(
             host_iter(), lambda b: self._ingestor.put_batch(b, splits), depth,
+            ingestor=self._ingestor,
+            transfer=self._ingestor.batch_transfer_fn(splits),
         )
 
     def windows(self, lookahead: int = 1):
         """Stream whole windows onto the device, one per epoch
         (``output="device"``).
 
-        Each window's copy sources the ring slot directly (no host
-        memcpy between producer fill and device).  On CUDA the slot is
-        held until the copy event fires, but the HOST never waits for
-        it: windows yield as tensors the current stream is ordered
-        after, and slot release is gated on a non-blocking event probe
-        (forced only when a ring runs out of slots).  On the CPU the
-        window is copied at once and its slot released at yield.
+        Two disciplines, picked by ``DeviceIngestor.stream_staged``:
+
+        - **Staged** (the default on the card; ``staged=True`` forces it):
+          the background executor runs each window's copy.  Where the slot
+          is page-locked (a pinned THREAD ring, a registered shared-memory
+          ring) the copy to the card sources the slot itself (the alias
+          route, ``DDL_TORCH_SHM_STAGING``); elsewhere the window is first
+          copied into a pooled staging buffer, whose CRC is verified
+          against the trailer's.  Either way the slot returns to its
+          producer as soon as nothing reads it — before the window is
+          yielded, where the worker got there first.
+        - **Inline** (``DDL_TORCH_STAGED=0``, the default on the CPU): the
+          copy sources the slot directly.  On CUDA the slot is held until
+          the copy event fires, but the HOST never waits for it: windows
+          yield as tensors the current stream is ordered after, and slot
+          release is gated on a non-blocking event probe (forced only when
+          a ring runs out of slots).  On the CPU the window is copied at
+          once and its slot released at yield.
 
         ``lookahead`` (default 1) acquires window k+1 and starts its copy
         before window k is yielded — a NON-BLOCKING try, so producer
@@ -231,13 +282,19 @@ class DistributedDataLoader:
         """
         if self._ingestor is None:
             raise LoaderStateError("windows() requires output='device'")
+        from ddl_tpu_torch.staging import StagedTransfer
+        from ddl_tpu_torch.utils import wait_value
+
+        ingestor = self._ingestor
+        engine = ingestor.engine() if ingestor.stream_staged else None
         rings = self.connection.rings
         held: collections.Counter = collections.Counter()
         # A previous stream's yielded-but-unreleased windows still hold
         # ring slots; count them so drain lookahead skips past them.
         for entry in self._release_backlog:
             held[entry[0]] += 1
-        # FIFO of [slot, target, transfer, samples, wkey] in flight.
+        # FIFO of [slot, target, payload, samples, released, wkey] in
+        # flight: payload is a Transfer (inline) or a StagedTransfer.
         pending: collections.deque = collections.deque()
         # Generator-local rotation cursor: self._target only advances when
         # a window is yielded, so an abandoned stream needs no rollback
@@ -251,6 +308,7 @@ class DistributedDataLoader:
             target = cursor
             with self.metrics.timed("consumer.wait"):
                 slot = self._acquire_verified(target, held[target], timeout_s)
+            ring = rings[target]
             # Window identity: the integrity trailer's (producer_idx, seq).
             wkey = (target + 1, self._last_acquired_seq)
             bpw = self._lens[target]
@@ -258,27 +316,88 @@ class DistributedDataLoader:
             window = self._slot_array(target, slot)[:served].reshape(
                 bpw, self.batch_size, *self.shapes[target][1:]
             )
-            transfer = self._ingestor.put_window(window, defer_metrics=True)
+            if engine is not None and not engine.faulted:
+                # The alias route needs a page-locked slot: a copy out of
+                # pageable memory would block the host.
+                alias = (ingestor.stream_alias and ring.page_locked
+                         and not engine.executor.alias_unsafe)
+                # The committed CRC certifies the staging copy when the
+                # served rows span the whole payload.
+                expected_crc = None
+                if (not alias and self._integrity
+                        and window.nbytes == ring.slot_payload(slot)):
+                    expected_crc = integrity.read_header(
+                        ring.slot_view(slot), ring.slot_payload(slot)).crc
+
+                def transfer(buf):
+                    t = ingestor.put_window(buf, defer_metrics=True)
+                    return t, t
+
+                payload = engine.submit(window, transfer,
+                                        expected_crc=expected_crc,
+                                        alias_src=alias)
+            else:
+                payload = ingestor.put_window(window, defer_metrics=True)
             held[target] += 1
             cursor = (cursor + 1) % self.n_producers
-            return [slot, target, transfer, served, wkey]
+            return [slot, target, payload, served, False, wkey]
+
+        def release_early():
+            """Hand back the slots of pending staged windows nothing reads
+            any more, in FIFO order, stopping at the first still read.
+            Such a window lives on only in flight or in staging, so it is
+            recorded in ``_staged_orphans`` until yielded."""
+            for entry in pending:
+                slot, target, payload, _served, released = entry[:5]
+                if released:
+                    continue
+                if not isinstance(payload, StagedTransfer):
+                    # An inline window holds its slot until yield, and
+                    # release order is FIFO.
+                    break
+                if not payload.copy_done.is_set():
+                    break
+                rings[target].release(slot)
+                held[target] -= 1
+                entry[4] = True
+                self._staged_orphans.append(entry)
 
         def finish(entry):
-            slot, target, transfer, served, wkey = entry
-            dev = self._ingestor.hand_off(transfer)
+            slot, target, payload, served, released, wkey = entry
+            if isinstance(payload, StagedTransfer):
+                def inline_put(buf):
+                    t = ingestor.put_window(buf, defer_metrics=True)
+                    wait_value(t.done)  # the salvage buffer is not pooled
+                    return t
+
+                # An unstarted job runs here (work stealing); a transfer
+                # that exhausted its retries is redone inline from its
+                # verified host copy.
+                transfer = engine.complete_or_salvage(
+                    payload, inline_put, self.timeout_s)
+            else:
+                transfer = payload
+            dev = ingestor.hand_off(transfer)
             self.metrics.incr("ingest.bytes", float(dev.nbytes))
             self.metrics.incr("ingest.windows")
             self.metrics.incr("consumer.windows")
             self.metrics.incr("consumer.samples", served)
             self._last_stream_entry = None
-            if self._ingestor.window_source_detached():
-                # CPU: the copy is already complete; hand the slot back.
+            if released:
+                # Yielded after its early release: no longer an orphan.
+                if self._staged_orphans and self._staged_orphans[0] is entry:
+                    self._staged_orphans.pop(0)
+            elif (isinstance(payload, StagedTransfer)
+                  or ingestor.window_source_detached()):
+                # Nothing reads the slot any more (a completed staged job,
+                # or the CPU's immediate copy): hand it back now.
                 rings[target].release(slot)
                 held[target] -= 1
             else:
-                # CUDA: the copy still reads the slot.  Defer the release
-                # onto its event (_sweep_release_backlog), remembered so a
-                # fused-step consumer can gate it on its step as well.
+                # Inline on CUDA: the copy still reads the slot.  Defer the
+                # release onto its event (_sweep_release_backlog),
+                # remembered so a fused-step consumer can gate it on its
+                # step as well.
                 backlog_entry = [target, slot, transfer.done, wkey]
                 self._release_backlog.append(backlog_entry)
                 self._last_stream_entry = backlog_entry
@@ -286,6 +405,12 @@ class DistributedDataLoader:
             self._target = (target + 1) % self.n_producers
             self._last_window_key = wkey
             return dev
+
+        # Inherit an abandoned stream's early-released windows: they are,
+        # by FIFO construction, exactly the next unserved windows.
+        pending.extend(self._staged_orphans)
+        if pending:
+            cursor = (pending[-1][1] + 1) % self.n_producers
 
         remaining = self.n_epochs - self._epoch
         for i in range(remaining):
@@ -305,13 +430,20 @@ class DistributedDataLoader:
                     # release: wait out the oldest deferred one.
                     self._flush_release_backlog(held, target=cursor)
                 pending.append(start_one(self.timeout_s))
+            if engine is not None:
+                # Early releases first: a lower held[cursor] admits a
+                # deeper pipeline on the same nslots.
+                release_early()
             # Deepen up to `lookahead` extra windows, each a non-blocking
-            # try: the first not-yet-committed window ends the round.
+            # try: the first not-yet-committed window ends the round, and
+            # so does a full executor queue (deepening never blocks).
             while (
                 len(pending) <= lookahead
                 and i + len(pending) < remaining
                 and not self._finalized
                 and held[cursor] < rings[cursor].nslots
+                and (engine is None or engine.faulted
+                     or engine.executor.has_capacity())
             ):
                 if not rings[cursor].poll_drain_ready(held[cursor]):
                     break
@@ -459,6 +591,15 @@ class DistributedDataLoader:
             # The batch path tracks no hold counter: a stream's deferred
             # releases must land first.
             self._flush_release_backlog()
+        if self._staged_orphans:
+            # The next unserved windows live in flight or in staging (an
+            # abandoned staged stream released their slots early); the
+            # batch path serves slot views and cannot reach them.
+            raise LoaderStateError(
+                "an abandoned windows() stream left staged windows in "
+                "flight; drain them with a new windows() stream before "
+                "batch iteration"
+            )
         with self.metrics.timed("consumer.wait"):
             slot = self._acquire_verified(self._target, 0, self.timeout_s)
         self._cur_slot = slot
@@ -467,6 +608,11 @@ class DistributedDataLoader:
 
     def _release_current(self) -> None:
         if self._cur_slot is not None:
+            if self._ingestor is not None and self._ingestor._engine is not None:
+                # Slot-safety barrier: a staged prefetch may still hold
+                # queued jobs viewing this window (a mid-epoch break).
+                # Their copies land before the producer may overwrite it.
+                self._ingestor._engine.executor.flush_copies()
             self.connection.rings[self._target].release(self._cur_slot)
             self._cur_slot = None
             self._cur_array = None
@@ -481,7 +627,19 @@ class DistributedDataLoader:
         # before the rings go away.
         self._flush_release_backlog()
         self._release_current()
+        if self._ingestor is not None:
+            # Stop the staging executor (pending jobs fail with
+            # ShutdownRequested) and wait for every copy in flight: then
+            # nothing reads a slot, and the rings may be unlocked.
+            self._ingestor.close()
+        if self._page_locked:
+            from ddl_tpu_torch.ops import host_register
+
+            for ring in self._page_locked:
+                host_register.page_unlock(ring)
+            self._page_locked = []
         self.connection.shutdown_operation()
+        self.connection.finalize()
         logger.debug("consumer: shutdown complete after epoch %d", self._epoch)
 
     def __del__(self) -> None:  # pragma: no cover - best effort

@@ -8,6 +8,12 @@ set ``inplace_fill`` or advertise ``supports_inplace_fill`` — a view of
 the next free slot itself (write-once fill: acquire before fill, trailer
 stamped strictly after it).
 
+The pusher runs in a producer thread (THREAD mode) or in a spawned
+producer process (PROCESS mode), where the slots are those of the
+shared-memory ring it created; it never touches CUDA.  On the way out it
+closes its end of the connection, unlinking the ring's name after a
+clean shutdown (the consumer keeps its own mapping).
+
 With a ``shuffler_factory`` and several instances, each refill first runs
 the cross-instance exchange (``global_shuffle``) on the private array,
 then the user's ``execute_function``.  Wire encoding, quarantine replay,
@@ -227,6 +233,7 @@ class DataPusher:
 
     def push_data(self) -> None:
         execute_callbacks(self.callbacks, "on_push_begin")
+        clean = False
         try:
             while True:
                 self._poll_control()
@@ -254,9 +261,13 @@ class DataPusher:
                 )
                 self._iteration += 1
         except ShutdownRequested:
+            clean = True
             logger.debug(
                 "producer %d: shutdown after %d windows",
                 self.producer_idx, self._iteration,
             )
         finally:
             execute_callbacks(self.callbacks, "on_push_end")
+            # A crashed producer leaves its ring's name linked; the
+            # consumer's finalize unlinks it.
+            self.connection.finalize(unlink=clean)

@@ -31,7 +31,7 @@ REGISTRY: Dict[str, Knob] = {
     k.name: k
     for k in (
         Knob("DDL_TORCH_MODE", "str", "thread",
-             "Producer realisation (the port runs thread)."),
+             "Producer realisation: thread | process."),
         Knob("DDL_TORCH_N_PRODUCERS", "int", 2,
              "Producer workers per consumer instance."),
         Knob("DDL_TORCH_NSLOTS", "int", 2,
@@ -46,6 +46,20 @@ REGISTRY: Dict[str, Knob] = {
              "Device transfers kept in flight by the batch prefetcher."),
         Knob("DDL_TORCH_FUSED", "bool", True,
              "Fused compute/ingest stream loop (0 = synchronous loop)."),
+        Knob("DDL_TORCH_FORCE_PY_RING", "bool", False,
+             "Force the pure-Python ring even where the native shm ring "
+             "builds (test/debug escape hatch)."),
+        Knob("DDL_TORCH_STAGED", "bool", True,
+             "Staged-ingest engine (0 = inline copy per window/batch)."),
+        Knob("DDL_TORCH_SHM_STAGING", "bool", True,
+             "Alias staging: a staged window's copy to the card sources "
+             "its page-locked ring slot directly (0 = copying pool)."),
+        Knob("DDL_TORCH_STAGING_POOL_CAP", "int", 8,
+             "StagingPool buffer cap per geometry."),
+        Knob("DDL_TORCH_STAGING_QUEUE", "int", 4,
+             "TransferExecutor queue depth (in-flight staged transfers)."),
+        Knob("DDL_TORCH_STAGING_RETRIES", "int", 2,
+             "Staged-transfer retries before the inline fallback."),
         Knob("DDL_TORCH_DEVICE_SHUFFLE", "str", "auto",
              "Device-tier exchange gate: auto = engage when plannable "
              "(THREAD topology, raw wire, in-process fabric), "

@@ -1,6 +1,6 @@
 """Device ingest: host windows → the trainer's device or mesh (port of
 ``ddl_tpu/ingest.py``: :class:`DeviceIngestor`, :func:`device_put` and
-:class:`PrefetchIterator` on the inline path).
+:class:`PrefetchIterator`).
 
 On a CUDA device one window becomes one ``non_blocking`` copy on a side
 ``torch.cuda.Stream``, straight out of the (page-locked) ring slot; a
@@ -11,6 +11,13 @@ the event before using the tensor (:meth:`DeviceIngestor.hand_off`).
 On the CPU the window is copied out of the slot at once, so the slot
 can be released at yield.
 
+The staged engine (:mod:`ddl_tpu_torch.staging`, ``staged=``, default
+on the card and off on the CPU) runs those copies on a background
+worker, releases a window's slot as soon as nothing reads it, and
+recycles page-locked staging buffers for batches.  Where the slot itself
+is page-locked (a THREAD ring's pinned slots, a registered shared-memory
+ring) a staged window takes the alias route: its copy sources the slot.
+
 With a ``sharding`` (a :class:`~ddl_tpu_torch.parallel.mesh.
 NamedSharding`) windows and batches land as :class:`~ddl_tpu_torch.
 parallel.mesh.ShardedArray` s.  ``distribute="ici"`` crosses host→device
@@ -19,22 +26,29 @@ once, onto the plan's anchor position, and the ICI tier
 ``"xla"`` takes the plain route (:func:`device_put`: each position
 copies its slice from the host).  The H2D copy, the tier's kernels and
 its finish all run on the side stream, and one event after them marks
-the window done.  The staged engine of the JAX package (``StagingPool``
-/ ``TransferExecutor``) is a later slice.
+the window done.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ddl_tpu_torch import envspec
+from ddl_tpu_torch.concurrency import named_lock
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.parallel.mesh import NamedSharding, ShardedArray, one_card
+from ddl_tpu_torch.staging import (
+    StagedIngestEngine,
+    StagedTransfer,
+    shm_staging_enabled,
+    staged_enabled,
+)
 from ddl_tpu_torch.utils import resolve_device
 
 _DISTRIBUTE = ("ici", "xla", "auto")
@@ -75,6 +89,8 @@ class Transfer:
 
 
 def _tensors(value: Any) -> Tuple[torch.Tensor, ...]:
+    if isinstance(value, (tuple, list)):
+        return tuple(t for v in value for t in _tensors(v))
     if isinstance(value, ShardedArray):
         return tuple(s.data for s in value.shards)
     return (value,)
@@ -90,11 +106,17 @@ class DeviceIngestor:
     plain route on the CPU.  The mesh's positions decide the device; a
     CUDA mesh over several distinct cards is the multi-card slice and
     raises ``NotImplementedError``.
+
+    ``staged`` (default: the ``DDL_TORCH_STAGED`` gate, on) lets the
+    window stream and the batch prefetcher run through the staging
+    engine where the device is a card (:attr:`stream_staged`);
+    ``staged=True`` forces it on the CPU too, ``staged=False`` is the
+    inline path everywhere.
     """
 
     def __init__(self, device: Any = "cuda", metrics: Optional[Metrics] = None,
                  sharding: Optional[NamedSharding] = None,
-                 distribute: str = "auto"):
+                 distribute: str = "auto", staged: Optional[bool] = None):
         self.sharding = sharding
         if sharding is not None:
             device = one_card(sharding.mesh.device_list)
@@ -109,6 +131,64 @@ class DeviceIngestor:
         self._stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        self.staged = staged_enabled(staged)
+        #: The explicit argument: ``True`` forces the engine on the CPU.
+        self._staged_arg = staged
+        self._engine: Any = None
+        # A staged job's transfer runs on the worker or on a stealing
+        # consumer: one at a time through the ICI tier's plan cache.
+        self._lock = named_lock("ingest.transfer")
+
+    @property
+    def stream_staged(self) -> bool:
+        """Does the WINDOW STREAM run through the staging engine?
+
+        Inline, a window's copy sources the ring slot and holds it until
+        the copy has landed.  Staged, a background worker runs the copy
+        and the slot returns to the producer as soon as nothing reads it.
+        On the card that buys early release and overlap; on the CPU the
+        "transfer" is itself a host copy, and staging it adds one more.
+        Default: staged on the card, inline on the CPU; ``staged=True``
+        forces the engine everywhere (tests, experiments).
+        """
+        if not self.staged:
+            return False
+        if self._staged_arg is True:
+            return True
+        return self.device.type == "cuda"
+
+    @property
+    def batch_staged(self) -> bool:
+        """Do the BATCH paths (``put_batch``, the prefetcher) stage through
+        the recycled pool and the background executor?  The same decision
+        as the stream's, so it delegates."""
+        return self.stream_staged
+
+    @property
+    def stream_alias(self) -> bool:
+        """May a staged window's copy source its ring slot directly (the
+        alias route, ``DDL_TORCH_SHM_STAGING``)?  On the card, where the
+        copy is a DMA that leaves nothing reading the slot once its event
+        has fired; the loader takes it only for page-locked slots."""
+        return (self.stream_staged and shm_staging_enabled()
+                and self.device.type == "cuda")
+
+    def engine(self):
+        """The lazily built staging engine (pool + background executor),
+        with page-locked buffers on the card."""
+        if self._engine is None:
+            self._engine = StagedIngestEngine(
+                metrics=self.metrics, pin_memory=self.device.type == "cuda")
+        return self._engine
+
+    def close(self) -> None:
+        """Stop the staging executor (its pooled buffers swept back) and
+        wait for every copy issued on the side stream: afterwards nothing
+        of this ingestor reads host memory."""
+        if self._engine is not None:
+            self._engine.close()
+        if self._stream is not None:
+            self._stream.synchronize()
 
     @property
     def ici_active(self) -> bool:
@@ -137,6 +217,22 @@ class DeviceIngestor:
         return device_put(arr, self.sharding if self.sharding is not None
                           else self.device)
 
+    def _put(self, arr: Any, stream: Any = None) -> Transfer:
+        """One transfer, with the event that marks it done: on ``stream``
+        (default: the side stream), which this thread enters explicitly —
+        a worker thread's current stream is the default stream.  On the
+        CPU the copy is complete when this returns."""
+        if self._stream is None:
+            with self._lock:
+                return Transfer(self._transfer(arr))  # detached from arr now
+        if stream is None:
+            stream = self._stream
+        with self._lock, torch.cuda.stream(stream):
+            value = self._transfer(arr)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return Transfer(value, done)
+
     def put_window(self, window: np.ndarray, defer_metrics: bool = False) -> Transfer:
         """Start the transfer of a whole window WITHOUT a host copy.
 
@@ -147,14 +243,7 @@ class DeviceIngestor:
         ``defer_metrics`` leaves the ``ingest.bytes``/``ingest.windows``
         accounting to the caller, which records it at yield.
         """
-        if self._stream is None:
-            out = Transfer(self._transfer(window))  # detached from the slot now
-        else:
-            with torch.cuda.stream(self._stream):
-                value = self._transfer(window)
-                done = torch.cuda.Event()
-                done.record(self._stream)
-            out = Transfer(value, done)
+        out = self._put(window)
         if not defer_metrics:
             self.metrics.incr("ingest.bytes", float(window.nbytes))
             self.metrics.incr("ingest.windows")
@@ -178,34 +267,90 @@ class DeviceIngestor:
         the ring slot until ``Transfer.done`` fires."""
         return self._stream is None
 
+    def _stage(self, arr: np.ndarray) -> np.ndarray:
+        """Copy ``arr`` into a pooled staging buffer (timed)."""
+        buf = self.engine().pool.acquire(arr.shape, arr.dtype)
+        t0 = time.perf_counter()
+        np.copyto(buf, arr, casting="no")
+        self.metrics.add_time("ingest.stage_copy", time.perf_counter() - t0)
+        return buf
+
     def put_batch(
         self, batch: np.ndarray, splits: Sequence[int]
     ) -> Tuple[Any, ...]:
         """Transfer one unsplit batch, splitting into columns on device.
-        On CUDA the batch is copied out of its (possibly slot-backed)
-        memory into fresh page-locked staging first, so the slot may be
+        The batch is copied out of its (possibly slot-backed) memory
+        first — into a recycled staging buffer when :attr:`batch_staged`,
+        else into fresh (on CUDA page-locked) memory — so the slot may be
         released once this returns; the transfer runs on the current
         stream."""
-        src = batch
-        if self._stream is not None:
-            tdtype = torch.from_numpy(np.empty(0, batch.dtype)).dtype
-            src = torch.empty(batch.shape, dtype=tdtype, pin_memory=True)
-            src.numpy()[...] = batch
-        dev = self._transfer(src)
+        if self.batch_staged:
+            pool = self.engine().pool
+            buf = self._stage(batch)
+            cur = (torch.cuda.current_stream(self.device)
+                   if self._stream is not None else None)
+            transfer = self._put(buf, stream=cur)
+            pool.recycle_when_ready(buf, transfer)
+            pool.sweep()
+            dev = transfer.value
+        else:
+            src = batch
+            if self._stream is not None:
+                tdtype = torch.from_numpy(np.empty(0, batch.dtype)).dtype
+                src = torch.empty(batch.shape, dtype=tdtype, pin_memory=True)
+                src.numpy()[...] = batch
+            dev = self._transfer(src)
         self.metrics.incr("ingest.bytes", float(batch.nbytes))
         self.metrics.incr("ingest.batches")
         return _device_split(dev, splits)
 
+    def batch_transfer_fn(self, splits: Sequence[int]):
+        """A :data:`~ddl_tpu_torch.staging.TransferFn` running this
+        ingestor's batch put from an already staged buffer, on the side
+        stream — what the background executor runs after its copy.  The
+        consumer passes the value through :meth:`hand_off`."""
+
+        def transfer(buf: np.ndarray):
+            t = self._put(buf)
+            self.metrics.incr("ingest.bytes", float(buf.nbytes))
+            self.metrics.incr("ingest.batches")
+            return Transfer(_device_split(t.value, splits), t.done), t
+
+        return transfer
+
 
 class PrefetchIterator:
     """Wrap a host-batch iterator, keeping ``depth`` device transfers in
-    flight ahead of compute (inline mode: each fill calls ``put`` — e.g. a
-    bound :meth:`DeviceIngestor.put_batch` — on the caller thread).
-    ``depth=None`` reads ``DDL_TORCH_PREFETCH_DEPTH``."""
+    flight ahead of compute.  ``depth=None`` reads
+    ``DDL_TORCH_PREFETCH_DEPTH``.
 
-    def __init__(self, it: Any, put: Any, depth: Optional[int] = None):
+    - **Inline** (default): each fill calls ``put`` — e.g. a bound
+      :meth:`DeviceIngestor.put_batch` — on the caller thread.
+    - **Staged** (``transfer`` given, e.g. ``ingestor.batch_transfer_fn``,
+      and ``ingestor.batch_staged``): host batches are enqueued to the
+      background executor, which stages and transfers them off-thread;
+      ``__next__`` pops ready values (its waits count into
+      ``ingest.stall``).  The offload adapts: when the consumer steals
+      every job (a host with no spare core, where each handoff costs
+      without buying overlap), fills turn to direct ``put`` calls for a
+      span, then probe the executor again.
+    """
+
+    #: Consecutive stolen jobs before the worker counts as starved, and
+    #: the span of direct puts before probing it again.
+    PROBE_MISSES = 2
+    DIRECT_SPAN = 256
+
+    def __init__(self, it: Any, put: Any, depth: Optional[int] = None,
+                 ingestor: Optional[DeviceIngestor] = None,
+                 transfer: Any = None):
         self._it = iter(it)
         self._put = put
+        self._ingestor = ingestor
+        self._transfer = (
+            transfer if ingestor is not None and ingestor.batch_staged
+            else None
+        )
         if depth is None:
             depth = envspec.get("DDL_TORCH_PREFETCH_DEPTH")
         self._depth = max(1, depth)
@@ -215,15 +360,36 @@ class PrefetchIterator:
         return self
 
     def __next__(self) -> Any:
+        engine = self._ingestor.engine() if self._transfer is not None else None
         while len(self._queue) < self._depth:
             try:
                 host_batch = next(self._it)
             except StopIteration:
                 break
-            self._queue.append(self._put(host_batch))
+            if engine is not None and not engine.faulted and engine.direct_left == 0:
+                self._queue.append(engine.submit(host_batch, self._transfer))
+            else:
+                if engine is not None and not engine.faulted:
+                    engine.direct_left -= 1
+                self._queue.append(self._put(host_batch))
         if not self._queue:
             raise StopIteration
-        return self._queue.popleft()
+        head = self._queue.popleft()
+        if not isinstance(head, StagedTransfer):
+            return head
+        # An unstarted head job runs here; on retry exhaustion the
+        # verified staging copy goes down the inline path.
+        value = engine.complete_or_salvage(head, self._put)
+        if head.worker_executed:
+            engine.stolen_streak = 0
+        else:
+            engine.stolen_streak += 1
+            if engine.stolen_streak >= self.PROBE_MISSES:
+                engine.stolen_streak = 0
+                engine.direct_left = self.DIRECT_SPAN
+        if isinstance(value, Transfer):
+            return self._ingestor.hand_off(value)
+        return value
 
 
 def _device_split(dev: Any, splits: Sequence[int]) -> Tuple[Any, ...]:

@@ -5,7 +5,19 @@ later slices).
 
 Producers, the loader, the ingestor and the trainer record into one
 shared registry: :func:`metrics` (the process default) or an explicit
-instance injected by the caller.
+instance injected by the caller.  A PROCESS-mode producer records into
+its own process's registry, which the consumer does not see.
+
+The staging engine (``staging.py``) records the JAX package's names:
+counters ``staging.pool_hits``, ``staging.pool_misses``,
+``staging.pool_alias_drops``, ``staging.alias_windows``,
+``staging.alias_fallbacks``, ``staging.retries``,
+``staging.inline_fallbacks`` and ``integrity.staging_verify_failures``;
+timers ``ingest.stage_copy``, ``ingest.transfer`` and ``ingest.stall``.
+The loader adds ``consumer.handshake``, ``ingest.registered_rings`` and
+``transport.rings.<ring class>``; the trainer the timers
+``trainer.first_window`` (start-up) and ``trainer.windows`` (every step
+after it, on the card's clock), and ``producer.exits_clean`` / ``producer.exits_failed``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ PyTorch headers, so a build takes seconds.  Builds run at first use,
 from the sources in the checkout, into ``ddl_tpu_torch/_build/`` (listed
 in ``.gitignore``), keyed by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.
+:func:`publish` (lock, temporary output, atomic rename) builds the
+shared-memory ring of ``transport/shm_ring.py`` with ``g++`` too.
 Nothing here runs at import.
 """
 
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -62,8 +64,18 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its current build exists; the
     compiler's ``-Xptxas -v`` report lands beside the library as
-    ``<lib>.log``.  Safe against concurrent builds (file lock)."""
+    ``<lib>.log``."""
     out = library_path(name)
+    return publish(out, name, [nvcc_path(), *NVCC_FLAGS, "-o", "{out}",
+                               str(CSRC / f"{name}.cu")])
+
+
+def publish(out: Path, name: str, cmd: List[str]) -> Path:
+    """Build ``out`` with ``cmd`` (``"{out}"`` in it names the output)
+    unless it exists.  Safe against concurrent builds, in threads or in
+    processes: a file lock per ``name``, a per-process temporary output,
+    and an atomic rename that publishes only a complete library.  The
+    compiler's output lands beside the library as ``<lib>.log``."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -72,14 +84,15 @@ def build(name: str) -> Path:
         if out.exists():
             return out
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [str(tmp) if c == "{out}" else c for c in cmd]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         (out.parent / f"{out.name}.log").write_text(
             " ".join(cmd) + "\n" + proc.stdout + proc.stderr
         )
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(
-                f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}"
+                f"{cmd[0]} failed for {name}:\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
     return out

@@ -3,10 +3,11 @@
 fused and synchronous window-stream loops).
 
 One object owns the run: the producer/consumer topology (the
-``distributed_dataloader`` decorator), the one-device train step and the
-``mark()`` protocol.  The trainer runs on ``device`` — the card unless
-the caller passes ``device="cpu"``.  Checkpointing, the watchdog,
-preemption, global shuffle and observability spans are later slices.
+``distributed_dataloader`` decorator, THREAD or PROCESS mode), the
+one-device train step and the ``mark()`` protocol.  The trainer runs on
+``device`` — the card unless the caller passes ``device="cpu"``.
+Checkpointing, the watchdog, preemption, global shuffle and
+observability spans are later slices.
 """
 
 from __future__ import annotations
@@ -155,9 +156,12 @@ class Trainer:
                 m.add_time("trainer.ingest_overlap", time.perf_counter() - t0)
             if win is _done:
                 break
+            if pending is None:
+                self._clock_start(m)
             state, losses = multi_for(win.shape[0])(
                 state, _window_cols(win, col_splits), per_step=True
             )
+            self._clock_steps()
             loss_mean = losses.mean()
             done = done_event(self.device)
             loader.gate_release_on(done)
@@ -168,7 +172,42 @@ class Trainer:
             loader.mark(Marker.END_OF_EPOCH)
         if pending is not None:
             epoch_losses.append(float(pending))
+        self._clock_finish(m)
         return state
+
+    # -- start-up and steady state -------------------------------------------
+
+    def _clock_start(self, m: Metrics) -> None:
+        """At the first window handed to the steps: record
+        ``trainer.first_window`` (``fit`` to here: producer start — spawn,
+        in PROCESS mode — handshake, first fill and first copy) and mark
+        where the steady state starts."""
+        now = time.perf_counter()
+        m.add_time("trainer.first_window", now - self._fit_t0)
+        self._clock = [self._clock_mark(now)]
+
+    def _clock_mark(self, now: Optional[float] = None) -> Any:
+        """A timing event on the current stream (the card), else the host
+        clock (the CPU, where every op is done when it returns)."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
+        return time.perf_counter() if now is None else now
+
+    def _clock_steps(self) -> None:
+        """After a window's steps are enqueued: where they end."""
+        self._clock[1:] = [self._clock_mark()]
+
+    def _clock_finish(self, m: Metrics) -> None:
+        """Record ``trainer.windows``: from the first window handed to the
+        steps to the end of the last window's steps, on the card's clock
+        — every step of the stream, the steady state, without start-up or
+        the loader's teardown.  Called once the last losses are read."""
+        if len(self._clock) == 2:
+            a, b = self._clock
+            m.add_time("trainer.windows", a.elapsed_time(b) / 1e3
+                       if self.device.type == "cuda" else b - a)
 
     def _sync_stream_loop(self, loader, stream, state, multi_for, col_splits,
                           epoch_losses):
@@ -182,11 +221,15 @@ class Trainer:
                     torch.cuda.current_stream(self.device).synchronize()
             if win is _done:
                 break
+            if not epoch_losses:
+                self._clock_start(self.metrics)
             state, losses = multi_for(win.shape[0])(
                 state, _window_cols(win, col_splits), per_step=True
             )
+            self._clock_steps()
             epoch_losses.append(float(losses.mean()))
             loader.mark(Marker.END_OF_EPOCH)
+        self._clock_finish(self.metrics)
         return state
 
     # -- the run -----------------------------------------------------------
@@ -210,7 +253,9 @@ class Trainer:
         ``config`` (a :class:`ddl_tpu_torch.config.LoaderConfig`) supplies
         defaults for batch_size, n_epochs, n_producers, mode, nslots,
         window_stream, prefetch_depth and the ring timeout; explicit
-        arguments win.
+        arguments win.  ``mode="process"`` spawns the producers (call
+        ``fit`` under ``if __name__ == "__main__":``); their exit codes
+        land in ``producer.exits_clean`` / ``producer.exits_failed``.
 
         ``window_stream=True`` drives the run off the window stream: each
         epoch-window crosses to the device as ONE copy straight out of
@@ -246,12 +291,18 @@ class Trainer:
         if fused is not None and not window_stream:
             raise ValueError("fused requires window_stream=True")
         trainer = self
+        self._fit_t0 = time.perf_counter()
+        self._clock: List[Any] = []
+        envs: List[Any] = []
 
+        # THREAD rings are page-locked at allocation; a PROCESS-mode
+        # loader page-locks the shared-memory rings it attaches.
         @distributed_dataloader(
             n_producers=n_producers, mode=mode, nslots=nslots,
             pin_memory=self.device.type == "cuda",
         )
         def _main(env):
+            envs.append(env)
             state = trainer._init_fn(trainer._init_params)
             loader = DistributedDataLoader(
                 producer_function,
@@ -296,4 +347,9 @@ class Trainer:
             finally:
                 loader.shutdown()
 
-        return _main()
+        result = _main()
+        # The decorator has joined the workers by now.
+        for code in envs[0].workers.exitcodes:
+            self.metrics.incr("producer.exits_clean" if code == 0
+                              else "producer.exits_failed")
+        return result

@@ -1,5 +1,6 @@
 """SPSC window ring (port of ``ddl_tpu/transport/ring.py``: the
-:class:`WindowRing` interface and :class:`ThreadRing`).
+:class:`WindowRing` interface and :class:`ThreadRing`; the cross-process
+rings are in ``shm_ring.py``).
 
 Producer side: ``acquire_fill() -> slot``, write into ``slot_view``,
 ``commit(slot, nbytes)``.  Consumer side: ``acquire_drain() -> slot``,
@@ -32,6 +33,10 @@ class WindowRing(abc.ABC):
 
     nslots: int
     slot_bytes: int
+    #: Are the slots page-locked host memory?  Then a ``non_blocking``
+    #: copy to a card is a DMA straight out of the slot that returns
+    #: before the bytes have moved (the staged engine's alias route).
+    page_locked: bool = False
 
     @abc.abstractmethod
     def acquire_fill(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
@@ -82,6 +87,12 @@ class WindowRing(abc.ABC):
         """Stall/progress counters: producer_stall_s, consumer_stall_s,
         committed, released."""
 
+    def close(self) -> None:
+        """Drop this endpoint's handle (cross-process rings)."""
+
+    def unlink(self) -> None:
+        """Remove the ring's name (cross-process rings)."""
+
 
 class ThreadRing(WindowRing):
     """In-process ring over host buffers and a condition variable (THREAD
@@ -97,8 +108,8 @@ class ThreadRing(WindowRing):
             raise ValueError("nslots must be >= 1")
         self.nslots = nslots
         self.slot_bytes = slot_bytes
-        self.pinned = bool(pin_memory)
-        if self.pinned:
+        self.page_locked = bool(pin_memory)
+        if self.page_locked:
             import torch
 
             # The torch tensors own the page-locked memory; the numpy

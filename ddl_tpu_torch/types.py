@@ -25,8 +25,9 @@ class Marker(enum.Enum):
 
 
 class RunMode(enum.Enum):
-    """How producer workers are realised.  The port runs THREAD mode;
-    PROCESS and MULTIHOST are later slices (ROADMAP.md)."""
+    """How producer workers are realised: THREAD (threads of the trainer
+    process) or PROCESS (spawned processes over shared-memory rings).
+    MULTIHOST is a later slice (ROADMAP.md)."""
 
     THREAD = "thread"
     PROCESS = "process"
@@ -55,7 +56,9 @@ class MetaData_Producer_To_Consumer:
     splits: tuple[int, ...]
     batches_per_window: int
     dtype: str = "float32"
-    ring_ref: Any = None  # the producer's ThreadRing
+    #: The producer's ring: the ThreadRing itself (THREAD mode) or the
+    #: name of its shared-memory ring (PROCESS mode).
+    ring_ref: Any = None
     #: The producer stamps checksummed trailers past each slot payload
     #: (ddl_tpu_torch.integrity); the consumer verifies at drain.
     integrity: bool = False

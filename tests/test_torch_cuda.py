@@ -1,8 +1,11 @@
 """ddl_tpu_torch on an NVIDIA card: the hand-written kernels against
 their plain versions, the pinned-slot window stream, tiny fits (unpacked
-and packed-document), the remat policies' launch counts, and the
+and packed-document), the remat policies' launch counts, the
 global-shuffle exchange kernel K9 (byte-exact against its plain version,
-and the one-card fabric against the host exchange).
+and the one-card fabric against the host exchange), and PROCESS mode
+with staging: shared-memory rings page-locked with ``cudaHostRegister``,
+alias- and pool-staged windows against the host's, and a PROCESS fit
+against its THREAD twin (``-k "process or staging"``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -253,7 +256,11 @@ def test_tiny_fit_runs_through_the_kernels(tmp_path):
     steps = 4 * 2
     assert ([fn.launches for fn in tfa.KERNELS]
             == [cfg.n_layers * steps] * 3 + [0, 0, 0])
-    assert res.metrics.counter("ingest.fused_gated") == 4
+    # Staged by default on the card: each window's copy sources its
+    # pinned slot and the slot returns before the step, so no release
+    # waits on the step's event.
+    assert res.metrics.counter("staging.alias_windows") == 4
+    assert res.metrics.counter("ingest.fused_gated") == 0
 
 
 def _doc_ids(rng, B, T, mean_len):
@@ -972,3 +979,163 @@ def test_ici_loader_windows_ride_the_fanout_kernels(tmp_path, axes, spec, kernel
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         assert g[-1].tobytes() == w.tobytes()
+
+
+# -- PROCESS mode and staging -------------------------------------------------
+
+
+def test_staging_registers_a_shm_ring_mapping():
+    """``page_lock`` registers a native ring's whole mapping, which then
+    reads back as page-locked host memory; ``page_unlock`` undoes it."""
+    from ddl_tpu_torch.ops import host_register
+    from ddl_tpu_torch.transport.shm_ring import NativeShmRing, make_ring_name
+
+    ring = NativeShmRing.create(make_ring_name("ddl-torch-test"), 2, 1 << 17)
+    try:
+        base, nbytes = ring.mapping()
+        assert base % 4096 == 0 and nbytes >= 2 * (1 << 17)
+        assert not host_register.is_registered(ring.slot_base(1))
+        host_register.page_lock(ring, "cuda")
+        assert ring.page_locked
+        assert host_register.is_registered(base)
+        assert host_register.is_registered(ring.slot_base(1))
+        # A non_blocking copy out of the registered slot lands the bytes.
+        view = ring.slot_view(1)
+        view[:] = np.arange(view.size, dtype=np.uint8)
+        dev = torch.empty(view.size, dtype=torch.uint8, device="cuda")
+        dev.copy_(torch.from_numpy(view), non_blocking=True)
+        torch.cuda.synchronize()
+        assert np.array_equal(dev.cpu().numpy(), view)
+        host_register.page_unlock(ring)
+        assert not ring.page_locked
+        assert not host_register.is_registered(base)
+    finally:
+        ring.unlink()
+
+
+def _process_stream(path, device, epochs, metrics):
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="process",
+                                          nslots=2)
+    def run(env):
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            TokenStreamProducer(path, 256, 8, seed=4),
+            batch_size=4, connection=env.connection, n_epochs=epochs,
+            output="device", device=device, metrics=metrics,
+        )
+        out = []
+        for win in loader.windows(lookahead=2):
+            out.append(win.cpu().numpy().copy())
+            loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        return out, env
+
+    out, env = run()
+    return out, env.workers.exitcodes
+
+
+@pytest.mark.parametrize("shm_staging", ["1", "0"])
+def test_staging_process_windows_equal_the_host_windows(
+        tmp_path, monkeypatch, shm_staging):
+    """PROCESS producers over registered shm rings: alias-staged windows
+    (the copy sources the slot) and copy-pool-staged ones
+    (``DDL_TORCH_SHM_STAGING=0``) land byte-equal to the CPU stream, with
+    the route in the counters and every mapping unregistered at
+    shutdown."""
+    from ddl_tpu_torch.observability import Metrics
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(0).integers(0, 1 << 20, 200_000,
+                                      dtype=np.int32).tofile(path)
+    monkeypatch.setenv("DDL_TORCH_SHM_STAGING", shm_staging)
+    m = Metrics()
+    got, codes = _process_stream(path, "cuda", 12, m)
+    want, _ = _process_stream(path, "cpu", 12, Metrics())
+    assert codes == [0, 0]
+    assert len(got) == len(want) == 12
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    assert m.counter("transport.rings.NativeShmRing") == 2
+    assert m.counter("ingest.registered_rings") == 2
+    alias = 12 if shm_staging == "1" else 0
+    assert m.counter("staging.alias_windows") == alias
+    assert m.counter("staging.pool_misses") + m.counter(
+        "staging.pool_hits") == 12 - alias
+    assert m.counter("staging.alias_fallbacks") == 0
+    assert m.counter("staging.pool_alias_drops") == 0
+    assert m.counter("integrity.staging_verify_failures") == 0
+    assert m.counter("staging.inline_fallbacks") == 0
+
+
+@pytest.mark.flash
+def test_process_fit_losses_equal_thread_fit(tmp_path):
+    """A small model trained in PROCESS mode (spawned producers, alias
+    staging over registered shm rings) gives its THREAD twin's losses bit
+    for bit: the same windows, parameters and kernels."""
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    cfg = llama.LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512)
+
+    def fit(mode):
+        trainer = Trainer(lambda p, b: llama.next_token_loss(p, b[0], cfg),
+                          adamw(1e-3), llama.init_params(cfg, seed=0),
+                          metrics=Metrics())
+        tfa.reset_launch_counts()
+        res = trainer.fit(TokenStreamProducer(path, 128, 8),
+                          config=LoaderConfig(batch_size=4, n_epochs=4,
+                                              mode=mode, window_stream=True))
+        return res, [fn.launches for fn in tfa.KERNELS]
+
+    thread, thread_launches = fit("thread")
+    proc, proc_launches = fit("process")
+    assert proc.losses == thread.losses
+    assert proc_launches == thread_launches == [2 * 8] * 3 + [0, 0, 0]
+    m = proc.metrics
+    assert m.counter("staging.alias_windows") == 4
+    assert m.counter("ingest.registered_rings") == 2
+    assert m.counter("producer.exits_clean") == 2
+    assert m.counter("producer.exits_failed") == 0
+
+
+@pytest.mark.parametrize("staged", [None, False])
+def test_staging_prefetch_batches_equal_the_host_batches(tmp_path, staged):
+    """The batch prefetcher on the card: staged by default (recycled
+    page-locked buffers, transfers on the side stream through the
+    background executor, handed off to the compute stream) or inline
+    (``staged=False``), the batches land byte-equal to the CPU's."""
+    from ddl_tpu_torch.observability import Metrics
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(3).integers(0, 1 << 20, 100_000,
+                                      dtype=np.int32).tofile(path)
+
+    def run(device, staged, metrics):
+        @ddl_tpu_torch.distributed_dataloader(
+            n_producers=2, mode="thread", nslots=2,
+            pin_memory=device == "cuda")
+        def main(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                TokenStreamProducer(path, 256, 16, seed=2), batch_size=4,
+                connection=env.connection, n_epochs=6, output="device",
+                device=device, metrics=metrics, staged=staged)
+            out = []
+            for _ in range(6):
+                for (b,) in loader.prefetch(3):
+                    out.append((b.long() * 3).cpu().numpy())
+                    loader.mark(ddl_tpu_torch.Marker.END_OF_BATCH)
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            return out
+
+        return main()
+
+    m = Metrics()
+    got = run("cuda", staged, m)
+    want = run("cpu", None, Metrics())
+    assert len(got) == len(want) == 24
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    pooled = m.counter("staging.pool_hits") + m.counter("staging.pool_misses")
+    assert pooled == (24 if staged is None else 0)
