@@ -74,6 +74,20 @@ prints its wall-time ms/step and, apart, its time to the first window
 first window to the end of the last steps, on the card's clock) and its
 teardown.
 
+Phase 7 is recovery in PROCESS mode, on the token cell of phase 6 over 6
+windows: a PROCESS fit, then the same fit with one producer SIGKILLed at
+its second refill under ``Trainer(watchdog_respawn=True)`` — losses bit-
+equal, one respawn, no failure, the same kernel launches, every window
+on the alias route — and a THREAD fit with one committed slot corrupted
+after its trailer was stamped (a one-shot wrapper around the ring's
+commit in this script) — one replay, losses bit-equal.  Then the global
+shuffle of phase 4 with PROCESS producers: four instances over one
+``ShmRendezvous`` session, windows onto cuda:0 through the staged engine,
+byte-identical to the THREAD tier's drain, and again with instance 0's
+producer SIGKILLed mid-exchange and respawned (every round's windows
+partition the rows).  It prints the recovery time, the replay's cost and
+the drains.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -987,34 +1001,56 @@ def shuffle_kernel_checks():
     }
 
 
+class PoolProducer:
+    """A producer that keeps a pool (``examples/global_shuffle.py``'s
+    shape): column 0 is ``instance * 1e6 + row``, the rest seeded
+    standard-normal values; each refill shuffles the rows in place,
+    so exchanged rows spread through the window.  Module-level, so a
+    spawned PROCESS producer unpickles it; it imports the package only
+    when called, so this script still starts without it.  Its first
+    incarnation SIGKILLs itself at refill ``kill_at``, once, when a
+    ``sentinel`` path is given (the file records the time of the kill).
+    ``fast_forward`` replays only the RNG: a respawned pusher restores
+    the pool from its ring's last committed slot."""
+
+    def __init__(self, instance_idx, rows, cols, sentinel=None, kill_at=0):
+        self.instance_idx, self.rows, self.cols = instance_idx, rows, cols
+        self.sentinel, self.kill_at = sentinel, kill_at
+        self.refills = 0
+
+    def on_init(self, **kw):
+        import numpy as np
+
+        from ddl_tpu_torch import DataProducerOnInitReturn
+
+        self._rng = np.random.default_rng([SEED, self.instance_idx])
+        return DataProducerOnInitReturn(
+            nData=self.rows, nValues=self.cols,
+            shape=(self.rows, self.cols), splits=(self.cols,))
+
+    def post_init(self, my_ary, **kw):
+        import numpy as np
+
+        my_ary[:, 1:] = self._rng.standard_normal(
+            (self.rows, self.cols - 1), dtype=np.float32)
+        my_ary[:, 0] = self.instance_idx * 1e6 + np.arange(self.rows)
+
+    def execute_function(self, my_ary, **kw):
+        self.refills += 1
+        if self.refills == self.kill_at:
+            _kill_once(self.sentinel, self.instance_idx)
+        self._rng.shuffle(my_ary)
+
+    def fast_forward(self, n, **kw):
+        import numpy as np
+
+        dummy = np.empty((self.rows, 1), np.float32)
+        for _ in range(n):
+            self._rng.shuffle(dummy)
+        self.refills += n
+
+
 def _pool_producer_class():
-    import numpy as np
-
-    from ddl_tpu_torch import DataProducerOnInitReturn, ProducerFunctionSkeleton
-
-    class PoolProducer(ProducerFunctionSkeleton):
-        """A producer that keeps a pool (``examples/global_shuffle.py``'s
-        shape): column 0 is ``instance * 1e6 + row``, the rest seeded
-        standard-normal values; each refill shuffles the rows in place,
-        so exchanged rows spread through the window."""
-
-        def __init__(self, instance_idx, rows, cols):
-            self.instance_idx, self.rows, self.cols = instance_idx, rows, cols
-
-        def on_init(self, **kw):
-            self._rng = np.random.default_rng([SEED, self.instance_idx])
-            return DataProducerOnInitReturn(
-                nData=self.rows, nValues=self.cols,
-                shape=(self.rows, self.cols), splits=(self.cols,))
-
-        def post_init(self, my_ary, **kw):
-            my_ary[:, 1:] = self._rng.standard_normal(
-                (self.rows, self.cols - 1), dtype=np.float32)
-            my_ary[:, 0] = self.instance_idx * 1e6 + np.arange(self.rows)
-
-        def execute_function(self, my_ary, **kw):
-            self._rng.shuffle(my_ary)
-
     return PoolProducer
 
 
@@ -1911,6 +1947,444 @@ def phase_train(tmpdir: str, card: str, profile: bool = False,
     return thread["launches"], summary
 
 
+# ------------------------------------------------------------- phase 7 ---
+
+#: The recovery phase: the token cell of phase 6 over 6 windows (12 steps),
+#: one producer SIGKILLed at its second refill; the global-shuffle
+#: geometry of phase 4 with instance 0's producer SIGKILLed at its third.
+RECOVERY = dict(n_epochs=6, kill_at=2, shuffle_kill_at=3)
+#: /dev/shm the phase needs at least: the rings of the fits (2 x 2 slots
+#: of 64 KiB) and of the four shuffle instances (4 x 2 slots of 8 MiB),
+#: plus each round's lanes (2 x 2 MiB per instance) and their retained
+#: copies, with room to spare.
+RECOVERY_SHM_BYTES = 256 << 20
+
+
+def _kill_once(sentinel, who) -> None:
+    """SIGKILL this process (no ``finally`` runs, as under the OOM
+    killer) unless the sentinel file says an earlier incarnation did; the
+    file records the wall time of the kill and who died."""
+    import signal
+
+    if sentinel is None or os.path.exists(sentinel):
+        return
+    with open(sentinel, "w") as f:
+        f.write(json.dumps({"t": time.time(), "who": who}))
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+class KillOnceProducer:
+    """Wraps a producer function: producer ``victim``'s first
+    incarnation SIGKILLs itself at its refill ``kill_at``, once
+    (``_kill_once``); every call is otherwise the wrapped producer's, so
+    a recovered run serves the same windows.  Module-level, so spawned
+    producers unpickle it."""
+
+    def __init__(self, inner, sentinel, kill_at, victim=1):
+        self.inner, self.sentinel, self.kill_at = inner, sentinel, kill_at
+        self.victim = victim
+        self.refills = 0
+        self.producer_idx = 0
+
+    def __getattr__(self, name):
+        # Capabilities (supports_inplace_fill) are the wrapped producer's.
+        if name == "inner":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def on_init(self, **kw):
+        self.producer_idx = kw.get("producer_idx", 0)
+        return self.inner.on_init(**kw)
+
+    def post_init(self, **kw):
+        return self.inner.post_init(**kw)
+
+    def execute_function(self, **kw):
+        self.refills += 1
+        if self.refills == self.kill_at and self.producer_idx == self.victim:
+            _kill_once(self.sentinel, self.producer_idx)
+        return self.inner.execute_function(**kw)
+
+    def fast_forward(self, n, **kw):
+        self.refills += n
+        return self.inner.fast_forward(n, **kw)
+
+
+def _token_trainer(cfg, respawn: bool):
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    return Trainer(
+        loss_fn=lambda p, b: llama.next_token_loss(p, b[0], cfg),
+        optimizer=adamw(1e-5),
+        init_params=llama.init_params(cfg, seed=SEED, device="cuda"),
+        device="cuda", metrics=Metrics(), watchdog_respawn=respawn,
+    )
+
+
+def _recovery_fit(trainer, producer, mode, tag, card):
+    """One measured fit of the recovery cell: flash launch counts set to
+    0 just before and read just after; each window's wall time when the
+    stream hands it to the steps."""
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    rc, tr = RECOVERY, TRAIN
+    served = []
+
+    def hook(win):
+        served.append(time.time())
+        return win
+
+    trainer.metrics = m = Metrics()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.fit(producer, window_hook=hook, config=LoaderConfig(
+        batch_size=tr["batch_size"], n_epochs=rc["n_epochs"],
+        n_producers=tr["n_producers"], mode=mode, window_stream=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = rc["n_epochs"] * tr["window_rows"] // tr["batch_size"]
+    out = {
+        "mode": mode, "losses": res.losses, "served": served, "wall_s": wall,
+        "launches": [fn.launches for fn in fa.KERNELS],
+        "sm90_launches": [fn.sm90_launches for fn in fa.KERNELS],
+        "steady_step_ms": m.timer("trainer.windows").total_s / steps * 1e3,
+        "first_window_s": m.timer("trainer.first_window").total_s,
+        "window_wait_s": m.timer("trainer.window_wait").total_s,
+        "respawn_call_s": m.timer("watchdog.respawn").total_s,
+        "replay_s": m.timer("integrity.replay").total_s,
+        "counters": {k: m.counter(k) for k in (
+            "watchdog.respawns", "watchdog.failures", "consumer.windows",
+            "staging.alias_windows", "staging.alias_fallbacks",
+            "staging.pool_alias_drops", "staging.inline_fallbacks",
+            "integrity.staging_verify_failures", "integrity.corrupt_windows",
+            "integrity.replays", "integrity.replay_exhausted",
+            "ingest.registered_rings", "transport.rings.NativeShmRing",
+            "transport.rings.PyShmRing", "producer.exits_clean",
+            "producer.exits_failed", "ctrl.acked")},
+    }
+    log(f"{tag}: {steps} steps in {wall:.3f} s, steady state "
+        f"{out['steady_step_ms']:.1f} ms/step, first window "
+        f"{out['first_window_s']:.3f} s, trainer.window_wait "
+        f"{out['window_wait_s'] * 1e3:.2f} ms ({card})")
+    log(f"{tag}: losses {res.losses}")
+    log(f"{tag}: counters {json.dumps(out['counters'])}")
+    del res
+    return out
+
+
+def _fit_faults(run, clean, tag, faults, **want):
+    """The gates every recovery fit shares, plus ``want``'s counters."""
+    rc, c = RECOVERY, run["counters"]
+    if run["losses"] != clean["losses"]:
+        faults.append(f"{tag}: losses {run['losses']} != {clean['losses']}")
+    if (run["launches"] != clean["launches"]
+            or run["sm90_launches"] != clean["sm90_launches"]):
+        faults.append(f"{tag}: launches {run['launches']} / "
+                      f"{run['sm90_launches']} != {clean['launches']} / "
+                      f"{clean['sm90_launches']}")
+    base = {"consumer.windows": rc["n_epochs"],
+            "staging.alias_windows": rc["n_epochs"],
+            "staging.alias_fallbacks": 0, "staging.pool_alias_drops": 0,
+            "staging.inline_fallbacks": 0,
+            "integrity.staging_verify_failures": 0,
+            "watchdog.failures": 0, "integrity.replay_exhausted": 0,
+            "transport.rings.PyShmRing": 0}
+    base.update(want)
+    bad = {k: (c[k], v) for k, v in base.items() if c[k] != v}
+    if bad:
+        faults.append(f"{tag}: counters (got, want) {bad}")
+
+
+def recovery_fits(tmpdir: str, card: str):
+    """(a) the token cell in PROCESS mode, undisturbed and with one
+    producer SIGKILLed at its second refill under a respawning watchdog;
+    (b) the same cell in THREAD mode with one committed slot corrupted
+    after its trailer was stamped, by a one-shot wrapper around the
+    ring's commit.  Both must give the undisturbed fit's losses bit for
+    bit and launch the same kernels as often."""
+    import numpy as np
+
+    from ddl_tpu_torch import integrity
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.transport.ring import ThreadRing
+
+    rc, tr = RECOVERY, TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    token_file = os.path.join(tmpdir, "tokens.bin")
+    if not os.path.exists(token_file):
+        ranks = np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1
+        (ranks % cfg.vocab).astype(np.int32).tofile(token_file)
+    tokens = TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
+                                 seed=SEED)
+    trainer = _token_trainer(cfg, respawn=True)
+    clean = _recovery_fit(trainer, tokens, "process", "[recovery] clean",
+                          card)
+    sentinel = os.path.join(tmpdir, "killed")
+    killed = _recovery_fit(
+        trainer, KillOnceProducer(tokens, sentinel, rc["kill_at"]),
+        "process", "[recovery] sigkill", card)
+
+    original, fired = ThreadRing.commit, []
+
+    def corrupt_once(ring, slot, payload_bytes):
+        """Flip one payload byte of producer 1's window 2, after its
+        trailer was stamped (the slot then fails its CRC)."""
+        hdr = integrity.read_header(ring.slot_view(slot), payload_bytes)
+        if hdr.producer_idx == 1 and hdr.seq == 2 and not fired:
+            ring.slot_view(slot)[payload_bytes // 2] ^= 0xFF
+            fired.append(time.time())
+        return original(ring, slot, payload_bytes)
+
+    ThreadRing.commit = corrupt_once
+    try:
+        replayed = _recovery_fit(trainer, tokens, "thread",
+                                 "[recovery] corrupt slot", card)
+    finally:
+        ThreadRing.commit = original
+    del trainer
+    free_device_memory()
+
+    faults = []
+    n = tr["n_producers"]
+    proc = {"ingest.registered_rings": n, "transport.rings.NativeShmRing": n,
+            "producer.exits_clean": n, "producer.exits_failed": 0,
+            "integrity.corrupt_windows": 0, "integrity.replays": 0}
+    _fit_faults(clean, clean, "clean", faults, **{"watchdog.respawns": 0},
+                **proc)
+    _fit_faults(killed, clean, "sigkill", faults,
+                **{"watchdog.respawns": 1}, **proc)
+    _fit_faults(replayed, clean, "corrupt slot", faults,
+                **{"watchdog.respawns": 0, "integrity.corrupt_windows": 1,
+                   "integrity.replays": 1, "ingest.registered_rings": 0})
+    expected = cfg.n_layers * rc["n_epochs"] * tr["window_rows"] // tr[
+        "batch_size"]
+    if clean["launches"] != [expected] * 3 + [0] * 3:
+        faults.append(f"clean fit launches {clean['launches']}, expected "
+                      f"{expected} for K1-K3")
+    if not os.path.exists(sentinel):
+        faults.append("the SIGKILL never fired")
+        recovery_s, died = float("nan"), None
+    else:
+        with open(sentinel) as f:
+            kill = json.load(f)
+        died = kill["who"]
+        # Windows are served in rotation; the dead producer's first window
+        # from its replacement is the one it was filling when it died.
+        k = 2 * (rc["kill_at"] - 1) + (died - 1)
+        recovery_s = killed["served"][k] - kill["t"]
+    if len(fired) != 1:
+        faults.append(f"the corruption fired {len(fired)} times")
+    log(f"[recovery] producer {died} SIGKILLed at its refill "
+        f"{rc['kill_at']}: recovery (kill to the replacement's first served "
+        f"window) {recovery_s:.3f} s, of which the respawn call (spawn and "
+        f"rejoin handshake) {killed['respawn_call_s']:.3f} s; "
+        f"trainer.window_wait {killed['window_wait_s'] * 1e3:.1f} ms against "
+        f"{clean['window_wait_s'] * 1e3:.1f} ms undisturbed; steady state "
+        f"{killed['steady_step_ms']:.1f} against {clean['steady_step_ms']:.1f} "
+        f"ms/step ({card})")
+    log(f"[recovery] corrupt slot: replay (quarantine to the replayed "
+        f"window) {replayed['replay_s'] * 1e3:.2f} ms; trainer.window_wait "
+        f"{replayed['window_wait_s'] * 1e3:.1f} ms; steady state "
+        f"{replayed['steady_step_ms']:.1f} ms/step ({card})")
+    if faults:
+        raise PhaseFailed("[recovery] fits failed their checks: "
+                          + "; ".join(faults))
+    return {
+        "recovery_s": recovery_s,
+        "respawn_call_s": killed["respawn_call_s"],
+        "replay_s": replayed["replay_s"],
+        "window_wait_s": {"clean": clean["window_wait_s"],
+                          "sigkill": killed["window_wait_s"],
+                          "corrupt": replayed["window_wait_s"]},
+        "steady_step_ms": {"clean": clean["steady_step_ms"],
+                           "sigkill": killed["steady_step_ms"],
+                           "corrupt": replayed["steady_step_ms"]},
+        "first_window_s": {"clean": clean["first_window_s"],
+                           "sigkill": killed["first_window_s"],
+                           "corrupt": replayed["first_window_s"]},
+        "losses": clean["losses"],
+    }
+
+
+def process_shuffle_drain(session, sentinel=None):
+    """The global-shuffle path with PROCESS producers: four instances in
+    this process, each a WorkerSet of one spawned producer exchanging
+    over ``ShmRendezvous(session)``, each loader draining its windows
+    onto cuda:0 through the staged engine.  With ``sentinel``, instance
+    0's producer SIGKILLs itself at its refill ``shuffle_kill_at`` and a
+    watchdog respawns it.  Returns (per-instance windows as card tensors
+    of shape (rows, cols) per epoch, the loaders' metrics, the drain's
+    seconds, the watchdog's respawns)."""
+    import threading
+
+    import torch
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, RunMode, Topology
+    from ddl_tpu_torch.env import WorkerSet
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.shuffle import ShmRendezvous, ThreadExchangeShuffler
+    from ddl_tpu_torch.watchdog import Watchdog
+
+    sh, rc = SHUFFLE, RECOVERY
+    factory = ThreadExchangeShuffler.factory(rendezvous=ShmRendezvous(session))
+    streams, metrics, errors = {}, {}, []
+    sets = [None] * sh["n"]
+    t0 = time.perf_counter()
+    for i in range(sh["n"]):  # the spawns start together
+        sets[i] = WorkerSet(
+            Topology(n_instances=sh["n"], instance_idx=i, n_producers=1,
+                     mode=RunMode.PROCESS),
+            nslots=2, pin_memory=True, shuffler_factory=factory)
+    wd = None
+    if sentinel is not None:
+        wd = Watchdog(sets[0], poll_interval_s=0.2, stall_budget_s=60.0,
+                      respawn=True, metrics=Metrics()).start()
+
+    def run_instance(i):
+        try:
+            metrics[i] = Metrics()
+            producer = PoolProducer(
+                i, sh["rows"], sh["cols"],
+                sentinel=sentinel if i == 0 else None,
+                kill_at=rc["shuffle_kill_at"] if i == 0 else 0)
+            loader = DistributedDataLoader(
+                producer, batch_size=sh["batch_size"],
+                connection=sets[i].connection, n_epochs=sh["n_epochs"],
+                global_shuffle_fraction_exchange=sh["fraction"],
+                output="device", device="cuda", metrics=metrics[i],
+                timeout_s=120.0)
+            wins = []
+            for win in loader.windows(lookahead=1):
+                wins.append(win.reshape(-1, sh["cols"]))
+                loader.mark(Marker.END_OF_EPOCH)
+            torch.cuda.current_stream().synchronize()
+            streams[i] = wins
+            loader.shutdown()
+        except Exception as e:  # reported by the main thread
+            errors.append((f"instance {i}", repr(e)))
+
+    ts = [threading.Thread(target=run_instance, args=(i,))
+          for i in range(sh["n"])]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if wd is not None:
+        wd.stop()
+    for ws in sets:
+        ws.abort()
+        ws.join(30.0)
+    if any(t.is_alive() for t in ts) or errors:
+        raise PhaseFailed(f"PROCESS shuffle drain failed: {errors or 'hung'}")
+    codes = [ws.exitcodes for ws in sets]
+    if codes != [[0]] * sh["n"]:
+        raise PhaseFailed(f"PROCESS shuffle producers exited with {codes}")
+    return streams, metrics, wall, list(wd.respawns) if wd else []
+
+
+def recovery_shuffle(tmpdir: str, card: str):
+    """(c) The cross-process global shuffle at phase 4's geometry: the
+    THREAD tier's host drain, then four PROCESS instances over one
+    ShmRendezvous session (byte-identical streams, rows mixed across
+    instances, the session directory gone after cleanup), then again
+    with instance 0's producer SIGKILLed mid-exchange and respawned
+    (every round's windows across the instances partition the rows)."""
+    import torch
+
+    from ddl_tpu_torch.shuffle import (
+        Rendezvous, ShmRendezvous, ThreadExchangeShuffler, make_session,
+    )
+
+    sh = SHUFFLE
+    free = _shm_free_bytes()
+    if free < RECOVERY_SHM_BYTES:
+        raise PhaseFailed(f"/dev/shm has {free} bytes free, the recovery "
+                          f"phase needs {RECOVERY_SHM_BYTES}")
+    rdv = Rendezvous()
+    host, _, host_s = drain_instances(
+        lambda: ThreadExchangeShuffler.factory(rdv))
+    faults = []
+    session = make_session("ddl-smoke")
+    proc, pmetrics, proc_s, _ = process_shuffle_drain(session)
+    board = ShmRendezvous(session)
+    board.cleanup()
+    if os.path.exists(board._dir):
+        faults.append(f"session directory {board._dir} left after cleanup")
+    for i in range(sh["n"]):
+        got = torch.cat(proc[i])
+        same = torch.equal(_bytes(got), _bytes(host[i]))
+        origin = (got[:, 0] / 1e6).floor().long().view(sh["n_epochs"], -1)
+        mixed = all(bool((e != i).any()) for e in origin[1:])
+        m = pmetrics[i]
+        routes = (m.counter("staging.alias_windows") == sh["n_epochs"]
+                  and m.counter("ingest.registered_rings") == 1
+                  and m.counter("staging.alias_fallbacks") == 0
+                  and m.counter("staging.inline_fallbacks") == 0
+                  and m.counter("transport.rings.NativeShmRing") == 1)
+        log(f"[recovery-shuffle] PROCESS instance {i}: stream byte-identical "
+            f"to the THREAD host drain's {same}, rows from other instances "
+            f"{mixed}, alias route on a registered native ring {routes}")
+        if not (same and mixed and routes):
+            faults.append(f"instance {i}: same {same} mixed {mixed} "
+                          f"routes {routes}")
+    sentinel = os.path.join(tmpdir, "shuffle-killed")
+    session2 = make_session("ddl-smoke")
+    killed, kmetrics, killed_s, respawns = process_shuffle_drain(
+        session2, sentinel=sentinel)
+    ShmRendezvous(session2).cleanup()
+    import numpy as np
+
+    everything = np.sort(np.concatenate([
+        i * 1e6 + np.arange(sh["rows"]) for i in range(sh["n"])]))
+    partitions = all(
+        np.array_equal(np.sort(torch.cat([killed[i][e][:, 0]
+                                          for i in range(sh["n"])])
+                               .cpu().numpy().astype(np.float64)),
+                       everything)
+        for e in range(sh["n_epochs"]))
+    still_same = all(torch.equal(_bytes(torch.cat(killed[i])),
+                                 _bytes(host[i])) for i in range(sh["n"]))
+    log(f"[recovery-shuffle] SIGKILL of instance 0's producer at its refill "
+        f"{RECOVERY['shuffle_kill_at']}: fired {os.path.exists(sentinel)}, "
+        f"respawns {respawns}, every round partitions the rows {partitions}, "
+        f"streams still byte-identical to the THREAD drain's {still_same}")
+    if not (os.path.exists(sentinel) and respawns == [1] and partitions):
+        faults.append(f"kill run: respawns {respawns}, partitions "
+                      f"{partitions}")
+    log(f"[recovery-shuffle] drains: THREAD host {host_s:.3f} s, PROCESS "
+        f"{proc_s:.3f} s, PROCESS with a SIGKILL and a respawn "
+        f"{killed_s:.3f} s (spawns included; {card})")
+    if faults:
+        raise PhaseFailed("[recovery-shuffle] failed its checks: "
+                          + "; ".join(faults))
+    return {"thread_drain_s": host_s, "process_drain_s": proc_s,
+            "process_killed_drain_s": killed_s, "respawns": respawns,
+            "killed_streams_identical": still_same}
+
+
+def phase_recovery(tmpdir: str, card: str):
+    """Phase 7: recovery in PROCESS mode — the respawned producer, the
+    quarantine and replay of a corrupt slot, and the cross-process global
+    shuffle with a producer death during the exchange."""
+    t0 = time.perf_counter()
+    fits = recovery_fits(tmpdir, card)
+    shuffle = recovery_shuffle(tmpdir, card)
+    free_device_memory()
+    log(f"[recovery] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return {"fits": fits, "shuffle": shuffle}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -1964,6 +2438,7 @@ def main(argv=None) -> int:
             launches, summary = phase_train(tmp, card, args.profile)
             packed_launches, packed_summary = phase_train(
                 tmp, card, args.profile, packed=True)
+            recovery_summary = phase_recovery(tmp, card)
         # Each kernel's launches come from the run of its own path.
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
@@ -1974,6 +2449,7 @@ def main(argv=None) -> int:
         log(f"[summary-ici] {json.dumps(ici_summary)}")
         log(f"[summary] {json.dumps(summary)}")
         log(f"[summary-packed] {json.dumps(packed_summary)}")
+        log(f"[summary-recovery] {json.dumps(recovery_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

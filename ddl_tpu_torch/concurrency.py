@@ -25,6 +25,9 @@ LOCK_ORDER: Tuple[str, ...] = (
     "shuffle.device.cond",
     "shuffle.device.landing",
     "shuffle.exchange.cond",
+    # Taken alone, around the once-per-root sweep of stale rendezvous
+    # sessions.
+    "shuffle.sweep",
     "obs.metrics",
 )
 

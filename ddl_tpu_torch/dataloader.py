@@ -22,9 +22,16 @@
   route (:class:`~ddl_tpu_torch.ingest.DeviceIngestor`).
 
 Every acquire verifies the window's integrity trailer.  A corrupt head
-window raises :class:`IntegrityError`; the quarantine-and-replay ladder,
-loader pools, admission and observability shipping of the JAX package
-are later slices.
+window is quarantined and replayed: the loader asks its producer (in an
+acked envelope) to rewind to that window, discards the quarantined slot
+and the stale successors committed behind it, and serves the
+re-committed window — byte-identical, exactly once — up to
+``DDL_TORCH_MAX_REPLAYS`` attempts; past them, or while a cross-instance
+exchange is active (whose rows no local rewind regenerates), it raises
+:class:`IntegrityError`.  Counters ``integrity.corrupt_windows``,
+``integrity.replays`` and ``integrity.replay_exhausted``; timer
+``integrity.replay`` (quarantine to the replayed window).  Loader pools, admission and observability
+shipping of the JAX package are later slices.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ddl_tpu_torch import integrity
+from ddl_tpu_torch import envspec, integrity
 from ddl_tpu_torch.datasetwrapper import ProducerFunctionSkeleton
 from ddl_tpu_torch.exceptions import (
     DoesNotMatchError,
@@ -99,6 +106,9 @@ class DistributedDataLoader:
         self.output = output
         self.metrics = metrics or default_metrics()
         self.timeout_s = timeout_s
+        self._shuffle_fraction = global_shuffle_fraction_exchange
+        self._max_replays = envspec.get("DDL_TORCH_MAX_REPLAYS")
+        connection.control_metrics = self.metrics
         self._epoch = 0
         self._batches_in_window = 0
         self._served_in_epoch = 0
@@ -153,6 +163,9 @@ class DistributedDataLoader:
         # Per-producer epoch lengths (unequal windows: weighted rotation).
         self._lens = [r.batches_per_window for r in replies]
         self._integrity = all(r.integrity for r in replies)
+        # Commits discarded by quarantine replays, per ring: the logical
+        # window number of a slot is its released count minus these.
+        self._seq_skew = [0] * len(replies)
         self.splits_per_producer = [tuple(r.splits) for r in replies]
         self.shapes = [tuple(r.shape) for r in replies]
         self.dtypes = [np.dtype(r.dtype) for r in replies]
@@ -307,7 +320,19 @@ class DistributedDataLoader:
             nonlocal cursor
             target = cursor
             with self.metrics.timed("consumer.wait"):
-                slot = self._acquire_verified(target, held[target], timeout_s)
+                try:
+                    slot = self._acquire_verified(target, held[target],
+                                                  timeout_s)
+                except _CorruptAhead:
+                    if timeout_s <= 0 or not held[target]:
+                        raise
+                    # A corrupt window behind held slots (deferred inline
+                    # releases): free them, so it is the head, where
+                    # quarantine runs.
+                    self._flush_release_backlog(held, target=target,
+                                                every=True)
+                    slot = self._acquire_verified(target, held[target],
+                                                  timeout_s)
             ring = rings[target]
             # Window identity: the integrity trailer's (producer_idx, seq).
             wkey = (target + 1, self._last_acquired_seq)
@@ -534,15 +559,18 @@ class DistributedDataLoader:
                 remaining.append(entry)
         self._release_backlog = remaining
 
-    def _flush_release_backlog(self, held=None, target=None) -> None:
+    def _flush_release_backlog(self, held=None, target=None,
+                               every: bool = False) -> None:
         """BLOCKING release of backlog entries: all of them (teardown),
-        or only the oldest entry of ``target`` (a ring out of free
-        slots).  The wait is accounted as ``ingest.release_wait``."""
+        only the oldest entry of ``target`` (a ring out of free slots),
+        or, ``every``, all of ``target``'s.  The wait is accounted as
+        ``ingest.release_wait``."""
         remaining = []
         done_one = False
         for entry in self._release_backlog:
             t, slot, done = entry[:3]
-            if done_one or (target is not None and t != target):
+            if (done_one and not every) or (target is not None
+                                            and t != target):
                 remaining.append(entry)
                 continue
             with self.metrics.timed("ingest.release_wait"):
@@ -558,33 +586,127 @@ class DistributedDataLoader:
 
     def _expected_seq(self, target: int, ahead: int) -> int:
         """Logical window number of the slot ``acquire_drain_ahead(ahead)``
-        returns on ``target``."""
+        returns on ``target``: released count plus lookahead, minus the
+        commits past quarantine replays discarded."""
         ring = self.connection.rings[target]
-        return int(ring.stats()["released"]) + ahead
+        return (int(ring.stats()["released"]) + ahead
+                - self._seq_skew[target])
+
+    def _verify_slot(self, target: int, slot: int, seq: int) -> Optional[str]:
+        ring = self.connection.rings[target]
+        return integrity.verify_window(
+            ring.slot_view(slot), ring.slot_payload(slot),
+            expect_seq=seq, expect_producer=target + 1,
+        )
 
     def _acquire_verified(self, target: int, ahead: int, timeout_s: float) -> int:
         """Acquire the next committed slot on ``target`` and verify its
-        integrity trailer.  A corrupt head window raises
-        :class:`IntegrityError`; corruption found while deepening the
+        integrity trailer.  A corrupt head window enters
+        quarantine-and-replay; corruption found while deepening the
         lookahead (``ahead > 0`` or a non-blocking probe) raises
-        :class:`_CorruptAhead` so the window re-verifies at the head."""
+        :class:`_CorruptAhead`, uncounted: held slots forbid out-of-FIFO
+        quarantine, so the window re-verifies at the head."""
         ring = self.connection.rings[target]
         slot = ring.acquire_drain_ahead(ahead, timeout_s)
         seq = self._expected_seq(target, ahead)
         if self._integrity:
-            err = integrity.verify_window(
-                ring.slot_view(slot), ring.slot_payload(slot),
-                expect_seq=seq, expect_producer=target + 1,
-            )
+            err = self._verify_slot(target, slot, seq)
             if err is not None:
                 if ahead or timeout_s <= 0:
                     raise _CorruptAhead(err)
                 self.metrics.incr("integrity.corrupt_windows")
-                raise IntegrityError(
-                    f"corrupt window {seq} from producer {target + 1}: {err}"
-                )
+                with self.metrics.timed("integrity.replay"):
+                    slot = self._quarantine_and_replay(target, seq, err,
+                                                       timeout_s)
         self._last_acquired_seq = seq
+        # The window boundary is the control plane's heartbeat: re-send
+        # due envelopes and route the producers' acks.
+        self.connection.drain_acks()
         return slot
+
+    def _discard_head(self, target: int) -> None:
+        """Hand ``target``'s head slot back unserved.  A slot returns to
+        its producer only once no copy reads it: on the staged route the
+        barrier waits out every submitted job's read (an alias job's
+        ``copy_done`` fires after its DMA's event), so a replayed fill can
+        never overwrite a slot a copy is still reading."""
+        ring = self.connection.rings[target]
+        engine = self._ingestor._engine if self._ingestor is not None else None
+        if engine is not None:
+            engine.executor.flush_copies()
+        ring.release(int(ring.stats()["released"]) % ring.nslots)
+        self._seq_skew[target] += 1
+
+    def _quarantine_and_replay(self, target: int, seq: int, err: str,
+                               timeout_s: float) -> int:
+        """The corrupt-slot recovery ladder.
+
+        The head slot of ``target`` failed verification as logical window
+        ``seq``.  Re-request ``seq`` from the producer, discard the
+        quarantined slot and any stale successors, and return the slot
+        of the re-committed window.  Up to ``DDL_TORCH_MAX_REPLAYS``
+        attempts; none while a cross-instance exchange is active.  The
+        caller's head slot is this method's from entry: every discard
+        releases it and acquires the next commit."""
+        ring = self.connection.rings[target]
+        for attempt in range(1, self._max_replays + 1):
+            if self._shuffle_fraction > 0.0:
+                raise IntegrityError(
+                    f"corrupt window {seq} from producer {target + 1} "
+                    f"({err}); not replayable: cross-instance exchange "
+                    "contributed rows no local rewind can regenerate"
+                )
+            logger.error(
+                "ddl_tpu_torch: corrupt window %d from producer %d (%s) — "
+                "quarantined; replay attempt %d/%d",
+                seq, target + 1, err, attempt, self._max_replays,
+            )
+            self.metrics.incr("integrity.replays")
+            self.connection.request_replay(target, seq)
+            deadline = time.monotonic() + max(timeout_s, 1.0)
+            last_request = time.monotonic()
+            reattempt = False
+            while not reattempt:
+                # The producer re-commits seq, seq+1, ... behind what it
+                # committed before the request reached it: discard the
+                # head until the replayed seq arrives.
+                self._discard_head(target)
+                while True:
+                    now = time.monotonic()
+                    if now >= deadline:
+                        raise IntegrityError(
+                            f"replayed window {seq} from producer "
+                            f"{target + 1} never arrived within {timeout_s}s"
+                        )
+                    if now - last_request >= 2.0:
+                        # The request is lost if the producer died (or was
+                        # respawned on a fresh channel) before reading it;
+                        # a rewind is idempotent, so ask again.
+                        self.connection.request_replay(target, seq)
+                        last_request = now
+                    self.connection.drain_acks()
+                    try:
+                        slot = ring.acquire_drain(min(2.0, deadline - now))
+                        break
+                    except StallTimeoutError:
+                        continue
+                hdr = integrity.read_header(ring.slot_view(slot),
+                                            ring.slot_payload(slot))
+                if not hdr.valid_magic or hdr.seq != seq:
+                    continue  # a stale successor: discard it too
+                err = self._verify_slot(target, slot, seq)
+                if err is None:
+                    logger.warning("ddl_tpu_torch: window %d from producer "
+                                   "%d recovered by replay", seq, target + 1)
+                    return slot
+                # The replayed copy is corrupt again: burn an attempt.
+                self.metrics.incr("integrity.corrupt_windows")
+                reattempt = True
+        self.metrics.incr("integrity.replay_exhausted")
+        raise IntegrityError(
+            f"window {seq} from producer {target + 1} still corrupt after "
+            f"{self._max_replays} replay(s): {err}"
+        )
 
     def _acquire_current(self) -> None:
         if self._release_backlog:
@@ -605,6 +727,26 @@ class DistributedDataLoader:
         self._cur_slot = slot
         self._cur_array = self._slot_array(self._target, slot)
         self.metrics.incr("consumer.windows")
+
+    def fast_forward(self, n_windows: int) -> None:
+        """Discard ``n_windows`` windows without serving them (resume):
+        producers regenerate their window sequence from their seeds, so
+        skipping the windows a run already consumed puts the pipeline at
+        the data position where it stopped (one window per epoch)."""
+        if self._release_backlog:
+            self._flush_release_backlog()
+        self._fast_forward_unadmitted(n_windows)
+
+    def _fast_forward_unadmitted(self, n_windows: int) -> None:
+        for _ in range(n_windows):
+            if self._staged_orphans:
+                # An early-released staged window: already off the ring.
+                self._staged_orphans.pop(0)
+            else:
+                self._acquire_current()
+                self._release_current()
+            self._target = (self._target + 1) % self.n_producers
+            self.metrics.incr("consumer.windows_skipped")
 
     def _release_current(self) -> None:
         if self._cur_slot is not None:

@@ -16,8 +16,15 @@ clean shutdown (the consumer keeps its own mapping).
 
 With a ``shuffler_factory`` and several instances, each refill first runs
 the cross-instance exchange (``global_shuffle``) on the private array,
-then the user's ``execute_function``.  Wire encoding, quarantine replay,
-elastic rejoin and cross-process observability are later slices.
+then the user's ``execute_function``.
+
+Recovery: a respawned pusher (``rejoin_ring=``) attaches the ring its
+predecessor left and fast-forwards its producer function to the logical
+position in the last committed slot's trailer; with a shuffler it also
+restores ``my_ary`` from that slot and re-enters the exchange schedule.
+A :class:`~ddl_tpu_torch.types.ReplayRequest` from the consumer rewinds
+the stream to a quarantined window.  Wire encoding and cross-process
+observability are later slices.
 """
 
 from __future__ import annotations
@@ -32,9 +39,13 @@ from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
 from ddl_tpu_torch.exceptions import DoesNotMatchError, ShutdownRequested
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.transport.connection import NOTHING, ProducerConnection
+from ddl_tpu_torch.transport.envelope import EnvelopeReceiver
 from ddl_tpu_torch.types import (
+    ControlEnvelope,
     MetaData_Consumer_To_Producer,
     MetaData_Producer_To_Consumer,
+    ReplayRequest,
+    RunMode,
     Topology,
     normalize_splits,
 )
@@ -63,7 +74,12 @@ class DataPusher:
         nslots: int = DEFAULT_NSLOTS,
         metrics: Optional[Metrics] = None,
         shuffler_factory: Any = None,
+        rejoin_ring: Any = None,
     ):
+        """``rejoin_ring`` (elastic recovery): attach a predecessor's
+        surviving ring (shm name or in-process ring) instead of creating
+        one, and fast-forward the producer function to where the ring's
+        last committed window left it."""
         self.connection = connection
         self.topology = topology
         self.producer_idx = producer_idx
@@ -71,6 +87,9 @@ class DataPusher:
         self.metrics = metrics or default_metrics()
         self._iteration = 0
         self._integrity = integrity.integrity_enabled()
+        # Acked control envelopes: dedup, fencing, and an ack per
+        # envelope so the consumer's retries end.
+        self._envelope_rx = EnvelopeReceiver(producer_idx=producer_idx)
 
         meta: MetaData_Consumer_To_Producer = connection.recv_metadata_as_producer()
         self.batch_size = meta.batch_size
@@ -139,6 +158,39 @@ class DataPusher:
                 # (factories stay picklable, so it is injected here).
                 if hasattr(self.shuffler, "metrics"):
                     self.shuffler.metrics = self.metrics
+                if rejoin_ring is not None and not (
+                    getattr(self.shuffler, "supports_elastic_replay", False)
+                    and callable(getattr(self.shuffler, "rejoin", None))
+                ):
+                    # Rejoining a live exchange needs a fabric that retains
+                    # consumed boxes and a rejoin(round) re-entry; anything
+                    # else would strand the replayed take until timeout.
+                    raise DoesNotMatchError(
+                        type(self.shuffler).__name__,
+                        "elastic respawn with global shuffle needs a "
+                        "replay-capable shuffler (consumed-box retention + "
+                        "a rejoin(round) re-entry method); this one does "
+                        "not advertise supports_elastic_replay / rejoin",
+                    )
+                span = getattr(self.shuffler, "span", None)
+                if topology.mode is RunMode.MULTIHOST and span in (
+                        "thread", "process"):
+                    raise DoesNotMatchError(
+                        span,
+                        "host-side global shuffle cannot span hosts "
+                        "(exchange partners are other instances' producer "
+                        "processes)",
+                    )
+                if connection.cross_process and span == "thread":
+                    raise DoesNotMatchError(
+                        span,
+                        "an in-process Rendezvous cannot reach producers "
+                        "in other processes (each process waits on its "
+                        "own private board until timeout); pass "
+                        "ThreadExchangeShuffler.factory(rendezvous="
+                        "ShmRendezvous(session)) with a shared session "
+                        "string",
+                    )
                 self.callbacks.append(self.shuffler)
 
         # Write-once producers fill ring slots directly unless a shuffler
@@ -158,7 +210,30 @@ class DataPusher:
         slot_bytes = self.window_nbytes + (
             integrity.HEADER_BYTES if self._integrity else 0
         )
-        self.ring = connection.create_ring(nslots, slot_bytes)
+        if rejoin_ring is not None:
+            self.ring = connection.attach_ring(rejoin_ring)
+            if self._integrity and self.ring.slot_bytes < slot_bytes:
+                # The predecessor made the ring without trailer room: the
+                # incarnations disagree on DDL_TORCH_INTEGRITY.
+                raise DoesNotMatchError(
+                    self.ring.slot_bytes,
+                    "surviving ring has no integrity-header headroom; "
+                    "respawned producer must run with the same "
+                    "DDL_TORCH_INTEGRITY setting as its predecessor",
+                )
+            if self.shuffler is not None and self.ring.nslots < 2:
+                # Checked on the attached ring's real geometry: with one
+                # slot the last committed window shares the slot the
+                # predecessor was filling when it died.
+                raise DoesNotMatchError(
+                    self.ring.nslots,
+                    "elastic respawn with global shuffle needs nslots >= "
+                    "2: with one slot the last committed window shares "
+                    "the slot the predecessor was filling when it died, "
+                    "so the state restore could read a torn fill",
+                )
+        else:
+            self.ring = connection.create_ring(nslots, slot_bytes)
         if self.inplace_fill:
             # Zero-copy fill: the user writes straight into ring slots.
             self._fill_slot = self.ring.acquire_fill()
@@ -176,6 +251,37 @@ class DataPusher:
             )
         )
         execute_callbacks(self.callbacks, "post_init", my_ary=self.my_ary)
+        if rejoin_ring is not None:
+            self._rejoin()
+
+    def _rejoin(self) -> None:
+        """Replay to the predecessor's data position.  The ring's
+        committed count is the number of windows published; with
+        trailers, the last committed slot's seq is the exact logical
+        position (after a quarantine replay the committed count includes
+        the discarded re-commits)."""
+        committed = int(self.ring.stats()["committed"])
+        done = committed
+        last = (committed - 1) % self.ring.nslots
+        if self._integrity and committed:
+            hdr = integrity.read_header(self.ring.slot_view(last),
+                                        self.window_nbytes)
+            if hdr.valid_magic:
+                done = hdr.seq + 1
+        if done:
+            execute_callbacks(self.callbacks, "fast_forward", n=done,
+                              my_ary=self.my_ary)
+            if self.shuffler is not None:
+                # Lanes exchanged in by peers are not locally
+                # regenerable; the last committed slot holds the
+                # predecessor's exact my_ary (copy fill: a shuffle forbids
+                # in-place fill, and only this producer writes its slots).
+                np.copyto(self.my_ary, self._slot_array(last))
+        if self.shuffler is not None:
+            self.shuffler.rejoin(done)
+        self._iteration = done
+        logger.info("producer %d: rejoined ring at window %d",
+                    self.producer_idx, done)
 
     # -- hot loop ----------------------------------------------------------
 
@@ -216,20 +322,75 @@ class DataPusher:
             self.my_ary = self._slot_array(self._fill_slot)
 
     def _poll_control(self) -> None:
-        """Drain pending control messages (non-blocking, once per window):
-        the consumer's ABORT broadcast ends the loop like the ring flag."""
+        """Drain pending control messages (non-blocking, once per window).
+
+        Commands arrive in :class:`ControlEnvelope` s: each is unwrapped
+        through the dedup and fencing receiver and ALWAYS acked, then a
+        :class:`ReplayRequest` rewinds the stream.  The consumer's ABORT
+        broadcast ends the loop like the ring flag."""
         from ddl_tpu_torch.env import ABORT
 
         while True:
             msg = self.connection.channel.try_recv()
             if msg is NOTHING:
                 return
-            if isinstance(msg, str) and msg == ABORT:
+            if isinstance(msg, ControlEnvelope):
+                payload, ack = self._envelope_rx.accept(msg)
+                if ack.dup:
+                    self.metrics.incr("producer.ctrl_dup_dropped")
+                if ack.fence_rejected:
+                    self.metrics.incr("producer.ctrl_fence_dropped")
+                try:
+                    self.connection.channel.send(ack)
+                except (OSError, ValueError):
+                    pass  # the consumer is gone mid-teardown
+                if payload is None:
+                    continue
+                msg = payload
+            if isinstance(msg, ReplayRequest):
+                self._handle_replay(msg.seq)
+            elif isinstance(msg, str) and msg == ABORT:
                 raise ShutdownRequested("consumer abort broadcast")
-            logger.warning(
-                "producer %d: ignoring unexpected control message %r",
-                self.producer_idx, type(msg).__name__,
+            else:
+                logger.warning(
+                    "producer %d: ignoring unexpected control message %r",
+                    self.producer_idx, type(msg).__name__,
+                )
+
+    def _handle_replay(self, seq: int) -> None:
+        """Rewind the producer function to logical window ``seq`` and
+        commit from there (the corrupt-slot re-request): ``on_init`` →
+        ``post_init`` → ``fast_forward(seq)``, the respawn's recipe.  The
+        consumer discards what was committed past ``seq`` before the
+        request arrived."""
+        if self.shuffler is not None:
+            # Peer-exchanged lanes are not locally regenerable; the
+            # consumer never asks in this configuration.
+            logger.error(
+                "producer %d: ignoring replay request at %d (cross-instance "
+                "exchange active; stream is not locally replayable)",
+                self.producer_idx, seq,
             )
+            return
+        seq = max(0, int(seq))
+        logger.warning(
+            "producer %d: replaying window stream from %d (corrupt-slot "
+            "re-request; was at %d)", self.producer_idx, seq, self._iteration,
+        )
+        self.metrics.incr("producer.replays")
+        execute_callbacks(
+            self.callbacks, "on_init",
+            producer_idx=self.producer_idx,
+            n_producers=self.topology.n_producers,
+            instance_idx=self.topology.instance_idx,
+            n_instances=self.topology.n_instances,
+            batch_size=self.batch_size,
+        )
+        execute_callbacks(self.callbacks, "post_init", my_ary=self.my_ary)
+        if seq:
+            execute_callbacks(self.callbacks, "fast_forward", n=seq,
+                              my_ary=self.my_ary)
+        self._iteration = seq
 
     def push_data(self) -> None:
         execute_callbacks(self.callbacks, "on_push_begin")
@@ -268,6 +429,7 @@ class DataPusher:
             )
         finally:
             execute_callbacks(self.callbacks, "on_push_end")
-            # A crashed producer leaves its ring's name linked; the
-            # consumer's finalize unlinks it.
+            # A crashed producer leaves its ring's name linked, for a
+            # respawned replacement to attach; the consumer's finalize
+            # unlinks it if none comes.
             self.connection.finalize(unlink=clean)

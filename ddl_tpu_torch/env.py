@@ -12,11 +12,15 @@ the producer workers beside it:
   Call the decorated main under ``if __name__ == "__main__":``, as spawn
   re-imports the main module.
 
-MULTIHOST mode, respawn and elastic rejoin are later slices.  Every
-``DDL_TORCH_*`` knob a spawned producer reads (ring, integrity, in-place
-fill) reaches it through the environment it inherits, and no
-``LoaderConfig`` field is read in a producer, so nothing needs exporting
-before the spawn.
+A dead or hung producer is replaced in place by :meth:`WorkerSet.respawn`
+(the watchdog calls it): the replacement attaches the surviving ring and
+rejoins at its predecessor's position.  A ``shuffler_factory`` crosses
+the spawn boundary by pickle, with the producer function.
+
+MULTIHOST mode is a later slice.  Every ``DDL_TORCH_*`` knob a spawned
+producer reads (ring, integrity, in-place fill) reaches it through the
+environment it inherits, and no ``LoaderConfig`` field is read in a
+producer, so nothing needs exporting before the spawn.
 """
 
 from __future__ import annotations
@@ -64,14 +68,15 @@ def detect_topology(
 
 def _producer_main(
     conn: ProducerConnection, topology: Topology, producer_idx: int,
-    nslots: int, shuffler_factory: Any = None,
+    nslots: int, shuffler_factory: Any = None, rejoin_ring: Any = None,
 ) -> None:
     """Body of one producer worker (thread or process)."""
     from ddl_tpu_torch.datapusher import DataPusher
 
     try:
         pusher = DataPusher(conn, topology, producer_idx, nslots=nslots,
-                            shuffler_factory=shuffler_factory)
+                            shuffler_factory=shuffler_factory,
+                            rejoin_ring=rejoin_ring)
     except (TransportError, ShutdownRequested) as e:
         # Consumer aborted before/during the handshake (ABORT arrives as
         # non-metadata) or the run is tearing down: a clean exit.
@@ -96,20 +101,21 @@ def _producer_main(
     try:
         pusher.push_data()
     except Exception:
-        # A crash in the user's refill loop: log it; the consumer's ring
-        # wait then times out on the dead producer.  A process reports it
-        # in its exit code.
+        # A crash in the user's refill loop: log it and leave it to the
+        # watchdog — a dead thread, or a process's nonzero exit code.
         logger.exception("producer %d crashed in the push loop", producer_idx)
         if conn.cross_process:
             raise SystemExit(1)
 
 
 def _process_entry(pipe_end: Any, topology: Topology, producer_idx: int,
-                   nslots: int) -> None:
+                   nslots: int, shuffler_factory: Any = None,
+                   rejoin_ring: Any = None) -> None:
     """Top-level spawn target (importable, so it pickles by name)."""
     conn = ProducerConnection(PipeChannel(pipe_end), producer_idx,
                               cross_process=True)
-    _producer_main(conn, topology, producer_idx, nslots)
+    _producer_main(conn, topology, producer_idx, nslots, shuffler_factory,
+                   rejoin_ring)
 
 
 class WorkerSet:
@@ -120,48 +126,54 @@ class WorkerSet:
                  pin_memory: bool = False, shuffler_factory: Any = None):
         self.topology = topology
         self.nslots = nslots
+        self.pin_memory = pin_memory
+        self.shuffler_factory = shuffler_factory
         self.threads: List[threading.Thread] = []
         self.processes: List[Any] = []
         #: Each spawned process's exit code, filled in by :meth:`join`.
         self.exitcodes: List[Optional[int]] = []
         channels = []
-        if topology.mode is RunMode.PROCESS:
-            if shuffler_factory is not None:
-                raise NotImplementedError(
-                    "global shuffle across producer processes needs a "
-                    "shared-memory rendezvous, a later slice; use THREAD "
-                    "mode"
-                )
-            for idx in range(topology.n_producers):
+        for idx in range(topology.n_producers):
+            if topology.mode is RunMode.PROCESS:
                 ch, p = self._spawn_process(idx + 1)
-                channels.append(ch)
                 self.processes.append(p)
-        else:
-            for idx in range(topology.n_producers):
-                consumer_end, producer_end = ThreadChannel.pair()
-                conn = ProducerConnection(
-                    producer_end, idx + 1, pin_memory=pin_memory
-                )
-                t = threading.Thread(
-                    target=_producer_main,
-                    args=(conn, topology, idx + 1, nslots, shuffler_factory),
-                    name=f"ddl-torch-producer-{idx + 1}",
-                    daemon=True,
-                )
-                t.start()
-                channels.append(consumer_end)
+            else:
+                ch, t = self._spawn_thread(idx + 1)
                 self.threads.append(t)
+            channels.append(ch)
         self.connection = ConsumerConnection(channels)
 
-    def _spawn_process(self, producer_idx: int):
+    # The one worker recipe, shared by __init__ and respawn, so the rarely
+    # run recovery path cannot drift from the normal start.
+
+    def _spawn_thread(self, producer_idx: int, rejoin_ring: Any = None):
+        consumer_end, producer_end = ThreadChannel.pair()
+        conn = ProducerConnection(producer_end, producer_idx,
+                                  pin_memory=self.pin_memory)
+        t = threading.Thread(
+            target=_producer_main,
+            args=(conn, self.topology, producer_idx, self.nslots,
+                  self.shuffler_factory, rejoin_ring),
+            name=f"ddl-torch-producer-{producer_idx}"
+            + ("-respawn" if rejoin_ring is not None else ""),
+            daemon=True,
+        )
+        t.start()
+        return consumer_end, t
+
+    def _spawn_process(self, producer_idx: int, rejoin_ring: Any = None):
         import multiprocessing as mp
 
+        # spawn, never fork: the consumer may have CUDA initialised.  The
+        # shuffler factory crosses by pickle, like the producer function.
         ctx = mp.get_context("spawn")
         parent_end, child_end = ctx.Pipe(duplex=True)
         p = ctx.Process(
             target=_process_entry,
-            args=(child_end, self.topology, producer_idx, self.nslots),
-            name=f"ddl-torch-producer-{producer_idx}",
+            args=(child_end, self.topology, producer_idx, self.nslots,
+                  self.shuffler_factory, rejoin_ring),
+            name=f"ddl-torch-producer-{producer_idx}"
+            + ("-respawn" if rejoin_ring is not None else ""),
             daemon=True,
         )
         p.start()
@@ -169,6 +181,47 @@ class WorkerSet:
         # surfaces as EOF on the channel, not a timeout.
         child_end.close()
         return PipeChannel(parent_end), p
+
+    def respawn(self, producer_idx: int) -> None:
+        """Replace a dead (or, in PROCESS mode, hung) producer with a
+        fresh worker that rejoins the surviving ring: it re-handshakes
+        over a new channel, attaches its predecessor's ring and
+        fast-forwards to the position the ring records.  The consumer's
+        drain sees only the stall.  A live thread cannot be replaced (a
+        second producer on one SPSC ring would corrupt it); a hung
+        process is terminated, then killed."""
+        i = producer_idx - 1
+        if not 0 <= i < self.topology.n_producers:
+            raise ValueError(f"no producer {producer_idx}")
+        replies = self.connection.replies
+        ring_ref = replies[i].ring_ref if i < len(replies) else None
+        if ring_ref is None:
+            raise TransportError(
+                f"producer {producer_idx} never completed its first "
+                "handshake; nothing to rejoin")
+        if self.topology.mode is RunMode.PROCESS:
+            old = self.processes[i]
+            if old.is_alive():  # hung rather than dead: replace it
+                old.terminate()
+                old.join(10)
+                if old.is_alive():
+                    old.kill()
+                    old.join(10)
+                if old.is_alive():
+                    raise TransportError(
+                        f"producer process {producer_idx} survived SIGKILL; "
+                        "cannot safely attach a replacement")
+            new_ch, p = self._spawn_process(producer_idx, rejoin_ring=ring_ref)
+            self.processes[i] = p
+        else:
+            if self.threads[i].is_alive():
+                raise TransportError(
+                    f"producer thread {producer_idx} is still alive; only "
+                    "dead thread producers can be respawned")
+            new_ch, t = self._spawn_thread(producer_idx, rejoin_ring=ring_ref)
+            self.threads[i] = t
+        self.connection.rejoin_producer(producer_idx, new_ch)
+        logger.info("respawned producer %d", producer_idx)
 
     def abort(self) -> None:
         """Wake producers wherever they block: the ABORT sentinel reaches
@@ -214,8 +267,9 @@ def distributed_dataloader(
     (default: whenever CUDA is available); in PROCESS mode the consumer
     page-locks each shared-memory ring it attaches instead.
     ``shuffler_factory`` reaches every producer's ``DataPusher`` (the
-    global-shuffle hook, e.g. ``ThreadExchangeShuffler.factory(...)``;
-    THREAD mode only).  PROCESS mode spawns: call the decorated main under
+    global-shuffle hook, e.g. ``ThreadExchangeShuffler.factory(...)``); in
+    PROCESS mode it is pickled to each child, so its rendezvous must be a
+    ``ShmRendezvous``.  PROCESS mode spawns: call the decorated main under
     ``if __name__ == "__main__":``.
     """
     def deco(f: Callable[..., Any]) -> Callable[..., Any]:

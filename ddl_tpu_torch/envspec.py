@@ -22,7 +22,7 @@ FALSY = ("0", "off", "false", "no")
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str
-    type: str  # "bool" | "int" | "str"
+    type: str  # "bool" | "int" | "float" | "str"
     default: Any
     doc: str
 
@@ -60,6 +60,15 @@ REGISTRY: Dict[str, Knob] = {
              "TransferExecutor queue depth (in-flight staged transfers)."),
         Knob("DDL_TORCH_STAGING_RETRIES", "int", 2,
              "Staged-transfer retries before the inline fallback."),
+        Knob("DDL_TORCH_MAX_REPLAYS", "int", 2,
+             "Replay attempts per quarantined corrupt window before "
+             "IntegrityError escalation."),
+        Knob("DDL_TORCH_CTRL_RETRIES", "int", 5,
+             "Acked control-envelope retry cap per send "
+             "(transport/envelope.py)."),
+        Knob("DDL_TORCH_CTRL_BACKOFF_S", "float", 0.02,
+             "Initial acked control-envelope retry backoff, seconds "
+             "(doubles per retry)."),
         Knob("DDL_TORCH_DEVICE_SHUFFLE", "str", "auto",
              "Device-tier exchange gate: auto = engage when plannable "
              "(THREAD topology, raw wire, in-process fabric), "
@@ -88,6 +97,8 @@ def get(name: str, override: Any = None) -> Any:
         return val.lower() not in FALSY
     if knob.type == "int":
         return int(val)
+    if knob.type == "float":
+        return float(val)
     return val
 
 

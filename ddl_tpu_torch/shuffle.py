@@ -13,6 +13,9 @@ permutation, lane B backward.
   degradation ladder (a lost partner degrades the round to a seeded
   node-local shuffle; repeated losses disable the exchange), the
   reversible suspension rung and elastic ``rejoin``.
+- :class:`ShmRendezvous` — the host tier across PROCESS-mode producers
+  of one host: mailbox files on ``/dev/shm`` published by atomic rename,
+  keyed by a session string every process shares (:func:`make_session`).
 - :class:`DeviceExchangeFabric` + :class:`DeviceExchangeShuffler` — the
   device tier: the last arrival of a round lands all n lane blocks on the
   ring devices, runs the exchange kernel K9 once
@@ -21,20 +24,23 @@ permutation, lane B backward.
   raises out of every participant's round; on the plain version's CPU
   ring it latches every participant to the host exchange together.
 
-Not in this slice: ``ShmRendezvous`` (PROCESS mode), the exchange wire
-formats (``wire.py``: a ``wire_dtype`` other than raw, or any codec,
-raises), and the fault-injection sites.
+Not in this slice: the exchange wire formats (``wire.py``: a
+``wire_dtype`` other than raw, or any codec, raises) and the
+fault-injection sites.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import re
 import time
+import uuid
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ddl_tpu_torch.concurrency import named_condition
+from ddl_tpu_torch.concurrency import named_condition, named_lock
 from ddl_tpu_torch.exceptions import DDLError, ShutdownRequested
 from ddl_tpu_torch.observability import metrics as default_metrics
 from ddl_tpu_torch.types import RunMode, Topology
@@ -151,6 +157,165 @@ class Rendezvous:
 _default_rendezvous = Rendezvous()
 
 
+#: Minimum age before a crashed run's session directory may be swept.
+#: Age alone never sweeps: the minting process must be dead too.
+STALE_SESSION_S = 3600.0
+
+#: Prefix of every session directory (the sweep matches it).
+_RDV_PREFIX = "ddl-rdv-"
+
+#: Session names minted by :func:`make_session`: ``{prefix}-{pid}-{hex12}``;
+#: the pid is the sweep's liveness signal.
+_SESSION_RE = re.compile(
+    rf"^{re.escape(_RDV_PREFIX)}.+-(\d+)-[0-9a-f]{{12}}$"
+)
+
+
+def _sweep_stale_sessions(root: str) -> None:
+    """Best-effort removal of abandoned session directories under
+    ``root`` (``/dev/shm`` is RAM: a killed run's mailboxes would stay
+    until reboot).  A directory goes only when its name has
+    :func:`make_session`'s shape, it is older than
+    :data:`STALE_SESSION_S` and the process that minted it is dead."""
+    import shutil
+
+    cutoff = time.time() - STALE_SESSION_S
+    try:
+        entries = list(os.scandir(root))
+    except OSError:
+        return
+    for ent in entries:
+        m = _SESSION_RE.match(ent.name)
+        if not m:
+            continue
+        try:
+            if not ent.is_dir(follow_symlinks=False):
+                continue
+            if ent.stat(follow_symlinks=False).st_mtime >= cutoff:
+                continue
+            os.kill(int(m.group(1)), 0)  # raises if the minter is gone
+        except ProcessLookupError:
+            shutil.rmtree(ent.path, ignore_errors=True)
+        except OSError:
+            continue
+
+
+#: Roots this process has swept (once per process and root).
+_swept_roots: set = set()
+_sweep_lock = named_lock("shuffle.sweep")
+
+
+def make_session(prefix: str = "ddl") -> str:
+    """A session name no crashed earlier run shares (its stale mailboxes
+    would read as this run's round 0); the pid in it is the sweep's
+    liveness signal."""
+    return f"{prefix}-{os.getpid()}-{uuid.uuid4().hex[:12]}"
+
+
+class ShmRendezvous:
+    """Cross-process exchange board: one mailbox file per key in a
+    session directory on ``/dev/shm`` (tmpfs).
+
+    Every producer process of every instance on one host builds
+    ``ShmRendezvous(session)`` with the same session string; the object
+    carries only the session and the root, so it pickles across the spawn
+    with the shuffler factory.  ``put`` writes the rows to a temporary
+    file and renames it onto the key's name (atomic publish); ``take``
+    polls for the name.  The file system orders the two, on any ISA, and
+    each key has one writer and one reader by construction.
+
+    Not host-spanning: ``/dev/shm`` belongs to one host.
+    """
+
+    span = "process"
+
+    def __init__(self, session: str, root: str = "/dev/shm") -> None:
+        self.session = session
+        self.root = root
+        # The directory is created lazily (first put): a handshake that
+        # refuses the shuffler must not leave an empty session behind.
+
+    @property
+    def _dir(self) -> str:
+        return os.path.join(self.root, f"{_RDV_PREFIX}{self.session}")
+
+    def _path(self, key: Tuple[int, int, int]) -> str:
+        return os.path.join(self._dir, f"p{key[0]}-t{key[1]}-d{key[2]}.npy")
+
+    def put(self, key: Tuple[int, int, int], rows: np.ndarray) -> None:
+        # The first mailbox this process creates under a root also sweeps
+        # the sessions crashed runs left there.
+        with _sweep_lock:
+            if self.root not in _swept_roots:
+                _swept_roots.add(self.root)
+                _sweep_stale_sessions(self.root)
+        os.makedirs(self._dir, exist_ok=True)
+        path = self._path(key)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.save(f, rows)
+        os.rename(tmp, path)  # atomic publish
+
+    def take(self, key: Tuple[int, int, int], timeout_s: float = 60.0,
+             should_abort: Optional[Callable[[], bool]] = None) -> np.ndarray:
+        """Blocking take with :meth:`Rendezvous.take`'s abort rule.
+
+        A consumed mailbox is RETAINED as ``<name>.done`` (atomic
+        rename) until :meth:`retire`: a respawned producer replaying its
+        predecessor's round takes the same key again and reads the same
+        rows."""
+        path = self._path(key)
+        done = f"{path}.done"
+        # A retained copy can only exist before this take starts (one
+        # reader per key), so it is probed once, not per spin.
+        try:
+            with open(done, "rb") as f:
+                return np.load(f)
+        except FileNotFoundError:
+            pass
+        deadline = time.monotonic() + timeout_s
+        sleep_s = 0.0002
+        while True:
+            if should_abort is not None and should_abort():
+                raise ShutdownRequested()
+            try:
+                with open(path, "rb") as f:
+                    rows = np.load(f)
+                os.replace(path, done)  # retained for a replay
+                return rows
+            except FileNotFoundError:
+                pass
+            if time.monotonic() > deadline:
+                raise DDLError(
+                    f"exchange rendezvous timed out waiting for {key} "
+                    f"(session {self.session!r})"
+                )
+            time.sleep(sleep_s)
+            sleep_s = min(sleep_s * 2, 0.05)
+
+    def discard(self, key: Tuple[int, int, int]) -> None:
+        try:
+            os.unlink(self._path(key))
+        except OSError:
+            pass
+
+    def retire(self, key: Tuple[int, int, int]) -> None:
+        """Drop the retained ``.done`` copy (the round can no longer be
+        replayed) and a live box under the same key — only a respawned
+        partner's replayed re-put nobody will take."""
+        for victim in (f"{self._path(key)}.done", self._path(key)):
+            try:
+                os.unlink(victim)
+            except OSError:
+                pass
+
+    def cleanup(self) -> None:
+        """Remove the whole session directory (after the run)."""
+        import shutil
+
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
 def _check_wire(wire_dtype: Optional[str], codec: Optional[str]) -> None:
     if wire_dtype not in (None, "raw") or codec is not None:
         raise NotImplementedError(
@@ -220,6 +385,13 @@ class ThreadExchangeShuffler:
         return getattr(self._rdv, "span", "thread")
 
     @property
+    def supports_elastic_replay(self) -> bool:
+        """True when the fabric retains consumed boxes for a replay
+        (``retire`` marks it): a respawned producer may rejoin the
+        exchange only behind this."""
+        return hasattr(self._rdv, "retire")
+
+    @property
     def exchange_round(self) -> int:
         """Completed exchange rounds."""
         return self._round
@@ -253,7 +425,10 @@ class ThreadExchangeShuffler:
 
     def rejoin(self, round_: int) -> None:
         """Re-enter the exchange schedule at ``round_`` (elastic rejoin or
-        checkpoint resume)."""
+        checkpoint resume).  The permutation is a function of (seed,
+        round) and consumed boxes are retained until the next round
+        retires them, so replaying the round a dead predecessor was in
+        reads the same rows whether or not it completed it."""
         self._round = int(round_)
 
     def _local_shuffle(self, my_ary: np.ndarray) -> None:
@@ -363,8 +538,11 @@ class ThreadExchangeShuffler:
 
 class ExchangeShufflerFactory:
     """Picklable shuffler factory (the ``DataPusher(shuffler_factory=)``
-    hook): a module-level class, not a closure, so it can cross a spawn
-    boundary with the producer function once PROCESS mode exists."""
+    hook): a module-level class, not a closure, so it crosses the spawn
+    boundary with the producer function.  Across processes its
+    rendezvous must be a :class:`ShmRendezvous`: a :class:`Rendezvous`
+    board cannot reach another process, and the producer's handshake
+    refuses it."""
 
     def __init__(self, rendezvous: Any = None, seed: int = 0,
                  exchange_timeout_s: float = 60.0,

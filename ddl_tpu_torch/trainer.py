@@ -4,9 +4,10 @@ fused and synchronous window-stream loops).
 
 One object owns the run: the producer/consumer topology (the
 ``distributed_dataloader`` decorator, THREAD or PROCESS mode), the
-one-device train step and the ``mark()`` protocol.  The trainer runs on
-``device`` — the card unless the caller passes ``device="cpu"``.
-Checkpointing, the watchdog, preemption, global shuffle and
+one-device train step, the ``mark()`` protocol, the global-shuffle
+pass-through and the watchdog around both loops (with elastic respawn
+when asked).  The trainer runs on ``device`` — the card unless the
+caller passes ``device="cpu"``.  Checkpointing, preemption and
 observability spans are later slices.
 """
 
@@ -71,16 +72,27 @@ class Trainer:
         metrics: Optional[Metrics] = None,
         accum_steps: Optional[int] = None,
         train_config: Any = None,
+        watchdog: bool = True,
+        watchdog_respawn: bool = False,
+        stall_budget_s: float = 300.0,
     ):
         """``loss_fn(params, batch) -> scalar`` over the loader's column
         tuple; ``optimizer(param_list) -> torch.optim.Optimizer`` (e.g.
         :func:`ddl_tpu_torch.parallel.train.adamw`); ``init_params`` the
         initial params tree (copied onto ``device`` at ``fit``).
         ``accum_steps`` (explicit wins over ``train_config``'s) averages
-        grads over that many microbatches per update."""
+        grads over that many microbatches per update.
+
+        ``watchdog`` runs a :class:`~ddl_tpu_torch.watchdog.Watchdog` over
+        the producers during ``fit`` (``stall_budget_s`` without ring
+        progress counts as a stall); ``watchdog_respawn`` replaces a dead
+        producer in place instead of ending the run."""
         from ddl_tpu_torch.parallel.train import make_train_step
 
         self.device = resolve_device(device)
+        self.watchdog_enabled = watchdog
+        self.watchdog_respawn = watchdog_respawn
+        self.stall_budget_s = stall_budget_s
         if accum_steps is None:
             accum_steps = (
                 train_config.accum_steps if train_config is not None else 1
@@ -97,7 +109,8 @@ class Trainer:
     # -- window-stream epoch loop -----------------------------------------
 
     def _fit_windows(self, loader, state, n_epochs, epoch_losses,
-                     stream_lookahead=1, fused=None) -> FitResult:
+                     stream_lookahead=1, fused=None,
+                     window_hook=None) -> FitResult:
         """One multistep per streamed window.
 
         - **Fused** (:meth:`_fused_stream_loop`, default — the
@@ -123,6 +136,8 @@ class Trainer:
             return fn
 
         stream = loader.windows(lookahead=stream_lookahead)
+        if window_hook is not None:
+            stream = map(window_hook, stream)
         loop = self._fused_stream_loop if fused else self._sync_stream_loop
         state = loop(loader, stream, state, multi_for, col_splits, epoch_losses)
         for i, mean in enumerate(epoch_losses):
@@ -247,6 +262,9 @@ class Trainer:
         stream_lookahead: int = 1,
         fused: Optional[bool] = None,
         config: Any = None,
+        global_shuffle_fraction_exchange: Optional[float] = None,
+        shuffler_factory: Any = None,
+        window_hook: Any = None,
     ) -> FitResult:
         """Run the whole producer/consumer training job.
 
@@ -262,10 +280,17 @@ class Trainer:
         the ring slot and all its batches run as one multistep, the next
         window's copy in flight meanwhile.  ``stream_lookahead`` deepens
         that pipeline; ``fused`` picks the loop (see ``_fit_windows``).
-        Otherwise each epoch iterates the current window batch by batch
-        through the prefetcher.
+        ``window_hook`` (window-stream mode only) is applied to each device
+        window before its steps and must keep its shape.  Otherwise each
+        epoch iterates the current window batch by batch through the
+        prefetcher.
+
+        Global shuffle needs both knobs: the exchange fraction and a
+        ``shuffler_factory`` (e.g. ``ThreadExchangeShuffler.factory(...)``,
+        over a ``ShmRendezvous`` in PROCESS mode).
         """
         from ddl_tpu_torch import DistributedDataLoader, distributed_dataloader
+        from ddl_tpu_torch.watchdog import Watchdog
 
         timeout_s = 300.0
         if config is not None:
@@ -290,6 +315,16 @@ class Trainer:
             prefetch_depth = envspec.get("DDL_TORCH_PREFETCH_DEPTH")
         if fused is not None and not window_stream:
             raise ValueError("fused requires window_stream=True")
+        if window_hook is not None and not window_stream:
+            raise ValueError("window_hook requires window_stream=True")
+        global_shuffle_fraction_exchange = (
+            global_shuffle_fraction_exchange or 0.0
+        )
+        if global_shuffle_fraction_exchange > 0 and shuffler_factory is None:
+            raise ValueError(
+                "global_shuffle_fraction_exchange > 0 requires a "
+                "shuffler_factory (producers build no shuffler without one)"
+            )
         trainer = self
         self._fit_t0 = time.perf_counter()
         self._clock: List[Any] = []
@@ -300,6 +335,7 @@ class Trainer:
         @distributed_dataloader(
             n_producers=n_producers, mode=mode, nslots=nslots,
             pin_memory=self.device.type == "cuda",
+            shuffler_factory=shuffler_factory,
         )
         def _main(env):
             envs.append(env)
@@ -309,17 +345,29 @@ class Trainer:
                 batch_size=batch_size,
                 connection=env.connection,
                 n_epochs=n_epochs,
+                global_shuffle_fraction_exchange=(
+                    global_shuffle_fraction_exchange),
                 output="device",
                 device=trainer.device,
                 metrics=trainer.metrics,
                 timeout_s=timeout_s,
             )
+            wd = None
+            if trainer.watchdog_enabled:
+                # The trainer's registry: respawns and failures show in
+                # this run's metrics.
+                wd = Watchdog(
+                    env.workers, stall_budget_s=trainer.stall_budget_s,
+                    respawn=trainer.watchdog_respawn,
+                    metrics=trainer.metrics,
+                ).start()
             epoch_losses: List[float] = []
             try:
                 if window_stream:
                     return trainer._fit_windows(
                         loader, state, n_epochs, epoch_losses,
                         stream_lookahead=stream_lookahead, fused=fused,
+                        window_hook=window_hook,
                     )
                 for epoch in range(n_epochs):
                     batch_losses: List[Any] = []
@@ -345,6 +393,8 @@ class Trainer:
                     )
                 return FitResult(state, epoch_losses, trainer.metrics)
             finally:
+                if wd is not None:
+                    wd.stop()
                 loader.shutdown()
 
         result = _main()

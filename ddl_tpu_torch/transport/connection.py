@@ -9,13 +9,17 @@ Channel realisations:
   pickles across it); the producer creates a shared-memory ring and the
   consumer opens it by name.
 
-Elastic rejoin and the acked control envelopes are later slices.
+A respawned producer re-runs the handshake over a fresh channel
+(:meth:`ConsumerConnection.rejoin_producer`) and attaches the ring its
+predecessor left; commands to producers (replay requests) ride the acked
+envelopes of :mod:`ddl_tpu_torch.transport.envelope`.
 """
 
 from __future__ import annotations
 
 import abc
 import copy
+import logging
 import queue as queue_mod
 from typing import Any, List, Optional, Sequence
 
@@ -26,6 +30,8 @@ from ddl_tpu_torch.types import (
     MetaData_Consumer_To_Producer,
     MetaData_Producer_To_Consumer,
 )
+
+logger = logging.getLogger("ddl_tpu_torch")
 
 _HANDSHAKE_TIMEOUT_S = 600.0
 
@@ -146,20 +152,35 @@ class ConsumerConnection:
         self.channels = list(channels)
         self.rings: List[WindowRing] = []
         self.replies: List[MetaData_Producer_To_Consumer] = []
+        self._sent_meta: Optional[MetaData_Consumer_To_Producer] = None
+        # One acked sender per target, built on first use.
+        self._senders: dict = {}
+        #: Registry for the senders' ``ctrl.*`` counters (the loader
+        #: attaches its own).
+        self.control_metrics: Any = None
+        # Serialises the watchdog's channel swap (rejoin_producer)
+        # against the consumer's sends, shutdown and finalize.
         self._lock = named_rlock("transport.connection")
+        self._finalized = False
 
     @property
     def n_producers(self) -> int:
         return len(self.channels)
 
-    def send_metadata(self, meta: MetaData_Consumer_To_Producer) -> None:
+    @staticmethod
+    def _send_meta(ch: ControlChannel, meta: MetaData_Consumer_To_Producer
+                   ) -> None:
         """Each producer gets its own copy of the metadata (and with it
         the user's producer function): a shared instance would race on
         user state (shard cursors, RNGs) across producer threads.  A
         pipe copies by pickling, so only thread channels deep-copy."""
+        ch.send(copy.deepcopy(meta) if isinstance(ch, ThreadChannel)
+                else meta)
+
+    def send_metadata(self, meta: MetaData_Consumer_To_Producer) -> None:
+        self._sent_meta = meta  # kept for the rejoin handshakes
         for ch in self.channels:
-            ch.send(copy.deepcopy(meta) if isinstance(ch, ThreadChannel)
-                    else meta)
+            self._send_meta(ch, meta)
 
     def recv_metadata_as_consumer(self) -> List[MetaData_Producer_To_Consumer]:
         replies = [ch.recv() for ch in self.channels]
@@ -182,10 +203,140 @@ class ConsumerConnection:
         self.rings = [_resolve_ring(r) for r in self.replies]
         return self.rings
 
+    def rejoin_producer(self, producer_idx: int, channel: ControlChannel
+                        ) -> MetaData_Producer_To_Consumer:
+        """Re-run the handshake with a RESPAWNED producer over its fresh
+        ``channel``.  The replacement derives its geometry from the same
+        metadata and attaches the surviving ring, so it must report what
+        its predecessor reported: the consumer's window bookkeeping
+        cannot change mid-run.  The ring stays attached (and, on a card,
+        registered) as it was."""
+        i = producer_idx - 1
+        if self._sent_meta is None:
+            raise TransportError("rejoin before the initial handshake")
+        old = self.replies[i]
+        self._send_meta(channel, self._sent_meta)
+        reply = channel.recv()
+        if isinstance(reply, Exception):
+            raise TransportError(
+                f"producer {producer_idx} failed during rejoin") from reply
+        if not isinstance(reply, MetaData_Producer_To_Consumer):
+            raise TransportError(f"bad rejoin reply: {reply!r}")
+        if (reply.batches_per_window != old.batches_per_window
+                or tuple(reply.shape) != tuple(old.shape)
+                or tuple(reply.splits) != tuple(old.splits)
+                or reply.dtype != old.dtype):
+            raise TransportError(
+                f"respawned producer {producer_idx} reported different "
+                "geometry than its predecessor")
+        if reply.integrity != old.integrity:
+            raise TransportError(
+                f"respawned producer {producer_idx} disagrees with its "
+                "predecessor about integrity headers (DDL_TORCH_INTEGRITY "
+                "changed between incarnations)")
+        with self._lock:
+            if self._finalized:
+                # The run ended while this rejoin's recv was in flight.
+                # The replacement validated and has been serving the ring
+                # directly: a recovery that raced the end of the run, not
+                # a failure.  Drop the channel rather than swap it into a
+                # closed connection.
+                channel.close()
+                logger.info("rejoin of producer %d completed after "
+                            "finalize; replacement channel dropped",
+                            producer_idx)
+                return reply
+            try:
+                self.channels[i].close()
+            except OSError:
+                pass  # the dead producer's pipe is already broken
+            self.channels[i] = channel
+            self.replies[i] = reply
+        return reply
+
+    def try_recv_control(self, target: int) -> Any:
+        """Non-blocking receive of a producer's control message (an ack):
+        :data:`NOTHING` when idle, finalized or broken."""
+        with self._lock:
+            if self._finalized:
+                return NOTHING
+            try:
+                return self.channels[target].try_recv()
+            except (OSError, EOFError, ValueError):
+                return NOTHING
+
     def send_control(self, target: int, msg: Any) -> None:
-        """Send a control message to producer ``target`` (0-based)."""
+        """Send a raw control message to producer ``target`` (0-based),
+        under the lock a concurrent channel swap takes.  Commands go
+        through :meth:`send_control_acked`."""
         with self._lock:
             self.channels[target].send(msg)
+
+    def control_sender(self, target: int) -> Any:
+        """The acked sender of ``target``, built on first use.  Its wire
+        closure reads ``self.channels[target]`` at send time."""
+        from ddl_tpu_torch.transport.envelope import ControlSender
+
+        with self._lock:
+            s = self._senders.get(target)
+            if s is None:
+                s = ControlSender(
+                    lambda msg, t=target: self.send_control(t, msg),
+                    target=target, metrics=self.control_metrics,
+                )
+                self._senders[target] = s
+            return s
+
+    def send_control_acked(self, target: int, msg: Any) -> int:
+        """Send ``msg`` in an acked envelope (retried until acked).
+        Returns the envelope's seq, or -1 after finalize."""
+        with self._lock:
+            if self._finalized:
+                return -1
+            return self.control_sender(target).send(msg)
+
+    def pump_control(self, now: Optional[float] = None) -> int:
+        """Re-send every due unacked envelope.  Returns the count."""
+        with self._lock:
+            if self._finalized:
+                return 0
+            return sum(s.pump(now) for s in self._senders.values())
+
+    def note_ack(self, ack: Any) -> bool:
+        """Route a :class:`~ddl_tpu_torch.types.ControlAck` to its
+        sender (``ack.producer_idx`` is 1-based, targets 0-based)."""
+        with self._lock:
+            s = self._senders.get(ack.producer_idx - 1)
+            return s.ack(ack) if s is not None else False
+
+    def drain_acks(self) -> int:
+        """Re-send due envelopes, then route every ack the producers sent
+        back.  Returns the acks routed."""
+        from ddl_tpu_torch.types import ControlAck
+
+        self.pump_control()
+        routed = 0
+        for target in range(self.n_producers):
+            while True:
+                msg = self.try_recv_control(target)
+                if msg is NOTHING:
+                    break
+                if isinstance(msg, ControlAck):
+                    self.note_ack(msg)
+                    routed += 1
+                else:
+                    logger.warning("consumer: ignoring unexpected producer "
+                                   "message %r on channel %d",
+                                   type(msg).__name__, target)
+        return routed
+
+    def request_replay(self, target: int, seq: int) -> None:
+        """Ask producer ``target`` (0-based) to rewind and re-commit its
+        window stream from logical window ``seq``, in an acked
+        envelope."""
+        from ddl_tpu_torch.types import ReplayRequest
+
+        self.send_control_acked(target, ReplayRequest(seq=seq))
 
     def shutdown_operation(self) -> None:
         """Wake every producer with the ring shutdown flag (idempotent).
@@ -207,12 +358,17 @@ class ConsumerConnection:
 
     def finalize(self) -> None:
         """Close and unlink every ring, then close the channels.  The
-        unlink backs up producers that crashed before unlinking their
-        own ring's name (idempotent for those that did)."""
+        unlink backs up a producer that crashed and was never respawned:
+        a crash leaves the ring's name linked for a replacement to attach
+        (idempotent for producers that unlinked their own)."""
         with self._lock:
+            self._finalized = True
             for ring in self.rings:
                 ring.close()
-                ring.unlink()
+                try:
+                    ring.unlink()
+                except (TransportError, OSError):
+                    pass  # the name is already gone
             for ch in self.channels:
                 ch.close()
 

@@ -1,8 +1,9 @@
 """Shared types (the slice's subset of ``ddl_tpu/types.py``).
 
-The control-plane messages of the JAX package (replay requests, shard
-adoption, acked envelopes, observability reports) belong to features
-outside this slice and are not ported yet.
+The control plane carries replay requests inside acked envelopes
+(:mod:`ddl_tpu_torch.transport.envelope`).  Shard adoption and the
+observability reports of the JAX package belong to the cluster and
+observability tiers, later slices.
 """
 
 from __future__ import annotations
@@ -62,6 +63,50 @@ class MetaData_Producer_To_Consumer:
     #: The producer stamps checksummed trailers past each slot payload
     #: (ddl_tpu_torch.integrity); the consumer verifies at drain.
     integrity: bool = False
+
+
+@dataclasses.dataclass
+class ReplayRequest:
+    """Consumer → producer: re-commit the window stream from ``seq``.
+
+    Sent when drain-time integrity verification quarantines a corrupt
+    slot.  The producer rewinds with the recipe a respawned producer
+    uses (``on_init`` → ``post_init`` → ``fast_forward(seq)``) and
+    re-commits windows ``seq, seq+1, ...``; the consumer discards the
+    in-flight successors until the replayed ``seq`` arrives.
+    """
+
+    seq: int
+
+
+@dataclasses.dataclass
+class ControlEnvelope:
+    """Consumer → producer: one sequenced, fenced, acknowledged control
+    command.  ``(incarnation, seq)`` identifies the send across sender
+    restarts, so the receiver suppresses duplicates while still acking
+    them; ``fence`` is the sender's fencing term — a receiver that has
+    seen a newer one drops the payload unapplied but acks it."""
+
+    seq: int
+    incarnation: int
+    fence: int
+    payload: Any
+
+
+@dataclasses.dataclass
+class ControlAck:
+    """Producer → consumer: acknowledgement of one
+    :class:`ControlEnvelope`.  ``(incarnation, seq)`` echoes the
+    envelope's key; ``dup`` marks a suppressed duplicate and
+    ``fence_rejected`` a payload dropped by the fencing rule — both end
+    the sender's retries.  ``producer_idx`` (1-based) names the acking
+    producer."""
+
+    seq: int
+    incarnation: int
+    producer_idx: int = 0
+    dup: bool = False
+    fence_rejected: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

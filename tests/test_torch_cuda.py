@@ -5,7 +5,10 @@ global-shuffle exchange kernel K9 (byte-exact against its plain version,
 and the one-card fabric against the host exchange), and PROCESS mode
 with staging: shared-memory rings page-locked with ``cudaHostRegister``,
 alias- and pool-staged windows against the host's, and a PROCESS fit
-against its THREAD twin (``-k "process or staging"``).
+against its THREAD twin (``-k "process or staging"``); recovery on the
+card: a SIGKILLed PROCESS producer respawned under the alias route, a
+replay while a window's copy is in flight, and the PROCESS shuffle over a
+``ShmRendezvous`` landing on cuda:0 (``-k recovery``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -1139,3 +1142,152 @@ def test_staging_prefetch_batches_equal_the_host_batches(tmp_path, staged):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     pooled = m.counter("staging.pool_hits") + m.counter("staging.pool_misses")
     assert pooled == (24 if staged is None else 0)
+
+
+# -- recovery: respawn, replay and the PROCESS shuffle on the card -------------
+
+
+def _recovery_windows(producer, mode, device, metrics, epochs, respawn=False,
+                      lookahead=2, pin=True):
+    """Drain ``producer``'s window stream onto ``device`` (2 producers),
+    with a respawning watchdog when asked; returns the windows as bytes,
+    the respawns and the producers' exit codes."""
+    from ddl_tpu_torch.watchdog import Watchdog
+
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode=mode, nslots=2,
+                                          pin_memory=pin and device == "cuda")
+    def run(env):
+        wd = Watchdog(env.workers, poll_interval_s=0.2, stall_budget_s=60.0,
+                      respawn=True, metrics=metrics).start() if respawn else None
+        try:
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                producer, batch_size=4, connection=env.connection,
+                n_epochs=epochs, output="device", device=device,
+                metrics=metrics, timeout_s=120.0)
+            out = []
+            for win in loader.windows(lookahead=lookahead):
+                out.append(win.cpu().numpy().tobytes())
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        finally:
+            if wd is not None:
+                wd.stop()
+        return out, list(wd.respawns) if wd else [], env
+
+    out, respawns, env = run()
+    return out, respawns, env.workers.exitcodes
+
+
+def test_recovery_sigkilled_producer_respawns_under_the_alias_route(tmp_path):
+    """A PROCESS producer SIGKILLs itself mid-run: its ring stays linked
+    and registered, the replacement attaches it (the consumer neither
+    re-registers nor unregisters the mapping) and every window still
+    takes the alias route, byte-equal to an undisturbed CPU drain."""
+    from ddl_tpu_torch.observability import Metrics
+    from torch_recovery_producers import CrashOnceWrapper
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(6).integers(0, 1 << 20, 400_000,
+                                      dtype=np.int32).tofile(path)
+    tokens = TokenStreamProducer(path, 1024, 16, seed=5)
+    want, _, _ = _recovery_windows(tokens, "process", "cpu", Metrics(), 10)
+    m = Metrics()
+    sentinel = os.path.join(tmp_path, "killed")
+    got, respawns, codes = _recovery_windows(
+        CrashOnceWrapper(tokens, sentinel, fault_at=3, fault="sigkill"),
+        "process", "cuda", m, 10, respawn=True)
+    assert os.path.exists(sentinel)
+    assert got == want
+    assert len(respawns) == 1
+    assert m.counter("watchdog.respawns") == 1
+    assert codes == [0, 0]
+    assert m.counter("ingest.registered_rings") == 2
+    assert m.counter("staging.alias_windows") == 10
+    assert m.counter("staging.alias_fallbacks") == 0
+    assert m.counter("staging.inline_fallbacks") == 0
+
+
+def test_recovery_replay_while_a_window_copy_is_in_flight(tmp_path):
+    """THREAD producers over pinned slots, 4 MiB windows, lookahead 2: a
+    window corrupted after its trailer was stamped is quarantined while
+    the previous window's DMA out of its slot may still run; the replay
+    hands slots back only after their copies complete, and the stream
+    equals the undisturbed CPU stream."""
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.transport.ring import ThreadRing
+    from ddl_tpu_torch import integrity
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(7).integers(0, 1 << 20, 2_000_000,
+                                      dtype=np.int32).tofile(path)
+    tokens = TokenStreamProducer(path, 4096, 256, seed=8)
+    want, _, _ = _recovery_windows(tokens, "thread", "cpu", Metrics(), 8)
+    original, fired = ThreadRing.commit, []
+
+    def commit(self, slot, payload_bytes):
+        hdr = integrity.read_header(self.slot_view(slot), payload_bytes)
+        if hdr.producer_idx == 1 and hdr.seq == 2 and not fired:
+            self.slot_view(slot)[payload_bytes // 2] ^= 0xFF
+            fired.append(slot)
+        return original(self, slot, payload_bytes)
+
+    m = Metrics()
+    ThreadRing.commit = commit
+    try:
+        got, _, _ = _recovery_windows(tokens, "thread", "cuda", m, 8)
+    finally:
+        ThreadRing.commit = original
+    assert len(fired) == 1
+    assert got == want
+    assert m.counter("integrity.replays") == 1
+    assert m.counter("integrity.corrupt_windows") == 1
+    assert m.counter("integrity.replay_exhausted") == 0
+    assert m.counter("staging.alias_windows") == 8
+
+
+def test_recovery_process_shuffle_lands_on_the_card(tmp_path):
+    """Two PROCESS instances exchanging over a ShmRendezvous session land
+    their windows on cuda:0 through the staged engine, byte-equal to two
+    THREAD instances over the in-process board; the session directory is
+    gone after cleanup."""
+    from ddl_tpu_torch.env import WorkerSet
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.types import RunMode, Topology
+    from torch_recovery_producers import ExchangeProducer
+
+    def drain(mode, device, factory, epochs=6):
+        sets, loaders, out = [], [], [[], []]
+        try:
+            for i in range(2):
+                ws = WorkerSet(Topology(n_instances=2, instance_idx=i,
+                                        n_producers=1, mode=RunMode(mode)),
+                               nslots=2, pin_memory=device == "cuda",
+                               shuffler_factory=factory)
+                sets.append(ws)
+                loaders.append(ddl_tpu_torch.DistributedDataLoader(
+                    ExchangeProducer(i, rows=2048, cols=64), batch_size=256,
+                    connection=ws.connection, n_epochs=epochs,
+                    output="device", device=device, metrics=Metrics(),
+                    global_shuffle_fraction_exchange=0.5, timeout_s=120.0))
+            streams = [loader.windows(lookahead=1) for loader in loaders]
+            for _ in range(epochs):
+                for i, (loader, s) in enumerate(zip(loaders, streams)):
+                    out[i].append(next(s).cpu().numpy().tobytes())
+                    loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        finally:
+            for loader in loaders:
+                loader.shutdown()
+            for ws in sets:
+                ws.abort()
+                ws.join(30.0)
+        return out, [l.metrics for l in loaders]
+
+    rdv = tsh.ShmRendezvous(tsh.make_session("t-card"), root=str(tmp_path))
+    got, metrics = drain("process", "cuda",
+                         tsh.ThreadExchangeShuffler.factory(rendezvous=rdv))
+    want, _ = drain("thread", "cpu",
+                    tsh.ThreadExchangeShuffler.factory(tsh.Rendezvous()))
+    assert got == want
+    assert all(m.counter("ingest.registered_rings") == 1 for m in metrics)
+    assert all(m.counter("staging.alias_windows") == 6 for m in metrics)
+    rdv.cleanup()
+    assert not os.path.exists(rdv._dir)

@@ -44,6 +44,7 @@ def test_ported_paths_mirror_the_reference_layout():
     "envspec.py", "observability.py", "trainer.py", "config.py", "types.py",
     "transport/connection.py", "transport/shm_ring.py",
     "transport/csrc/shm_ring.cpp",
+    "watchdog.py", "transport/envelope.py", "shuffle.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"

@@ -277,3 +277,60 @@ def test_process_fit_tracks_the_jax_trainer(token_file):
     assert m.timer("trainer.first_window").count == 1
     assert m.timer("trainer.windows").count == 1
     assert m.timer("consumer.handshake").count == 1
+
+
+def test_spawned_producers_import_no_torch_with_shm_shuffle_and_envelopes(
+        tmp_path):
+    """A spawned producer stays free of torch (and of JAX) with a
+    ``ShmRendezvous`` shuffler factory pickled to it and the envelope
+    receiver answering a command: every window reports the child's
+    ``sys.modules``, and the command's ack comes back."""
+    from ddl_tpu_torch.env import WorkerSet
+    from ddl_tpu_torch.shuffle import (
+        ShmRendezvous, ThreadExchangeShuffler, make_session,
+    )
+    from ddl_tpu_torch.types import Topology
+    from torch_recovery_producers import ModulesProducer
+
+    rdv = ShmRendezvous(make_session("t-modules"), root=str(tmp_path))
+    factory = ThreadExchangeShuffler.factory(rendezvous=rdv)
+    sets, loaders, metrics = [], [], []
+    try:
+        for i in range(2):
+            ws = WorkerSet(Topology(n_instances=2, instance_idx=i,
+                                    n_producers=1, mode=RunMode.PROCESS),
+                           nslots=2, shuffler_factory=factory)
+            sets.append(ws)
+            metrics.append(Metrics())
+            loaders.append(ddl_tpu_torch.DistributedDataLoader(
+                ModulesProducer(), batch_size=16, connection=ws.connection,
+                n_epochs=4, output="numpy",
+                global_shuffle_fraction_exchange=0.5, metrics=metrics[-1],
+                timeout_s=60.0))
+        # A command the pushers cannot apply while shuffling: unwrapped,
+        # refused and acked all the same.
+        loaders[0].connection.request_replay(0, 1)
+        seen = []
+        for _ in range(3):
+            for loader in loaders:
+                (flags, jax_flags) = loader[0]
+                seen.append((float(flags.max()), float(jax_flags.max())))
+                loader.mark(ddl_tpu_torch.Marker.END_OF_BATCH)
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        # The pusher polls its channel once per window: the ack may come
+        # after the last window this test drains.
+        deadline = time.monotonic() + 30
+        while (metrics[0].counter("ctrl.acked") < 1
+               and time.monotonic() < deadline):
+            loaders[0].connection.drain_acks()
+            time.sleep(0.01)
+    finally:
+        for loader in loaders:
+            loader.shutdown()
+        for ws in sets:
+            ws.abort()
+            ws.join(30.0)
+        rdv.cleanup()
+    assert seen == [(0.0, 0.0)] * 6
+    assert metrics[0].counter("ctrl.acked") == 1
+    assert [ws.exitcodes for ws in sets] == [[0], [0]]
