@@ -88,6 +88,23 @@ producer SIGKILLed mid-exchange and respawned (every round's windows
 partition the rows).  It prints the recovery time, the replay's cost and
 the drains.
 
+Phase 8 is the path ``examples/train_llama_torch.py`` drives, on the
+token cell: the run's ``LoaderConfig``/``TrainConfig`` through ``load()``
+(the checkpoint directory from ``DDL_TORCH_CHECKPOINT_DIR``, each field's
+source printed); an undisturbed PROCESS fit of 4 windows; the same fit
+with async checkpoints, drained by a programmatic ``PreemptionGuard``
+notice after window 2 (the forced final generation, ~17.8 GB, after a
+disk check for two), then resumed by a fresh ``Trainer`` — its losses
+must equal the undisturbed fit's bit for bit and K1-K3 launch as often;
+``Trainer.evaluate(window_stream=True)`` on three held-out streams (K1
+only, within a limit of the dense path's loss that two controls, the
+causal mask or the softmax scale dropped, must exceed); a greedy 16-token
+KV-cache decode whose logits at each step match the no-cache forward;
+and the twin example's ``main()`` in THREAD mode.  It prints the
+snapshot stall (``resilience.ckpt_submit``), the write
+(``resilience.ckpt_write``), the restore and the drain against its
+deadline.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -2385,6 +2402,375 @@ def phase_recovery(tmpdir: str, card: str):
     return {"fits": fits, "shuffle": shuffle}
 
 
+# ------------------------------------------------------------- phase 8 ---
+
+#: The example's path at full width (the token cell of phases 6-7): a
+#: PROCESS fit preempted after window ``notice_at`` and resumed, against
+#: an undisturbed fit; evaluate on a held-out stream; greedy decode.
+EXAMPLE = dict(n_epochs=4, notice_at=2, eval_epochs=2,
+               eval_seeds=(SEED + 1, SEED + 2, SEED + 3),
+               prompt=16, new_tokens=16, deadline_s=120.0)
+#: The evaluate gate: the flash metric against the dense path's loss on
+#: the same batches, relative.  It lies between two readings of this
+#: phase (PERF.md §6): the largest flash-vs-dense gap over the held-out
+#: seeds, and the smallest gap of two controls, the dense path with its
+#: causal mask or its softmax scale dropped.  The phase checks both
+#: sides each run: gap <= limit < every control's gap.
+EVAL_LOSS_RTOL = 1e-4
+#: Cached-decode logits (O(1) at this init) against the no-cache
+#: forward, absolute (~6 bf16 ulps at |logit| 4).
+BF16_LOGIT_ATOL = 0.1
+
+
+def _layered_config(tmpdir: str):
+    """The run's configs through ``load()``, the checkpoint directory set
+    through ``DDL_TORCH_CHECKPOINT_DIR``; returns them with each
+    LoaderConfig field's source."""
+    from ddl_tpu_torch.config import LoaderConfig, TrainConfig
+
+    tr = TRAIN
+    ckpt_dir = os.path.join(tmpdir, "ckpt")
+    os.environ["DDL_TORCH_CHECKPOINT_DIR"] = ckpt_dir
+    kw = dict(batch_size=tr["batch_size"], n_epochs=EXAMPLE["n_epochs"],
+              n_producers=tr["n_producers"], mode="process",
+              window_stream=True)
+    try:
+        cfg = LoaderConfig.load(**kw)
+        train_cfg = TrainConfig.load()
+        source = {
+            f.name: ("kwarg" if f.name in kw else
+                     "env" if f"DDL_TORCH_{f.name.upper()}" in os.environ
+                     else "default")
+            for f in dataclasses.fields(LoaderConfig)
+        }
+    finally:
+        del os.environ["DDL_TORCH_CHECKPOINT_DIR"]
+    if cfg.checkpoint_dir != ckpt_dir:
+        raise PhaseFailed(f"[example] checkpoint_dir {cfg.checkpoint_dir!r} "
+                          f"did not come from DDL_TORCH_CHECKPOINT_DIR")
+    return cfg, train_cfg, source
+
+
+def _example_fit(cfg, train_cfg, model, producer, ckpt_dir=None, guard=None,
+                 notice_at=None):
+    """One full-width PROCESS fit from ``init_params(seed=0)``; returns the
+    result and the trainer (the caller drops both)."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    seen = []
+
+    def hook(win):
+        seen.append(1)
+        if notice_at is not None and len(seen) == notice_at:
+            guard.notify("programmatic notice after window "
+                         f"{notice_at}")
+        return win
+
+    trainer = Trainer(
+        loss_fn=lambda p, b: llama.next_token_loss(p, b[0], model),
+        optimizer=adamw(1e-5),
+        init_params=llama.init_params(model, seed=SEED, device="cuda"),
+        device="cuda", metrics=guard.metrics if guard else Metrics(),
+        train_config=train_cfg, checkpoint_dir=ckpt_dir,
+        # Only the drain's forced generation: a periodic one would write
+        # another ~17.8 GB per window.
+        checkpoint_every_epochs=1000, checkpoint_async=True,
+        preemption_guard=guard,
+    )
+    res = trainer.fit(producer, config=cfg, window_hook=hook)
+    return res, trainer
+
+
+def _dense_loss(params, batches, model, mask=True, scale=True):
+    """Mean ``next_token_loss`` over ``batches`` through the dense
+    attention, under ``no_grad``.  ``mask=False`` / ``scale=False`` are
+    the evaluate gate's controls: the causal mask or the softmax scale
+    dropped, the faults the gate must catch in the flash forward."""
+    import torch
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel import ring_attention
+
+    def dense(q, k, v, impl=None, causal=True, kv_repeat=1,
+              segment_ids=None):
+        if not scale:
+            q = q * q.shape[-1] ** 0.5
+        return ring_attention.attention_reference(
+            q, k, v, causal=causal and mask, kv_repeat=kv_repeat,
+            segment_ids=segment_ids)
+
+    attention = ring_attention.attention
+    ring_attention.attention = dense
+    try:
+        with torch.no_grad():
+            return float(torch.stack([llama.next_token_loss(params, t, model)
+                                      for t in batches]).mean())
+    finally:
+        ring_attention.attention = attention
+
+
+def _greedy_check(params, model, prompt):
+    """Greedy decode, then each step's cached logits against the no-cache
+    forward of the same prefix (through the flash forward)."""
+    import torch
+
+    from ddl_tpu_torch.models import llama
+
+    ex = EXAMPLE
+    P, new = ex["prompt"], ex["new_tokens"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = llama.generate(params, prompt, model, max_new_tokens=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        cache = llama.init_cache(model, 1, P + new, device="cuda")
+        logits, cache = llama.forward_with_cache(params, out[:, :P], model,
+                                                 cache, 0, last_only=True)
+        steps = [logits[:, 0]]
+        for pos in range(P, P + new - 1):
+            step, cache = llama.forward_with_cache(
+                params, out[:, pos:pos + 1], model, cache, pos)
+            steps.append(step[:, 0])
+        worst, flips, margins = 0.0, [], []
+        for i, cached in enumerate(steps):
+            full = llama.forward(params, out[:, :P + i], model)[:, -1]
+            worst = max(worst, float((cached - full).abs().max()))
+            top2 = torch.topk(full[0], 2).values
+            margin = float(top2[0] - top2[1])
+            margins.append(margin)
+            if int(out[0, P + i]) != int(full[0].argmax()):
+                flips.append((i, margin))
+    return out, gen_s, worst, flips, min(margins)
+
+
+def phase_example(tmpdir: str, card: str):
+    """Phase 8: the path ``examples/train_llama_torch.py`` drives, at full
+    width.  Layered configs; a PROCESS fit with async checkpoints that a
+    programmatic ``PreemptionGuard`` notice drains after its second window
+    (the forced final generation), resumed by a fresh ``Trainer`` and held
+    bit for bit to an undisturbed fit from the same parameters;
+    ``Trainer.evaluate`` on a held-out stream; greedy KV-cache decode
+    against the no-cache forward; then the twin example itself."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.resilience import PreemptionGuard, list_generations
+
+    t_phase = time.perf_counter()
+    ex, tr = EXAMPLE, TRAIN
+    tag = "[example]"
+    cfg, train_cfg, source = _layered_config(tmpdir)
+    log(f"{tag} LoaderConfig via load(): " + ", ".join(
+        f"{k}={getattr(cfg, k)!r} ({source[k]})" for k in (
+            "mode", "n_producers", "batch_size", "n_epochs", "window_stream",
+            "nslots", "checkpoint_dir", "ring_timeout_s")))
+    log(f"{tag} TrainConfig via load(): remat={train_cfg.remat!r}, "
+        f"accum_steps={train_cfg.accum_steps} (defaults; no "
+        f"DDL_TORCH_TRAIN_* set)")
+    model = train_cfg.model_config(dataclasses.replace(
+        llama.LlamaConfig.llama3_8b(), n_layers=tr["n_layers"]))
+    token_file = os.path.join(tmpdir, "tokens.bin")
+    if not os.path.exists(token_file):
+        ranks = np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1
+        (ranks % model.vocab).astype(np.int32).tofile(token_file)
+    tokens = TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
+                                 seed=SEED)
+    faults = []
+    steps_per_window = tr["window_rows"] // tr["batch_size"]
+
+    # (a) The undisturbed fit, the bit-equality reference.
+    fa.reset_launch_counts()
+    ref, trainer = _example_fit(cfg, train_cfg, model, tokens)
+    torch.cuda.synchronize()
+    fit_launches = [fn.launches for fn in fa.KERNELS]
+    ref_losses = list(ref.losses)
+    del ref, trainer
+    free_device_memory()
+    expected = model.n_layers * ex["n_epochs"] * steps_per_window
+    log(f"{tag} undisturbed PROCESS fit: losses {ref_losses}; launches "
+        f"K1-K6 {fit_launches} (expected {expected} for K1-K3)")
+    if fit_launches != [expected] * 3 + [0] * 3:
+        faults.append(f"undisturbed fit launches {fit_launches}")
+
+    # (b) Preempted after window notice_at: the drain writes the forced
+    # final generation.  Disk first: room for two generations.
+    n_params = llama.param_count(model)
+    gen_bytes = 3 * 4 * n_params + 4
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    du = shutil.disk_usage(cfg.checkpoint_dir)
+    log(f"{tag} a generation holds {gen_bytes} bytes of leaves (params, mu, "
+        f"nu fp32 + count); {cfg.checkpoint_dir}: total {du.total}, free "
+        f"{du.free} bytes")
+    if du.free < 2 * gen_bytes:
+        raise PhaseFailed(f"{tag} {du.free} bytes free under "
+                          f"{cfg.checkpoint_dir}, two generations need "
+                          f"{2 * gen_bytes}")
+    m = Metrics()
+    guard = PreemptionGuard(deadline_s=ex["deadline_s"], metrics=m)
+    fa.reset_launch_counts()
+    pre, trainer = _example_fit(cfg, train_cfg, model, tokens,
+                                ckpt_dir=cfg.checkpoint_dir, guard=guard,
+                                notice_at=ex["notice_at"])
+    torch.cuda.synchronize()
+    pre_launches = [fn.launches for fn in fa.KERNELS]
+    pre_losses, preempted = list(pre.losses), pre.preempted
+    del pre, trainer
+    free_device_memory()
+    gens = [(s, os.path.getsize(p))
+            for s, p in list_generations(cfg.checkpoint_dir)]
+    submit = m.timer("resilience.ckpt_submit")
+    write = m.timer("resilience.ckpt_write")
+    drain = m.timer("resilience.drain")
+    log(f"{tag} preempted PROCESS fit: preempted={preempted}, losses "
+        f"{pre_losses}; generations (step, bytes) {gens}")
+    log(f"{tag} resilience.ckpt_submit (the step loop's stall for the "
+        f"device-to-host snapshot) {submit.total_s:.3f} s; "
+        f"resilience.ckpt_write (serialize + CRC + fsync + rename) "
+        f"{write.total_s:.3f} s; drain {drain.total_s:.3f} s against a "
+        f"{ex['deadline_s']:.0f} s deadline (within: "
+        f"{m.gauge('resilience.drain_within_deadline') == 1.0}) ({card})")
+    if not (preempted and len(pre_losses) == ex["notice_at"]
+            and [s for s, _ in gens] == [ex["notice_at"] * steps_per_window]
+            and m.counter("resilience.final_ckpts") == 1
+            and m.counter("watchdog.failures") == 0):
+        faults.append(f"preempted fit: preempted={preempted}, losses "
+                      f"{pre_losses}, generations {gens}, final_ckpts "
+                      f"{m.counter('resilience.final_ckpts')}")
+
+    # (c) A fresh Trainer resumes from that generation and runs to the end.
+    fa.reset_launch_counts()
+    res, trainer = _example_fit(cfg, train_cfg, model, tokens,
+                                ckpt_dir=cfg.checkpoint_dir)
+    torch.cuda.synchronize()
+    res_launches = [fn.launches for fn in fa.KERNELS]
+    restore_s = trainer.metrics.timer("resilience.restore").total_s
+    log(f"{tag} resumed PROCESS fit from epoch {res.resumed_from_epoch}: "
+        f"losses {res.losses}; restore (verify + read onto the card) "
+        f"{restore_s:.3f} s ({card}); launches K1-K6 preempted "
+        f"{pre_launches} + resumed {res_launches}")
+    joined = pre_losses + list(res.losses)
+    log(f"{tag} preempted + resumed losses {'==' if joined == ref_losses else '!='}"
+        f" undisturbed, bit for bit")
+    if joined != ref_losses:
+        faults.append(f"resumed losses {joined} != undisturbed {ref_losses}")
+    if [a + b for a, b in zip(pre_launches, res_launches)] != fit_launches:
+        faults.append(f"preempted + resumed launches {pre_launches} + "
+                      f"{res_launches} != {fit_launches}")
+    if trainer.metrics.counter("resilience.ckpt_restores") != 1:
+        faults.append("the resumed fit restored no generation")
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+
+    # (d) evaluate on held-out streams with the trained state, each held
+    # to the dense path on the same batches and to the gate's controls.
+    state = res.state
+    fa.reset_launch_counts()
+    evals, n_batches, eval_s = [], 0, 0.0
+    for eval_seed in ex["eval_seeds"]:
+        held_out = TokenStreamProducer(token_file, tr["seq_len"],
+                                       tr["window_rows"], seed=eval_seed)
+        seen = []
+
+        def metric(p, b):
+            seen.append(b[0].clone())
+            return llama.next_token_loss(p, b[0], model)
+
+        t0 = time.perf_counter()
+        got = trainer.evaluate(held_out, state, metric,
+                               batch_size=tr["batch_size"],
+                               n_producers=tr["n_producers"],
+                               window_stream=True, n_epochs=ex["eval_epochs"])
+        torch.cuda.synchronize()
+        eval_s += time.perf_counter() - t0
+        n_batches += len(seen)
+        if len(seen) != ex["eval_epochs"] * steps_per_window:
+            faults.append(f"evaluate (seed {eval_seed}) saw {len(seen)} "
+                          f"batches")
+        direct = _dense_loss(state.params, seen, model)
+        controls = {name: _dense_loss(state.params, seen, model, **kw)
+                    for name, kw in (("mask dropped", {"mask": False}),
+                                     ("scale dropped", {"scale": False}))}
+        gap = abs(got - direct) / abs(direct)
+        control_gaps = {name: abs(c - direct) / abs(direct)
+                        for name, c in controls.items()}
+        evals.append((eval_seed, got, direct, gap, control_gaps))
+        log(f"{tag} evaluate(window_stream=True), held-out seed {eval_seed}, "
+            f"{ex['eval_epochs']} windows: {got:.6f}; dense path on the same "
+            f"batches {direct:.6f}, rel gap {gap:.3e}; controls " + ", ".join(
+                f"{name} {controls[name]:.6f} (rel gap {g:.3e})"
+                for name, g in control_gaps.items()))
+    eval_launches = [fn.launches for fn in fa.KERNELS]
+    max_gap = max(e[3] for e in evals)
+    min_control = min(g for e in evals for g in e[4].values())
+    n_eval = model.n_layers * n_batches
+    log(f"{tag} evaluate over seeds {list(ex['eval_seeds'])} in {eval_s:.3f} "
+        f"s ({card}): largest flash-vs-dense gap {max_gap:.3e} <= limit "
+        f"{EVAL_LOSS_RTOL} < smallest control gap {min_control:.3e}: "
+        f"{max_gap <= EVAL_LOSS_RTOL < min_control}; launches K1-K6 "
+        f"{eval_launches} (K1 expected {n_eval}, no backward)")
+    if not (max_gap <= EVAL_LOSS_RTOL < min_control
+            and eval_launches == [n_eval] + [0] * 5):
+        faults.append(f"evaluate: gaps {[e[3] for e in evals]}, control "
+                      f"gaps {[e[4] for e in evals]}, limit {EVAL_LOSS_RTOL}, "
+                      f"launches {eval_launches}")
+    got, direct = evals[0][1], evals[0][2]
+
+    # (e) Greedy decode on the trained params.
+    prompt = torch.from_numpy(np.fromfile(token_file, np.int32,
+                                          count=ex["prompt"])[None]).cuda()
+    out, gen_s, worst, flips, min_margin = _greedy_check(state.params, model,
+                                                         prompt)
+    bad_flips = [f for f in flips if f[1] > BF16_LOGIT_ATOL]
+    log(f"{tag} generate: {ex['new_tokens']} greedy tokens after a "
+        f"{ex['prompt']}-token prompt in {gen_s:.3f} s ({card}): "
+        f"{out[0, ex['prompt']:].tolist()}; cached vs no-cache logits max "
+        f"abs diff {worst:.4f} (tol {BF16_LOGIT_ATOL}); argmax differs at "
+        f"{flips} (step, top-2 margin), smallest margin {min_margin:.4f}")
+    if worst > BF16_LOGIT_ATOL or bad_flips or int(out.max()) >= model.vocab:
+        faults.append(f"generate: logits diff {worst}, flips {flips}")
+    del res, state, trainer
+    free_device_memory()
+
+    # (f) The twin example on the card, THREAD mode, its own PASS rule.
+    spec = importlib.util.spec_from_file_location(
+        "train_llama_torch", os.path.join(ROOT, "examples",
+                                          "train_llama_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    rc = example.main("thread", device="cuda")
+    log(f"{tag} examples/train_llama_torch.py main('thread'): exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        faults.append(f"the twin example exited {rc}")
+    free_device_memory()
+    log(f"{tag} phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    if faults:
+        raise PhaseFailed(f"{tag} failed its checks: " + "; ".join(faults))
+    return {
+        "losses": ref_losses, "resumed_losses_equal": True,
+        "ckpt_submit_s": submit.total_s, "ckpt_write_s": write.total_s,
+        "restore_s": restore_s, "drain_s": drain.total_s,
+        "deadline_s": ex["deadline_s"],
+        "drain_within_deadline": m.gauge("resilience.drain_within_deadline"),
+        "gen_bytes": gens[0][1] if gens else None, "eval": got,
+        "eval_direct": direct, "eval_max_gap": max_gap,
+        "eval_min_control_gap": min_control, "eval_s": eval_s,
+        "generate_s": gen_s,
+        "decode_max_abs": worst, "fit_launches": fit_launches,
+        "eval_launches": eval_launches,
+    }
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -2439,6 +2825,7 @@ def main(argv=None) -> int:
             packed_launches, packed_summary = phase_train(
                 tmp, card, args.profile, packed=True)
             recovery_summary = phase_recovery(tmp, card)
+            example_summary = phase_example(tmp, card)
         # Each kernel's launches come from the run of its own path.
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
@@ -2450,6 +2837,7 @@ def main(argv=None) -> int:
         log(f"[summary] {json.dumps(summary)}")
         log(f"[summary-packed] {json.dumps(packed_summary)}")
         log(f"[summary-recovery] {json.dumps(recovery_summary)}")
+        log(f"[summary-example] {json.dumps(example_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

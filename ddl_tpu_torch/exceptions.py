@@ -44,3 +44,22 @@ class IntegrityError(DDLError):
 class LoaderStateError(DDLError, RuntimeError):
     """The loader was driven from an invalid state (finalized loader,
     superseded ``windows()`` stream)."""
+
+
+class PreemptionNotice(DDLError):
+    """The platform announced this host's imminent preemption (a SIGTERM
+    delivered to the trainer, or the ``DDL_TORCH_PREEMPT_NOTICE`` knob).
+    Carries ``deadline_s``, the grace budget the notice grants, when the
+    raiser knows it; :class:`~ddl_tpu_torch.resilience.PreemptionGuard`
+    absorbs it at window boundaries."""
+
+    def __init__(self, message: str = "", deadline_s: float = 0.0):
+        self.deadline_s = float(deadline_s)
+        super().__init__(message)
+
+
+class CheckpointError(DDLError):
+    """A checkpoint could not be durably written or flushed
+    (:mod:`ddl_tpu_torch.resilience`), or a generation does not fit the
+    current model.  Restore-side corruption is not this error:
+    unverifiable generations are quarantined and skipped."""

@@ -42,7 +42,7 @@ import torch
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.concurrency import named_lock
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
-from ddl_tpu_torch.parallel.mesh import NamedSharding, ShardedArray, one_card
+from ddl_tpu_torch.parallel.mesh import NamedSharding, P, ShardedArray, one_card
 from ddl_tpu_torch.staging import (
     StagedIngestEngine,
     StagedTransfer,
@@ -394,17 +394,16 @@ class PrefetchIterator:
 
 def _device_split(dev: Any, splits: Sequence[int]) -> Tuple[Any, ...]:
     """Column-split a transferred (B, sum(splits)) batch on device.  A
-    sharded batch splits shard by shard, which needs its columns unsplit
-    across positions (a column block spanning the whole width passes
-    through as it is)."""
+    sharded batch whose columns are whole at every position splits shard
+    by shard; one sharded along its columns gives blocks replicated along
+    the columns on the same mesh (as the JAX package's slice does), each
+    built from the shards it overlaps.  A column block spanning the whole
+    width passes through as it is."""
     if len(splits) == 1 and splits[0] == dev.shape[1]:
         return (dev,)
     if isinstance(dev, ShardedArray):
         if any(s.index[1] != slice(None) for s in dev.shards):
-            raise NotImplementedError(
-                "column split of a batch sharded along its columns: shard "
-                "the batch dim instead"
-            )
+            return _gather_column_blocks(dev, splits)
         out, off = [], 0
         for w in splits:
             out.append(ShardedArray(
@@ -415,5 +414,35 @@ def _device_split(dev: Any, splits: Sequence[int]) -> Tuple[Any, ...]:
     out, off = [], 0
     for w in splits:
         out.append(dev[:, off : off + w])
+        off += w
+    return tuple(out)
+
+
+def _gather_column_blocks(dev: ShardedArray,
+                          splits: Sequence[int]) -> Tuple[ShardedArray, ...]:
+    """The column blocks of a batch sharded along its columns, each
+    replicated along the columns on ``dev``'s mesh (the other dims keep
+    their split): a position's block is the concatenation of the column
+    pieces of the shards that hold its rows."""
+    entries = dev.sharding._entries(len(dev.shape))
+    spec = P(*((entries[0], None) + tuple(entries[2:])))
+    out, off = [], 0
+    for w in splits:
+        shape = (dev.shape[0], w) + dev.shape[2:]
+        target = NamedSharding(dev.sharding.mesh, spec)
+        datas = []
+        for p, idx in enumerate(target.shard_indices(shape)):
+            pieces = []
+            for s in dev.shards:
+                if s.index[0] != idx[0] or s.index[2:] != idx[2:]:
+                    continue
+                c0, c1, _ = s.index[1].indices(dev.shape[1])
+                lo, hi = max(off, c0), min(off + w, c1)
+                if lo < hi and not any(c0 == q[0] for q in pieces):
+                    pieces.append((c0, s.data[:, lo - c0:hi - c0]))
+            data = torch.cat([d for _, d in sorted(pieces, key=lambda q: q[0])],
+                             dim=1)
+            datas.append(data.to(dev.shards[p].device))
+        out.append(ShardedArray(shape, target, datas))
         off += w
     return tuple(out)

@@ -1,5 +1,5 @@
-"""Llama-style decoder LM (port of ``ddl_tpu/models/llama.py``'s training
-path: config, init, forward and the next-token loss).
+"""Llama-style decoder LM (port of ``ddl_tpu/models/llama.py``: config,
+init, forward, the next-token loss, and KV-cache decode and generation).
 
 Plain functions over an explicit parameter dict with the JAX package's
 layout — ``{"embed", "layers": [{...}], "final_norm", "lm_head"}``,
@@ -11,13 +11,18 @@ SwiGLU make the Llama-3 block.  Packed-document batches pass
 ``segment_ids`` (attention stays within each document; RoPE positions
 stay row-global, the JAX package's convention), and ``cfg.remat`` picks
 the named remat policy around each layer (:mod:`.remat`).
-Decode/generate and pipeline/tensor parallelism are later slices.
+
+Decode (:func:`init_cache`, :func:`forward_with_cache`, :func:`generate`)
+keeps a static-length stacked cache ``(L, B, len, kv, hd)`` updated in
+place, and attends it densely with grouped einsums — decode steps are
+matmul-thin, and the JAX package computes them outside any kernel too.
+Pipeline/tensor parallelism is a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -238,6 +243,188 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
         x = layer_fn(x, layer)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(dt)).float()
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               device: Any = "cuda") -> Params:
+    """Stacked KV cache buffers ``(n_layers, batch, max_len, n_kv_heads,
+    head_dim)`` in ``cfg.dtype`` for autoregressive decoding."""
+    from ddl_tpu_torch.utils import resolve_device
+
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    }
+
+
+def forward_with_cache(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                       cache: Params, pos: int, last_only: bool = False,
+                       ) -> Tuple[torch.Tensor, Params]:
+    """Process ``tokens`` (B, T) starting at position ``pos`` against a KV
+    cache (prefill: T = prompt length at pos 0; decode: T = 1).
+
+    Returns (logits, cache): logits (B, T, vocab) fp32, or (B, 1, vocab)
+    with ``last_only`` (prefill needs only the frontier).  Each layer
+    writes its new keys and values into the stacked buffers in place at
+    ``(li, :, pos)``; attention is dense over the cache with a
+    causal-position mask, on the compact GQA cache (q regrouped per KV
+    head, no rep-expanded copy)."""
+    dt = cfg.dtype
+    T = tokens.shape[1]
+    positions = pos + torch.arange(T, device=tokens.device)
+    cache_idx = torch.arange(cache["k"].shape[2], device=tokens.device)
+    x = params["embed"][tokens.long()].to(dt)
+    for li, layer in enumerate(params["layers"]):
+        x = _attn_with_cache(layer, x, cfg, cache["k"], cache["v"], li, pos,
+                             positions, cache_idx)
+        x = _mlp_block(layer, x, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return (x @ params["lm_head"].to(dt)).float(), cache
+
+
+def _attn_with_cache(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
+                     k_all: torch.Tensor, v_all: torch.Tensor, li: int,
+                     pos: int, positions: torch.Tensor,
+                     cache_idx: torch.Tensor) -> torch.Tensor:
+    """Attention sub-block (norm → qkv → cache update → GQA attention →
+    residual) against the stacked cache; returns x after attention."""
+    B, T = x.shape[:2]
+    dt = x.dtype
+    rep = cfg.n_heads // cfg.n_kv_heads
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q, k, v = _attn_qkv(layer, h, cfg, positions)
+    k_all[li, :, pos:pos + T] = k.to(dt)
+    v_all[li, :, pos:pos + T] = v.to(dt)
+    ck, cv = k_all[li], v_all[li]
+    qg = q.reshape(B, T, cfg.n_kv_heads, rep, cfg.head_dim)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, ck) * scale
+    # Causal over absolute positions; slots past the frontier (zeros) are
+    # masked the same way.
+    mask = cache_idx[None, :] > positions[:, None]  # (T, L)
+    s = torch.where(mask[None, None, None], torch.full((), -1e30, dtype=s.dtype,
+                                                       device=s.device), s)
+    p = torch.softmax(s.float(), dim=-1).to(dt)
+    attn = torch.einsum("bkrqs,bskd->bqkrd", p, cv)
+    return x + attn.reshape(B, T, -1) @ layer["wo"].to(dt)
+
+
+def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig,
+             max_new_tokens: int, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             eos_id: Optional[int] = None) -> torch.Tensor:
+    """Autoregressive generation: greedy (``temperature == 0``) or
+    temperature sampling, optionally filtered by ``top_k`` and/or nucleus
+    ``top_p`` (temperature first, then the filters).  With ``eos_id``, a
+    row that emits it keeps emitting ``eos_id`` (truncate at the first
+    EOS).  Returns (B, prompt_len + max_new_tokens).
+
+    Sampling requires an explicit ``generator`` (a ``torch.Generator`` on
+    the prompt's device), where the JAX package requires a ``key``: a
+    silent default would sample the same tokens on every call.
+
+    Prefill is one cached forward over the prompt; decode is a loop of
+    ``T = 1`` cached forwards over the static-length cache, all under
+    ``torch.no_grad()``."""
+    return _generate(forward_with_cache, init_cache, params, prompt, cfg,
+                     max_new_tokens, temperature, generator, top_k=top_k,
+                     top_p=top_p, eos_id=eos_id)
+
+
+def _sample_filter(logits_t: torch.Tensor, top_k: Optional[int],
+                   top_p: Optional[float]) -> torch.Tensor:
+    """Mask logits for top-k / nucleus (top-p) sampling.  top-k keeps the
+    k highest logits; top-p keeps the smallest prefix of the
+    probability-sorted vocab whose mass reaches ``top_p`` (the first token
+    always kept).  Both compose, in that order."""
+    ninf = torch.full((), float("-inf"), dtype=logits_t.dtype,
+                      device=logits_t.device)
+    if top_k is not None:
+        kth = torch.topk(logits_t, top_k, dim=-1).values[..., -1:]
+        logits_t = torch.where(logits_t < kth, ninf, logits_t)
+    if top_p is not None:
+        sorted_logits = torch.sort(logits_t, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # Keep ranks whose PRECEDING mass is < top_p (rank 0 always).
+        keep_sorted = torch.cat(
+            [torch.ones_like(cum[..., :1], dtype=torch.bool),
+             cum[..., :-1] < top_p], dim=-1)
+        cutoff = torch.where(keep_sorted, sorted_logits,
+                             torch.full((), float("inf"), dtype=logits_t.dtype,
+                                        device=logits_t.device)
+                             ).min(dim=-1, keepdim=True).values
+        logits_t = torch.where(logits_t < cutoff, ninf, logits_t)
+    return logits_t
+
+
+@torch.no_grad()
+def _generate(fwd_cache: Any, init_cache_fn: Any, params: Params,
+              prompt: torch.Tensor, cfg: Any, max_new_tokens: int,
+              temperature: float, generator: Optional[torch.Generator],
+              top_k: Optional[int] = None, top_p: Optional[float] = None,
+              eos_id: Optional[int] = None) -> torch.Tensor:
+    """Family-agnostic generation core: prefill via one cached forward,
+    then ``T = 1`` decode steps over a static-length cache.
+    ``fwd_cache(params, tokens, cfg, cache, pos, last_only=...)`` and
+    ``init_cache_fn(cfg, B, L, device)`` are the family's hooks."""
+    if (top_k is not None or top_p is not None) and temperature <= 0.0:
+        raise ValueError(
+            "top_k/top_p filter the SAMPLING distribution — they have "
+            "no effect on greedy decoding; pass temperature > 0"
+        )
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+        raise ValueError(
+            f"eos_id {eos_id} outside the model vocab [0, {cfg.vocab})"
+        )
+    B, P_len = prompt.shape
+    if max_new_tokens <= 0:
+        return prompt
+    total = P_len + max_new_tokens
+    cache = init_cache_fn(cfg, B, total, prompt.device)
+    logits, cache = fwd_cache(params, prompt, cfg, cache, 0, last_only=True)
+    last = logits[:, -1]
+    if generator is None and temperature > 0.0:
+        raise ValueError(
+            "temperature sampling requires an explicit generator: pass "
+            "generator=torch.Generator(device).manual_seed(seed) (every "
+            "call with a default would sample the SAME tokens)"
+        )
+
+    def pick(logits_t: torch.Tensor) -> torch.Tensor:
+        if temperature <= 0.0:
+            return torch.argmax(logits_t, dim=-1).to(prompt.dtype)
+        filtered = _sample_filter(logits_t / temperature, top_k, top_p)
+        probs = torch.softmax(filtered, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            prompt.dtype)
+
+    eos = (None if eos_id is None
+           else torch.full((B,), eos_id, dtype=prompt.dtype,
+                           device=prompt.device))
+    done = torch.zeros(B, dtype=torch.bool, device=prompt.device)
+    new = []
+    for pos in range(P_len, total - 1):
+        tok = pick(last)
+        if eos is not None:
+            tok = torch.where(done, eos, tok)
+            done = done | (tok == eos_id)
+        new.append(tok)
+        logits_t, cache = fwd_cache(params, tok[:, None], cfg, cache, pos)
+        last = logits_t[:, 0]
+    final = pick(last)
+    if eos is not None:
+        final = torch.where(done, eos, final)
+    new.append(final)
+    return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
 
 
 def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,

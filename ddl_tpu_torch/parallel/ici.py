@@ -60,10 +60,14 @@ DEFAULT_MEMORY_FACTOR = 3.0
 _WIRE_DTYPES = ("raw", "bf16", "int8")
 
 
-def fused_enabled() -> bool:
+def fused_enabled(default: bool = True) -> bool:
     """The ``DDL_TORCH_FUSED`` gate (default on): a distributor prices
-    the reference's two landing slots in its plans."""
-    return envspec.flag("DDL_TORCH_FUSED")
+    the reference's two landing slots in its plans, and the trainer runs
+    its fused loop.  Only ``0`` turns it off, as in the JAX package."""
+    val = envspec.raw("DDL_TORCH_FUSED")
+    if val is None:
+        return default
+    return val != "0"
 
 
 class PlanError(ValueError):

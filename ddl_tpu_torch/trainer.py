@@ -1,20 +1,23 @@
 """High-level Trainer: loader + train step in one call (port of
-``ddl_tpu/trainer.py``: ``Trainer``, ``fit``, ``_fit_windows`` and the
-fused and synchronous window-stream loops).
+``ddl_tpu/trainer.py``: ``Trainer``, ``fit``, ``evaluate``, the fused and
+synchronous window-stream loops, checkpoints and the preemption drain).
 
 One object owns the run: the producer/consumer topology (the
 ``distributed_dataloader`` decorator, THREAD or PROCESS mode), the
 one-device train step, the ``mark()`` protocol, the global-shuffle
-pass-through and the watchdog around both loops (with elastic respawn
-when asked).  The trainer runs on ``device`` — the card unless the
-caller passes ``device="cpu"``.  Checkpointing, preemption and
-observability spans are later slices.
+pass-through, the watchdog around both loops (with elastic respawn when
+asked), checkpoint/resume of both halves of a run (the train state and
+the loader's logical clock) at window/epoch boundaries, and the
+:class:`~ddl_tpu_torch.resilience.PreemptionGuard` drain.  The trainer
+runs on ``device`` — the card unless the caller passes ``device="cpu"``.
+Observability spans are a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -58,6 +61,12 @@ class FitResult:
     state: Any  # final TrainState
     losses: List[float]  # per-epoch mean loss
     metrics: Metrics
+    epochs_run: int = 0
+    resumed_from_epoch: int = 0
+    #: True when the run ended in a graceful preemption drain rather than
+    #: completing its epochs: the caller should exit and let a restart
+    #: resume.
+    preempted: bool = False
 
 
 class Trainer:
@@ -75,6 +84,11 @@ class Trainer:
         watchdog: bool = True,
         watchdog_respawn: bool = False,
         stall_budget_s: float = 300.0,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_epochs: int = 1,
+        checkpoint_async: Optional[bool] = None,
+        checkpoint_keep: int = 3,
+        preemption_guard: Any = None,
     ):
         """``loss_fn(params, batch) -> scalar`` over the loader's column
         tuple; ``optimizer(param_list) -> torch.optim.Optimizer`` (e.g.
@@ -86,10 +100,37 @@ class Trainer:
         ``watchdog`` runs a :class:`~ddl_tpu_torch.watchdog.Watchdog` over
         the producers during ``fit`` (``stall_budget_s`` without ring
         progress counts as a stall); ``watchdog_respawn`` replaces a dead
-        producer in place instead of ending the run."""
+        producer in place instead of ending the run.
+
+        ``checkpoint_dir`` turns on checkpoint/resume: every
+        ``checkpoint_every_epochs`` windows (epochs on the batch path) the
+        train state and the loader cursor are saved, and a ``fit`` on a
+        directory holding a verified checkpoint resumes from it.
+        ``checkpoint_async`` (default: the ``DDL_TORCH_CKPT_ASYNC`` gate,
+        on) routes them through :class:`~ddl_tpu_torch.resilience.
+        AsyncCheckpointer` (the step loop stalls for the device-to-host
+        snapshot only; ``checkpoint_keep`` generations are kept);
+        ``False`` keeps the synchronous :func:`~ddl_tpu_torch.checkpoint.
+        save_train_state`.  ``preemption_guard`` (a :class:`~ddl_tpu_torch.
+        resilience.PreemptionGuard`) is polled at every window/epoch
+        boundary: on a notice the run drains — forced final checkpoint,
+        the guard's rungs, clean producer shutdown — and ``fit`` returns
+        with ``FitResult.preempted`` set."""
         from ddl_tpu_torch.parallel.train import make_train_step
 
+        if train_config is not None:
+            train_config.check_ported()
         self.device = resolve_device(device)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every_epochs = max(1, checkpoint_every_epochs)
+        if checkpoint_async is None:
+            checkpoint_async = envspec.flag("DDL_TORCH_CKPT_ASYNC")
+        self.checkpoint_async = bool(checkpoint_async)
+        self.checkpoint_keep = max(1, int(checkpoint_keep))
+        self._ckptr: Any = None  # lazy AsyncCheckpointer
+        self._guard = preemption_guard
+        self._restored_loader_ck: Any = None
+        self._preempted = False
         self.watchdog_enabled = watchdog
         self.watchdog_respawn = watchdog_respawn
         self.stall_budget_s = stall_budget_s
@@ -106,9 +147,223 @@ class Trainer:
             loss_fn, optimizer, self.device, accum_steps=accum_steps
         )
 
+    # -- checkpoint plumbing ----------------------------------------------
+
+    def _loader_ckpt_path(self) -> str:
+        assert self.checkpoint_dir is not None
+        return os.path.join(self.checkpoint_dir, "loader.json")
+
+    def _checkpointer(self) -> Any:
+        """The lazily built per-trainer async checkpointer."""
+        if self._ckptr is None:
+            from ddl_tpu_torch.resilience import AsyncCheckpointer
+
+            assert self.checkpoint_dir is not None
+            self._ckptr = AsyncCheckpointer(
+                self.checkpoint_dir, keep=self.checkpoint_keep,
+                metrics=self.metrics,
+            )
+        return self._ckptr
+
+    def _restore_or_init(self) -> Tuple[Any, int]:
+        """Returns (train state, epoch to start from).
+
+        Restore takes the verified source with the newest step: async
+        generation files (integrity trailer checked, loader cursor inside
+        the file) or synchronous ``step_*`` directories (manifest
+        checked).  Unverifiable generations of either kind are
+        quarantined and the previous verified one restores; exhaustion is
+        a cold start, never a crash."""
+        from ddl_tpu_torch.checkpoint import (
+            LoaderCheckpoint,
+            latest_verified_step,
+            restore_train_state,
+        )
+        from ddl_tpu_torch.resilience import (
+            latest_verified_generation,
+            restore_latest,
+        )
+
+        state = self._init_fn(self._init_params)
+        self._restored_loader_ck = None
+        if self.checkpoint_dir is None:
+            return state, 0
+        with self.metrics.timed("resilience.restore"):
+            gen = latest_verified_generation(
+                self.checkpoint_dir, metrics=self.metrics
+            )
+            legacy_step = latest_verified_step(self.checkpoint_dir)
+            if gen is not None and (legacy_step is None or gen[0] >= legacy_step):
+                restored = restore_latest(
+                    self.checkpoint_dir, like=state, metrics=self.metrics,
+                    found=gen,
+                )
+                assert restored is not None  # gen verified just above
+                self._restored_loader_ck = restored.loader
+                start_epoch = (
+                    restored.loader.epoch if restored.loader is not None else 0
+                )
+                logger.info(
+                    "trainer: resumed step %d / epoch %d from generation "
+                    "checkpoint %s", restored.state.step, start_epoch,
+                    self.checkpoint_dir,
+                )
+                return restored.state, start_epoch
+            if legacy_step is None:
+                return state, 0
+            state = restore_train_state(self.checkpoint_dir, like=state,
+                                        step=legacy_step)
+        start_epoch = 0
+        if os.path.exists(self._loader_ckpt_path()):
+            ck = LoaderCheckpoint.load(self._loader_ckpt_path())
+            self._restored_loader_ck = ck
+            start_epoch = ck.epoch
+        logger.info("trainer: resumed step %d / epoch %d from %s",
+                    state.step, start_epoch, self.checkpoint_dir)
+        return state, start_epoch
+
+    def _checkpoint(self, state: Any, loader: Any, force: bool = False,
+                    timeout_s: float = 60.0) -> None:
+        """Save the train state and the loader cursor.  Async: the stall is
+        the snapshot; ``force`` (the drain's final checkpoint) waits until
+        the bytes are durably on disk."""
+        from ddl_tpu_torch.checkpoint import LoaderCheckpoint, save_train_state
+
+        assert self.checkpoint_dir is not None
+        ck = LoaderCheckpoint.capture(loader)
+        if self.checkpoint_async:
+            cp = self._checkpointer()
+            if force:
+                cp.checkpoint_now(state, ck, timeout_s=timeout_s)
+            else:
+                cp.submit(state, ck)
+            return
+        with self.metrics.timed("resilience.ckpt_sync"):
+            save_train_state(state, self.checkpoint_dir)
+            ck.save(self._loader_ckpt_path())
+
+    def _finish_checkpoints(self) -> None:
+        """Bounded flush of the async writer at the end of a fit (the last
+        periodic generation must be durable before the process exits),
+        then close it: its host staging (up to two copies of the train
+        state) is released, and a later ``fit`` builds a fresh one."""
+        if self._ckptr is None:
+            return
+        from ddl_tpu_torch.exceptions import CheckpointError
+
+        ckptr, self._ckptr = self._ckptr, None
+        try:
+            ckptr.close(timeout_s=60.0)
+        except CheckpointError:
+            logger.exception(
+                "trainer: async checkpoint flush at fit end failed — the "
+                "newest generation may be missing on restart"
+            )
+
+    def _boundary(self, state: Any, loader: Any, epoch: int) -> bool:
+        """The window/epoch-boundary hooks: the periodic checkpoint, then
+        the preemption poll.  True when the run drained and must stop."""
+        if (self.checkpoint_dir is not None
+                and epoch % self.checkpoint_every_epochs == 0):
+            self._checkpoint(state, loader)
+        if self._guard is None or not self._guard.poll():
+            return False
+        self._preempt_drain(state, loader)
+        return True
+
+    def _preempt_drain(self, state: Any, loader: Any) -> None:
+        """Run the guard's drain ladder: forced final checkpoint (state +
+        fenced loader cursor, bounded by the remaining grace budget), the
+        guard's own rungs, then a clean producer shutdown."""
+        self._preempted = True
+
+        def final_ckpt():
+            if self.checkpoint_dir is not None:
+                self._checkpoint(state, loader, force=True,
+                                 timeout_s=max(1.0, self._guard.remaining()))
+
+        self._guard.drain(final_checkpoint=final_ckpt, shutdown=loader.shutdown)
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(
+        self,
+        producer_function: ProducerFunctionSkeleton,
+        state: Any,
+        metric_fn: Callable[[Any, Any], Any],
+        batch_size: int,
+        n_producers: Optional[int] = None,
+        mode: Optional[str] = None,
+        window_stream: bool = False,
+        n_epochs: int = 1,
+    ) -> float:
+        """Metric pass over a (held-out) producer's windows on the
+        trainer's device.
+
+        Drains ``n_epochs`` epochs (one window each) computing
+        ``metric_fn(params, batch) -> scalar`` per batch under
+        ``torch.no_grad()`` and returns the sample-weighted mean; no
+        optimizer step runs.  ``window_stream=True`` streams each window
+        whole and evaluates all its batches in one pass, weighting the
+        window's mean by its batch count; otherwise batches come through
+        the prefetcher."""
+        from ddl_tpu_torch import DistributedDataLoader, distributed_dataloader
+
+        trainer = self
+
+        @distributed_dataloader(n_producers=n_producers, mode=mode,
+                                pin_memory=self.device.type == "cuda")
+        def _run(env):
+            loader = DistributedDataLoader(
+                producer_function,
+                batch_size=batch_size,
+                connection=env.connection,
+                n_epochs=n_epochs,
+                output="device",
+                device=trainer.device,
+                metrics=trainer.metrics,
+            )
+            try:
+                with torch.no_grad():
+                    if window_stream:
+                        return trainer._eval_windows(loader, state, metric_fn)
+                    vals: List[Any] = []
+                    for _epoch in range(n_epochs):
+                        for batch in loader.prefetch():
+                            # Metrics stay on the device until the end.
+                            vals.append(metric_fn(state.params, batch))
+                            loader.mark(Marker.END_OF_BATCH)
+                        loader.mark(Marker.END_OF_EPOCH)
+                # Every batch holds batch_size samples: the plain mean is
+                # the sample-weighted mean.
+                fvals = [float(v) for v in vals]
+                return sum(fvals) / len(fvals) if fvals else float("nan")
+            finally:
+                loader.shutdown()
+
+        return _run()
+
+    def _eval_windows(self, loader: Any, state: Any,
+                      metric_fn: Callable[[Any, Any], Any]) -> float:
+        col_splits = _stream_splits(loader)
+        vals = []
+        for win in loader.windows():
+            cols = _window_cols(win, col_splits)
+            per_batch = torch.stack([
+                metric_fn(state.params, tuple(c[i] for c in cols))
+                for i in range(win.shape[0])
+            ])
+            # Weighted by batch count: windows of different depths must
+            # not be averaged as equals.
+            vals.append((per_batch.mean(), win.shape[0]))
+            loader.mark(Marker.END_OF_EPOCH)
+        total = sum(w for _, w in vals)
+        return (sum(float(v) * w for v, w in vals) / total
+                if total else float("nan"))
+
     # -- window-stream epoch loop -----------------------------------------
 
-    def _fit_windows(self, loader, state, n_epochs, epoch_losses,
+    def _fit_windows(self, loader, state, start_epoch, n_epochs, epoch_losses,
                      stream_lookahead=1, fused=None,
                      window_hook=None) -> FitResult:
         """One multistep per streamed window.
@@ -126,7 +381,9 @@ class Trainer:
 
         col_splits = _stream_splits(loader)
         if fused is None:
-            fused = envspec.flag("DDL_TORCH_FUSED")
+            from ddl_tpu_torch.parallel.ici import fused_enabled
+
+            fused = fused_enabled()
 
         def multi_for(n_steps: int):
             _, fn = make_multistep(
@@ -139,16 +396,26 @@ class Trainer:
         if window_hook is not None:
             stream = map(window_hook, stream)
         loop = self._fused_stream_loop if fused else self._sync_stream_loop
-        state = loop(loader, stream, state, multi_for, col_splits, epoch_losses)
+        state = loop(loader, stream, state, multi_for, col_splits,
+                     epoch_losses, start_epoch)
         for i, mean in enumerate(epoch_losses):
             logger.info(
                 "trainer: epoch %d/%d mean loss %.6f (windowed)",
-                i + 1, n_epochs, mean,
+                start_epoch + i + 1, n_epochs, mean,
             )
-        return FitResult(state, epoch_losses, self.metrics)
+        return self._result(state, epoch_losses, start_epoch, n_epochs)
+
+    def _result(self, state, epoch_losses, start_epoch, n_epochs) -> FitResult:
+        return FitResult(
+            state, epoch_losses, self.metrics,
+            epochs_run=(len(epoch_losses) if self._preempted
+                        else n_epochs - start_epoch),
+            resumed_from_epoch=start_epoch,
+            preempted=self._preempted,
+        )
 
     def _fused_stream_loop(self, loader, stream, state, multi_for, col_splits,
-                           epoch_losses):
+                           epoch_losses, start_epoch):
         """The fused compute/ingest step: no host sync but the deferred
         ``float(pending)``.
 
@@ -162,6 +429,7 @@ class Trainer:
         """
         m = self.metrics
         pending = pending_done = None
+        epoch = start_epoch
         _done = object()
         while True:
             t0 = time.perf_counter()
@@ -184,7 +452,12 @@ class Trainer:
             if pending is not None:
                 epoch_losses.append(float(pending))
             pending, pending_done = loss_mean, done
+            epoch += 1
             loader.mark(Marker.END_OF_EPOCH)
+            # A checkpoint's snapshot waits for the steps just enqueued;
+            # a drain's final checkpoint loses no completed window.
+            if self._boundary(state, loader, epoch):
+                break
         if pending is not None:
             epoch_losses.append(float(pending))
         self._clock_finish(m)
@@ -225,9 +498,10 @@ class Trainer:
                        if self.device.type == "cuda" else b - a)
 
     def _sync_stream_loop(self, loader, stream, state, multi_for, col_splits,
-                          epoch_losses):
+                          epoch_losses, start_epoch):
         """The synchronous discipline (``DDL_TORCH_FUSED=0``): the window
         lands, THEN the steps run, THEN the losses are read back."""
+        epoch = start_epoch
         _done = object()
         while True:
             with self.metrics.timed("trainer.window_wait"):
@@ -243,7 +517,10 @@ class Trainer:
             )
             self._clock_steps()
             epoch_losses.append(float(losses.mean()))
+            epoch += 1
             loader.mark(Marker.END_OF_EPOCH)
+            if self._boundary(state, loader, epoch):
+                break
         self._clock_finish(self.metrics)
         return state
 
@@ -270,8 +547,12 @@ class Trainer:
 
         ``config`` (a :class:`ddl_tpu_torch.config.LoaderConfig`) supplies
         defaults for batch_size, n_epochs, n_producers, mode, nslots,
-        window_stream, prefetch_depth and the ring timeout; explicit
-        arguments win.  ``mode="process"`` spawns the producers (call
+        window_stream, prefetch_depth, the exchange fraction and the ring
+        timeout; explicit arguments win, and a non-default value of a
+        field the port has not ported raises ``NotImplementedError``.
+        Checkpoint and watchdog knobs are Trainer constructor arguments.
+        With a checkpoint in ``checkpoint_dir`` the run resumes where it
+        stopped: ``FitResult.losses`` then holds this run's epochs only.  ``mode="process"`` spawns the producers (call
         ``fit`` under ``if __name__ == "__main__":``); their exit codes
         land in ``producer.exits_clean`` / ``producer.exits_failed``.
 
@@ -294,6 +575,15 @@ class Trainer:
 
         timeout_s = 300.0
         if config is not None:
+            config.check_ported()
+            if config.output != "device":
+                raise ValueError(
+                    f"Trainer.fit serves output='device', config has "
+                    f"{config.output!r}"
+                )
+            if global_shuffle_fraction_exchange is None:
+                global_shuffle_fraction_exchange = (
+                    config.global_shuffle_fraction_exchange)
             batch_size = config.batch_size if batch_size is None else batch_size
             n_epochs = config.n_epochs if n_epochs is None else n_epochs
             n_producers = (
@@ -339,7 +629,8 @@ class Trainer:
         )
         def _main(env):
             envs.append(env)
-            state = trainer._init_fn(trainer._init_params)
+            trainer._preempted = False
+            state, start_epoch = trainer._restore_or_init()
             loader = DistributedDataLoader(
                 producer_function,
                 batch_size=batch_size,
@@ -352,6 +643,26 @@ class Trainer:
                 metrics=trainer.metrics,
                 timeout_s=timeout_s,
             )
+            if start_epoch >= n_epochs:
+                logger.info(
+                    "trainer: checkpoint at epoch %d >= n_epochs %d — "
+                    "nothing to do", start_epoch, n_epochs,
+                )
+                loader.shutdown()
+                return FitResult(state, [], trainer.metrics,
+                                 resumed_from_epoch=start_epoch)
+            if start_epoch:
+                from ddl_tpu_torch.checkpoint import LoaderCheckpoint
+
+                # The cursor fenced to the restored state wins over the
+                # loader.json mirror.  Producers regenerate their windows
+                # from their seeds: skipping the consumed ones (one per
+                # epoch) puts the stream where the checkpoint stopped.
+                ck = trainer._restored_loader_ck
+                if ck is None:
+                    ck = LoaderCheckpoint.load(trainer._loader_ckpt_path())
+                loader.fast_forward(ck.epoch)
+                ck.apply(loader)
             wd = None
             if trainer.watchdog_enabled:
                 # The trainer's registry: respawns and failures show in
@@ -365,11 +676,11 @@ class Trainer:
             try:
                 if window_stream:
                     return trainer._fit_windows(
-                        loader, state, n_epochs, epoch_losses,
+                        loader, state, start_epoch, n_epochs, epoch_losses,
                         stream_lookahead=stream_lookahead, fused=fused,
                         window_hook=window_hook,
                     )
-                for epoch in range(n_epochs):
+                for epoch in range(start_epoch, n_epochs):
                     batch_losses: List[Any] = []
                     epoch_iter = (
                         loader.prefetch(prefetch_depth)
@@ -391,8 +702,13 @@ class Trainer:
                         "trainer: epoch %d/%d mean loss %.6f (%d batches)",
                         epoch + 1, n_epochs, epoch_losses[-1], len(vals),
                     )
-                return FitResult(state, epoch_losses, trainer.metrics)
+                    # The batch path drains at the epoch boundary.
+                    if trainer._boundary(state, loader, epoch + 1):
+                        break
+                return trainer._result(state, epoch_losses, start_epoch,
+                                       n_epochs)
             finally:
+                trainer._finish_checkpoints()
                 if wd is not None:
                     wd.stop()
                 loader.shutdown()

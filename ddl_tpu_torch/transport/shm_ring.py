@@ -280,11 +280,13 @@ class PyShmRing(WindowRing):
         import mmap
 
         machine = platform.machine().lower()
-        if machine not in self._TSO_MACHINES:
+        if (machine not in self._TSO_MACHINES
+                and not envspec.flag("DDL_TORCH_UNSAFE_PY_RING")):
             raise TransportError(
                 f"PyShmRing requires a total-store-order ISA (x86-64); "
                 f"this machine is {machine!r}.  Install a C++ toolchain "
-                f"for the native ring (fenced atomics)."
+                f"for the native ring (fenced atomics), or set "
+                f"DDL_TORCH_UNSAFE_PY_RING=1 to override at your own risk."
             )
         self.name = name
         self.page_locked = False

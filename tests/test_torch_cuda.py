@@ -8,7 +8,9 @@ alias- and pool-staged windows against the host's, and a PROCESS fit
 against its THREAD twin (``-k "process or staging"``); recovery on the
 card: a SIGKILLed PROCESS producer respawned under the alias route, a
 replay while a window's copy is in flight, and the PROCESS shuffle over a
-``ShmRendezvous`` landing on cuda:0 (``-k recovery``).
+``ShmRendezvous`` landing on cuda:0 (``-k recovery``); a checkpoint
+round trip of a card-resident state and KV-cache decode against the
+no-cache forward (``-k "checkpoint or decode"``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -1291,3 +1293,85 @@ def test_recovery_process_shuffle_lands_on_the_card(tmp_path):
     assert all(m.counter("staging.alias_windows") == 6 for m in metrics)
     rdv.cleanup()
     assert not os.path.exists(rdv._dir)
+
+
+# -- checkpoints and decode on the card (``-k "checkpoint or decode"``) ------
+
+
+def _card_state(cfg, seed=0):
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.train import adamw, make_train_step
+
+    init, step = make_train_step(
+        lambda p, b: llama.next_token_loss(p, b[0], cfg), adamw(1e-3), "cuda")
+    st = init(llama.init_params(cfg, seed=seed, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab, (2, 32), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(seed),
+                           dtype=torch.int32)
+    st, _ = step(st, (tokens,))
+    return st, step, tokens
+
+
+def _host_leaves(state):
+    from ddl_tpu_torch.resilience.ckpt import train_state_leaves
+
+    return [np.array(x.detach().cpu().numpy()) if isinstance(x, torch.Tensor)
+            else np.array(x) for x in train_state_leaves(state)]
+
+
+def test_checkpoint_round_trip_of_a_card_state_ignores_the_next_step(tmp_path):
+    """A generation of a card-resident state equals the state at submit:
+    steps launched right after submit (in-place AdamW updates on the same
+    stream) do not reach it, and it restores onto the card exactly."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.resilience import AsyncCheckpointer, restore_latest
+
+    cfg = llama.LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq=64)
+    st, step, tokens = _card_state(cfg)
+    torch.cuda.synchronize()
+    want = _host_leaves(st)
+    cp = AsyncCheckpointer(str(tmp_path))
+    assert cp.submit(st)
+    for _ in range(3):
+        st, _ = step(st, (tokens,))
+    cp.flush()
+    cp.close()
+    after = _host_leaves(st)
+    assert not all(np.array_equal(a, b) for a, b in zip(after[1:], want[1:]))
+    like, _, _ = _card_state(cfg, seed=5)
+    restored = restore_latest(str(tmp_path), like=like)
+    assert restored is not None and restored.state.step == 1
+    got = _host_leaves(restored.state)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    p0 = restored.state.params["embed"]
+    assert p0.is_cuda and restored.state.optimizer.state[p0]["exp_avg"].is_cuda
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_matches_the_no_cache_forward(dtype):
+    """Cached prefill and each T = 1 step against the flash forward of the
+    same prefix (fp32 1e-4; bf16 5e-2 on logits of O(1))."""
+    from ddl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab=512, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq=64,
+                            dtype=getattr(torch, dtype))
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, 16), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           dtype=torch.int32)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    with torch.no_grad():
+        out = llama.generate(params, prompt, cfg, max_new_tokens=8)
+        cache = llama.init_cache(cfg, 2, 24, device="cuda")
+        logits, cache = llama.forward_with_cache(params, prompt, cfg, cache, 0)
+        full = llama.forward(params, prompt, cfg)
+        torch.testing.assert_close(logits, full, atol=tol, rtol=tol)
+        for pos in range(16, 23):
+            tok = out[:, pos:pos + 1]
+            step, cache = llama.forward_with_cache(params, tok, cfg, cache, pos)
+            full = llama.forward(params, out[:, :pos + 1], cfg)
+            torch.testing.assert_close(step[:, 0], full[:, -1], atol=tol,
+                                       rtol=tol)
+    assert tuple(out.shape) == (2, 24) and int(out.max()) < cfg.vocab

@@ -311,10 +311,34 @@ def test_put_batch_ici_equals_xla():
 
 
 def test_column_split_across_positions_is_refused():
-    sh = _torch_sharding((("dp", 2),), (None, "dp"))
-    ing = DeviceIngestor(sharding=sh, distribute="xla")
-    with pytest.raises(NotImplementedError, match="batch dim"):
-        ing.put_batch(np.ones((4, 8), np.float32), splits=(6, 2))
+    """Once refused, a column split of a batch sharded along its columns
+    now equals the reference's ``dev[:, off:off + w]``: the same values,
+    and each block's shard indices (the columns replicated on the same
+    mesh, the batch dim keeping its split)."""
+    cases = [
+        ((("dp", 2),), (None, "dp"), (6, 2), (4, 8)),
+        ((("dp", 4),), (None, "dp"), (2, 6), (4, 8)),
+        ((("dp", 4), ("fsdp", 2)), (None, "dp"), (7, 1), (8, 8)),
+        ((("dp", 2), ("fsdp", 4)), ("dp", "fsdp"), (3, 5), (4, 8)),
+    ]
+    for axes, spec, splits, shape in cases:
+        batch = np.random.default_rng(5).random(shape).astype(np.float32)
+        want = jax.device_put(batch, _jax_sharding(axes, spec))
+        ing = DeviceIngestor(sharding=_torch_sharding(axes, spec),
+                             distribute="xla", metrics=Metrics())
+        got = ing.put_batch(batch, splits=splits)
+        off = 0
+        for block, w in zip(got, splits):
+            ref = want[:, off:off + w]
+            assert block.shape == ref.shape
+            np.testing.assert_array_equal(block.numpy(), np.asarray(ref))
+            ref_idx = {s.device.id: s.index for s in ref.addressable_shards}
+            assert [s.index for s in block.shards] == [
+                ref_idx[d.id] for d in ref.sharding.mesh.devices.reshape(-1)]
+            for s in block.shards:
+                np.testing.assert_array_equal(s.data.numpy(),
+                                              np.asarray(ref)[s.index])
+            off += w
 
 
 # -- window streams through both loaders -----------------------------------

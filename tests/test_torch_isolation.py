@@ -1,6 +1,7 @@
 """ddl_tpu_torch stands alone: it imports neither JAX nor the JAX package,
 calls no library attention, and its entry points refuse to drift onto
-the CPU when CUDA is absent.
+the CPU when CUDA is absent.  ``chip_smoke.py`` and the port's example
+``examples/train_llama_torch.py`` are held to the same rules.
 
 The import check runs in a subprocess: this test process already
 imported JAX (conftest pins it to the CPU).
@@ -29,6 +30,8 @@ names = ["ddl_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # the chip script imports only the port
+import runpy
+runpy.run_path(sys.argv[1] + "/examples/train_llama_torch.py")  # and its example
 for attr in ddl_tpu_torch.__all__:
     getattr(ddl_tpu_torch, attr)
 bad = sorted(m for m in sys.modules
@@ -50,6 +53,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert report["bad"] == []
     assert "ddl_tpu_torch.ops.flash_attention" in report["modules"]
     assert "ddl_tpu_torch.trainer" in report["modules"]
+    for mod in ("checkpoint", "resilience.ckpt", "resilience.guard",
+                "config", "envspec", "concurrency"):
+        assert f"ddl_tpu_torch.{mod}" in report["modules"]
 
 
 def test_sources_name_no_jax_and_no_library_attention():
@@ -60,7 +66,8 @@ def test_sources_name_no_jax_and_no_library_attention():
         r"|scaled_dot_product_attention|cudnn|flash_attn|xformers",
         re.MULTILINE,
     )
-    sources = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    sources = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+               + [REPO / "examples" / "train_llama_torch.py"])
     assert len(sources) > 20
     hits = [
         f"{p.relative_to(REPO)}: {m.group(0).strip()}"
@@ -70,7 +77,8 @@ def test_sources_name_no_jax_and_no_library_attention():
     assert hits == []
 
 
-@pytest.mark.parametrize("entry", ["trainer", "ingestor", "init_params"])
+@pytest.mark.parametrize("entry", ["trainer", "ingestor", "init_params",
+                                   "init_cache"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(entry):
     from ddl_tpu_torch.ingest import DeviceIngestor
     from ddl_tpu_torch.models import llama
@@ -82,6 +90,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(entry):
         "ingestor": lambda **kw: DeviceIngestor(**kw),
         "init_params": lambda **kw: llama.init_params(
             llama.LlamaConfig(n_layers=1), **kw),
+        "init_cache": lambda **kw: llama.init_cache(
+            llama.LlamaConfig(n_layers=1), 1, 4, **kw),
     }[entry]
     assert make(device="cpu") is not None
     if torch.cuda.is_available():

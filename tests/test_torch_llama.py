@@ -9,7 +9,10 @@ summation order of the matmuls differs).  One AdamW step of
 Packed-document batches (``segment_ids``) are held to the JAX package at
 the same tolerances, and each remat policy to the port's "none" (loss and
 gradients at ``rtol 1e-6``: the recompute repeats the same float ops) and
-to the JAX package under the same policy.
+to the JAX package under the same policy.  KV-cache decode is held to the
+JAX package's cached forward at the same 2e-5 (prefill and each step),
+greedy ``generate`` to equal tokens, and the sampling filters, EOS masking
+and validation errors to the reference's.
 """
 
 import dataclasses
@@ -265,3 +268,126 @@ def test_remat_resolve_matches_jax():
             tremat.resolve(junk)
         with pytest.raises(ValueError):
             tllama.LlamaConfig(remat=junk)
+
+
+# -- KV-cache decode and generation ------------------------------------------
+
+
+def test_forward_with_cache_matches_jax_prefill_and_each_step(weights):
+    """Prefill of an 8-token prompt, then T = 1 steps, each step's logits
+    at 2e-5 against the JAX package's cached forward on the same cache
+    positions."""
+    np_params, tokens = weights
+    tp = tllama.params_from_numpy(np_params, device="cpu")
+    jp = jax.tree.map(jnp.asarray, np_params)
+    cfg = _tcfg()
+    prompt, L = tokens[:, :8], 16
+    jcache = jllama.init_cache(JCFG, 2, L)
+    tcache = tllama.init_cache(cfg, 2, L, device="cpu")
+    assert tuple(tcache["k"].shape) == jcache["k"].shape
+    want, jcache = jllama.forward_with_cache(jp, jnp.asarray(prompt), JCFG,
+                                             jcache, jnp.int32(0))
+    got, tcache = tllama.forward_with_cache(tp, torch.from_numpy(prompt), cfg,
+                                            tcache, 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    last, _ = tllama.forward_with_cache(tp, torch.from_numpy(prompt), cfg,
+                                        tllama.init_cache(cfg, 2, L, "cpu"), 0,
+                                        last_only=True)
+    np.testing.assert_allclose(last.numpy(), got.numpy()[:, -1:], atol=1e-6)
+    for pos in range(8, 12):
+        step = tokens[:, pos:pos + 1]
+        want, jcache = jllama.forward_with_cache(
+            jp, jnp.asarray(step), JCFG, jcache, jnp.int32(pos))
+        got, tcache = tllama.forward_with_cache(
+            tp, torch.from_numpy(step), cfg, tcache, pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(tcache["k"].numpy(),
+                                   np.asarray(jcache["k"]), atol=2e-5)
+    # The cached steps equal the no-cache forward of the same prefix.
+    full = tllama.forward(tp, torch.from_numpy(tokens[:, :12]), cfg)
+    np.testing.assert_allclose(got.numpy()[:, 0], full.numpy()[:, 11],
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_greedy_generate_tokens_equal_jax(weights):
+    np_params, tokens = weights
+    prompt = tokens[:1, :12]
+    want = jllama.generate(jax.tree.map(jnp.asarray, np_params),
+                           jnp.asarray(prompt), JCFG, max_new_tokens=10)
+    got = tllama.generate(tllama.params_from_numpy(np_params, device="cpu"),
+                          torch.from_numpy(prompt), _tcfg(), max_new_tokens=10)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1, 22)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    one = tllama.generate(tllama.params_from_numpy(np_params, device="cpu"),
+                          torch.from_numpy(prompt), _tcfg(), max_new_tokens=1)
+    np.testing.assert_array_equal(one.numpy(), np.asarray(want)[:, :13])
+    same = tllama.generate(tllama.params_from_numpy(np_params, device="cpu"),
+                           torch.from_numpy(prompt), _tcfg(), max_new_tokens=0)
+    assert torch.equal(same, torch.from_numpy(prompt))
+
+
+@pytest.mark.parametrize("top_k,top_p", [(5, None), (None, 0.7), (8, 0.5),
+                                         (1, None), (None, 1.0)])
+def test_sample_filter_masks_equal_jax(top_k, top_p):
+    logits = np.random.default_rng(3).standard_normal((4, 128)).astype(
+        np.float32) * 3
+    want = np.asarray(jllama._sample_filter(jnp.asarray(logits), top_k, top_p))
+    got = tllama._sample_filter(torch.from_numpy(logits), top_k, top_p).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_array_equal(got[~np.isinf(got)], want[~np.isinf(want)])
+
+
+def test_eos_masking_matches_jax(weights):
+    np_params, tokens = weights
+    prompt = tokens[:2, :6]
+    tp = tllama.params_from_numpy(np_params, device="cpu")
+    plain = tllama.generate(tp, torch.from_numpy(prompt), _tcfg(),
+                            max_new_tokens=8).numpy()
+    eos = int(plain[0, 8])  # row 0 emits it as its third new token
+    want = jllama.generate(jax.tree.map(jnp.asarray, np_params),
+                           jnp.asarray(prompt), JCFG, max_new_tokens=8,
+                           eos_id=eos)
+    got = tllama.generate(tp, torch.from_numpy(prompt), _tcfg(),
+                          max_new_tokens=8, eos_id=eos)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    row = got.numpy()[0, 6:]
+    first = int(np.argmax(row == eos))
+    assert (row[first:] == eos).all()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=5), dict(top_p=0.9), dict(temperature=1.0, top_k=0),
+    dict(temperature=1.0, top_p=0.0), dict(temperature=1.0, top_p=1.5),
+    dict(eos_id=128), dict(eos_id=-1), dict(temperature=0.5),
+])
+def test_generate_validation_errors_match_jax(weights, kw):
+    np_params, tokens = weights
+    prompt = tokens[:1, :4]
+    with pytest.raises(ValueError) as jerr:
+        jllama.generate(jax.tree.map(jnp.asarray, np_params),
+                        jnp.asarray(prompt), JCFG, max_new_tokens=2, **kw)
+    with pytest.raises(ValueError) as terr:
+        tllama.generate(tllama.params_from_numpy(np_params, device="cpu"),
+                        torch.from_numpy(prompt), _tcfg(), max_new_tokens=2,
+                        **kw)
+    if "temperature" in kw and len(kw) == 1:
+        # The reference asks for a PRNG key, the port for a generator.
+        assert "key" in str(jerr.value) and "generator" in str(terr.value)
+    else:
+        assert str(terr.value) == str(jerr.value)
+
+
+def test_sampling_with_a_generator_is_reproducible(weights):
+    np_params, tokens = weights
+    tp = tllama.params_from_numpy(np_params, device="cpu")
+    prompt = torch.from_numpy(tokens[:2, :4])
+
+    def sample(seed):
+        return tllama.generate(tp, prompt, _tcfg(), max_new_tokens=6,
+                               temperature=0.8, top_k=20, top_p=0.9,
+                               generator=torch.Generator().manual_seed(seed))
+
+    a, b = sample(1), sample(1)
+    assert torch.equal(a, b) and int(a.max()) < JCFG.vocab

@@ -45,6 +45,8 @@ def test_ported_paths_mirror_the_reference_layout():
     "transport/connection.py", "transport/shm_ring.py",
     "transport/csrc/shm_ring.cpp",
     "watchdog.py", "transport/envelope.py", "shuffle.py",
+    "checkpoint.py", "concurrency.py", "resilience/__init__.py",
+    "resilience/ckpt.py", "resilience/guard.py", "models/llama.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"

@@ -8,7 +8,8 @@ optax's hyper-parameters.  Per-window losses agree within ``rtol 1e-4``
 summation order differs).  The port's fused and synchronous loops give
 bit-equal losses, as the JAX package's do.  The packed-document fit —
 ``PackedTokenProducer`` feeding ``next_token_loss(..., segment_ids=b[1])``
-over the same window stream — is held to the JAX trainer the same way.
+over the same window stream — is held to the JAX trainer the same way,
+and so is ``Trainer.evaluate`` on both of its routes.
 """
 
 import os
@@ -183,3 +184,52 @@ def test_packed_fused_and_sync_loops_give_equal_losses(packed_setup):
     sync = _torch_packed_fit(path, params, fused=False).losses
     assert fused == sync
     assert all(np.isfinite(fused))
+
+
+# -- Trainer.evaluate ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("window_stream", [True, False])
+def test_evaluate_matches_jax_trainer(setup, window_stream):
+    """Both routes — each window's batches in one pass (weighted by batch
+    count), and per batch through the prefetcher — on a held-out stream
+    (another seed), from the same params: rtol 1e-4 against the JAX
+    package's ``evaluate``; under ``no_grad`` no autograd graph is kept."""
+    path, params = setup
+    jtrainer = JaxTrainer(
+        loss_fn=lambda p, b: jllama.next_token_loss(p, b[0], JCFG),
+        optimizer=optax.adamw(LR),
+        mesh=make_mesh({"dp": 1}, devices=jax.local_devices()[:1]),
+        param_specs=jllama.param_specs(JCFG),
+        init_params=jax.tree.map(jnp.asarray, params),
+        batch_spec=P(("dp",)),
+    )
+    want = jtrainer.evaluate(
+        JaxTokens(path, SEQ, ROWS, seed=9), jtrainer._init_fn(
+            jtrainer._init_params),
+        lambda p, b: jllama.next_token_loss(p, b[0], JCFG),
+        batch_size=BATCH, n_producers=2, n_epochs=4,
+        output="jax" if window_stream else "numpy",
+        window_stream=window_stream,
+    )
+    trainer = Trainer(
+        loss_fn=lambda p, b: tllama.next_token_loss(p, b[0], TCFG),
+        optimizer=adamw(LR),
+        init_params=tllama.params_from_numpy(params, device="cpu"),
+        device="cpu",
+    )
+    grads = []
+
+    def metric(p, b):
+        loss = tllama.next_token_loss(p, b[0], TCFG)
+        grads.append(loss.requires_grad)
+        return loss
+
+    got = trainer.evaluate(
+        TorchTokens(path, SEQ, ROWS, seed=9), trainer._init_fn(
+            trainer._init_params), metric,
+        batch_size=BATCH, n_producers=2, n_epochs=4,
+        window_stream=window_stream,
+    )
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert len(grads) == 4 * ROWS // BATCH and not any(grads)
