@@ -78,9 +78,9 @@ Phase 7 is recovery in PROCESS mode, on the token cell of phase 6 over 6
 windows: a PROCESS fit, then the same fit with one producer SIGKILLed at
 its second refill under ``Trainer(watchdog_respawn=True)`` — losses bit-
 equal, one respawn, no failure, the same kernel launches, every window
-on the alias route — and a THREAD fit with one committed slot corrupted
-after its trailer was stamped (a one-shot wrapper around the ring's
-commit in this script) — one replay, losses bit-equal.  Then the global
+on the alias route — and a THREAD fit with producer 1's window of seq 2
+corrupted after its trailer was stamped (a ``FaultPlan``:
+``producer.commit`` RING_CORRUPTION) — one replay, losses bit-equal.  Then the global
 shuffle of phase 4 with PROCESS producers: four instances over one
 ``ShmRendezvous`` session, windows onto cuda:0 through the staged engine,
 byte-identical to the THREAD tier's drain, and again with instance 0's
@@ -92,9 +92,10 @@ Phase 8 is the path ``examples/train_llama_torch.py`` drives, on the
 token cell: the run's ``LoaderConfig``/``TrainConfig`` through ``load()``
 (the checkpoint directory from ``DDL_TORCH_CHECKPOINT_DIR``, each field's
 source printed); an undisturbed PROCESS fit of 4 windows; the same fit
-with async checkpoints, drained by a programmatic ``PreemptionGuard``
-notice after window 2 (the forced final generation, ~17.8 GB, after a
-disk check for two), then resumed by a fresh ``Trainer`` — its losses
+with async checkpoints, drained by a ``PreemptionGuard`` notice after
+window 2 (the ``resilience.notice`` fault site's PREEMPT_NOTICE at the
+guard's second poll; the forced final generation, ~17.8 GB, after a disk
+check for two), then resumed by a fresh ``Trainer`` — its losses
 must equal the undisturbed fit's bit for bit and K1-K3 launch as often;
 ``Trainer.evaluate(window_stream=True)`` on three held-out streams (K1
 only, within a limit of the dense path's loss that two controls, the
@@ -105,6 +106,36 @@ snapshot stall (``resilience.ckpt_submit``), the write
 (``resilience.ckpt_write``), the restore and the drain against its
 deadline.
 
+Phase 9 is the wire and the fault plan.  (a) The card's wire encode and
+decode (``parallel.ici.encode2d``/``decode2d``) against the host
+``wire.encode_window``/``decode_window`` on the ICI geometry's (65536,
+256) fp32 block: bf16 and int8 byte for byte, payload and scales, and
+bit for bit decoded, each timed; K7/K8 on uint8 wire rows 52 and 260
+bytes wide.  (b) The ICI tier on the raw, bf16 and int8 wires: phase 5's
+64 MiB windows put onto 4 positions of cuda:0 (K8 split, K7 replicated),
+every position's values the host decode of the host encode, the drift in
+the reference's bounds, ``ici.bytes`` the plan's, no fallback, one
+launch per put on uint8 rows, and ms per put.  (c) The slot wire: the
+ArrayProducer in bf16 and int8 through ``windows()`` onto cuda:0, THREAD
+then PROCESS, the stream the host decode of the host encode bit for bit,
+every window decoded and copied through the staging pool (never
+aliased), and an encoded slot corrupted after its stamp (``wire.encode``)
+replayed.  (d) The exchange lanes at phase 4's geometry: zlib lanes
+byte-identical to the raw drain in THREAD (through the device shuffler,
+whose tier the forced wire keeps off: no K9 launch) and in PROCESS over a
+``ShmRendezvous``; int8 lanes within the drift bound of the raw drain,
+whose every round partitions the rows.  (e) The ride-along, driven by
+fault plans: a hung THREAD producer respawned under a 10 s stall budget
+(the time from the hang to the replacement's first window), replay
+exhaustion raising ``IntegrityError`` with two replays, the packed cell's
+PROCESS fit through respawns of its crashing producer 1 (plan exported;
+losses bit-equal to phase 6's), and a torn checkpoint generation at the
+twin example's laptop scale quarantined and the previous one restored.
+Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
+import chip_smoke as c; card = c.phase_build();
+c.phase_wire(tempfile.mkdtemp(), card)"`` (it then makes its own
+undisturbed fits).
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -114,6 +145,7 @@ without that line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1030,9 +1062,11 @@ class PoolProducer:
     ``fast_forward`` replays only the RNG: a respawned pusher restores
     the pool from its ring's last committed slot."""
 
-    def __init__(self, instance_idx, rows, cols, sentinel=None, kill_at=0):
+    def __init__(self, instance_idx, rows, cols, sentinel=None, kill_at=0,
+                 tag_scale=1.0):
         self.instance_idx, self.rows, self.cols = instance_idx, rows, cols
         self.sentinel, self.kill_at = sentinel, kill_at
+        self.tag_scale = tag_scale
         self.refills = 0
 
     def on_init(self, **kw):
@@ -1050,7 +1084,8 @@ class PoolProducer:
 
         my_ary[:, 1:] = self._rng.standard_normal(
             (self.rows, self.cols - 1), dtype=np.float32)
-        my_ary[:, 0] = self.instance_idx * 1e6 + np.arange(self.rows)
+        my_ary[:, 0] = ((self.instance_idx * 1e6 + np.arange(self.rows))
+                        * self.tag_scale)
 
     def execute_function(self, my_ary, **kw):
         self.refills += 1
@@ -1071,9 +1106,10 @@ def _pool_producer_class():
     return PoolProducer
 
 
-def drain_instances(factory_of):
+def drain_instances(factory_of, tag_scale=1.0):
     """Four THREAD instances in this process, one producer each, drained
-    to the card: returns (served streams, pushers, drain seconds)."""
+    to the card: returns (served streams, pushers, drain seconds).
+    ``tag_scale`` scales the pools' row tags (column 0)."""
     import threading
 
     import torch
@@ -1108,7 +1144,8 @@ def drain_instances(factory_of):
             pt = threading.Thread(target=producer, daemon=True)
             pt.start()
             loader = DistributedDataLoader(
-                Pool(i, sh["rows"], sh["cols"]), batch_size=sh["batch_size"],
+                Pool(i, sh["rows"], sh["cols"], tag_scale=tag_scale),
+                batch_size=sh["batch_size"],
                 connection=ConsumerConnection([cons_end]),
                 n_epochs=sh["n_epochs"],
                 global_shuffle_fraction_exchange=sh["fraction"],
@@ -2122,17 +2159,16 @@ def _fit_faults(run, clean, tag, faults, **want):
 def recovery_fits(tmpdir: str, card: str):
     """(a) the token cell in PROCESS mode, undisturbed and with one
     producer SIGKILLed at its second refill under a respawning watchdog;
-    (b) the same cell in THREAD mode with one committed slot corrupted
-    after its trailer was stamped, by a one-shot wrapper around the
-    ring's commit.  Both must give the undisturbed fit's losses bit for
-    bit and launch the same kernels as often."""
+    (b) the same cell in THREAD mode with producer 1's window of seq 2
+    corrupted after its trailer was stamped, by a fault plan
+    (``producer.commit`` RING_CORRUPTION).  Both must give the undisturbed
+    fit's losses bit for bit and launch the same kernels as often."""
     import numpy as np
 
-    from ddl_tpu_torch import integrity
+    from ddl_tpu_torch import faults as flt
     from ddl_tpu_torch.models import llama
     from ddl_tpu_torch.ops import flash_attention as fa
     from ddl_tpu_torch.readers import TokenStreamProducer
-    from ddl_tpu_torch.transport.ring import ThreadRing
 
     rc, tr = RECOVERY, TRAIN
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
@@ -2151,23 +2187,14 @@ def recovery_fits(tmpdir: str, card: str):
         trainer, KillOnceProducer(tokens, sentinel, rc["kill_at"]),
         "process", "[recovery] sigkill", card)
 
-    original, fired = ThreadRing.commit, []
-
-    def corrupt_once(ring, slot, payload_bytes):
-        """Flip one payload byte of producer 1's window 2, after its
-        trailer was stamped (the slot then fails its CRC)."""
-        hdr = integrity.read_header(ring.slot_view(slot), payload_bytes)
-        if hdr.producer_idx == 1 and hdr.seq == 2 and not fired:
-            ring.slot_view(slot)[payload_bytes // 2] ^= 0xFF
-            fired.append(time.time())
-        return original(ring, slot, payload_bytes)
-
-    ThreadRing.commit = corrupt_once
-    try:
+    # Producer 1's third commit (seq 2), flipped after the stamp.
+    plan = flt.FaultPlan([flt.FaultSpec(
+        "producer.commit", flt.FaultKind.RING_CORRUPTION, at=3,
+        producer_idx=1, param=1)], seed=SEED)
+    with flt.armed(plan):
         replayed = _recovery_fit(trainer, tokens, "thread",
                                  "[recovery] corrupt slot", card)
-    finally:
-        ThreadRing.commit = original
+    fired = plan.fired
     del trainer
     free_device_memory()
 
@@ -2230,10 +2257,11 @@ def recovery_fits(tmpdir: str, card: str):
                            "sigkill": killed["first_window_s"],
                            "corrupt": replayed["first_window_s"]},
         "losses": clean["losses"],
+        "clean": clean,
     }
 
 
-def process_shuffle_drain(session, sentinel=None):
+def process_shuffle_drain(session, sentinel=None, **wire):
     """The global-shuffle path with PROCESS producers: four instances in
     this process, each a WorkerSet of one spawned producer exchanging
     over ``ShmRendezvous(session)``, each loader draining its windows
@@ -2241,7 +2269,8 @@ def process_shuffle_drain(session, sentinel=None):
     0's producer SIGKILLs itself at its refill ``shuffle_kill_at`` and a
     watchdog respawns it.  Returns (per-instance windows as card tensors
     of shape (rows, cols) per epoch, the loaders' metrics, the drain's
-    seconds, the watchdog's respawns)."""
+    seconds, the watchdog's respawns).  ``wire`` goes to the shuffler
+    factory (``wire_dtype=``, ``codec=``)."""
     import threading
 
     import torch
@@ -2253,7 +2282,8 @@ def process_shuffle_drain(session, sentinel=None):
     from ddl_tpu_torch.watchdog import Watchdog
 
     sh, rc = SHUFFLE, RECOVERY
-    factory = ThreadExchangeShuffler.factory(rendezvous=ShmRendezvous(session))
+    factory = ThreadExchangeShuffler.factory(rendezvous=ShmRendezvous(session),
+                                             **wire)
     streams, metrics, errors = {}, {}, []
     sets = [None] * sh["n"]
     t0 = time.perf_counter()
@@ -2460,14 +2490,7 @@ def _example_fit(cfg, train_cfg, model, producer, ckpt_dir=None, guard=None,
     from ddl_tpu_torch.parallel.train import adamw
     from ddl_tpu_torch.trainer import Trainer
 
-    seen = []
-
-    def hook(win):
-        seen.append(1)
-        if notice_at is not None and len(seen) == notice_at:
-            guard.notify("programmatic notice after window "
-                         f"{notice_at}")
-        return win
+    from ddl_tpu_torch import faults as flt
 
     trainer = Trainer(
         loss_fn=lambda p, b: llama.next_token_loss(p, b[0], model),
@@ -2480,7 +2503,16 @@ def _example_fit(cfg, train_cfg, model, producer, ckpt_dir=None, guard=None,
         checkpoint_every_epochs=1000, checkpoint_async=True,
         preemption_guard=guard,
     )
-    res = trainer.fit(producer, config=cfg, window_hook=hook)
+    # The notice: the resilience.notice site's PREEMPT_NOTICE at the
+    # guard's notice_at-th poll, the boundary after window notice_at.
+    plan = (flt.FaultPlan([flt.FaultSpec(
+        "resilience.notice", flt.FaultKind.PREEMPT_NOTICE, at=notice_at)])
+        if notice_at is not None else None)
+    with (flt.armed(plan) if plan is not None else contextlib.nullcontext()):
+        res = trainer.fit(producer, config=cfg)
+    if plan is not None and len(plan.fired) != 1:
+        raise PhaseFailed(f"[example] the notice fired {len(plan.fired)} "
+                          "times")
     return res, trainer
 
 
@@ -2771,6 +2803,712 @@ def phase_example(tmpdir: str, card: str):
     }
 
 
+# ------------------------------------------------------------- phase 9 ---
+
+#: The wire and the fault plan.  ``ici_windows`` of phase 5's 64 MiB
+#: ArrayProducer windows per ICI leg (their values held against the host
+#: encode), ``reps`` timed puts each; ``slot_windows`` per slot-wire drain.
+WIRE = dict(ici_windows=2, slot_windows=4, reps=5)
+#: The drift bounds of the JAX package's wire tests, relative to max|x|
+#: (tests/test_wire.py:918): int8 in (0, 0.02), bf16 under 0.01.
+DRIFT = {"int8": 0.02, "bf16": 0.01}
+#: The ride-along: producer 1 hangs at its ``hang_at``-th refill under a
+#: ``stall_budget_s`` watchdog (THREAD); a corruption at producer 1's
+#: ``exhaust_at``-th commit that outlasts DDL_TORCH_MAX_REPLAYS (its
+#: ``count``); producer 1 crashes at its ``crash_at``-th refill in every
+#: incarnation of the packed PROCESS fit (the plan exported); the fit
+#: that must raise gets ``exhaust_timeout_s``.
+CHAOS = dict(hang_at=2, stall_budget_s=10.0, exhaust_at=3, exhaust_count=50,
+             crash_at=2, exhaust_timeout_s=120.0)
+#: The pool producer's tag scale for the int8 exchange: small tags keep
+#: every 256-value block's scale set by the pool's normal values, so rows
+#: stay distinguishable after quantization.
+INT8_TAG_SCALE = 1e-7
+
+
+def _timed_plan(specs):
+    """A fault plan that also records the wall time at which each of its
+    specs fired in ``fired_at`` (stamped before the fault acts: a hang's
+    start)."""
+    from ddl_tpu_torch.faults import FaultPlan
+
+    class TimedPlan(FaultPlan):
+        def __init__(self, specs):
+            super().__init__(specs)
+            self.fired_at = []
+
+        def fire(self, site, producer_idx, view, should_abort):
+            t, n = time.time(), len(self.fired)
+            try:
+                return super().fire(site, producer_idx, view, should_abort)
+            finally:
+                self.fired_at.extend([t] * (len(self.fired) - n))
+
+    return TimedPlan(specs)
+
+
+def _wire_rows(x, wd):
+    """The host ``encode_window`` of a 2-D array as the ICI wire's rows:
+    the payload, then (int8) the row's scales."""
+    import numpy as np
+
+    from ddl_tpu_torch import wire
+
+    payload, scales = wire.encode_window(x, wd)
+    rows = x.shape[0]
+    if scales is None:
+        return payload.reshape(rows, -1)
+    return np.concatenate([payload.reshape(rows, -1),
+                           scales.view(np.uint8).reshape(rows, -1)], axis=1)
+
+
+def _host_roundtrip(x, wd):
+    """The host decode of the host encode of ``x`` (its rows the first
+    dim, the rest flattened)."""
+    from ddl_tpu_torch import wire
+
+    flat = x.reshape(x.shape[0], -1)
+    payload, scales = wire.encode_window(flat, wd)
+    return wire.decode_window(payload, scales, flat.shape, flat.dtype,
+                              wd).reshape(x.shape)
+
+
+def wire_device_checks():
+    """(a) The card's encode and decode against the host's, on the ICI
+    geometry's (65536, 256) fp32 block from seed 0: encode byte for byte
+    (payload and scales), decode bit for bit; each timed on the card
+    (CUDA events) and on the host clock.  Then K7/K8 on encoded rows whose
+    width is no multiple of 16 bytes, against their plain versions."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch import wire
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.ici import decode2d, encode2d
+
+    g = ICI
+    x = np.random.default_rng(SEED).standard_normal((g["rows"], g["cols"]),
+                                                    dtype=np.float32)
+    xd = torch.from_numpy(x).cuda()
+    faults, out = [], {}
+    for wd in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        payload, scales = wire.encode_window(x, wd)
+        host_enc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host_dec = wire.decode_window(payload, scales, x.shape, x.dtype, wd)
+        host_dec_ms = (time.perf_counter() - t0) * 1e3
+        want = _wire_rows(x, wd)
+        w = encode2d(xd, wd)
+        got = w.cpu().numpy()
+        diff = np.flatnonzero(got.reshape(-1) != want.reshape(-1))
+        back = decode2d(w, g["cols"], torch.float32, wd).cpu().numpy()
+        same_dec = back.tobytes() == host_dec.tobytes()
+        enc_ms = _time_ms(lambda: encode2d(xd, wd))
+        dec_ms = _time_ms(lambda: decode2d(w, g["cols"], torch.float32, wd))
+        where = ""
+        if diff.size:
+            first = np.unravel_index(diff[0], got.shape)
+            where = (f" (first at row {first[0]}, byte {first[1]}: "
+                     f"{'scales' if first[1] >= g['cols'] else 'payload'})")
+        log(f"[wire] device {wd} encode of the ({g['rows']}, {g['cols']}) fp32 "
+            f"block: {diff.size} bytes differ from the host encode{where}; "
+            f"device decode bit-equal to the host decode {same_dec}; card "
+            f"encode {enc_ms:.4f} ms, decode {dec_ms:.4f} ms (CUDA events); "
+            f"host encode {host_enc_ms:.1f} ms, decode {host_dec_ms:.1f} ms "
+            f"(numpy, host clock)")
+        if diff.size or not same_dec or w.dtype != torch.uint8:
+            faults.append(f"{wd}: {diff.size} encode bytes differ, decode "
+                          f"bit-equal {same_dec}, encoded as {w.dtype}")
+        out[wd] = {"device_encode_ms": enc_ms, "device_decode_ms": dec_ms,
+                   "host_encode_ms": host_enc_ms,
+                   "host_decode_ms": host_dec_ms,
+                   "encode_bytes_differing": int(diff.size)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    devs = ["cuda:0"] * g["n"]
+    for rows, width in ((64, 52), (g["rows"], g["cols"] + 4)):
+        block = _fanout_case(rows, width, torch.uint8, gen)
+        same = (_same_blocks(fan.fanout_shard(block, devs),
+                             fan.shard_plain(block, g["n"]))
+                and _same_blocks(fan.fanout_replicate(block, devs),
+                                 fan.replicate_plain(block, g["n"])))
+        torch.cuda.synchronize()
+        log(f"[wire] K8 and K7 on ({rows}, {width}) uint8 wire rows "
+            f"({width} bytes, {width % 16} past a 16-byte multiple): "
+            f"byte-equal to their plain versions {same}")
+        if not same:
+            faults.append(f"K7/K8 on ({rows}, {width}) wire rows")
+    if faults:
+        raise PhaseFailed("[wire] device encode/decode: " + "; ".join(faults))
+    return out
+
+
+def wire_ici_legs(host, card):
+    """(b) The ICI tier on the wire: phase 5's 64 MiB windows put onto a
+    mesh of 4 positions of cuda:0 by ``IciDistributor.put`` (the ingest
+    seam's one call), K8 split and K7 replicated, on the raw, bf16 and
+    int8 wires.  Every position's values equal the host decode of the
+    host encode of the window's 2-D view; the drift stays in the
+    reference's bounds; ``ici.bytes`` is the plan's wire bytes, with
+    ``0 < wire.encoded_bytes < wire.payload_bytes``; no fallback; one
+    launch per put, on uint8 rows.  Then ``reps`` timed puts a wire."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ingest import device_put
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel import ici as ici_mod
+
+    pinned = [w.pin_memory() for w in host[:WIRE["ici_windows"]]]
+    faults, out = [], {}
+    for label, axes, spec, kname in (
+            ("dp=4, P(None, 'dp')", {"dp": 4}, (None, "dp"), "fanout_shard"),
+            ("dp=4, replicated", {"dp": 4}, (None, None, None),
+             "fanout_replicate")):
+        sh = _sharding(axes, spec)
+        out[label] = {}
+        for wd in ("raw", "bf16", "int8"):
+            m = Metrics()
+            dist = ici_mod.IciDistributor(sh, metrics=m, wire_dtype=wd)
+            fan.reset_launch_counts()
+            ok, drift = True, 0.0
+            for w in pinned:
+                res = dist.put(w, device_put)
+                torch.cuda.synchronize()
+                plan = dist.plan(w.shape, w.dtype)
+                split = plan.split_dim or 0
+                view = np.moveaxis(w.numpy(), split, 0)
+                want = (view if wd == "raw"
+                        else _host_roundtrip(np.ascontiguousarray(view), wd))
+                want = torch.from_numpy(np.ascontiguousarray(
+                    np.moveaxis(want, 0, split))).cuda()
+                wd_dev = w.cuda()
+                for s in res.shards:
+                    ok &= bool(s.data.is_contiguous() and torch.equal(
+                        _bytes(s.data), _bytes(want[s.index].contiguous())))
+                    drift = max(drift, float(
+                        (s.data - wd_dev[s.index]).abs().max()
+                        / wd_dev.abs().max()))
+                del want, wd_dev, res
+            launches = {fn.__name__: fn.launches for fn in fan.KERNELS}
+            # The rows K7/K8 carried: the plan's wire, encoded by the
+            # card's encode (phase (a) holds it to the host encode).
+            row_dtype = (torch.float32 if plan.wire_dtype == "raw" else
+                         ici_mod.encode2d(pinned[0][0, :1].cuda(), wd).dtype)
+            times = []
+            for _ in range(WIRE["reps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.put(pinned[0], device_put)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            n = len(pinned)
+            enc, pay = (m.counter("wire.encoded_bytes"),
+                        m.counter("wire.payload_bytes"))
+            wire_dtype = torch.uint8 if wd != "raw" else torch.float32
+            leg_ok = (ok and plan.wire_dtype == wd
+                      and m.counter("ici.fallbacks") == 0
+                      and launches[kname] == n
+                      and sum(launches.values()) == n
+                      and m.counter("ici.bytes") == plan.wire_bytes * (
+                          n + WIRE["reps"])
+                      and row_dtype == wire_dtype
+                      and (drift == 0.0 if wd == "raw" else
+                           0.0 < drift < DRIFT[wd])
+                      and ((enc, pay) == (0.0, 0.0) if wd == "raw"
+                           else 0 < enc < pay))
+            ms = min(times)
+            log(f"[wire-ici] {label}, {wd}: {n} windows, values = host decode "
+                f"of host encode {ok}, drift {drift:.3e}, launches {launches} "
+                f"on {row_dtype} rows, ici.bytes "
+                f"{m.counter('ici.bytes'):.0f} (plan {plan.wire_bytes} a put), "
+                f"wire.encoded_bytes {enc:.0f} / wire.payload_bytes {pay:.0f}, "
+                f"ici.fallbacks {m.counter('ici.fallbacks'):.0f}; put "
+                f"{ms:.3f} ms (min of {WIRE['reps']}, host clock to a "
+                f"synchronise, {card}) -> {'ok' if leg_ok else 'FAIL'}")
+            if not leg_ok:
+                faults.append(f"{label} {wd}")
+            out[label][wd] = {"put_ms": ms, "drift": drift,
+                              "wire_bytes": plan.wire_bytes,
+                              "encoded_bytes": plan.encoded_bytes}
+    if faults:
+        raise PhaseFailed("[wire-ici] legs failed: " + "; ".join(faults))
+    return out
+
+
+def _slot_drain(producer, mode, n_epochs, metrics):
+    """Drain ``n_epochs`` windows of ``producer`` (2 producers) onto
+    cuda:0 through the staged engine; returns the windows on the card and
+    the seconds to the loader (handshake, ring registration) and from
+    there to the first window."""
+    import torch
+
+    import ddl_tpu_torch
+
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode=mode, nslots=2)
+    def run(env):
+        t0 = time.perf_counter()
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            producer, batch_size=ICI["batch_size"], connection=env.connection,
+            n_epochs=n_epochs, output="device", device="cuda",
+            metrics=metrics, timeout_s=120.0)
+        t1 = time.perf_counter()
+        wins, first = [], None
+        for win in loader.windows(lookahead=1):
+            wins.append(win.clone())
+            first = first or time.perf_counter()
+            loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+        torch.cuda.synchronize()
+        return wins, t1 - t0, first - t1
+
+    return run()
+
+
+def wire_slot_streams(data, host, card):
+    """(c) The slot wire: the ArrayProducer with ``wire_dtype`` bf16 and
+    int8 through ``windows()`` onto cuda:0, THREAD then PROCESS.  The
+    served stream equals the host decode of the host encode of the raw
+    stream bit for bit; every window is decoded (``wire.decoded_windows``)
+    and takes the staging pool's copying route, never the alias route; no
+    CRC failure.  Then a THREAD int8 drain whose producer 1 corrupts its
+    encoded slot after the stamp (``wire.encode`` WIRE_CORRUPTION): one
+    replay, the stream unchanged."""
+    import torch
+
+    from ddl_tpu_torch import faults as flt
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import ArrayProducer
+
+    n = WIRE["slot_windows"]
+    want = {wd: [torch.from_numpy(_host_roundtrip(w.numpy().reshape(
+        ICI["window"], ICI["cols"]), wd).reshape(w.shape)) for w in host[:n]]
+        for wd in ("bf16", "int8")}
+
+    def producer(wd):
+        p = ArrayProducer(data, window_size=ICI["window"], seed=SEED)
+        p.wire_dtype = wd
+        return p
+
+    faults, out = [], {}
+    runs = [(mode, wd, None) for mode in ("thread", "process")
+            for wd in ("bf16", "int8")]
+    runs.append(("thread", "int8", "corrupt"))
+    for mode, wd, chaos in runs:
+        m = Metrics()
+        plan = (flt.FaultPlan([flt.FaultSpec(
+            "wire.encode", flt.FaultKind.WIRE_CORRUPTION, at=2,
+            producer_idx=1, param=6)]) if chaos else None)
+        t0 = time.perf_counter()
+        with (flt.armed(plan) if plan is not None
+              else contextlib.nullcontext()):
+            wins, loader_s, first_s = _slot_drain(producer(wd), mode, n, m)
+        wall = time.perf_counter() - t0
+        same = len(wins) == n and all(
+            torch.equal(_bytes(g), _bytes(e.cuda())) for g, e in
+            zip(wins, want[wd]))
+        c = {k: m.counter(k) for k in (
+            "wire.decoded_windows", "wire.encoded_bytes",
+            "wire.payload_bytes", "staging.alias_windows",
+            "integrity.corrupt_windows", "integrity.replays",
+            "integrity.staging_verify_failures", "staging.inline_fallbacks")}
+        copies = m.timer("ingest.stage_copy").count
+        replays = 1 if chaos else 0
+        run_ok = (same and c["wire.decoded_windows"] == n
+                  and c["staging.alias_windows"] == 0 and copies == n
+                  and c["integrity.corrupt_windows"] == replays
+                  and c["integrity.replays"] == replays
+                  and c["integrity.staging_verify_failures"] == 0
+                  and c["staging.inline_fallbacks"] == 0
+                  and 0 < c["wire.encoded_bytes"] < c["wire.payload_bytes"]
+                  and (plan is None or len(plan.fired) == 1))
+        tag = f"{mode} {wd}" + (", wire.encode corrupted" if chaos else "")
+        log(f"[wire-slot] {tag}: {len(wins)} windows = host decode of host "
+            f"encode {same}, staging copies {copies}, counters {json.dumps(c)}"
+            f", drain {wall:.3f} s: to the loader {loader_s:.3f} s (the "
+            f"handshake, spawns included, "
+            f"{m.timer('consumer.handshake').total_s:.3f} s; the rest the "
+            f"rings' registration), then to the first window {first_s:.3f} "
+            f"s ({card}) -> {'ok' if run_ok else 'FAIL'}")
+        if not run_ok:
+            faults.append(tag)
+        out[tag] = {"drain_s": wall, "loader_s": loader_s,
+                    "first_window_s": first_s,
+                    "ratio": c["wire.encoded_bytes"]
+                    / max(c["wire.payload_bytes"], 1.0)}
+        del wins
+    if faults:
+        raise PhaseFailed("[wire-slot] failed: " + "; ".join(faults))
+    return out
+
+
+def wire_exchange(card):
+    """(d) The exchange lanes at phase 4's geometry: the THREAD host drain
+    on the raw wire, then with ``codec="zlib"`` through the device
+    shuffler (the forced wire keeps the host exchange: no K9 launch, no
+    device round, no fallback) and over ``ShmRendezvous`` in PROCESS —
+    both byte-identical to the raw drain; then int8 lanes on a pool with
+    small tags against the same pool's raw drain: every round's raw
+    windows partition the rows, and the int8 drain sits within the drift
+    bound of it element by element (distinct rows differ by O(1))."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+    from ddl_tpu_torch.shuffle import (
+        DeviceExchangeFabric, DeviceExchangeShuffler, Rendezvous,
+        ShmRendezvous, ThreadExchangeShuffler, make_session,
+    )
+
+    sh, n = SHUFFLE, SHUFFLE["n"]
+    faults = []
+    rdv = Rendezvous()
+    raw, _, raw_s = drain_instances(
+        lambda: ThreadExchangeShuffler.factory(rdv))
+    fabric = DeviceExchangeFabric(devices=["cuda:0"] * n)
+    rdv2 = Rendezvous()
+    dsh.reset_launch_counts()
+    zz, zp, zz_s = drain_instances(lambda: DeviceExchangeShuffler.factory(
+        rendezvous=rdv2, fabric=fabric, codec="zlib"))
+    k9 = dsh.exchange_ring.launches
+    same = all(torch.equal(_bytes(raw[i]), _bytes(zz[i])) for i in range(n))
+    tier = {k: sum(p.metrics.counter(k) for p in zp.values()) for k in (
+        "shuffle.device_rounds", "shuffle.device_fallbacks",
+        "wire.encoded_bytes", "wire.payload_bytes", "wire.fallbacks")}
+    off = not any(p.shuffler.device_exchange_active for p in zp.values())
+    ok = (same and k9 == 0 and fabric.legs == 0 and off
+          and tier["shuffle.device_rounds"] == 0
+          and tier["shuffle.device_fallbacks"] == 0
+          and tier["wire.fallbacks"] == 0 and tier["wire.encoded_bytes"] > 0)
+    log(f"[wire-exchange] THREAD zlib lanes through the device shuffler: "
+        f"byte-identical to the raw drain {same}; device tier resolved off "
+        f"{off}, K9 launches {k9}, counters {json.dumps(tier)}; drains raw "
+        f"{raw_s:.3f} s, zlib {zz_s:.3f} s ({card}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        faults.append("THREAD zlib")
+    session = make_session("ddl-smoke")
+    proc, pm, proc_s, _ = process_shuffle_drain(session, codec="zlib")
+    ShmRendezvous(session).cleanup()
+    psame = all(torch.equal(_bytes(torch.cat(proc[i])), _bytes(raw[i]))
+                for i in range(n))
+    log(f"[wire-exchange] PROCESS zlib lanes over ShmRendezvous: "
+        f"byte-identical to the raw THREAD drain {psame}, drain "
+        f"{proc_s:.3f} s (spawns included; {card})")
+    if not psame:
+        faults.append("PROCESS zlib")
+    rdv3, rdv4 = Rendezvous(), Rendezvous()
+    small, _, _ = drain_instances(
+        lambda: ThreadExchangeShuffler.factory(rdv3),
+        tag_scale=INT8_TAG_SCALE)
+    i8, i8p, i8_s = drain_instances(
+        lambda: ThreadExchangeShuffler.factory(rdv4, wire_dtype="int8"),
+        tag_scale=INT8_TAG_SCALE)
+    everything = np.sort(np.concatenate([
+        i * 1e6 + np.arange(sh["rows"]) for i in range(n)]))
+    tags = [np.rint(small[i][:, 0].double().cpu().numpy() / INT8_TAG_SCALE)
+            .reshape(sh["n_epochs"], -1) for i in range(n)]
+    partitions = all(np.array_equal(np.sort(np.concatenate(
+        [tags[i][e] for i in range(n)])), everything)
+        for e in range(sh["n_epochs"]))
+    drift = max(float((i8[i] - small[i]).abs().max() / small[i].abs().max())
+                for i in range(n))
+    enc = sum(p.metrics.counter("wire.encoded_bytes") for p in i8p.values())
+    pay = sum(p.metrics.counter("wire.payload_bytes") for p in i8p.values())
+    ok8 = partitions and 0.0 < drift < DRIFT["int8"] and 0 < enc < pay
+    log(f"[wire-exchange] int8 lanes: every round of the raw drain "
+        f"partitions the rows {partitions}; int8 drain against it: drift "
+        f"{drift:.3e} (bound {DRIFT['int8']}), wire.encoded_bytes {enc:.0f} "
+        f"/ wire.payload_bytes {pay:.0f}; drain {i8_s:.3f} s ({card}) -> "
+        f"{'ok' if ok8 else 'FAIL'}")
+    if not ok8:
+        faults.append("int8 lanes")
+    if faults:
+        raise PhaseFailed("[wire-exchange] failed: " + "; ".join(faults))
+    return {"raw_drain_s": raw_s, "zlib_drain_s": zz_s,
+            "process_zlib_drain_s": proc_s, "int8_drain_s": i8_s,
+            "int8_drift": drift, "zlib_ratio": tier["wire.encoded_bytes"]
+            / max(tier["wire.payload_bytes"], 1.0)}
+
+
+def _packed_cell(tmpdir):
+    """The packed-document cell of phase 6: its config, producer and loss."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.readers import PackedTokenProducer
+
+    tr = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    docs = os.path.join(tmpdir, "docs.bin")
+    if not os.path.exists(docs):
+        documents(tr["n_tokens"]).tofile(docs)
+    producer = PackedTokenProducer(docs, tr["seq_len"], tr["window_rows"],
+                                   delimiter=EOT, seed=SEED)
+    return cfg, producer, lambda p, b: llama.next_token_loss(
+        p, b[0], cfg, segment_ids=b[1])
+
+
+def _packed_fit(tmpdir, card, plan=None):
+    """The packed cell's PROCESS fit at phase 6's length under a
+    respawning watchdog, the plan exported to the producers; every
+    respawn recorded with its producer."""
+    import contextlib
+
+    import torch
+
+    from ddl_tpu_torch import env as env_mod
+    from ddl_tpu_torch import faults as flt
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    tr = TRAIN
+    cfg, producer, loss_fn = _packed_cell(tmpdir)
+    m = Metrics()
+    trainer = Trainer(loss_fn=loss_fn, optimizer=adamw(1e-5),
+                      init_params=llama.init_params(cfg, seed=SEED,
+                                                    device="cuda"),
+                      device="cuda", metrics=m, watchdog_respawn=True)
+    respawned = []
+    original = env_mod.WorkerSet.respawn
+
+    def recording(self, producer_idx):
+        respawned.append(producer_idx)
+        return original(self, producer_idx)
+
+    env_mod.WorkerSet.respawn = recording
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with (flt.armed(plan, export=True) if plan is not None
+              else contextlib.nullcontext()):
+            res = trainer.fit(producer, config=LoaderConfig(
+                batch_size=tr["batch_size"], n_epochs=tr["n_epochs"],
+                n_producers=tr["n_producers"], mode="process",
+                window_stream=True))
+        torch.cuda.synchronize()
+    finally:
+        env_mod.WorkerSet.respawn = original
+    wall = time.perf_counter() - t0
+    out = {"losses": list(res.losses), "wall_s": wall,
+           "launches": {fn.__name__: fn.launches for fn in fa.KERNELS},
+           "respawned": respawned,
+           "counters": {k: m.counter(k) for k in (
+               "watchdog.respawns", "watchdog.failures", "consumer.windows",
+               "staging.alias_windows", "staging.alias_fallbacks",
+               "integrity.corrupt_windows", "ingest.registered_rings")}}
+    del res, trainer
+    free_device_memory()
+    return out
+
+
+def chaos_ride_along(tmpdir, card, token_ref, packed_ref):
+    """(e) The ride-along, driven by fault plans, on phase 7's token cell
+    (``token_ref``: its undisturbed fit) and phase 6's packed cell
+    (``packed_ref``: its PROCESS fit's losses and launches).
+
+    - A hung producer (THREAD, ``producer.fill`` PRODUCER_HANG on producer
+      1) under ``Trainer(watchdog_respawn=True, stall_budget_s=10)``: one
+      respawn, no failure, losses bit-equal, the same launches, every
+      window on the alias route; the time from the hang to the
+      replacement's first window.
+    - Replay exhaustion: ``producer.commit`` RING_CORRUPTION on producer 1
+      for more commits than DDL_TORCH_MAX_REPLAYS allows: the fit raises
+      ``IntegrityError`` with ``integrity.replays == 2`` within its
+      timeout, and its producers exit.
+    - Packed documents through a respawn: the packed PROCESS fit with
+      ``producer.fill`` PRODUCER_CRASH on producer 1, the plan exported
+      (each incarnation arms it anew): respawns >= 1, all of producer 1,
+      losses bit-equal to phase 6's PROCESS fit, the same K4-K6 launches.
+    - ``resilience.ckpt_write`` CKPT_CORRUPTION at the twin example's
+      laptop scale: the torn generation is quarantined and the previous
+      verified one restores."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch import faults as flt
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.exceptions import IntegrityError
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import TokenStreamProducer
+
+    rc, tr, ch = RECOVERY, TRAIN, CHAOS
+    faults, out = [], {}
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    token_file = os.path.join(tmpdir, "tokens.bin")
+    if not os.path.exists(token_file):
+        ranks = np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1
+        (ranks % cfg.vocab).astype(np.int32).tofile(token_file)
+    tokens = TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
+                                 seed=SEED)
+    trainer = _token_trainer(cfg, respawn=True)
+    if token_ref is None:
+        token_ref = _recovery_fit(trainer, tokens, "process",
+                                  "[chaos] undisturbed", card)
+
+    # The hung producer.
+    trainer.stall_budget_s = ch["stall_budget_s"]
+    plan = _timed_plan([flt.FaultSpec("producer.fill",
+                                      flt.FaultKind.PRODUCER_HANG,
+                                      at=ch["hang_at"], producer_idx=1)])
+    with flt.armed(plan):
+        hung = _recovery_fit(trainer, tokens, "thread", "[chaos] hang", card)
+    _fit_faults(hung, token_ref, "hang", faults,
+                **{"watchdog.respawns": 1, "integrity.corrupt_windows": 0,
+                   "integrity.replays": 0, "ingest.registered_rings": 0})
+    # Producer 1's seq s is the stream's window 2s; the hang holds the
+    # fill of its seq hang_at - 1.
+    first = hung["served"][2 * (ch["hang_at"] - 1)]
+    hang_s = first - plan.fired_at[0] if plan.fired_at else float("nan")
+    if len(plan.fired) != 1:
+        faults.append(f"the hang fired {len(plan.fired)} times")
+    log(f"[chaos] hung producer 1 (THREAD, stall budget "
+        f"{ch['stall_budget_s']:.0f} s, the watchdog's 2 s poll): the hang "
+        f"to the replacement's first served window {hang_s:.3f} s, of which "
+        f"the respawn call {hung['respawn_call_s']:.3f} s ({card})")
+    out["hang_to_first_window_s"] = hang_s
+    out["hang_respawn_call_s"] = hung["respawn_call_s"]
+
+    # Replay exhaustion.
+    trainer.stall_budget_s = 300.0
+    plan = flt.FaultPlan([flt.FaultSpec(
+        "producer.commit", flt.FaultKind.RING_CORRUPTION, at=ch["exhaust_at"],
+        count=ch["exhaust_count"], producer_idx=1, param=4)])
+    trainer.metrics = m = Metrics()
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        with flt.armed(plan):
+            trainer.fit(tokens, config=LoaderConfig(
+                batch_size=tr["batch_size"], n_epochs=rc["n_epochs"],
+                n_producers=tr["n_producers"], mode="thread",
+                window_stream=True, ring_timeout_s=ch["exhaust_timeout_s"]))
+    except IntegrityError as e:
+        # Only the text: the traceback's frames hold the fit's state.
+        raised = f"IntegrityError ({e})"
+    exhaust_s = time.perf_counter() - t0
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("ddl-torch-producer")]
+    ok = (raised is not None and m.counter("integrity.replays") == 2
+          and m.counter("integrity.replay_exhausted") == 1
+          and exhaust_s < ch["exhaust_timeout_s"] and not alive)
+    log(f"[chaos] replay exhaustion: the fit raised {raised} after "
+        f"{exhaust_s:.3f} s; integrity.replays "
+        f"{m.counter('integrity.replays'):.0f}, replay_exhausted "
+        f"{m.counter('integrity.replay_exhausted'):.0f}, corrupt_windows "
+        f"{m.counter('integrity.corrupt_windows'):.0f}; producer threads left "
+        f"{alive} ({card}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        faults.append("replay exhaustion")
+    out["exhaustion_s"] = exhaust_s
+    del trainer
+    free_device_memory()
+
+    # Packed documents through a respawn.
+    if packed_ref is None:
+        packed_ref = _packed_fit(tmpdir, card)
+    plan = flt.FaultPlan([flt.FaultSpec(
+        "producer.fill", flt.FaultKind.PRODUCER_CRASH, at=ch["crash_at"],
+        producer_idx=1)])
+    crashed = _packed_fit(tmpdir, card, plan)
+    c = crashed["counters"]
+    ok = (crashed["losses"] == packed_ref["losses"]
+          and crashed["launches"] == packed_ref["launches"]
+          and len(crashed["respawned"]) >= 1
+          and set(crashed["respawned"]) == {1}
+          and c["watchdog.failures"] == 0
+          and c["consumer.windows"] == tr["n_epochs"]
+          and c["staging.alias_windows"] == tr["n_epochs"]
+          and c["staging.alias_fallbacks"] == 0)
+    log(f"[chaos] packed PROCESS fit with producer 1 crashing at its refill "
+        f"{ch['crash_at']} (plan exported): respawns {crashed['respawned']}, "
+        f"losses {crashed['losses']} "
+        f"{'==' if crashed['losses'] == packed_ref['losses'] else '!='} the "
+        f"undisturbed fit's, launches {crashed['launches']}, counters "
+        f"{json.dumps(c)}, {crashed['wall_s']:.3f} s ({card}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        faults.append("packed respawn")
+    out["packed_respawns"] = crashed["respawned"]
+
+    # A torn checkpoint generation, at the example's laptop scale.
+    from ddl_tpu_torch.parallel.train import adamw, make_train_step
+    from ddl_tpu_torch.resilience import AsyncCheckpointer, restore_latest
+
+    small = llama.LlamaConfig(vocab=1024, d_model=128, n_layers=2, n_heads=4,
+                              n_kv_heads=2, d_ff=256, max_seq=64)
+    init, _ = make_train_step(
+        lambda p, b: llama.next_token_loss(p, b[0], small), adamw(1e-3),
+        "cuda")
+    st = init(llama.init_params(small, seed=SEED, device="cuda"))
+    ckpt_dir = os.path.join(tmpdir, "chaos_ckpt")
+    plan = flt.FaultPlan([flt.FaultSpec("resilience.ckpt_write",
+                                        flt.FaultKind.CKPT_CORRUPTION, at=2,
+                                        param=16)])
+    m = Metrics()
+    cp = AsyncCheckpointer(ckpt_dir, metrics=m)
+    with flt.armed(plan):
+        cp.submit(dataclasses.replace(st, step=1))
+        cp.flush()
+        cp.submit(dataclasses.replace(st, step=2))
+        cp.flush()
+    cp.close()
+    like = init(llama.init_params(small, seed=SEED + 1, device="cuda"))
+    restored = restore_latest(ckpt_dir, like=like, metrics=m)
+    same = restored is not None and all(
+        torch.equal(a, b) for a, b in zip(_leaves(like.params),
+                                          _leaves(st.params)))
+    ok = (len(plan.fired) == 1 and restored is not None
+          and restored.step == 1 and same
+          and m.counter("resilience.ckpt_quarantined") == 1)
+    log(f"[chaos] resilience.ckpt_write CKPT_CORRUPTION on generation 2 "
+        f"(laptop scale): restored step {restored.step if restored else None}"
+        f", params equal to the saved state {same}, quarantined "
+        f"{m.counter('resilience.ckpt_quarantined'):.0f} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        faults.append("checkpoint corruption")
+    if faults:
+        raise PhaseFailed("[chaos] ride-along failed: " + "; ".join(faults))
+    return out
+
+
+def phase_wire(tmpdir, card, token_ref=None, packed_ref=None):
+    """Phase 9: the wire and the fault plan.  ``token_ref`` / ``packed_ref``
+    are the undisturbed fits of phases 7 and 6; run alone, the phase makes
+    its own."""
+    import numpy as np
+
+    from ddl_tpu_torch.readers import ArrayProducer
+
+    t0 = time.perf_counter()
+    g = ICI
+    summary = {"device": wire_device_checks()}
+    free_device_memory()
+    data = np.random.default_rng(SEED).standard_normal(
+        (g["n_rows"], g["cols"]), dtype=np.float32)
+    host, _, _ = _ici_drain(ArrayProducer(data, window_size=g["window"],
+                                          seed=SEED),
+                            g["batch_size"], WIRE["slot_windows"])
+    summary["ici"] = wire_ici_legs(host, card)
+    free_device_memory()
+    summary["slot"] = wire_slot_streams(data, host, card)
+    del host, data
+    free_device_memory()
+    summary["exchange"] = wire_exchange(card)
+    free_device_memory()
+    summary["chaos"] = chaos_ride_along(tmpdir, card, token_ref, packed_ref)
+    log(f"[wire] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -2826,6 +3564,11 @@ def main(argv=None) -> int:
                 tmp, card, args.profile, packed=True)
             recovery_summary = phase_recovery(tmp, card)
             example_summary = phase_example(tmp, card)
+            wire_summary = phase_wire(
+                tmp, card, token_ref=recovery_summary["fits"].pop("clean"),
+                packed_ref={
+                    "losses": packed_summary["process"]["losses"],
+                    "launches": packed_summary["process"]["launches"]})
         # Each kernel's launches come from the run of its own path.
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
@@ -2838,6 +3581,7 @@ def main(argv=None) -> int:
         log(f"[summary-packed] {json.dumps(packed_summary)}")
         log(f"[summary-recovery] {json.dumps(recovery_summary)}")
         log(f"[summary-example] {json.dumps(example_summary)}")
+        log(f"[summary-wire] {json.dumps(wire_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -44,6 +44,9 @@ LOCK_ORDER: Tuple[str, ...] = (
     # Taken alone, around the once-per-root sweep of stale rendezvous
     # sessions.
     "shuffle.sweep",
+    # The fault plan's hit counter: taken by injection sites under any
+    # lock above while a plan is armed.
+    "faults.plan",
     "obs.metrics",
 )
 

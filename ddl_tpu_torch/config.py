@@ -5,8 +5,7 @@ vars → explicit kwargs, later layers winning.
 Every field of the JAX package's ``LoaderConfig`` and ``TrainConfig`` is
 here and loads and saves.  ``output`` names the port's device container
 ``"device"`` where the JAX package says ``"jax"``.  A field whose module
-the port has not ported yet (the shard cache, the wire formats, host
-identity, the pipeline schedule, ZeRO-1, int8 gradient communication)
+the port has not ported yet (the shard cache, host identity, the pipeline schedule, ZeRO-1, int8 gradient communication)
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when a
 consumer is handed a non-default value (:meth:`LoaderConfig.check_ported`,
 :meth:`TrainConfig.check_ported`); it is never silently ignored.
@@ -57,7 +56,10 @@ class LoaderConfig:
     cache_spill_mb: int = 1024
     cache_warm: bool = True
     cache_codec: str = ""
-    # wire format (not ported yet: the port carries raw windows only)
+    # wire format (ddl_tpu_torch.wire): "" = no opinion (the reader's
+    # capability decides), "raw"/"bf16"/"int8" force the slot wire;
+    # wire_codec names the exchange lanes' lossless codec ("none" = off).
+    # Exported to DDL_TORCH_WIRE_DTYPE/_CODEC before producers start.
     wire_dtype: str = ""
     wire_codec: str = ""
     # device-tier global shuffle: "auto" engages it when plannable,
@@ -183,8 +185,6 @@ _LOADER_UNPORTED: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("cache", "cache_ram_mb", "cache_spill_dir", "cache_spill_mb",
       "cache_warm", "cache_codec"),
      "the shard cache waits for cache/ (ROADMAP.md A4)"),
-    (("wire_dtype", "wire_codec"),
-     "the wire formats wait for wire.py (ROADMAP.md A3)"),
 )
 _PIPELINE_UNPORTED = (
     (("schedule", "pp_chunks", "n_microbatches"),
@@ -205,10 +205,7 @@ def _check_unported(cfg: Any, groups: Tuple[Tuple[Tuple[str, ...], str], ...]) -
     for names, why in groups:
         for name in names:
             value = getattr(cfg, name)
-            # "" and "none" both mean "no codec" in the JAX package.
-            if value != defaults[name] and not (
-                name == "wire_codec" and value == "none"
-            ):
+            if value != defaults[name]:
                 raise NotImplementedError(
                     f"{type(cfg).__name__}.{name}={value!r}: {why}"
                 )

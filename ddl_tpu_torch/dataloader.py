@@ -30,7 +30,17 @@ re-committed window — byte-identical, exactly once — up to
 exchange is active (whose rows no local rewind regenerates), it raises
 :class:`IntegrityError`.  Counters ``integrity.corrupt_windows``,
 ``integrity.replays`` and ``integrity.replay_exhausted``; timer
-``integrity.replay`` (quarantine to the replayed window).  Loader pools, admission and observability
+``integrity.replay`` (quarantine to the replayed window).
+
+A wire-encoded producer's windows (:mod:`ddl_tpu_torch.wire`, its
+``wire_dtype`` from the handshake) are decoded at this edge into a fresh
+host array: counters ``wire.decoded_windows``, ``wire.encoded_bytes``
+(slot bytes that traveled) and ``wire.payload_bytes`` (the decoded
+bytes served).  A failed decode (the ``wire.decode`` fault site's
+``DECODE_FAIL``) is retried once and counted in ``wire.decode_fails``,
+then raises :class:`IntegrityError`.  A decoded window is not the slot's
+bytes, so a staged stream copies it through the staging pool instead of
+taking the alias route.  Loader pools, admission and observability
 shipping of the JAX package are later slices.
 """
 
@@ -43,15 +53,17 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ddl_tpu_torch import envspec, integrity
+from ddl_tpu_torch import envspec, integrity, wire
 from ddl_tpu_torch.datasetwrapper import ProducerFunctionSkeleton
 from ddl_tpu_torch.exceptions import (
+    DecodeError,
     DoesNotMatchError,
     IntegrityError,
     LoaderStateError,
     ShutdownRequested,
     StallTimeoutError,
 )
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.transport.connection import ConsumerConnection
 from ddl_tpu_torch.types import Marker, MetaData_Consumer_To_Producer
@@ -163,6 +175,9 @@ class DistributedDataLoader:
         # Per-producer epoch lengths (unequal windows: weighted rotation).
         self._lens = [r.batches_per_window for r in replies]
         self._integrity = all(r.integrity for r in replies)
+        # Per producer: slots of an encoded producer are decoded at this
+        # edge (_slot_array).
+        self._wire_dtypes = [r.wire_dtype or "raw" for r in replies]
         # Commits discarded by quarantine replays, per ring: the logical
         # window number of a slot is its released count minus these.
         self._seq_skew = [0] * len(replies)
@@ -342,14 +357,17 @@ class DistributedDataLoader:
                 bpw, self.batch_size, *self.shapes[target][1:]
             )
             if engine is not None and not engine.faulted:
-                # The alias route needs a page-locked slot: a copy out of
-                # pageable memory would block the host.
+                # The alias route needs a page-locked slot (a copy out of
+                # pageable memory would block the host) holding the
+                # window's own bytes: a decoded window is a fresh array.
                 alias = (ingestor.stream_alias and ring.page_locked
+                         and self._wire_dtypes[target] == "raw"
                          and not engine.executor.alias_unsafe)
                 # The committed CRC certifies the staging copy when the
                 # served rows span the whole payload.
                 expected_crc = None
                 if (not alias and self._integrity
+                        and self._wire_dtypes[target] == "raw"
                         and window.nbytes == ring.slot_payload(slot)):
                     expected_crc = integrity.read_header(
                         ring.slot_view(slot), ring.slot_payload(slot)).crc
@@ -531,14 +549,44 @@ class DistributedDataLoader:
     # -- window rotation -----------------------------------------------------
 
     def _slot_array(self, target: int, slot: int) -> np.ndarray:
-        """Zero-copy window view of an acquired slot, shaped for ``target``."""
+        """Window array of an acquired slot, shaped for ``target``: a
+        zero-copy view of a raw slot, or the consumer-edge decode of an
+        encoded one into a fresh array (never a shared scratch: the
+        lookahead holds several windows of one target at once).  A failed
+        decode is retried once, then raises :class:`IntegrityError`."""
         ring = self.connection.rings[target]
         nbytes = ring.slot_payload(slot)
-        return (
-            ring.slot_view(slot)[:nbytes]
-            .view(self.dtypes[target])
-            .reshape(self.shapes[target])
-        )
+        if self._wire_dtypes[target] == "raw":
+            return (
+                ring.slot_view(slot)[:nbytes]
+                .view(self.dtypes[target])
+                .reshape(self.shapes[target])
+            )
+        view = ring.slot_view(slot)
+        hdr = integrity.read_header(view, nbytes)
+        scales = (integrity.read_scales(view, nbytes, hdr.scale_bytes)
+                  if hdr.scale_bytes else None)
+        for attempt in (1, 2):
+            try:
+                fault_point("wire.decode", view=view[:nbytes])
+                # The slot is held while it decodes: no copy of it first.
+                dec = wire.decode_window(
+                    view[:nbytes], scales, self.shapes[target],
+                    self.dtypes[target], hdr.wire_dtype,
+                )
+                break
+            except DecodeError as e:
+                self.metrics.incr("wire.decode_fails")
+                if attempt == 2:
+                    raise IntegrityError(
+                        f"window from producer {target + 1} undecodable "
+                        f"after retry ({hdr.wire_dtype} wire): {e}"
+                    ) from e
+        self.metrics.incr("wire.decoded_windows")
+        self.metrics.incr("wire.encoded_bytes",
+                          float(nbytes + hdr.scale_bytes))
+        self.metrics.incr("wire.payload_bytes", float(dec.nbytes))
+        return dec
 
     # -- deferred (event-gated) slot release -------------------------------
 

@@ -23,8 +23,20 @@ predecessor left and fast-forwards its producer function to the logical
 position in the last committed slot's trailer; with a shuffler it also
 restores ``my_ary`` from that slot and re-enters the exchange schedule.
 A :class:`~ddl_tpu_torch.types.ReplayRequest` from the consumer rewinds
-the stream to a quarantined window.  Wire encoding and cross-process
-observability are later slices.
+the stream to a quarantined window.
+
+Wire format (:mod:`ddl_tpu_torch.wire`): a reader whose ``wire_dtype``
+(or ``DDL_TORCH_WIRE_DTYPE``) is ``bf16`` or ``int8`` commits the encoded
+payload, with int8 scales in the trailer extension and the CRC over the
+encoded bytes; the consumer decodes at its edge.  The handshake refuses
+a lossy wire without integrity, on a non-float window, with a forced
+``inplace_fill``, or on a geometry whose encoding does not fit the slot.
+
+Fault sites (:mod:`ddl_tpu_torch.faults`): ``producer.fill`` at the top
+of each refill, ``producer.commit`` after a raw trailer stamp,
+``wire.encode`` after an encoded one, ``pusher.inplace_fill`` with a
+write-once slot filled but not stamped.  Cross-process observability is
+a later slice.
 """
 
 from __future__ import annotations
@@ -34,9 +46,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 
-from ddl_tpu_torch import envspec, integrity
+from ddl_tpu_torch import envspec, integrity, wire
 from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
 from ddl_tpu_torch.exceptions import DoesNotMatchError, ShutdownRequested
+from ddl_tpu_torch.faults import armed_plan, fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.transport.connection import NOTHING, ProducerConnection
 from ddl_tpu_torch.transport.envelope import EnvelopeReceiver
@@ -126,6 +139,39 @@ class DataPusher:
 
         fn = meta.data_producer_function
         forced_inplace = bool(getattr(fn, "inplace_fill", False))
+        # The wire the slot commits carry: the reader's capability, or
+        # the env override.  A lossy wire needs the trailer (its scales
+        # travel there) and a float window; both are refused here, at the
+        # handshake, never mid-run.
+        self.wire_dtype = wire.resolve_wire_dtype(
+            getattr(fn, "wire_dtype", "raw"))
+        if self.wire_dtype != "raw":
+            if not self._integrity:
+                raise DoesNotMatchError(
+                    self.wire_dtype,
+                    "lossy wire_dtype needs DDL_TORCH_INTEGRITY on (the "
+                    "quantization scales travel in the slot trailer "
+                    "extension next to the CRC)",
+                )
+            if not wire.lossy_supported(self.dtype):
+                raise DoesNotMatchError(
+                    self.dtype.name,
+                    f"lossy wire_dtype {self.wire_dtype!r} needs a float "
+                    "window dtype (use the lossless codec tier for "
+                    "token/image shards)",
+                )
+            if forced_inplace:
+                # The encode reads the raw window: it cannot be the slot
+                # it writes.
+                raise DoesNotMatchError(
+                    type(fn).__name__,
+                    "inplace_fill producers cannot use a lossy wire_dtype "
+                    "(the encode needs the raw window as its source; use "
+                    "the default copy fill or wire_dtype='raw')",
+                )
+        self._enc_nbytes = wire.encoded_nbytes(
+            self.shape, self.dtype, self.wire_dtype)
+        self._scale_nbytes = wire.scale_bytes_for(self.shape, self.wire_dtype)
 
         # Global shuffler: an extra callback when the topology and the
         # consumer's handshake ask for one.
@@ -195,10 +241,12 @@ class DataPusher:
 
         # Write-once producers fill ring slots directly unless a shuffler
         # needs my_ary to persist across refills (the exchange mutates it
-        # between fills) or DDL_TORCH_INPLACE=0 opts out.
+        # between fills), a lossy wire needs the raw window as the
+        # encode's source, or DDL_TORCH_INPLACE=0 opts out.
         self.inplace_fill = forced_inplace or (
             bool(getattr(fn, "supports_inplace_fill", False))
             and self.shuffler is None
+            and self.wire_dtype == "raw"
             and inplace_enabled()
         )
         self._fill_slot: Optional[int] = None
@@ -210,6 +258,20 @@ class DataPusher:
         slot_bytes = self.window_nbytes + (
             integrity.HEADER_BYTES if self._integrity else 0
         )
+        if self.wire_dtype != "raw" and (
+            self._enc_nbytes + integrity.HEADER_BYTES + self._scale_nbytes
+            > slot_bytes
+        ):
+            # int8 on a window with few values per row pays 4 scale bytes
+            # per block: the encoding can outgrow the raw slot.
+            raise DoesNotMatchError(
+                self.shape,
+                f"wire_dtype {self.wire_dtype!r} does not shrink this "
+                f"window geometry (encoded {self._enc_nbytes} + trailer "
+                f"{integrity.HEADER_BYTES + self._scale_nbytes} exceeds "
+                f"the {slot_bytes}-byte slot); use wire_dtype='raw' for "
+                "windows this narrow",
+            )
         if rejoin_ring is not None:
             self.ring = connection.attach_ring(rejoin_ring)
             if self._integrity and self.ring.slot_bytes < slot_bytes:
@@ -248,6 +310,7 @@ class DataPusher:
                 batches_per_window=self.batches_per_window,
                 dtype=self.dtype.name,
                 integrity=self._integrity,
+                wire_dtype=self.wire_dtype,
             )
         )
         execute_callbacks(self.callbacks, "post_init", my_ary=self.my_ary)
@@ -264,8 +327,9 @@ class DataPusher:
         done = committed
         last = (committed - 1) % self.ring.nslots
         if self._integrity and committed:
+            # An encoded slot's trailer sits past the encoded payload.
             hdr = integrity.read_header(self.ring.slot_view(last),
-                                        self.window_nbytes)
+                                        self._enc_nbytes)
             if hdr.valid_magic:
                 done = hdr.seq + 1
         if done:
@@ -276,7 +340,21 @@ class DataPusher:
                 # regenerable; the last committed slot holds the
                 # predecessor's exact my_ary (copy fill: a shuffle forbids
                 # in-place fill, and only this producer writes its slots).
-                np.copyto(self.my_ary, self._slot_array(last))
+                if self.wire_dtype != "raw":
+                    # A lossy slot holds the decoded window, the values
+                    # the consumer served: restore those.
+                    view = self.ring.slot_view(last)
+                    hdr = integrity.read_header(view, self._enc_nbytes)
+                    wire.decode_window(
+                        view[: self._enc_nbytes],
+                        integrity.read_scales(view, self._enc_nbytes,
+                                              hdr.scale_bytes)
+                        if hdr.scale_bytes else None,
+                        self.shape, self.dtype, self.wire_dtype,
+                        out=self.my_ary,
+                    )
+                else:
+                    np.copyto(self.my_ary, self._slot_array(last))
         if self.shuffler is not None:
             self.shuffler.rejoin(done)
         self._iteration = done
@@ -293,7 +371,9 @@ class DataPusher:
         )
 
     def _stamp_and_commit(self, slot: int) -> None:
-        """Stamp the integrity trailer (crc + seq + producer) and publish."""
+        """Stamp the integrity trailer (crc + seq + producer) and publish.
+        The ``producer.commit`` site runs after the stamp, so flipped
+        bytes fail the consumer's CRC check as real corruption would."""
         view = self.ring.slot_view(slot)
         if self._integrity:
             integrity.write_header(
@@ -303,7 +383,34 @@ class DataPusher:
                 producer_idx=self.producer_idx,
                 crc=integrity.window_crc(view[: self.window_nbytes]),
             )
+        fault_point("producer.commit", producer_idx=self.producer_idx,
+                    view=view[: self.window_nbytes])
         self.ring.commit(slot, self.window_nbytes)
+
+    def _encode_and_commit(self, slot: int) -> None:
+        """The encoded commit: the slot carries the bf16/int8 payload, the
+        scales travel in the trailer extension, and the CRC covers both —
+        so wire corruption quarantines and replays as raw corruption
+        does.  The ``wire.encode`` site runs after the stamp.  The byte
+        counters land at the consumer's decode (the one registry every
+        mode shares)."""
+        view = self.ring.slot_view(slot)
+        payload, scales = wire.encode_window(self.my_ary, self.wire_dtype)
+        enc = self._enc_nbytes
+        view[:enc] = payload
+        if scales is not None:
+            integrity.write_scales(view, enc, scales)
+        integrity.write_header(
+            view, enc,
+            seq=self._iteration,
+            producer_idx=self.producer_idx,
+            crc=integrity.wire_crc(view, enc, self._scale_nbytes),
+            wire_code=wire.WIRE_CODES[self.wire_dtype],
+            scale_bytes=self._scale_nbytes,
+        )
+        fault_point("wire.encode", producer_idx=self.producer_idx,
+                    view=view[:enc])
+        self.ring.commit(slot, enc)
 
     def _commit_window(self) -> None:
         """Publish the filled window and stage the next fill target."""
@@ -311,6 +418,9 @@ class DataPusher:
             # my_ary IS the slot: publish it, then point my_ary at the
             # next free slot for the coming refill.
             self._stamp_and_commit(self._fill_slot)
+        elif self.wire_dtype != "raw":
+            slot = self.ring.acquire_fill()  # raises ShutdownRequested on stop
+            self._encode_and_commit(slot)
         else:
             slot = self.ring.acquire_fill()  # raises ShutdownRequested on stop
             np.copyto(self._slot_array(slot), self.my_ary)
@@ -320,6 +430,12 @@ class DataPusher:
         if self.inplace_fill:
             self._fill_slot = self.ring.acquire_fill()
             self.my_ary = self._slot_array(self._fill_slot)
+
+    def _should_abort(self) -> bool:
+        """What abort-observing waits poll: the ring's shutdown, or this
+        incarnation's retirement (a hung THREAD producer being
+        replaced)."""
+        return self.ring.is_shutdown() or self.connection.retired.is_set()
 
     def _poll_control(self) -> None:
         """Drain pending control messages (non-blocking, once per window).
@@ -398,8 +514,10 @@ class DataPusher:
         try:
             while True:
                 self._poll_control()
-                if self.ring.is_shutdown():
+                if self._should_abort():
                     raise ShutdownRequested()
+                fault_point("producer.fill", producer_idx=self.producer_idx,
+                            should_abort=self._should_abort)
                 # Exchange across instances, then the user's refill.  The
                 # exchange wait observes shutdown: a partner tearing down
                 # may never post its half.
@@ -408,7 +526,7 @@ class DataPusher:
                     "global_shuffle",
                     my_ary=self.my_ary,
                     iteration=self._iteration,
-                    should_abort=self.ring.is_shutdown,
+                    should_abort=self._should_abort,
                 )
                 execute_callbacks(
                     self.callbacks,
@@ -416,13 +534,26 @@ class DataPusher:
                     my_ary=self.my_ary,
                     iteration=self._iteration,
                 )
+                if self.inplace_fill and armed_plan() is not None:
+                    # The write-once slot is filled but not stamped: a
+                    # crash here leaves a torn slot that is never
+                    # committed.  The byte view is built only while a
+                    # plan is armed.
+                    fault_point(
+                        "pusher.inplace_fill",
+                        producer_idx=self.producer_idx,
+                        view=self.ring.slot_view(self._fill_slot)[
+                            : self.window_nbytes],
+                        should_abort=self._should_abort,
+                    )
                 self._commit_window()
                 execute_callbacks(
                     self.callbacks, "on_shuffle_end", iteration=self._iteration
                 )
                 self._iteration += 1
         except ShutdownRequested:
-            clean = True
+            # A retired incarnation's ring belongs to its replacement.
+            clean = not self.connection.retired.is_set()
             logger.debug(
                 "producer %d: shutdown after %d windows",
                 self.producer_idx, self._iteration,

@@ -45,10 +45,17 @@ class ProducerFunctionSkeleton(abc.ABC):
     slot (no commit copy; every call must fully rewrite it).
     ``supports_inplace_fill`` is the soft form: the pusher fills in place
     unless ``DDL_TORCH_INPLACE=0``.
+
+    ``wire_dtype`` is the wire capability (:mod:`ddl_tpu_torch.wire`):
+    ``"raw"`` commits windows at their storage dtype; ``"bf16"`` or
+    ``"int8"`` let the pusher commit the encoded payload instead (float
+    windows only, and lossy: set it on readers whose data tolerates the
+    quantization).  ``DDL_TORCH_WIRE_DTYPE`` overrides it either way.
     """
 
     inplace_fill: bool = False
     supports_inplace_fill: bool = False
+    wire_dtype: str = "raw"
 
     @abc.abstractmethod
     def on_init(self, **kwargs: Any) -> DataProducerOnInitReturn:

@@ -18,21 +18,24 @@ rejoins at its predecessor's position.  A ``shuffler_factory`` crosses
 the spawn boundary by pickle, with the producer function.
 
 MULTIHOST mode is a later slice.  Every ``DDL_TORCH_*`` knob a spawned
-producer reads (ring, integrity, in-place fill) reaches it through the
-environment it inherits, and no ``LoaderConfig`` field is read in a
-producer, so nothing needs exporting before the spawn.
+producer reads (ring, integrity, in-place fill, the wire, the fault plan
+in ``DDL_TORCH_FAULT_PLAN``) reaches it through the environment it
+inherits.  The one ``LoaderConfig`` pair a producer needs, the wire
+format, is exported there before the spawn (:func:`export_wire_knobs`).
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import os
 import pickle
 import threading
 from typing import Any, Callable, List, Optional
 
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.exceptions import ShutdownRequested, TransportError
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.transport.connection import (
     ConsumerConnection,
     PipeChannel,
@@ -46,6 +49,27 @@ logger = logging.getLogger("ddl_tpu_torch")
 #: Sentinel broadcast to producers when the consumer ends before or
 #: during the handshake.
 ABORT = "__ddl_tpu_torch_abort__"
+
+
+#: Wire env vars THIS process exported from a config (never user-set ones).
+_exported_wire_vars: set = set()
+
+
+def export_wire_knobs(config: Any) -> None:
+    """Mirror a ``LoaderConfig``'s ``wire_dtype`` / ``wire_codec`` into
+    ``DDL_TORCH_WIRE_DTYPE`` / ``DDL_TORCH_WIRE_CODEC`` before producers
+    start: a spawned producer resolves its wire from the environment it
+    inherits, and producer and consumer must agree on the slot layout.
+    An empty field states no opinion: it leaves a user's environment
+    alone and clears only this process's earlier export."""
+    for var, value in (("DDL_TORCH_WIRE_DTYPE", config.wire_dtype),
+                       ("DDL_TORCH_WIRE_CODEC", config.wire_codec)):
+        if value:
+            os.environ[var] = str(value)
+            _exported_wire_vars.add(var)
+        elif var in _exported_wire_vars:
+            os.environ.pop(var, None)
+            _exported_wire_vars.discard(var)
 
 
 def detect_topology(
@@ -74,6 +98,9 @@ def _producer_main(
     from ddl_tpu_torch.datapusher import DataPusher
 
     try:
+        # Fault site: a crash here ships to the consumer, which fails
+        # fast with a typed error instead of waiting out its timeout.
+        fault_point("producer.handshake", producer_idx=producer_idx)
         pusher = DataPusher(conn, topology, producer_idx, nslots=nslots,
                             shuffler_factory=shuffler_factory,
                             rejoin_ring=rejoin_ring)
@@ -129,6 +156,9 @@ class WorkerSet:
         self.pin_memory = pin_memory
         self.shuffler_factory = shuffler_factory
         self.threads: List[threading.Thread] = []
+        # Each thread producer's connection, whose ``retired`` flag ends
+        # a hung producer's abort-observing wait.
+        self._thread_conns: dict = {}
         self.processes: List[Any] = []
         #: Each spawned process's exit code, filled in by :meth:`join`.
         self.exitcodes: List[Optional[int]] = []
@@ -150,6 +180,7 @@ class WorkerSet:
         consumer_end, producer_end = ThreadChannel.pair()
         conn = ProducerConnection(producer_end, producer_idx,
                                   pin_memory=self.pin_memory)
+        self._thread_conns[producer_idx] = conn
         t = threading.Thread(
             target=_producer_main,
             args=(conn, self.topology, producer_idx, self.nslots,
@@ -183,13 +214,16 @@ class WorkerSet:
         return PipeChannel(parent_end), p
 
     def respawn(self, producer_idx: int) -> None:
-        """Replace a dead (or, in PROCESS mode, hung) producer with a
-        fresh worker that rejoins the surviving ring: it re-handshakes
-        over a new channel, attaches its predecessor's ring and
-        fast-forwards to the position the ring records.  The consumer's
-        drain sees only the stall.  A live thread cannot be replaced (a
-        second producer on one SPSC ring would corrupt it); a hung
-        process is terminated, then killed."""
+        """Replace a dead or hung producer with a fresh worker that
+        rejoins the surviving ring: it re-handshakes over a new channel,
+        attaches its predecessor's ring and fast-forwards to the position
+        the ring records.  The consumer's drain sees only the stall.  A
+        hung process is terminated, then killed.  A live thread is retired
+        (its connection's ``retired`` flag ends a wait that observes an
+        abort, such as an injected hang) and joined; one that does not
+        exit cannot be replaced (a second producer on one SPSC ring would
+        corrupt it).  The JAX package refuses every live thread; retiring
+        one is what lets a THREAD run recover from a hang."""
         i = producer_idx - 1
         if not 0 <= i < self.topology.n_producers:
             raise ValueError(f"no producer {producer_idx}")
@@ -214,10 +248,14 @@ class WorkerSet:
             new_ch, p = self._spawn_process(producer_idx, rejoin_ring=ring_ref)
             self.processes[i] = p
         else:
-            if self.threads[i].is_alive():
+            old = self.threads[i]
+            if old.is_alive():
+                self._thread_conns[producer_idx].retired.set()
+                old.join(10)
+            if old.is_alive():
                 raise TransportError(
                     f"producer thread {producer_idx} is still alive; only "
-                    "dead thread producers can be respawned")
+                    "dead or retirable thread producers can be respawned")
             new_ch, t = self._spawn_thread(producer_idx, rejoin_ring=ring_ref)
             self.threads[i] = t
         self.connection.rejoin_producer(producer_idx, new_ch)

@@ -140,6 +140,9 @@ _EXPLICIT: List[Knob] = [
     Knob("DDL_TORCH_CTRL_BACKOFF_S", "float", 0.02,
          "Initial acked control-envelope retry backoff, seconds "
          "(doubles per retry)."),
+    # -- fault injection -------------------------------------------------
+    Knob("DDL_TORCH_FAULT_PLAN", "str", None,
+         "JSON FaultPlan (faults.py): spawned producers arm it at import."),
 ]
 
 #: Every knob of the JAX package's registry → its twin here, ``"todo"``
@@ -200,7 +203,7 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_TUNE_COOLDOWN_S": "todo",
     "DDL_TPU_TUNE_REVERT_TOL": "todo",
     "DDL_TPU_TUNE_PARITY_HEADROOM": "todo",
-    "DDL_TPU_FAULT_PLAN": "todo",
+    "DDL_TPU_FAULT_PLAN": "DDL_TORCH_FAULT_PLAN",
     "DDL_TPU_TRACE": "todo",
     "DDL_TPU_FLIGHT": "todo",
     "DDL_TPU_FLIGHT_DIR": "todo",

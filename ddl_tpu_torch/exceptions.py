@@ -63,3 +63,32 @@ class CheckpointError(DDLError):
     (:mod:`ddl_tpu_torch.resilience`), or a generation does not fit the
     current model.  Restore-side corruption is not this error:
     unverifiable generations are quarantined and skipped."""
+
+
+class DecodeError(DDLError):
+    """A wire payload failed to decode (:mod:`ddl_tpu_torch.wire`): a
+    codec raised, an envelope field was malformed, or the declared output
+    bound was exceeded.  Also the type the ``DECODE_FAIL`` fault kind
+    raises at the ``wire.decode`` site, so chaos runs the production
+    ladder: a bounded retry, then the path's own fallback."""
+
+
+class InjectedFault(DDLError):
+    """A deliberate failure raised by the fault-injection engine
+    (:mod:`ddl_tpu_torch.faults`), only while a plan is armed: distinct
+    from the real error types, so a test can tell an injected crash from
+    a genuine one."""
+
+
+class ControlSendDropped(TransportError):
+    """One control-channel send was lost on the wire (the
+    ``CONTROL_MSG_DROP`` fault kind at ``transport.control_send``).  The
+    acked envelope seam keeps the envelope pending and retries it with
+    backoff until acked or the retry cap trips."""
+
+
+class NetworkPartitioned(TransportError):
+    """The control network partitioned: this side can neither deliver
+    nor receive control traffic for the duration (the
+    ``NETWORK_PARTITION`` fault kind at ``transport.control_send``).  The
+    envelope seam keeps retrying under its cap."""

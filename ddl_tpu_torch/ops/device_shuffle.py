@@ -22,7 +22,9 @@ Beside the kernel:
   landing and the D2H hand-back through page-locked staging, one buffer
   set per geometry.  A round runs land, kernel, hand-back on the current
   stream; its caller holds :data:`LANDING_LOCK` from the landing to the
-  hand-back, since a geometry's buffers are reused by its next round.
+  hand-back, since a geometry's buffers are reused by its next round;
+- :func:`plan_exchange` — one round's bytes per lane, device vs host, raw
+  vs the wire.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Any, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -241,3 +243,55 @@ def exchange_wire_bytes(n: int, half: int, cols: int, dtype: Any) -> int:
     if n <= 1 or half < 1:
         return 0
     return _N_LANES * n * half * cols * np.dtype(dtype).itemsize
+
+
+def plan_exchange(n: int, num_exchange: int, cols: int, dtype: Any,
+                  wire_dtype: Optional[str] = None,
+                  n_devices: Optional[int] = None) -> Dict[str, Any]:
+    """Price one exchange round, per lane, device vs host (the JAX
+    package's plan, field for field).  The host path's lanes may ride
+    the wire: a row costs the encoded row plus its scales
+    (``parallel.ici.wire_cols``); the device legs move raw rows.
+    ``plannable`` is False for a single instance, an exchange with no
+    lane rows, or fewer ring devices than instances."""
+    from ddl_tpu_torch import wire as _wire
+    from ddl_tpu_torch.parallel.ici import wire_cols
+
+    dtype = np.dtype(dtype)
+    half = num_exchange // 2
+    wd = _wire.resolve_wire_dtype(wire_dtype)
+    if wd != "raw" and not _wire.lossy_supported(dtype):
+        wd = "raw"
+    raw_row = cols * dtype.itemsize
+    host_row = wire_cols(cols, dtype, wd)
+    legs = []
+    for lane in ("lane_a", "lane_b"):
+        legs.append({
+            "leg": lane,
+            "rows": n * half,
+            "ici_bytes": n * half * raw_row,
+            "host_bytes_raw": n * half * raw_row,
+            "host_bytes_wire": n * half * host_row,
+        })
+    plannable = n >= 2 and half >= 1
+    why = None
+    if n < 2:
+        why = "single instance: nothing to exchange"
+    elif half < 1:
+        why = f"num_exchange {num_exchange} leaves no lane rows"
+    if plannable and n_devices is not None and n_devices < n:
+        plannable = False
+        why = f"ring needs {n} devices for {n} instances, have {n_devices}"
+    return {
+        "plannable": plannable,
+        "why_not": why,
+        "n": n,
+        "half": half,
+        "cols": cols,
+        "dtype": dtype.name,
+        "wire_dtype": wd,
+        "legs": legs,
+        "ici_bytes": sum(leg["ici_bytes"] for leg in legs),
+        "host_bytes_raw": sum(leg["host_bytes_raw"] for leg in legs),
+        "host_bytes_wire": sum(leg["host_bytes_wire"] for leg in legs),
+    }

@@ -19,17 +19,29 @@ bounded-memory plan and which take the plain route.  It prices the
 reference's ICI ring — landing blocks, sink chunk, transit buffers — so
 on one card the port allocates less than the plan's ``peak_bytes``.
 
+Wire (``wire_dtype``, :mod:`ddl_tpu_torch.wire`): a float window may
+cross the ring encoded.  The anchor encodes its 2-D view into ``(rows,
+wire_cols)`` uint8 rows — bf16 bits, or int8 values followed by the
+row's fp32 block scales, so any row split carries its own decode state —
+K7/K8 move those rows, and every position decodes its rows at the
+landing edge.  The encode and decode are plain torch ops on the card
+(:func:`encode2d`, :func:`decode2d`), byte-identical to the host
+``wire.encode_window``.  An int or token window plans raw.
+
 Everything is keyed by mesh position, never by device: on one card all
 positions are the same device.  Ladder: an unplannable geometry takes
 the plain route (:func:`ddl_tpu_torch.ingest.device_put`) for that
 geometry only, counted once in ``ici.fallbacks``.  A failure while
-distributing latches the whole tier to the plain route only where the
-plain kernels run (CPU tensors); on the card a kernel's failure raises.
+distributing CPU tensors — the ``ici.fanout`` fault site's injected leg
+failure included — latches the whole tier to the plain route (counted in
+``ici.fallbacks``); on the card any failure — a kernel's, an encode's, a
+decode's or an injected one — raises.
 
 Observability: ``ici.bytes`` (the plan's wire bytes), ``ici.windows``,
-``ici.fallbacks``, the ``ici.fanout`` (kernel dispatch) and
-``ici.redistribute`` (2-D view and finish) timers, and the
-``ici.peak_bytes`` / ``ici.slots_in_flight`` gauges.
+``ici.fallbacks``, the ``ici.fanout`` (encode and kernel dispatch) and
+``ici.redistribute`` (2-D view, finish and decode) timers, the
+``ici.peak_bytes`` / ``ici.slots_in_flight`` gauges, and on an encoded
+wire ``wire.encoded_bytes`` / ``wire.payload_bytes``.
 """
 
 from __future__ import annotations
@@ -43,8 +55,9 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ddl_tpu_torch import envspec
+from ddl_tpu_torch import envspec, wire
 from ddl_tpu_torch.exceptions import ShutdownRequested
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.parallel.mesh import NamedSharding, ShardedArray
 from ddl_tpu_torch.utils import done_event, value_ready
@@ -55,10 +68,6 @@ logger = logging.getLogger("ddl_tpu_torch")
 #: per-device live bytes, as the reference prices them (its worst case:
 #: a single-chunk replicate = landing + payload output + sink chunk).
 DEFAULT_MEMORY_FACTOR = 3.0
-
-#: The wire encodings of the reference; the port carries raw only.
-_WIRE_DTYPES = ("raw", "bf16", "int8")
-
 
 def fused_enabled(default: bool = True) -> bool:
     """The ``DDL_TORCH_FUSED`` gate (default on): a distributor prices
@@ -159,23 +168,68 @@ def _ring_order(mesh: Any, split_axes: Tuple[str, ...],
     return tuple(int(p) for p in np.transpose(mesh.positions(), order).reshape(-1))
 
 
-def _check_raw(wire_dtype: str) -> None:
-    """The port carries the raw wire only; the encoded wires are the
-    wire.py slice."""
-    if wire_dtype not in _WIRE_DTYPES:
-        raise ValueError(f"wire_dtype must be one of {_WIRE_DTYPES}, got "
-                         f"{wire_dtype!r}")
-    if wire_dtype != "raw":
-        raise NotImplementedError(
-            f"wire_dtype={wire_dtype!r}: the encoded ICI wires are the wire.py "
-            "slice of the port; use 'raw'"
-        )
+def _is_float(dtype: Any) -> bool:
+    dtype = _dtype(dtype)
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point
+    return wire.lossy_supported(dtype)
 
 
 def wire_cols(cols: int, dtype: Any, wire_dtype: str) -> int:
-    """Bytes of one encoded 2D row of ``cols`` values (raw only)."""
-    _check_raw(wire_dtype)
-    return cols * _dtype(dtype).itemsize
+    """uint8 columns of one encoded 2D row of ``cols`` values: the
+    payload bytes plus, for int8, the row's fp32 block scales (which
+    travel with their row).  The size formulas of :mod:`ddl_tpu_torch.
+    wire`, so a plan prices what the encode produces."""
+    wd = wire.check_wire_dtype(wire_dtype)
+    if wd == "raw":
+        return cols * _dtype(dtype).itemsize
+    return (wire.encoded_nbytes((1, cols), np.float32, wd)
+            + wire.scale_bytes_for((1, cols), wd))
+
+
+def encode2d(x: torch.Tensor, wire_dtype: str) -> torch.Tensor:
+    """Encode float rows ``(rows, cols)`` into ``(rows, wire_cols)`` uint8
+    on ``x``'s device: bf16 bits, or int8 values then the row's fp32
+    block scales.  The host ``wire.encode_window``'s numerics — block
+    maxima over zero padding, a true division (tensor by tensor; a
+    division by a Python scalar may run as a reciprocal product on the
+    card), round half to even — so the bytes equal the host encode's."""
+    rows, cols = x.shape
+    if wire_dtype == "bf16":
+        return x.to(torch.bfloat16).contiguous().view(torch.uint8).reshape(
+            rows, 2 * cols)
+    block = wire.QUANT_BLOCK
+    nblk = -(-cols // block)
+    xf = x.to(torch.float32)
+    if nblk * block != cols:
+        xf = torch.nn.functional.pad(xf, (0, nblk * block - cols))
+    xb = xf.view(rows, nblk, block)
+    s = xb.abs().amax(dim=-1) / torch.full_like(xb[..., 0], 127.0)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(xb / s.unsqueeze(-1)), -127.0, 127.0)
+    out = torch.empty((rows, cols + 4 * nblk), dtype=torch.uint8,
+                      device=x.device)
+    out[:, :cols] = q.to(torch.int8).view(rows, -1)[:, :cols].view(torch.uint8)
+    out[:, cols:] = s.contiguous().view(torch.uint8)
+    return out
+
+
+def decode2d(w: torch.Tensor, cols: int, dtype: torch.dtype,
+             wire_dtype: str) -> torch.Tensor:
+    """Inverse of :func:`encode2d`: ``(rows, wire_cols)`` uint8 rows back
+    to ``(rows, cols)`` of ``dtype`` (the host ``wire.decode_window``'s
+    numerics: int8 times its block scale in fp32)."""
+    rows = w.shape[0]
+    if wire_dtype == "bf16":
+        return w.contiguous().view(torch.bfloat16).to(dtype)
+    block = wire.QUANT_BLOCK
+    nblk = -(-cols // block)
+    q = w[:, :cols].contiguous().view(torch.int8).to(torch.float32)
+    s = w[:, cols:].contiguous().view(torch.float32)
+    if nblk * block != cols:
+        q = torch.nn.functional.pad(q, (0, nblk * block - cols))
+    out = (q.view(rows, nblk, block) * s.unsqueeze(-1)).view(rows, -1)
+    return out[:, :cols].to(dtype).contiguous()
 
 
 def plan_distribution(
@@ -214,7 +268,11 @@ def plan_distribution(
     if max_memory_factor is None:
         max_memory_factor = DEFAULT_MEMORY_FACTOR * n_slots
     fused = n_slots > 1
-    _check_raw(wire_dtype)
+    # The lossy wire applies to float windows only: an int or token
+    # geometry plans raw.
+    wire_dtype = wire.check_wire_dtype(wire_dtype)
+    if wire_dtype != "raw" and not _is_float(dtype):
+        wire_dtype = "raw"
 
     if split_dim is None:
         ring = _ring_order(mesh, (), rest_axes)
@@ -222,24 +280,25 @@ def plan_distribution(
         rows = shape[0]
         n_chunks = max(1, min(n_chunks, rows))
         enc = rows * wire_cols(int(np.prod(shape)) // rows, dtype, wire_dtype)
-        wire = ici_fanout.wire_bytes(
+        wire_b = ici_fanout.wire_bytes(
             "replicate", enc, n_dev, n_chunks, rows=rows
         )
         payload = ici_fanout.payload_bytes("replicate", nbytes, n_dev)
         # Per-device live in the reference: the window-sized landing
         # block + the kernel output (the window plus the sink chunk), one
-        # set per in-flight landing slot.
+        # set per in-flight landing slot, at the encoded size; a wire
+        # plan adds the decoded window the landing edge materialises.
         chunk = -(-rows // n_chunks) * (enc // rows)
         slot_live = 2 * enc + chunk
-        peak = n_slots * slot_live
+        peak = n_slots * slot_live + (nbytes if wire_dtype != "raw" else 0)
         legs = (
-            RedistLeg("fanout.replicate", ("x",), wire, peak,
+            RedistLeg("fanout.replicate", ("x",), wire_b, peak,
                       asynchronous=fused, wire_dtype=wire_dtype),
         )
         plan = DistributionPlan(
             mode="replicate", shape=shape, dtype=dtype, split_dim=None,
             split_axes=(), rest_axes=rest_axes, ring_positions=ring,
-            legs=legs, wire_bytes=wire, payload_bytes=payload,
+            legs=legs, wire_bytes=wire_b, payload_bytes=payload,
             peak_bytes=peak, dst_shard_bytes=nbytes,
             peak_factor=peak / nbytes, n_slots=n_slots,
             wire_dtype=wire_dtype, encoded_bytes=enc,
@@ -254,7 +313,7 @@ def plan_distribution(
         g = int(np.prod([mesh.shape[a] for a in split_axes]))
         ring = _ring_order(mesh, split_axes, rest_axes)
         enc = split * wire_cols(int(np.prod(shape)) // split, dtype, wire_dtype)
-        wire = ici_fanout.wire_bytes("shard", enc, n_dev)
+        wire_b = ici_fanout.wire_bytes("shard", enc, n_dev)
         payload = ici_fanout.payload_bytes("shard", nbytes, n_dev)
         block = enc // n_dev
         dst = nbytes // g
@@ -264,9 +323,11 @@ def plan_distribution(
         slot_live = enc + 3 * block
         extra = (n_slots - 1) * slot_live
         legs: List[RedistLeg] = [
-            RedistLeg("fanout.shard", ("x",), wire, slot_live + extra,
+            RedistLeg("fanout.shard", ("x",), wire_b, slot_live + extra,
                       asynchronous=fused, wire_dtype=wire_dtype),
         ]
+        # The decoded shard a wire plan materialises at the landing edge.
+        dec_extra = nbytes // g if wire_dtype != "raw" else 0
         if rest_axes:
             m = n_dev // g
             # Tiled gather over the replication axes: each position
@@ -274,18 +335,18 @@ def plan_distribution(
             legs.append(
                 RedistLeg(
                     "all_gather", rest_axes, n_dev * (m - 1) * block,
-                    enc + block + enc // g + extra,
+                    enc + block + enc // g + dec_extra + extra,
                     wire_dtype=wire_dtype,
                 )
             )
         legs.append(
-            RedistLeg("reshape", (), 0, enc + dst + extra)
+            RedistLeg("reshape", (), 0, enc + dst + dec_extra + extra)
         )
         peak = max(leg.peak_bytes for leg in legs)
         plan = DistributionPlan(
             mode="shard", shape=shape, dtype=dtype, split_dim=split_dim,
             split_axes=split_axes, rest_axes=rest_axes, ring_positions=ring,
-            legs=tuple(legs), wire_bytes=wire + (
+            legs=tuple(legs), wire_bytes=wire_b + (
                 legs[1].ici_bytes if rest_axes else 0
             ),
             payload_bytes=payload, peak_bytes=peak, dst_shard_bytes=dst,
@@ -313,22 +374,30 @@ def _to2d(block: torch.Tensor, split_dim: int) -> torch.Tensor:
 
 
 def _finish_replicate(rep: ShardedArray, plan: DistributionPlan,
-                      sharding: NamedSharding) -> ShardedArray:
-    """Each ring position's replica, reshaped to the window (a view),
-    placed at its mesh position."""
+                      sharding: NamedSharding,
+                      decode: Any = None) -> ShardedArray:
+    """Each ring position's replica, decoded when the wire is encoded and
+    reshaped to the window (a view of the raw replica), placed at its
+    mesh position."""
     by_position = [None] * len(plan.ring_positions)
     for r, p in enumerate(plan.ring_positions):
-        by_position[p] = rep.shards[r].data.reshape(plan.shape)
+        data = rep.shards[r].data
+        if decode is not None:
+            data = decode(data)
+        by_position[p] = data.reshape(plan.shape)
     return ShardedArray(plan.shape, sharding, by_position)
 
 
 def _finish_shard(ring_out: ShardedArray, plan: DistributionPlan,
-                  sharding: NamedSharding) -> ShardedArray:
+                  sharding: NamedSharding,
+                  decode: Any = None) -> ShardedArray:
     """Mesh position ``p`` (ring index ``r = s * m + q``: split block
     ``s``, replica ``q`` of ``m``) gathers the ring blocks ``s * m ..
     (s + 1) * m - 1`` in order, reshapes them to the window's other dims
     and moves the split axis back: one contiguous tensor per position, a
-    view of its ring block when there is nothing to gather or move."""
+    view of its ring block when there is nothing to gather or move.  On
+    an encoded wire the gathered rows are decoded first (the gather
+    moves wire bytes, as in the reference)."""
     shape, split_dim = plan.shape, plan.split_dim
     n = len(plan.ring_positions)
     m = n // int(np.prod([sharding.mesh.shape[a] for a in plan.split_axes]))
@@ -340,6 +409,12 @@ def _finish_shard(ring_out: ShardedArray, plan: DistributionPlan,
     by_position: List[Any] = [None] * n
     for r, p in enumerate(plan.ring_positions):
         s = r // m
+        if decode is not None:
+            rows_p = blocks[s * m:(s + 1) * m]
+            enc = rows_p[0] if m == 1 else torch.cat(rows_p)
+            lead = decode(enc).reshape((m * rows,) + other)
+            by_position[p] = torch.movedim(lead, 0, split_dim).contiguous()
+            continue
         if m == 1 and split_dim == 0:
             by_position[p] = blocks[r].reshape(shard_shape)
             continue
@@ -362,11 +437,17 @@ class IciDistributor:
       batch, indivisible split) takes the plain route for THAT geometry
       only, counted once in ``ici.fallbacks``; plannable geometries keep
       riding the tier.
-    - **Tier-wide latch, CPU only** — a failure while distributing CPU
-      tensors (the plain kernels) latches the plain route for the
-      distributor's life.  On the card a kernel's build or launch
-      failure raises; the first window of each geometry synchronises
-      inside :meth:`distribute`, so a fault of the kernel surfaces there.
+    - **Tier-wide latch** — any failure while distributing CPU tensors
+      (the plain kernels), the ``ici.fanout`` fault site's injected leg
+      failure included, latches the plain route for the distributor's
+      life.  On the card any failure of a kernel, an encode, a decode or
+      the fault site raises; the first window of each geometry
+      synchronises inside :meth:`distribute`, so such a fault surfaces
+      there.
+
+    ``wire_dtype`` (None: ``DDL_TORCH_WIRE_DTYPE``, else raw) is the
+    wire the ring carries.  Pass ``"raw"`` where the slot wire already
+    encoded upstream: quantizing a decoded window again adds error.
 
     **Landing slots** (``n_slots``, default
     :data:`~ddl_tpu_torch.ops.ici_fanout.N_SLOTS`, 1 under
@@ -385,12 +466,11 @@ class IciDistributor:
         max_memory_factor: Optional[float] = None,
         n_chunks: Optional[int] = None,
         n_slots: Optional[int] = None,
-        wire_dtype: str = "raw",
+        wire_dtype: Optional[str] = None,
     ):
         from ddl_tpu_torch.ops import ici_fanout
 
-        _check_raw(wire_dtype)
-        self.wire_dtype = wire_dtype
+        self.wire_dtype = wire.resolve_wire_dtype(wire_dtype)
         self.sharding = sharding
         self.metrics = metrics or default_metrics()
         if n_slots is None:
@@ -483,12 +563,21 @@ class IciDistributor:
                             plan: DistributionPlan) -> ShardedArray:
         from ddl_tpu_torch.ops import ici_fanout
 
+        fault_point("ici.fanout")
         m = self.metrics
         devices = self.sharding.mesh.device_list
         ring = [devices[p] for p in plan.ring_positions]
         t0 = time.perf_counter()
         flat = _to2d(block, 0 if plan.mode == "replicate" else plan.split_dim)
         t1 = time.perf_counter()
+        decode = None
+        if plan.wire_dtype != "raw":
+            # Anchor-local encode; every position decodes its own rows.
+            cols, dtype, wd = flat.shape[1], block.dtype, plan.wire_dtype
+            flat = encode2d(flat, wd)
+
+            def decode(w: torch.Tensor) -> torch.Tensor:
+                return decode2d(w, cols, dtype, wd)
         if plan.mode == "replicate":
             out = ici_fanout.fanout_replicate(flat, ring)
         else:
@@ -497,9 +586,10 @@ class IciDistributor:
         m.add_time("ici.fanout", t2 - t1)
         if plan.mode == "replicate":
             result = _finish_replicate(
-                ici_fanout.replicated_view(out, ring), plan, self.sharding)
+                ici_fanout.replicated_view(out, ring), plan, self.sharding,
+                decode)
         else:
-            result = _finish_shard(out, plan, self.sharding)
+            result = _finish_shard(out, plan, self.sharding, decode)
         m.add_time("ici.redistribute", (t1 - t0) + (time.perf_counter() - t2))
         key = (plan.shape, str(plan.dtype))
         if key not in self._validated:
@@ -510,6 +600,12 @@ class IciDistributor:
             self._validated.add(key)
         self._track_in_flight(result, done_event(block.device))
         m.incr("ici.bytes", float(plan.wire_bytes))
+        if plan.wire_dtype != "raw":
+            # What the ring moved per window beside the raw bytes it
+            # delivered.
+            m.incr("wire.encoded_bytes", float(plan.encoded_bytes))
+            m.incr("wire.payload_bytes",
+                   float(block.numel() * block.element_size()))
         m.incr("ici.windows")
         m.set_gauge("ici.peak_bytes", float(plan.peak_bytes))
         return result

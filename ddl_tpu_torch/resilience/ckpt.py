@@ -29,8 +29,10 @@
 Retention is keep-K.  A generation is never joined in memory: the writer
 streams its parts through :func:`~ddl_tpu_torch.checkpoint.
 atomic_file_write`, and verification and restore read it in chunks (a
-2-layer Llama-3-8B state is ~17.8 GB).  The fault site of the JAX
-package's writer waits for ``faults.py`` (ROADMAP.md A3).
+2-layer Llama-3-8B state is ~17.8 GB) — except while a fault plan is
+armed: the ``resilience.ckpt_write`` site (:mod:`ddl_tpu_torch.faults`)
+needs the stamped bytes as one mutable array, so the writer then joins
+them and ``CKPT_CORRUPTION`` flips bytes after the CRC stamp.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ddl_tpu_torch.checkpoint import (
 )
 from ddl_tpu_torch.concurrency import named_condition
 from ddl_tpu_torch.exceptions import CheckpointError, ShutdownRequested
+from ddl_tpu_torch.faults import armed_plan, fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.parallel.train import TrainState
 
@@ -581,6 +584,19 @@ class AsyncCheckpointer:
     def _write_generation(self, step: int, leaves: List[np.ndarray],
                           loader_dict: Optional[dict]) -> None:
         parts, total = _generation_parts(step, leaves, loader_dict)
+        plan = armed_plan()
+        if plan is not None and any(s.site == "resilience.ckpt_write"
+                                    for s in plan.specs):
+            # The chaos site flips bytes of the stamped payload; joined
+            # only while a spec names it (the leaves may be views of
+            # live memory, and a plan for another site costs nothing).
+            blob = np.concatenate([
+                np.frombuffer(p, np.uint8) if isinstance(p, bytes) else p
+                for p in parts
+            ])
+            fault_point("resilience.ckpt_write",
+                        view=blob[: total - integrity.HEADER_BYTES])
+            parts = [blob]
         atomic_file_write(os.path.join(self.directory, _gen_name(step)), parts)
         self.metrics.set_gauge("resilience.ckpt_bytes", float(total))
         if loader_dict is not None:

@@ -23,9 +23,11 @@ rung whose turn comes after the deadline is skipped, counted
 
 Notice sources: a SIGTERM handler (:meth:`install`), the
 ``DDL_TORCH_PREEMPT_NOTICE`` knob (optionally carrying the grace seconds
-as its value), or a programmatic :meth:`notify`.  The flight-recorder
-dump waits for ``obs/`` (ROADMAP.md A6) and the chaos site for
-``faults.py`` (A3).
+as its value), a programmatic :meth:`notify`, or the
+``resilience.notice`` fault site (:mod:`ddl_tpu_torch.faults`), whose
+``PREEMPT_NOTICE`` :meth:`poll` absorbs as a notice carrying the spec's
+grace seconds.  The flight-recorder dump waits for ``obs/`` (ROADMAP.md
+A6).
 """
 
 from __future__ import annotations
@@ -37,7 +39,13 @@ from typing import Any, Callable, Optional
 
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.concurrency import named_rlock
-from ddl_tpu_torch.exceptions import CheckpointError, DDLError, ShutdownRequested
+from ddl_tpu_torch.exceptions import (
+    CheckpointError,
+    DDLError,
+    PreemptionNotice,
+    ShutdownRequested,
+)
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 
 logger = logging.getLogger("ddl_tpu_torch")
@@ -146,6 +154,11 @@ class PreemptionGuard:
         """The trainer's once-per-window-boundary check: True once a
         notice is pending (signal, env knob, or a prior :meth:`notify`)."""
         if self._notice_t is not None:
+            return True
+        try:
+            fault_point("resilience.notice")
+        except PreemptionNotice as n:
+            self.notify("injected", deadline_s=n.deadline_s or None)
             return True
         env = envspec.raw(NOTICE_ENV) or ""
         if env and env.lower() not in envspec.FALSY:

@@ -21,12 +21,22 @@ permutation, lane B backward.
   ring devices, runs the exchange kernel K9 once
   (``ddl_tpu_torch.ops.device_shuffle``) and hands the results back.
   Byte-identical to the host tier.  A failed device leg on a card ring
-  raises out of every participant's round; on the plain version's CPU
-  ring it latches every participant to the host exchange together.
+  raises out of every participant's round, the ``shuffle.device_exchange``
+  fault site's ``ICI_DMA_FAIL`` included; on the plain version's CPU ring
+  it latches every participant to the host exchange together.
 
-Not in this slice: the exchange wire formats (``wire.py``: a
-``wire_dtype`` other than raw, or any codec, raises) and the
-fault-injection sites.
+Exchange wire (:mod:`ddl_tpu_torch.wire`): with a lossy ``wire_dtype``
+(float lanes only) or a ``codec``, each lane travels as a self-describing
+``pack_rows`` envelope and is unpacked by its taker; a raw lane from a
+peer passes through, so a peer on the raw fallback interoperates.  A
+lane that fails to decode twice latches this producer's outgoing lanes
+to raw (``wire.fallbacks``) and the round degrades node-locally.  The
+device tier moves raw rows only: a forced wire resolves it off.
+
+Fault sites (:mod:`ddl_tpu_torch.faults`): ``shuffle.exchange`` before
+each lane take (``SHUFFLE_PEER_LOSS``), ``shuffle.device_exchange`` once
+per participant per device round (``ICI_DMA_FAIL`` poisons the round for
+every participant together).
 """
 
 from __future__ import annotations
@@ -40,8 +50,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ddl_tpu_torch import wire as _wire
 from ddl_tpu_torch.concurrency import named_condition, named_lock
-from ddl_tpu_torch.exceptions import DDLError, ShutdownRequested
+from ddl_tpu_torch.exceptions import (
+    DDLError,
+    DecodeError,
+    InjectedFault,
+    ShutdownRequested,
+)
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import metrics as default_metrics
 from ddl_tpu_torch.types import RunMode, Topology
 
@@ -316,14 +333,6 @@ class ShmRendezvous:
         shutil.rmtree(self._dir, ignore_errors=True)
 
 
-def _check_wire(wire_dtype: Optional[str], codec: Optional[str]) -> None:
-    if wire_dtype not in (None, "raw") or codec is not None:
-        raise NotImplementedError(
-            f"exchange wire {wire_dtype!r}/{codec!r}: encoded exchange "
-            "lanes belong to the wire.py slice; this port moves raw rows"
-        )
-
-
 class ThreadExchangeShuffler:
     """Producer callback performing the cross-instance exchange
     in-process (registered by ``DataPusher`` when ``n_instances > 1`` and
@@ -346,14 +355,19 @@ class ThreadExchangeShuffler:
         max_peer_losses: Optional[int] = None,
         wire_dtype: Optional[str] = None,
         codec: Optional[str] = None,
+        codec_level: int = 3,
     ):
         if exchange_method not in EXCHANGE_METHODS:
             raise NotImplementedError(
                 f"exchange_method {exchange_method!r}; valid: {EXCHANGE_METHODS}"
             )
-        _check_wire(wire_dtype, codec)
-        self.wire_dtype = "raw"
-        self.codec = None
+        # The lanes' wire: env overrides win, as on the slot wire.
+        self.wire_dtype = _wire.resolve_wire_dtype(wire_dtype)
+        self.codec = _wire.resolve_wire_codec(codec)
+        self.codec_level = int(codec_level)
+        # Latched after a lane failed to decode twice: this producer's
+        # outgoing lanes travel raw for the rest of the run.
+        self._wire_raw = False
         self.topology = topology
         self.producer_idx = producer_idx
         self.num_exchange = num_exchange
@@ -431,6 +445,54 @@ class ThreadExchangeShuffler:
         reads the same rows whether or not it completed it."""
         self._round = int(round_)
 
+    def _wire_active(self, rows: np.ndarray) -> Tuple[str, Optional[str]]:
+        """The (wire_dtype, codec) one put uses: the raw latch wins, and
+        int lanes keep raw under a lossy request (the codec still
+        applies)."""
+        if self._wire_raw:
+            return "raw", None
+        wd = self.wire_dtype
+        if wd != "raw" and not _wire.lossy_supported(rows.dtype):
+            wd = "raw"
+        return wd, self.codec
+
+    def _encode_lane(self, rows: np.ndarray) -> np.ndarray:
+        wd, codec = self._wire_active(rows)
+        if wd == "raw" and codec is None:
+            return rows.copy()
+        return _wire.pack_rows(rows, wd, codec=codec, level=self.codec_level,
+                               metrics=self.metrics)
+
+    def _decode_lane(self, rows: np.ndarray) -> np.ndarray:
+        """A taken lane: raw rows pass through; an envelope unpacks with
+        one retry, and a second failure latches this producer's outgoing
+        lanes to raw (``wire.fallbacks``) and raises, so the round
+        degrades node-locally."""
+        if not (
+            rows.ndim == 1
+            and rows.dtype == np.uint8
+            and rows.nbytes >= 4
+            and int.from_bytes(rows[:4].tobytes(), "little")
+            == _wire._PACK_MAGIC
+        ):
+            return rows
+        try:
+            return _wire.unpack_rows(rows, metrics=self.metrics)
+        except DecodeError:
+            self.metrics.incr("wire.decode_fails")  # retried once
+        try:
+            return _wire.unpack_rows(rows, metrics=self.metrics)
+        except DecodeError:
+            self.metrics.incr("wire.decode_fails")
+            if not self._wire_raw:
+                self._wire_raw = True
+                self.metrics.incr("wire.fallbacks")
+                logger.error(
+                    "global shuffle: exchange wire decode failed twice — "
+                    "this producer sends RAW lanes for the rest of the run"
+                )
+            raise
+
     def _local_shuffle(self, my_ary: np.ndarray) -> None:
         """Node-local fallback: a deterministic in-place row permutation
         seeded by (seed, producer, round) — the producer's row multiset
@@ -495,15 +557,17 @@ class ThreadExchangeShuffler:
             (lane_b, int(pinv[me]), tag + 1),
         ):
             put_key = (self.producer_idx, t, dest)
-            self._rdv.put(put_key, my_ary[lane].copy())
+            self._rdv.put(put_key, self._encode_lane(my_ary[lane]))
             if n == 2:
                 self._sent.append((self._round, put_key))
             try:
-                my_ary[lane] = self._rdv.take(
+                fault_point("shuffle.exchange",
+                            producer_idx=self.producer_idx)
+                my_ary[lane] = self._decode_lane(self._rdv.take(
                     (self.producer_idx, t, me),
                     timeout_s=self.exchange_timeout_s,
                     should_abort=should_abort,
-                )
+                ))
             except ShutdownRequested:
                 # Retract our half so a later run on the same board
                 # cannot pop this round's stale rows.
@@ -526,13 +590,14 @@ class ThreadExchangeShuffler:
                 degrade_on_peer_loss: bool = True,
                 max_peer_losses: Optional[int] = None,
                 wire_dtype: Optional[str] = None,
-                codec: Optional[str] = None) -> "ExchangeShufflerFactory":
+                codec: Optional[str] = None,
+                codec_level: int = 3) -> "ExchangeShufflerFactory":
         return ExchangeShufflerFactory(
             rendezvous=rendezvous, seed=seed,
             exchange_timeout_s=exchange_timeout_s,
             degrade_on_peer_loss=degrade_on_peer_loss,
             max_peer_losses=max_peer_losses, wire_dtype=wire_dtype,
-            codec=codec,
+            codec=codec, codec_level=codec_level,
         )
 
 
@@ -549,8 +614,8 @@ class ExchangeShufflerFactory:
                  degrade_on_peer_loss: bool = True,
                  max_peer_losses: Optional[int] = None,
                  wire_dtype: Optional[str] = None,
-                 codec: Optional[str] = None):
-        _check_wire(wire_dtype, codec)
+                 codec: Optional[str] = None,
+                 codec_level: int = 3):
         self.rendezvous = rendezvous
         self.seed = seed
         self.exchange_timeout_s = exchange_timeout_s
@@ -558,6 +623,7 @@ class ExchangeShufflerFactory:
         self.max_peer_losses = max_peer_losses
         self.wire_dtype = wire_dtype
         self.codec = codec
+        self.codec_level = codec_level
 
     def _kwargs(self) -> Dict[str, Any]:
         return dict(
@@ -566,6 +632,7 @@ class ExchangeShufflerFactory:
             degrade_on_peer_loss=self.degrade_on_peer_loss,
             max_peer_losses=self.max_peer_losses,
             wire_dtype=self.wire_dtype, codec=self.codec,
+            codec_level=self.codec_level,
         )
 
     def __call__(self, topology: Topology, producer_idx: int,
@@ -678,6 +745,16 @@ class DeviceExchangeFabric:
         :class:`DDLError` (a peer never posted — the caller degrades the
         round node-locally)."""
         key = (producer_idx, round_)
+        # Fault site, once per participant per round: ICI_DMA_FAIL
+        # poisons the ROUND, so every participant sees the failure with
+        # its lanes unmutated; SHUFFLE_PEER_LOSS keeps this participant
+        # from posting, so its peers time out into the node-local rung.
+        try:
+            fault_point("shuffle.device_exchange", producer_idx=producer_idx,
+                        should_abort=should_abort)
+        except InjectedFault as e:
+            self._fail_round(key, n, seed, e)
+            raise DeviceExchangeError(str(e)) from e
         with self._cond:
             self._sweep_rounds(producer_idx, round_)
             rnd = self._rounds.get(key)
@@ -724,6 +801,18 @@ class DeviceExchangeFabric:
             if rnd.error is not None:
                 raise DeviceExchangeError(str(rnd.error)) from rnd.error
             return rnd.results[instance_idx]
+
+    def _fail_round(self, key: Tuple[int, int], n: int, seed: int,
+                    err: BaseException) -> None:
+        """Publish ``err`` as the round's outcome (unless it has one)."""
+        with self._cond:
+            rnd = self._rounds.get(key)
+            if rnd is None:
+                rnd = _DeviceRound(n, seed, key[1])
+                self._rounds[key] = rnd
+            if rnd.results is None and rnd.error is None:
+                rnd.error = err
+            self._cond.notify_all()
 
     def _sweep_rounds(self, producer_idx: int, round_: int) -> None:
         """Drop this producer's rounds older than ``round_ - 1``.  Caller
@@ -798,16 +887,18 @@ class DeviceExchangeShuffler(ThreadExchangeShuffler):
     Resolution (at construction, not a fallback): the device tier engages
     only when the ``DDL_TORCH_DEVICE_SHUFFLE`` gate is not off, a fabric
     is present (the factory drops it at the pickle boundary), and the
-    topology is THREAD (the fabric's reach).  The fourth rule of the JAX
-    package, a raw wire, holds by construction: the port refuses any
-    other wire.
+    topology is THREAD (the fabric's reach), the lanes' wire resolves
+    raw with no codec (the device legs move raw rows; a forced wire keeps
+    the host exchange — resolution, not a fallback).
 
     A device-leg failure (build, launch, copy, an unplannable ring) on a
     card ring raises :class:`DeviceExchangeError` out of every
-    participant's round: the card is never traded for the host.  On the
-    plain version's CPU ring every participant latches the host exchange
-    for the shuffler's life (``shuffle.device_fallbacks``) and re-runs the
-    SAME round over the host board with lanes unmutated, byte-identically.
+    participant's round, as does the ``shuffle.device_exchange`` fault
+    site's ``ICI_DMA_FAIL`` there: the card is never traded for the host.
+    On the plain version's CPU ring every participant latches the host
+    exchange for the shuffler's life (``shuffle.device_fallbacks``) and
+    re-runs the SAME round over the host board with lanes unmutated,
+    byte-identically.
     """
 
     def __init__(
@@ -839,6 +930,11 @@ class DeviceExchangeShuffler(ThreadExchangeShuffler):
             why = (
                 f"{topology.mode.value} topology: the in-process fabric "
                 "cannot reach producers in other processes"
+            )
+        elif self.wire_dtype != "raw" or self.codec is not None:
+            why = (
+                f"wire ({self.wire_dtype}/{self.codec}) forced: device "
+                "legs move raw rows"
             )
         self._device_ok = why is None
         if why is not None and fabric is not None:
@@ -895,7 +991,7 @@ class DeviceExchangeShuffler(ThreadExchangeShuffler):
             raise
         except DeviceExchangeError as e:
             if self._fabric.on_card:
-                raise
+                raise  # a failed leg on the card is the run's failure
             # Latch, then re-run the SAME round over the host board —
             # lanes are unmutated, so the bytes equal a host-only run.
             self._latch_host(e)

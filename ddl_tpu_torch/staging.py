@@ -38,7 +38,9 @@ inline path.  Counters and timers: ``staging.pool_hits``,
 ``staging.retries``, ``staging.inline_fallbacks``,
 ``integrity.staging_verify_failures``, ``ingest.stage_copy``,
 ``ingest.transfer``, ``ingest.stall``; gauges ``staging.inflight`` and
-``staging.queue_depth``.
+``staging.queue_depth``.  Fault sites (:mod:`ddl_tpu_torch.faults`):
+``staging.copy`` before each staging copy, ``staging.transfer`` before
+each transfer attempt.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ddl_tpu_torch.exceptions import (
     ShutdownRequested,
     StallTimeoutError,
 )
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.utils import value_ready, wait_value
 
@@ -222,6 +225,13 @@ def _host_arrays(dev: Any) -> List[Any]:
     if shards is not None:
         return [s.data for s in shards]
     return [dev]
+
+
+def _faulted_transfer(job: Any, src: np.ndarray) -> Any:
+    """One attempt of a job's transfer, behind the ``staging.transfer``
+    fault site (a failure or a delay, retried like a real one)."""
+    fault_point("staging.transfer")
+    return job.transfer(src)
 
 
 def _may_alias(dev: Any, buf: np.ndarray) -> bool:
@@ -514,6 +524,7 @@ class TransferExecutor:
 
         def copy_phase():
             t0 = time.perf_counter()
+            fault_point("staging.copy", view=_flat_u8(job.src))
             np.copyto(buf, job.src, casting="no")
             if job.expected_crc is not None:
                 # Second integrity check: the slot is still held, so a
@@ -537,8 +548,8 @@ class TransferExecutor:
             self._retrying("copy", copy_phase)
             handle.copy_done.set()  # the slot may be released now
             try:
-                value, base = self._retrying("transfer",
-                                             lambda: job.transfer(buf))
+                value, base = self._retrying(
+                    "transfer", lambda: _faulted_transfer(job, buf))
             except (ShutdownRequested, KeyboardInterrupt):
                 raise
             except Exception:
@@ -578,8 +589,8 @@ class TransferExecutor:
 
         t0 = time.perf_counter()
         try:
-            value, base = self._retrying("transfer",
-                                         lambda: job.transfer(job.src))
+            value, base = self._retrying(
+                "transfer", lambda: _faulted_transfer(job, job.src))
         except (ShutdownRequested, KeyboardInterrupt):
             raise
         except Exception:
@@ -598,8 +609,8 @@ class TransferExecutor:
             buf = self.pool.acquire(job.src.shape, job.src.dtype)
             np.copyto(buf, job.src, casting="no")
             try:
-                value, base = self._retrying("transfer",
-                                             lambda: job.transfer(buf))
+                value, base = self._retrying(
+                    "transfer", lambda: _faulted_transfer(job, buf))
             except (ShutdownRequested, KeyboardInterrupt):
                 raise
             except Exception:

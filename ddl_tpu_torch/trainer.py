@@ -576,6 +576,9 @@ class Trainer:
         timeout_s = 300.0
         if config is not None:
             config.check_ported()
+            from ddl_tpu_torch.env import export_wire_knobs
+
+            export_wire_knobs(config)
             if config.output != "device":
                 raise ValueError(
                     f"Trainer.fit serves output='device', config has "

@@ -21,6 +21,7 @@ import abc
 import copy
 import logging
 import queue as queue_mod
+import threading
 from typing import Any, List, Optional, Sequence
 
 from ddl_tpu_torch.concurrency import named_rlock
@@ -378,7 +379,10 @@ class ProducerConnection:
 
     ``cross_process`` (PROCESS mode) makes :meth:`create_ring` create a
     named shared-memory ring; otherwise it is a :class:`ThreadRing`,
-    page-locked with ``pin_memory``.
+    page-locked with ``pin_memory``.  ``retired`` is set when a THREAD
+    producer that stopped making progress is replaced: its waits that
+    observe an abort (a hang, an exchange wait) end, and the thread exits
+    without touching the ring its replacement takes over.
     """
 
     def __init__(self, channel: ControlChannel, producer_idx: int,
@@ -389,6 +393,7 @@ class ProducerConnection:
         self.cross_process = cross_process
         self.ring: Optional[WindowRing] = None
         self._ring_ref: Any = None
+        self.retired = threading.Event()
 
     def recv_metadata_as_producer(self) -> MetaData_Consumer_To_Producer:
         meta = self.channel.recv()

@@ -16,8 +16,8 @@ control plane (port of ``ddl_tpu/transport/envelope.py``).
 :class:`~ddl_tpu_torch.transport.connection.ConsumerConnection` runs every
 sender operation under its ``transport.connection`` lock.
 :class:`EnvelopeReceiver` lives on the producer's one control thread
-(``DataPusher._poll_control``) and needs none.  The JAX package's fault
-site inside the wire attempt belongs to the ``faults.py`` slice.
+(``DataPusher._poll_control``) and needs none.  Each wire attempt passes
+the ``transport.control_send`` fault site (:mod:`ddl_tpu_torch.faults`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.exceptions import TransportError
+from ddl_tpu_torch.faults import FaultKind, fault_point
 from ddl_tpu_torch.types import ControlAck, ControlEnvelope
 
 
@@ -90,9 +91,17 @@ class ControlSender:
 
     def _wire(self, env: ControlEnvelope) -> None:
         """One wire attempt.  A lost attempt (a broken or closed pipe
-        mid-swap) leaves the envelope pending for :meth:`pump`."""
+        mid-swap, or the ``transport.control_send`` site's drop or
+        partition) leaves the envelope pending for :meth:`pump`; the
+        site's ``CONTROL_MSG_DUP`` sends it twice, for the receiver's
+        dedup to absorb."""
         try:
+            fired = fault_point("transport.control_send",
+                                producer_idx=self.target)
             self._raw_send(env)
+            if fired and FaultKind.CONTROL_MSG_DUP.value in fired:
+                self._raw_send(env)
+                self._incr("ctrl.wire_dups")
         except (TransportError, OSError, ValueError):
             self._incr("ctrl.wire_drops")
 

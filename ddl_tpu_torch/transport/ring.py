@@ -6,6 +6,8 @@ Producer side: ``acquire_fill() -> slot``, write into ``slot_view``,
 ``commit(slot, nbytes)``.  Consumer side: ``acquire_drain() -> slot``,
 read ``slot_view``, ``release(slot)``.  Slots hand off in FIFO order; a
 shutdown flag wakes every blocked wait with :class:`ShutdownRequested`.
+``acquire_fill`` and ``acquire_drain`` pass the ``ring.fill`` /
+``ring.drain`` fault sites (in all three ring classes).
 
 Where the consumer feeds a CUDA card, the slots are page-locked
 (``pin_memory=True``): the loader's host-to-device copy then runs
@@ -23,6 +25,7 @@ import numpy as np
 
 from ddl_tpu_torch.concurrency import named_condition
 from ddl_tpu_torch.exceptions import ShutdownRequested, StallTimeoutError
+from ddl_tpu_torch.faults import fault_point
 
 #: Default wait deadline (a lost peer must not hang forever).
 DEFAULT_TIMEOUT_S = 300.0
@@ -156,6 +159,7 @@ class ThreadRing(WindowRing):
             )
 
     def acquire_fill(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.fill", should_abort=self.is_shutdown)
         self._wait(
             lambda: self._committed - self._released < self.nslots,
             timeout_s,
@@ -172,6 +176,7 @@ class ThreadRing(WindowRing):
             self._cond.notify_all()
 
     def acquire_drain(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.drain", should_abort=self.is_shutdown)
         return self.acquire_drain_ahead(0, timeout_s)
 
     def acquire_drain_ahead(

@@ -38,6 +38,7 @@ from ddl_tpu_torch.exceptions import (
     StallTimeoutError,
     TransportError,
 )
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.transport.ring import DEFAULT_TIMEOUT_S, WindowRing
 
 logger = logging.getLogger("ddl_tpu_torch")
@@ -176,6 +177,7 @@ class NativeShmRing(WindowRing):
         return rc
 
     def acquire_fill(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.fill", should_abort=self.is_shutdown)
         rc = self._lib.ddlr_acquire_fill(self._h, int(timeout_s * 1e6))
         return self._check_wait(rc, timeout_s)
 
@@ -183,6 +185,7 @@ class NativeShmRing(WindowRing):
         self._lib.ddlr_commit(self._h, slot, payload_bytes)
 
     def acquire_drain(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.drain", should_abort=self.is_shutdown)
         rc = self._lib.ddlr_acquire_drain(self._h, int(timeout_s * 1e6))
         return self._check_wait(rc, timeout_s)
 
@@ -374,6 +377,8 @@ class PyShmRing(WindowRing):
             self._stall[key] += time.perf_counter() - t0
 
     def acquire_fill(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.fill", should_abort=self.is_shutdown)
+
         def ready():
             c, r = int(self._u64[0]), int(self._u64[1])
             return c % self.nslots if c - r < self.nslots else None
@@ -385,6 +390,7 @@ class PyShmRing(WindowRing):
         self._u64[0] = self._u64[0] + np.uint64(1)
 
     def acquire_drain(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> int:
+        fault_point("ring.drain", should_abort=self.is_shutdown)
         return self.acquire_drain_ahead(0, timeout_s)
 
     def acquire_drain_ahead(

@@ -63,6 +63,9 @@ class MetaData_Producer_To_Consumer:
     #: The producer stamps checksummed trailers past each slot payload
     #: (ddl_tpu_torch.integrity); the consumer verifies at drain.
     integrity: bool = False
+    #: The slot's wire dtype (ddl_tpu_torch.wire): the consumer decodes
+    #: an encoded producer's windows at its edge.
+    wire_dtype: str = "raw"
 
 
 @dataclasses.dataclass

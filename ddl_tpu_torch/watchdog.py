@@ -24,6 +24,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ddl_tpu_torch.exceptions import ShutdownRequested, TransportError
+from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 
 logger = logging.getLogger("ddl_tpu_torch")
@@ -102,7 +103,10 @@ class Watchdog:
             pass  # best effort: the run is failing anyway
 
     def check_once(self) -> Optional[str]:
-        """One sweep; returns a failure description or None."""
+        """One sweep; returns a failure description or None.  The
+        ``watchdog.sweep`` fault site runs first: a spurious shutdown or
+        a crash there exercises the monitor loop's own handling."""
+        fault_point("watchdog.sweep")
         rings = self.workers.connection.rings
         # The loader flags rings one by one at shutdown, so a sweep in the
         # middle of teardown may see workers exiting: any shut-down ring

@@ -11,6 +11,7 @@ non-default value of a field whose module is not ported raises
 
 import dataclasses
 import json
+import os
 
 import pytest
 
@@ -131,8 +132,7 @@ def test_model_config_applies_remat():
 
 @pytest.mark.parametrize("field,value,item", [
     ("cache", True, "A4"), ("cache_spill_dir", "/spill", "A4"),
-    ("cache_codec", "zlib", "A4"), ("wire_dtype", "int8", "A3"),
-    ("wire_codec", "zlib", "A3"), ("host_id", 1, "A5"),
+    ("cache_codec", "zlib", "A4"), ("host_id", 1, "A5"),
     ("n_hosts", 2, "A5"), ("mode", "multihost", "A5"),
     ("shuffle_impl", "xla", "A5"),
 ])
@@ -144,6 +144,26 @@ def test_unported_loader_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         trainer.fit(None, config=cfg)
     tconfig.LoaderConfig(wire_codec="none").check_ported()  # "none" = off
+
+
+@pytest.mark.parametrize("field,value", [
+    ("wire_dtype", "int8"), ("wire_codec", "zlib"), ("wire_dtype", "bf16"),
+])
+def test_wire_fields_pass_through(field, value, monkeypatch):
+    """The wire fields are ported: a consumer takes them, and ``fit``
+    exports them to the env knobs producers read, as the reference's
+    ``distributed_dataloader(config=)`` does; an empty field clears only
+    the export."""
+    from ddl_tpu_torch import env as tenv_mod
+
+    var = "DDL_TORCH_" + field.upper()
+    monkeypatch.delenv(var, raising=False)
+    cfg = tconfig.LoaderConfig(**{field: value})
+    cfg.check_ported()
+    tenv_mod.export_wire_knobs(cfg)
+    assert os.environ[var] == value
+    tenv_mod.export_wire_knobs(tconfig.LoaderConfig())
+    assert var not in os.environ
 
 
 @pytest.mark.parametrize("field,value", [

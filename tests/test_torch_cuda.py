@@ -1375,3 +1375,190 @@ def test_decode_matches_the_no_cache_forward(dtype):
             torch.testing.assert_close(step[:, 0], full[:, -1], atol=tol,
                                        rtol=tol)
     assert tuple(out.shape) == (2, 24) and int(out.max()) < cfg.vocab
+
+
+# -- the wire on the card -------------------------------------------------------
+
+
+def _host_wire_rows(x, wd):
+    """The host ``encode_window`` of a 2-D float array laid out as the ICI
+    wire's ``(rows, wire_cols)`` uint8 rows: payload, then int8 scales."""
+    from ddl_tpu_torch import wire
+
+    payload, scales = wire.encode_window(x, wd)
+    rows = x.shape[0]
+    if scales is None:
+        return payload.reshape(rows, -1)
+    return np.concatenate([payload.reshape(rows, -1),
+                           scales.view(np.uint8).reshape(rows, -1)], axis=1)
+
+
+@pytest.mark.parametrize("wd", ["bf16", "int8"])
+@pytest.mark.parametrize("rows,cols", [(4096, 256), (64, 48), (8, 700),
+                                       (3, 1)])
+def test_wire_device_encode_equals_the_host_encode(wd, rows, cols):
+    """The card's encode (``parallel.ici.encode2d``) byte for byte the host
+    ``wire.encode_window``, payload and scales (zeros, a signed zero and a
+    subnormal included); the card's decode bit for bit the host
+    ``decode_window``."""
+    from ddl_tpu_torch import wire
+    from ddl_tpu_torch.parallel.ici import decode2d, encode2d
+
+    x = (np.random.default_rng(rows + cols).standard_normal((rows, cols))
+         * 10).astype(np.float32)
+    x.reshape(-1)[:3] = [0.0, -0.0, 1e-40][: x.size]
+    w = encode2d(torch.from_numpy(x).cuda(), wd)
+    torch.cuda.synchronize()
+    assert w.dtype == torch.uint8
+    assert w.cpu().numpy().tobytes() == _host_wire_rows(x, wd).tobytes()
+    payload, scales = wire.encode_window(x, wd)
+    back = decode2d(w, cols, torch.float32, wd)
+    assert back.cpu().numpy().tobytes() == wire.decode_window(
+        payload, scales, x.shape, x.dtype, wd).tobytes()
+
+
+@pytest.mark.parametrize("rows,wire_cols", [(64, 52), (128, 260), (12, 98)])
+def test_wire_rows_off_16_bytes_ride_k7_and_k8(rows, wire_cols):
+    """Encoded rows whose width is no multiple of 16 bytes (int8 at 48 and
+    256 columns: 52 and 260 bytes; bf16 at 49: 98) through K8 and K7,
+    byte-exact against the plain versions."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    block = _fanout_block(rows, wire_cols, torch.uint8, rows)
+    devs = ["cuda:0"] * 4
+    fan.reset_launch_counts()
+    shard = fan.fanout_shard(block, devs)
+    rep = fan.fanout_replicate(block, devs)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fan.KERNELS] == [1, 1]
+    for got, want in ((shard, fan.shard_plain(block, 4)),
+                      (rep, fan.replicate_plain(block, 4))):
+        assert all(torch.equal(s.data, w) for s, w in zip(got.shards, want))
+
+
+@pytest.mark.parametrize("wd", ["bf16", "int8"])
+@pytest.mark.parametrize("axes,spec,kernel", [
+    ({"dp": 4}, (None, "dp"), "fanout_shard"),
+    ({"dp": 2, "fsdp": 2}, (None, "dp"), "fanout_shard"),
+    ({"dp": 4}, (None, None, None), "fanout_replicate"),
+])
+def test_wire_ici_legs_land_the_host_decode_of_the_host_encode(wd, axes, spec,
+                                                               kernel):
+    """An encoded ICI leg on positions of cuda:0: one K7/K8 launch on
+    uint8 rows, every position's values the host decode of the host
+    encode of the window's 2-D view, the plan's wire bytes counted, no
+    fallback."""
+    from ddl_tpu_torch import wire
+    from ddl_tpu_torch.ingest import device_put
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.ici import IciDistributor
+
+    win = np.random.default_rng(3).standard_normal((4, 64, 48)).astype(
+        np.float32)
+    sh = _mesh_sharding(axes, spec)
+    m = Metrics()
+    dist = IciDistributor(sh, metrics=m, wire_dtype=wd)
+    fan.reset_launch_counts()
+    out = dist.put(torch.from_numpy(win), device_put)
+    torch.cuda.synchronize()
+    plan = dist.plan(win.shape, win.dtype)
+    split = plan.split_dim or 0
+    view = np.moveaxis(win, split, 0).reshape(win.shape[split], -1)
+    payload, scales = wire.encode_window(view, wd)
+    dec = wire.decode_window(payload, scales, view.shape, view.dtype, wd)
+    want = np.ascontiguousarray(np.moveaxis(
+        dec.reshape((win.shape[split],) + tuple(np.delete(win.shape, split))),
+        0, split))
+    for s in out.shards:
+        assert s.data.is_contiguous()
+        assert s.data.cpu().numpy().tobytes() == np.ascontiguousarray(
+            want[s.index]).tobytes()
+    counts = {fn.__name__: fn.launches for fn in fan.KERNELS}
+    assert counts[kernel] == 1 and sum(counts.values()) == 1
+    assert m.counter("ici.fallbacks") == 0
+    assert m.counter("ici.bytes") == plan.wire_bytes
+    assert m.counter("wire.encoded_bytes") == plan.encoded_bytes
+
+
+def test_wire_ici_faults_on_the_card_raise(monkeypatch):
+    """On the card a failed encoded ICI leg raises and latches nothing,
+    whether the ``ici.fanout`` site injected it or a launch failed: the
+    card is never traded for the plain route."""
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.exceptions import InjectedFault
+    from ddl_tpu_torch.ingest import device_put
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.ici import IciDistributor
+
+    sh = _mesh_sharding({"dp": 4}, (None, "dp"))
+    win = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 64, 48)).astype(np.float32))
+    m = Metrics()
+    dist = IciDistributor(sh, metrics=m, wire_dtype="int8")
+    plan = faults.FaultPlan([faults.FaultSpec(
+        "ici.fanout", faults.FaultKind.ICI_DMA_FAIL)])
+    with faults.armed(plan):
+        with pytest.raises(InjectedFault, match="ici_dma_fail"):
+            dist.put(win, device_put)
+    assert not dist.faulted and m.counter("ici.fallbacks") == 0
+    broken = IciDistributor(sh, metrics=Metrics(), wire_dtype="int8")
+
+    def fail(*a, **k):
+        raise RuntimeError("a failed launch")
+
+    monkeypatch.setattr(fan, "fanout_shard", fail)
+    with pytest.raises(RuntimeError, match="failed launch"):
+        broken.put(win, device_put)
+    assert not broken.faulted
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+@pytest.mark.parametrize("wd", ["bf16", "int8"])
+def test_wire_decoded_windows_take_the_copying_route(wd, mode):
+    """Slot-wire windows onto cuda:0 through the staged engine: the stream
+    is the host decode of the host encode of the raw stream, bit for bit;
+    every window is decoded at the consumer edge and copied through the
+    staging pool, never aliased (its bytes are not the slot's)."""
+    from ddl_tpu_torch import wire
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import ArrayProducer
+
+    data = np.random.default_rng(9).standard_normal((512, 24)).astype(
+        np.float32)
+    epochs = 4
+
+    def stream(device, wire_dtype, metrics):
+        prod = ArrayProducer(data, window_size=128, seed=2)
+        prod.wire_dtype = wire_dtype
+
+        @ddl_tpu_torch.distributed_dataloader(
+            n_producers=2, mode=mode if device == "cuda" else "thread",
+            nslots=2, pin_memory=device == "cuda")
+        def run(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                prod, batch_size=16, connection=env.connection,
+                n_epochs=epochs, output="device", device=device,
+                staged=True, metrics=metrics)
+            out = []
+            for win in loader.windows(lookahead=1):
+                out.append(win.cpu().numpy().reshape(128, 24).copy())
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            return out
+
+        return run()
+
+    raw = stream("cpu", "raw", Metrics())
+    m = Metrics()
+    got = stream("cuda", wd, m)
+    assert len(got) == epochs
+    for g, r in zip(got, raw):
+        payload, scales = wire.encode_window(r, wd)
+        want = wire.decode_window(payload, scales, r.shape, r.dtype, wd)
+        assert g.tobytes() == want.tobytes()
+    assert m.counter("wire.decoded_windows") == epochs
+    assert m.counter("staging.alias_windows") == 0
+    assert m.timer("ingest.stage_copy").count == epochs
+    assert m.counter("integrity.corrupt_windows") == 0
+    assert m.counter("integrity.staging_verify_failures") == 0

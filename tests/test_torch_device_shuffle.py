@@ -24,8 +24,10 @@ import torch
 
 from ddl_tpu import shuffle as jsh
 from ddl_tpu.ops import device_shuffle as jdsh
+from ddl_tpu_torch import faults
 from ddl_tpu_torch import shuffle as tsh
 from ddl_tpu_torch.exceptions import DDLError, ShutdownRequested
+from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
 from ddl_tpu_torch.observability import Metrics
 from ddl_tpu_torch.ops import device_shuffle as tdsh
 from ddl_tpu_torch.parallel import mesh as tmesh
@@ -230,17 +232,22 @@ def test_failed_device_leg_latches_every_participant(fabric_of):
         assert s.exchange_round == rounds
 
 
-@pytest.mark.parametrize("fabric_of", [
-    lambda n: _FailingFabric(devices=["cuda:0"] * n),
-    lambda n: tsh.DeviceExchangeFabric(devices=["cuda:0"]),  # unplannable
-], ids=["leg-raises", "unplannable"])
-def test_failed_device_leg_on_a_card_ring_raises(fabric_of):
+@pytest.mark.parametrize("fabric_of,spec", [
+    (lambda n: _FailingFabric(devices=["cuda:0"] * n), None),
+    (lambda n: tsh.DeviceExchangeFabric(devices=["cuda:0"]), None),
+    (lambda n: tsh.DeviceExchangeFabric(devices=["cuda:0"] * n),
+     FaultSpec("shuffle.device_exchange", FaultKind.ICI_DMA_FAIL)),
+], ids=["leg-raises", "unplannable", "injected"])
+def test_failed_device_leg_on_a_card_ring_raises(fabric_of, spec):
     """On a card ring a failed device leg raises out of every
-    participant's round: no latch to the host, no lane mutated."""
+    participant's round — a leg that raises, an unplannable ring, or the
+    ``shuffle.device_exchange`` site's ICI_DMA_FAIL alike: no latch to the
+    host, no lane mutated."""
     n = 3
     fabric = fabric_of(n)
     assert fabric.on_card
-    errors, arys, shufs = device_round_errors(n, fabric)
+    with faults.armed(FaultPlan([spec] if spec else [])):
+        errors, arys, shufs = device_round_errors(n, fabric)
     assert sorted(errors) == list(range(n))
     assert all(isinstance(e, tsh.DeviceExchangeError) for e in errors.values())
     for a, b in zip(arys, pools(n, 10)):
@@ -329,8 +336,11 @@ def test_resolution_surface(monkeypatch):
     assert not _shuffler().device_exchange_active
     assert _shuffler(device_shuffle="auto").device_exchange_active
     assert not tsh.DeviceExchangeFabric(devices=["cpu"]).on_card
-    with pytest.raises(NotImplementedError, match="wire.py"):
-        _shuffler(wire_dtype="bf16")
+    # A forced wire keeps the host exchange: resolution, not a fallback.
+    for kw in ({"wire_dtype": "bf16"}, {"codec": "zlib"}):
+        forced = _shuffler(device_shuffle="auto", **kw)
+        assert not forced.device_exchange_active
+        assert forced.metrics.counter("shuffle.device_fallbacks") == 0
 
 
 def test_factory_drops_the_fabric_at_the_pickle_boundary():

@@ -51,7 +51,7 @@ def test_every_reference_knob_is_mapped():
         assert tenv.KNOB_MAP[name].startswith("n/a: ")
     for name in ("DDL_TPU_UNSAFE_PY_RING", "DDL_TPU_SHUFFLE_IMPL",
                  "DDL_TPU_CKPT_ASYNC", "DDL_TPU_PREEMPT_NOTICE",
-                 "DDL_TPU_PREEMPT_DEADLINE_S"):
+                 "DDL_TPU_PREEMPT_DEADLINE_S", "DDL_TPU_FAULT_PLAN"):
         assert tenv.KNOB_MAP[name] in tenv.REGISTRY
 
 

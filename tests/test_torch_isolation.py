@@ -54,8 +54,29 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "ddl_tpu_torch.ops.flash_attention" in report["modules"]
     assert "ddl_tpu_torch.trainer" in report["modules"]
     for mod in ("checkpoint", "resilience.ckpt", "resilience.guard",
-                "config", "envspec", "concurrency"):
+                "config", "envspec", "concurrency", "wire", "faults"):
         assert f"ddl_tpu_torch.{mod}" in report["modules"]
+
+
+@pytest.mark.parametrize("module", ["wire", "faults"])
+def test_wire_and_faults_import_alone(module):
+    """The wire and fault modules, imported first and alone, pull in
+    neither JAX nor the JAX package (nor any ``ml_dtypes``: the port's
+    bf16 is bit arithmetic)."""
+    probe = (
+        "import json, sys; sys.path.insert(0, sys.argv[1]); "
+        f"import ddl_tpu_torch.{module}; "
+        "print(json.dumps(sorted(m for m in sys.modules if m in "
+        "('jax', 'ddl_tpu', 'ml_dtypes') or m.startswith(('jax.', "
+        "'ddl_tpu.')))))"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", probe, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_sources_name_no_jax_and_no_library_attention():

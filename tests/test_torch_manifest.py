@@ -47,6 +47,7 @@ def test_ported_paths_mirror_the_reference_layout():
     "watchdog.py", "transport/envelope.py", "shuffle.py",
     "checkpoint.py", "concurrency.py", "resilience/__init__.py",
     "resilience/ckpt.py", "resilience/guard.py", "models/llama.py",
+    "faults.py", "wire.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"

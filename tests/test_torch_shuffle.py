@@ -315,14 +315,21 @@ def test_rendezvous_abort_retention_and_discard():
 
 
 def test_wire_formats_and_bad_method_are_refused():
+    """A bad exchange method is refused; since the wire slice the wire
+    formats are taken (the name is the test's history) and an unknown
+    wire or codec is refused as in the reference."""
     topo = topology("torch", 2, 0)
-    with pytest.raises(NotImplementedError, match="wire.py"):
-        tsh.ThreadExchangeShuffler(topo, 1, 4, wire_dtype="int8")
-    with pytest.raises(NotImplementedError, match="wire.py"):
-        tsh.ThreadExchangeShuffler.factory(codec="zlib")
+    sh = tsh.ThreadExchangeShuffler(topo, 1, 4, wire_dtype="int8")
+    assert (sh.wire_dtype, sh.codec) == ("int8", None)
+    fac = tsh.ThreadExchangeShuffler.factory(codec="zlib", codec_level=6)
+    made = fac(topo, 1, 4)
+    assert (made.codec, made.codec_level) == ("zlib", 6)
+    with pytest.raises(ValueError, match="wire_dtype"):
+        tsh.ThreadExchangeShuffler(topo, 1, 4, wire_dtype="fp8")
+    with pytest.raises(ValueError, match="unknown codec"):
+        tsh.ThreadExchangeShuffler(topo, 1, 4, codec="brotli")
     with pytest.raises(NotImplementedError):
         tsh.ThreadExchangeShuffler(topo, 1, 4, exchange_method="gossip")
-    # raw is the only wire, named or defaulted
     assert tsh.ThreadExchangeShuffler(topo, 1, 4, wire_dtype="raw").span == "thread"
 
 

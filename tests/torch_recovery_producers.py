@@ -201,3 +201,53 @@ class CrashOnceWrapper:
     def fast_forward(self, n, **kw):
         self.it += n
         return self.inner.fast_forward(n, **kw)
+
+
+#: The chaos suite's window geometry (tests/test_faults.py:40-41).
+PATTERN_SHAPE = (16, 4)
+
+
+def pattern(it, producer_idx=1):
+    """Byte-deterministic content of window ``it`` (1-based) of producer
+    ``producer_idx``: the JAX package's chaos pattern
+    (tests/test_faults.py:43-48)."""
+    rows, cols = PATTERN_SHAPE
+    base = producer_idx * 100_000 + it * 1_000
+    return (base + (np.arange(rows * cols, dtype=np.float32) % 997)).reshape(
+        PATTERN_SHAPE).astype(np.float32)
+
+
+class PatternProducer:
+    """Windows 1, 2, 3, ... of :func:`pattern`, replayable by the default
+    ``fast_forward`` (state advances only through ``execute_function``).
+    ``wire_dtype`` is the wire capability the pusher reads."""
+
+    inplace_fill = False
+
+    def __init__(self, pkg="ddl_tpu_torch", wire_dtype="raw"):
+        self.pkg, self.wire_dtype = pkg, wire_dtype
+        self.idx, self.it = 1, 0
+
+    def on_init(self, producer_idx=1, **kw):
+        self.idx, self.it = producer_idx, 0
+        rows, cols = PATTERN_SHAPE
+        return _geometry(self.pkg, nData=rows, nValues=cols,
+                         shape=PATTERN_SHAPE, splits=(cols - 1, 1))
+
+    def post_init(self, my_ary, **kw):
+        my_ary[:] = 0.0
+
+    def execute_function(self, my_ary, **kw):
+        self.it += 1
+        my_ary[:] = pattern(self.it, self.idx)
+
+    def fast_forward(self, n, **kw):
+        for i in range(n):
+            self.execute_function(iteration=i, **kw)
+
+
+class InplacePatternProducer(PatternProducer):
+    """The same stream, forced write-once: every fill lands in the live
+    ring slot."""
+
+    inplace_fill = True
