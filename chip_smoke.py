@@ -136,6 +136,35 @@ import chip_smoke as c; card = c.phase_build();
 c.phase_wire(tempfile.mkdtemp(), card)"`` (it then makes its own
 undisturbed fits).
 
+Phase 10 is file shards through the shard cache.  (a) Phase 6's 4 M
+Zipf(1.2) tokens cut into log-normal documents (median 300), written as
+``tf.Example`` records with valid masked CRC32C framing in 8 C4-style
+TFRecord shards; ``TFRecordTokenProducer`` timed alone over producer 1's
+shards (cold with the CRC on, cold with it off, cold into a store with a
+spill dir, warm from its RAM tier and from its disk tier; ms per refill,
+tokens/s, every stream byte-equal); producer 2's shards warmed by its
+``CacheWarmer``; then the token cell's fit three times: THREAD with
+``cache=False``, THREAD over the warmed store (no cache miss and no fetch
+from source), PROCESS with the producers' stores built from the exported
+``LoaderConfig(cache=True, cache_spill_dir=...)`` (no fetch) — losses
+bit-equal, K1-K3 on the wgmma route with phase 6's counts, every window
+on the alias route, exits 0; a ``LoaderCheckpoint`` captured with the
+store adopted through ``adopt_cache_manifest``.  (b) Phase 5's geometry
+as 4 ``.npy`` shards of (65536, 256) fp32, drained by
+``FileShardProducer`` over ``ThrottledBackend(latency_s=0.02)`` into a
+512 MiB RAM store, 2 epochs onto dp=4 positions of cuda:0 (``distribute=
+"ici"``): every shard byte-equal to the uncached drain's, one K8 launch a
+window, no fallback, one miss a shard; the wait per window cold and warm.
+(c) The ladder on those shards: ``CACHE_CORRUPTION`` at
+``cache.disk_read`` (quarantined, refetched, the stream unchanged), a
+``BACKEND_FETCH_FAIL`` at ``backend.fetch`` (one retry), zlib copies
+through ``CodecBackend`` (the raw stream).  ``WebDatasetProducer`` is not
+driven: it needs Pillow, which this script does not; the CPU tests hold
+it.  Run
+alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
+import chip_smoke as c; card = c.phase_build();
+c.phase_files(tempfile.mkdtemp(), card)"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -147,6 +176,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -304,6 +334,19 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def _doc_lengths(rng, n_tokens: int):
+    """Document lengths, log-normal with median 300 tokens and sigma 1.0,
+    clipped to [16, 8192], drawn until they cover ``n_tokens``."""
+    import numpy as np
+
+    lens = np.zeros(0, np.int64)
+    while lens.sum() < n_tokens:
+        draw = rng.lognormal(np.log(300.0), 1.0, n_tokens // 300 + 16)
+        lens = np.concatenate([lens, np.clip(np.rint(draw), 16, 8192)
+                               .astype(np.int64)])
+    return lens
+
+
 def documents(n_tokens: int, seed: int = SEED):
     """A web-text-like stream of packed documents: lengths log-normal with
     median 300 tokens and sigma 1.0, clipped to [16, 8192]; bodies are
@@ -312,12 +355,7 @@ def documents(n_tokens: int, seed: int = SEED):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lens = np.zeros(0, np.int64)
-    while lens.sum() < n_tokens:
-        draw = rng.lognormal(np.log(300.0), 1.0, n_tokens // 300 + 16)
-        lens = np.concatenate([lens, np.clip(np.rint(draw), 16, 8192)
-                               .astype(np.int64)])
-    ends = np.cumsum(lens) - 1
+    ends = np.cumsum(_doc_lengths(rng, n_tokens)) - 1
     tokens = (rng.zipf(1.2, n_tokens) - 1) % VOCAB
     tokens[tokens == EOT] = (EOT + 1) % VOCAB
     tokens[ends[ends < n_tokens]] = EOT
@@ -1491,12 +1529,14 @@ def _sharding(axes, spec):
 
 
 def _ici_drain(producer, batch_size, n_epochs, host_windows=None, axes=None,
-               spec=None, distribute="ici"):
+               spec=None, distribute="ici", waits=None):
     """Drain ``n_epochs`` windows of ``producer`` through a THREAD loader
     (2 producers).  Without ``axes`` the windows go to the host and are
     returned; with them each window lands on that mesh of positions of
     cuda:0, and every position's shard is held against its slice of
-    ``host_windows``.  Returns (windows or checks, metrics, wall s)."""
+    ``host_windows``.  ``waits``, a list, gets each window's wait: from the
+    end of the previous window's check to the window in hand.  Returns
+    (windows or checks, metrics, wall s)."""
     import torch
 
     import ddl_tpu_torch
@@ -1516,8 +1556,12 @@ def _ici_drain(producer, batch_size, n_epochs, host_windows=None, axes=None,
             distribute=distribute, metrics=metrics, timeout_s=120.0,
         )
         out = []
-        t0 = time.perf_counter()
+        t0 = t_prev = time.perf_counter()
         for k, win in enumerate(loader.windows(lookahead=1)):
+            if waits is not None:
+                if on_card:
+                    torch.cuda.synchronize()
+                waits.append(time.perf_counter() - t_prev)
             if not on_card:
                 out.append(win.clone())
             else:
@@ -1527,6 +1571,10 @@ def _ici_drain(producer, batch_size, n_epochs, host_windows=None, axes=None,
                         _bytes(s.data), _bytes(host[s.index].contiguous().cuda()))
                     for s in win.shards) and tuple(win.shape) == tuple(host.shape))
             loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            if waits is not None:
+                if on_card:
+                    torch.cuda.synchronize()
+                t_prev = time.perf_counter()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -1791,12 +1839,14 @@ def _shm_free_bytes() -> int:
     return st.f_bavail * st.f_frsize
 
 
-def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False):
+def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
+              **loader_kw):
     """One training path in one producer mode at full width: a fresh
     ``Trainer`` from ``init_params(seed=0)``, a one-window warm-up fit
     (cuBLAS handles, allocator pools, the producers' first spawn), then
     the measured fit with the flash launch counts set to 0 just before it
-    and read just after.  Everything it allocated is dropped on return."""
+    and read just after; ``loader_kw`` are further ``LoaderConfig`` fields
+    of both fits.  Everything it allocated is dropped on return."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
@@ -1820,7 +1870,8 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False):
     def run(n_epochs):
         return trainer.fit(producer, config=LoaderConfig(
             batch_size=tr["batch_size"], n_epochs=n_epochs,
-            n_producers=tr["n_producers"], mode=mode, window_stream=True))
+            n_producers=tr["n_producers"], mode=mode, window_stream=True,
+            **loader_kw))
 
     warm = run(1)
     del warm
@@ -1890,6 +1941,44 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False):
     return summary
 
 
+def _fit_gates(s, ran, idle, expected, faults) -> None:
+    """The gates every full-width fit of ``_fit_mode`` shares: one finite
+    loss a window; each kernel of ``ran`` launched ``expected`` times, all
+    on the wgmma route, those of ``idle`` never; every window on the alias
+    route with no fallback, drop or CRC failure.  Appends to ``faults``."""
+    mode, c = s["mode"], s["counters"]
+    if not (len(s["losses"]) == TRAIN["n_epochs"]
+            and all(math.isfinite(x) for x in s["losses"])):
+        faults.append(f"{mode}: losses {s['losses']}")
+    if not (all(s["launches"][fn.__name__] == expected for fn in ran)
+            and all(s["launches"][fn.__name__] == 0 for fn in idle)
+            and all(s["sm90_launches"][fn.__name__] == expected
+                    for fn in ran)):
+        faults.append(f"{mode}: flash launches {s['launches']} / "
+                      f"{s['sm90_launches']}")
+    windows = c["consumer.windows"]
+    if not (windows == TRAIN["n_epochs"]
+            and c["staging.alias_windows"] == windows
+            and c["staging.alias_fallbacks"] == 0
+            and c["staging.pool_alias_drops"] == 0
+            and c["integrity.staging_verify_failures"] == 0
+            and c["staging.inline_fallbacks"] == 0
+            and c["integrity.corrupt_windows"] == 0):
+        faults.append(f"{mode}: staging counters {c}")
+
+
+def _process_gates(s, faults) -> None:
+    """A PROCESS fit's rings are native and registered and its producers
+    exit 0.  Appends to ``faults``."""
+    c, n = s["counters"], TRAIN["n_producers"]
+    if not (c["transport.rings.NativeShmRing"] == n
+            and c["transport.rings.PyShmRing"] == 0
+            and c["ingest.registered_rings"] == n
+            and c["producer.exits_clean"] == n
+            and c["producer.exits_failed"] == 0):
+        faults.append(f"process: rings, registration or exits {c}")
+
+
 def phase_train(tmpdir: str, card: str, profile: bool = False,
                 packed: bool = False):
     """One of the port's paths at full width: ``Trainer.fit`` over a
@@ -1947,37 +2036,12 @@ def phase_train(tmpdir: str, card: str, profile: bool = False,
                  else (fa.KERNELS[:3], fa.KERNELS[3:]))
     faults = []
     for s in (thread, proc):
-        mode, c = s["mode"], s["counters"]
-        log(f"{tag} {mode}: kernel launches in this run: {s['launches']} "
+        log(f"{tag} {s['mode']}: kernel launches in this run: {s['launches']} "
             f"(expected {cfg.n_layers} layers x {steps} steps = {expected} "
             f"for {[fn.__name__ for fn in ran]}, 0 for the others); on the "
             f"wgmma kernels: {s['sm90_launches']}")
-        if not (len(s["losses"]) == tr["n_epochs"]
-                and all(math.isfinite(x) for x in s["losses"])):
-            faults.append(f"{mode}: losses {s['losses']}")
-        if not (all(s["launches"][fn.__name__] == expected for fn in ran)
-                and all(s["launches"][fn.__name__] == 0 for fn in idle)
-                and all(s["sm90_launches"][fn.__name__] == expected
-                        for fn in (fwd, dq, dkv))):
-            faults.append(f"{mode}: flash launches {s['launches']} / "
-                          f"{s['sm90_launches']}")
-        windows = c["consumer.windows"]
-        if not (windows == tr["n_epochs"]
-                and c["staging.alias_windows"] == windows
-                and c["staging.alias_fallbacks"] == 0
-                and c["staging.pool_alias_drops"] == 0
-                and c["integrity.staging_verify_failures"] == 0
-                and c["staging.inline_fallbacks"] == 0
-                and c["integrity.corrupt_windows"] == 0):
-            faults.append(f"{mode}: staging counters {c}")
-    c = proc["counters"]
-    n = tr["n_producers"]
-    if not (c["transport.rings.NativeShmRing"] == n
-            and c["transport.rings.PyShmRing"] == 0
-            and c["ingest.registered_rings"] == n
-            and c["producer.exits_clean"] == n
-            and c["producer.exits_failed"] == 0):
-        faults.append(f"process: rings, registration or exits {c}")
+        _fit_gates(s, ran, idle, expected, faults)
+    _process_gates(proc, faults)
     rel = max(abs(a - b) / abs(b) for a, b in zip(proc["losses"],
                                                    thread["losses"]))
     log(f"{tag} process vs thread losses: max relative difference {rel:.3e} "
@@ -3509,6 +3573,554 @@ def phase_wire(tmpdir, card, token_ref=None, packed_ref=None):
     return summary
 
 
+# ------------------------------------------------------------ phase 10 ---
+
+#: Phase 10: the token cell's corpus as C4-style TFRecord shards (8 files of
+#: ``tf.Example`` records, one document each, an ``input_ids`` int64 list),
+#: and phase 5's geometry as ``.npy`` shards (4 of (65536, 256) fp32, 64 MiB
+#: each) through the shard cache: a 512 MiB RAM store over the bench's
+#: default ``ThrottledBackend(latency_s=0.02)`` (``bench.py:2961-3050``),
+#: 2 epochs onto dp=4 positions of cuda:0.
+FILES = dict(tfrecord_shards=8, npy_shards=4, ram_mb=512, latency_s=0.02,
+             mesh_epochs=2, warm_timeout_s=300.0)
+
+
+def _varints(values):
+    """The protobuf varint bytes of non-negative ``values`` (< 2**21), all
+    at once, and each value's byte offset into them."""
+    import numpy as np
+
+    v = values.astype(np.int64)
+    if v.size and (v.min() < 0 or v.max() >= 1 << 21):
+        raise ValueError("varints here cover [0, 2**21)")
+    two, three = v >= 1 << 7, v >= 1 << 14
+    width = 1 + two.astype(np.int64) + three
+    offs = np.cumsum(width) - width
+    out = np.empty(int(width.sum()), np.uint8)
+    out[offs] = (v & 0x7F) | (two.astype(np.int64) << 7)
+    out[offs[two] + 1] = ((v[two] >> 7) & 0x7F) | (three[two].astype(np.int64) << 7)
+    out[offs[three] + 2] = v[three] >> 14
+    return out, offs
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        low, n = n & 0x7F, n >> 7
+        if n:
+            out.append(low | 0x80)
+        else:
+            out.append(low)
+            return bytes(out)
+
+
+def _pb_field(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def masked_crc32c_many(bufs):
+    """The TFRecord masked CRC32C of every buffer in ``bufs``, computed
+    byte column by byte column over all buffers at once (the framing
+    writer's: one record at a time, the table loop costs ~1 us a byte)."""
+    import numpy as np
+
+    from ddl_tpu_torch.readers import _make_crc32c_tables
+
+    t0 = _make_crc32c_tables()[0]
+    lens = np.array([len(b) for b in bufs], np.int64)
+    order = np.argsort(-lens, kind="stable")
+    crcs = np.empty(len(bufs), np.uint32)
+    for g in range(0, len(order), 512):
+        idx = order[g:g + 512]
+        glens = lens[idx]  # descending
+        pad = np.zeros((len(idx), int(glens[0]) if len(idx) else 0), np.uint8)
+        for r, i in enumerate(idx):
+            pad[r, :lens[i]] = np.frombuffer(bufs[i], np.uint8)
+        crc = np.full(len(idx), 0xFFFFFFFF, np.uint32)
+        neg = -glens
+        for j in range(pad.shape[1]):
+            a = int(np.searchsorted(neg, -j, side="left"))  # lens > j
+            c = crc[:a]
+            crc[:a] = t0[(c ^ pad[:a, j]) & 0xFF] ^ (c >> np.uint32(8))
+        crcs[idx] = crc ^ np.uint32(0xFFFFFFFF)
+    return ((crcs >> np.uint32(15)) | (crcs << np.uint32(17))) + np.uint32(0xA282EAD8)
+
+
+def write_tfrecord_corpus(tmpdir, tokens, doc_lens, n_shards, key="input_ids"):
+    """``tokens`` cut at ``doc_lens`` into documents, each one ``tf.Example``
+    record with an int64 ``key`` feature, framed with valid masked CRC32C
+    (u64 length, its CRC, payload, its CRC) into ``n_shards`` files of
+    consecutive documents.  Returns (glob, [tokens per shard])."""
+    import struct
+
+    import numpy as np
+
+    ends = np.minimum(np.cumsum(doc_lens), len(tokens))
+    starts = np.concatenate([[0], ends[:-1]])
+    keep = ends > starts
+    starts, ends = starts[keep], ends[keep]
+    packed, offs = _varints(tokens)
+    offs = np.append(offs, len(packed))
+    key_field = _pb_field(1, key.encode())
+    payloads = [
+        _pb_field(1, _pb_field(1, key_field + _pb_field(2, _pb_field(
+            3, _pb_field(1, packed[offs[a]:offs[b]].tobytes())))))
+        for a, b in zip(starts, ends)]
+    heads = [struct.pack("<Q", len(p)) for p in payloads]
+    head_crc = masked_crc32c_many(heads)
+    body_crc = masked_crc32c_many(payloads)
+    shard_of = np.arange(len(payloads)) * n_shards // len(payloads)
+    per_shard = []
+    for s in range(n_shards):
+        path = os.path.join(tmpdir, f"c4-train.{s:05d}-of-{n_shards:05d}.tfrecord")
+        with open(path, "wb") as f:
+            for i in np.flatnonzero(shard_of == s):
+                f.write(heads[i])
+                f.write(struct.pack("<I", int(head_crc[i])))
+                f.write(payloads[i])
+                f.write(struct.pack("<I", int(body_crc[i])))
+        per_shard.append(int((ends - starts)[shard_of == s].sum()))
+    return os.path.join(tmpdir, "c4-train.*-of-*.tfrecord"), per_shard
+
+
+class FetchLog:
+    """A storage backend over the local filesystem that appends every
+    open to a file under ``log_dir`` (one per process), so a spawned
+    producer's fetches reach the parent.  Its fingerprint is the local
+    one: it keys the same cache entries.  Picklable: it holds a path."""
+
+    name = "fetchlog"
+
+    def __init__(self, log_dir):
+        self.log_dir = log_dir
+
+    def open(self, path):
+        with open(os.path.join(self.log_dir, f"{os.getpid()}.log"), "a") as f:
+            f.write(path + "\n")
+        return open(path, "rb")
+
+    def fingerprint(self, path):
+        from ddl_tpu_torch.cache import LocalBackend
+
+        return LocalBackend().fingerprint(path)
+
+    def fetches(self):
+        return sum(len(open(os.path.join(self.log_dir, n)).read().split())
+                   for n in os.listdir(self.log_dir))
+
+
+def _refills(producer, n, tail=0, **kw):
+    """``on_init``, then ``n`` refills (``post_init`` and ``n - 1``
+    ``execute_function``) into one window, then ``tail`` more, neither
+    kept nor timed: the stream and the seconds of the ``n`` refills.  (A
+    cold TFRecord shard enters the cache when its last record has been
+    read, so filling a store takes one refill past the epoch.)"""
+    import numpy as np
+
+    ret = producer.on_init(**kw)
+    win = np.zeros(ret.shape, ret.dtype)
+    out = np.empty((n,) + tuple(ret.shape), ret.dtype)
+    t0 = time.perf_counter()
+    producer.post_init(my_ary=win)
+    out[0] = win
+    for k in range(1, n):
+        producer.execute_function(my_ary=win)
+        out[k] = win
+    dt = time.perf_counter() - t0
+    for _ in range(tail):
+        producer.execute_function(my_ary=win)
+    producer.on_push_end()
+    return out, dt
+
+
+def tfrecord_refill_ab(pattern, per_shard, spill_dir, card):
+    """Phase 10a's A/B: ``TFRecordTokenProducer`` alone over producer 1's
+    shards (of 2), one epoch of whole windows: cold with the CRC on, cold
+    with it off, cold into a store with a spill dir, warm from that
+    store's RAM tier and warm from its disk tier (a fresh store over the
+    same dir, as a spawned producer builds).  Every stream byte-equal to
+    the first.  Returns the store and the summary."""
+    from ddl_tpu_torch.cache import CacheStore
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import TFRecordTokenProducer
+
+    tr = TRAIN
+    win_tokens = tr["window_rows"] * tr["seq_len"]
+    mine = per_shard[0::tr["n_producers"]]
+    n = sum(mine) // win_tokens
+    m = Metrics()
+    store = CacheStore(ram_budget_bytes=FILES["ram_mb"] << 20,
+                       spill_dir=spill_dir, metrics=m)
+
+    def producer(**kw):
+        return TFRecordTokenProducer(pattern, tr["seq_len"], tr["window_rows"],
+                                     warm=False, **kw)
+
+    legs = [("cold, CRC on", dict(cache=False, verify_crc=True)),
+            ("cold, CRC off", dict(cache=False, verify_crc=False)),
+            ("cold, into the store", dict(cache=store, verify_crc=True)),
+            ("warm, RAM tier", dict(cache=store, verify_crc=True)),
+            ("warm, disk tier", dict(verify_crc=True, cache=CacheStore(
+                ram_budget_bytes=FILES["ram_mb"] << 20, spill_dir=spill_dir,
+                metrics=Metrics())))]
+    summary, ref, ok = {"windows": n, "tokens": n * win_tokens}, None, True
+    for label, kw in legs:
+        before = {k: m.counter(k) for k in ("cache.hits", "cache.misses")}
+        stream, dt = _refills(producer(**kw), n,
+                              tail=int(label == "cold, into the store"),
+                              producer_idx=1, n_producers=tr["n_producers"])
+        ref = stream if ref is None else ref
+        same = stream.tobytes() == ref.tobytes()
+        ok &= same
+        row = {"ms_per_refill": dt / n * 1e3,
+               "tokens_per_s": n * win_tokens / dt, "s": dt}
+        if kw.get("cache") is store:
+            row.update({k: m.counter(k) - before[k] for k in before})
+        summary[label] = row
+        log(f"[files] TFRecord refills, {label}: {n} windows of "
+            f"{win_tokens} tokens in {dt:.3f} s, {row['ms_per_refill']:.3f} "
+            f"ms per refill, {row['tokens_per_s']:.0f} tokens/s, stream "
+            f"byte-equal to the first {same} ({card})")
+    disk = legs[-1][1]["cache"].metrics
+    ok &= (summary["cold, into the store"]["cache.misses"] == len(mine)
+           and summary["warm, RAM tier"]["cache.misses"] == 0
+           and summary["warm, RAM tier"]["cache.hits"] == len(mine)
+           and disk.counter("cache.spill_hits") == len(mine)
+           and disk.counter("cache.misses") == 0)
+    parse = summary["cold, CRC on"]["ms_per_refill"]
+    log(f"[files] the cold parse (CRC on) costs {parse:.3f} ms a window "
+        f"refill, {parse / (2 * 1e3 * 0.16) * 100:.1f} % of a window's 2 "
+        f"steps at phase 6's ~160 ms/step; CRC off {summary['cold, CRC off']['ms_per_refill']:.3f} "
+        f"ms; warm {summary['warm, RAM tier']['ms_per_refill']:.3f} (RAM) / "
+        f"{summary['warm, disk tier']['ms_per_refill']:.3f} (disk) ms")
+    if not ok:
+        raise PhaseFailed(f"[files] the TFRecord refill A/B failed: {summary}")
+    return store, summary
+
+
+def tfrecord_fits(pattern, store, spill_dir, tmpdir, card):
+    """Phase 10a's fits at full width on the TFRecord stream: THREAD with
+    ``cache=False``, THREAD over the warmed store (no miss, no fetch),
+    PROCESS with each producer's store built from the exported
+    ``LoaderConfig(cache=True, cache_spill_dir=...)`` (no fetch from
+    source).  Losses bit-equal, K1-K3 on the wgmma route with phase 6's
+    counts, every window on the alias route."""
+    from ddl_tpu_torch import cache as cache_mod
+    from ddl_tpu_torch.checkpoint import LoaderCheckpoint, adopt_cache_manifest
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.readers import TFRecordTokenProducer
+
+    tr = TRAIN
+    tag = "[files-fit]"
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+
+    def loss_fn(p, b):
+        return llama.next_token_loss(p, b[0], cfg)
+
+    # Producer 2's shards into the store through its warmer (producer 1's
+    # came from the A/B), so the warm fit starts with every shard cached.
+    m = store.metrics
+    p2 = TFRecordTokenProducer(pattern, tr["seq_len"], tr["window_rows"],
+                               cache=store, warm=True)
+    p2.on_init(producer_idx=2, n_producers=tr["n_producers"])
+    deadline = time.monotonic() + FILES["warm_timeout_s"]
+    while p2._warmer.alive and time.monotonic() < deadline:
+        time.sleep(0.05)
+    warmed = m.counter("cache.warmed")
+    p2.on_push_end()
+    if p2._warmer is not None or warmed != len(
+            glob.glob(pattern)) // tr["n_producers"]:
+        raise PhaseFailed(f"{tag} the warmer warmed {warmed} shards")
+    log(f"{tag} producer 2's shards warmed by its CacheWarmer: {warmed:.0f}")
+
+    fetch_dir = os.path.join(tmpdir, "fetches")
+    os.makedirs(fetch_dir, exist_ok=True)
+    log_backend = FetchLog(fetch_dir)
+    plain = _fit_mode("thread", TFRecordTokenProducer(
+        pattern, tr["seq_len"], tr["window_rows"], cache=False), loss_fn, cfg,
+        tag + " cache=False", card)
+    before = {k: m.counter(k) for k in ("cache.hits", "cache.misses")}
+    warm = _fit_mode("thread", TFRecordTokenProducer(
+        pattern, tr["seq_len"], tr["window_rows"], cache=store, warm=False,
+        backend=log_backend), loss_fn, cfg, tag + " warm store", card)
+    warm_hits = m.counter("cache.hits") - before["cache.hits"]
+    warm_misses = m.counter("cache.misses") - before["cache.misses"]
+    warm_fetches = log_backend.fetches()
+    try:
+        proc = _fit_mode("process", TFRecordTokenProducer(
+            pattern, tr["seq_len"], tr["window_rows"], backend=log_backend),
+            loss_fn, cfg, tag + " spill dir", card, cache=True,
+            cache_spill_dir=spill_dir, cache_warm=False,
+            cache_ram_mb=FILES["ram_mb"])
+    finally:
+        # The export was for the spawned producers: leave no cache knob
+        # set in this process.
+        for var in [v for v in os.environ if v.startswith("DDL_TORCH_CACHE")]:
+            os.environ.pop(var)
+    proc_fetches = log_backend.fetches() - warm_fetches
+
+    # The manifest route a resumed PROCESS run takes: a loader checkpoint
+    # captured with the store names its spill dir, and adopting it before
+    # the spawn exports that dir.
+    ck_path = os.path.join(tmpdir, "files_loader.json")
+
+    class _Loader:
+        _epoch = _target = _batches_in_window = 0
+
+    LoaderCheckpoint.capture(_Loader(), cache=store).save(ck_path)
+    cache_mod.reset_default_store()
+    adopted = (adopt_cache_manifest(ck_path)
+               and os.environ.get("DDL_TORCH_CACHE_SPILL_DIR") == store.spill_dir)
+    os.environ.pop("DDL_TORCH_CACHE_SPILL_DIR", None)
+
+    expected = cfg.n_layers * plain["steps"]
+    faults = []
+    for s in (plain, warm, proc):
+        _fit_gates(s, fa.KERNELS[:3], fa.KERNELS[3:], expected, faults)
+    _process_gates(proc, faults)
+    equal = plain["losses"] == warm["losses"] == proc["losses"]
+    log(f"{tag} losses cache=False {plain['losses']}, warm store "
+        f"{warm['losses']}, PROCESS over the spill dir {proc['losses']}: "
+        f"{'bit-equal' if equal else 'NOT bit-equal'}; K1-K3 launches "
+        f"{[plain['launches'][fn.__name__] for fn in fa.KERNELS[:3]]} "
+        f"(expected {expected} each, all on the wgmma route)")
+    log(f"{tag} warm THREAD fit: cache.hits +{warm_hits:.0f}, cache.misses "
+        f"+{warm_misses:.0f}, fetches from source {warm_fetches}; PROCESS "
+        f"fit: fetches from source {proc_fetches}; manifest adopted from a "
+        f"captured LoaderCheckpoint {adopted}")
+    if not equal:
+        faults.append("losses not bit-equal")
+    if not (warm_misses == 0 and warm_hits > 0 and warm_fetches == 0
+            and proc_fetches == 0 and adopted):
+        faults.append(f"cache: warm misses {warm_misses}, hits {warm_hits}, "
+                      f"fetches {warm_fetches} / {proc_fetches}, manifest "
+                      f"{adopted}")
+    if faults:
+        raise PhaseFailed(f"{tag} the TFRecord fits failed their checks: "
+                          + "; ".join(faults))
+    return {name: {k: s[k] for k in ("losses", "step_ms", "steady_step_ms",
+                                     "first_window_s", "launches")}
+            for name, s in (("uncached", plain), ("warm", warm),
+                            ("process", proc))}
+
+
+def npy_mesh_drain(tmpdir, card):
+    """Phase 10b: phase 5's geometry as 4 ``.npy`` shards, drained through
+    ``FileShardProducer`` over ``ThrottledBackend(latency_s=0.02)`` into a
+    512 MiB RAM store, 2 epochs onto dp=4 positions of cuda:0 (K8): every
+    position's shard byte-equal to its slice of the uncached drain's host
+    window, one K8 launch a window, no fallback, the warm epoch all hits.
+    Returns the shard glob, the host windows and the summary."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.cache import CacheStore, ThrottledBackend
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.readers import FileShardProducer
+
+    g = ICI
+    n = FILES["npy_shards"]
+    data = np.random.default_rng(SEED).standard_normal(
+        (n * g["rows"], g["cols"]), dtype=np.float32)
+    for i in range(n):
+        np.save(os.path.join(tmpdir, f"shard-{i:03d}.npy"),
+                data[i * g["rows"]:(i + 1) * g["rows"]])
+    del data
+    pattern = os.path.join(tmpdir, "shard-*.npy")
+    n_windows = FILES["mesh_epochs"] * n
+    host, _, host_s = _ici_drain(
+        FileShardProducer(pattern, seed=SEED, cache=False), g["batch_size"],
+        n_windows)
+    m = Metrics()
+    store = CacheStore(ram_budget_bytes=FILES["ram_mb"] << 20, metrics=m)
+    producer = FileShardProducer(
+        pattern, seed=SEED, cache=store, warm=False,
+        backend=ThrottledBackend(latency_s=FILES["latency_s"]))
+    waits = []
+    torch.cuda.synchronize()
+    fan.reset_launch_counts()
+    checks, lm, wall = _ici_drain(producer, g["batch_size"], n_windows, host,
+                                  {"dp": 4}, (None, "dp"), waits=waits)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in fan.KERNELS}
+    cold, warm = waits[:n], waits[n:]
+    summary = {
+        "windows": len(checks), "drain_s": wall, "host_drain_s": host_s,
+        "cold_ms_per_window": sum(cold) / len(cold) * 1e3,
+        "warm_ms_per_window": sum(warm) / len(warm) * 1e3,
+        "launches": counts, "cache.hits": m.counter("cache.hits"),
+        "cache.misses": m.counter("cache.misses"),
+        "ici.fallbacks": lm.counter("ici.fallbacks")}
+    ok = (all(checks) and len(checks) == n_windows
+          and lm.counter("ici.windows") == n_windows
+          and lm.counter("ici.fallbacks") == 0
+          and counts[fan.fanout_shard.__name__] == n_windows
+          and counts[fan.fanout_replicate.__name__] == 0
+          and m.counter("cache.misses") == n
+          and m.counter("cache.hits") >= n_windows - n)
+    log(f"[files] {n} .npy shards of ({g['rows']}, {g['cols']}) fp32 over "
+        f"ThrottledBackend(latency_s={FILES['latency_s']}), "
+        f"{FILES['ram_mb']} MiB store, {n_windows} windows onto dp=4 "
+        f"positions of cuda:0: every shard byte-equal to the uncached "
+        f"drain's {all(checks)}, ici.windows {lm.counter('ici.windows'):.0f}, "
+        f"ici.fallbacks {lm.counter('ici.fallbacks'):.0f}, launches {counts}, "
+        f"cache.misses {m.counter('cache.misses'):.0f} (one a shard), "
+        f"cache.hits {m.counter('cache.hits'):.0f}; wait per window cold "
+        f"{summary['cold_ms_per_window']:.3f} ms, warm "
+        f"{summary['warm_ms_per_window']:.3f} ms "
+        f"({[round(w * 1e3, 3) for w in waits]}); drain {wall:.3f} s, "
+        f"uncached host drain {host_s:.3f} s ({card}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed(f"[files] the .npy mesh drain failed: {summary}")
+    return pattern, [w.numpy() for w in host], summary
+
+
+def failure_ladder(pattern, host, tmpdir, card):
+    """Phase 10c on phase 10b's shards, producer 1 of 2 driven alone for
+    one epoch: a ``CACHE_CORRUPTION`` at ``cache.disk_read`` on a spilled
+    entry (quarantined, refetched, the stream unchanged); a transient
+    ``backend.fetch`` failure (one retry); zlib copies of the shard files
+    through ``CodecBackend`` (the raw stream)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.cache import CacheStore, CodecBackend
+    from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import FileShardProducer
+
+    # One epoch of producer 1's shards, and the refill after it: the
+    # pusher overwrites the post_init window before its first commit, so
+    # refills 2.. are the windows the loader served from producer 1.
+    n = FILES["npy_shards"] // TRAIN["n_producers"] + 1
+    kw = dict(producer_idx=1, n_producers=TRAIN["n_producers"])
+
+    def drive(**pkw):
+        return _refills(FileShardProducer(pattern, seed=SEED, warm=False,
+                                          **pkw), n, **kw)[0]
+
+    want = drive(cache=False)
+    served = np.stack(host[0:2 * (n - 1):2]).reshape(want[1:].shape)
+    if want[1:].tobytes() != served.tobytes():
+        raise PhaseFailed("[files] producer 1 alone does not refill the "
+                          "windows the loader served from it")
+
+    m = Metrics()
+    store = CacheStore(ram_budget_bytes=FILES["ram_mb"] << 20,
+                       spill_dir=os.path.join(tmpdir, "npy_spill"), metrics=m)
+    first = drive(cache=store)
+    store.clear()  # the next reads go through the disk tier
+    plan = FaultPlan([FaultSpec("cache.disk_read", FaultKind.CACHE_CORRUPTION,
+                                at=1, param=64)], seed=SEED)
+    with faults.armed(plan):
+        corrupted = drive(cache=store)
+    spill = os.listdir(store.spill_dir)
+    c1 = (first.tobytes() == want.tobytes() == corrupted.tobytes()
+          and len(plan.fired) == 1 and m.counter("cache.quarantined") == 1
+          and sum(f.endswith(".quarantined") for f in spill) == 1)
+    log(f"[files] ladder 1: CACHE_CORRUPTION at cache.disk_read, fired "
+        f"{plan.fired}: cache.quarantined {m.counter('cache.quarantined'):.0f}, "
+        f"stream byte-equal {corrupted.tobytes() == want.tobytes()} "
+        f"-> {'ok' if c1 else 'FAIL'}")
+
+    m2 = Metrics()
+    plan = FaultPlan([FaultSpec("backend.fetch", FaultKind.BACKEND_FETCH_FAIL,
+                                at=2)])
+    with faults.armed(plan):
+        healed = drive(cache=CacheStore(ram_budget_bytes=FILES["ram_mb"] << 20,
+                                        metrics=m2))
+    c2 = (healed.tobytes() == want.tobytes() and len(plan.fired) == 1
+          and m2.counter("cache.backend_retries") == 1
+          and m2.counter("cache.backend_failures") == 0)
+    log(f"[files] ladder 2: BACKEND_FETCH_FAIL at backend.fetch: "
+        f"cache.backend_retries {m2.counter('cache.backend_retries'):.0f}, "
+        f"stream byte-equal {healed.tobytes() == want.tobytes()} "
+        f"-> {'ok' if c2 else 'FAIL'}")
+
+    zdir = os.path.join(tmpdir, "zz")
+    os.makedirs(zdir, exist_ok=True)
+
+    def compress(path):
+        with open(path, "rb") as f:
+            raw = f.read()
+        out = os.path.join(zdir, os.path.basename(path) + ".zz")
+        with open(out, "wb") as f:
+            f.write(zlib.compress(raw, 1))
+        return len(raw), os.path.getsize(out)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(FILES["npy_shards"]) as pool:
+        sizes = list(pool.map(compress, sorted(glob.glob(pattern))))
+    squeeze = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = _refills(FileShardProducer(
+        os.path.join(zdir, "shard-*.npy.zz"), seed=SEED, cache=False,
+        backend=CodecBackend()), n, **kw)[0]
+    read_s = time.perf_counter() - t0
+    c3 = decoded.tobytes() == want.tobytes()
+    log(f"[files] ladder 3: zlib shards ({sum(b for _, b in sizes) / sum(a for a, _ in sizes):.3f} "
+        f"of the raw bytes, compressed in {squeeze:.3f} s) through "
+        f"CodecBackend: stream byte-equal to the raw files' {c3}, {n} "
+        f"refills in {read_s:.3f} s ({card}) -> {'ok' if c3 else 'FAIL'}")
+    if not (c1 and c2 and c3):
+        raise PhaseFailed("[files] the failure ladder failed its checks")
+    return {"quarantined": m.counter("cache.quarantined"),
+            "backend_retries": m2.counter("cache.backend_retries"),
+            "zlib_ratio": sum(b for _, b in sizes) / sum(a for a, _ in sizes),
+            "zlib_read_s": read_s}
+
+
+def phase_files(tmpdir, card):
+    """Phase 10: file shards through the shard cache.  (a) The token cell's
+    corpus as C4-style TFRecord shards: the refill A/B, then three fits at
+    full width (uncached, warm THREAD, PROCESS over the spill dir).  (b)
+    ``.npy`` shards through a throttled backend and a RAM store onto a
+    mesh of positions (K8).  (c) The failure ladder.  WebDataset shards
+    are not driven here: that reader needs Pillow, which this script does
+    not (the CPU tests hold it)."""
+    import numpy as np
+
+    from ddl_tpu_torch import cache as cache_mod
+
+    t0 = time.perf_counter()
+    tr = TRAIN
+    files = os.path.join(tmpdir, "files")
+    os.makedirs(files, exist_ok=True)
+    tokens = ((np.random.default_rng(SEED).zipf(1.2, tr["n_tokens"]) - 1)
+              % VOCAB).astype(np.int32)
+    lens = _doc_lengths(np.random.default_rng(SEED), tr["n_tokens"])
+    t1 = time.perf_counter()
+    pattern, per_shard = write_tfrecord_corpus(files, tokens, lens,
+                                               FILES["tfrecord_shards"])
+    written = sum(os.path.getsize(p) for p in glob.glob(pattern))
+    log(f"[files] {tr['n_tokens']} Zipf(1.2) tokens as "
+        f"{FILES['tfrecord_shards']} TFRecord shards of tf.Example documents "
+        f"(log-normal, median 300 tokens): {written} bytes, tokens per shard "
+        f"{per_shard}, written in {time.perf_counter() - t1:.3f} s")
+    spill = os.path.join(tmpdir, "tfrecord_spill")
+    store, ab = tfrecord_refill_ab(pattern, per_shard, spill, card)
+    summary = {"refill_ab": ab}
+    summary["fits"] = tfrecord_fits(pattern, store, spill, tmpdir, card)
+    del store
+    cache_mod.reset_default_store()
+    free_device_memory()
+    npy, host, summary["mesh"] = npy_mesh_drain(files, card)
+    free_device_memory()
+    summary["ladder"] = failure_ladder(npy, host, tmpdir, card)
+    del host
+    summary["s"] = time.perf_counter() - t0
+    log(f"[files] phase 10 took {summary['s']:.1f} s")
+    return summary
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -3569,6 +4181,8 @@ def main(argv=None) -> int:
                 packed_ref={
                     "losses": packed_summary["process"]["losses"],
                     "launches": packed_summary["process"]["launches"]})
+            free_device_memory()
+            files_summary = phase_files(tmp, card)
         # Each kernel's launches come from the run of its own path.
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
@@ -3582,6 +4196,7 @@ def main(argv=None) -> int:
         log(f"[summary-recovery] {json.dumps(recovery_summary)}")
         log(f"[summary-example] {json.dumps(example_summary)}")
         log(f"[summary-wire] {json.dumps(wire_summary)}")
+        log(f"[summary-files] {json.dumps(files_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -30,6 +30,7 @@ from typing import Any, Iterable, Optional, Union
 
 import torch
 
+from ddl_tpu_torch import cache as cache_mod
 from ddl_tpu_torch.parallel.train import TrainState, tree_leaves
 
 logger = logging.getLogger("ddl_tpu_torch")
@@ -264,11 +265,23 @@ def restore_train_state(path: str, like: TrainState,
 
 
 def adopt_cache_manifest(path: str) -> bool:
-    """Pre-spawn cache warm-start from a loader checkpoint: waits for the
-    shard cache (``cache/``, ROADMAP.md A4)."""
-    raise NotImplementedError(
-        "adopt_cache_manifest waits for the shard cache (ROADMAP.md A4)"
-    )
+    """Pre-spawn cache warm-start: read only the cache manifest of the
+    loader checkpoint at ``path`` and adopt it
+    (:func:`ddl_tpu_torch.cache.adopt_manifest`).
+
+    Spawned producers inherit their environment at spawn, so a PROCESS
+    resume calls this before ``distributed_dataloader`` starts them.  (A
+    THREAD resume does not need it: ``LoaderCheckpoint.apply`` attaches
+    the tier to the live shared store.)  Returns False — a cold cache,
+    never an error — when the checkpoint is missing or unreadable, has no
+    manifest, or the manifest is refused."""
+    try:
+        ck = LoaderCheckpoint.load(path)
+    except (OSError, ValueError, TypeError, KeyError):
+        return False
+    if not ck.cache_spill_dir:
+        return False
+    return cache_mod.adopt_manifest(ck.cache_spill_dir, ck.cache_key_schema)
 
 
 @dataclasses.dataclass
@@ -277,9 +290,11 @@ class LoaderCheckpoint:
 
     ``shuffle_round`` tracks a consumer-owned shuffler's schedule (any
     object with ``exchange_round`` or ``_round``): pass it to
-    ``capture``/``apply``.  The cache fields are carried through; the
-    port has no shard cache yet, so ``apply`` refuses a non-empty
-    ``cache_spill_dir``.  ``cluster_epoch`` fences a cluster view
+    ``capture``/``apply``.  The cache manifest (``cache_spill_dir`` and
+    the key schema it was written under) points a resumed run's shard
+    cache at the earlier run's disk tier, so its first epoch reads
+    decoded shards instead of refetching; a refused manifest resumes
+    with a cold cache.  ``cluster_epoch`` fences a cluster view
     (duck-typed: a supervisor with ``.view.epoch`` or a view with
     ``.epoch``, restored through ``restore_epoch``)."""
 
@@ -294,15 +309,16 @@ class LoaderCheckpoint:
     @staticmethod
     def capture(loader: Any, shuffler: Any = None, cache: Any = None,
                 cluster: Any = None) -> "LoaderCheckpoint":
-        if cache is not None:
-            raise NotImplementedError(
-                "capturing a shard cache waits for cache/ (ROADMAP.md A4)"
-            )
+        """The loader's position; ``cache`` is the store whose disk tier
+        the manifest names (default: the process-default store if one
+        was built — capturing never builds one)."""
         round_ = 0
         if shuffler is not None:
             round_ = getattr(
                 shuffler, "exchange_round", getattr(shuffler, "_round", 0)
             )
+        store = cache if cache is not None else cache_mod.active_store()
+        spill = getattr(store, "spill_dir", None) if store else None
         cluster_epoch = 0
         if cluster is not None:
             view = getattr(cluster, "view", cluster)
@@ -313,16 +329,12 @@ class LoaderCheckpoint:
             target=loader._target,
             batches_in_window=loader._batches_in_window,
             shuffle_round=int(round_),
+            cache_spill_dir=spill,
+            cache_key_schema=cache_mod.KEY_SCHEMA_VERSION if spill else 0,
         )
 
     def apply(self, loader: Any, shuffler: Any = None,
               cluster: Any = None) -> None:
-        if self.cache_spill_dir:
-            raise NotImplementedError(
-                f"loader checkpoint names cache spill dir "
-                f"{self.cache_spill_dir!r}: adopting a shard cache waits "
-                "for cache/ (ROADMAP.md A4)"
-            )
         loader._epoch = self.epoch
         loader._target = self.target
         loader._batches_in_window = self.batches_in_window
@@ -330,6 +342,14 @@ class LoaderCheckpoint:
             restore = getattr(cluster, "restore_epoch", None)
             if callable(restore):
                 restore(self.cluster_epoch)
+        if self.cache_spill_dir:
+            if not cache_mod.adopt_manifest(self.cache_spill_dir,
+                                            self.cache_key_schema):
+                logger.warning(
+                    "checkpoint cache manifest not adopted (%s, schema %d)"
+                    " — resuming with a cold cache",
+                    self.cache_spill_dir, self.cache_key_schema,
+                )
         if shuffler is not None:
             rejoin = getattr(shuffler, "rejoin", None)
             if callable(rejoin):

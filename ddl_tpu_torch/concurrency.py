@@ -44,6 +44,13 @@ LOCK_ORDER: Tuple[str, ...] = (
     # Taken alone, around the once-per-root sweep of stale rendezvous
     # sessions.
     "shuffle.sweep",
+    # The shard cache: the process-default store's registry, a store's
+    # LRU, its disk tier (taken under the LRU lock by an eviction's spill
+    # backstop, never the reverse), a throttled backend's open counter.
+    "cache.registry",
+    "cache.store",
+    "cache.store.spill",
+    "cache.backend",
     # The fault plan's hit counter: taken by injection sites under any
     # lock above while a plan is armed.
     "faults.plan",

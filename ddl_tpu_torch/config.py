@@ -5,7 +5,8 @@ vars → explicit kwargs, later layers winning.
 Every field of the JAX package's ``LoaderConfig`` and ``TrainConfig`` is
 here and loads and saves.  ``output`` names the port's device container
 ``"device"`` where the JAX package says ``"jax"``.  A field whose module
-the port has not ported yet (the shard cache, host identity, the pipeline schedule, ZeRO-1, int8 gradient communication)
+the port has not ported yet (host identity, the pipeline schedule,
+ZeRO-1, int8 gradient communication)
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when a
 consumer is handed a non-default value (:meth:`LoaderConfig.check_ported`,
 :meth:`TrainConfig.check_ported`); it is never silently ignored.
@@ -49,7 +50,8 @@ class LoaderConfig:
     # checkpointing (Trainer constructor arguments read these in callers)
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 0  # 0 = disabled
-    # shard cache (not ported yet)
+    # shard cache (ddl_tpu_torch.cache): exported to DDL_TORCH_CACHE* by
+    # distributed_dataloader(config=...) before producers start
     cache: bool = False
     cache_ram_mb: int = 256
     cache_spill_dir: Optional[str] = None
@@ -182,9 +184,6 @@ class TrainConfig:
 _LOADER_UNPORTED: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("host_id", "n_hosts", "procs_per_host"),
      "host identity waits for the multi-host slice (ROADMAP.md A5)"),
-    (("cache", "cache_ram_mb", "cache_spill_dir", "cache_spill_mb",
-      "cache_warm", "cache_codec"),
-     "the shard cache waits for cache/ (ROADMAP.md A4)"),
 )
 _PIPELINE_UNPORTED = (
     (("schedule", "pp_chunks", "n_microbatches"),

@@ -18,10 +18,11 @@ rejoins at its predecessor's position.  A ``shuffler_factory`` crosses
 the spawn boundary by pickle, with the producer function.
 
 MULTIHOST mode is a later slice.  Every ``DDL_TORCH_*`` knob a spawned
-producer reads (ring, integrity, in-place fill, the wire, the fault plan
-in ``DDL_TORCH_FAULT_PLAN``) reaches it through the environment it
-inherits.  The one ``LoaderConfig`` pair a producer needs, the wire
-format, is exported there before the spawn (:func:`export_wire_knobs`).
+producer reads (ring, integrity, in-place fill, the wire, the shard
+cache, the fault plan in ``DDL_TORCH_FAULT_PLAN``) reaches it through the
+environment it inherits.  The ``LoaderConfig`` fields a producer needs,
+the wire format and the shard cache, are exported there before the spawn
+(:func:`export_wire_knobs`, :func:`export_cache_knobs`).
 """
 
 from __future__ import annotations
@@ -70,6 +71,37 @@ def export_wire_knobs(config: Any) -> None:
         elif var in _exported_wire_vars:
             os.environ.pop(var, None)
             _exported_wire_vars.discard(var)
+
+
+def export_cache_knobs(config: Any) -> None:
+    """Mirror a ``LoaderConfig``'s shard-cache fields into the
+    ``DDL_TORCH_CACHE*`` environment before producers start: the store is
+    per process, and a spawned producer builds its own from the
+    environment it inherits.
+
+    The config wins over the environment both ways: ``cache=False``
+    exports the gate off (where the environment set it), and a cache-on
+    config with no spill dir (or no codec) clears a stale one.
+    ``config=None`` states no opinion and leaves the environment alone.
+    """
+    if config is None:
+        return
+    if not config.cache:
+        if "DDL_TORCH_CACHE" in os.environ:
+            os.environ["DDL_TORCH_CACHE"] = "0"
+        return
+    os.environ["DDL_TORCH_CACHE"] = "1"
+    os.environ["DDL_TORCH_CACHE_RAM_MB"] = str(config.cache_ram_mb)
+    os.environ["DDL_TORCH_CACHE_SPILL_MB"] = str(config.cache_spill_mb)
+    os.environ["DDL_TORCH_CACHE_WARM"] = "1" if config.cache_warm else "0"
+    if config.cache_spill_dir:
+        os.environ["DDL_TORCH_CACHE_SPILL_DIR"] = config.cache_spill_dir
+    else:
+        os.environ.pop("DDL_TORCH_CACHE_SPILL_DIR", None)
+    if config.cache_codec:
+        os.environ["DDL_TORCH_CACHE_CODEC"] = config.cache_codec
+    else:
+        os.environ.pop("DDL_TORCH_CACHE_CODEC", None)
 
 
 def detect_topology(
@@ -294,6 +326,7 @@ def distributed_dataloader(
     nslots: Optional[int] = None,
     pin_memory: Optional[bool] = None,
     shuffler_factory: Any = None,
+    config: Any = None,
 ) -> Callable[..., Any]:
     """Decorator running ``func`` as the consumer with producers alongside;
     ``func`` receives a :class:`DDL_Env` as its last argument and its
@@ -309,12 +342,26 @@ def distributed_dataloader(
     PROCESS mode it is pickled to each child, so its rendezvous must be a
     ``ShmRendezvous``.  PROCESS mode spawns: call the decorated main under
     ``if __name__ == "__main__":``.
+
+    ``config`` (a :class:`~ddl_tpu_torch.config.LoaderConfig`) supplies
+    the topology's defaults (explicit arguments win) and has its wire and
+    shard-cache fields exported to the environment before the producers
+    start (:func:`export_wire_knobs`, :func:`export_cache_knobs`).
     """
+    if config is not None:
+        config.check_ported()
+        n_producers = config.n_producers if n_producers is None else n_producers
+        mode = config.mode if mode is None else mode
+        nslots = config.nslots if nslots is None else nslots
+
     def deco(f: Callable[..., Any]) -> Callable[..., Any]:
         @functools.wraps(f)
         def wrapper(*args: Any, **kwargs: Any) -> Any:
             topology = detect_topology(n_producers, mode)
             depth = nslots or envspec.get("DDL_TORCH_NSLOTS")
+            if config is not None:
+                export_cache_knobs(config)
+                export_wire_knobs(config)
             pin = pin_memory
             if pin is None:
                 import torch

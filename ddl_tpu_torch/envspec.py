@@ -96,7 +96,7 @@ _EXPLICIT: List[Knob] = [
     Knob("DDL_TORCH_FUSED", "bool", None,
          "Fused compute/ingest stream loop (unset = on; 0 restores the "
          "synchronous loop everywhere)."),
-    # -- shard cache (ROADMAP.md A4) -------------------------------------
+    # -- shard cache (cache/) ---------------------------------------------
     Knob("DDL_TORCH_CACHE", "bool", False, "Shard cache gate.",
          config_field="cache"),
     Knob("DDL_TORCH_CACHE_RAM_MB", "int", 256, "RAM tier budget, MiB.",
@@ -112,6 +112,13 @@ _EXPLICIT: List[Knob] = [
     Knob("DDL_TORCH_CACHE_CODEC", "str", None,
          "Lossless codec for spilled cache entries.",
          config_field="cache_codec"),
+    Knob("DDL_TORCH_CACHE_RETRIES", "int", 3,
+         "Backend fetch retries before IntegrityError."),
+    Knob("DDL_TORCH_CACHE_BACKOFF_S", "float", 0.05,
+         "Base backoff between backend fetch retries, seconds."),
+    # -- readers ---------------------------------------------------------
+    Knob("DDL_TORCH_TFRECORD_CRC", "bool", True,
+         "CRC32C verification of TFRecord length/payload frames."),
     # -- wire format (ROADMAP.md A3) -------------------------------------
     Knob("DDL_TORCH_WIRE_DTYPE", "str", None,
          "Wire transport override: raw = kill switch, bf16/int8 = force "
@@ -179,13 +186,13 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_CACHE_SPILL_MB": "DDL_TORCH_CACHE_SPILL_MB",
     "DDL_TPU_CACHE_WARM": "DDL_TORCH_CACHE_WARM",
     "DDL_TPU_CACHE_CODEC": "DDL_TORCH_CACHE_CODEC",
-    "DDL_TPU_CACHE_RETRIES": "todo",
-    "DDL_TPU_CACHE_BACKOFF_S": "todo",
+    "DDL_TPU_CACHE_RETRIES": "DDL_TORCH_CACHE_RETRIES",
+    "DDL_TPU_CACHE_BACKOFF_S": "DDL_TORCH_CACHE_BACKOFF_S",
     "DDL_TPU_WIRE_DTYPE": "DDL_TORCH_WIRE_DTYPE",
     "DDL_TPU_WIRE_CODEC": "DDL_TORCH_WIRE_CODEC",
     "DDL_TPU_DEVICE_SHUFFLE": "DDL_TORCH_DEVICE_SHUFFLE",
     "DDL_TPU_SHUFFLE_IMPL": "DDL_TORCH_SHUFFLE_IMPL",
-    "DDL_TPU_TFRECORD_CRC": "todo",
+    "DDL_TPU_TFRECORD_CRC": "DDL_TORCH_TFRECORD_CRC",
     "DDL_TPU_CKPT_ASYNC": "DDL_TORCH_CKPT_ASYNC",
     "DDL_TPU_PREEMPT_NOTICE": "DDL_TORCH_PREEMPT_NOTICE",
     "DDL_TPU_PREEMPT_DEADLINE_S": "DDL_TORCH_PREEMPT_DEADLINE_S",

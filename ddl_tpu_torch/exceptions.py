@@ -65,6 +65,13 @@ class CheckpointError(DDLError):
     unverifiable generations are quarantined and skipped."""
 
 
+class BackendFetchError(TransportError):
+    """A storage-backend shard fetch failed, in a way a retry might heal
+    (:mod:`ddl_tpu_torch.cache.backends`, and the ``backend.fetch`` fault
+    site).  :func:`~ddl_tpu_torch.cache.open_with_retry` retries it with
+    bounded backoff; exhaustion escalates to :class:`IntegrityError`."""
+
+
 class DecodeError(DDLError):
     """A wire payload failed to decode (:mod:`ddl_tpu_torch.wire`): a
     codec raised, an envelope field was malformed, or the declared output

@@ -36,7 +36,12 @@ Sites in the port (site — the kinds that act there):
 ``wire.encode``             ``WIRE_CORRUPTION`` of an encoded payload,
                             after its CRC stamp (slot) or its envelope
                             header (exchange)
-``wire.decode``             ``DECODE_FAIL`` at a decode site
+``wire.decode``             ``DECODE_FAIL`` at a decode site (the slot
+                            and exchange decoders, ``CodecBackend.open``)
+``cache.disk_read``         ``CACHE_CORRUPTION`` of a disk-tier entry just
+                            read: quarantine and refetch
+``backend.fetch``           ``BACKEND_FETCH_FAIL`` before a shard fetch
+                            attempt in ``open_with_retry``
 ``resilience.notice``       ``PREEMPT_NOTICE`` at ``PreemptionGuard.poll``
 ``resilience.ckpt_write``   ``CKPT_CORRUPTION`` of a stamped generation
 ``transport.control_send``  ``CONTROL_MSG_DROP`` / ``NETWORK_PARTITION``
@@ -45,8 +50,8 @@ Sites in the port (site — the kinds that act there):
 ==========================  ==============================================
 
 Every kind of the JAX package is defined, so plans round-trip through
-JSON; the kinds whose sites are not ported yet (the cache, the storage
-backends, the cluster, serve and tune planes) match no site here.
+JSON; the kinds whose sites are not ported yet (the cluster, serve and
+tune planes) match no site here.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.concurrency import named_lock
 from ddl_tpu_torch.exceptions import (
+    BackendFetchError,
     ControlSendDropped,
     DDLError,
     DecodeError,
@@ -245,6 +251,9 @@ class FaultPlan:
                     FaultKind.STAGED_TRANSFER_FAIL,
                     FaultKind.ICI_DMA_FAIL):
             raise InjectedFault(f"{kind.value} {where}")
+        if kind is FaultKind.BACKEND_FETCH_FAIL:
+            # The real type, so open_with_retry's ladder takes it.
+            raise BackendFetchError(f"backend fetch failure {where}")
         if kind is FaultKind.DECODE_FAIL:
             raise DecodeError(f"decode failure {where}")
         if kind is FaultKind.PREEMPT_NOTICE:
@@ -258,9 +267,9 @@ class FaultPlan:
             return  # the sender sends the same envelope twice
         if kind is FaultKind.SHUFFLE_PEER_LOSS:
             raise DDLError(f"shuffle peer loss {where}")
-        # The kinds of modules the port does not have yet (cache, storage
-        # backends, cluster, serve): no port site names them, so only a
-        # hand-placed spec reaches here.
+        # The kinds of modules the port does not have yet (cluster, serve,
+        # tune): no port site names them, so only a hand-placed spec
+        # reaches here.
         raise InjectedFault(f"{kind.value} {where}")
 
 

@@ -83,6 +83,19 @@ class WindowHeader:
         return wire._CODE_TO_DTYPE.get(self.wire_code, "raw")
 
 
+def blob_seq(digest: str) -> int:
+    """Stable 64-bit sequence tag derived from a cache-entry digest.
+
+    The disk tier of the shard cache (:mod:`ddl_tpu_torch.cache.store`)
+    stamps its entries with the trailer above and this digest-derived
+    value in the header's ``seq`` field: a spill file renamed or
+    hard-linked across keys then fails :func:`verify_window`'s sequence
+    check even when its payload CRC is intact, so a stale entry can never
+    alias a foreign key.
+    """
+    return int(digest[:16], 16) & 0xFFFFFFFFFFFFFFFF
+
+
 def write_header(
     slot_view: np.ndarray,
     payload_bytes: int,

@@ -576,9 +576,6 @@ class Trainer:
         timeout_s = 300.0
         if config is not None:
             config.check_ported()
-            from ddl_tpu_torch.env import export_wire_knobs
-
-            export_wire_knobs(config)
             if config.output != "device":
                 raise ValueError(
                     f"Trainer.fit serves output='device', config has "
@@ -628,7 +625,7 @@ class Trainer:
         @distributed_dataloader(
             n_producers=n_producers, mode=mode, nslots=nslots,
             pin_memory=self.device.type == "cuda",
-            shuffler_factory=shuffler_factory,
+            shuffler_factory=shuffler_factory, config=config,
         )
         def _main(env):
             envs.append(env)

@@ -7,7 +7,9 @@
   writer failures, geometry changes, the manifest-verified synchronous
   path and the atomic write.  The reference's chaos-site case waits for
   ``faults.py``; a hand-truncated generation covers its fallback here.
-- ``LoaderCheckpoint`` JSON equals the reference's byte for byte.
+- ``LoaderCheckpoint`` JSON equals the reference's byte for byte, with
+  and without a cache manifest; a manifest either package wrote is
+  adopted by the other, and one that cannot be adopted resumes cold.
 - A generation serialized by both packages from the same tiny Llama train
   state (params and AdamW moments at step 3, in the reference's leaf
   order, which the test derives from ``jax.tree_util``) is byte-identical,
@@ -318,11 +320,74 @@ def test_loader_checkpoint_json_is_the_references(tmp_path):
         f.name for f in dataclasses.fields(jckpt.LoaderCheckpoint)]
 
 
-def test_loader_checkpoint_refuses_a_cache_it_cannot_adopt(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
-        tckpt.LoaderCheckpoint(cache_spill_dir="/spill").apply(object())
-    with pytest.raises(NotImplementedError, match="A4"):
-        tckpt.adopt_cache_manifest(str(tmp_path / "loader.json"))
+class _Loader:
+    _epoch = _target = _batches_in_window = 0
+
+
+def test_loader_checkpoint_refuses_a_cache_it_cannot_adopt(tmp_path,
+                                                           monkeypatch):
+    """A manifest that cannot be adopted (a vanished spill dir, another
+    key schema, no checkpoint file) resumes with a cold cache, as in the
+    reference: the loader's position is applied, nothing raises and no
+    spill dir is exported."""
+    from ddl_tpu import cache as jcache
+    from ddl_tpu_torch import cache as tcache
+
+    for var in ("DDL_TPU_CACHE_SPILL_DIR", "DDL_TORCH_CACHE_SPILL_DIR"):
+        monkeypatch.setenv(var, "")  # recorded, so restored after the test
+        monkeypatch.delenv(var)
+    (tmp_path / "spill").mkdir()
+    cases = [(str(tmp_path / "gone"), 1), (str(tmp_path / "spill"), 2)]
+    for spill, schema in cases:
+        for mod, cache in ((jckpt, jcache), (tckpt, tcache)):
+            cache.reset_default_store()
+            loader = _Loader()
+            mod.LoaderCheckpoint(epoch=4, cache_spill_dir=spill,
+                                 cache_key_schema=schema).apply(loader)
+            assert loader._epoch == 4
+    assert "DDL_TORCH_CACHE_SPILL_DIR" not in os.environ
+    assert "DDL_TPU_CACHE_SPILL_DIR" not in os.environ
+    missing = str(tmp_path / "loader.json")
+    assert tckpt.adopt_cache_manifest(missing) is False
+    assert jckpt.adopt_cache_manifest(missing) is False
+
+
+@pytest.mark.parametrize("codec", [None, "zlib"])
+def test_loader_checkpoint_with_a_cache_manifest_is_the_references(
+        tmp_path, codec, monkeypatch):
+    """``capture(cache=)`` names the store's spill dir and key schema in a
+    file byte-identical to the reference's, and each package adopts the
+    other's manifest."""
+    from ddl_tpu import cache as jcache
+    from ddl_tpu_torch import cache as tcache
+
+    spill = str(tmp_path / "spill")
+    jstore = jcache.CacheStore(spill_dir=spill, codec=codec)
+    tstore = tcache.CacheStore(spill_dir=spill, codec=codec,
+                               metrics=Metrics())
+    loader = _Loader()
+    loader._epoch, loader._target = 2, 1
+    jckpt.LoaderCheckpoint.capture(loader, cache=jstore).save(
+        str(tmp_path / "j.json"))
+    tckpt.LoaderCheckpoint.capture(loader, cache=tstore).save(
+        str(tmp_path / "t.json"))
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    ck = tckpt.LoaderCheckpoint.load(str(tmp_path / "j.json"))
+    assert ck.cache_spill_dir == spill
+    assert ck.cache_key_schema == tcache.KEY_SCHEMA_VERSION
+    for var in ("DDL_TPU_CACHE_SPILL_DIR", "DDL_TORCH_CACHE_SPILL_DIR"):
+        monkeypatch.setenv(var, "")  # recorded, so restored after the test
+        monkeypatch.delenv(var)
+    tcache.reset_default_store()
+    jcache.reset_default_store()
+    try:
+        assert tckpt.adopt_cache_manifest(str(tmp_path / "j.json"))
+        assert jckpt.adopt_cache_manifest(str(tmp_path / "t.json"))
+        assert os.environ["DDL_TORCH_CACHE_SPILL_DIR"] == spill
+        assert os.environ["DDL_TPU_CACHE_SPILL_DIR"] == spill
+    finally:
+        tcache.reset_default_store()
+        jcache.reset_default_store()
 
 
 def _jax_state(np_params, port_state):

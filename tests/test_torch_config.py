@@ -63,6 +63,13 @@ def test_layers_load_equal_values(tmp_path, monkeypatch, which):
     }[which]
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(js))
+    # Both env layers start empty: another test in this process may have
+    # exported a knob (the reference's cache adoption exports
+    # DDL_TPU_CACHE_SPILL_DIR).
+    for f in dataclasses.fields(jcls):
+        for prefix in ("DDL_TPU_", "DDL_TORCH_"):
+            monkeypatch.delenv(f"{prefix}{sub}{f.name.upper()}",
+                               raising=False)
     for name, value in env.items():
         monkeypatch.setenv(f"DDL_TPU_{sub}{name}", value)
         monkeypatch.setenv(f"DDL_TORCH_{sub}{name}", value)
@@ -131,9 +138,7 @@ def test_model_config_applies_remat():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("cache", True, "A4"), ("cache_spill_dir", "/spill", "A4"),
-    ("cache_codec", "zlib", "A4"), ("host_id", 1, "A5"),
-    ("n_hosts", 2, "A5"), ("mode", "multihost", "A5"),
+    ("host_id", 1, "A5"), ("n_hosts", 2, "A5"), ("mode", "multihost", "A5"),
     ("shuffle_impl", "xla", "A5"),
 ])
 def test_unported_loader_fields_raise(field, value, item):
@@ -144,6 +149,38 @@ def test_unported_loader_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         trainer.fit(None, config=cfg)
     tconfig.LoaderConfig(wire_codec="none").check_ported()  # "none" = off
+
+
+@pytest.mark.parametrize("field,value,var", [
+    ("cache", True, "DDL_TORCH_CACHE"),
+    ("cache_spill_dir", "/spill", None),
+    ("cache_codec", "zlib", None),
+    ("cache_ram_mb", 8, None),
+    ("cache_warm", False, None),
+])
+def test_cache_fields_pass_through(field, value, var, monkeypatch):
+    """The shard-cache fields are ported: ``check_ported`` takes them and
+    ``distributed_dataloader(config=...)`` exports them, gated on
+    ``cache`` as in the reference (a cache-off config exports nothing)."""
+    from ddl_tpu_torch import env as tenv_mod
+
+    for k in ("CACHE", "CACHE_SPILL_DIR", "CACHE_CODEC", "CACHE_RAM_MB",
+              "CACHE_WARM", "CACHE_SPILL_MB"):
+        # Recorded, so the export's writes are undone after the test.
+        monkeypatch.setenv("DDL_TORCH_" + k, "")
+        monkeypatch.delenv("DDL_TORCH_" + k)
+    cfg = tconfig.LoaderConfig(**{field: value})
+    cfg.check_ported()
+    tenv_mod.export_cache_knobs(cfg)
+    if var is None:
+        assert not any(k.startswith("DDL_TORCH_CACHE") for k in os.environ)
+        on = tconfig.LoaderConfig(cache=True, **{field: value})
+        tenv_mod.export_cache_knobs(on)
+        name = "DDL_TORCH_" + field.upper()
+        want = {True: "1", False: "0"}.get(value, str(value))
+        assert os.environ[name] == want
+    else:
+        assert os.environ[var] == "1"
 
 
 @pytest.mark.parametrize("field,value", [

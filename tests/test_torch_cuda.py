@@ -10,7 +10,11 @@ card: a SIGKILLed PROCESS producer respawned under the alias route, a
 replay while a window's copy is in flight, and the PROCESS shuffle over a
 ``ShmRendezvous`` landing on cuda:0 (``-k recovery``); a checkpoint
 round trip of a card-resident state and KV-cache decode against the
-no-cache forward (``-k "checkpoint or decode"``).
+no-cache forward (``-k "checkpoint or decode"``); the wire's card
+encode and encoded legs (``-k wire``); file shards through the shard
+cache onto the card — a TFRecord stream from a warm store (THREAD) and
+from a spill dir (PROCESS) on the alias route, ``.npy`` shards onto a
+mesh of positions through K8 (``-k cache``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -1562,3 +1566,136 @@ def test_wire_decoded_windows_take_the_copying_route(wd, mode):
     assert m.timer("ingest.stage_copy").count == epochs
     assert m.counter("integrity.corrupt_windows") == 0
     assert m.counter("integrity.staging_verify_failures") == 0
+
+
+# -- file shards through the shard cache --------------------------------------
+
+
+def _tfrecord_glob(tmp_path):
+    import chip_smoke
+
+    tokens = (np.random.default_rng(3).zipf(1.2, 60_000) - 1) % 1000
+    lens = chip_smoke._doc_lengths(np.random.default_rng(3), 60_000)
+    return chip_smoke.write_tfrecord_corpus(str(tmp_path), tokens, lens, 4)[0]
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_cache_tfrecord_windows_alias_from_the_cache(tmp_path, mode):
+    """A TFRecord stream onto cuda:0 whose shards come from the cache
+    (THREAD: a store warmed by an uncached pass's twin; PROCESS: each
+    producer's store built from the exported spill dir) equals the
+    uncached host stream byte for byte, every window on the alias route,
+    and no shard is fetched from source."""
+    import chip_smoke
+    from ddl_tpu_torch.cache import CacheStore
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import TFRecordTokenProducer
+
+    pattern = _tfrecord_glob(tmp_path)
+    spill = str(tmp_path / "spill")
+    store = CacheStore(spill_dir=spill, metrics=Metrics())
+    for idx in (1, 2):  # every shard into the store
+        p = TFRecordTokenProducer(pattern, 256, 8, cache=store, warm=False)
+        chip_smoke._refills(p, 40, producer_idx=idx, n_producers=2)
+    os.makedirs(tmp_path / "fetches")
+    fetch = chip_smoke.FetchLog(str(tmp_path / "fetches"))
+
+    def stream(device, producer, mode, config=None, metrics=None):
+        @ddl_tpu_torch.distributed_dataloader(
+            n_producers=2, mode=mode, nslots=2, config=config,
+            pin_memory=device == "cuda")
+        def run(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                producer, batch_size=4, connection=env.connection,
+                n_epochs=6, output="device", device=device,
+                metrics=metrics or Metrics())
+            out = []
+            for win in loader.windows(lookahead=1):
+                out.append(win.cpu().numpy().copy())
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            return out, env
+
+        out, env = run()
+        return out, env.workers.exitcodes  # filled in once they joined
+
+    want, _ = stream("cpu", TFRecordTokenProducer(pattern, 256, 8,
+                                                  cache=False), "thread")
+    m = Metrics()
+    if mode == "thread":
+        got, codes = stream("cuda", TFRecordTokenProducer(
+            pattern, 256, 8, cache=store, warm=False, backend=fetch),
+            mode, metrics=m)
+        assert store.metrics.counter("cache.hits") > 0
+    else:
+        cfg = LoaderConfig(cache=True, cache_spill_dir=spill,
+                           cache_warm=False)
+        try:
+            got, codes = stream("cuda", TFRecordTokenProducer(
+                pattern, 256, 8, backend=fetch), mode, config=cfg, metrics=m)
+        finally:
+            for var in [v for v in os.environ
+                        if v.startswith("DDL_TORCH_CACHE")]:
+                os.environ.pop(var)
+        assert codes == [0, 0]
+    assert fetch.fetches() == 0
+    assert len(got) == len(want) == 6
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    assert m.counter("staging.alias_windows") == 6
+    assert m.counter("staging.alias_fallbacks") == 0
+    assert m.counter("integrity.corrupt_windows") == 0
+
+
+def test_cache_npy_shards_ride_k8_onto_a_mesh(tmp_path):
+    """``.npy`` shards through a RAM store over a throttled backend onto
+    dp=4 positions of cuda:0: one K8 launch a window, no fallback, one
+    miss a shard, and every position's shard byte-equal to its slice of
+    the uncached host stream."""
+    from ddl_tpu_torch.cache import CacheStore, ThrottledBackend
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+    from ddl_tpu_torch.readers import FileShardProducer
+
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        np.save(tmp_path / f"s{i}.npy",
+                rng.standard_normal((1024, 64)).astype(np.float32))
+    pattern = str(tmp_path / "s*.npy")
+    sh = NamedSharding(make_mesh({"dp": 4}, ["cuda:0"] * 4), P(None, "dp"))
+
+    def stream(producer, device, sharding=None, metrics=None):
+        @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="thread",
+                                              pin_memory=device == "cuda")
+        def run(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                producer, batch_size=128, connection=env.connection,
+                n_epochs=8, output="device", device=device,
+                sharding=sharding, distribute="ici" if sharding else "auto",
+                metrics=metrics or Metrics())
+            out = []
+            for win in loader.windows(lookahead=1):
+                out.append(win.numpy().copy() if sharding is None
+                           else [(s.index, s.data.cpu().numpy())
+                                 for s in win.shards])
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            return out
+
+        return run()
+
+    want = stream(FileShardProducer(pattern, seed=1, cache=False), "cpu")
+    cm, lm = Metrics(), Metrics()
+    store = CacheStore(ram_budget_bytes=64 << 20, metrics=cm)
+    fan.reset_launch_counts()
+    got = stream(FileShardProducer(
+        pattern, seed=1, cache=store, warm=False,
+        backend=ThrottledBackend(latency_s=0.02)), "cuda", sh, lm)
+    torch.cuda.synchronize()
+    assert fan.fanout_shard.launches == lm.counter("ici.windows") == 8
+    assert fan.fanout_replicate.launches == 0
+    assert lm.counter("ici.fallbacks") == 0
+    assert cm.counter("cache.misses") == 4
+    assert len(got) == len(want) == 8
+    for shards, w in zip(got, want):
+        for index, data in shards:
+            assert data.tobytes() == np.ascontiguousarray(w[index]).tobytes()

@@ -51,8 +51,14 @@ def test_every_reference_knob_is_mapped():
         assert tenv.KNOB_MAP[name].startswith("n/a: ")
     for name in ("DDL_TPU_UNSAFE_PY_RING", "DDL_TPU_SHUFFLE_IMPL",
                  "DDL_TPU_CKPT_ASYNC", "DDL_TPU_PREEMPT_NOTICE",
-                 "DDL_TPU_PREEMPT_DEADLINE_S", "DDL_TPU_FAULT_PLAN"):
+                 "DDL_TPU_PREEMPT_DEADLINE_S", "DDL_TPU_FAULT_PLAN",
+                 "DDL_TPU_CACHE_RETRIES", "DDL_TPU_CACHE_BACKOFF_S",
+                 "DDL_TPU_TFRECORD_CRC"):
         assert tenv.KNOB_MAP[name] in tenv.REGISTRY
+    # The shard cache and the readers leave no knob to do.
+    for ref, port in tenv.KNOB_MAP.items():
+        if ref.startswith(("DDL_TPU_CACHE", "DDL_TPU_TFRECORD")):
+            assert port == ref.replace("DDL_TPU_", "DDL_TORCH_", 1), ref
 
 
 def test_an_unmapped_knob_fails_the_pairing():

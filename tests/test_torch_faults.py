@@ -19,6 +19,9 @@ CPU.
   fit drained and resumed byte-identically).
 - The soak: seeded two-fault plans in THREAD mode, and the exported plan
   across the spawn boundary in PROCESS mode.
+- The shard cache's sites, ``cache.disk_read`` and ``backend.fetch``
+  (hits, counters and streams equal to the reference's, and a spawned
+  producer's quarantine), and the reference's ``TestTFRecordCRC``.
 """
 
 import ast
@@ -252,6 +255,7 @@ class TestFaultEngine:
         (FaultKind.CONTROL_MSG_DROP, TransportError),
         (FaultKind.NETWORK_PARTITION, TransportError),
         (FaultKind.SHUFFLE_PEER_LOSS, DDLError),
+        (FaultKind.BACKEND_FETCH_FAIL, TransportError),
     ])
     def test_each_kind_raises_the_reference_type(self, kind, exc):
         plan = FaultPlan([FaultSpec("s", kind)])
@@ -799,3 +803,237 @@ class TestChaosSoak:
         assert [g.tobytes() for g in got] == [c.tobytes() for c in clean]
         assert m.counter("integrity.replays") == 1
         assert m.counter("wire.decoded_windows") >= 6
+
+
+# -- the shard cache's sites and the TFRecord CRC -----------------------------
+
+
+def _npy_shard_glob(tmp_path, n=3):
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        np.save(tmp_path / f"s{i}.npy",
+                rng.standard_normal((8, 4)).astype(np.float32))
+    return str(tmp_path / "s*.npy")
+
+
+def _fills(producer, n):
+    ret = producer.on_init(producer_idx=1)
+    ary = np.zeros(ret.shape, ret.dtype)
+    producer.post_init(my_ary=ary)
+    out = [ary.copy()]
+    for _ in range(n - 1):
+        producer.execute_function(my_ary=ary)
+        out.append(ary.copy())
+    return np.stack(out)
+
+
+class TestCacheSites:
+    """``cache.disk_read`` and ``backend.fetch`` act as in the reference:
+    the same plan fires the same hits and leaves the same counters."""
+
+    @pytest.mark.parametrize("site,kind,at,count,param", [
+        ("cache.disk_read", "cache_corruption", 1, 1, 16),
+        ("cache.disk_read", "cache_corruption", 2, 2, 4),
+        ("backend.fetch", "backend_fetch_fail", 2, 2, 0),
+        ("backend.fetch", "backend_fetch_fail", 1, 3, 0),
+    ])
+    def test_plan_fires_and_counts_as_the_reference(
+            self, tmp_path, monkeypatch, site, kind, at, count, param):
+        from ddl_tpu import cache as jcache
+        from ddl_tpu import readers as jreaders
+        from ddl_tpu.observability import Metrics as JMetrics
+        from ddl_tpu_torch import cache as tcache
+        from ddl_tpu_torch import readers as treaders
+
+        pattern = _npy_shard_glob(tmp_path)
+        monkeypatch.setenv("DDL_TPU_CACHE_BACKOFF_S", "0.001")
+        monkeypatch.setenv("DDL_TORCH_CACHE_BACKOFF_S", "0.001")
+        got = {}
+        for name, cache, readers, fmod, M in (
+                ("jax", jcache, jreaders, jfaults, JMetrics),
+                ("torch", tcache, treaders, faults, Metrics)):
+            m = M()
+            store = cache.CacheStore(spill_dir=str(tmp_path / name),
+                                     metrics=m)
+            clean = _fills(readers.FileShardProducer(
+                pattern, seed=2, cache=store, warm=False), 4)
+            if site == "cache.disk_read":
+                store.clear()  # the next reads go through the disk tier
+            else:  # a cold store: every shard is fetched
+                store = cache.CacheStore(
+                    spill_dir=str(tmp_path / f"{name}-cold"), metrics=m)
+            plan = fmod.FaultPlan([fmod.FaultSpec(
+                site, fmod.FaultKind(kind), at=at, count=count,
+                param=param)], seed=3)
+            with fmod.armed(plan):
+                out = _fills(readers.FileShardProducer(
+                    pattern, seed=2, cache=store, warm=False), 4)
+            assert out.tobytes() == clean.tobytes()
+            got[name] = (out.tobytes(), [f[1] for f in plan.fired],
+                         {k: m.counter(k) for k in (
+                             "cache.quarantined", "cache.backend_retries",
+                             "cache.spill_hits", "cache.misses")})
+        assert got["torch"] == got["jax"]
+        assert got["torch"][1] == [kind] * count
+
+    def test_decode_fail_at_the_codec_backend_retries(self, tmp_path):
+        from ddl_tpu_torch import cache as tcache
+
+        src = tmp_path / "x.npy"
+        np.save(src, np.arange(8, dtype=np.float32))
+        (tmp_path / "x.npy.zz").write_bytes(zlib.compress(src.read_bytes()))
+        plan = FaultPlan([FaultSpec("wire.decode", FaultKind.DECODE_FAIL,
+                                    at=1)])
+        m = Metrics()
+        with faults.armed(plan):
+            f = tcache.open_with_retry(tcache.CodecBackend(),
+                                       str(tmp_path / "x.npy.zz"),
+                                       retries=2, backoff_s=0.001, metrics=m)
+        assert np.array_equal(np.load(f), np.arange(8, dtype=np.float32))
+        assert plan.fired and m.counter("cache.backend_retries") == 1
+
+    def test_exported_corruption_plan_reaches_process_producers(
+            self, tmp_path):
+        """PROCESS producers arm an exported plan and build their stores
+        from the exported cache knobs: a corrupted disk entry in a spawned
+        producer is quarantined and refetched, the stream unchanged."""
+        from ddl_tpu_torch.config import LoaderConfig
+        from ddl_tpu_torch import cache as tcache
+        from ddl_tpu_torch.readers import FileShardProducer
+
+        pattern = _npy_shard_glob(tmp_path, n=2)
+        spill = str(tmp_path / "spill")
+        cfg = LoaderConfig(mode="process", n_producers=1, cache=True,
+                           cache_spill_dir=spill, cache_warm=False)
+        prev = {k: os.environ.get(k) for k in (
+            "DDL_TORCH_CACHE", "DDL_TORCH_CACHE_SPILL_DIR",
+            "DDL_TORCH_CACHE_WARM", "DDL_TORCH_CACHE_RAM_MB",
+            "DDL_TORCH_CACHE_SPILL_MB")}
+
+        def run(plan=None):
+            @distributed_dataloader(config=cfg, pin_memory=False)
+            def main(env):
+                loader = DistributedDataLoader(
+                    FileShardProducer(pattern, seed=9), batch_size=8,
+                    connection=env.connection, n_epochs=4, output="numpy",
+                    device="cpu", metrics=Metrics(), timeout_s=60.0)
+                out = []
+                for _ in range(4):
+                    for cols in loader:
+                        out.append(np.hstack([np.asarray(c) for c in cols]))
+                        loader.mark(Marker.END_OF_BATCH)
+                    loader.mark(Marker.END_OF_EPOCH)
+                return np.stack(out), env
+
+            ctx = (faults.armed(plan, export=True) if plan
+                   else contextlib.nullcontext())
+            with ctx:
+                return main()
+
+        try:
+            clean, env = run()
+            assert env.workers.exitcodes == [0]
+            assert len(os.listdir(spill)) == 2
+            plan = FaultPlan([FaultSpec("cache.disk_read",
+                                        FaultKind.CACHE_CORRUPTION, at=1,
+                                        param=8)])
+            got, env = run(plan)
+            assert env.workers.exitcodes == [0]
+            assert got.tobytes() == clean.tobytes()
+            names = os.listdir(spill)
+            assert sum(n.endswith(".quarantined") for n in names) == 1
+            assert sum(n.endswith(".ddlc") for n in names) == 2
+        finally:
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            tcache.reset_default_store()
+
+
+class TestTFRecordCRC:
+    """The reference's ``TestTFRecordCRC`` against the port's parsers."""
+
+    def _write(self, tmp_path, valid=True):
+        from datagen import encode_example_int64, write_tfrecord
+
+        payloads = [
+            encode_example_int64("input_ids", list(range(10 * i, 10 * i + 8)))
+            for i in range(4)
+        ]
+        path = str(tmp_path / "rec.tfrecord")
+        write_tfrecord(path, payloads, valid_crc=valid)
+        return path, payloads
+
+    def test_crc32c_check_vector(self):
+        from ddl_tpu_torch.readers import _make_crc32c_tables, crc32c
+
+        assert crc32c(b"123456789") == 0xE3069283
+        assert crc32c(b"") == 0
+        data = bytes(range(256)) * 3 + b"tail"
+        ref = 0xFFFFFFFF
+        t0 = _make_crc32c_tables()[0]
+        for b in data:
+            ref = int(t0[(ref ^ b) & 0xFF]) ^ (ref >> 8)
+        assert crc32c(data) == ref ^ 0xFFFFFFFF
+        assert crc32c(data) != (zlib.crc32(data) & 0xFFFFFFFF)
+
+    @pytest.mark.parametrize("n", [1, 3, 4, 5, 2047, 2048, 2049, 4096,
+                                   6000, 10_000])
+    def test_crc32c_equals_the_reference(self, n):
+        from ddl_tpu import readers as jreaders
+        from ddl_tpu_torch import readers as treaders
+
+        data = np.random.default_rng(n).integers(0, 256, n,
+                                                 dtype=np.uint8).tobytes()
+        assert treaders.crc32c(data) == jreaders.crc32c(data)
+        assert treaders.masked_crc32c(data) == jreaders.masked_crc32c(data)
+
+    def test_valid_file_reads_with_verification(self, tmp_path):
+        from ddl_tpu_torch.readers import iter_tfrecords
+
+        path, payloads = self._write(tmp_path)
+        assert list(iter_tfrecords(path, verify_crc=True)) == payloads
+
+    def test_corrupt_payload_raises_with_context(self, tmp_path):
+        from ddl_tpu_torch.readers import iter_tfrecords
+
+        path, _ = self._write(tmp_path)
+        data = bytearray(open(path, "rb").read())
+        data[20] ^= 0xFF  # inside record 0's payload
+        open(path, "wb").write(bytes(data))
+        with pytest.raises(IntegrityError, match="offset 0"):
+            list(iter_tfrecords(path, verify_crc=True))
+
+    def test_corrupt_length_crc_raises(self, tmp_path):
+        from ddl_tpu_torch.readers import iter_tfrecords
+
+        path, _ = self._write(tmp_path, valid=False)
+        with pytest.raises(IntegrityError, match="length-crc"):
+            list(iter_tfrecords(path, verify_crc=True))
+
+    def test_opt_out_knob_skips_validation(self, tmp_path, monkeypatch):
+        from ddl_tpu_torch.readers import iter_tfrecords
+
+        path, payloads = self._write(tmp_path, valid=False)
+        assert list(iter_tfrecords(path, verify_crc=False)) == payloads
+        monkeypatch.setenv("DDL_TORCH_TFRECORD_CRC", "0")
+        assert list(iter_tfrecords(path)) == payloads
+        monkeypatch.setenv("DDL_TORCH_TFRECORD_CRC", "1")
+        with pytest.raises(IntegrityError):
+            list(iter_tfrecords(path))
+
+    @pytest.mark.parametrize("cut", [1, 4, 11, 12, 20, 30])
+    @pytest.mark.parametrize("verify", [True, False])
+    def test_truncated_tail_ends_the_stream_in_both_modes(
+            self, tmp_path, cut, verify):
+        from ddl_tpu import readers as jreaders
+        from ddl_tpu_torch.readers import iter_tfrecords
+
+        path, payloads = self._write(tmp_path)
+        data = open(path, "rb").read()
+        open(path, "wb").write(data[:-cut])
+        got = list(iter_tfrecords(path, verify_crc=verify))
+        assert got == payloads[:-1]
+        assert got == list(jreaders.iter_tfrecords(path, verify_crc=verify))

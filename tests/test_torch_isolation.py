@@ -1,4 +1,5 @@
-"""ddl_tpu_torch stands alone: it imports neither JAX nor the JAX package,
+"""ddl_tpu_torch stands alone: it imports neither JAX nor the JAX package
+(nor Pillow, which only a WebDataset producer imports when it starts),
 calls no library attention, and its entry points refuse to drift onto
 the CPU when CUDA is absent.  ``chip_smoke.py`` and the port's example
 ``examples/train_llama_torch.py`` are held to the same rules.
@@ -36,7 +37,7 @@ for attr in ddl_tpu_torch.__all__:
     getattr(ddl_tpu_torch, attr)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ddl_tpu"
-             or m.startswith("ddl_tpu."))
+             or m.startswith("ddl_tpu.") or m == "PIL" or m.startswith("PIL."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -54,7 +55,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "ddl_tpu_torch.ops.flash_attention" in report["modules"]
     assert "ddl_tpu_torch.trainer" in report["modules"]
     for mod in ("checkpoint", "resilience.ckpt", "resilience.guard",
-                "config", "envspec", "concurrency", "wire", "faults"):
+                "config", "envspec", "concurrency", "wire", "faults",
+                "readers", "cache", "cache.backends", "cache.store",
+                "cache.warmer"):
         assert f"ddl_tpu_torch.{mod}" in report["modules"]
 
 

@@ -47,7 +47,8 @@ def test_ported_paths_mirror_the_reference_layout():
     "watchdog.py", "transport/envelope.py", "shuffle.py",
     "checkpoint.py", "concurrency.py", "resilience/__init__.py",
     "resilience/ckpt.py", "resilience/guard.py", "models/llama.py",
-    "faults.py", "wire.py",
+    "faults.py", "wire.py", "readers.py", "cache/__init__.py",
+    "cache/backends.py", "cache/store.py", "cache/warmer.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"

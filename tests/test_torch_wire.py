@@ -22,6 +22,10 @@ package's (``ddl_tpu/wire.py``), on the CPU.
   the values landed on the port's CPU mesh equal the host decode of the
   host encode (the bf16 case is held to the host ``encode_window``, not
   to the reference's intermittent ICI drift test).
+- Compressed shards: zlib ``.npy``/TFRecord/tar shards through
+  ``CodecBackend`` serve the JAX package's raw stream (THREAD, PROCESS,
+  cached); compressed disk-tier entries byte-identical to the
+  reference's and quarantined when corrupt.
 """
 
 import os
@@ -915,3 +919,215 @@ def test_crc_fold_is_zlib_crc32_continued(rng):
                        _zlib.crc32(slot[:enc].tobytes())) & 0xFFFFFFFF
     assert tint.wire_crc(slot, enc, sb) == want
     assert jfaults.armed_plan() is None and tfaults.armed_plan() is None
+
+
+# -- compressed shards and compressed cache entries ---------------------------
+
+
+def _compress_file(src, dst, level=6):
+    with open(src, "rb") as f:
+        raw = f.read()
+    with open(dst, "wb") as f:
+        f.write(_zlib.compress(raw, level))
+
+
+def _shard_stream(pkg, make_prod, mode="thread", epochs=3, batch_size=4):
+    """Every batch of a one-producer loader, one row per batch."""
+    p = ddl_tpu if pkg == "jax" else ddl_tpu_torch
+    kw = {} if pkg == "jax" else {"pin_memory": False}
+    extra = {} if pkg == "jax" else {"device": "cpu", "metrics": Metrics()}
+    out = []
+
+    @p.distributed_dataloader(n_producers=1, mode=mode, **kw)
+    def main(env):
+        loader = p.DistributedDataLoader(
+            make_prod(), batch_size=batch_size, connection=env.connection,
+            n_epochs=epochs, output="numpy", **extra)
+        for _ in range(epochs):
+            for i in range(len(loader)):
+                cols = loader[i]
+                out.append(np.concatenate(
+                    [np.atleast_2d(np.asarray(c).copy()) for c in cols],
+                    axis=-1))
+                loader.mark(p.Marker.END_OF_BATCH)
+            loader.mark(p.Marker.END_OF_EPOCH)
+
+    main()
+    return np.concatenate([o.reshape(1, -1) for o in out], axis=0)
+
+
+class TestCompressedShardMatrix:
+    """The reference's ``TestCompressedShardMatrix``: zlib shards through
+    ``CodecBackend`` serve the raw shards' stream, equal to the JAX
+    package's; zstd only where the library is installed."""
+
+    def _npy(self, tmp_path, n=3, rows=8, cols=16, codec="zlib"):
+        rng = np.random.default_rng(0)
+        for i in range(n):
+            np.save(tmp_path / f"shard_{i}.npy",
+                    rng.integers(0, 16, (rows, cols)).astype(np.float32))
+            src = tmp_path / f"shard_{i}.npy"
+            if codec == "zlib":
+                _compress_file(src, tmp_path / f"shard_{i}.npy.zz")
+            else:
+                enc = tw.get_codec(codec).encode_bytes(src.read_bytes(), 3)
+                (tmp_path / f"shard_{i}.npy.zst").write_bytes(enc)
+        return str(tmp_path / "shard_*.npy")
+
+    @pytest.mark.parametrize("cache_on", [False, True])
+    def test_fileshard_thread(self, tmp_path, cache_on):
+        from ddl_tpu_torch.cache import CacheStore, CodecBackend
+        from ddl_tpu_torch.readers import FileShardProducer
+
+        raw_glob = self._npy(tmp_path)
+
+        def zz_prod():
+            cache = (CacheStore(ram_budget_bytes=64 << 20, metrics=Metrics())
+                     if cache_on else False)
+            return FileShardProducer(raw_glob + ".zz", seed=0,
+                                     backend=CodecBackend(), cache=cache,
+                                     warm=False)
+
+        ref = _shard_stream("jax", lambda: ddl_tpu.readers.FileShardProducer(
+            raw_glob, seed=0, cache=False, warm=False))
+        raw = _shard_stream("torch", lambda: FileShardProducer(
+            raw_glob, seed=0, cache=False, warm=False))
+        zz = _shard_stream("torch", zz_prod)
+        assert raw.tobytes() == ref.tobytes()
+        assert zz.tobytes() == ref.tobytes()
+        if cache_on:
+            assert _shard_stream("torch", zz_prod).tobytes() == ref.tobytes()
+
+    def test_fileshard_process(self, tmp_path):
+        """The CodecBackend crosses the spawn by pickle and decodes in the
+        spawned producer: the THREAD raw stream."""
+        from ddl_tpu_torch.cache import CodecBackend
+        from ddl_tpu_torch.readers import FileShardProducer
+
+        raw_glob = self._npy(tmp_path, n=2, cols=8)
+        raw = _shard_stream("torch", lambda: FileShardProducer(
+            raw_glob, seed=0, cache=False, warm=False), epochs=2)
+        zz = _shard_stream("torch", lambda: FileShardProducer(
+            raw_glob + ".zz", seed=0, backend=CodecBackend(), cache=False,
+            warm=False), mode="process", epochs=2)
+        assert raw.tobytes() == zz.tobytes()
+
+    def test_fileshard_zstd_where_installed(self, tmp_path):
+        if "zstd" not in tw.available_codecs():
+            pytest.skip("zstandard is not installed on this host")
+        from ddl_tpu_torch.cache import CodecBackend
+        from ddl_tpu_torch.readers import FileShardProducer
+
+        raw_glob = self._npy(tmp_path, codec="zstd")
+        raw = _shard_stream("torch", lambda: FileShardProducer(
+            raw_glob, seed=0, cache=False))
+        zst = _shard_stream("torch", lambda: FileShardProducer(
+            raw_glob + ".zst", seed=0, backend=CodecBackend(), cache=False))
+        assert raw.tobytes() == zst.tobytes()
+
+    def test_tfrecord_thread(self, tmp_path):
+        from datagen import encode_example_int64, write_tfrecord
+
+        from ddl_tpu_torch.cache import CodecBackend
+        from ddl_tpu_torch.readers import TFRecordTokenProducer
+
+        payloads = [encode_example_int64("input_ids",
+                                         list(range(20 * i, 20 * i + 20)))
+                    for i in range(4)]
+        path = str(tmp_path / "toks.tfrecord")
+        write_tfrecord(path, payloads)
+        _compress_file(path, path + ".zz")
+        ref = _shard_stream("jax", lambda: ddl_tpu.readers.TFRecordTokenProducer(
+            path, seq_len=8, window_rows=4, warm=False))
+        zz = _shard_stream("torch", lambda: TFRecordTokenProducer(
+            path + ".zz", seq_len=8, window_rows=4, backend=CodecBackend(),
+            warm=False))
+        assert zz.tobytes() == ref.tobytes()
+
+    def test_webdataset_thread(self, tmp_path):
+        from datagen import write_image_shard
+
+        from ddl_tpu_torch.cache import CodecBackend
+        from ddl_tpu_torch.readers import WebDatasetProducer
+
+        path = str(tmp_path / "imgs.tar")
+        write_image_shard(path, [(f"s{i:03d}", i % 3) for i in range(4)],
+                          size=8)
+        _compress_file(path, path + ".zz")
+        ref = _shard_stream("jax", lambda: ddl_tpu.readers.WebDatasetProducer(
+            path, image_size=8, window_rows=4, warm=False))
+        zz = _shard_stream("torch", lambda: WebDatasetProducer(
+            path + ".zz", image_size=8, window_rows=4,
+            backend=CodecBackend(), warm=False))
+        assert zz.tobytes() == ref.tobytes()
+
+    def test_codec_fingerprint_and_suffixes_are_the_references(self,
+                                                               tmp_path):
+        from ddl_tpu import cache as jcache
+        from ddl_tpu_torch import cache as tcache
+
+        raw_glob = self._npy(tmp_path, n=1)
+        for path in (raw_glob.replace("*", "0"),
+                     raw_glob.replace("*", "0") + ".zz"):
+            assert (tcache.CodecBackend().fingerprint(path)
+                    == jcache.CodecBackend().fingerprint(path))
+        assert tcache.backends.CODEC_SUFFIXES == jcache.backends.CODEC_SUFFIXES
+
+    def test_truly_corrupt_compressed_file_fails_decode(self, tmp_path):
+        from ddl_tpu_torch.cache import CodecBackend
+        from ddl_tpu_torch.exceptions import BackendFetchError
+
+        (tmp_path / "bad.npy.zz").write_bytes(b"not a zlib stream")
+        with pytest.raises(BackendFetchError):
+            CodecBackend().open(str(tmp_path / "bad.npy.zz"))
+
+    def test_bad_forced_codec_fails_at_construction(self):
+        from ddl_tpu_torch.cache import CodecBackend
+
+        with pytest.raises(ValueError):
+            CodecBackend(codec="brotli")
+
+
+class TestCompressedCacheEntries:
+    def test_spill_entries_compressed_and_identical(self, tmp_path):
+        from ddl_tpu.cache import CacheStore as JStore
+        from ddl_tpu_torch.cache import CacheStore
+
+        arr = np.random.default_rng(0).integers(0, 8, (64, 64)).astype(
+            np.float32)
+        digest = "ab" * 32
+        store = CacheStore(spill_dir=str(tmp_path / "t"), codec="zlib",
+                           codec_level=6, metrics=Metrics())
+        store._spill(digest, arr)
+        size = os.path.getsize(store._spill_path(digest))
+        assert size < arr.nbytes
+        assert np.array_equal(store._disk_get(digest), arr)
+        ref = JStore(spill_dir=str(tmp_path / "j"), codec="zlib",
+                     codec_level=6)
+        ref._spill(digest, arr)
+        with open(store._spill_path(digest), "rb") as a, \
+                open(ref._spill_path(digest), "rb") as b:
+            assert a.read() == b.read()
+
+    def test_corrupt_compressed_entry_quarantines(self, tmp_path):
+        from ddl_tpu_torch.cache import CacheStore
+
+        arr = np.random.default_rng(1).integers(0, 8, (32, 32)).astype(
+            np.float32)
+        store = CacheStore(spill_dir=str(tmp_path / "spill"), codec="zlib",
+                           metrics=Metrics())
+        digest = "cd" * 32
+        store._spill(digest, arr)
+        path = store._spill_path(digest)
+        blob = np.fromfile(path, np.uint8)
+        blob[len(blob) // 2] ^= 0xFF
+        blob.tofile(path)
+        assert store._disk_get(digest) is None
+        assert store.metrics.counter("cache.quarantined") == 1
+
+    def test_bad_codec_name_fails_at_construction(self, tmp_path):
+        from ddl_tpu_torch.cache import CacheStore
+
+        with pytest.raises(ValueError):
+            CacheStore(spill_dir=str(tmp_path), codec="brotli")
+        assert CacheStore(codec="none", metrics=Metrics()).codec is None
