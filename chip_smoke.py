@@ -165,7 +165,37 @@ alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
 import chip_smoke as c; card = c.phase_build();
 c.phase_files(tempfile.mkdtemp(), card)"``.
 
-Output: progress lines, then one JSON line ``{"kernels": [...]}``, the
+Phase 11 is the mesh path over positions of cuda:0.  (a) Ring attention
+at Llama-3-8B attention width (B = 1, T = 8192, H = 32, Hkv = 8, D = 128,
+bf16) over sp = 4 positions, on tokens (K1-K3) and on phase 2's document
+ids with documents across the cuts (K4-K6): output and q/k/v grads
+against the plain version over the whole T (relative Frobenius <= 2e-2,
+computed a block of query rows at a time), the gap to one call over the
+whole T beside it, sp^2 = 16 launches of each kernel on the wgmma route,
+a nonzero lse cotangent reaching the backward, and each kernel's ms a
+call in the ring beside phase 2's.  (b) The sp fit: Llama-3-8B widths
+cut to 2 layers, one 8192-token row a step over ``{"sp": 4}`` with
+``batch_spec = P(None, "sp")`` (windows by K8, the ring in every layer),
+against the same fit with ``mesh=None`` (one K1-K3 call over the 8192
+tokens): the largest relative loss gap under ``SP_LOSS_TOL``, which a
+control (the ring with ``k_offset`` forced to ``q_offset``) must exceed;
+K1-K3 sp^2 times a layer and step; one K8 launch a window.  (c) Phase 6's
+token cell over ``{"dp": 4}``: optimizer sharding none, zero1, zero1 with
+int8 gradient communication, and with stochastic rounding — zero1's
+losses bit-equal to none's, each int8 fit inside ``loss_parity``, the
+moments per replica at 1/4, one K8 launch a window; the zero1 fit stopped
+after 2 windows (one async generation) and resumed by a fresh Trainer,
+bit-equal.  (d) ``quantized_all_reduce`` of 4 x 16 M fp32 values within
+the reference's bound of the fp32 mean, and ``DeviceGlobalShuffler`` over
+8 rounds at phase 4's geometry, both strategies, every pool
+byte-identical to a host oracle built from ``exchange_permutation``.
+Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
+import chip_smoke as c; card = c.phase_build();
+print(c.phase_mesh(tempfile.mkdtemp(), card))"``.
+
+Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
+with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
+ring of (a)), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -2591,7 +2621,7 @@ def _dense_loss(params, batches, model, mask=True, scale=True):
     from ddl_tpu_torch.parallel import ring_attention
 
     def dense(q, k, v, impl=None, causal=True, kv_repeat=1,
-              segment_ids=None):
+              segment_ids=None, mesh=None):
         if not scale:
             q = q * q.shape[-1] ** 0.5
         return ring_attention.attention_reference(
@@ -4121,6 +4151,553 @@ def phase_files(tmpdir, card):
     return summary
 
 
+# ------------------------------------------------------------ phase 11 ---
+
+#: Phase 11's cells.  The ring kernels at Llama-3-8B attention width over
+#: sp = 4 positions of cuda:0: B = 1, T = 8192, each block 2048 tokens (the
+#: kernels' main shape).  The sp fit: Llama-3-8B widths cut to 2 layers,
+#: one 8192-token row a step, 2 steps a window, 3 windows.  The dp fits:
+#: phase 6's token cell (B = 4, T = 2048) over dp = 4 positions.  The
+#: collectives on 4 positions at phase 4's geometry.
+MESH = dict(sp=4, dp=4, B=1, T=8192, H=32, Hkv=8, D=128, sp_rows=2,
+            n_epochs=3)
+#: The sp fit's loss gate: the largest relative gap between the ring fit's
+#: per-window losses and the one-call fit's stays under this, and the
+#: control (the ring with k_offset forced to q_offset: the wrong causal
+#: mask) must exceed it.  Set from phase 11's first readings (PERF.md, PR
+#: 14; NVIDIA H100 80GB HBM3, 700 W): gap 1.9e-05, control 8.9e-03.
+SP_LOSS_TOL = 1e-3
+
+
+def _plain_chunked(q, k, v, dout, ids, rep, chunk=1024):
+    """``attention_plain``'s output and q/k/v grads over the whole T,
+    one block of query rows at a time (rows at their global offsets
+    against every key; dk/dv summed over the blocks): the plain version
+    without a (B, H, T, T) score tensor."""
+    import torch
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    T = q.shape[1]
+    outs, dqs = [], []
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for c in range(0, T, chunk):
+        qc = qf[:, c:c + chunk].clone().requires_grad_(True)
+        kk, vv = kf.clone().requires_grad_(True), vf.clone().requires_grad_(True)
+        o, _ = fa.attention_plain(
+            qc, kk, vv, q_offset=c, k_offset=0, causal=True, kv_repeat=rep,
+            seg_q=None if ids is None else ids[:, c:c + chunk], seg_k=ids)
+        gq, gk, gv = torch.autograd.grad(o, (qc, kk, vv),
+                                         dout[:, c:c + chunk].float())
+        outs.append(o.detach())
+        dqs.append(gq)
+        dk += gk
+        dv += gv
+        del o, qc, kk, vv
+    return torch.cat(outs, 1), (torch.cat(dqs, 1), dk, dv)
+
+
+def _ring_ids(B, T, sp):
+    """Phase 2's document ids (log-normal documents, median 300 tokens)
+    for B rows of T tokens; fails unless a document straddles a cut."""
+    import numpy as np
+
+    ids = seg_ids(documents(B * T, seed=SEED + 3).reshape(B, T))
+    blk = T // sp
+    straddle = sum(int(ids[b, c * blk - 1] == ids[b, c * blk])
+                   for b in range(B) for c in range(1, sp))
+    if not straddle:
+        raise PhaseFailed("[mesh] no document straddles a shard cut")
+    return np.ascontiguousarray(ids, np.int32), straddle
+
+
+def _ring_kernel_ms(q, k, v, dout, ids, sp, packed):
+    """K1-K3 (K4-K6) timed as the ring calls them: the sp^2 (query
+    block, key block) pairs at their global offsets, blocks wholly in the
+    future skipping their tiles in the kernel; ms a call, averaged over
+    the pairs (CUDA events)."""
+    import torch
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    Tb = q.shape[1] // sp
+
+    def blk(t, i):
+        return t[:, i * Tb:(i + 1) * Tb].contiguous()
+
+    qs, ks, vs, ds = ([blk(t, i) for i in range(sp)] for t in (q, k, v, dout))
+    seg = [None] * sp if ids is None else [blk(ids, i) for i in range(sp)]
+    pairs = [(m, s) for m in range(sp) for s in range(sp)]
+    fwd, dq, dkv = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
+
+    def ids_of(m, s):
+        return (seg[m], seg[s]) if packed else ()
+
+    rows = {}
+    for m, s in pairs:
+        out, lse = fwd(qs[m], ks[s], vs[s], *ids_of(m, s), m * Tb, s * Tb)
+        delta = (ds[m].float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        rows[m, s] = (lse, delta, torch.zeros_like(lse))
+    ms = {
+        "fwd": _time_ms(lambda: [fwd(qs[m], ks[s], vs[s], *ids_of(m, s),
+                                     m * Tb, s * Tb) for m, s in pairs],
+                        reps=3, warmup=1) / len(pairs),
+        "dq": _time_ms(lambda: [dq(qs[m], ks[s], vs[s], ds[m], *rows[m, s],
+                                   *ids_of(m, s), m * Tb, s * Tb)
+                                for m, s in pairs], reps=3, warmup=1) / len(pairs),
+        "dkv": _time_ms(lambda: [dkv(qs[m], ks[s], vs[s], ds[m], *rows[m, s],
+                                     *ids_of(m, s), m * Tb, s * Tb)
+                                 for m, s in pairs], reps=3, warmup=1) / len(pairs),
+    }
+    return ms
+
+
+def ring_kernel_checks(card, phase2_ms):
+    """(a) The ring at Llama-3-8B attention width over sp = 4 positions of
+    cuda:0, token case (K1-K3) and packed case (K4-K6, phase 2's document
+    ids, documents straddling the cuts): output and q/k/v grads against
+    the plain version over the whole T; sp^2 launches of each kernel on
+    the wgmma route; a nonzero lse cotangent reaching the backward; the
+    gap to one call over the whole T; each kernel's ms a call in the
+    ring beside phase 2's."""
+    import torch
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.ring_attention import ring_attention
+
+    c = MESH
+    sp, B, T, H, Hkv, D = c["sp"], c["B"], c["T"], c["H"], c["Hkv"], c["D"]
+    rep = H // Hkv
+    mesh = make_mesh({"sp": sp}, ["cuda:0"] * sp)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ids_np, straddle = _ring_ids(B, T, sp)
+    seen = []
+    rows_fn = fa._bwd_rows
+
+    def spy(dout, out, dlse):
+        res = rows_fn(dout, out, dlse)
+        seen.append(res[2].abs().max())
+        return res
+
+    faults, summary, ring_launches = [], {}, {}
+    fa._bwd_rows = spy
+    try:
+        for packed in (False, True):
+            tag = "[mesh-ring-packed]" if packed else "[mesh-ring]"
+            q = _rand((B, T, H, D), torch.bfloat16, gen, "cuda")
+            k = _rand((B, T, Hkv, D), torch.bfloat16, gen, "cuda")
+            v = _rand((B, T, Hkv, D), torch.bfloat16, gen, "cuda")
+            dout = _rand((B, T, H, D), torch.bfloat16, gen, "cuda")
+            ids = torch.from_numpy(ids_np).cuda() if packed else None
+            ts = [t.requires_grad_(True) for t in (q, k, v)]
+            fa.reset_launch_counts()
+            seen.clear()
+            out = ring_attention(*ts, mesh, dp_axis=None, kv_repeat=rep,
+                                 use_flash=True, segment_ids=ids)
+            grads = torch.autograd.grad(out, ts, dout)
+            out = out.detach()
+            torch.cuda.synchronize()
+            launches = {fn.__name__: [fn.launches, fn.sm90_launches]
+                        for fn in fa.KERNELS}
+            dlse_max = max(float(x) for x in seen)
+            n_bwd = len(seen)
+            want, wgrads = _plain_chunked(q, k, v, dout, ids, rep)
+            fa.reset_launch_counts()
+            single, _ = fa.flash_attention_with_lse(
+                *ts, 0, 0, True, rep, segment_ids=ids)
+            sgrads = torch.autograd.grad(single, ts, dout)
+            single = single.detach()
+            names = ("out", "dq", "dk", "dv")
+            gap = dict(zip(names, [_rel(a, b) for a, b in
+                                   zip((out,) + grads, (want,) + wgrads)]))
+            single_gap = dict(zip(names, [_rel(a, b) for a, b in
+                                          zip((single,) + sgrads,
+                                              (want,) + wgrads)]))
+            ring_single = dict(zip(names, [_rel(a, b) for a, b in
+                                           zip((out,) + grads,
+                                               (single,) + sgrads)]))
+            ran = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
+            log(f"{tag} B={B} T={T} H={H} Hkv={Hkv} D={D} bf16 over sp={sp} "
+                f"positions of cuda:0 ({T // sp} tokens a block)"
+                + (f", {straddle} cuts inside a document" if packed else ""))
+            log(f"{tag} ring vs plain (relative Frobenius) {gap}; one call "
+                f"over the whole T vs plain {single_gap}; ring vs one call "
+                f"{ring_single}")
+            log(f"{tag} launches (total, wgmma) {launches}; backward calls "
+                f"{n_bwd}, max|dlse| {dlse_max:.4e}")
+            if max(gap.values()) > 2e-2:
+                faults.append(f"{tag} ring vs plain {gap}")
+            if not all(launches[fn.__name__] == [sp * sp, sp * sp] for fn in ran):
+                faults.append(f"{tag} launches {launches}")
+            if not dlse_max > 0:
+                faults.append(f"{tag} no backward call got a nonzero dlse")
+            ring_launches.update({fn.__name__: launches[fn.__name__][0]
+                                  for fn in ran})
+            ms = _ring_kernel_ms(q.detach(), k.detach(), v.detach(), dout,
+                                 ids, sp, packed)
+            for key, fn in zip(("fwd", "dq", "dkv"), ran):
+                log(f"{tag} {fn.__name__}: {ms[key]:.4f} ms a call in the "
+                    f"ring (the {sp * sp} block pairs' mean); phase 2, one "
+                    f"call at B=4 T=2048: {phase2_ms.get(fn.__name__, float('nan')):.4f} "
+                    f"ms ({card})")
+            summary["packed" if packed else "token"] = {
+                "gap": gap, "single_gap": single_gap, "ring_vs_single": ring_single,
+                "launches": launches, "dlse_max": dlse_max,
+                "ms_a_call": {fn.__name__: ms[key] for key, fn in
+                              zip(("fwd", "dq", "dkv"), ran)}}
+            del q, k, v, dout, ts, out, grads, want, wgrads, single, sgrads
+            torch.cuda.empty_cache()
+    finally:
+        fa._bwd_rows = rows_fn
+    if faults:
+        raise PhaseFailed("[mesh] ring kernel checks failed: " + "; ".join(faults))
+    return summary, ring_launches
+
+
+def _token_file(tmpdir):
+    """Phase 6's 4 M Zipf(1.2) token stream (written again if phase 6
+    did not run in this process)."""
+    import numpy as np
+
+    path = os.path.join(tmpdir, "tokens.bin")
+    if not os.path.exists(path):
+        ranks = np.random.default_rng(SEED).zipf(1.2, TRAIN["n_tokens"]) - 1
+        (ranks % VOCAB).astype(np.int32).tofile(path)
+    return path
+
+
+def _mesh_fit(tag, cfg, token_file, seq_len, rows, batch_size, mesh,
+              batch_spec, card, train_config=None, n_epochs=None,
+              checkpoint_dir=None, profile=False, **trainer_kw):
+    """One full-width THREAD fit over a mesh of cuda:0 positions (or
+    ``mesh=None``): a fresh Trainer from ``init_params(seed=0)``, the
+    flash and K8 counts set to 0 just before the fit and read just
+    after; with ``profile``, one more fit of the same Trainer under
+    ``torch.profiler``.  Returns its summary; everything it allocated is
+    dropped."""
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import ici_fanout
+    from ddl_tpu_torch.parallel.optimizer import state_bytes_per_replica
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.trainer import Trainer
+
+    n_epochs = n_epochs or MESH["n_epochs"]
+    trainer = Trainer(
+        lambda p, b: llama.next_token_loss(p, b[0], cfg, mesh=mesh),
+        adamw(1e-5), llama.init_params(cfg, seed=SEED, device="cuda"),
+        device="cuda", metrics=Metrics(), train_config=train_config,
+        mesh=mesh, param_specs=None if mesh is None else llama.param_specs(cfg),
+        batch_spec=batch_spec, checkpoint_dir=checkpoint_dir,
+        **trainer_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ici_fanout.reset_launch_counts()
+    def run():
+        return trainer.fit(
+            TokenStreamProducer(token_file, seq_len, rows, seed=SEED),
+            config=LoaderConfig(batch_size=batch_size, n_epochs=n_epochs,
+                                n_producers=2, mode="thread",
+                                window_stream=True))
+
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = trainer.metrics
+    windows = n_epochs - res.resumed_from_epoch
+    steps = windows * rows // batch_size
+    steady = m.timer("trainer.windows").total_s
+    s = {
+        "losses": list(res.losses), "resumed_from_epoch": res.resumed_from_epoch,
+        "steps": steps, "step_ms": wall / max(steps, 1) * 1e3,
+        "steady_step_ms": steady / max(steps, 1) * 1e3,
+        "tokens_per_s": steps * batch_size * seq_len / wall,
+        "steady_tokens_per_s": (steps * batch_size * seq_len / steady
+                                if steady else 0.0),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {fn.__name__: [fn.launches, fn.sm90_launches]
+                     for fn in fa.KERNELS},
+        "k8": ici_fanout.fanout_shard.launches,
+        "k7": ici_fanout.fanout_replicate.launches,
+        "windows": m.counter("consumer.windows"),
+        "ici": {k: m.counter(k) for k in ("ici.windows", "ici.fallbacks")},
+        "moments_per_replica": state_bytes_per_replica(
+            res.state.optimizer, moments_only=True),
+        "restores": m.counter("resilience.ckpt_restores"),
+    }
+    log(f"{tag}: losses {s['losses']}; {steps} steps in {wall:.3f} s: "
+        f"{s['step_ms']:.1f} ms/step, {s['tokens_per_s']:.0f} tokens/s "
+        f"(steady {s['steady_step_ms']:.1f} ms/step, "
+        f"{s['steady_tokens_per_s']:.0f} tokens/s); peak memory "
+        f"{s['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"{tag}: launches {s['launches']}; K8 {s['k8']}, K7 {s['k7']}; "
+        f"windows {s['windows']}, {s['ici']}; optimizer moments per replica "
+        f"{s['moments_per_replica']} bytes")
+    del res
+    if profile:
+        profile_run(run, tag)
+    del trainer
+    free_device_memory()
+    return s
+
+
+def mesh_sp_fit(tmpdir, card, profile=False):
+    """(b) The sp fit: Llama-3-8B widths cut to 2 layers, one 8192-token
+    row a step over sp = 4 positions of cuda:0 (``batch_spec = P(None,
+    "sp")``: windows land by K8, ring attention in every layer), beside
+    the same fit with ``mesh=None`` (K1-K3 take the 8192 tokens in one
+    call) and the control (the ring with ``k_offset`` forced to
+    ``q_offset``: the wrong causal mask)."""
+    import dataclasses as dc
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+
+    c = MESH
+    cfg = dc.replace(llama.LlamaConfig.llama3_8b(), n_layers=TRAIN["n_layers"])
+    token_file = _token_file(tmpdir)
+    mesh = make_mesh({"sp": c["sp"]}, ["cuda:0"] * c["sp"])
+    spec = P(None, "sp")
+    args = (cfg, token_file, c["T"], c["sp_rows"], c["B"])
+    # One window first: the ring's first fit in a process pays its
+    # first-use costs inside its steps.
+    _mesh_fit("[mesh-sp] warm-up, one window", *args, mesh, spec, card,
+              n_epochs=1)
+    ring = _mesh_fit("[mesh-sp] ring over sp=4", *args, mesh, spec, card,
+                     profile=profile)
+    whole = _mesh_fit("[mesh-sp] mesh=None", *args, None, None, card,
+                      profile=profile)
+    orig = fa.flash_attention_with_lse
+
+    def wrong_mask(*a, q_offset=0, k_offset=0, **kw):
+        return orig(*a, q_offset=q_offset, k_offset=q_offset, **kw)
+
+    fa.flash_attention_with_lse = wrong_mask
+    try:
+        control = _mesh_fit("[mesh-sp] control (k_offset = q_offset)", *args,
+                            mesh, spec, card)
+    finally:
+        fa.flash_attention_with_lse = orig
+
+    def gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    g, g_ctrl = gap(ring["losses"], whole["losses"]), gap(control["losses"],
+                                                          whole["losses"])
+    steps = ring["steps"]
+    want = c["sp"] ** 2 * cfg.n_layers * steps
+    log(f"[mesh-sp] loss gap ring vs one call {g:.4e}, control vs one call "
+        f"{g_ctrl:.4e}; tolerance {SP_LOSS_TOL}; K1-K3 launches expected "
+        f"sp^2 x {cfg.n_layers} layers x {steps} steps = {want} ({card})")
+    faults = []
+    if not g <= SP_LOSS_TOL < g_ctrl:
+        faults.append(f"loss gap {g} / control {g_ctrl} against {SP_LOSS_TOL}")
+    if not all(ring["launches"][fn.__name__] == [want, want]
+               for fn in fa.KERNELS[:3]):
+        faults.append(f"ring launches {ring['launches']}")
+    if not (ring["k8"] == ring["windows"] == c["n_epochs"]
+            and ring["ici"]["ici.fallbacks"] == 0):
+        faults.append(f"ring fit K8 {ring['k8']} / windows {ring['windows']} "
+                      f"/ {ring['ici']}")
+    for s in (ring, whole, control):
+        if not all(math.isfinite(x) for x in s["losses"]):
+            faults.append(f"losses {s['losses']}")
+    if faults:
+        raise PhaseFailed("[mesh-sp] " + "; ".join(faults))
+    return {"ring": ring, "whole": whole, "control": control, "gap": g,
+            "control_gap": g_ctrl, "tol": SP_LOSS_TOL}
+
+
+def mesh_dp_fits(tmpdir, card, profile=False):
+    """(c) Phase 6's token cell over dp = 4 positions of cuda:0: optimizer
+    sharding none, zero1, zero1 with int8 gradient communication, and
+    with stochastic rounding too; then the zero1 fit stopped after 2
+    windows (one async generation) and resumed by a fresh Trainer."""
+    import dataclasses as dc
+    import shutil
+
+    from ddl_tpu_torch.config import TrainConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.optimizer import loss_parity
+
+    tr, c = TRAIN, MESH
+    cfg = dc.replace(llama.LlamaConfig.llama3_8b(), n_layers=tr["n_layers"])
+    token_file = _token_file(tmpdir)
+    mesh = make_mesh({"dp": c["dp"]}, ["cuda:0"] * c["dp"])
+    args = (cfg, token_file, tr["seq_len"], tr["window_rows"], tr["batch_size"],
+            mesh, P(("dp",)), card)
+    _mesh_fit("[mesh-dp] warm-up, one window", *args, n_epochs=1)
+    runs = {}
+    for name, kw in (("none", {}), ("zero1", {"optimizer_sharding": "zero1"}),
+                     ("zero1_int8", {"optimizer_sharding": "zero1",
+                                     "grad_comm": "int8"}),
+                     ("zero1_int8_sr", {"optimizer_sharding": "zero1",
+                                        "grad_comm": "int8",
+                                        "stochastic_rounding": True})):
+        runs[name] = _mesh_fit(f"[mesh-dp] {name}", *args,
+                               train_config=TrainConfig(**kw),
+                               profile=profile and name != "zero1")
+    faults = []
+    ref = runs["none"]["losses"]
+    if runs["zero1"]["losses"] != ref:
+        faults.append(f"zero1 losses {runs['zero1']['losses']} != {ref}")
+    parity = {}
+    for name in ("zero1_int8", "zero1_int8_sr"):
+        parity[name] = loss_parity(ref, runs[name]["losses"])
+        log(f"[mesh-dp] {name}: loss_parity {parity[name]} ({card})")
+        if not (parity[name]["parity"] and parity[name]["max_rel_drift"] > 0):
+            faults.append(f"{name} parity {parity[name]}")
+    none_b, z1_b = (runs[k]["moments_per_replica"] for k in ("none", "zero1"))
+    log(f"[mesh-dp] optimizer moments per replica: none {none_b}, zero1 "
+        f"{z1_b} bytes (ratio {none_b / z1_b:.4f})")
+    if none_b != c["dp"] * z1_b:
+        faults.append(f"moments per replica {none_b} vs zero1 {z1_b}")
+    for name, s in runs.items():
+        if not (s["k8"] == s["windows"] == c["n_epochs"]
+                and s["ici"]["ici.fallbacks"] == 0):
+            faults.append(f"{name}: K8 {s['k8']} / windows {s['windows']} "
+                          f"/ {s['ici']}")
+    # The resume: one generation after window 2, a fresh Trainer on it.
+    ckpt = os.path.join(tmpdir, "mesh_ckpt")
+    os.makedirs(ckpt, exist_ok=True)
+    gen_bytes = 3 * 4 * llama.param_count(cfg) + 4
+    du = shutil.disk_usage(ckpt)
+    if du.free < 1.2 * gen_bytes:
+        raise PhaseFailed(f"[mesh-dp] {du.free} bytes free under {ckpt}, a "
+                          f"generation needs {gen_bytes}")
+    z1 = TrainConfig(optimizer_sharding="zero1")
+    first = _mesh_fit("[mesh-dp] zero1, 2 windows, one generation", *args,
+                      train_config=z1, n_epochs=2, checkpoint_dir=ckpt,
+                      checkpoint_every_epochs=2)
+    second = _mesh_fit("[mesh-dp] zero1, resumed", *args, train_config=z1,
+                       checkpoint_dir=ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    joined = first["losses"] + second["losses"]
+    log(f"[mesh-dp] zero1 stopped + resumed from epoch "
+        f"{second['resumed_from_epoch']}: {joined} "
+        f"{'==' if joined == runs['zero1']['losses'] else '!='} undisturbed")
+    if not (joined == runs["zero1"]["losses"] and second["restores"] == 1
+            and second["resumed_from_epoch"] == 2):
+        faults.append(f"resume {joined} (restores {second['restores']}) vs "
+                      f"{runs['zero1']['losses']}")
+    if faults:
+        raise PhaseFailed("[mesh-dp] " + "; ".join(faults))
+    return {"runs": runs, "parity": parity, "resumed": second}
+
+
+def mesh_collectives(card):
+    """(d) The collectives on 4 positions of cuda:0: ``quantized_all_reduce``
+    of 16 M fp32 values a position against the fp32 mean (the reference's
+    bound, 0.02 of the peak), and ``DeviceGlobalShuffler`` over 8 rounds at
+    phase 4's geometry (pools of 8192 x 256 fp32, half exchanged), both
+    strategies, every pool byte-identical to a host oracle built from
+    ``exchange_permutation``."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.parallel.collectives import (
+        DeviceGlobalShuffler,
+        quantized_all_reduce,
+    )
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh, shard
+    from ddl_tpu_torch.shuffle import (
+        exchange_permutation,
+        exchange_slices,
+        inverse_permutation,
+    )
+
+    n = 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    xs = [torch.randn(1 << 24, generator=gen, device="cuda") for _ in range(n)]
+    out = quantized_all_reduce(xs)
+    ms = _time_ms(lambda: quantized_all_reduce(xs), reps=3, warmup=1)
+    exact = torch.stack(xs).mean(0)
+    err = float((out[0] - exact).abs().max())
+    peak = float(exact.abs().max())
+    agree = all(torch.equal(o, out[0]) for o in out)
+    log(f"[mesh-coll] quantized_all_reduce of 4 x 16 M fp32: max |err| "
+        f"{err:.4e} against the fp32 mean (bound 0.02 x peak = "
+        f"{0.02 * peak:.4e}), positions agree {agree}; {ms:.3f} ms ({card})")
+    faults = []
+    if not (agree and err <= 0.02 * peak):
+        faults.append(f"all-reduce err {err} / peak {peak}, agree {agree}")
+
+    sh = SHUFFLE
+    rows, cols = sh["rows"], sh["cols"]
+    num_exchange = int(rows * sh["fraction"])
+    mesh = make_mesh({"dp": n}, ["cuda:0"] * n)
+    host0 = np.random.default_rng(SEED + 5).standard_normal(
+        (n * rows, cols)).astype(np.float32)
+    k = num_exchange - num_exchange % n
+    for method in ("sendrecv_replace", "all_to_all"):
+        dgs = DeviceGlobalShuffler(mesh, num_exchange=num_exchange,
+                                   method=method, seed=SEED)
+        win = shard(torch.from_numpy(host0).cuda(), NamedSharding(mesh, P("dp")))
+        pools = host0.reshape(n, rows, cols).copy()
+        t0 = time.perf_counter()
+        same, moved = True, False
+        for r in range(8):
+            win = dgs.shuffle(win)
+            new = pools.copy()
+            if method == "all_to_all":
+                sub = k // n
+                for j in range(n):
+                    for i in range(n):
+                        new[j, i * sub:(i + 1) * sub] = pools[i, j * sub:(j + 1) * sub]
+            else:
+                p = exchange_permutation(n, SEED, r)
+                pinv = inverse_permutation(p)
+                la, lb = exchange_slices(num_exchange)
+                for i in range(n):
+                    new[p[i], la] = pools[i, la]
+                    new[pinv[i], lb] = pools[i, lb]
+            pools = new
+            same &= win.numpy().tobytes() == pools.reshape(n * rows, cols).tobytes()
+            # all_to_all is an involution: even rounds restore the pools.
+            moved |= not np.array_equal(pools, host0.reshape(n, rows, cols))
+        wall = time.perf_counter() - t0
+        log(f"[mesh-coll] DeviceGlobalShuffler {method}: 8 rounds over 4 "
+            f"positions, pools byte-identical to the host oracle: {same}, "
+            f"moved {moved}; {wall:.3f} s with the host checks ({card})")
+        if not (same and moved):
+            faults.append(f"{method}: identical {same}, moved {moved}")
+    if faults:
+        raise PhaseFailed("[mesh-coll] " + "; ".join(faults))
+    return {"all_reduce_err": err, "all_reduce_peak": peak, "all_reduce_ms": ms}
+
+
+def phase_mesh(tmpdir, card, phase2_ms=None, profile=False):
+    """Phase 11, the mesh path: (a) the ring kernels, (b) the sp fit, (c)
+    the dp fits with the distributed optimizer, (d) the collectives;
+    ``profile`` adds a ``torch.profiler`` breakdown of the sp fits and
+    the dp fits.  Returns (K1-K6 ring launches, summary)."""
+    t0 = time.perf_counter()
+    ring, ring_launches = ring_kernel_checks(card, phase2_ms or {})
+    free_device_memory()
+    sp_fit = mesh_sp_fit(tmpdir, card, profile)
+    # The path's own launches: K1-K3 from the measured ring fit.
+    ring_launches.update({name: n for name, (n, _) in
+                          sp_fit["ring"]["launches"].items()
+                          if not name.endswith("_seg")})
+    dp_fits = mesh_dp_fits(tmpdir, card, profile)
+    coll = mesh_collectives(card)
+    free_device_memory()
+    log(f"[mesh] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return ring_launches, {"ring": ring, "sp_fit": sp_fit, "dp_fits": dp_fits,
+                           "collectives": coll}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -4183,10 +4760,16 @@ def main(argv=None) -> int:
                     "launches": packed_summary["process"]["launches"]})
             free_device_memory()
             files_summary = phase_files(tmp, card)
-        # Each kernel's launches come from the run of its own path.
+            free_device_memory()
+            ring_launches, mesh_summary = phase_mesh(
+                tmp, card, {row["name"]: row["ms"] for row in kernels},
+                args.profile)
+        # Each kernel's launches come from the run of its own path; K1-K6
+        # add those of the ring (phase 11).
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
                                else launches)[row["name"]]
+            row["ring_launches"] = ring_launches[row["name"]]
         kernels.append(shuffle_row)
         kernels.extend(ici_rows)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
@@ -4197,6 +4780,7 @@ def main(argv=None) -> int:
         log(f"[summary-example] {json.dumps(example_summary)}")
         log(f"[summary-wire] {json.dumps(wire_summary)}")
         log(f"[summary-files] {json.dumps(files_summary)}")
+        log(f"[summary-mesh] {json.dumps(mesh_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -92,13 +92,12 @@ class LoaderConfig:
         if self.mode == RunMode.MULTIHOST.value:
             raise NotImplementedError(
                 "mode='multihost' waits for the multi-host slice "
-                "(ROADMAP.md A5)"
+                "(ROADMAP.md A5b)"
             )
         if self.shuffle_impl == "xla":
             raise NotImplementedError(
                 "LoaderConfig.shuffle_impl='xla' (ppermute lanes) waits for "
-                "the multi-card slice (ROADMAP.md A5); the port's device "
-                "exchange is the ring"
+                "ROADMAP.md A5b; the port's device exchange is the ring"
             )
         if self.shuffle_impl != "ring":
             raise ValueError(
@@ -114,10 +113,11 @@ class TrainConfig:
     ``remat`` names the rematerialisation policy
     (:mod:`ddl_tpu_torch.models.remat`) and applies to a model config
     through :meth:`model_config`; ``accum_steps`` flows into the
-    :class:`~ddl_tpu_torch.trainer.Trainer`.  The pipeline schedule and
-    the distributed-optimizer knobs load and save; a non-default value
-    raises where it is consumed (:meth:`pipeline_kwargs`,
-    :meth:`optimizer_kwargs`, the Trainer)."""
+    :class:`~ddl_tpu_torch.trainer.Trainer`; the distributed-optimizer
+    knobs flow through :meth:`optimizer_kwargs` into every step factory
+    the Trainer builds.  The pipeline schedule loads and saves; a
+    non-default value raises where it is consumed
+    (:meth:`pipeline_kwargs`, the Trainer)."""
 
     remat: str = "none"
     schedule: str = "gpipe"
@@ -159,14 +159,14 @@ class TrainConfig:
         return dataclasses.replace(model_cfg, remat=self.remat)
 
     def pipeline_kwargs(self) -> dict:
-        """kwargs for a pipeline schedule (the multi-card slice)."""
+        """kwargs for a pipeline schedule (ROADMAP.md A5b)."""
         _check_unported(self, _PIPELINE_UNPORTED)
         return {"schedule": self.schedule, "n_chunks": self.pp_chunks or None}
 
     def optimizer_kwargs(self) -> dict:
         """The distributed-optimizer knobs, shaped for ``**`` splatting
-        (the multi-card slice)."""
-        _check_unported(self, _OPTIMIZER_UNPORTED)
+        into ``make_train_step`` / ``make_multistep`` (the Trainer passes
+        them to both)."""
         return {
             "optimizer_sharding": self.optimizer_sharding,
             "grad_comm": self.grad_comm,
@@ -177,23 +177,17 @@ class TrainConfig:
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a non-default value of a knob
         whose module is not ported yet (what the Trainer checks)."""
-        _check_unported(self, _PIPELINE_UNPORTED + _OPTIMIZER_UNPORTED)
+        _check_unported(self, _PIPELINE_UNPORTED)
 
 
 #: (fields, what waits for them) of the unported LoaderConfig fields.
 _LOADER_UNPORTED: Tuple[Tuple[Tuple[str, ...], str], ...] = (
     (("host_id", "n_hosts", "procs_per_host"),
-     "host identity waits for the multi-host slice (ROADMAP.md A5)"),
+     "host identity waits for the multi-host slice (ROADMAP.md A5b)"),
 )
 _PIPELINE_UNPORTED = (
     (("schedule", "pp_chunks", "n_microbatches"),
-     "the pipeline schedule waits for parallel/pipeline.py (ROADMAP.md A5)"),
-)
-_OPTIMIZER_UNPORTED = (
-    (("optimizer_sharding", "grad_comm", "grad_comm_block",
-      "stochastic_rounding"),
-     "ZeRO-1 and int8 gradient communication wait for "
-     "parallel/optimizer.py (ROADMAP.md A5)"),
+     "the pipeline schedule waits for parallel/pipeline.py (ROADMAP.md A5b)"),
 )
 
 

@@ -16,7 +16,12 @@ Decode (:func:`init_cache`, :func:`forward_with_cache`, :func:`generate`)
 keeps a static-length stacked cache ``(L, B, len, kv, hd)`` updated in
 place, and attends it densely with grouped einsums — decode steps are
 matmul-thin, and the JAX package computes them outside any kernel too.
-Pipeline/tensor parallelism is a later slice.
+
+Over a mesh (``forward(..., mesh=)``, :func:`param_specs`) the model
+still runs on global tensors; only attention names mesh positions (ring
+attention over ``sp``, batch/head-sharded attention otherwise), as
+GSPMD leaves the rest to the compiler in the JAX package.  The pipeline
+path (``*_pp``) is a later slice.
 """
 
 from __future__ import annotations
@@ -121,6 +126,53 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device: Any = "cuda") -> Params
     }
 
 
+def param_shapes(cfg: LlamaConfig) -> Params:
+    """The params tree of :func:`init_params` as ``meta`` tensors (shape
+    and dtype, no storage): the zero-FLOP input of
+    :func:`ddl_tpu_torch.parallel.optimizer.hbm_accounting`."""
+    def meta(shape):
+        return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
+
+    d = cfg.d_model
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"attn_norm": meta((d,))}
+        for name, shape in _layer_shapes(cfg).items():
+            if name == "w_gate":
+                layer["mlp_norm"] = meta((d,))
+            layer[name] = meta(shape)
+        layers.append(layer)
+    return {"embed": meta((cfg.vocab, d)), "layers": layers,
+            "final_norm": meta((d,)), "lm_head": meta((d, cfg.vocab))}
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """PartitionSpecs mirroring :func:`init_params`: fsdp shards the
+    d_model-ish axis, tp shards heads / ffn-hidden (the JAX package's
+    Megatron layout).  On one card the specs place the sharded
+    optimizer's state (:mod:`ddl_tpu_torch.parallel.optimizer`); the
+    weights themselves stay whole."""
+    from ddl_tpu_torch.parallel.mesh import P
+
+    layer = {
+        "attn_norm": P(None),
+        "wq": P("fsdp", "tp"),
+        "wk": P("fsdp", "tp"),
+        "wv": P("fsdp", "tp"),
+        "wo": P("tp", "fsdp"),
+        "mlp_norm": P(None),
+        "w_gate": P("fsdp", "tp"),
+        "w_up": P("fsdp", "tp"),
+        "w_down": P("tp", "fsdp"),
+    }
+    return {
+        "embed": P(None, "fsdp"),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": P(None),
+        "lm_head": P("fsdp", "tp"),
+    }
+
+
 def params_from_numpy(tree: Any, device: Any = "cuda") -> Params:
     """The port's params from the JAX package's ``init_params`` tree
     given as numpy arrays (any array-like leaf): the same nested
@@ -174,11 +226,12 @@ def _attn_qkv(layer: Params, h: torch.Tensor, cfg: LlamaConfig,
 
 
 def _attn_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
-                positions: torch.Tensor,
+                positions: torch.Tensor, mesh: Optional[Any] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention sub-block (norm → qkv/rope → attention → wo residual).
-    GQA k/v stay compact: the kernels expand them per query-head group.
-    The attention call is the piece remat="selective" keeps."""
+    GQA k/v stay compact: the kernels expand them per query-head group,
+    and the ring rotates them unexpanded.  The attention call is the
+    piece remat="selective" keeps."""
     from ddl_tpu_torch.models import remat as _remat
     from ddl_tpu_torch.parallel.ring_attention import attention
 
@@ -190,6 +243,7 @@ def _attn_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
         attention, q.contiguous(), k.contiguous(), v.contiguous(),
         impl=cfg.attn_impl, causal=True,
         kv_repeat=cfg.n_heads // cfg.n_kv_heads, segment_ids=segment_ids,
+        mesh=mesh,
     )
     return x + attn.reshape(B, T, -1) @ layer["wo"].to(dt)
 
@@ -207,16 +261,23 @@ def _mlp_block(layer: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor
 
 
 def _layer_apply(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
-                 positions: torch.Tensor,
+                 positions: torch.Tensor, mesh: Optional[Any] = None,
                  segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One transformer block on the residual stream."""
-    x = _attn_block(layer, x, cfg, positions, segment_ids)
+    x = _attn_block(layer, x, cfg, positions, mesh=mesh,
+                    segment_ids=segment_ids)
     return _mlp_block(layer, x, cfg)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            mesh: Optional[Any] = None,
             segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token logits, (B, T, vocab) fp32.
+
+    With a mesh carrying an ``sp`` axis of size > 1, attention runs as
+    ring attention over the ``sp`` positions; any other mesh shards it
+    over batch and heads.  RoPE positions are global either way (the
+    token axis is only cut, never re-indexed).
 
     ``segment_ids`` (B, T): packed-pretraining batches — attention stays
     within each packed document; RoPE positions remain row-global.  The
@@ -236,7 +297,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     x = params["embed"][tokens.long()].to(dt)  # (B, T, D)
 
     def layer_fn(x: torch.Tensor, layer: Params) -> torch.Tensor:
-        return _layer_apply(layer, x, cfg, positions, seg)
+        return _layer_apply(layer, x, cfg, positions, mesh=mesh,
+                            segment_ids=seg)
 
     layer_fn = _remat.wrap(layer_fn, cfg.remat)
     for layer in params["layers"]:
@@ -428,14 +490,17 @@ def _generate(fwd_cache: Any, init_cache_fn: Any, params: Params,
 
 
 def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                    mesh: Optional[Any] = None,
                     segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy of next-token prediction over (B, T) tokens.
-    With ``segment_ids`` (packed batches) attention is segment-masked and
-    the loss also drops the positions whose next token belongs to another
-    document."""
+    Targets are ``roll(tokens, -1)`` with the final position masked, so
+    the sequence axis keeps its full length and stays divisible by
+    ``sp``.  With ``segment_ids`` (packed batches) attention is
+    segment-masked and the loss also drops the positions whose next token
+    belongs to another document."""
     from ddl_tpu_torch.models.losses import next_token_cross_entropy
 
-    logits = forward(params, tokens, cfg, segment_ids=segment_ids)
+    logits = forward(params, tokens, cfg, mesh, segment_ids=segment_ids)
     return next_token_cross_entropy(logits, tokens, segment_ids=segment_ids)
 
 

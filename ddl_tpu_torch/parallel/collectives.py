@@ -1,0 +1,370 @@
+"""Device-side collectives over mesh positions (port of
+``ddl_tpu/parallel/collectives.py``): the global shuffle of a dp-sharded
+window and the quantized gradient reduction.
+
+Every move of data between positions goes through :func:`ppermute`, the
+port's ``lax.ppermute``: on positions of one card it is a device copy
+into the receiving position's buffer (differentiable, so the ring
+attention's K/V hand-off rides it inside autograd); positions over
+distinct cards raise ``NotImplementedError`` (:func:`~ddl_tpu_torch.
+parallel.mesh.one_card`) until peer writes replace the copy.
+
+- :class:`DeviceGlobalShuffler`: one exchange round of a window held
+  rows-sharded over the ``dp`` positions — lanes along the shared
+  permutation (``sendrecv_replace``) or one uniform redistribution
+  (``all_to_all``), the pools byte for byte the JAX package's.
+- The quantized half (EQuARX wire format): int8 payloads with one fp32
+  scale per ``block`` values along the last axis (:func:`block_scales`,
+  :func:`quantize_blockwise` with deterministic or stochastic rounding,
+  :func:`dequantize_blockwise`, :func:`quantized_bytes`) and the
+  two-phase :func:`quantized_all_reduce` over positions (int8
+  reduce-scatter, fp32 accumulation, re-quantized int8 all-gather).
+  Deterministic payloads and scales equal the JAX package's byte for
+  byte; stochastic rounding draws from a ``torch.Generator`` seeded per
+  key (unbiased, deterministic per key, not JAX's random numbers).
+
+Both halves are plain tensor work, as in the JAX package (XLA ops there,
+no Pallas kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ddl_tpu_torch.parallel.mesh import (
+    NamedSharding,
+    P,
+    ShardedArray,
+    one_card,
+    shard,
+)
+from ddl_tpu_torch.shuffle import (
+    EXCHANGE_METHODS,
+    exchange_permutation,
+    exchange_slices,
+    inverse_permutation,
+)
+
+
+def ppermute(sharded: ShardedArray, pairs: Sequence[Tuple[int, int]],
+             axis: Optional[str] = None) -> ShardedArray:
+    """``lax.ppermute`` over mesh positions: for each ``(src, dst)`` of
+    ``pairs`` (indices along ``axis``, default the mesh's only axis), every
+    position at index ``dst`` receives a copy of the shard of the position
+    at index ``src`` with the same coordinates on the other axes; a
+    position that receives nothing gets zeros.  The result keeps the
+    input's sharding.  On one card each move is a device copy
+    (``clone``), differentiable; positions over distinct cards raise
+    ``NotImplementedError``."""
+    mesh = sharded.sharding.mesh
+    one_card(mesh.device_list)
+    if axis is None:
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"ppermute over {mesh.axis_names} needs an axis")
+        axis = mesh.axis_names[0]
+    ax = mesh.axis_names.index(axis)
+    n = mesh.shape[axis]
+    dst_of = {}
+    for src, dst in pairs:
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"pair {(src, dst)} outside axis {axis!r} of {n}")
+        if dst in dst_of.values():
+            raise ValueError(f"index {dst} receives twice in {pairs}")
+        dst_of[src] = dst
+    pos = mesh.positions()
+    datas: List[Any] = [None] * mesh.size
+    for coords in mesh.coords():
+        src = coords[ax]
+        if src in dst_of:
+            to = coords[:ax] + (dst_of[src],) + coords[ax + 1:]
+            datas[pos[to]] = sharded.shards[pos[coords]].data.clone()
+    for p, d in enumerate(datas):
+        if d is None:
+            datas[p] = torch.zeros_like(sharded.shards[p].data)
+    return ShardedArray(sharded.shape, sharded.sharding, datas)
+
+
+def _pairs(p: np.ndarray) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(i), int(pi)) for i, pi in enumerate(p))
+
+
+class DeviceGlobalShuffler:
+    """Per-round device-side global shuffle over a dp-sharded window.
+
+    The window is one array of (instances x window rows) held rows-sharded
+    over ``axis`` (a :class:`ShardedArray` with spec ``P(axis)``); each
+    round, :meth:`shuffle` exchanges its lanes along a fresh shared
+    permutation (``sendrecv_replace``: the first lane to ``p[i]``, the
+    second from ``p^-1[i]``, both through :func:`ppermute`) or
+    redistributes the exchange block uniformly over all instances
+    (``all_to_all``).  Rounds, seeds and lanes are the JAX package's, so
+    the pools are byte for byte its own.
+    """
+
+    #: Fabric reach, as in the JAX package.
+    span = "global"
+
+    def __init__(self, mesh: Any, axis: str = "dp", num_exchange: int = 0,
+                 method: str = "sendrecv_replace", seed: int = 0):
+        if method not in EXCHANGE_METHODS:
+            raise NotImplementedError(
+                f"method {method!r}; valid: {EXCHANGE_METHODS}"
+            )
+        one_card(mesh.device_list)
+        self.mesh = mesh
+        self.axis = axis
+        self.num_exchange = num_exchange
+        self.method = method
+        self.seed = seed
+        self._round = 0
+
+    @property
+    def n_instances(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def exchange_round(self) -> int:
+        """Completed exchange rounds (checkpoints read this)."""
+        return self._round
+
+    def rejoin(self, round_: int) -> None:
+        """Re-enter the schedule at ``round_`` (checkpoint resume)."""
+        self._round = int(round_)
+
+    def shuffle(self, window: ShardedArray) -> ShardedArray:
+        """One exchange round; returns the window with lanes exchanged."""
+        n = self.n_instances
+        if n <= 1 or self.num_exchange < 2:
+            return window
+        if tuple(window.sharding.spec)[:1] not in ((self.axis,), ((self.axis,),)):
+            raise ValueError(f"the window must be rows-sharded P({self.axis!r}), "
+                             f"got {window.sharding.spec}")
+        if self.method == "all_to_all":
+            out = self._all_to_all(window, n)
+        else:
+            out = self._sendrecv(window, n)
+        self._round += 1
+        return out
+
+    def _sendrecv(self, window: ShardedArray, n: int) -> ShardedArray:
+        p = exchange_permutation(n, self.seed, self._round)
+        lane_a, lane_b = exchange_slices(self.num_exchange)
+        sub = window.sharding
+
+        def lane(sl: slice) -> ShardedArray:
+            datas = [s.data[sl] for s in window.shards]
+            return ShardedArray(_lane_shape(window, datas[0]), sub, datas)
+
+        a = ppermute(lane(lane_a), _pairs(p), self.axis)
+        b = ppermute(lane(lane_b), _pairs(inverse_permutation(p)), self.axis)
+        return ShardedArray(window.shape, sub, [
+            torch.cat([sa.data, sb.data, w.data[lane_b.stop:]], dim=0)
+            for sa, sb, w in zip(a.shards, b.shards, window.shards)
+        ])
+
+    def _all_to_all(self, window: ShardedArray, n: int) -> ShardedArray:
+        """Every instance scatters its exchange block uniformly to all
+        instances and gathers one sub-block from each: instance j's block
+        becomes ``[block_0[j], ..., block_{n-1}[j]]``, each sub-block moved
+        by a :func:`ppermute` round (``i -> (i + r) mod n``)."""
+        k = self.num_exchange - (self.num_exchange % n)
+        sub = window.sharding
+        mesh = self.mesh
+        ax = mesh.axis_names.index(self.axis)
+        coords = mesh.coords()
+        rows = k // n
+        # received[p][i]: the sub-block position p gathered from index i.
+        received = [[None] * n for _ in range(mesh.size)]
+        for r in range(n):
+            # Each position sends sub-block (i + r) mod n to index i + r.
+            datas = [
+                window.shards[pp].data[((c[ax] + r) % n) * rows:
+                                       ((c[ax] + r) % n + 1) * rows]
+                for pp, c in enumerate(coords)
+            ]
+            moved = ppermute(
+                ShardedArray(_lane_shape(window, datas[0]), sub, datas),
+                [(i, (i + r) % n) for i in range(n)], self.axis)
+            for pp, c in enumerate(coords):
+                received[pp][(c[ax] - r) % n] = moved.shards[pp].data
+        return ShardedArray(window.shape, sub, [
+            torch.cat(received[pp] + [window.shards[pp].data[k:]], dim=0)
+            for pp in range(mesh.size)
+        ])
+
+    def window_hook(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Adapter for ``Trainer.fit(window_stream=True, window_hook=)``.
+
+        The trainer hands each window ``(batches_per_window, batch,
+        *features)`` as one tensor on the card; the hook flattens it to
+        sample rows (batch-major, so contiguous dp blocks stay
+        contiguous), cuts the rows over the ``axis`` positions, exchanges
+        and restores the window layout.  The hook carries its owner
+        (``hook.owner``) so the trainer can checkpoint the round counter.
+        """
+        row_sh = NamedSharding(self.mesh, P(self.axis))
+
+        def hook(win: torch.Tensor) -> torch.Tensor:
+            bpw, batch = win.shape[0], win.shape[1]
+            feat = tuple(win.shape[2:])
+            rows = win.transpose(0, 1).reshape(batch * bpw, -1)
+            mixed = self.shuffle(shard(rows, row_sh)).assemble()
+            return mixed.reshape((batch, bpw) + feat).transpose(0, 1).contiguous()
+
+        hook.owner = self
+        return hook
+
+
+def _lane_shape(window: ShardedArray, local: torch.Tensor) -> Tuple[int, ...]:
+    """The global shape of a lane array: ``local``'s rows on every
+    position along the split dim."""
+    g = window.shape[0] // window.shards[0].data.shape[0]
+    return (local.shape[0] * g,) + tuple(local.shape[1:])
+
+
+# -- quantized gradient communication (EQuARX wire format) -------------------
+#
+# Blockwise int8: one fp32 scale per ``block`` consecutive values along
+# the LAST axis (leading axes untouched, so a leaf's placement survives
+# quantization).  ``q`` keeps the input's shape (int8), ``scales`` is
+# ``x.shape[:-1] + (ceil(last/block),)`` fp32.
+
+#: Default quantization granularity (values per fp32 scale).
+QUANT_BLOCK = 256
+
+
+def block_scales(x: torch.Tensor, block: int = QUANT_BLOCK) -> torch.Tensor:
+    """Per-block fp32 scales: ``max(|x|)/127`` over each ``block``-wide
+    slice of the last axis (zero blocks get scale 1 so dequantize is
+    exact there).  The division takes a tensor divisor: a division by a
+    Python scalar may run as a reciprocal product on the card."""
+    lead, last = tuple(x.shape[:-1]), x.shape[-1]
+    pad = (-last) % block
+    xf = x.float().abs()
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    m = xf.reshape(*lead, -1, block).amax(dim=-1)
+    s = m / torch.full_like(m, 127.0)
+    return torch.where(s == 0.0, torch.ones_like(s), s)
+
+
+def _expand_scales(s: torch.Tensor, last: int, block: int) -> torch.Tensor:
+    return s.repeat_interleave(block, dim=-1)[..., :last]
+
+
+def key_generator(key: Any, device: Any) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``key`` (an int,
+    or a tuple of ints folded in order): the port's stochastic-rounding
+    key.  The same key draws the same numbers on the same device type."""
+    seed = 0
+    for part in (key if isinstance(key, (tuple, list)) else (key,)):
+        seed = (seed * 0x9E3779B1 + (int(part) & 0xFFFFFFFF) + 1) % (2 ** 63)
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def quantize_blockwise(x: torch.Tensor, block: int = QUANT_BLOCK,
+                       stochastic: bool = False, key: Any = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x -> (q int8, scales fp32)`` with per-block scales.
+
+    Deterministic: round half to even (``jnp.round``'s rule), clip to
+    +-127 — the JAX package's bytes.  ``stochastic=True`` rounds
+    ``floor(v + u)``, ``u ~ U[0, 1)`` drawn from :func:`key_generator`
+    (``key`` an int or a tuple of ints): unbiased in expectation, the
+    same bytes for the same key."""
+    if stochastic and key is None:
+        raise ValueError("stochastic rounding requires an explicit key")
+    s = block_scales(x, block)
+    v = x.float() / _expand_scales(s, x.shape[-1], block)
+    if stochastic:
+        u = torch.rand(x.shape, generator=key_generator(key, x.device),
+                       device=x.device, dtype=torch.float32)
+        v = torch.floor(v + u)
+    else:
+        v = torch.round(v)
+    q = torch.clamp(v, -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor, dtype: Any,
+                         block: int = QUANT_BLOCK) -> torch.Tensor:
+    """Inverse of :func:`quantize_blockwise` (up to rounding error)."""
+    out = q.float() * _expand_scales(scales, q.shape[-1], block)
+    return out.to(dtype)
+
+
+def quantize_dequantize(x: torch.Tensor, block: int = QUANT_BLOCK,
+                        stochastic: bool = False, key: Any = None,
+                        ) -> torch.Tensor:
+    """Round-trip through the int8 wire format — the numerical effect a
+    quantized collective applies to the values it moves."""
+    q, s = quantize_blockwise(x, block, stochastic=stochastic, key=key)
+    return dequantize_blockwise(q, s, x.dtype, block)
+
+
+def quantized_bytes(shape: Sequence[int], block: int = QUANT_BLOCK) -> int:
+    """Wire bytes of one quantized array: int8 payload + fp32 scales."""
+    shape = tuple(shape)
+    size = int(np.prod(shape)) if shape else 1
+    last = int(shape[-1]) if shape else 1
+    nblocks = -(-last // block)
+    lead = size // max(last, 1)
+    return size + 4 * lead * nblocks
+
+
+def quantized_all_reduce(xs: Sequence[torch.Tensor], block: int = QUANT_BLOCK,
+                         mean: bool = True, stochastic: bool = False,
+                         key: Any = None) -> List[torch.Tensor]:
+    """Two-phase quantized all-reduce over the positions of one axis.
+
+    ``xs`` holds each position's contribution (equal shapes, positions of
+    one device); every position gets the reduced value back.  Each
+    contribution splits into ``n`` chunks and quantizes; position i
+    gathers every peer's int8 chunk i (the reduce-scatter), accumulates
+    it in fp32, re-quantizes, and the int8 chunks are gathered back by
+    every position (the all-gather) — the JAX package's two phases,
+    so the error model (quantize -> sum -> re-quantize) is its own.
+    ``mean=True`` divides by ``n``.  ``stochastic=True`` + ``key``:
+    stochastic rounding on both phases (each phase and position folds its
+    own index into the key)."""
+    n = len(xs)
+    if n < 1:
+        raise ValueError(f"axis_size must be >= 1, got {n}")
+    one_card([x.device for x in xs])
+    shape, dtype = tuple(xs[0].shape), xs[0].dtype
+    size = int(np.prod(shape)) if shape else 1
+    pad = (-size) % (n * block)
+
+    def chunks(x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(size)
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return flat.reshape(n, -1)  # chunk i -> position i
+
+    def phase_key(phase: int, pos: int) -> Any:
+        if not stochastic:
+            return None
+        parts = tuple(key) if isinstance(key, (tuple, list)) else (key,)
+        return parts + (phase, pos)
+
+    sent = [quantize_blockwise(chunks(x), block, stochastic, phase_key(0, p))
+            for p, x in enumerate(xs)]
+    # The reduce-scatter: position i receives every peer's chunk i.
+    reduced = []
+    for i in range(n):
+        q = torch.stack([sent[p][0][i] for p in range(n)])
+        s = torch.stack([sent[p][1][i] for p in range(n)])
+        red = (q.float() * _expand_scales(s, q.shape[-1], block)).sum(0)
+        if mean:
+            red = red / torch.full_like(red, float(n))
+        reduced.append(quantize_blockwise(red[None], block, stochastic,
+                                          phase_key(1, i)))
+    # The all-gather: every position receives every chunk.
+    q2 = torch.cat([q for q, _ in reduced])
+    s2 = torch.cat([s for _, s in reduced])
+    out = (q2.float() * _expand_scales(s2, q2.shape[-1], block))
+    full = out.reshape(-1)[:size].reshape(shape).to(dtype)
+    return [full.clone() for _ in range(n)]

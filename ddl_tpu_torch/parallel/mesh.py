@@ -12,16 +12,33 @@ plus the port's own small counterparts of ``jax.sharding``).
   size(b)`` blocks, ``a`` the major index.
 - :class:`ShardedArray` — the result of a sharded transfer: one tensor
   per mesh position with its device and its index (slices into the
-  global shape), like ``jax.Array.addressable_shards``.
+  global shape), like ``jax.Array.addressable_shards``.  :func:`shard`
+  cuts a tensor into differentiable per-position views and
+  :meth:`ShardedArray.assemble` puts them back together: the port's
+  ``shard_map`` boundary, where per-position work begins and ends.
+- :func:`named` / :func:`prune_indivisible` (the reference's ``_named``
+  and ``_prune_indivisible``, ``ddl_tpu/parallel/train.py``): one spec
+  tree for every mesh — axes the mesh lacks drop out, and an axis that
+  does not divide a dimension leaves it unsharded.
+
+Meshes take the ``dp``, ``fsdp``, ``tp`` and ``sp`` axes (any names but
+``pp``: the pipeline axis waits for ``parallel/pipeline.py``, ROADMAP.md
+A5b).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import logging
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
+
+#: The pipeline axis, refused until ``parallel/pipeline.py`` is ported.
+_PIPELINE_AXIS = "pp"
 
 
 class Mesh:
@@ -41,6 +58,11 @@ class Mesh:
             )
         if len(set(self.axis_names)) != len(self.axis_names):
             raise ValueError(f"repeated mesh axis in {self.axis_names}")
+        if _PIPELINE_AXIS in self.axis_names:
+            raise NotImplementedError(
+                "the pipeline axis 'pp' waits for parallel/pipeline.py "
+                "(ROADMAP.md A5b)"
+            )
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -59,6 +81,19 @@ class Mesh:
         """The position grid: ``positions()[coords]`` is the position at
         those mesh coordinates."""
         return np.arange(self.size).reshape(self.devices.shape)
+
+    def coords(self) -> List[Tuple[int, ...]]:
+        """Each position's mesh coordinates, in position order."""
+        return list(np.ndindex(*self.devices.shape))
+
+    def sub_mesh(self, axes: Sequence[Optional[str]]) -> "Mesh":
+        """The mesh over ``axes`` alone (``None`` entries ignored): the
+        positions at coordinate 0 of every other axis.  Work that the
+        other axes only replicate runs once, on these positions."""
+        keep = [a for a in axes if a is not None]
+        index = tuple(slice(None) if a in keep else 0 for a in self.axis_names)
+        return Mesh(self.devices[index],
+                    tuple(a for a in self.axis_names if a in keep))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]})"
@@ -244,6 +279,104 @@ class ShardedArray:
 
     def numpy(self) -> np.ndarray:
         return self.tensor().numpy()
+
+    def assemble(self) -> torch.Tensor:
+        """The global array on the shards' device, differentiable: the
+        first position holding each block gives it, the blocks joined
+        with ``torch.cat`` (positions that only replicate a block add
+        nothing)."""
+        blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
+        for s in self.shards:
+            blocks.setdefault(tuple(sl.start or 0 for sl in s.index), s.data)
+        starts = [sorted({k[d] for k in blocks}) for d in range(len(self.shape))]
+
+        def build(prefix: Tuple[int, ...], d: int) -> torch.Tensor:
+            if d == len(self.shape):
+                return blocks[prefix]
+            parts = [build(prefix + (st,), d + 1) for st in starts[d]]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+
+        return build((), 0)
+
+
+def shard(t: torch.Tensor, sharding: NamedSharding) -> ShardedArray:
+    """``t`` cut into one view a mesh position, differentiable (the
+    port's entry into ``shard_map``).  Every position must live on
+    ``t``'s device: a mesh over distinct cards raises
+    ``NotImplementedError`` (:func:`one_card`)."""
+    dev = one_card(sharding.mesh.device_list)
+    if t.device != dev:
+        raise ValueError(f"a tensor on {t.device} cut over positions of {dev}")
+    return ShardedArray(t.shape, sharding, [
+        t[index] for index in sharding.shard_indices(t.shape)])
+
+
+# -- spec trees (the reference's _named / _prune_indivisible) ----------------
+
+
+def is_spec_leaf(x: Any) -> bool:
+    """A leaf of a spec tree: a :class:`PartitionSpec` or ``None``."""
+    return x is None or isinstance(x, PartitionSpec)
+
+
+def map_specs(fn: Callable[..., Any], spec_tree: Any, *trees: Any) -> Any:
+    """Map ``fn(spec, *leaves)`` over a nested dict/list spec tree and
+    trees of the same structure (a :class:`PartitionSpec` is a tuple but
+    a leaf here)."""
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees))
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)) and not is_spec_leaf(spec_tree):
+        return [map_specs(fn, v, *(t[i] for t in trees))
+                for i, v in enumerate(spec_tree)]
+    return fn(spec_tree, *trees)
+
+
+def named(mesh: Mesh, spec_tree: Any) -> Any:
+    """Map a PartitionSpec tree to NamedShardings, dropping axes the mesh
+    doesn't have (so one spec tree serves dp-only and dp x fsdp x tp
+    meshes); a ``None`` leaf is replicated."""
+
+    def fix(spec: Any) -> NamedSharding:
+        parts = []
+        for entry in (spec or ()):
+            if entry is None:
+                parts.append(None)
+            elif isinstance(entry, (tuple, list)):
+                kept = tuple(a for a in entry if a in mesh.axis_names)
+                parts.append(kept if kept else None)
+            else:
+                parts.append(entry if entry in mesh.axis_names else None)
+        return NamedSharding(mesh, P(*parts))
+
+    return map_specs(fix, spec_tree)
+
+
+def prune_indivisible(sh: NamedSharding, x: Any) -> NamedSharding:
+    """Drop spec axes whose mesh size doesn't divide the array dimension:
+    the leaf degrades to replicated on that dimension (logged) instead of
+    failing.  An axis of size 1 drops too."""
+    mesh = sh.mesh
+    shape = tuple(x.shape) if hasattr(x, "shape") else tuple(np.shape(x))
+    if len(tuple(sh.spec)) > len(shape):
+        raise ValueError(
+            f"param spec {sh.spec} has more entries than array rank "
+            f"{len(shape)} (shape {shape})"
+        )
+    parts = []
+    for dim_size, entry in zip(shape, tuple(sh.spec) + (None,) * len(shape)):
+        axes = _entry_axes(entry)
+        n = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+        keep = n > 1 and dim_size % n == 0
+        if axes and n > 1 and not keep:
+            logger.warning(
+                "param spec axis %r (size %d) does not divide dim %d of "
+                "shape %s — that dimension degrades to REPLICATED (memory "
+                "cost: full copy per device group)",
+                entry, n, dim_size, shape,
+            )
+        parts.append(entry if keep else None)
+    return NamedSharding(mesh, P(*parts))
 
 
 def one_card(devices: Sequence[Any]) -> torch.device:

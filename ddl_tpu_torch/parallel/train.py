@@ -1,22 +1,40 @@
-"""One-device training steps (port of ``ddl_tpu/parallel/train.py``:
-``_make_apply_step``, ``make_train_step`` and ``make_multistep`` on one
-device).
+"""Training steps (port of ``ddl_tpu/parallel/train.py``:
+``_make_apply_step``, ``make_train_step`` and ``make_multistep``, on one
+device or over a mesh of its positions).
 
 PyTorch runs eagerly, so the JAX package's jitted window ``lax.scan``
 becomes a Python loop of per-batch steps with the same math.  The
 optimizer is a factory of a ``torch.optim.Optimizer`` over the param
 leaves; :func:`adamw` builds one with ``optax.adamw``'s hyper-parameters
-(they differ from ``torch.optim.AdamW``'s defaults).  Sharded meshes,
-ZeRO-1 and quantized gradient communication are later slices.
+(they differ from ``torch.optim.AdamW``'s defaults).
+
+Over a mesh (``mesh=``, ``param_specs=``, ``batch_spec=``) the step runs
+on global tensors on the mesh's one device, as GSPMD presents them to
+the JAX package's step: a batch that landed as a :class:`~ddl_tpu_torch.
+parallel.mesh.ShardedArray` is assembled, the loss closes over the mesh
+for its attention, and the distributed-optimizer knobs
+(``optimizer_sharding="zero1"``, ``grad_comm="int8"``,
+``stochastic_rounding``, ``grad_comm_block``) wrap the optimizer in
+:class:`~ddl_tpu_torch.parallel.optimizer.ShardedOptimizer`.  With
+``mesh=None`` the steps are the one-device steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Any, Callable, List, Tuple
 
 import torch
+
+from ddl_tpu_torch.parallel.mesh import P, ShardedArray, one_card
+
+logger = logging.getLogger(__name__)
+
+#: Valid ``optimizer_sharding`` values for the step factories.
+OPTIMIZER_SHARDING = ("none", "zero1")
+
 
 
 @dataclasses.dataclass
@@ -56,8 +74,62 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     )
 
 
+def _maybe_shard_optimizer(optimizer: Any, mesh: Any, param_spec_tree: Any,
+                           optimizer_sharding: str, grad_comm: str,
+                           stochastic_rounding: bool,
+                           grad_comm_block: int) -> Any:
+    """Wrap ``optimizer`` in the distributed-optimizer subsystem when the
+    config asks for it (:mod:`ddl_tpu_torch.parallel.optimizer`):
+    ``"zero1"`` shards state + weight update over dp; ``grad_comm="int8"``
+    alone applies only the quantized wire format.  An already-wrapped
+    ShardedOptimizer passes through untouched."""
+    from ddl_tpu_torch.parallel.optimizer import ShardedOptimizer
+
+    if optimizer_sharding not in OPTIMIZER_SHARDING:
+        raise ValueError(
+            f"optimizer_sharding must be one of {OPTIMIZER_SHARDING}, "
+            f"got {optimizer_sharding!r}"
+        )
+    if isinstance(optimizer, ShardedOptimizer):
+        return optimizer
+    if optimizer_sharding == "none" and grad_comm == "fp32":
+        return optimizer
+    if optimizer_sharding == "zero1" and mesh is None:
+        raise ValueError("optimizer_sharding='zero1' needs a mesh")
+    return ShardedOptimizer(
+        optimizer,
+        mesh,
+        param_spec_tree,
+        axis="dp" if optimizer_sharding == "zero1" else None,
+        grad_comm=grad_comm,
+        stochastic_rounding=stochastic_rounding,
+        block=grad_comm_block or None,
+    )
+
+
+def _lead_extent(mesh: Any, batch_spec: Any) -> int:
+    """Mesh extent sharding the batch's LEADING axis (1 if unsharded)."""
+    entry = tuple(batch_spec)[0] if tuple(batch_spec) else None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    ext = 1
+    for a in axes:
+        if mesh is not None and a in mesh.axis_names:
+            ext *= mesh.shape[a]
+    return ext
+
+
+def _global(batch: Any) -> Any:
+    """The batch as global tensors: a leaf that landed as a
+    :class:`ShardedArray` is assembled on its device."""
+    if isinstance(batch, ShardedArray):
+        return batch.assemble()
+    if isinstance(batch, (tuple, list)):
+        return tuple(_global(b) for b in batch)
+    return batch
+
+
 def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
-                     accum_steps: int = 1):
+                     accum_steps: int = 1, lead_divisor: int = 1):
     """One loss/grad/update step, shared by the single- and multi-step
     factories.  ``accum_steps > 1`` splits the batch's leading axis into
     equal microbatches, averages their grads and applies ONE update."""
@@ -78,6 +150,15 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
                     f"batch leading dim {lead} is not divisible by "
                     f"accum_steps={accum_steps}"
                 )
+            if (lead // accum_steps) % lead_divisor:
+                # Not incorrect: the microbatches are global tensors; on
+                # a mesh the batch-sharded work (attention) then splits
+                # unevenly or runs replicated.
+                logger.warning(
+                    "gradient accumulation: microbatch size %d is not "
+                    "divisible by the batch-sharding extent %d",
+                    lead // accum_steps, lead_divisor,
+                )
             micro = zip(*(b.chunk(accum_steps, dim=0) for b in batch))
             loss = torch.zeros((), device=batch[0].device)
             for mb in micro:
@@ -92,6 +173,8 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
 
 
 def _init_fn(optimizer: Callable[..., Any], device: torch.device):
+    from ddl_tpu_torch.parallel.optimizer import ShardedOptimizer
+
     def init_fn(params: Any) -> TrainState:
         # Fresh leaves the step may update in place: the caller's tree is
         # never aliased (the JAX package's "jitted identity" copy).
@@ -100,49 +183,102 @@ def _init_fn(optimizer: Callable[..., Any], device: torch.device):
             .requires_grad_(True),
             params,
         )
-        return TrainState(params, optimizer(tree_leaves(params)), 0)
+        opt = (optimizer.init(params) if isinstance(optimizer, ShardedOptimizer)
+               else optimizer(tree_leaves(params)))
+        return TrainState(params, opt, 0)
 
     return init_fn
+
+
+def _resolve(device: Any, mesh: Any) -> torch.device:
+    """The step's device: the mesh's one device, or ``device``."""
+    if mesh is None:
+        if device is None:
+            raise ValueError("a step needs a device or a mesh")
+        return torch.device(device)
+    dev = one_card(mesh.device_list)
+    if device is not None and torch.device(device) != dev and not (
+            torch.device(device).type == dev.type == "cuda"
+            and torch.device(device).index is None):
+        raise ValueError(f"device {device} differs from the mesh's {dev}")
+    return dev
 
 
 def make_train_step(
     loss_fn: Callable[..., torch.Tensor],
     optimizer: Callable[..., Any],
-    device: Any,
+    device: Any = None,
     accum_steps: int = 1,
+    mesh: Any = None,
+    param_specs: Any = None,
+    batch_spec: Any = P(("dp",)),
+    optimizer_sharding: str = "none",
+    grad_comm: str = "fp32",
+    stochastic_rounding: bool = False,
+    grad_comm_block: int = 0,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Any]]:
-    """Build ``(init_fn, step_fn)`` for a one-device training loop.
+    """Build ``(init_fn, step_fn)`` for a training loop.
 
     ``loss_fn(params, batch) -> scalar`` over the loader's column tuple;
     ``optimizer(param_list) -> torch.optim.Optimizer`` (e.g.
     :func:`adamw`).  ``step_fn(state, batch) -> (state, loss)`` updates
     the params in place and returns the loss as a device tensor (no
     host sync).
+
+    Over a ``mesh`` of one device's positions: ``param_specs`` (a
+    PartitionSpec tree matching the params; axes absent from the mesh are
+    dropped) places the sharded optimizer's state, ``batch_spec`` is the
+    batch's sharding (its leading axis' extent is the accumulation
+    check's divisor), and ``optimizer_sharding`` / ``grad_comm`` /
+    ``stochastic_rounding`` / ``grad_comm_block`` mirror
+    :class:`ddl_tpu_torch.config.TrainConfig`'s fields.  ``device`` may be
+    left out (the mesh's) or must name the mesh's device.
     """
-    apply_step = _make_apply_step(loss_fn, accum_steps)
+    dev = _resolve(device, mesh)
+    optimizer = _maybe_shard_optimizer(
+        optimizer, mesh, param_specs, optimizer_sharding, grad_comm,
+        stochastic_rounding, grad_comm_block,
+    )
+    apply_step = _make_apply_step(loss_fn, accum_steps,
+                                  _lead_extent(mesh, batch_spec))
 
     def step_fn(state: TrainState, batch: Any):
-        loss = apply_step(state, batch)
+        loss = apply_step(state, _global(batch))
         return TrainState(state.params, state.optimizer, state.step + 1), loss
 
-    return _init_fn(optimizer, torch.device(device)), step_fn
+    return _init_fn(optimizer, dev), step_fn
 
 
 def make_multistep(
     loss_fn: Callable[..., torch.Tensor],
     optimizer: Callable[..., Any],
-    device: Any,
+    device: Any = None,
     n_steps: int = 8,
     accum_steps: int = 1,
+    mesh: Any = None,
+    param_specs: Any = None,
+    batch_spec: Any = P(("dp",)),
+    optimizer_sharding: str = "none",
+    grad_comm: str = "fp32",
+    stochastic_rounding: bool = False,
+    grad_comm_block: int = 0,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Any]]:
     """Like :func:`make_train_step`, but each call runs ``n_steps``
     optimizer steps.  ``multi_step_fn(state, batch, per_step=False) ->
     (state, losses[n_steps])``; with ``per_step=True`` every batch leaf
     carries a leading ``n_steps`` axis (one batch per step), otherwise
-    the single batch is reused by every step."""
-    apply_step = _make_apply_step(loss_fn, accum_steps)
+    the single batch is reused by every step.  The distributed-optimizer
+    knobs wrap the optimizer once, for the init path and every step."""
+    dev = _resolve(device, mesh)
+    optimizer = _maybe_shard_optimizer(
+        optimizer, mesh, param_specs, optimizer_sharding, grad_comm,
+        stochastic_rounding, grad_comm_block,
+    )
+    apply_step = _make_apply_step(loss_fn, accum_steps,
+                                  _lead_extent(mesh, batch_spec))
 
     def multi_step_fn(state: TrainState, batch: Any, per_step: bool = False):
+        batch = _global(batch)
         losses = [
             apply_step(state, tuple(b[i] for b in batch) if per_step else batch)
             for i in range(n_steps)
@@ -150,4 +286,4 @@ def make_multistep(
         new = TrainState(state.params, state.optimizer, state.step + n_steps)
         return new, torch.stack(losses)
 
-    return _init_fn(optimizer, torch.device(device)), multi_step_fn
+    return _init_fn(optimizer, dev), multi_step_fn

@@ -188,22 +188,26 @@ def _adam_state(state: TrainState) -> Tuple[List[torch.Tensor], int]:
     """The params in the JAX package's order and the optimizer's step
     count, checking that the optimizer keeps optax's Adam layout."""
     opt = state.optimizer
-    if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)) or any(
-        g.get("amsgrad") for g in opt.param_groups
-    ):
+    # A ZeRO-1 optimizer (parallel.optimizer.Zero1Optimizer) keeps each
+    # leaf's moments whole, its replicas' slices views of them.
+    sharded = hasattr(opt, "load_leaf_state")
+    if (not opt.is_adam) if sharded else (
+        not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)) or any(
+            g.get("amsgrad") for g in opt.param_groups)):
         raise CheckpointError(
             "generations carry Adam/AdamW state (optax's count/mu/nu "
             f"layout); got {type(opt).__name__}"
         )
     params = _sorted_leaves(state.params)
-    steps = {float(opt.state[p]["step"]) for p in params if opt.state.get(p)}
+    held = opt.state
+    steps = {float(held[p]["step"]) for p in params if held.get(p)}
     if len(steps) > 1:
         raise CheckpointError(f"params at different optimizer steps {steps}")
     return params, int(steps.pop()) if steps else 0
 
 
-def _moment(opt: Any, p: torch.Tensor, key: str) -> torch.Tensor:
-    st = opt.state.get(p)
+def _moment(held: Any, p: torch.Tensor, key: str) -> torch.Tensor:
+    st = held.get(p)
     if st:
         return st[key]
     return torch.zeros_like(p, memory_format=torch.preserve_format)
@@ -215,11 +219,11 @@ def train_state_leaves(state: TrainState) -> List[Any]:
     (optax's ``mu``), every ``exp_avg_sq`` (``nu``), and the params —
     each in sorted-key tree order.  Tensors stay where they live."""
     params, count = _adam_state(state)
-    opt = state.optimizer
+    held = state.optimizer.state
     return (
         [np.asarray(count, dtype=np.int32)]
-        + [_moment(opt, p, "exp_avg") for p in params]
-        + [_moment(opt, p, "exp_avg_sq") for p in params]
+        + [_moment(held, p, "exp_avg") for p in params]
+        + [_moment(held, p, "exp_avg_sq") for p in params]
         + params
     )
 
@@ -353,6 +357,9 @@ def restore_latest(
                     p.copy_(host)
         step_dtype = torch.float32
         for p, mu, nu in zip(params, *moments):
+            if hasattr(opt, "load_leaf_state"):
+                opt.load_leaf_state(p, count, mu, nu)
+                continue
             old = opt.state.get(p)
             if old and isinstance(old.get("step"), torch.Tensor):
                 step_t = torch.full_like(old["step"], float(count))

@@ -10,7 +10,12 @@ asked), checkpoint/resume of both halves of a run (the train state and
 the loader's logical clock) at window/epoch boundaries, and the
 :class:`~ddl_tpu_torch.resilience.PreemptionGuard` drain.  The trainer
 runs on ``device`` — the card unless the caller passes ``device="cpu"``.
-Observability spans are a later slice.
+Over a ``mesh`` of one device's positions (``mesh=``, ``param_specs=``,
+``batch_spec=``) windows land sharded over ``P(None, *batch_spec)``
+through the ingestor (the ICI tier on the card), are assembled into
+global tensors for the step, and the ``TrainConfig``'s distributed-
+optimizer knobs (ZeRO-1, int8 gradient communication) flow into every
+step factory.  Observability spans are a later slice.
 """
 
 from __future__ import annotations
@@ -89,6 +94,9 @@ class Trainer:
         checkpoint_async: Optional[bool] = None,
         checkpoint_keep: int = 3,
         preemption_guard: Any = None,
+        mesh: Any = None,
+        param_specs: Any = None,
+        batch_spec: Any = None,
     ):
         """``loss_fn(params, batch) -> scalar`` over the loader's column
         tuple; ``optimizer(param_list) -> torch.optim.Optimizer`` (e.g.
@@ -115,12 +123,35 @@ class Trainer:
         resilience.PreemptionGuard`) is polled at every window/epoch
         boundary: on a notice the run drains — forced final checkpoint,
         the guard's rungs, clean producer shutdown — and ``fit`` returns
-        with ``FitResult.preempted`` set."""
+        with ``FitResult.preempted`` set.
+
+        ``mesh`` (a :class:`~ddl_tpu_torch.parallel.mesh.Mesh` of one
+        device's positions, e.g. ``make_mesh({"dp": 2, "sp": 2},
+        ["cuda:0"] * 4)``) trains over it: ``param_specs`` (e.g.
+        ``llama.param_specs(cfg)``) places the sharded optimizer state,
+        ``batch_spec`` (default ``P(("dp",))``; ``P("dp", "sp")`` for
+        sequence-parallel token batches) shards the landed windows, and
+        the loss closes over the same mesh for its attention.  The mesh's
+        device is the trainer's (``device`` must agree).
+        ``train_config.optimizer_kwargs()`` (``optimizer_sharding``,
+        ``grad_comm``, ``grad_comm_block``, ``stochastic_rounding``)
+        flows into both step factories."""
+        from ddl_tpu_torch.parallel.mesh import P, one_card
         from ddl_tpu_torch.parallel.train import make_train_step
 
         if train_config is not None:
             train_config.check_ported()
+        if mesh is not None:
+            mdev = one_card(mesh.device_list)
+            if resolve_device(device).type != mdev.type:
+                raise ValueError(f"device {device} differs from the mesh's {mdev}")
+            device = mdev
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._param_specs = param_specs
+        self._batch_spec = batch_spec if batch_spec is not None else P(("dp",))
+        self._opt_kwargs = (train_config.optimizer_kwargs()
+                            if train_config is not None else {})
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every_epochs = max(1, checkpoint_every_epochs)
         if checkpoint_async is None:
@@ -144,8 +175,27 @@ class Trainer:
         self._optimizer = optimizer
         self._accum_steps = accum_steps
         self._init_fn, self._step_fn = make_train_step(
-            loss_fn, optimizer, self.device, accum_steps=accum_steps
+            loss_fn, optimizer, self.device, accum_steps=accum_steps,
+            **self._mesh_kwargs(),
         )
+
+    def _mesh_kwargs(self) -> dict:
+        """The step factories' mesh and optimizer arguments."""
+        if self.mesh is None:
+            return dict(self._opt_kwargs)
+        return dict(mesh=self.mesh, param_specs=self._param_specs,
+                    batch_spec=self._batch_spec, **self._opt_kwargs)
+
+    def _loader_sharding(self, window_stream: bool) -> dict:
+        """The loader's ``sharding`` over the mesh: batches over
+        ``batch_spec``, windows one axis deeper."""
+        if self.mesh is None:
+            return {}
+        from ddl_tpu_torch.parallel.mesh import P, named
+
+        spec = (P(*((None,) + tuple(self._batch_spec))) if window_stream
+                else self._batch_spec)
+        return {"sharding": named(self.mesh, spec)}
 
     # -- checkpoint plumbing ----------------------------------------------
 
@@ -389,10 +439,16 @@ class Trainer:
             _, fn = make_multistep(
                 self._loss_fn, self._optimizer, self.device,
                 n_steps=n_steps, accum_steps=self._accum_steps,
+                **self._mesh_kwargs(),
             )
             return fn
 
         stream = loader.windows(lookahead=stream_lookahead)
+        if self.mesh is not None:
+            # Windows land sharded over the mesh positions; the step sees
+            # them whole, as GSPMD hands the JAX package's step global
+            # arrays (the rolled targets cross the shard cuts).
+            stream = (w.assemble() for w in stream)
         if window_hook is not None:
             stream = map(window_hook, stream)
         loop = self._fused_stream_loop if fused else self._sync_stream_loop
@@ -642,6 +698,7 @@ class Trainer:
                 device=trainer.device,
                 metrics=trainer.metrics,
                 timeout_s=timeout_s,
+                **trainer._loader_sharding(bool(window_stream)),
             )
             if start_epoch >= n_epochs:
                 logger.info(

@@ -17,6 +17,16 @@ Run:
     python examples/train_llama_torch.py --device cpu     # no card needed
     DDL_TORCH_N_PRODUCERS=4 python examples/train_llama_torch.py process
 
+    # ZeRO-1 optimizer-state sharding over dp (and int8 grad comm) ride
+    # the standard TrainConfig env (ddl_tpu_torch/parallel/optimizer.py):
+    DDL_TORCH_TRAIN_OPTIMIZER_SHARDING=zero1 python examples/train_llama_torch.py
+    DDL_TORCH_TRAIN_OPTIMIZER_SHARDING=zero1 DDL_TORCH_TRAIN_GRAD_COMM=int8 \
+        python examples/train_llama_torch.py
+
+The trainer runs over ``make_mesh({"dp": <local cards>})`` with the
+model's ``param_specs``, as the reference does; a mesh over several
+distinct cards waits for the multi-card slice.
+
 Exit 0 with finite, decreasing loss and a 32-token continuation inside
 the vocab is the pass criterion.
 """
@@ -67,6 +77,7 @@ def main(mode: str = "thread", device: str = "cuda") -> int:
 
     from ddl_tpu_torch.config import LoaderConfig, TrainConfig
     from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
     from ddl_tpu_torch.parallel.train import adamw
     from ddl_tpu_torch.readers import TokenStreamProducer
     from ddl_tpu_torch.trainer import Trainer
@@ -80,17 +91,25 @@ def main(mode: str = "thread", device: str = "cuda") -> int:
         batch_size=8, n_epochs=6, mode=mode, nslots=2, output="device",
         window_stream=True,
     )
+    # TrainConfig.load() picks up DDL_TORCH_TRAIN_* from the env:
+    # optimizer_sharding=zero1 shards AdamW's moments over dp (inert at
+    # dp=1; the loss trajectory is bit-identical either way).
     train_config = TrainConfig.load()
     model = train_config.model_config(llama.LlamaConfig(
         vocab=VOCAB, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
         d_ff=256, max_seq=SEQ_LEN,
     ))
+    # One dp position a local card (every visible card: -1), or the CPU.
+    mesh = make_mesh({"dp": -1}, ["cpu"] if device == "cpu" else None)
     trainer = Trainer(
-        loss_fn=lambda p, b: llama.next_token_loss(p, b[0], model),
+        loss_fn=lambda p, b: llama.next_token_loss(p, b[0], model, mesh=mesh),
         optimizer=adamw(3e-3),
         init_params=llama.init_params(model, seed=0, device=device),
         device=device,
         train_config=train_config,
+        mesh=mesh,
+        param_specs=llama.param_specs(model),
+        batch_spec=P(("dp",)),
     )
     result = trainer.fit(
         TokenStreamProducer(token_file, SEQ_LEN, WINDOW_ROWS), config=cfg,

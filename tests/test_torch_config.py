@@ -138,8 +138,8 @@ def test_model_config_applies_remat():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("host_id", 1, "A5"), ("n_hosts", 2, "A5"), ("mode", "multihost", "A5"),
-    ("shuffle_impl", "xla", "A5"),
+    ("host_id", 1, "A5b"), ("n_hosts", 2, "A5b"), ("mode", "multihost", "A5b"),
+    ("shuffle_impl", "xla", "A5b"),
 ])
 def test_unported_loader_fields_raise(field, value, item):
     cfg = tconfig.LoaderConfig(**{field: value})
@@ -209,12 +209,23 @@ def test_wire_fields_pass_through(field, value, monkeypatch):
     ("grad_comm_block", 64), ("stochastic_rounding", True),
 ])
 def test_unported_train_fields_raise(field, value):
+    """The pipeline fields still raise, naming A5b; the distributed-
+    optimizer fields are ported: ``optimizer_kwargs`` carries them and a
+    Trainer over a mesh takes them."""
     tc = tconfig.TrainConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="A5"):
-        Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu", train_config=tc)
-    consumer = (tc.pipeline_kwargs if field in
-                ("schedule", "pp_chunks", "n_microbatches")
-                else tc.optimizer_kwargs)
-    with pytest.raises(NotImplementedError, match="A5"):
-        consumer()
+    if field in ("schedule", "pp_chunks", "n_microbatches"):
+        with pytest.raises(NotImplementedError, match="A5b"):
+            Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu",
+                    train_config=tc)
+        with pytest.raises(NotImplementedError, match="A5b"):
+            tc.pipeline_kwargs()
+        return
+    tc.check_ported()
+    assert tc.optimizer_kwargs()[field] == value
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"dp": 2}, ["cpu"] * 2)
+    trainer = Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu",
+                      train_config=tc, mesh=mesh, param_specs={})
+    assert trainer._mesh_kwargs()[field] == value
     assert tconfig.TrainConfig().optimizer_kwargs()["grad_comm"] == "fp32"

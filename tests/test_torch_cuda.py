@@ -1699,3 +1699,144 @@ def test_cache_npy_shards_ride_k8_onto_a_mesh(tmp_path):
     for shards, w in zip(got, want):
         for index, data in shards:
             assert data.tobytes() == np.ascontiguousarray(w[index]).tobytes()
+
+
+# -- the mesh path: ring attention over positions of the card ----------------
+
+
+def _rel_err(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.fixture
+def dlse_seen(monkeypatch):
+    """Records ``max|dlse|`` of each backward call: the row terms
+    (``_bwd_rows``) hand K2/K3 (K5/K6) the lse cotangent."""
+    seen = []
+    rows = tfa._bwd_rows
+
+    def wrapped(dout, out, dlse):
+        res = rows(dout, out, dlse)
+        seen.append(float(res[2].abs().max()))
+        return res
+
+    monkeypatch.setattr(tfa, "_bwd_rows", wrapped)
+    return seen
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_ring_matches_plain_on_the_card(packed, dtype, dlse_seen):
+    """The ring over sp = 4 positions of cuda:0 reaches K1-K3 (K4-K6
+    packed, ids rotating with their blocks) at the blocks' global offsets,
+    sp^2 launches each, the backward fed a nonzero lse cotangent; output
+    and q/k/v grads against ``attention_plain`` over the whole T (2e-2
+    relative in bf16, 1e-4 in fp32)."""
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.ring_attention import ring_attention
+
+    sp, B, T, H, Hkv, D = 4, 2, 512, 4, 2, 64
+    dt = getattr(torch, dtype)
+    q, k, v, dout, _ = _inputs(21, B, T, T, H, Hkv, D)
+    ts = [torch.tensor(x, device="cuda", dtype=dt, requires_grad=True)
+          for x in (q, k, v)]
+    ids = (torch.tensor(_doc_ids(np.random.default_rng(4), B, T, 90),
+                        device="cuda") if packed else None)
+    mesh = make_mesh({"sp": sp}, ["cuda:0"] * sp)
+    tfa.reset_launch_counts()
+    out = ring_attention(*ts, mesh, dp_axis=None, kv_repeat=H // Hkv,
+                         use_flash=True, segment_ids=ids)
+    g = torch.tensor(dout, device="cuda", dtype=dt)
+    grads = torch.autograd.grad(out, ts, g)
+    torch.cuda.synchronize()
+    ref = [t.detach().float().requires_grad_(True) for t in ts]
+    want, _ = tfa.attention_plain(*ref, kv_repeat=H // Hkv, seg_q=ids, seg_k=ids)
+    wgrads = torch.autograd.grad(want, ref, g.float())
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    assert _rel_err(out, want) <= tol
+    for a, b in zip(grads, wgrads):
+        assert _rel_err(a, b) <= tol
+    kernels = tfa.KERNELS[3:] if packed else tfa.KERNELS[:3]
+    for fn in kernels:
+        assert fn.launches == sp * sp, fn.__name__
+        assert fn.sm90_launches == (sp * sp if dt == torch.bfloat16 else 0)
+    for fn in (tfa.KERNELS[:3] if packed else tfa.KERNELS[3:]):
+        assert fn.launches == 0
+    assert len(dlse_seen) == sp * sp and max(dlse_seen) > 0
+
+
+@pytest.mark.flash
+def test_a_failing_kernel_in_the_ring_raises():
+    """On CUDA tensors the ring reaches the kernels or raises — a head dim
+    the kernels refuse is not traded for the plain route."""
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.ring_attention import ring_attention
+
+    q = torch.randn(1, 64, 2, 48, device="cuda", dtype=torch.bfloat16)
+    mesh = make_mesh({"sp": 2}, ["cuda:0"] * 2)
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ring_attention(q, q, q, mesh, dp_axis=None, use_flash=True)
+    assert all(fn.launches == 0 for fn in tfa.KERNELS)
+
+
+def test_a_mesh_over_distinct_cards_still_raises():
+    from ddl_tpu_torch.parallel.mesh import Mesh
+    from ddl_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = Mesh(["cuda:0", "cuda:1"], ("sp",))
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="distinct cards"):
+        ring_attention(q, q, q, mesh, dp_axis=None, use_flash=True)
+
+
+@pytest.mark.flash
+def test_sharded_local_attention_on_the_card():
+    """dp = 2 x tp = 2 positions of cuda:0: one K1-K3 launch a position
+    (batch and heads cut), against the one-call kernels bit for bit."""
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.ring_attention import attention
+
+    q, k, v, _, _ = _inputs(5, 4, 256, 256, 8, 4, 64)
+    ts = [torch.tensor(x, device="cuda").bfloat16() for x in (q, k, v)]
+    mesh = make_mesh({"dp": 2, "tp": 2}, ["cuda:0"] * 4)
+    tfa.reset_launch_counts()
+    out = attention(*ts, kv_repeat=2, mesh=mesh)
+    assert tfa.flash_fwd.sm90_launches == 4
+    want = attention(*ts, kv_repeat=2)
+    assert torch.equal(out, want)
+
+
+def test_zero1_fit_on_the_card_is_bit_equal(tmp_path):
+    """A tiny fit over dp = 2 positions of cuda:0: ZeRO-1 (fp32) gives the
+    replicated optimizer's losses bit for bit; int8 passes the parity
+    gate."""
+    from ddl_tpu_torch.config import LoaderConfig, TrainConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.optimizer import loss_parity
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    path = str(tmp_path / "tok.bin")
+    np.random.default_rng(0).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    cfg = llama.LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq=128)
+    mesh = make_mesh({"dp": 2}, ["cuda:0"] * 2)
+
+    def fit(**tc):
+        return Trainer(
+            lambda p, b: llama.next_token_loss(p, b[0], cfg, mesh=mesh),
+            adamw(1e-3), llama.init_params(cfg, seed=0), metrics=Metrics(),
+            train_config=TrainConfig(**tc), mesh=mesh,
+            param_specs=llama.param_specs(cfg),
+        ).fit(TokenStreamProducer(path, 128, 8), config=LoaderConfig(
+            batch_size=4, n_epochs=3, n_producers=2, window_stream=True)).losses
+
+    rep = fit()
+    assert fit(optimizer_sharding="zero1") == rep
+    gate = loss_parity(rep, fit(optimizer_sharding="zero1", grad_comm="int8"))
+    assert gate["parity"] and gate["max_rel_drift"] > 0

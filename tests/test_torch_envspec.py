@@ -7,6 +7,9 @@
   ``"device"`` for ``"jax"``).
 - C3: the same raw strings read the same through both registries — bool
   knobs, the fused gate and the device-shuffle gate.
+- The distributed-optimizer twins (``DDL_TORCH_TRAIN_OPTIMIZER_SHARDING``,
+  ``_GRAD_COMM``, ``_GRAD_COMM_BLOCK``, ``_STOCHASTIC_ROUNDING``) load as
+  the reference's and reach ``optimizer_kwargs``.
 """
 
 import dataclasses
@@ -156,3 +159,26 @@ def test_device_shuffle_gate_reads_raw_strings_as_the_reference(
     assert port.device_exchange_active == ref.device_exchange_active
     assert port.device_exchange_active == (
         (value or "auto").lower() not in ("0", "off", "false"))
+
+
+@pytest.mark.parametrize("field,raw,want", [
+    ("OPTIMIZER_SHARDING", "zero1", "zero1"),
+    ("GRAD_COMM", "int8", "int8"),
+    ("GRAD_COMM_BLOCK", "64", 64),
+    ("STOCHASTIC_ROUNDING", "1", True),
+])
+def test_optimizer_twins_load_as_the_reference(monkeypatch, field, raw, want):
+    """The four ``TRAIN_*`` distributed-optimizer twins: the same raw
+    string loads the same ``TrainConfig`` field in both packages, and the
+    port's reaches ``optimizer_kwargs`` (what the step factories take)."""
+    from ddl_tpu.config import TrainConfig as JaxTrainConfig
+    from ddl_tpu_torch.config import TrainConfig
+
+    assert tenv.KNOB_MAP["DDL_TPU_TRAIN_" + field] == "DDL_TORCH_TRAIN_" + field
+    monkeypatch.setenv("DDL_TPU_TRAIN_" + field, raw)
+    monkeypatch.setenv("DDL_TORCH_TRAIN_" + field, raw)
+    name = field.lower()
+    ref = getattr(JaxTrainConfig.load(), name)
+    port = TrainConfig.load()
+    assert getattr(port, name) == ref == want
+    assert port.optimizer_kwargs()[name] == want

@@ -391,3 +391,94 @@ def test_sampling_with_a_generator_is_reproducible(weights):
 
     a, b = sample(1), sample(1)
     assert torch.equal(a, b) and int(a.max()) < JCFG.vocab
+
+
+# -- the mesh path (TestShardedTrainStep's geometries) ------------------------
+
+MESH_JCFG = jllama.LlamaConfig(vocab=64, d_model=32, n_layers=1, n_heads=4,
+                               n_kv_heads=2, d_ff=64, dtype=jnp.float32)
+MESH_TCFG = tllama.LlamaConfig(vocab=64, d_model=32, n_layers=1, n_heads=4,
+                               n_kv_heads=2, d_ff=64, dtype=torch.float32)
+MESH_GEOMETRIES = [
+    ({"dp": 8}, ("dp",), None),
+    ({"dp": 2, "fsdp": 2, "tp": 2}, ("dp",), None),
+    ({"dp": 2, "sp": 4}, "dp", "sp"),
+    ({"dp": 2, "fsdp": 2, "sp": 2}, "dp", "sp"),
+]
+
+
+@pytest.mark.parametrize("axes,lead,seq", MESH_GEOMETRIES)
+def test_sharded_train_step_matches_jax(axes, lead, seq):
+    """``next_token_loss(..., mesh=)`` and two ``make_train_step`` steps
+    over a mesh of CPU positions against the JAX package's over the
+    8-device CPU mesh: losses at 2e-5, the first step's grads at 1e-4
+    relative (ring attention over sp, batch/head-sharded attention
+    otherwise)."""
+    from jax.sharding import PartitionSpec as JP
+
+    from ddl_tpu.parallel.mesh import make_mesh as jax_mesh
+    from ddl_tpu.parallel.train import make_train_step as jax_step
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.train import make_train_step
+
+    jmesh = jax_mesh(dict(axes))
+    tmesh = make_mesh(dict(axes), ["cpu"] * 8)
+    jspec = JP(lead) if seq is None else JP(lead, seq)
+    tspec = P(lead) if seq is None else P(lead, seq)
+    np_params = _np_tree(jllama.init_params(MESH_JCFG, jax.random.key(0)))
+    tokens = np.random.default_rng(0).integers(0, 64, (8, 16), dtype=np.int32)
+
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jllama.next_token_loss(p, jnp.asarray(tokens), MESH_JCFG,
+                                         mesh=jmesh))(np_params)
+    tp = _torch_params(np_params)
+    tloss = tllama.next_token_loss(tp, torch.from_numpy(tokens), MESH_TCFG,
+                                   mesh=tmesh)
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=2e-5, atol=2e-5)
+    _assert_grads_close([t.grad.numpy() for t in tree_leaves(tp)],
+                        tree_leaves(_np_tree(jgrads)), 1e-4)
+
+    init, step = jax_step(
+        lambda p, b: jllama.next_token_loss(p, b, MESH_JCFG, mesh=jmesh),
+        optax.adamw(1e-3), jmesh, jllama.param_specs(MESH_JCFG),
+        batch_spec=jspec)
+    state = init(jax.tree.map(jnp.asarray, np_params))
+    want = []
+    for _ in range(2):
+        state, loss = step(state, tokens)
+        want.append(float(loss))
+    init, step = make_train_step(
+        lambda p, b: tllama.next_token_loss(p, b, MESH_TCFG, mesh=tmesh),
+        adamw(1e-3), mesh=tmesh, param_specs=tllama.param_specs(MESH_TCFG),
+        batch_spec=tspec)
+    tstate = init(tllama.params_from_numpy(np_params, device="cpu"))
+    got = []
+    for _ in range(2):
+        tstate, loss = step(tstate, torch.from_numpy(tokens))
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert got[1] < got[0] and tstate.step == 2
+
+
+def test_param_specs_mirror_the_reference():
+    """The same spec per leaf (axes compared as tuples), and the same
+    layout as init_params."""
+    from ddl_tpu.parallel.optimizer import _axes_of
+
+    def flat(tree, leaf, path=()):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in flat(v, leaf, path + (k,)).items()}
+        if isinstance(tree, list):
+            return {k2: v2 for i, v in enumerate(tree)
+                    for k2, v2 in flat(v, leaf, path + (i,)).items()}
+        return {path: leaf(tree)}
+
+    def axes(spec):
+        return tuple(_axes_of(e) for e in tuple(spec))
+
+    got = flat(tllama.param_specs(MESH_TCFG), axes)
+    assert got == flat(jllama.param_specs(MESH_JCFG), axes)
+    shapes = flat(tllama.init_params(MESH_TCFG, device="cpu"), tuple)
+    assert set(shapes) == set(got)

@@ -98,3 +98,68 @@ def test_one_card_counts_cards_not_positions():
         tmesh.one_card(["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="mix"):
         tmesh.one_card(["cpu", "cuda:0"])
+
+
+# -- spec trees, the shard_map boundary, the axes this slice takes -------------
+
+
+def _tuple_axes(spec):
+    return tuple(() if e is None else (e,) if isinstance(e, str) else tuple(e)
+                 for e in tuple(spec))
+
+
+@pytest.mark.parametrize("axes", [{"dp": 8}, {"dp": 2, "fsdp": 2, "tp": 2},
+                                  {"dp": 2, "sp": 4}])
+def test_named_and_prune_equal_the_references(axes):
+    """``named`` drops axes the mesh lacks, ``prune_indivisible`` those
+    that do not divide their dimension: each leaf's spec equals the JAX
+    package's ``_named`` / ``_prune_indivisible`` (axes as tuples)."""
+    from ddl_tpu.parallel import train as jtrain
+
+    specs = {"a": JaxP("fsdp", "tp"), "b": [JaxP(None, ("dp", "tp")),
+                                            JaxP(("fsdp", "sp"))],
+             "c": JaxP(None)}
+    tspecs = {"a": tmesh.P("fsdp", "tp"), "b": [tmesh.P(None, ("dp", "tp")),
+                                                tmesh.P(("fsdp", "sp"))],
+              "c": tmesh.P(None)}
+    shapes = {"a": (12, 8), "b": [(6, 16), (8,)], "c": (5,)}
+    jm = jmesh.make_mesh(axes)
+    tm = tmesh.make_mesh(axes, ["cpu"] * 8)
+    jn = jtrain._named(jm, specs)
+    tn = tmesh.named(tm, tspecs)
+    for path in (("a",), ("b", 0), ("b", 1), ("c",)):
+        j, t, shape = jn, tn, shapes
+        for k in path:
+            j, t, shape = j[k], t[k], shape[k]
+        assert _tuple_axes(t.spec) == _tuple_axes(j.spec)
+        jp = jtrain._prune_indivisible(j, np.zeros(shape))
+        tp = tmesh.prune_indivisible(t, torch.zeros(shape))
+        assert _tuple_axes(tp.spec) == _tuple_axes(jp.spec)
+
+
+def test_shard_and_assemble_round_trip_with_grads():
+    mesh = tmesh.make_mesh({"dp": 2, "sp": 2, "tp": 2}, ["cpu"] * 8)
+    x = torch.randn(4, 6, 3, requires_grad=True)
+    sh = tmesh.NamedSharding(mesh, tmesh.P("dp", "sp"))
+    arr = tmesh.shard(x, sh)
+    assert [tuple(s.data.shape) for s in arr.shards] == [(2, 3, 3)] * 8
+    out = arr.assemble()
+    assert torch.equal(out, x.detach())
+    (out * 2).sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 2.0))
+    sub = mesh.sub_mesh(("dp", None, "sp"))
+    assert sub.shape == {"dp": 2, "sp": 2}
+    assert sub.device_list == [torch.device("cpu")] * 4
+
+
+def test_pipeline_axis_waits_for_a5b():
+    with pytest.raises(NotImplementedError, match="A5b"):
+        tmesh.make_mesh({"dp": 2, "pp": 4}, ["cpu"] * 8)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        tmesh.Mesh(np.array(["cpu"] * 2), ("pp",))
+
+
+def test_shard_refuses_distinct_cards():
+    mesh = tmesh.Mesh(["cuda:0", "cuda:1"], ("sp",))
+    with pytest.raises(NotImplementedError, match="distinct cards"):
+        tmesh.shard(torch.zeros(4), tmesh.NamedSharding(mesh, tmesh.P("sp")))

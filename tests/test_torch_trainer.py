@@ -233,3 +233,76 @@ def test_evaluate_matches_jax_trainer(setup, window_stream):
     )
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert len(grads) == 4 * ROWS // BATCH and not any(grads)
+
+
+# -- the mesh path --------------------------------------------------------------
+
+
+def _mesh_fit(path, params, mesh, n_epochs=EPOCHS, train_config=None,
+              checkpoint_dir=None, **fit_kw):
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.mesh import P as TP
+
+    trainer = Trainer(
+        lambda p, b: tllama.next_token_loss(p, b[0], TCFG, mesh=mesh),
+        adamw(LR), tllama.params_from_numpy(params, device="cpu"),
+        device="cpu", metrics=Metrics(), train_config=train_config,
+        checkpoint_dir=checkpoint_dir, mesh=mesh,
+        param_specs=tllama.param_specs(TCFG), batch_spec=TP("dp", "sp"),
+    )
+    return trainer.fit(TorchTokens(path, SEQ, ROWS), config=LoaderConfig(
+        batch_size=BATCH, n_epochs=n_epochs, n_producers=2,
+        window_stream=True), **fit_kw)
+
+
+def test_mesh_fit_tracks_jax_trainer(setup):
+    """``Trainer(..., mesh=, param_specs=, batch_spec=)`` over dp=2 x sp=2
+    positions of the CPU — windows landed sharded over ``P(None, "dp",
+    "sp")``, ring attention over sp — against the JAX package's Trainer
+    over the same mesh of virtual devices: per-window losses at rtol
+    1e-4, and equal to the port's own one-device fit."""
+    from ddl_tpu_torch.parallel.mesh import make_mesh as torch_mesh
+
+    path, params = setup
+    jmesh = make_mesh({"dp": 2, "sp": 2}, devices=jax.devices()[:4])
+    jtrainer = JaxTrainer(
+        loss_fn=lambda p, b: jllama.next_token_loss(p, b[0], JCFG, mesh=jmesh),
+        optimizer=optax.adamw(LR), mesh=jmesh,
+        param_specs=jllama.param_specs(JCFG),
+        init_params=jax.tree.map(jnp.asarray, params),
+        batch_spec=P("dp", "sp"),
+    )
+    want = jtrainer.fit(
+        JaxTokens(path, SEQ, ROWS),
+        config=JaxLoaderConfig(batch_size=BATCH, n_epochs=EPOCHS,
+                               n_producers=2, window_stream=True),
+    ).losses
+    res = _mesh_fit(path, params, torch_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4))
+    assert len(res.losses) == len(want) == EPOCHS
+    np.testing.assert_allclose(res.losses, want, rtol=1e-4)
+    assert res.state.step == EPOCHS * ROWS // BATCH
+    assert res.metrics.counter("consumer.windows") == EPOCHS
+    plain = _torch_fit(path, params).losses
+    np.testing.assert_allclose(res.losses, plain, rtol=1e-5)
+
+
+def test_zero1_checkpoint_resumes_bit_equal(setup, tmp_path):
+    """A ZeRO-1 fit over dp=2 x sp=2 stopped after 2 windows (async
+    generations carry the sharded state's whole moments) and resumed by a
+    fresh Trainer: the two runs' losses concatenate to an undisturbed
+    run's bit for bit."""
+    from ddl_tpu_torch.parallel.mesh import make_mesh as torch_mesh
+    from ddl_tpu_torch.parallel.optimizer import Zero1Optimizer
+
+    path, params = setup
+    mesh = torch_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4)
+    z1 = TrainConfig(optimizer_sharding="zero1")
+    full = _mesh_fit(path, params, mesh, train_config=z1)
+    assert isinstance(full.state.optimizer, Zero1Optimizer)
+    ckpt = str(tmp_path / "ckpt")
+    first = _mesh_fit(path, params, mesh, n_epochs=2, train_config=z1,
+                      checkpoint_dir=ckpt)
+    second = _mesh_fit(path, params, mesh, train_config=z1,
+                       checkpoint_dir=ckpt)
+    assert second.resumed_from_epoch == 2
+    assert first.losses + second.losses == full.losses
