@@ -193,9 +193,39 @@ Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
 import chip_smoke as c; card = c.phase_build();
 print(c.phase_mesh(tempfile.mkdtemp(), card))"``.
 
+Phase 12 is the pipeline and MULTIHOST.  (a) Llama-3-8B widths cut to 4
+layers (T = 2048, global B = 4 in 2 microbatches, phase 6's token
+stream, THREAD producers): gpipe on ``{"pp": 2, "dp": 2}``, 1f1b (2
+chunks) on the same mesh, tp-resident stages on ``{"pp": 2, "tp": 2}``
+(16 query heads over 4 KV heads a tp position), the sequential fallback
+on ``{"dp": 2}`` with the same stacked weights, a ``mesh=None`` plain fit
+from the same weights and a control with the stages in the wrong order:
+gpipe, 1f1b and the fallback within 1e-6 relative of each other, every
+pipelined fit within ``PP_LOSS_TOL`` of the plain fit, which the control
+must exceed; K1-K3 one launch per live (position, tick, layer), x tp for
+the tp-resident stages; one K8 a window on the dp meshes (K7 on the
+pp x tp mesh, whose windows land replicated); the idle ticks' share
+beside ``bubble_fraction``.  (b) Two gloo processes sharing cuda:0
+(``--multihost-child``), each with PROCESS producers under
+``mode="multihost"``: ``core`` (every host's producers reach every
+process, the dp step across processes, ``DeviceGlobalShuffler`` lanes
+across processes keeping the rows and moving some), ``stream``
+(``windows()`` over a process-spanning sharding), ``dpsp`` and ``ppdp``
+(full-width fits over ``{"dp": 2, "sp": 2}`` and ``{"dp": 2, "pp": 2}``,
+2 layers, global B = 4), ``packed`` (K4-K6 at a small width), ``ckpt``
+(rank 0 writes, every rank restores and fast-forwards); the dpsp and ppdp
+losses against the port's one-process run over the same global mesh and
+batches within ``MH_LOSS_TOL``, with the gloo all-reduce's ms and bytes
+a step and each process's peak.  (c) ``shuffle_impl="xla"`` beside
+``"ring"`` at phase 4's geometry: byte-identical streams, K9 on the ring
+route only, one round's ms each.  Run alone: ``python3 -c "import sys,
+tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
+c.phase_build(); print(c.phase_pipeline(tempfile.mkdtemp(), card))"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
-ring of (a)), the
+ring of (a); ``multihost_launches`` from phase 12's two processes; K1-K3
+with ``pipeline_launches`` from phase 12's gpipe fit), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -4698,6 +4728,739 @@ def phase_mesh(tmpdir, card, phase2_ms=None, profile=False):
                            "collectives": coll}
 
 
+# ------------------------------------------------------------- phase 12 ---
+
+#: Phase 12's geometry.  (a) Llama-3-8B widths cut to 4 layers, T = 2048,
+#: global B = 4 in 2 microbatches, phase 6's token stream, 3 windows of 2
+#: steps.  (b) two gloo processes sharing cuda:0, each a local batch of 2
+#: rows (global B = 4), 2 layers, 2 windows of 2 steps; the packed and
+#: core legs at a small width.
+PIPE = dict(n_layers=4, n_micro=2, n_epochs=3, mh_layers=2, mh_epochs=2,
+            mh_rows=4, mh_batch=2, mh_timeout_s=900)
+#: The small model of the multihost packed leg: head_dim 128 (the wgmma
+#: kernels' main head dim), Llama-3's vocabulary (the documents' EOT).
+MH_SMALL = dict(d_model=512, n_layers=1, n_heads=4, n_kv_heads=2, d_ff=1024)
+#: The pipelined fits' loss gate: the largest relative gap between a
+#: pipelined fit's per-window losses and the ``mesh=None`` fit's from the
+#: same weights stays under this, and the control (the two stages applied
+#: in the wrong order) must exceed it.  Set from phase 12's first reading
+#: (PERF.md; NVIDIA H100 80GB HBM3, 700 W): gpipe, 1f1b and the
+#: fallback 2.6e-06, tp-resident 2.3e-05, control 4.4e-02.
+PP_LOSS_TOL = 2e-4
+#: The multihost fits' gate: the largest relative gap between the losses
+#: of the two-process fit and a one-process run of the port over the same
+#: global mesh and batches (the gloo sum and the smaller local batches
+#: change the order of the additions).  Set from the first reading (as
+#: above): dpsp 2.2e-05, ppdp 1.9e-05.
+MH_LOSS_TOL = 2e-4
+
+
+def _pp_fit(tag, loss_of, params_of, token_file, mesh, card, param_specs=None,
+            batch_spec=None, n_epochs=None, heads=None):
+    """One full-width THREAD fit of phase 12 (a): a fresh Trainer over
+    ``mesh`` (or ``mesh=None``) from ``params_of()``, the loss
+    ``loss_of(metrics)``; the flash, K7 and K8 counts and the head-count
+    log ``heads`` set to 0 just before the fit and read just after."""
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import ici_fanout
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.trainer import Trainer
+
+    tr = TRAIN
+    n_epochs = n_epochs or PIPE["n_epochs"]
+    m = Metrics()
+    trainer = Trainer(loss_of(m), adamw(1e-5), params_of(), device="cuda",
+                      metrics=m, mesh=mesh, param_specs=param_specs,
+                      batch_spec=batch_spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ici_fanout.reset_launch_counts()
+    if heads is not None:
+        heads.clear()
+    t0 = time.perf_counter()
+    res = trainer.fit(
+        TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
+                            seed=SEED),
+        config=LoaderConfig(batch_size=tr["batch_size"], n_epochs=n_epochs,
+                            n_producers=tr["n_producers"], mode="thread",
+                            window_stream=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = n_epochs * tr["window_rows"] // tr["batch_size"]
+    steady = m.timer("trainer.windows").total_s
+    ticks, live = m.counter("pp.ticks"), m.counter("pp.live_ticks")
+    s = {
+        "losses": list(res.losses), "steps": steps,
+        "step_ms": wall / steps * 1e3,
+        "steady_step_ms": steady / steps * 1e3,
+        "tokens_per_s": steps * tr["batch_size"] * tr["seq_len"] / wall,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {fn.__name__: [fn.launches, fn.sm90_launches]
+                     for fn in fa.KERNELS},
+        "k8": ici_fanout.fanout_shard.launches,
+        "k7": ici_fanout.fanout_replicate.launches,
+        "windows": m.counter("consumer.windows"),
+        "ici": {k: m.counter(k) for k in ("ici.windows", "ici.fallbacks")},
+        "pp_bubble": m.gauge("pp.bubble") if ticks else None,
+        "idle_share": 1.0 - live / ticks if ticks else None,
+        "heads": dict(heads) if heads is not None else None,
+    }
+    log(f"{tag}: losses {s['losses']}; {steps} steps in {wall:.3f} s: "
+        f"{s['step_ms']:.1f} ms/step (steady {s['steady_step_ms']:.1f}), "
+        f"{s['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{s['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log(f"{tag}: launches {s['launches']}; K8 {s['k8']}, K7 {s['k7']}; "
+        f"windows {s['windows']}, {s['ici']}; idle ticks "
+        f"{s['idle_share']} beside bubble_fraction {s['pp_bubble']}; query "
+        f"heads a K1 call {s['heads']}")
+    del res, trainer
+    free_device_memory()
+    return s
+
+
+@contextlib.contextmanager
+def _count_heads(heads):
+    """Count the query heads of every flash-attention call (the module
+    attribute the dispatcher calls; the kernels' counters are
+    untouched)."""
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    orig = fa.flash_attention
+
+    def counted(q, *a, **kw):
+        heads[int(q.shape[2])] = heads.get(int(q.shape[2]), 0) + 1
+        return orig(q, *a, **kw)
+
+    fa.flash_attention = counted
+    try:
+        yield
+    finally:
+        fa.flash_attention = orig
+
+
+def pipeline_fits(tmpdir, card):
+    """(a) The pipelined fits at Llama-3-8B widths, 4 layers: gpipe on
+    ``{"pp": 2, "dp": 2}``, 1f1b (2 chunks) on the same mesh, tp-resident
+    stages on ``{"pp": 2, "tp": 2}``, the sequential fallback on
+    ``{"dp": 2}`` with the same stacked weights, a ``mesh=None`` plain fit
+    from the same weights and the wrong-stage-order control."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.pipeline import bubble_fraction
+
+    c, tr = PIPE, TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=c["n_layers"])
+    M = c["n_micro"]
+    token_file = _token_file(tmpdir)
+    log(f"[pipe] llama3_8b widths, {cfg.n_layers} layers, "
+        f"{llama.param_count(cfg) / 1e9:.3f} B params, T {tr['seq_len']}, "
+        f"global B {tr['batch_size']} in {M} microbatches, bf16")
+
+    def staged(n_chunks=1, reverse=False):
+        def make():
+            st = llama.stage_params(llama.init_params(cfg, seed=SEED,
+                                                      device="cuda"),
+                                    2, n_chunks=n_chunks)
+            if reverse:
+                st["stages"] = {k: v.flip(0).contiguous()
+                                for k, v in st["stages"].items()}
+            return st
+        return make
+
+    def pp_loss(mesh, **kw):
+        return lambda m: (lambda p, b: llama.next_token_loss_pp(
+            p, b[0], cfg, mesh, M, metrics=m, **kw))
+
+    heads = {}
+    ppdp = make_mesh({"pp": 2, "dp": 2}, ["cuda:0"] * 4)
+    pptp = make_mesh({"pp": 2, "tp": 2}, ["cuda:0"] * 4)
+    dp2 = make_mesh({"dp": 2}, ["cuda:0"] * 2)
+    specs = llama.pp_param_specs(cfg)
+    spec = P(("dp",))
+    _pp_fit("[pipe] warm-up, gpipe, one window", pp_loss(ppdp), staged(),
+            token_file, ppdp, card, specs, spec, n_epochs=1)
+    with _count_heads(heads):
+        runs = {
+            "gpipe": _pp_fit("[pipe] gpipe on pp=2 x dp=2", pp_loss(ppdp),
+                             staged(), token_file, ppdp, card, specs, spec,
+                             heads=heads),
+            "1f1b": _pp_fit(
+                "[pipe] 1f1b (2 chunks) on pp=2 x dp=2",
+                pp_loss(ppdp, schedule="1f1b", n_chunks=2), staged(2),
+                token_file, ppdp, card, llama.pp_param_specs(cfg, n_chunks=2),
+                spec, heads=heads),
+            "tp": _pp_fit("[pipe] tp-resident on pp=2 x tp=2", pp_loss(pptp),
+                          staged(), token_file, pptp, card, specs, spec,
+                          heads=heads),
+            "fallback": _pp_fit("[pipe] sequential fallback on dp=2",
+                                pp_loss(dp2), staged(), token_file, dp2, card,
+                                specs, spec, heads=heads),
+            "plain": _pp_fit(
+                "[pipe] mesh=None plain forward",
+                lambda m: (lambda p, b: llama.next_token_loss(p, b[0], cfg)),
+                lambda: llama.init_params(cfg, seed=SEED, device="cuda"),
+                token_file, None, card, heads=heads),
+            "control": _pp_fit("[pipe] control: the stages in the wrong order",
+                               pp_loss(ppdp), staged(reverse=True), token_file,
+                               ppdp, card, specs, spec),
+            # gpipe once more, last: the first measured fit's time beside
+            # a later one's.
+            "gpipe_again": _pp_fit("[pipe] gpipe on pp=2 x dp=2, again",
+                                   pp_loss(ppdp), staged(), token_file, ppdp,
+                                   card, specs, spec),
+        }
+
+    def gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    plain = runs["plain"]["losses"]
+    gaps = {k: gap(runs[k]["losses"], plain) for k in runs if k != "plain"}
+    sched = {k: gap(runs[k]["losses"], runs["gpipe"]["losses"])
+             for k in ("1f1b", "tp", "fallback", "gpipe_again")}
+    equal = {k: runs[k]["losses"] == runs["gpipe"]["losses"]
+             for k in ("1f1b", "tp", "fallback", "gpipe_again")}
+    log(f"[pipe] loss gaps to the mesh=None fit {gaps} (tolerance "
+        f"{PP_LOSS_TOL}); to gpipe {sched}, bit-equal {equal} ({card})")
+    steps = runs["gpipe"]["steps"]
+    L = cfg.n_layers
+    want = {"gpipe": M * L * steps, "1f1b": M * L * steps,
+            "tp": M * L * 2 * steps, "fallback": M * L * steps,
+            "plain": L * steps, "gpipe_again": M * L * steps}
+    log(f"[pipe] K1-K3 launches expected: one per live (position, tick, "
+        f"layer) = microbatches x layers x steps = {M} x {L} x {steps} = "
+        f"{want['gpipe']} (x tp=2 for the tp-resident stages: "
+        f"{want['tp']}; the plain fit {L} x {steps} = {want['plain']}); "
+        f"remat off, no recompute")
+    faults = []
+    for k, s in runs.items():
+        if not all(math.isfinite(x) for x in s["losses"]):
+            faults.append(f"{k} losses {s['losses']}")
+        if k in want and not all(s["launches"][fn.__name__] == [want[k], want[k]]
+                                 for fn in fa.KERNELS[:3]):
+            faults.append(f"{k} launches {s['launches']} != {want[k]}")
+    if not max(gaps[k] for k in ("gpipe", "1f1b", "tp", "fallback")) \
+            <= PP_LOSS_TOL < gaps["control"]:
+        faults.append(f"loss gaps {gaps} against {PP_LOSS_TOL}")
+    if not all(sched[k] <= 1e-6 for k in ("1f1b", "fallback", "gpipe_again")):
+        faults.append(f"schedules' gaps {sched}")
+    h = cfg.n_heads
+    if runs["tp"]["heads"] != {h // 2: want["tp"]}:
+        faults.append(f"tp-resident query heads {runs['tp']['heads']}")
+    if runs["gpipe"]["heads"] != {h: want["gpipe"]}:
+        faults.append(f"gpipe query heads {runs['gpipe']['heads']}")
+    for k in ("gpipe", "1f1b", "fallback", "gpipe_again"):
+        s = runs[k]
+        if not (s["k8"] == s["windows"] == c["n_epochs"] and s["k7"] == 0
+                and s["ici"]["ici.fallbacks"] == 0):
+            faults.append(f"{k}: K8 {s['k8']} / K7 {s['k7']} / windows "
+                          f"{s['windows']} / {s['ici']}")
+    s = runs["tp"]  # no dp axis: the windows land replicated (K7)
+    if not (s["k7"] == s["windows"] == c["n_epochs"] and s["k8"] == 0):
+        faults.append(f"tp: K7 {s['k7']} / K8 {s['k8']} / windows {s['windows']}")
+    for k, V in (("gpipe", None), ("1f1b", 2)):
+        b = bubble_fraction(2, M, "gpipe" if V is None else "1f1b", V)
+        if abs(runs[k]["idle_share"] - b) > 1e-12:
+            faults.append(f"{k} idle share {runs[k]['idle_share']} vs {b}")
+    if faults:
+        raise PhaseFailed("[pipe] " + "; ".join(faults))
+    return {"runs": runs, "gaps": gaps, "schedule_gaps": sched,
+            "bit_equal": equal, "tol": PP_LOSS_TOL, "expected": want}
+
+
+# -- (b) MULTIHOST: gloo processes sharing cuda:0 ----------------------------
+
+
+class TaggedProducer:
+    """The core and stream legs' rows: ``instance*1000 + producer*100 +
+    row`` in every column (module level: pickled to the spawned
+    producers)."""
+
+    def __init__(self, instance_idx):
+        self.instance_idx = instance_idx
+
+    def on_init(self, producer_idx=0, **kw):
+        from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
+
+        self._idx = producer_idx
+        return DataProducerOnInitReturn(nData=32, nValues=8, shape=(32, 8),
+                                        splits=(7, 1))
+
+    def post_init(self, my_ary, **kw):
+        import numpy as np
+
+        tags = self.instance_idx * 1000 + self._idx * 100 + np.arange(32)
+        my_ary[:] = tags[:, None].astype(np.float32)
+
+    def execute_function(self, my_ary, **kw):
+        pass
+
+
+def _row_mean_loss(p, b):
+    """The core and ckpt legs' model: a mean over rows, so the mean of
+    the processes' losses is the global batch's."""
+    return ((((b[0] * 1e-3) @ p["w"]) - b[1][:, 0] * 1e-3) ** 2).mean()
+
+
+def _mh_fit(tag, cfg, loss_of, params_of, producer, mesh, spec, out, rank,
+            n_epochs, rows, batch, specs=None):
+    """One MULTIHOST ``Trainer.fit`` of a child: PROCESS producers under
+    ``mode="multihost"``, windows landed as this process's block of the
+    global array, each local window recorded by the window hook."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    seen = []
+
+    def hook(win):
+        seen.append(win.detach().cpu().numpy().copy())
+        return win
+
+    m = Metrics()
+    trainer = Trainer(loss_of(mesh), adamw(1e-5), params_of(), device="cuda",
+                      metrics=m, mesh=mesh, param_specs=specs, batch_spec=spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    dm = default_metrics()
+    t_ar0 = dm.timer("mh.allreduce").total_s
+    b_ar0 = dm.counter("mh.allreduce_bytes")
+    t0 = time.perf_counter()
+    res = trainer.fit(producer, config=LoaderConfig(
+        batch_size=batch, n_epochs=n_epochs, n_producers=2, mode="multihost",
+        window_stream=True), window_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = n_epochs * rows // batch
+    s = {"losses": list(res.losses), "steps": steps,
+         "step_ms": wall / steps * 1e3,
+         "steady_step_ms": m.timer("trainer.windows").total_s / steps * 1e3,
+         "allreduce_ms": (dm.timer("mh.allreduce").total_s - t_ar0) / steps * 1e3,
+         "allreduce_bytes": (dm.counter("mh.allreduce_bytes") - b_ar0) / steps,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "launches": {fn.__name__: [fn.launches, fn.sm90_launches]
+                      for fn in fa.KERNELS}}
+    np.save(os.path.join(out, f"{tag}_{rank}.npy"), np.stack(seen))
+    log(f"[mh {rank}] {tag}: losses {s['losses']}; {wall / steps * 1e3:.1f} "
+        f"ms/step (steady {s['steady_step_ms']:.1f}); gloo all-reduce "
+        f"{s['allreduce_ms']:.1f} ms and {s['allreduce_bytes']:.0f} bytes a "
+        f"step; peak {s['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{s['launches']} ({_card_of(out)})")
+    del res, trainer
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s
+
+
+def _card_of(out):
+    """The card's name and power limit, as the parent wrote them."""
+    with open(os.path.join(out, "card.txt")) as f:
+        return f.read().strip()
+
+
+def multihost_child(rank, port, out):
+    """One process of phase 12 (b): a gloo group of 2 on cuda:0; the legs
+    core, stream, dpsp, ppdp, packed and ckpt (``out`` holds the shared
+    inputs and every record)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.ingest import make_global_array
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.collectives import (
+        DeviceGlobalShuffler,
+        process_allgather,
+    )
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+    from ddl_tpu_torch.parallel.train import adamw, make_train_step
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    c, tr = PIPE, TRAIN
+    pos = ["cuda:0"] * 2
+    report = {}
+
+    # core: coverage, the dp step across processes, the shuffle.
+    @distributed_dataloader(n_producers=2, mode="multihost")
+    def core(env):
+        assert (env.topology.n_instances, env.topology.instance_idx) == (2, rank)
+        mesh = make_mesh({"dp": 4}, pos)
+        sh = NamedSharding(mesh, P("dp"))
+        loader = DistributedDataLoader(TaggedProducer(rank), batch_size=8,
+                                       connection=env.connection, n_epochs=2,
+                                       output="numpy", device="cuda")
+        init_fn, step_fn = make_train_step(
+            _row_mean_loss, lambda ps: torch.optim.SGD(ps, lr=1e-3),
+            mesh=mesh, param_specs={"w": P(None)}, batch_spec=P(("dp",)))
+        state = init_fn({"w": np.zeros(7, np.float32)})
+        seen = set()
+        for _ in range(2):
+            for x, y in loader:
+                gy = make_global_array(y, sh)
+                state, loss = step_fn(state, (make_global_array(x, sh), gy))
+                seen.update(int(t) for t in process_allgather(gy).reshape(-1))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        window = make_global_array(
+            (1000.0 * rank + np.arange(16, dtype=np.float32))[:, None]
+            * np.ones((1, 4), np.float32), sh)
+        before = process_allgather(window).cpu().numpy()
+        after = process_allgather(
+            DeviceGlobalShuffler(mesh, num_exchange=2, seed=3).shuffle(window)
+        ).cpu().numpy()
+        return {"instances": sorted({t // 1000 for t in seen}),
+                "producers": len({(t // 1000, (t % 1000) // 100) for t in seen}),
+                "rows_kept": sorted(before[:, 0].tolist())
+                == sorted(after[:, 0].tolist()),
+                "moved": not np.array_equal(before, after),
+                "loss": float(loss)}
+
+    report["core"] = core()
+    log(f"[mh {rank}] core: {report['core']} ({_card_of(out)})")
+
+    @distributed_dataloader(n_producers=2, mode="multihost")
+    def stream(env):
+        mesh = make_mesh({"dp": 4}, pos)
+        loader = DistributedDataLoader(
+            TaggedProducer(rank), batch_size=8, connection=env.connection,
+            n_epochs=2, output="device", device="cuda",
+            sharding=NamedSharding(mesh, P(None, "dp")))
+        shapes, tags = set(), set()
+        for win in loader.windows():
+            shapes.add(tuple(win.shape))
+            tags.update(int(t) for t in process_allgather(win)[..., -1]
+                        .reshape(-1).cpu())
+            loader.mark(Marker.END_OF_EPOCH)
+        return {"shapes": sorted(shapes),
+                "instances": sorted({t // 1000 for t in tags})}
+
+    report["stream"] = stream()
+    log(f"[mh {rank}] stream: {report['stream']} ({_card_of(out)})")
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=c["mh_layers"])
+    tokens = os.path.join(out, "tokens.bin")
+
+    def tok_producer():
+        return TokenStreamProducer(tokens, tr["seq_len"], c["mh_rows"], seed=SEED)
+
+    # The full-width weights start on the host: the Trainer keeps its
+    # init tree for the whole fit, and two processes share the card.
+    report["dpsp"] = _mh_fit(
+        "dpsp", cfg, lambda mesh: (lambda p, b: llama.next_token_loss(
+            p, b[0], cfg, mesh=mesh)),
+        lambda: llama.init_params(cfg, seed=SEED, device="cpu"),
+        tok_producer(), make_mesh({"dp": 2, "sp": 2}, pos), P(("dp",), "sp"),
+        out, rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
+        llama.param_specs(cfg))
+    report["ppdp"] = _mh_fit(
+        "ppdp", cfg, lambda mesh: (lambda p, b: llama.next_token_loss_pp(
+            p, b[0], cfg, mesh, 2)),
+        lambda: llama.stage_params(
+            llama.init_params(cfg, seed=SEED, device="cpu"), 2),
+        tok_producer(), make_mesh({"dp": 2, "pp": 2}, pos), P(("dp",)),
+        out, rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
+        llama.pp_param_specs(cfg))
+    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
+    report["packed"] = _mh_fit(
+        "packed", small, lambda mesh: (lambda p, b: llama.next_token_loss(
+            p, b[0], small, mesh=mesh, segment_ids=b[1])),
+        lambda: llama.init_params(small, seed=SEED, device="cuda"),
+        PackedTokenProducer(os.path.join(out, "docs.bin"), tr["seq_len"],
+                            c["mh_rows"], delimiter=EOT, seed=SEED),
+        make_mesh({"dp": 2}, ["cuda:0"]), P(("dp",)), out, rank,
+        c["mh_epochs"], c["mh_rows"], c["mh_batch"], llama.param_specs(small))
+
+    # ckpt: rank 0 writes, every rank restores and fast-forwards.
+    from ddl_tpu_torch.checkpoint import (
+        LoaderCheckpoint,
+        restore_train_state,
+        save_train_state,
+    )
+    ckpt = os.path.join(out, "ckpt")
+
+    def steps_over(mesh):
+        return make_train_step(_row_mean_loss, adamw(1e-3), mesh=mesh,
+                               param_specs={"w": P(None)},
+                               batch_spec=P(("dp",)))
+
+    @distributed_dataloader(n_producers=2, mode="multihost")
+    def ckpt_first(env):
+        mesh = make_mesh({"dp": 4}, pos)
+        init_fn, step_fn = steps_over(mesh)
+        state = init_fn({"w": np.zeros(7, np.float32)})
+        loader = DistributedDataLoader(TaggedProducer(rank), batch_size=8,
+                                       connection=env.connection, n_epochs=4,
+                                       output="numpy", device="cuda")
+        sh = NamedSharding(mesh, P("dp"))
+        for _ in range(2):
+            for x, y in loader:
+                state, _ = step_fn(state, (make_global_array(x, sh),
+                                           make_global_array(y, sh)))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        save_train_state(state, ckpt)
+        LoaderCheckpoint.capture(loader).save(
+            os.path.join(ckpt, f"loader_{rank}.json"))
+        return state.step, loader._target, state.params["w"].detach().clone()
+
+    step0, target0, w0 = ckpt_first()
+
+    @distributed_dataloader(n_producers=2, mode="multihost")
+    def ckpt_resume(env):
+        mesh = make_mesh({"dp": 4}, pos)
+        init_fn, step_fn = steps_over(mesh)
+        state = restore_train_state(ckpt, init_fn({"w": np.zeros(7, np.float32)}))
+        ck = LoaderCheckpoint.load(os.path.join(ckpt, f"loader_{rank}.json"))
+        loader = DistributedDataLoader(TaggedProducer(rank), batch_size=8,
+                                       connection=env.connection, n_epochs=4,
+                                       output="numpy", device="cuda")
+        loader.fast_forward(ck.epoch)
+        ck.apply(loader)
+        ok = (state.step == step0 and loader._target == target0
+              and bool(torch.equal(state.params["w"].detach(), w0)))
+        sh = NamedSharding(mesh, P("dp"))
+        n = 0
+        for _ in range(2):
+            for x, y in loader:
+                state, _ = step_fn(state, (make_global_array(x, sh),
+                                           make_global_array(y, sh)))
+                n += 1
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        return {"restored": ok, "step": state.step, "expected": step0 + n}
+
+    report["ckpt"] = ckpt_resume()
+    log(f"[mh {rank}] ckpt: {report['ckpt']} ({_card_of(out)})")
+    with open(os.path.join(out, f"report_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    log(f"MULTIHOST OK process={rank}")
+
+
+def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows):
+    """The port's one-process run over the same global mesh and batches:
+    a multistep a window over the two processes' local windows joined
+    along the batch dim (rank 0's rows first, as the global array holds
+    them)."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.parallel.train import adamw, make_multistep
+
+    init_fn, multi = make_multistep(loss, adamw(1e-5), mesh=mesh,
+                                    param_specs=specs, batch_spec=spec,
+                                    n_steps=windows.shape[1])
+    state = init_fn(params)
+    losses = []
+    for w in windows:
+        state, ls = multi(state, (torch.from_numpy(w).cuda(),), per_step=True)
+        losses.append(float(ls.mean()))
+    del state
+    return losses
+
+
+def multihost_run(tmpdir, card):
+    """(b) Two gloo processes on cuda:0 run the legs; then the port's
+    one-process runs over the same global meshes and batches."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+
+    c = PIPE
+    out = os.path.join(tmpdir, "mh")
+    os.makedirs(out, exist_ok=True)
+    os.link(_token_file(tmpdir), os.path.join(out, "tokens.bin"))
+    with open(os.path.join(out, "card.txt"), "w") as f:
+        f.write(card)
+    documents(TRAIN["n_tokens"]).tofile(os.path.join(out, "docs.bin"))
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"child_{i}.log"), "w") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child",
+         str(i), str(port), out], stdout=logs[i], stderr=subprocess.STDOUT,
+        cwd=ROOT) for i in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=c["mh_timeout_s"])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=60)
+    for f in logs:
+        f.close()
+    wall = time.perf_counter() - t0
+    texts = [open(os.path.join(out, f"child_{i}.log")).read() for i in range(2)]
+    for i, text in enumerate(texts):
+        for line in text.splitlines():
+            if line.startswith(f"[mh {i}]") or line.startswith("MULTIHOST"):
+                log(line)
+    if any(p.returncode != 0 for p in procs) or not all(
+            f"MULTIHOST OK process={i}" in t for i, t in enumerate(texts)):
+        for i, t in enumerate(texts):
+            log(f"[mh] child {i} rc {procs[i].returncode}, last lines:\n"
+                + "\n".join(t.splitlines()[-40:]))
+        raise PhaseFailed("[mh] the multihost processes failed")
+    log(f"[mh] two processes on cuda:0 ran every leg in {wall:.1f} s ({card})")
+    reports = [json.load(open(os.path.join(out, f"report_{i}.json")))
+               for i in range(2)]
+    faults = []
+    for i, r in enumerate(reports):
+        core = r["core"]
+        if not (core["instances"] == [0, 1] and core["producers"] == 4
+                and core["rows_kept"] and core["moved"]):
+            faults.append(f"core {i}: {core}")
+        if r["stream"]["instances"] != [0, 1] or r["stream"]["shapes"] != [
+                [4, 16, 8]]:
+            faults.append(f"stream {i}: {r['stream']}")
+        if not (r["ckpt"]["restored"] and r["ckpt"]["step"] == r["ckpt"]["expected"]):
+            faults.append(f"ckpt {i}: {r['ckpt']}")
+    for leg in ("dpsp", "ppdp", "packed"):
+        if reports[0][leg]["losses"] != reports[1][leg]["losses"]:
+            faults.append(f"{leg}: the processes report different losses")
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=c["mh_layers"])
+    gaps = {}
+    for leg, axes, spec, specs, loss, params in (
+        ("dpsp", {"dp": 2, "sp": 2}, P(("dp",), "sp"), llama.param_specs(cfg),
+         lambda mesh: (lambda p, b: llama.next_token_loss(p, b[0], cfg,
+                                                          mesh=mesh)),
+         lambda: llama.init_params(cfg, seed=SEED, device="cpu")),
+        ("ppdp", {"dp": 2, "pp": 2}, P(("dp",)), llama.pp_param_specs(cfg),
+         # Microbatches of one row, as each process's 2 rows in 2.
+         lambda mesh: (lambda p, b: llama.next_token_loss_pp(p, b[0], cfg,
+                                                             mesh, 4)),
+         lambda: llama.stage_params(
+             llama.init_params(cfg, seed=SEED, device="cpu"), 2)),
+    ):
+        wins = np.concatenate([np.load(os.path.join(out, f"{leg}_{i}.npy"))
+                               for i in range(2)], axis=2)
+        mesh = make_mesh(axes, ["cuda:0"] * 4)
+        fa.reset_launch_counts()
+        ref = _one_process_reference(cfg, loss(mesh), params(), specs, spec,
+                                     mesh, wins)
+        free_device_memory()
+        got = reports[0][leg]["losses"]
+        gaps[leg] = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        log(f"[mh] {leg}: two-process losses {got}, one-process {ref}: "
+            f"largest relative gap {gaps[leg]:.3e} (tolerance {MH_LOSS_TOL}) "
+            f"({card})")
+        if not gaps[leg] <= MH_LOSS_TOL:
+            faults.append(f"{leg} gap {gaps[leg]}")
+    launches = {}
+    for leg in ("dpsp", "ppdp", "packed"):
+        for name, (n, _) in reports[0][leg]["launches"].items():
+            launches[name] = launches.get(name, 0) + sum(
+                r[leg]["launches"][name][0] for r in reports)
+    # A process's steps: the dpsp ring is sp^2 = 4 calls a layer a step, the
+    # ppdp pipeline 2 microbatches a layer a step, the packed fit 1.
+    steps = reports[0]["dpsp"]["steps"]
+    L = cfg.n_layers
+    want_dense = 2 * (4 * L * steps + 2 * L * steps)
+    want_packed = 2 * MH_SMALL["n_layers"] * steps
+    for i, fn in enumerate(fa.KERNELS):
+        want = want_packed if fn.__name__.endswith("_seg") else want_dense
+        if launches[fn.__name__] != want:
+            faults.append(f"multihost launches {launches} (want {want} for "
+                          f"{fn.__name__})")
+            break
+    log(f"[mh] K1-K6 launches over both processes {launches}: K1-K3 2 "
+        f"processes x (sp^2 x {L} layers + 2 microbatches x {L} layers) x "
+        f"{steps} steps = {want_dense}, K4-K6 2 x {MH_SMALL['n_layers']} x "
+        f"{steps} = {want_packed}")
+    if faults:
+        raise PhaseFailed("[mh] " + "; ".join(faults))
+    return launches, {"wall_s": wall, "reports": reports, "gaps": gaps,
+                      "tol": MH_LOSS_TOL}
+
+
+def shuffle_impl_ab(card):
+    """(c) ``shuffle_impl="xla"`` beside ``"ring"`` at phase 4's geometry:
+    the served streams byte-identical, K9 on the ring route only, one
+    round's ms each."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+    from ddl_tpu_torch.shuffle import (
+        DeviceExchangeFabric, DeviceExchangeShuffler, exchange_permutation,
+    )
+
+    sh = SHUFFLE
+    n = sh["n"]
+    streams, launches, legs = {}, {}, {}
+    for impl in ("ring", "xla"):
+        fabric = DeviceExchangeFabric(devices=["cuda:0"] * n, impl=impl)
+        dsh.reset_launch_counts()
+        streams[impl], _, _ = drain_instances(
+            lambda: DeviceExchangeShuffler.factory(fabric=fabric))
+        torch.cuda.synchronize()
+        launches[impl], legs[impl] = dsh.exchange_ring.launches, fabric.legs
+    same = all(torch.equal(_bytes(streams["ring"][i]), _bytes(streams["xla"][i]))
+               for i in range(n))
+    half = int(sh["rows"] * sh["fraction"]) // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gin = torch.randn((n * 2 * half, sh["cols"]), generator=gen, device="cuda")
+    p = exchange_permutation(n, SEED, 0)
+    ms = {impl: _time_ms(lambda impl=impl: dsh.exchange_start(
+        impl, gin, ["cuda:0"] * n, p), reps=20, warmup=3)
+        for impl in ("ring", "xla")}
+    equal_out = torch.equal(dsh.exchange_start("ring", gin, ["cuda:0"] * n, p),
+                            dsh.exchange_start("xla", gin, ["cuda:0"] * n, p))
+    log(f"[xla] streams byte-identical {same}; one round's outputs equal "
+        f"{equal_out}; K9 launches ring {launches['ring']} (rounds "
+        f"{legs['ring']}), xla {launches['xla']} (rounds {legs['xla']}); one "
+        f"round {ms['ring']:.4f} ms ring, {ms['xla']:.4f} ms xla ({card})")
+    if not (same and equal_out and launches["ring"] == legs["ring"] > 0
+            and launches["xla"] == 0 and legs["xla"] > 0):
+        raise PhaseFailed("[xla] the xla exchange route failed its checks")
+    return {"same": same, "launches": launches, "rounds": legs, "round_ms": ms}
+
+
+def phase_pipeline(tmpdir, card):
+    """Phase 12, the pipeline and MULTIHOST: (a) the pipelined fits, (b)
+    two gloo processes sharing cuda:0, (c) the xla exchange route.
+    Returns (K1-K3 pipeline launches, K1-K6 multihost launches,
+    summary)."""
+    t0 = time.perf_counter()
+    free_device_memory()
+    pipe = pipeline_fits(tmpdir, card)
+    pipe_launches = {name: n for name, (n, _) in
+                     pipe["runs"]["gpipe"]["launches"].items()}
+    mh_launches, mh = multihost_run(tmpdir, card)
+    xla = shuffle_impl_ab(card)
+    free_device_memory()
+    log(f"[pipe] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return pipe_launches, mh_launches, {"pipeline": pipe, "multihost": mh,
+                                        "xla": xla}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -4718,6 +5481,8 @@ def main(argv=None) -> int:
                     help="also profile one more of each fit, of the "
                     "device-fabric drain and of a dp=4 ICI drain with "
                     "torch.profiler")
+    ap.add_argument("--multihost-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     try:
@@ -4735,6 +5500,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the ddl_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    if args.multihost_child:  # one process of phase 12 (b)
+        rank, port, out = args.multihost_child
+        multihost_child(int(rank), int(port), out)
+        return 0
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
@@ -4764,12 +5533,18 @@ def main(argv=None) -> int:
             ring_launches, mesh_summary = phase_mesh(
                 tmp, card, {row["name"]: row["ms"] for row in kernels},
                 args.profile)
+            free_device_memory()
+            pipe_launches, mh_launches, pipe_summary = phase_pipeline(tmp, card)
         # Each kernel's launches come from the run of its own path; K1-K6
-        # add those of the ring (phase 11).
+        # add those of the ring (phase 11) and of the two MULTIHOST
+        # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
         for row in kernels:
             row["launches"] = (packed_launches if row["name"].endswith("_seg")
                                else launches)[row["name"]]
             row["ring_launches"] = ring_launches[row["name"]]
+            row["multihost_launches"] = mh_launches[row["name"]]
+            if not row["name"].endswith("_seg"):
+                row["pipeline_launches"] = pipe_launches[row["name"]]
         kernels.append(shuffle_row)
         kernels.extend(ici_rows)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
@@ -4781,6 +5556,7 @@ def main(argv=None) -> int:
         log(f"[summary-wire] {json.dumps(wire_summary)}")
         log(f"[summary-files] {json.dumps(files_summary)}")
         log(f"[summary-mesh] {json.dumps(mesh_summary)}")
+        log(f"[summary-pipeline] {json.dumps(pipe_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

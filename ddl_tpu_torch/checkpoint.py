@@ -178,7 +178,27 @@ def save_train_state(state: TrainState, path: str) -> None:
     directory renamed to ``step_<n>``; a same-step overwrite parks the
     old copy under ``.old.<pid>`` until the new one is live.  A crash at
     any point leaves the previous generations intact plus ignorable
-    orphans, or the complete verified new generation."""
+    orphans, or the complete verified new generation.
+
+    MULTIHOST (an initialised group of several processes, each passing
+    the same shared ``path``): the state is replicated over the
+    processes, so rank 0 writes the generation through the same
+    temp + rename and stamps its manifest, and every rank waits at a
+    barrier until it is live — the JAX package's "every process passes
+    the same path, process 0 stamps the manifest"."""
+    from ddl_tpu_torch.parallel.mesh import process_count, process_rank
+
+    if process_count() > 1:
+        import torch.distributed as dist
+
+        if process_rank() == 0:
+            _save_one(state, path)
+        dist.barrier()
+        return
+    _save_one(state, path)
+
+
+def _save_one(state: TrainState, path: str) -> None:
     path = os.path.abspath(path)
     final = os.path.join(path, f"step_{state.step}")
     tmp = f"{final}.tmp.{os.getpid()}"
@@ -207,7 +227,11 @@ def latest_verified_step(path: str, quarantine: bool = True) -> Optional[int]:
     """The newest step under ``path`` whose manifest verifies.
     Unverifiable generations are quarantined and skipped; exhaustion
     returns None (cold start).  Temp and quarantined directories never
-    match the ``step_<n>`` pattern."""
+    match the ``step_<n>`` pattern.  With several processes on one
+    shared directory only rank 0 quarantines; every rank skips."""
+    from ddl_tpu_torch.parallel.mesh import process_rank
+
+    quarantine = quarantine and process_rank() == 0
     path = os.path.abspath(path)
     if not os.path.isdir(path):
         return None

@@ -3,20 +3,21 @@ per half of a run, layered defaults → JSON file → ``DDL_TORCH_*`` env
 vars → explicit kwargs, later layers winning.
 
 Every field of the JAX package's ``LoaderConfig`` and ``TrainConfig`` is
-here and loads and saves.  ``output`` names the port's device container
-``"device"`` where the JAX package says ``"jax"``.  A field whose module
-the port has not ported yet (host identity, the pipeline schedule,
-ZeRO-1, int8 gradient communication)
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item when a
-consumer is handed a non-default value (:meth:`LoaderConfig.check_ported`,
-:meth:`TrainConfig.check_ported`); it is never silently ignored.
+here, loads, saves and reaches its consumer: host identity and
+``mode="multihost"`` the topology (:func:`ddl_tpu_torch.env.
+detect_topology`), ``shuffle_impl`` the exchange fabric, the pipeline
+fields :meth:`TrainConfig.pipeline_kwargs`.  ``output`` names the
+port's device container ``"device"`` where the JAX package says
+``"jax"``.  :meth:`LoaderConfig.check_ported` / :meth:`TrainConfig.
+check_ported` stay the one place a consumer asks whether a value is
+ported; nothing is silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Optional
 
 from ddl_tpu_torch.types import RunMode
 
@@ -25,11 +26,12 @@ from ddl_tpu_torch.types import RunMode
 class LoaderConfig:
     """Everything the pipeline needs, in one place."""
 
-    # topology: "thread" or "process" (spawned producers over shm rings)
+    # topology: "thread", "process" (spawned producers over shm rings) or
+    # "multihost" (PROCESS producers under each process of a gloo group)
     mode: str = RunMode.THREAD.value
     n_producers: int = 2
     nslots: int = 2
-    # host identity (-1/0 = auto-detect; the multi-host slice)
+    # host identity (-1/0 = auto-detect, ddl_tpu_torch.env.detect_host_identity)
     host_id: int = -1
     n_hosts: int = 0
     procs_per_host: int = 0
@@ -65,8 +67,8 @@ class LoaderConfig:
     wire_dtype: str = ""
     wire_codec: str = ""
     # device-tier global shuffle: "auto" engages it when plannable,
-    # "0"/"off"/"false" keeps the host exchange; the port's one device
-    # exchange is the ring (K9)
+    # "0"/"off"/"false" keeps the host exchange; shuffle_impl picks the
+    # device exchange: "ring" (K9) or "xla" (two ppermute lane moves)
     device_shuffle: str = "auto"
     shuffle_impl: str = "ring"
     # device transfers kept in flight by the batch prefetcher
@@ -86,20 +88,10 @@ class LoaderConfig:
         return RunMode(self.mode)
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a non-default value of a field
-        whose module is not ported yet."""
-        _check_unported(self, _LOADER_UNPORTED)
-        if self.mode == RunMode.MULTIHOST.value:
-            raise NotImplementedError(
-                "mode='multihost' waits for the multi-host slice "
-                "(ROADMAP.md A5b)"
-            )
-        if self.shuffle_impl == "xla":
-            raise NotImplementedError(
-                "LoaderConfig.shuffle_impl='xla' (ppermute lanes) waits for "
-                "ROADMAP.md A5b; the port's device exchange is the ring"
-            )
-        if self.shuffle_impl != "ring":
+        """Validate the fields a consumer reads before it starts (every
+        field is ported: a bad mode or exchange route raises here)."""
+        RunMode(self.mode)
+        if self.shuffle_impl not in ("ring", "xla"):
             raise ValueError(
                 f"shuffle_impl must be ring|xla, got {self.shuffle_impl!r}"
             )
@@ -115,9 +107,8 @@ class TrainConfig:
     through :meth:`model_config`; ``accum_steps`` flows into the
     :class:`~ddl_tpu_torch.trainer.Trainer`; the distributed-optimizer
     knobs flow through :meth:`optimizer_kwargs` into every step factory
-    the Trainer builds.  The pipeline schedule loads and saves; a
-    non-default value raises where it is consumed
-    (:meth:`pipeline_kwargs`, the Trainer)."""
+    the Trainer builds; the pipeline schedule's through
+    :meth:`pipeline_kwargs` into ``llama.next_token_loss_pp``."""
 
     remat: str = "none"
     schedule: str = "gpipe"
@@ -159,8 +150,9 @@ class TrainConfig:
         return dataclasses.replace(model_cfg, remat=self.remat)
 
     def pipeline_kwargs(self) -> dict:
-        """kwargs for a pipeline schedule (ROADMAP.md A5b)."""
-        _check_unported(self, _PIPELINE_UNPORTED)
+        """kwargs for a pipeline schedule (``pp_chunks`` 0 = the
+        schedule's default), shaped for ``**`` splatting into
+        ``llama.next_token_loss_pp`` / ``pipeline_apply``."""
         return {"schedule": self.schedule, "n_chunks": self.pp_chunks or None}
 
     def optimizer_kwargs(self) -> dict:
@@ -175,33 +167,8 @@ class TrainConfig:
         }
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a non-default value of a knob
-        whose module is not ported yet (what the Trainer checks)."""
-        _check_unported(self, _PIPELINE_UNPORTED)
-
-
-#: (fields, what waits for them) of the unported LoaderConfig fields.
-_LOADER_UNPORTED: Tuple[Tuple[Tuple[str, ...], str], ...] = (
-    (("host_id", "n_hosts", "procs_per_host"),
-     "host identity waits for the multi-host slice (ROADMAP.md A5b)"),
-)
-_PIPELINE_UNPORTED = (
-    (("schedule", "pp_chunks", "n_microbatches"),
-     "the pipeline schedule waits for parallel/pipeline.py (ROADMAP.md A5b)"),
-)
-
-
-def _check_unported(cfg: Any, groups: Tuple[Tuple[Tuple[str, ...], str], ...]) -> None:
-    defaults: Dict[str, Any] = {
-        f.name: f.default for f in dataclasses.fields(type(cfg))
-    }
-    for names, why in groups:
-        for name in names:
-            value = getattr(cfg, name)
-            if value != defaults[name]:
-                raise NotImplementedError(
-                    f"{type(cfg).__name__}.{name}={value!r}: {why}"
-                )
+        """Validate the knobs a consumer reads (what the Trainer checks):
+        every field is ported, and :meth:`load` validated them."""
 
 
 def _load_layered(cls: Any, path: Optional[str], overrides: dict) -> Any:

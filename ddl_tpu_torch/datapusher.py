@@ -224,8 +224,13 @@ class DataPusher:
                     raise DoesNotMatchError(
                         span,
                         "host-side global shuffle cannot span hosts "
-                        "(exchange partners are other instances' producer "
-                        "processes)",
+                        "(exchange partners are other instances' "
+                        "producer processes); use the trainer-side "
+                        "device exchange (ddl_tpu_torch.parallel."
+                        "DeviceGlobalShuffler over the instance mesh "
+                        "axis) for MULTIHOST runs — the producer-side "
+                        "DeviceExchangeShuffler resolves its device "
+                        "tier off outside THREAD topologies",
                     )
                 if connection.cross_process and span == "thread":
                     raise DoesNotMatchError(

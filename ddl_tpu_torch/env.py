@@ -17,12 +17,23 @@ A dead or hung producer is replaced in place by :meth:`WorkerSet.respawn`
 rejoins at its predecessor's position.  A ``shuffler_factory`` crosses
 the spawn boundary by pickle, with the producer function.
 
-MULTIHOST mode is a later slice.  Every ``DDL_TORCH_*`` knob a spawned
-producer reads (ring, integrity, in-place fill, the wire, the shard
-cache, the fault plan in ``DDL_TORCH_FAULT_PLAN``) reaches it through the
-environment it inherits.  The ``LoaderConfig`` fields a producer needs,
-the wire format and the shard cache, are exported there before the spawn
-(:func:`export_wire_knobs`, :func:`export_cache_knobs`).
+- MULTIHOST mode: each consumer process of a ``torch.distributed`` group
+  (gloo, initialised by the user's main) runs PROCESS producers of its
+  own; ``n_instances`` / ``instance_idx`` are the group's world size and
+  rank (the JAX package reads ``jax.process_count``/``process_index``
+  after ``jax.distributed.initialize``).  Producers never join the group.
+  Without an initialised group a MULTIHOST run is one instance, as
+  ``jax.process_count()`` is 1 without ``jax.distributed``.  Host
+  identity (several consumer processes may share a host) comes from
+  :func:`detect_host_identity`.
+
+Every ``DDL_TORCH_*`` knob a spawned producer reads (ring, integrity,
+in-place fill, the wire, the shard cache, the fault plan in
+``DDL_TORCH_FAULT_PLAN``, host identity, the device shuffle) reaches it
+through the environment it inherits.  The ``LoaderConfig`` fields a
+producer needs are exported there before the spawn
+(:func:`export_wire_knobs`, :func:`export_cache_knobs`,
+:func:`export_cluster_knobs`, :func:`export_shuffle_knobs`).
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import logging
 import os
 import pickle
 import threading
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.exceptions import ShutdownRequested, TransportError
@@ -104,22 +115,129 @@ def export_cache_knobs(config: Any) -> None:
         os.environ.pop("DDL_TORCH_CACHE_CODEC", None)
 
 
+#: Host-identity env vars THIS process exported from a config.
+_exported_cluster_vars: set = set()
+
+
+def export_cluster_knobs(config: Any) -> None:
+    """Mirror a ``LoaderConfig``'s ``host_id`` / ``n_hosts`` /
+    ``procs_per_host`` into ``DDL_TORCH_HOST_ID`` / ``_N_HOSTS`` /
+    ``_PROCS_PER_HOST`` before producers spawn: spawned workers re-derive
+    host identity from the environment they inherit.  Sentinel values
+    (-1/0 = auto) leave a user's environment alone and clear only this
+    process's earlier export."""
+    if config is None:
+        return
+    for var, value, has_opinion in (
+        ("DDL_TORCH_HOST_ID", config.host_id, config.host_id >= 0),
+        ("DDL_TORCH_N_HOSTS", config.n_hosts, config.n_hosts > 0),
+        ("DDL_TORCH_PROCS_PER_HOST", config.procs_per_host,
+         config.procs_per_host > 0),
+    ):
+        if has_opinion:
+            os.environ[var] = str(value)
+            _exported_cluster_vars.add(var)
+        elif var in _exported_cluster_vars:
+            os.environ.pop(var, None)
+            _exported_cluster_vars.discard(var)
+
+
+#: Device-shuffle env vars THIS process exported from a config.
+_exported_shuffle_vars: set = set()
+
+
+def export_shuffle_knobs(config: Any) -> None:
+    """Mirror a ``LoaderConfig``'s ``device_shuffle`` / ``shuffle_impl``
+    into ``DDL_TORCH_DEVICE_SHUFFLE`` / ``DDL_TORCH_SHUFFLE_IMPL`` before
+    producers start (the fabric reads the route from there).  Default
+    values ("auto"/"ring") clear only this process's earlier export."""
+    if config is None:
+        return
+    for var, value, default in (
+        ("DDL_TORCH_DEVICE_SHUFFLE", config.device_shuffle, "auto"),
+        ("DDL_TORCH_SHUFFLE_IMPL", config.shuffle_impl, "ring"),
+    ):
+        if value and str(value) != default:
+            os.environ[var] = str(value)
+            _exported_shuffle_vars.add(var)
+        elif var in _exported_shuffle_vars:
+            os.environ.pop(var, None)
+            _exported_shuffle_vars.discard(var)
+
+
+def detect_host_identity(
+    n_instances: int = 1,
+    instance_idx: int = 0,
+    host_id: Optional[int] = None,
+    n_hosts: Optional[int] = None,
+) -> Tuple[int, int]:
+    """``(host_id, n_hosts)`` for this consumer process — the JAX
+    package's resolution order, later layers only filling gaps:
+
+    1. explicit arguments (``LoaderConfig.host_id`` / ``n_hosts``),
+    2. ``DDL_TORCH_HOST_ID`` / ``DDL_TORCH_N_HOSTS``,
+    3. SLURM node identity (``SLURM_NODEID`` / ``SLURM_NNODES``: per
+       node, so co-located tasks agree),
+    4. processes-per-host arithmetic over the process grid
+       (``DDL_TORCH_PROCS_PER_HOST``, else ``SLURM_NTASKS_PER_NODE``,
+       else 1: host == instance).
+
+    An id at or past the resolved count widens the count to cover it.
+    """
+    def _env_int(name: str) -> Optional[int]:
+        value = (envspec.raw(name) if name.startswith("DDL_TORCH_")
+                 else os.environ.get(name))
+        return int(value) if value not in (None, "") else None
+
+    if host_id is None:
+        host_id = _env_int("DDL_TORCH_HOST_ID")
+    if n_hosts is None:
+        n_hosts = _env_int("DDL_TORCH_N_HOSTS")
+    if host_id is None and n_hosts is None:
+        slurm_node = _env_int("SLURM_NODEID")
+        slurm_nodes = _env_int("SLURM_NNODES")
+        if slurm_node is not None and slurm_nodes is not None:
+            host_id, n_hosts = slurm_node, slurm_nodes
+    if host_id is None or n_hosts is None:
+        pph = (_env_int("DDL_TORCH_PROCS_PER_HOST")
+               or _env_int("SLURM_NTASKS_PER_NODE") or 1)
+        pph = max(1, pph)
+        if n_hosts is None:
+            n_hosts = max(1, (n_instances + pph - 1) // pph)
+        if host_id is None:
+            host_id = min(instance_idx // pph, n_hosts - 1)
+    if host_id >= n_hosts:
+        n_hosts = host_id + 1
+    return int(host_id), int(n_hosts)
+
+
 def detect_topology(
     n_producers: Optional[int] = None,
     mode: Optional[RunMode | str] = None,
+    host_id: Optional[int] = None,
+    n_hosts: Optional[int] = None,
 ) -> Topology:
-    """Build the topology from args + ``DDL_TORCH_*`` environment."""
+    """Build the topology from args + ``DDL_TORCH_*`` environment.
+    MULTIHOST takes ``n_instances`` / ``instance_idx`` from the
+    initialised ``torch.distributed`` group (1 / 0 without one); the
+    single-host modes are one instance.  Host identity comes from
+    :func:`detect_host_identity`."""
     if mode is None:
         mode = envspec.get("DDL_TORCH_MODE")
     mode = RunMode(mode) if not isinstance(mode, RunMode) else mode
-    if mode is RunMode.MULTIHOST:
-        raise NotImplementedError(
-            "ddl_tpu_torch runs THREAD and PROCESS modes so far, got "
-            f"{mode.value!r}"
-        )
     if n_producers is None:
         n_producers = envspec.get("DDL_TORCH_N_PRODUCERS")
-    return Topology(n_producers=n_producers, mode=mode)
+    if mode is RunMode.MULTIHOST:
+        from ddl_tpu_torch.parallel.mesh import process_count, process_rank
+
+        n_instances, instance_idx = process_count(), process_rank()
+    else:
+        n_instances, instance_idx = 1, 0
+    host_id, n_hosts = detect_host_identity(
+        n_instances, instance_idx, host_id=host_id, n_hosts=n_hosts)
+    return Topology(n_instances=n_instances, instance_idx=instance_idx,
+                    n_producers=n_producers, mode=mode, host_id=host_id,
+                    n_hosts=n_hosts)
 
 
 def _producer_main(
@@ -196,7 +314,7 @@ class WorkerSet:
         self.exitcodes: List[Optional[int]] = []
         channels = []
         for idx in range(topology.n_producers):
-            if topology.mode is RunMode.PROCESS:
+            if topology.mode is not RunMode.THREAD:
                 ch, p = self._spawn_process(idx + 1)
                 self.processes.append(p)
             else:
@@ -265,7 +383,7 @@ class WorkerSet:
             raise TransportError(
                 f"producer {producer_idx} never completed its first "
                 "handshake; nothing to rejoin")
-        if self.topology.mode is RunMode.PROCESS:
+        if self.topology.mode is not RunMode.THREAD:
             old = self.processes[i]
             if old.is_alive():  # hung rather than dead: replace it
                 old.terminate()
@@ -348,20 +466,26 @@ def distributed_dataloader(
     shard-cache fields exported to the environment before the producers
     start (:func:`export_wire_knobs`, :func:`export_cache_knobs`).
     """
+    host_id = n_hosts = None
     if config is not None:
         config.check_ported()
         n_producers = config.n_producers if n_producers is None else n_producers
         mode = config.mode if mode is None else mode
         nslots = config.nslots if nslots is None else nslots
+        # Sentinels (-1/0) mean auto-detect; explicit values win.
+        host_id = config.host_id if config.host_id >= 0 else None
+        n_hosts = config.n_hosts if config.n_hosts > 0 else None
 
     def deco(f: Callable[..., Any]) -> Callable[..., Any]:
         @functools.wraps(f)
         def wrapper(*args: Any, **kwargs: Any) -> Any:
-            topology = detect_topology(n_producers, mode)
+            export_cluster_knobs(config)
+            topology = detect_topology(n_producers, mode, host_id, n_hosts)
             depth = nslots or envspec.get("DDL_TORCH_NSLOTS")
             if config is not None:
                 export_cache_knobs(config)
                 export_wire_knobs(config)
+                export_shuffle_knobs(config)
             pin = pin_memory
             if pin is None:
                 import torch
@@ -374,8 +498,9 @@ def distributed_dataloader(
                 workers=workers,
             )
             logger.info(
-                "ddl_tpu_torch: %s mode, %d producer(s), %d slot(s)",
-                topology.mode.value, topology.n_producers, depth,
+                "ddl_tpu_torch: %s mode, %d producer(s), instance %d/%d, "
+                "%d slot(s)", topology.mode.value, topology.n_producers,
+                topology.instance_idx, topology.n_instances, depth,
             )
             try:
                 return f(*args, env, **kwargs)

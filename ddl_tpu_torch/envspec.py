@@ -50,20 +50,20 @@ class Knob:
 _EXPLICIT: List[Knob] = [
     # -- topology / spawn ------------------------------------------------
     Knob("DDL_TORCH_MODE", "str", "thread",
-         "Producer realisation: thread | process.", config_field="mode"),
+         "Producer realisation: thread | process | multihost.", config_field="mode"),
     Knob("DDL_TORCH_N_PRODUCERS", "int", 2,
          "Producer workers per consumer instance.",
          config_field="n_producers"),
     Knob("DDL_TORCH_NSLOTS", "int", 2,
          "Ring slots (window buffers) per producer.", config_field="nslots"),
     Knob("DDL_TORCH_HOST_ID", "int", None,
-         "Physical host id of this consumer (the multi-host slice).",
+         "Physical host id of this consumer (env.detect_host_identity).",
          config_field="host_id"),
     Knob("DDL_TORCH_N_HOSTS", "int", None,
-         "Physical host count (the multi-host slice).",
+         "Physical host count (env.detect_host_identity).",
          config_field="n_hosts"),
     Knob("DDL_TORCH_PROCS_PER_HOST", "int", None,
-         "Consumer processes per host (the multi-host slice).",
+         "Consumer processes per host (env.detect_host_identity).",
          config_field="procs_per_host"),
     # -- transport rings -------------------------------------------------
     Knob("DDL_TORCH_FORCE_PY_RING", "bool", False,

@@ -63,6 +63,8 @@ def device_put(x: Any, target: Any) -> Any:
     page-locked host memory they are asynchronous, so the source must
     stay valid until the stream has passed them."""
     src = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    if isinstance(target, NamedSharding) and target.mesh.spans_processes:
+        return make_global_array(src, target)
     if isinstance(target, NamedSharding):
         devices = target.mesh.device_list
         return ShardedArray(src.shape, target, [
@@ -70,6 +72,41 @@ def device_put(x: Any, target: Any) -> Any:
             for p, index in enumerate(target.shard_indices(src.shape))
         ])
     return _copy_to(src, torch.device(target))
+
+
+def make_global_array(local_batch: Any, sharding: NamedSharding,
+                      axis: str = "dp") -> ShardedArray:
+    """A process-local host batch as this process's block of a global
+    array sharded by ``sharding`` (the MULTIHOST ingest: each process's
+    loader drains its own producers' windows, and each lands its block on
+    its own positions, never gathered).  Over a mesh of one process the
+    local batch IS the global batch: a sharded copy.
+
+    The global shape scales each dim the process-spanning ``axis`` splits
+    by the process count; every position this process owns gets a copy
+    of its slice of the local block (its global index less the block's
+    start)."""
+    src = torch.as_tensor(local_batch)  # every position copies its slice
+    mesh = sharding.mesh
+    if not mesh.spans_processes:
+        return device_put(src, sharding)
+    from ddl_tpu_torch.parallel.mesh import _entry_axes
+
+    entries = sharding._entries(src.dim())
+    n_proc = len(set(mesh.processes.reshape(-1).tolist()))
+    shape = tuple(n * n_proc if axis in _entry_axes(e) else n
+                  for n, e in zip(src.shape, entries))
+    indices = sharding.shard_indices(shape)
+    mine = mesh.local_positions()
+    start = [min(indices[p][d].indices(shape[d])[0] for p in mine)
+             for d in range(len(shape))]
+    devices = mesh.device_list
+    datas = []
+    for p in mine:
+        local = tuple(slice(sl.indices(n)[0] - st, sl.indices(n)[1] - st)
+                      for sl, n, st in zip(indices[p], shape, start))
+        datas.append(_copy_to(src[local], devices[p]))
+    return ShardedArray(shape, sharding, datas)
 
 
 def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -199,6 +236,10 @@ class DeviceIngestor:
             return False
         if self.sharding.mesh.size <= 1:
             return False
+        from ddl_tpu_torch.parallel.mesh import process_count
+
+        if process_count() > 1:
+            return False  # the multihost path lands each process's block
         return self.distribute == "ici" or self.device.type == "cuda"
 
     def ici(self):

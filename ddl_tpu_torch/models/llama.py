@@ -20,8 +20,16 @@ matmul-thin, and the JAX package computes them outside any kernel too.
 Over a mesh (``forward(..., mesh=)``, :func:`param_specs`) the model
 still runs on global tensors; only attention names mesh positions (ring
 attention over ``sp``, batch/head-sharded attention otherwise), as
-GSPMD leaves the rest to the compiler in the JAX package.  The pipeline
-path (``*_pp``) is a later slice.
+GSPMD leaves the rest to the compiler in the JAX package.
+
+The pipeline path (:func:`stage_params`, :func:`pp_param_specs`,
+:func:`forward_pp`, :func:`next_token_loss_pp`) runs the blocks through
+:func:`ddl_tpu_torch.parallel.pipeline.pipeline_apply` over a ``pp``
+axis; with a ``tp`` axis whose size divides the head counts and
+``d_ff``, the stages run tensor-parallel resident: each tp position
+computes its ``n_heads/tp`` heads and ``d_ff/tp`` hidden units on its
+column and row blocks, and the two partial products a layer are summed
+over the positions (:func:`ddl_tpu_torch.parallel.collectives.psum`).
 """
 
 from __future__ import annotations
@@ -211,13 +219,18 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 
 def _attn_qkv(layer: Params, h: torch.Tensor, cfg: LlamaConfig,
-              positions: torch.Tensor):
-    """Project + rope one block's q/k/v."""
+              positions: torch.Tensor, n_heads: Optional[int] = None,
+              n_kv_heads: Optional[int] = None):
+    """Project + rope one block's q/k/v (shared by train, decode and the
+    tp-resident pipeline stage, which passes its LOCAL head counts:
+    column blocks of the projections are contiguous head blocks)."""
     B, T = h.shape[:2]
     dt = h.dtype
-    q = (h @ layer["wq"].to(dt)).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"].to(dt)).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ layer["wv"].to(dt)).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    nh = cfg.n_heads if n_heads is None else n_heads
+    nkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
+    q = (h @ layer["wq"].to(dt)).reshape(B, T, nh, cfg.head_dim)
+    k = (h @ layer["wk"].to(dt)).reshape(B, T, nkv, cfg.head_dim)
+    v = (h @ layer["wv"].to(dt)).reshape(B, T, nkv, cfg.head_dim)
     return (
         _rope(q, positions, cfg.rope_theta),
         _rope(k, positions, cfg.rope_theta),
@@ -502,6 +515,203 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
     logits = forward(params, tokens, cfg, mesh, segment_ids=segment_ids)
     return next_token_cross_entropy(logits, tokens, segment_ids=segment_ids)
+
+
+# -- pipeline parallelism ----------------------------------------------------
+
+
+def stage_params(params: Params, n_stages: int, n_chunks: int = 1) -> Params:
+    """Rearrange an :func:`init_params` tree for pipeline parallelism: the
+    ``n_layers`` per-layer dicts regroup into ``n_stages`` equal stages
+    stacked into ``(S, L/S, ...)`` leaves (``(S, V, L/(S·V), ...)`` with
+    ``n_chunks = V > 1``, for ``schedule="1f1b"``: position d chunk c holds
+    global stage c·S+d).  Embedding, final norm and lm head stay outside
+    the pipe.  Training checkpoints save THIS layout; the non-pp layout is
+    only an initialization convenience."""
+    from ddl_tpu_torch.parallel.pipeline import stack_layer_stages
+
+    return {
+        "embed": params["embed"],
+        "stages": stack_layer_stages(params["layers"], n_stages,
+                                     n_chunks=n_chunks),
+        "final_norm": params["final_norm"],
+        "lm_head": params["lm_head"],
+    }
+
+
+def pp_param_specs(cfg: LlamaConfig, axis: str = "pp",
+                   n_chunks: int = 1) -> Params:
+    """PartitionSpecs for the :func:`stage_params` layout: ``axis`` shards
+    the stage axis, the chunk (1f1b only) and per-stage layer axes are
+    unsharded, and the trailing axes keep :func:`param_specs`' Megatron
+    layout."""
+    from ddl_tpu_torch.parallel.mesh import P
+    from ddl_tpu_torch.parallel.pipeline import stage_spec_tree
+
+    return {
+        "embed": P(None, "fsdp"),
+        "stages": stage_spec_tree(param_specs(cfg)["layers"][0], axis,
+                                  n_chunks=n_chunks),
+        "final_norm": P(None),
+        "lm_head": P("fsdp", "tp"),
+    }
+
+
+def _tp_layer(stage: Params, i: int, n_tp: int) -> Params:
+    """Layer ``i`` of a tp-resident stage: each leaf as the list of the
+    ``n_tp`` positions' local blocks (replicated leaves repeat)."""
+    return {k: [sh.data[i] for sh in v.shards] for k, v in stage.items()}
+
+
+def _layer_apply_tp_local(layer: Params, x: torch.Tensor, cfg: LlamaConfig,
+                          positions: torch.Tensor, mesh: Any, tp_axis: str,
+                          n_tp: int) -> torch.Tensor:
+    """One transformer block on LOCAL tensor-parallel weight blocks
+    (Megatron layout) — the tp-resident pipeline stage body.  ``layer``
+    maps each leaf to its ``n_tp`` positions' blocks.  ``wq/wk/wv`` are
+    column blocks (each position computes its ``n_heads/tp`` heads end to
+    end), ``wo`` a row block (partial residual contributions summed over
+    the positions), ``w_gate/w_up`` column blocks (``d_ff/tp`` hidden),
+    ``w_down`` a row block (summed): two sums a layer, the same
+    projection/rope/SwiGLU helpers as the plain block."""
+    from ddl_tpu_torch.models import remat as _remat
+    from ddl_tpu_torch.parallel.collectives import psum
+    from ddl_tpu_torch.parallel.ring_attention import attention
+
+    B, T = x.shape[:2]
+    dt = x.dtype
+    lh = cfg.n_heads // n_tp  # local query heads
+    lkv = cfg.n_kv_heads // n_tp  # local KV heads
+    local = [{k: v[j] for k, v in layer.items()} for j in range(n_tp)]
+    # The norms are replicated over tp: every position's input is the
+    # same, so the first position's result serves them all.
+    h = _rms_norm(x, local[0]["attn_norm"], cfg.norm_eps)
+    parts = []
+    for lj in local:
+        q, k, v = _attn_qkv(lj, h, cfg, positions, n_heads=lh, n_kv_heads=lkv)
+        attn = _remat.keep(
+            attention, q.contiguous(), k.contiguous(), v.contiguous(),
+            impl=cfg.attn_impl, causal=True, kv_repeat=lh // lkv,
+        )
+        parts.append(attn.reshape(B, T, -1) @ lj["wo"].to(dt))
+    x = x + psum(parts, mesh, tp_axis)
+    h = _rms_norm(x, local[0]["mlp_norm"], cfg.norm_eps)
+    return x + psum([_swiglu(lj, h) for lj in local], mesh, tp_axis)
+
+
+def _tp_stage_specs() -> Params:
+    """Per-stage inner PartitionSpecs of tp-RESIDENT stages (leading
+    per-stage layer axis unsharded; Megatron column/row blocks on the
+    weight dims).  Only ``tp`` appears: fsdp shards at-rest storage
+    only."""
+    from ddl_tpu_torch.parallel.mesh import P
+
+    return {
+        "attn_norm": P(None, None),
+        "wq": P(None, None, "tp"),
+        "wk": P(None, None, "tp"),
+        "wv": P(None, None, "tp"),
+        "wo": P(None, "tp", None),
+        "mlp_norm": P(None, None),
+        "w_gate": P(None, None, "tp"),
+        "w_up": P(None, None, "tp"),
+        "w_down": P(None, "tp", None),
+    }
+
+
+#: :func:`_tp_stage_specs` (the JAX package's module constant).
+_TP_STAGE_SPECS = _tp_stage_specs()
+
+
+def tp_resident(cfg: LlamaConfig, mesh: Any, axis: str = "pp") -> int:
+    """The tp extent the pipelined stages run resident over: the mesh's
+    ``tp`` size when a real ``axis`` (> 1) exists and ``tp`` divides both
+    head counts and ``d_ff``; else 1 (pp=1 takes the sequential
+    fallback, where the sums over tp cannot resolve)."""
+    if mesh is None:
+        return 1
+    shape = mesh.shape
+    n_tp = (shape["tp"] if "tp" in shape and shape.get(axis, 1) > 1 else 1)
+    if (n_tp > 1 and cfg.n_heads % n_tp == 0 and cfg.n_kv_heads % n_tp == 0
+            and cfg.d_ff % n_tp == 0):
+        return n_tp
+    return 1
+
+
+def forward_pp(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+               mesh: Any, n_microbatches: int, axis: str = "pp",
+               schedule: str = "gpipe", n_chunks: Optional[int] = None,
+               metrics: Any = None) -> torch.Tensor:
+    """Next-token logits, (B, T, vocab) fp32, with the transformer blocks
+    pipelined over the mesh's ``axis`` (``schedule`` gpipe, or the
+    interleaved 1f1b with ``stage_params(..., n_chunks=)`` weights;
+    :func:`ddl_tpu_torch.parallel.pipeline.pipeline_apply`).
+
+    ``params`` is the :func:`stage_params` layout.  Each stage runs its
+    ``L/S`` layers over the residual stream with single-position
+    attention (no sequence parallelism and no ``segment_ids`` here, as in
+    the JAX package: use :func:`forward` for packed batches).  With a
+    ``tp`` axis that divides the head counts and ``d_ff``
+    (:func:`tp_resident`), the stages run tensor-parallel resident.
+    ``cfg.remat`` wraps every layer."""
+    from ddl_tpu_torch.models import remat as _remat
+    from ddl_tpu_torch.parallel.pipeline import pipeline_apply
+
+    T = tokens.shape[1]
+    dt = cfg.dtype
+    positions = torch.arange(T, device=tokens.device)
+    x = params["embed"][tokens.long()].to(dt)
+    local = mesh.local() if mesh is not None else None
+    n_tp = tp_resident(cfg, local, axis)
+
+    if n_tp > 1:
+        def one_layer(x: torch.Tensor, layer: Params) -> torch.Tensor:
+            return _layer_apply_tp_local(layer, x, cfg, positions, local,
+                                         "tp", n_tp)
+
+        def layer_of(stage: Params, i: int) -> Params:
+            return _tp_layer(stage, i, n_tp)
+
+        def depth(stage: Params) -> int:
+            return stage["wq"].shards[0].data.shape[0]
+    else:
+        def one_layer(x: torch.Tensor, layer: Params) -> torch.Tensor:
+            return _layer_apply(layer, x, cfg, positions, mesh=None)
+
+        def layer_of(stage: Params, i: int) -> Params:
+            return {k: v[i] for k, v in stage.items()}
+
+        def depth(stage: Params) -> int:
+            return stage["wq"].shape[0]
+
+    layer_fn = _remat.wrap(one_layer, cfg.remat)
+
+    def stage_fn(stage: Params, h: torch.Tensor) -> torch.Tensor:
+        for i in range(depth(stage)):
+            h = layer_fn(h, layer_of(stage, i))
+        return h
+
+    x = pipeline_apply(
+        params["stages"], x, stage_fn, local, n_microbatches, axis=axis,
+        stage_param_specs=_TP_STAGE_SPECS if n_tp > 1 else None,
+        schedule=schedule, n_chunks=n_chunks, metrics=metrics,
+    )
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"].to(dt)).float()
+
+
+def next_token_loss_pp(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                       mesh: Any, n_microbatches: int, axis: str = "pp",
+                       schedule: str = "gpipe", n_chunks: Optional[int] = None,
+                       metrics: Any = None) -> torch.Tensor:
+    """:func:`next_token_loss` over the pipelined forward — the loss for
+    ``make_train_step`` or the Trainer over a pp-axis mesh; the backward
+    is the reverse schedule, through autograd."""
+    from ddl_tpu_torch.models.losses import next_token_cross_entropy
+
+    logits = forward_pp(params, tokens, cfg, mesh, n_microbatches, axis=axis,
+                        schedule=schedule, n_chunks=n_chunks, metrics=metrics)
+    return next_token_cross_entropy(logits, tokens)
 
 
 def param_count(cfg: LlamaConfig) -> int:

@@ -14,6 +14,11 @@ source and n destination block pointers and the ``(2, n)`` routes
 block regions of one allocation (``devices=[cuda:0] * n``); a ring over
 several distinct cards is the multi-card slice and raises here.
 
+:func:`exchange_start` picks the round's route by name: ``"ring"`` (K9,
+the default) or ``"xla"`` (:func:`exchange_xla`, two
+``collectives.ppermute`` lane moves, the JAX package's second route);
+neither falls back to the other.
+
 Beside the kernel:
 
 - :func:`exchange_plain` — the same function in plain torch indexing: the
@@ -148,6 +153,55 @@ def exchange_ring(gin: torch.Tensor, devices: Sequence[Any],
 
 
 exchange_ring.launches = 0
+
+
+def exchange_xla(gin: torch.Tensor, devices: Sequence[Any],
+                 perm: Sequence[int]) -> torch.Tensor:
+    """One exchange round as two :func:`~ddl_tpu_torch.parallel.
+    collectives.ppermute` lane moves (the JAX package's ``exchange_xla``:
+    its A/B baseline and the ``shuffle_impl="xla"`` route): lane A of
+    position i moves to ``perm[i]``, lane B to ``perm^-1[i]``.  The same
+    bytes as :func:`exchange_ring`, with no kernel of its own."""
+    from ddl_tpu_torch.parallel.collectives import ppermute
+    from ddl_tpu_torch.parallel.mesh import Mesh, NamedSharding, P, ShardedArray
+    from ddl_tpu_torch.shuffle import inverse_permutation
+
+    devices = tuple(devices)
+    n = len(devices)
+    if n == 1:
+        return gin
+    rows = _block_rows(gin, n)
+    half = rows // _N_LANES
+    blocks = gin.reshape(n, rows, gin.shape[1])
+    ring = NamedSharding(Mesh(list(devices), ("ring",)), P("ring"))
+    p = np.asarray(perm, dtype=np.int64)  # ddl-lint: disable=DDL016 - the route table (host metadata), not window rows
+
+    def lane(lo: int, to: np.ndarray) -> List[torch.Tensor]:
+        arr = ShardedArray((n * half, gin.shape[1]), ring,
+                           [blocks[i, lo:lo + half] for i in range(n)])
+        moved = ppermute(arr, [(i, int(to[i])) for i in range(n)], "ring")
+        return [s.data for s in moved.shards]
+
+    a = lane(0, p)
+    b = lane(half, inverse_permutation(p))
+    return torch.cat([torch.cat([a[i], b[i]]) for i in range(n)])
+
+
+def exchange_start(impl: str, gin: torch.Tensor, devices: Sequence[Any],
+                   perm: Sequence[int]) -> torch.Tensor:
+    """Start one exchange round on the current stream and return its
+    output: ``impl="ring"`` launches K9 (:func:`exchange_ring`), ``"xla"``
+    moves the two lanes through ``ppermute`` (:func:`exchange_xla`).  The
+    route is the caller's choice by name; neither falls back to the
+    other."""
+    if impl == "ring":
+        from ddl_tpu_torch.shuffle import inverse_permutation
+
+        p = np.asarray(perm)  # ddl-lint: disable=DDL016 - the route table (host metadata), not window rows
+        return exchange_ring(gin, devices, np.stack([p, inverse_permutation(p)]))
+    if impl == "xla":
+        return exchange_xla(gin, devices, perm)
+    raise ValueError(f"impl must be ring|xla, got {impl!r}")
 
 #: The kernel wrappers of this module (K9).
 KERNELS = (exchange_ring,)

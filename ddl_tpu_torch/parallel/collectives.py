@@ -25,20 +25,38 @@ parallel.mesh.one_card`) until peer writes replace the copy.
 
 Both halves are plain tensor work, as in the JAX package (XLA ops there,
 no Pallas kernel).
+
+- :func:`psum` — ``lax.psum`` over the positions of one axis: the sum of
+  the per-position partials (the tp-resident pipeline stages complete
+  ``wo`` and ``w_down`` with it), differentiable.
+
+MULTIHOST (a gloo group the user's main initialised; only the outermost
+``dp`` axis spans processes, :mod:`~ddl_tpu_torch.parallel.mesh`): a
+:func:`ppermute` move between positions of two processes goes over gloo
+``isend``/``irecv`` through page-locked host buffers (not
+differentiable), so :class:`DeviceGlobalShuffler` lanes cross processes;
+:func:`process_allgather` gathers a whole array where a check needs it,
+and :func:`process_mean` sums the gradients and the loss once per step
+in one host-staged bucket.  gloo moves host tensors only: every card
+tensor is staged, never handed to gloo.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ddl_tpu_torch.parallel.mesh import (
+    PROCESS_AXIS,
     NamedSharding,
     P,
     ShardedArray,
+    _entry_axes,
     one_card,
+    process_count,
     shard,
 )
 from ddl_tpu_torch.shuffle import (
@@ -75,16 +93,170 @@ def ppermute(sharded: ShardedArray, pairs: Sequence[Tuple[int, int]],
             raise ValueError(f"index {dst} receives twice in {pairs}")
         dst_of[src] = dst
     pos = mesh.positions()
-    datas: List[Any] = [None] * mesh.size
+    mine = {s.position: s.data for s in sharded.shards}
+    datas: Dict[int, Any] = {}
+    remote: List[Tuple[int, int]] = []
     for coords in mesh.coords():
         src = coords[ax]
         if src in dst_of:
             to = coords[:ax] + (dst_of[src],) + coords[ax + 1:]
-            datas[pos[to]] = sharded.shards[pos[coords]].data.clone()
-    for p, d in enumerate(datas):
-        if d is None:
-            datas[p] = torch.zeros_like(sharded.shards[p].data)
-    return ShardedArray(sharded.shape, sharded.sharding, datas)
+            a, b = int(pos[coords]), int(pos[to])
+            if a in mine and b in mine:
+                datas[b] = mine[a].clone()
+            elif a in mine or b in mine:
+                remote.append((a, b))
+    if remote:
+        datas.update(_move_across_processes(mesh, mine, remote))
+    out = []
+    for p, d in mine.items():
+        out.append(datas[p] if p in datas else torch.zeros_like(d))
+    return ShardedArray(sharded.shape, sharded.sharding, out)
+
+
+def _host_buffer(like: torch.Tensor) -> torch.Tensor:
+    """A host tensor shaped like ``like``, page-locked where a card is
+    present (the staging of every gloo transfer)."""
+    return torch.empty(like.shape, dtype=like.dtype,
+                       pin_memory=torch.cuda.is_available())
+
+
+def _move_across_processes(mesh: Any, mine: Dict[int, torch.Tensor],
+                           moves: Sequence[Tuple[int, int]]
+                           ) -> Dict[int, torch.Tensor]:
+    """The moves of a :func:`ppermute` whose source or destination
+    position belongs to another process: each local source is staged to
+    a page-locked host buffer and sent with ``isend``, each local
+    destination receives into one with ``irecv``; every transfer is
+    posted before any is waited on, so the exchange cannot deadlock.
+    The tag names the (source, destination) pair."""
+    import torch.distributed as dist
+
+    owner = mesh.processes.reshape(-1)
+    like = next(iter(mine.values()))
+    reqs, landed = [], {}
+    for a, b in moves:
+        tag = a * mesh.size + b
+        if a in mine:
+            host = _host_buffer(like)
+            host.copy_(mine[a].detach())
+            reqs.append(dist.isend(host, dst=int(owner[b]), tag=tag))
+        else:
+            host = _host_buffer(like)
+            reqs.append(dist.irecv(host, src=int(owner[a]), tag=tag))
+            landed[b] = host
+    for r in reqs:
+        r.wait()  # ddl-lint: disable=DDL012 - the process group's timeout bounds a gloo wait
+    return {b: h.to(like.device) for b, h in landed.items()}
+
+
+def psum(parts: Sequence[torch.Tensor], mesh: Any, axis: str) -> torch.Tensor:
+    """``lax.psum`` over the positions of ``axis``: ``parts[i]`` is the
+    partial of the position at index ``i`` along it, and the result is
+    their sum — the value every position of the axis holds after the
+    reduction (on one card one tensor serves them all).  Added in index
+    order, differentiable (each partial's cotangent is the sum's).  A
+    sum over an axis whose positions span processes is the distinct-card
+    slice (ROADMAP.md A5c)."""
+    n = mesh.shape[axis]
+    if len(parts) != n:
+        raise ValueError(f"{len(parts)} partials for the {n} positions of "
+                         f"axis {axis!r}")
+    if mesh.spans_processes and axis == mesh.axis_names[0]:
+        raise NotImplementedError(
+            f"psum over {axis!r}, whose positions span processes "
+            "(ROADMAP.md A5c)")
+    one_card([t.device for t in parts])
+    out = parts[0]
+    for t in parts[1:]:
+        out = out + t
+    return out
+
+
+def process_allgather(x: Any, tiled: bool = False) -> torch.Tensor:
+    """Every process's value, gathered on this process's device (the port
+    of ``multihost_utils.process_allgather``): a :class:`ShardedArray`
+    over a process-spanning mesh comes back whole (each process's block
+    joined along the dim the ``dp`` axis splits); a tensor comes back
+    stacked along a new leading axis, or joined along dim 0 with
+    ``tiled=True``.  gloo moves host copies; without a group of several
+    processes nothing moves."""
+    if isinstance(x, ShardedArray):
+        if not x.spans_processes:
+            return x.assemble()
+        local = x.assemble_local()
+        entries = x.sharding._entries(len(x.shape))
+        dims = [d for d, e in enumerate(entries) if PROCESS_AXIS in _entry_axes(e)]
+        if not dims:  # replicated over dp: every process holds it whole
+            return local
+        return torch.cat(_gather_host(local), dim=dims[0]).to(local.device)
+    if process_count() == 1:
+        return x[None] if not tiled else x
+    parts = _gather_host(x)
+    out = torch.cat(parts, 0) if tiled else torch.stack(parts)
+    return out.to(x.device)
+
+
+def _gather_host(t: torch.Tensor) -> List[torch.Tensor]:
+    import torch.distributed as dist
+
+    host = t.detach().to("cpu").contiguous()
+    parts = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, host)
+    return parts
+
+
+#: Page-locked buckets of :func:`process_mean`, one per size: a full-
+#: width model's gradients are gigabytes, pinned once, not every step.
+_BUCKETS: Dict[int, torch.Tensor] = {}
+
+
+def process_mean(tensors: Sequence[Optional[torch.Tensor]],
+                 like: Sequence[torch.Tensor], metrics: Any = None) -> None:
+    """Average ``tensors`` over the processes of the group, in place: each
+    tensor is copied into its slice of ONE flat page-locked fp32 host
+    bucket, the bucket goes through ONE gloo ``all_reduce`` (sum), and
+    each slice comes back divided by the world size — one call a step,
+    not one a leaf, and no device-sized staging copy.  A ``None`` entry
+    (a leaf without a gradient) takes part as zeros shaped like its
+    ``like`` entry and stays ``None``.  ``metrics`` (a registry) records
+    ``mh.allreduce`` (seconds, the staging included) and
+    ``mh.allreduce_bytes``."""
+    import torch.distributed as dist
+
+    world = process_count()
+    if world == 1:
+        return
+    t0 = time.perf_counter()
+    dev = like[0].device
+    if dev.type == "cuda":
+        # The last call's copies out of the bucket may still be queued.
+        torch.cuda.current_stream(dev).synchronize()
+    total = sum(int(l.numel()) for l in like)
+    host = _BUCKETS.get(total)
+    if host is None:
+        _BUCKETS.clear()
+        host = torch.empty(total, dtype=torch.float32,
+                           pin_memory=torch.cuda.is_available())
+        _BUCKETS[total] = host
+    slices, off = [], 0
+    for t, l in zip(tensors, like):
+        piece = host[off:off + l.numel()].view(l.shape)
+        if t is None:
+            piece.zero_()
+        else:
+            piece.copy_(t.detach(), non_blocking=True)
+        slices.append(piece)
+        off += l.numel()
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    dist.all_reduce(host)
+    for t, piece in zip(tensors, slices):
+        if t is not None:
+            t.copy_(piece, non_blocking=True)
+            t.div_(world)
+    if metrics is not None:
+        metrics.add_time("mh.allreduce", time.perf_counter() - t0)
+        metrics.incr("mh.allreduce_bytes", float(total * 4))
 
 
 def _pairs(p: np.ndarray) -> Tuple[Tuple[int, int], ...]:
@@ -176,23 +348,22 @@ class DeviceGlobalShuffler:
         ax = mesh.axis_names.index(self.axis)
         coords = mesh.coords()
         rows = k // n
-        # received[p][i]: the sub-block position p gathered from index i.
-        received = [[None] * n for _ in range(mesh.size)]
+        # received[j][i]: the sub-block local shard j gathered from index i.
+        received = [[None] * n for _ in window.shards]
         for r in range(n):
             # Each position sends sub-block (i + r) mod n to index i + r.
-            datas = [
-                window.shards[pp].data[((c[ax] + r) % n) * rows:
-                                       ((c[ax] + r) % n + 1) * rows]
-                for pp, c in enumerate(coords)
-            ]
+            datas = []
+            for s in window.shards:
+                b = (coords[s.position][ax] + r) % n
+                datas.append(s.data[b * rows:(b + 1) * rows])
             moved = ppermute(
                 ShardedArray(_lane_shape(window, datas[0]), sub, datas),
                 [(i, (i + r) % n) for i in range(n)], self.axis)
-            for pp, c in enumerate(coords):
-                received[pp][(c[ax] - r) % n] = moved.shards[pp].data
+            for j, s in enumerate(moved.shards):
+                received[j][(coords[s.position][ax] - r) % n] = s.data
         return ShardedArray(window.shape, sub, [
-            torch.cat(received[pp] + [window.shards[pp].data[k:]], dim=0)
-            for pp in range(mesh.size)
+            torch.cat(received[j] + [s.data[k:]], dim=0)
+            for j, s in enumerate(window.shards)
         ])
 
     def window_hook(self) -> Callable[[torch.Tensor], torch.Tensor]:

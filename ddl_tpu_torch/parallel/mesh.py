@@ -21,9 +21,20 @@ plus the port's own small counterparts of ``jax.sharding``).
   tree for every mesh — axes the mesh lacks drop out, and an axis that
   does not divide a dimension leaves it unsharded.
 
-Meshes take the ``dp``, ``fsdp``, ``tp`` and ``sp`` axes (any names but
-``pp``: the pipeline axis waits for ``parallel/pipeline.py``, ROADMAP.md
-A5b).
+Meshes take any axis names: ``dp``, ``fsdp``, ``tp``, ``sp`` and the
+pipeline axis ``pp`` (:mod:`ddl_tpu_torch.parallel.pipeline`).
+
+MULTIHOST (``torch.distributed`` processes, a gloo group the user's main
+initialised): :func:`make_mesh` lays out ``world_size x local``
+positions in process-major order, as ``jax.devices()`` orders them, and
+each position records the process that owns it (``Mesh.processes``).
+Only the outermost ``dp`` axis may span processes; a mesh whose ``sp``,
+``pp``, ``tp`` or ``fsdp`` positions span processes raises
+``NotImplementedError`` (distinct cards and peer writes, ROADMAP.md
+A5c).  A :class:`ShardedArray` over a process-spanning mesh holds only
+this process's shards, like ``addressable_shards``; the model runs on
+:meth:`Mesh.local` over :meth:`ShardedArray.assemble_local`, and a whole
+array comes back through ``collectives.process_allgather``.
 """
 
 from __future__ import annotations
@@ -37,15 +48,38 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-#: The pipeline axis, refused until ``parallel/pipeline.py`` is ported.
-_PIPELINE_AXIS = "pp"
+#: The one axis that may span processes (the outermost, as in every
+#: multihost mesh of the JAX package).
+PROCESS_AXIS = "dp"
+
+
+def process_rank() -> int:
+    """This process's rank in the initialised ``torch.distributed`` group
+    (0 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def process_count() -> int:
+    """The initialised group's world size (1 without one: no quiet
+    reduction, as ``jax.process_count()`` reads 1 without
+    ``jax.distributed``)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 class Mesh:
     """Named mesh axes over an array of devices (positions may share a
     device)."""
 
-    def __init__(self, devices: Any, axis_names: Sequence[str]):
+    def __init__(self, devices: Any, axis_names: Sequence[str],
+                 processes: Any = None):
         grid = np.asarray(devices, dtype=object)
         arr = np.empty(grid.size, dtype=object)
         arr[:] = [torch.device(d) for d in grid.reshape(-1)]
@@ -58,11 +92,55 @@ class Mesh:
             )
         if len(set(self.axis_names)) != len(self.axis_names):
             raise ValueError(f"repeated mesh axis in {self.axis_names}")
-        if _PIPELINE_AXIS in self.axis_names:
-            raise NotImplementedError(
-                "the pipeline axis 'pp' waits for parallel/pipeline.py "
-                "(ROADMAP.md A5b)"
-            )
+        #: Each position's owning process (its rank); a mesh built
+        #: without ``processes`` belongs to this process alone.
+        self.processes = (
+            np.full(self.devices.shape, process_rank(), dtype=np.int64)
+            if processes is None
+            else np.asarray(processes, dtype=np.int64).reshape(self.devices.shape)
+        )
+        self.process_index = process_rank()
+        if self.spans_processes:
+            self._check_process_layout()
+
+    @property
+    def spans_processes(self) -> bool:
+        """Do this mesh's positions belong to more than one process?"""
+        return len(np.unique(self.processes)) > 1
+
+    def _check_process_layout(self) -> None:
+        for i, name in enumerate(self.axis_names):
+            first = np.take(self.processes, [0], axis=i)
+            if i == 0 and name == PROCESS_AXIS:
+                continue
+            if not np.all(self.processes == first):
+                raise NotImplementedError(
+                    f"mesh axis {name!r} spans processes: only the "
+                    f"outermost {PROCESS_AXIS!r} axis may (positions of "
+                    "distinct processes on the inner axes need peer "
+                    "writes over distinct cards, ROADMAP.md A5c)"
+                )
+        if self.process_index not in set(self.processes.reshape(-1).tolist()):
+            raise ValueError(f"process {self.process_index} owns no position "
+                             f"of this mesh")
+
+    def local_positions(self) -> List[int]:
+        """The positions this process owns, in position order."""
+        return [int(p) for p in np.flatnonzero(
+            self.processes.reshape(-1) == self.process_index)]
+
+    def local(self) -> "Mesh":
+        """The mesh over this process's positions alone (the outermost
+        ``dp`` axis cut to this process's extent): what the model runs
+        on over this process's rows.  A mesh of one process is its own
+        local mesh."""
+        if not self.spans_processes:
+            return self
+        # Only the outermost axis spans processes: pick its indices.
+        owner = self.processes.reshape(self.devices.shape[0], -1)[:, 0]
+        rows = np.flatnonzero(owner == self.process_index)
+        return Mesh(self.devices[rows], self.axis_names,
+                    processes=self.processes[rows])
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -88,15 +166,25 @@ class Mesh:
 
     def sub_mesh(self, axes: Sequence[Optional[str]]) -> "Mesh":
         """The mesh over ``axes`` alone (``None`` entries ignored): the
-        positions at coordinate 0 of every other axis.  Work that the
-        other axes only replicate runs once, on these positions."""
+        positions that share this process's first position's coordinates
+        on every other axis (coordinate 0 on a mesh of one process).
+        Work that the other axes only replicate runs once, on these
+        positions."""
         keep = [a for a in axes if a is not None]
-        index = tuple(slice(None) if a in keep else 0 for a in self.axis_names)
+        # Anchor the other axes at this process's first position: on a
+        # process-spanning mesh that keeps an inner-axis sub-mesh local.
+        anchor = self.coords()[self.local_positions()[0]]
+        index = tuple(slice(None) if a in keep else anchor[i]
+                      for i, a in enumerate(self.axis_names))
         return Mesh(self.devices[index],
-                    tuple(a for a in self.axis_names if a in keep))
+                    tuple(a for a in self.axis_names if a in keep),
+                    processes=self.processes[index])
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]})"
+        extra = (f", processes={self.processes.reshape(-1).tolist()}"
+                 if self.spans_processes else "")
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.device_list]}{extra})")
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
@@ -108,6 +196,11 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     inferred (like a reshape).  ``devices=None`` → every visible card
     (raises without CUDA); pass e.g. ``["cuda:0"] * 4`` for four
     positions on one card, or ``["cpu"] * 8`` on the host.
+
+    Under an initialised ``torch.distributed`` group of ``w > 1``
+    processes, ``devices`` are this process's positions and the mesh
+    holds ``w`` times as many, process-major (every process passes the
+    same count): the global mesh of a MULTIHOST run.
     """
     if devices is None:
         from ddl_tpu_torch.utils import resolve_device
@@ -115,6 +208,9 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
         resolve_device("cuda")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = list(devices)
+    world = process_count()
+    procs = np.repeat(np.arange(world), len(devices))
+    devices = devices * world
     n = len(devices)
     if axes is None:
         axes = {"dp": n}
@@ -134,7 +230,7 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
         )
     arr = np.empty(n, dtype=object)
     arr[:] = [torch.device(d) for d in devices]
-    return Mesh(arr.reshape(sizes), names)
+    return Mesh(arr.reshape(sizes), names, processes=procs.reshape(sizes))
 
 
 def data_parallel_mesh(n: Optional[int] = None,
@@ -245,26 +341,46 @@ class ShardedArray:
     ``shards`` are in position order; ``shards[p].data`` covers
     ``global[shards[p].index]``.  :meth:`numpy` / :meth:`tensor`
     assemble the global array on the host, as ``np.asarray`` does for a
-    ``jax.Array``.
+    ``jax.Array``.  Over a mesh that spans processes, ``datas`` and
+    ``shards`` are this process's positions only (``addressable_shards``):
+    the whole array is then :func:`~ddl_tpu_torch.parallel.collectives.
+    process_allgather`'s, and :meth:`assemble_local` gives this process's
+    block.
     """
 
     def __init__(self, shape: Sequence[int], sharding: NamedSharding,
                  datas: Sequence[torch.Tensor]):
         self.shape = tuple(int(s) for s in shape)
         self.sharding = sharding
+        mesh = sharding.mesh
         indices = sharding.shard_indices(self.shape)
-        if len(datas) != len(indices):
-            raise ValueError(f"{len(datas)} shards for {len(indices)} positions")
-        devices = sharding.mesh.device_list
+        positions = (mesh.local_positions() if mesh.spans_processes
+                     else list(range(len(indices))))
+        if len(datas) != len(positions):
+            raise ValueError(f"{len(datas)} shards for {len(positions)} positions")
+        devices = mesh.device_list
         want = _index_shape(indices[0], self.shape)
         shards = []
-        for p, (idx, data) in enumerate(zip(indices, datas)):
+        for p, data in zip(positions, datas):
             if tuple(data.shape) != want:
                 raise ValueError(f"position {p}'s shard is {tuple(data.shape)}, "
                                  f"the sharding gives {want}")
-            shards.append(Shard(p, devices[p], idx, data))
+            shards.append(Shard(p, devices[p], indices[p], data))
         self.shards: Tuple[Shard, ...] = tuple(shards)
         self.dtype = datas[0].dtype
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.sharding.mesh.spans_processes
+
+    def _whole(self, what: str) -> None:
+        if self.spans_processes:
+            raise ValueError(
+                f"{what} of an array over a process-spanning mesh: this "
+                "process holds only its own shards; gather the whole "
+                "array with collectives.process_allgather, or take this "
+                "process's block with assemble_local()"
+            )
 
     @property
     def nbytes(self) -> int:
@@ -272,6 +388,7 @@ class ShardedArray:
 
     def tensor(self) -> torch.Tensor:
         """The global array, assembled on the host."""
+        self._whole("tensor()")
         out = torch.empty(self.shape, dtype=self.dtype)
         for s in self.shards:
             out[s.index] = s.data.detach().cpu()
@@ -284,7 +401,14 @@ class ShardedArray:
         """The global array on the shards' device, differentiable: the
         first position holding each block gives it, the blocks joined
         with ``torch.cat`` (positions that only replicate a block add
-        nothing)."""
+        nothing).  Raises over a process-spanning mesh."""
+        self._whole("assemble()")
+        return self.assemble_local()
+
+    def assemble_local(self) -> torch.Tensor:
+        """The block of the global array this process's shards cover,
+        assembled on their device (differentiable); over a mesh of one
+        process, the global array."""
         blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
         for s in self.shards:
             blocks.setdefault(tuple(sl.start or 0 for sl in s.index), s.data)
@@ -307,6 +431,10 @@ def shard(t: torch.Tensor, sharding: NamedSharding) -> ShardedArray:
     dev = one_card(sharding.mesh.device_list)
     if t.device != dev:
         raise ValueError(f"a tensor on {t.device} cut over positions of {dev}")
+    if sharding.mesh.spans_processes:
+        raise ValueError("shard() cuts a global tensor; over a process-"
+                         "spanning mesh each process lands its own block "
+                         "(ingest.make_global_array)")
     return ShardedArray(t.shape, sharding, [
         t[index] for index in sharding.shard_indices(t.shape)])
 

@@ -297,6 +297,10 @@ def attention(q, k, v, impl: str = "auto", causal: bool = True,
             f"impl must be 'auto', 'flash', or 'dense', got {impl!r}"
         )
     use_flash = impl == "flash" or (impl == "auto" and q.device.type == "cuda")
+    if mesh is not None:
+        # Over a process-spanning mesh the model holds this process's
+        # rows: its attention runs on this process's positions.
+        mesh = mesh.local()
     if mesh is not None and axis in mesh.axis_names and mesh.shape[axis] > 1:
         return ring_attention(
             q, k, v, mesh, causal=causal, axis=axis, dp_axis=dp_axis,

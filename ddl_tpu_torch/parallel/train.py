@@ -17,6 +17,18 @@ for its attention, and the distributed-optimizer knobs
 ``stochastic_rounding``, ``grad_comm_block``) wrap the optimizer in
 :class:`~ddl_tpu_torch.parallel.optimizer.ShardedOptimizer`.  With
 ``mesh=None`` the steps are the one-device steps.
+
+Over a mesh whose outermost ``dp`` axis spans the processes of a gloo
+group (MULTIHOST), each process's step computes loss and grads over its
+own rows (:meth:`~ddl_tpu_torch.parallel.mesh.ShardedArray.
+assemble_local`), then the grads and the loss are averaged over the
+group in one host-staged bucket
+(:func:`~ddl_tpu_torch.parallel.collectives.process_mean`) before the
+update: every process applies the same update and reports the mean of
+the processes' losses — the loss over the global batch for a loss that
+is a mean over rows (the next-token losses are).  ZeRO-1 and int8
+gradient communication over such a dp raise ``NotImplementedError``
+(ROADMAP.md A5d).
 """
 
 from __future__ import annotations
@@ -94,6 +106,13 @@ def _maybe_shard_optimizer(optimizer: Any, mesh: Any, param_spec_tree: Any,
         return optimizer
     if optimizer_sharding == "none" and grad_comm == "fp32":
         return optimizer
+    if mesh is not None and mesh.spans_processes:
+        raise NotImplementedError(
+            f"optimizer_sharding={optimizer_sharding!r} / grad_comm="
+            f"{grad_comm!r} over a dp axis that spans processes: the "
+            "cross-process sum is one fp32 bucket over gloo so far "
+            "(ROADMAP.md A5d)"
+        )
     if optimizer_sharding == "zero1" and mesh is None:
         raise ValueError("optimizer_sharding='zero1' needs a mesh")
     return ShardedOptimizer(
@@ -120,19 +139,24 @@ def _lead_extent(mesh: Any, batch_spec: Any) -> int:
 
 def _global(batch: Any) -> Any:
     """The batch as global tensors: a leaf that landed as a
-    :class:`ShardedArray` is assembled on its device."""
+    :class:`ShardedArray` is assembled on its device (over a mesh that
+    spans processes, this process's rows)."""
     if isinstance(batch, ShardedArray):
-        return batch.assemble()
+        return batch.assemble_local()
     if isinstance(batch, (tuple, list)):
         return tuple(_global(b) for b in batch)
     return batch
 
 
 def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
-                     accum_steps: int = 1, lead_divisor: int = 1):
+                     accum_steps: int = 1, lead_divisor: int = 1,
+                     mesh: Any = None):
     """One loss/grad/update step, shared by the single- and multi-step
     factories.  ``accum_steps > 1`` splits the batch's leading axis into
-    equal microbatches, averages their grads and applies ONE update."""
+    equal microbatches, averages their grads and applies ONE update.
+    Over a mesh that spans processes the grads and the loss are averaged
+    over the group before the update (one bucket)."""
+    across = mesh is not None and mesh.spans_processes
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     inv = 1.0 / accum_steps
@@ -166,8 +190,16 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
                 (mb_loss * inv).backward()  # grads accumulate in fp32
                 loss = loss + mb_loss.detach()
             loss = loss * inv
+        loss = loss.detach()
+        if across:
+            from ddl_tpu_torch.observability import metrics as _metrics
+            from ddl_tpu_torch.parallel.collectives import process_mean
+
+            leaves = tree_leaves(state.params)
+            process_mean([p.grad for p in leaves] + [loss], leaves + [loss],
+                         metrics=_metrics())
         opt.step()
-        return loss.detach()
+        return loss
 
     return apply_step
 
@@ -240,7 +272,7 @@ def make_train_step(
         stochastic_rounding, grad_comm_block,
     )
     apply_step = _make_apply_step(loss_fn, accum_steps,
-                                  _lead_extent(mesh, batch_spec))
+                                  _lead_extent(mesh, batch_spec), mesh)
 
     def step_fn(state: TrainState, batch: Any):
         loss = apply_step(state, _global(batch))
@@ -275,7 +307,7 @@ def make_multistep(
         stochastic_rounding, grad_comm_block,
     )
     apply_step = _make_apply_step(loss_fn, accum_steps,
-                                  _lead_extent(mesh, batch_spec))
+                                  _lead_extent(mesh, batch_spec), mesh)
 
     def multi_step_fn(state: TrainState, batch: Any, per_step: bool = False):
         batch = _global(batch)

@@ -388,7 +388,12 @@ class AsyncCheckpointer:
     behind makes ``submit`` SKIP a periodic checkpoint (counted
     ``resilience.ckpt_skipped``) rather than grow host memory; the forced
     final checkpoint (:meth:`checkpoint_now`) waits instead.  The writer
-    thread starts on first use and exits after a few idle seconds."""
+    thread starts on first use and exits after a few idle seconds.
+
+    MULTIHOST (several processes of an initialised group on one shared
+    ``directory``): the state is replicated, so only rank 0 snapshots and
+    writes; :meth:`flush` ends at a barrier of every rank, after which the
+    generation is live for all of them to restore."""
 
     #: Idle seconds after which the parked writer thread exits.
     _IDLE_EXIT_S = 5.0
@@ -460,6 +465,10 @@ class AsyncCheckpointer:
         it cannot change the generation."""
         if self._closed:
             raise CheckpointError("checkpointer is closed")
+        from ddl_tpu_torch.parallel.mesh import process_rank
+
+        if process_rank() != 0:
+            return True  # rank 0 writes the replicated generation
         t0 = time.perf_counter()
         leaves = train_state_leaves(state)
         metas = [_leaf_meta(leaf) for leaf in leaves]
@@ -521,6 +530,12 @@ class AsyncCheckpointer:
                     )
                 self._cond.wait(min(0.2, remaining))
             err, self._last_error = self._last_error, None
+        from ddl_tpu_torch.parallel.mesh import process_count
+
+        if process_count() > 1:
+            import torch.distributed as dist
+
+            dist.barrier()  # rank 0's generations are live for every rank
         if err is not None:
             raise CheckpointError(
                 f"checkpoint write failed: {type(err).__name__}: {err}"

@@ -713,7 +713,17 @@ class DeviceExchangeFabric:
 
     span = "device"
 
-    def __init__(self, devices: Optional[Sequence[Any]] = None) -> None:
+    def __init__(self, devices: Optional[Sequence[Any]] = None,
+                 impl: Optional[str] = None) -> None:
+        from ddl_tpu_torch import envspec
+
+        #: The device exchange: ``"ring"`` (K9, the default) or ``"xla"``
+        #: (two ``collectives.ppermute`` lane moves), by name only —
+        #: nothing falls back to either (``DDL_TORCH_SHUFFLE_IMPL``).
+        self.impl = impl or envspec.get("DDL_TORCH_SHUFFLE_IMPL")
+        if self.impl not in ("ring", "xla"):
+            raise ValueError(
+                f"shuffle_impl must be ring|xla, got {self.impl!r}")
         self._devices = _resolve_devices(devices)
         #: A card ring: a failed device leg raises out of the round
         #: instead of latching the host exchange.
@@ -866,12 +876,11 @@ class DeviceExchangeFabric:
                 )
             blocks.append(b)
         p = exchange_permutation(n, rnd.seed, rnd.round_)
-        routes = np.stack([p, inverse_permutation(p)])
         # Land, launch and hand back on one stream; the hand-back waits
         # for it, so a kernel fault surfaces HERE, inside this round.
         with _dsh.LANDING_LOCK:
             gin = _dsh.as_exchange_input(blocks, devices)
-            out = _dsh.exchange_ring(gin, devices, routes)
+            out = _dsh.exchange_start(self.impl, gin, devices, p)
             blocks_out = _dsh.exchange_output_blocks(out, devices)
         return {i: blocks_out[i] for i in range(n)}
 
@@ -1031,9 +1040,11 @@ class DeviceExchangeShufflerFactory(ExchangeShufflerFactory):
 
     def __init__(self, rendezvous: Any = None,
                  fabric: Optional[DeviceExchangeFabric] = None,
-                 device_shuffle: Optional[str] = None, **kwargs: Any):
+                 device_shuffle: Optional[str] = None,
+                 shuffle_impl: Optional[str] = None, **kwargs: Any):
         super().__init__(rendezvous=rendezvous, **kwargs)
-        self.fabric = fabric if fabric is not None else DeviceExchangeFabric()
+        self.fabric = (fabric if fabric is not None
+                       else DeviceExchangeFabric(impl=shuffle_impl))
         self.device_shuffle = device_shuffle
 
     def __getstate__(self) -> Dict[str, Any]:

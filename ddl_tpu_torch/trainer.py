@@ -15,7 +15,12 @@ Over a ``mesh`` of one device's positions (``mesh=``, ``param_specs=``,
 through the ingestor (the ICI tier on the card), are assembled into
 global tensors for the step, and the ``TrainConfig``'s distributed-
 optimizer knobs (ZeRO-1, int8 gradient communication) flow into every
-step factory.  Observability spans are a later slice.
+step factory.  A ``pp`` mesh trains the stage layout
+(``llama.stage_params`` / ``pp_param_specs``, a ``*_pp`` loss), and its
+checkpoints keep that layout.  In MULTIHOST mode (a gloo group, a mesh
+whose ``dp`` spans the processes) each process lands and trains on its
+own rows, and the step averages grads and loss over the group.
+Observability spans are a later slice.
 """
 
 from __future__ import annotations
@@ -448,7 +453,7 @@ class Trainer:
             # Windows land sharded over the mesh positions; the step sees
             # them whole, as GSPMD hands the JAX package's step global
             # arrays (the rolled targets cross the shard cuts).
-            stream = (w.assemble() for w in stream)
+            stream = (w.assemble_local() for w in stream)
         if window_hook is not None:
             stream = map(window_hook, stream)
         loop = self._fused_stream_loop if fused else self._sync_stream_loop

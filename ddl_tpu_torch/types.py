@@ -27,8 +27,9 @@ class Marker(enum.Enum):
 
 class RunMode(enum.Enum):
     """How producer workers are realised: THREAD (threads of the trainer
-    process) or PROCESS (spawned processes over shared-memory rings).
-    MULTIHOST is a later slice (ROADMAP.md)."""
+    process), PROCESS (spawned processes over shared-memory rings) or
+    MULTIHOST (PROCESS producers under each consumer process of a
+    ``torch.distributed`` group; the instances are the group's ranks)."""
 
     THREAD = "thread"
     PROCESS = "process"
@@ -120,6 +121,10 @@ class Topology:
     instance_idx: int = 0
     n_producers: int = 2
     mode: RunMode = RunMode.THREAD
+    #: Physical host identity: with several consumer processes a host,
+    #: ``instance_idx`` over-counts hosts (``env.detect_host_identity``).
+    host_id: int = 0
+    n_hosts: int = 1
 
     def __post_init__(self) -> None:
         if self.n_instances < 1 or self.n_producers < 1:
@@ -129,6 +134,10 @@ class Topology:
             )
         if not (0 <= self.instance_idx < self.n_instances):
             raise ValueError(f"{self.instance_idx=} out of range")
+        if self.n_hosts < 1 or not (0 <= self.host_id < self.n_hosts):
+            raise ValueError(
+                f"{self.host_id=} out of range for {self.n_hosts=}"
+            )
 
 
 @dataclasses.dataclass

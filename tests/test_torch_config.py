@@ -141,13 +141,42 @@ def test_model_config_applies_remat():
     ("host_id", 1, "A5b"), ("n_hosts", 2, "A5b"), ("mode", "multihost", "A5b"),
     ("shuffle_impl", "xla", "A5b"),
 ])
-def test_unported_loader_fields_raise(field, value, item):
+def test_unported_loader_fields_raise(field, value, item, monkeypatch):
+    """The fields A5b ported (``item``) load and reach their consumer:
+    host identity the topology ``distributed_dataloader`` builds,
+    ``mode="multihost"`` the topology (one instance without a process
+    group, as ``jax.process_count()`` without ``jax.distributed``), and
+    ``shuffle_impl="xla"`` the exchange fabric."""
+    from ddl_tpu_torch import env as tenv_mod
+    from ddl_tpu_torch.shuffle import DeviceExchangeFabric
+    from ddl_tpu_torch.types import RunMode
+
+    for var in ("HOST_ID", "N_HOSTS", "PROCS_PER_HOST", "SHUFFLE_IMPL"):
+        monkeypatch.setenv("DDL_TORCH_" + var, "")
+        monkeypatch.delenv("DDL_TORCH_" + var)
     cfg = tconfig.LoaderConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        cfg.check_ported()
-    trainer = Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        trainer.fit(None, config=cfg)
+    cfg.check_ported()
+    if field in ("host_id", "n_hosts"):
+        cfg = tconfig.LoaderConfig(n_producers=1, **{field: value})
+
+        @tenv_mod.distributed_dataloader(config=cfg, pin_memory=False)
+        def main(env):
+            return env.topology
+
+        topo = main()
+        assert getattr(topo, field) == value
+        assert os.environ["DDL_TORCH_" + field.upper()] == str(value)
+    elif field == "mode":
+        topo = tenv_mod.detect_topology(1, cfg.mode)
+        assert topo.mode is RunMode.MULTIHOST
+        assert (topo.n_instances, topo.instance_idx) == (1, 0)
+    else:
+        tenv_mod.export_shuffle_knobs(cfg)
+        assert DeviceExchangeFabric(devices=["cpu"] * 2).impl == "xla"
+        tenv_mod.export_shuffle_knobs(tconfig.LoaderConfig())
+        assert DeviceExchangeFabric(devices=["cpu"] * 2).impl == "ring"
+    with pytest.raises(ValueError):
+        tconfig.LoaderConfig(shuffle_impl="pallas").check_ported()
     tconfig.LoaderConfig(wire_codec="none").check_ported()  # "none" = off
 
 
@@ -209,16 +238,17 @@ def test_wire_fields_pass_through(field, value, monkeypatch):
     ("grad_comm_block", 64), ("stochastic_rounding", True),
 ])
 def test_unported_train_fields_raise(field, value):
-    """The pipeline fields still raise, naming A5b; the distributed-
-    optimizer fields are ported: ``optimizer_kwargs`` carries them and a
+    """Every train field is ported: the pipeline fields reach
+    ``pipeline_kwargs()`` (the reference's dict) and a Trainer takes
+    them; the distributed-optimizer fields ``optimizer_kwargs``, and a
     Trainer over a mesh takes them."""
     tc = tconfig.TrainConfig(**{field: value})
     if field in ("schedule", "pp_chunks", "n_microbatches"):
-        with pytest.raises(NotImplementedError, match="A5b"):
-            Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu",
-                    train_config=tc)
-        with pytest.raises(NotImplementedError, match="A5b"):
-            tc.pipeline_kwargs()
+        Trainer(lambda p, b: 0, adamw(1e-3), {}, device="cpu",
+                train_config=tc)
+        assert tc.pipeline_kwargs() == jconfig.TrainConfig(
+            **{field: value}).pipeline_kwargs()
+        assert getattr(tc, field) == value
         return
     tc.check_ported()
     assert tc.optimizer_kwargs()[field] == value

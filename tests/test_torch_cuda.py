@@ -1840,3 +1840,104 @@ def test_zero1_fit_on_the_card_is_bit_equal(tmp_path):
     assert fit(optimizer_sharding="zero1") == rep
     gate = loss_parity(rep, fit(optimizer_sharding="zero1", grad_comm="int8"))
     assert gate["parity"] and gate["max_rel_drift"] > 0
+
+
+# -- the pipeline schedule ------------------------------------------------------------
+
+
+def _pp_setup(dtype, n_layers=4):
+    from ddl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab=256, d_model=512, n_layers=n_layers,
+                            n_heads=8, n_kv_heads=4, d_ff=1024, max_seq=256,
+                            dtype=getattr(torch, dtype))
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    tokens = torch.randint(0, 256, (4, 256), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(4))
+    return cfg, params, tokens
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tp_resident_pipelined_stages_match_plain_on_the_card(dtype):
+    """Tensor-parallel-resident stages on pp = 2 x tp = 2 positions of
+    cuda:0: every K1 call at the LOCAL head counts (4 query heads over 2
+    KV heads a tp position), one a (tp position, live tick, layer); the
+    logits and the stage grads against the plain version (dense
+    attention, one device) at the file's tolerances."""
+    import dataclasses as dc
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.train import tree_leaves
+
+    cfg, params, tokens = _pp_setup(dtype)
+    mesh = make_mesh({"pp": 2, "tp": 2}, ["cuda:0"] * 4)
+    staged = llama.stage_params(params, 2)
+    for leaf in tree_leaves(staged):
+        leaf.requires_grad_(True)
+    heads = []
+    orig = tfa.flash_attention
+
+    def counted(q, *a, **kw):
+        heads.append((q.shape[2], a[0].shape[2]))
+        return orig(q, *a, **kw)
+
+    tfa.reset_launch_counts()
+    tfa.flash_attention = counted
+    try:
+        out = llama.forward_pp(staged, tokens, cfg, mesh, n_microbatches=2)
+    finally:
+        tfa.flash_attention = orig
+    assert set(heads) == {(4, 2)} and len(heads) == 2 * 4 * 2
+    launches = tfa.flash_fwd.sm90_launches if dtype == "bfloat16" else \
+        tfa.flash_fwd.launches
+    assert launches == 2 * 4 * 2
+    out.float().square().mean().backward()
+    plain_cfg = dc.replace(cfg, attn_impl="dense")
+    plain_params = llama.stage_params(
+        {k: v for k, v in params.items()}, 2)
+    for leaf in tree_leaves(plain_params):
+        leaf.requires_grad_(True)
+    ref = llama.forward_pp(plain_params, tokens, plain_cfg, None, 2)
+    ref.float().square().mean().backward()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert _rel_err(out.detach(), ref.detach()) < tol
+    for a, b in zip(tree_leaves(staged["stages"]),
+                    tree_leaves(plain_params["stages"])):
+        assert _rel_err(a.grad, b.grad) < tol
+
+
+@pytest.mark.flash
+def test_pipeline_schedules_bit_equal_on_the_card():
+    """gpipe (2 stages of 2 layers), 1f1b (2 stages x 2 chunks of 1
+    layer) and the sequential fallback run the same kernels on the same
+    microbatch shapes in the same order on the card: logits and stage
+    grads bit for bit, K1 once a (microbatch, layer)."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+    from ddl_tpu_torch.parallel.train import tree_leaves
+
+    cfg, params, tokens = _pp_setup("bfloat16")
+    runs = []
+    for axes, V in (({"pp": 2, "dp": 2}, 1), ({"pp": 2, "dp": 2}, 2),
+                    ({"dp": 2}, 1)):
+        staged = llama.stage_params(params, 2, n_chunks=V)
+        for leaf in tree_leaves(staged):
+            leaf.requires_grad_(True)
+        tfa.reset_launch_counts()
+        out = llama.forward_pp(
+            staged, tokens, cfg, make_mesh(axes, ["cuda:0"] * 4 if "pp" in axes
+                                           else ["cuda:0"] * 2), 2,
+            schedule="gpipe" if V == 1 else "1f1b",
+            n_chunks=None if V == 1 else V)
+        assert tfa.flash_fwd.sm90_launches == 2 * 4
+        out.float().square().mean().backward()
+        grads = staged["stages"]["wq"].grad
+        if V == 2:  # [d, c, 0] = layer c*2 + d -> gpipe's [s, i] = layer 2s+i
+            grads = torch.stack([grads[li % 2, li // 2, 0] for li in range(4)]
+                                ).reshape(2, 2, *grads.shape[3:])
+        runs.append((out.detach(), grads))
+    for out, grads in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert torch.equal(grads, runs[0][1])

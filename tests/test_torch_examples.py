@@ -55,3 +55,28 @@ def test_twin_example_zero1_and_int8_runs(tmp_path, monkeypatch, capsys):
         runs.append(_losses(out))
     assert runs[1] == runs[0]
     assert runs[2] != runs[0]
+
+
+def _pp_example():
+    path = REPO / "examples" / "train_llama_pp_torch.py"
+    spec = importlib.util.spec_from_file_location("train_llama_pp_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_pp_twin_example_passes_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The twin of ``examples/train_llama_pp.py`` (the reference's
+    ``tests/test_examples.py`` runs its ``pp_tp`` and ``pp_1f1b`` layouts):
+    both train a falling loss over 8 positions of the CPU, the 1f1b
+    run at its smaller bubble."""
+    import sys
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.syspath_prepend(str(REPO / "examples"))
+    monkeypatch.delitem(sys.modules, "train_llama_torch", raising=False)
+    mod = _pp_example()
+    for layout, bubble in (("pp_tp", "0.200"), ("pp_1f1b", "0.111")):
+        assert mod.main(layout, device="cpu") == 0
+        out = capsys.readouterr().out
+        assert "OK" in out and f"bubble={bubble}" in out, out

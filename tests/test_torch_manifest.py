@@ -51,11 +51,7 @@ def test_ported_paths_mirror_the_reference_layout():
     "cache/backends.py", "cache/store.py", "cache/warmer.py",
     "parallel/collectives.py", "parallel/optimizer.py",
     "parallel/ring_attention.py", "parallel/train.py", "parallel/mesh.py",
+    "parallel/pipeline.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"
-
-
-def test_the_pipeline_waits():
-    """The pipeline schedule is the next slice (ROADMAP.md A5b)."""
-    assert MANIFEST["parallel/pipeline.py"] == "todo"

@@ -153,10 +153,29 @@ def test_shard_and_assemble_round_trip_with_grads():
 
 
 def test_pipeline_axis_waits_for_a5b():
-    with pytest.raises(NotImplementedError, match="A5b"):
-        tmesh.make_mesh({"dp": 2, "pp": 4}, ["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        tmesh.Mesh(np.array(["cpu"] * 2), ("pp",))
+    """The pipeline axis is ported: a ``pp`` mesh builds, one process's
+    positions.  Positions of a ``pp`` (or any inner) axis that span
+    processes raise, naming A5c; the outermost ``dp`` may span them."""
+    mesh = tmesh.make_mesh({"dp": 2, "pp": 4}, ["cpu"] * 8)
+    assert mesh.shape == {"dp": 2, "pp": 4} and not mesh.spans_processes
+    tmesh.Mesh(np.array(["cpu"] * 2), ("pp",))
+    grid = np.array(["cpu"] * 4).reshape(2, 2)
+    procs = [[0, 0], [1, 1]]
+    spanning = tmesh.Mesh(grid, ("dp", "pp"), processes=procs)
+    assert spanning.spans_processes
+    assert spanning.local_positions() == [0, 1]
+    assert spanning.local().shape == {"dp": 1, "pp": 2}
+    assert spanning.sub_mesh(("pp",)).shape == {"pp": 2}
+    for names in (("pp", "dp"), ("sp", "dp"), ("tp", "pp")):
+        with pytest.raises(NotImplementedError, match="A5c"):
+            tmesh.Mesh(grid, names, processes=procs)
+    with pytest.raises(NotImplementedError, match="A5c"):
+        tmesh.Mesh(grid, ("dp", "pp"), processes=[[0, 1], [0, 1]])
+    arr = tmesh.ShardedArray((4, 3), tmesh.NamedSharding(spanning, tmesh.P("dp")),
+                             [torch.zeros(2, 3)] * 2)
+    with pytest.raises(ValueError, match="process_allgather"):
+        arr.assemble()
+    assert arr.assemble_local().shape == (2, 3)
 
 
 def test_shard_refuses_distinct_cards():

@@ -114,9 +114,13 @@ def _jax_windows(producer):
 
 
 def test_detect_topology_takes_process_mode():
+    """PROCESS mode, and MULTIHOST (ported): without an initialised
+    process group a MULTIHOST topology is one instance, as the reference
+    reads ``jax.process_count() == 1`` without ``jax.distributed``."""
     assert detect_topology(3, "process").mode is RunMode.PROCESS
-    with pytest.raises(NotImplementedError, match="MULTIHOST|multihost"):
-        detect_topology(1, "multihost")
+    topo = detect_topology(1, "multihost")
+    assert topo.mode is RunMode.MULTIHOST
+    assert (topo.n_instances, topo.instance_idx) == (1, 0)
 
 
 @pytest.mark.parametrize("kind", ["tokens", "packed"])

@@ -1,0 +1,395 @@
+"""MULTIHOST program of the port: one "host" of a gloo cluster.
+
+The twin of ``tests/multihost_prog.py`` for ``ddl_tpu_torch``: each OS
+process initialises a ``torch.distributed`` gloo group, runs its own
+PROCESS producers under ``distributed_dataloader(mode="multihost")``,
+lands its local batches as its block of a global dp-sharded array
+(``ingest.make_global_array``), trains over the global mesh (the grads
+summed over the group in one bucket), exchanges window lanes across
+processes (``DeviceGlobalShuffler``) and round-trips a checkpoint on a
+shared directory.  It imports no JAX.  Driven by
+``tests/test_torch_multihost.py``.
+
+Parameterized by env (inherited by the spawned producers, so module
+constants agree across the pickle boundary):
+
+- ``DDL_TORCH_MH_PROCS`` (default 2): processes in the group.
+- ``DDL_TORCH_MH_DEVS`` (default 2): mesh positions a process.
+- ``DDL_TORCH_MH_LEGS`` (default ``core,stream,ppdp,dpsp,ckpt``):
+  ``core`` (coverage, the global train step, the cross-process shuffle),
+  ``stream`` (``windows()`` with a process-spanning sharding), ``ppdp``
+  (the pipelined Llama loss over each process's pp pair, dp across
+  processes), ``dpsp`` (``Trainer.fit`` in MULTIHOST mode over
+  ``{"dp": 2, "sp": 2}``: the ring over each process's sp pair, on the
+  int32 tokens of ``DDL_TORCH_MH_TOKENS``, else a seeded corpus it
+  writes), ``ckpt`` (save, fresh restore,
+  loader fast-forward on ``DDL_TORCH_MH_DIR``).
+- ``DDL_TORCH_MH_OUT``: directory of the per-process records
+  (``<leg>_<rank>.npz``) the test holds to the JAX package's streams and
+  to a one-process run.
+
+Usage: python torch_multihost_prog.py <rank> <port>
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+N_PROCESSES = int(os.environ.get("DDL_TORCH_MH_PROCS", "2"))
+DEVICES_PER_PROCESS = int(os.environ.get("DDL_TORCH_MH_DEVS", "2"))
+LEGS = tuple(os.environ.get("DDL_TORCH_MH_LEGS",
+                            "core,stream,ppdp,dpsp,ckpt").split(","))
+N_PRODUCERS = 2
+N_DATA, N_VALUES = 32, 8
+BATCH = 8
+SP_SEQ = 16
+LR = 1e-3
+
+import numpy as np  # noqa: E402
+
+
+def _init_return(pkg: str):
+    import importlib
+
+    name = "ddl_tpu" if pkg == "jax" else "ddl_tpu_torch"
+    return importlib.import_module(f"{name}.datasetwrapper").DataProducerOnInitReturn
+
+
+class TaggedProducer:
+    """Rows tagged ``instance*1000 + producer*100 + row`` in every column,
+    so a consumer can prove whose data landed where.  ``pkg`` picks which
+    package's ``DataProducerOnInitReturn`` it returns (one class drives
+    both packages)."""
+
+    def __init__(self, instance_idx: int, pkg: str = "torch"):
+        self.instance_idx = instance_idx
+        self.pkg = pkg
+
+    def on_init(self, producer_idx=0, **kw):
+        self._idx = producer_idx
+        return _init_return(self.pkg)(
+            nData=N_DATA, nValues=N_VALUES, shape=(N_DATA, N_VALUES),
+            splits=(N_VALUES - 1, 1),
+        )
+
+    def post_init(self, my_ary, **kw):
+        tags = self.instance_idx * 1000 + self._idx * 100 + np.arange(N_DATA)
+        my_ary[:] = tags[:, None].astype(np.float32)
+
+    def execute_function(self, my_ary, **kw):
+        pass  # deterministic windows (coverage is the assertion)
+
+
+class TokenProducer:
+    """int32 token rows for the ppdp leg, from a per-(instance, producer)
+    seed."""
+
+    def __init__(self, instance_idx: int, pkg: str = "torch"):
+        self.instance_idx = instance_idx
+        self.pkg = pkg
+
+    def on_init(self, producer_idx=0, **kw):
+        self._rng = np.random.default_rng(100 * self.instance_idx + producer_idx)
+        return _init_return(self.pkg)(
+            nData=N_DATA, nValues=SP_SEQ, shape=(N_DATA, SP_SEQ),
+            splits=(SP_SEQ,), dtype=np.int32,
+        )
+
+    def post_init(self, my_ary, **kw):
+        my_ary[:] = self._rng.integers(0, 64, my_ary.shape)
+
+    def execute_function(self, my_ary, **kw):
+        my_ary[:] = self._rng.integers(0, 64, my_ary.shape)
+
+
+def linear_loss(p, b):
+    """The core leg's model: ``w`` learns the (scaled) tag.  A mean over
+    rows, so the mean of the processes' losses over their equal row
+    blocks is the loss over the global batch (what a MULTIHOST step
+    reports and differentiates)."""
+    return ((((b[0] * 1e-3) @ p["w"]) - b[1][:, 0] * 1e-3) ** 2).mean()
+
+
+def pp_cfg():
+    import torch
+
+    from ddl_tpu_torch.models import llama
+
+    return llama.LlamaConfig(vocab=64, d_model=32, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=64, max_seq=SP_SEQ,
+                             dtype=torch.float32)
+
+
+def pp_params():
+    """The ppdp leg's weights in the stage layout, the same in every
+    process (a seeded CPU generator)."""
+    from ddl_tpu_torch.models import llama
+
+    return llama.stage_params(llama.init_params(pp_cfg(), seed=0, device="cpu"), 2)
+
+
+def pp_loss(mesh):
+    from ddl_tpu_torch.models import llama
+
+    cfg = pp_cfg()
+    return lambda p, b: llama.next_token_loss_pp(p, b[0], cfg, mesh,
+                                                 n_microbatches=2)
+
+
+def main(rank: int, port: int) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.ingest import make_global_array
+    from ddl_tpu_torch.parallel.collectives import (
+        DeviceGlobalShuffler,
+        process_allgather,
+    )
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+    from ddl_tpu_torch.parallel.train import make_train_step
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=N_PROCESSES, rank=rank)
+    out_dir = os.environ.get("DDL_TORCH_MH_OUT")
+    positions = ["cpu"] * DEVICES_PER_PROCESS
+    total = N_PROCESSES * DEVICES_PER_PROCESS
+
+    def record(name, **arrays):
+        if out_dir:
+            np.savez(os.path.join(out_dir, f"{name}_{rank}.npz"), **arrays)
+
+    def sgd(lr):
+        return lambda params: torch.optim.SGD(params, lr=lr)
+
+    @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                            pin_memory=False)
+    def run_core(env):
+        assert env.topology.n_instances == N_PROCESSES
+        assert env.topology.instance_idx == rank
+        mesh = make_mesh({"dp": total}, positions)
+        assert mesh.spans_processes and mesh.size == total
+        batch_sh = NamedSharding(mesh, P("dp"))
+        loader = DistributedDataLoader(
+            TaggedProducer(rank), batch_size=BATCH, connection=env.connection,
+            n_epochs=2, output="numpy", device="cpu")
+        init_fn, step_fn = make_train_step(
+            linear_loss, sgd(LR), mesh=mesh, param_specs={"w": P(None)},
+            batch_spec=P(("dp",)))
+        state = init_fn({"w": np.zeros((N_VALUES - 1,), np.float32)})
+        xs, ys, losses, seen = [], [], [], set()
+        for _epoch in range(2):
+            for x, y in loader:
+                xs.append(np.array(x, copy=True))
+                ys.append(np.array(y, copy=True))
+                gx = make_global_array(x, batch_sh)
+                gy = make_global_array(y, batch_sh)
+                assert gx.shape == (N_PROCESSES * BATCH, N_VALUES - 1)
+                state, loss = step_fn(state, (gx, gy))
+                losses.append(float(loss))
+                seen.update(int(t) for t in process_allgather(gy).reshape(-1))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        assert {t // 1000 for t in seen} == set(range(N_PROCESSES)), seen
+        assert len({(t // 1000, (t % 1000) // 100) for t in seen}) == (
+            N_PROCESSES * N_PRODUCERS)
+        # The cross-process shuffle: lanes move between instance shards,
+        # the multiset of rows is kept.
+        rows = 4 * total
+        window = make_global_array(
+            (1000.0 * rank + np.arange(rows // N_PROCESSES, dtype=np.float32)
+             )[:, None] * np.ones((1, 4), np.float32),
+            NamedSharding(mesh, P("dp")))
+        shuffler = DeviceGlobalShuffler(mesh, num_exchange=2, seed=3)
+        before = process_allgather(window).numpy()
+        after = process_allgather(shuffler.shuffle(window)).numpy()
+        assert sorted(before[:, 0].tolist()) == sorted(after[:, 0].tolist())
+        assert not np.array_equal(before, after)
+        rings = [str(r.ring_ref) for r in env.connection.replies]
+        record("core", x=np.stack(xs), y=np.stack(ys), losses=np.array(losses),
+               w=state.params["w"].detach().numpy(), before=before, after=after,
+               rings=np.array(rings))
+
+    if "core" in LEGS:
+        run_core()
+
+    @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                            pin_memory=False)
+    def run_stream(env):
+        mesh = make_mesh({"dp": total}, positions)
+        loader = DistributedDataLoader(
+            TaggedProducer(rank), batch_size=BATCH, connection=env.connection,
+            n_epochs=2, output="device", device="cpu",
+            sharding=NamedSharding(mesh, P(None, "dp")))
+        tags, local = set(), []
+        for win in loader.windows():
+            assert win.shape == (N_DATA // BATCH, N_PROCESSES * BATCH, N_VALUES)
+            local.append(win.assemble_local().numpy().copy())
+            tags.update(int(t) for t in process_allgather(win)[..., -1].reshape(-1))
+            loader.mark(Marker.END_OF_EPOCH)
+        assert {t // 1000 for t in tags} == set(range(N_PROCESSES)), tags
+        record("stream", windows=np.stack(local))
+
+    if "stream" in LEGS:
+        run_stream()
+
+    @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                            pin_memory=False)
+    def run_ppdp(env):
+        # dp OUTER (spans processes), pp inner (each process's pair).
+        mesh = make_mesh({"dp": total // 2, "pp": 2}, positions)
+        from ddl_tpu_torch.models import llama
+
+        init_fn, step_fn = make_train_step(
+            pp_loss(mesh), sgd(1e-2), mesh=mesh,
+            param_specs=llama.pp_param_specs(pp_cfg()), batch_spec=P(("dp",)))
+        state = init_fn(pp_params())
+        loader = DistributedDataLoader(
+            TokenProducer(rank), batch_size=BATCH, connection=env.connection,
+            n_epochs=2, output="numpy", device="cpu")
+        toks, losses = [], []
+        for _epoch in range(2):
+            for (tok,) in loader:
+                toks.append(np.array(tok, copy=True))
+                gtok = make_global_array(tok, NamedSharding(mesh, P(("dp",))))
+                assert gtok.shape == (N_PROCESSES * BATCH, SP_SEQ)
+                state, loss = step_fn(state, (gtok,))
+                losses.append(float(loss))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        assert losses and all(np.isfinite(v) for v in losses)
+        record("ppdp", tokens=np.stack(toks), losses=np.array(losses))
+
+    if "ppdp" in LEGS:
+        run_ppdp()
+
+    if "dpsp" in LEGS:
+        # Trainer.fit in MULTIHOST mode: the ring over each process's sp
+        # pair, dp across the processes, each local window recorded.
+        from ddl_tpu_torch.config import LoaderConfig
+        from ddl_tpu_torch.models import llama
+        from ddl_tpu_torch.observability import Metrics
+        from ddl_tpu_torch.parallel.train import adamw
+        from ddl_tpu_torch.readers import TokenStreamProducer
+        from ddl_tpu_torch.trainer import Trainer
+
+        mesh = make_mesh({"dp": total // 2, "sp": 2}, positions)
+        cfg = pp_cfg()
+        seen = []
+
+        def hook(win):
+            seen.append(win.numpy().copy())
+            return win
+
+        tokens = os.environ.get("DDL_TORCH_MH_TOKENS")
+        if not tokens:  # the same seeded corpus in every process
+            import tempfile
+
+            tokens = os.path.join(tempfile.mkdtemp(), "tokens.bin")
+            np.random.default_rng(5).integers(0, 64, 20_000,
+                                              dtype=np.int32).tofile(tokens)
+        trainer = Trainer(
+            lambda p, b: llama.next_token_loss(p, b[0], cfg, mesh=mesh),
+            adamw(1e-3), llama.init_params(cfg, seed=0, device="cpu"),
+            device="cpu", metrics=Metrics(), mesh=mesh,
+            param_specs=llama.param_specs(cfg), batch_spec=P(("dp",), "sp"))
+        res = trainer.fit(
+            TokenStreamProducer(tokens, SP_SEQ, 8),
+            config=LoaderConfig(batch_size=4, n_epochs=2, n_producers=2,
+                                mode="multihost", window_stream=True),
+            window_hook=hook)
+        assert all(np.isfinite(v) for v in res.losses)
+        record("dpsp", windows=np.stack(seen), losses=np.array(res.losses))
+
+    if "ckpt" in LEGS:
+        ckpt_dir = os.environ["DDL_TORCH_MH_DIR"]
+        from ddl_tpu_torch.checkpoint import (
+            LoaderCheckpoint,
+            restore_train_state,
+            save_train_state,
+        )
+        from ddl_tpu_torch.resilience import AsyncCheckpointer, restore_latest
+
+        from ddl_tpu_torch.parallel.train import adamw
+
+        def step_factory(mesh):
+            # AdamW: the async generations carry optax's Adam layout.
+            return make_train_step(linear_loss, adamw(LR), mesh=mesh,
+                                   param_specs={"w": P(None)},
+                                   batch_spec=P(("dp",)))
+
+        @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                                pin_memory=False)
+        def run_ckpt_first(env):
+            mesh = make_mesh({"dp": total}, positions)
+            init_fn, step_fn = step_factory(mesh)
+            state = init_fn({"w": np.zeros((N_VALUES - 1,), np.float32)})
+            loader = DistributedDataLoader(
+                TaggedProducer(rank), batch_size=BATCH,
+                connection=env.connection, n_epochs=4, output="numpy",
+                device="cpu")
+            batch_sh = NamedSharding(mesh, P("dp"))
+            for _epoch in range(2):
+                for x, y in loader:
+                    state, _ = step_fn(state, (make_global_array(x, batch_sh),
+                                               make_global_array(y, batch_sh)))
+                    loader.mark(Marker.END_OF_BATCH)
+                loader.mark(Marker.END_OF_EPOCH)
+            # Rank 0 writes the replicated state, every rank waits; the
+            # loader clock is per process.
+            save_train_state(state, ckpt_dir)
+            LoaderCheckpoint.capture(loader).save(
+                os.path.join(ckpt_dir, f"loader_{rank}.json"))
+            gens = AsyncCheckpointer(os.path.join(ckpt_dir, "gens"))
+            gens.submit(state)
+            gens.close()
+            return state.step, loader._target, state.params["w"].detach().clone()
+
+        step_before, target_before, w_before = run_ckpt_first()
+
+        @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                                pin_memory=False)
+        def run_ckpt_resume(env):
+            mesh = make_mesh({"dp": total}, positions)
+            init_fn, step_fn = step_factory(mesh)
+            fresh = init_fn({"w": np.zeros((N_VALUES - 1,), np.float32)})
+            state = restore_train_state(ckpt_dir, fresh)
+            assert state.step == step_before, (state.step, step_before)
+            assert torch.equal(state.params["w"].detach(), w_before)
+            gen = restore_latest(os.path.join(ckpt_dir, "gens"),
+                                 init_fn({"w": np.zeros((N_VALUES - 1,),
+                                                        np.float32)}))
+            assert gen is not None and gen.state.step == step_before
+            assert torch.equal(gen.state.params["w"].detach(), w_before)
+            ck = LoaderCheckpoint.load(
+                os.path.join(ckpt_dir, f"loader_{rank}.json"))
+            loader = DistributedDataLoader(
+                TaggedProducer(rank), batch_size=BATCH,
+                connection=env.connection, n_epochs=4, output="numpy",
+                device="cpu")
+            loader.fast_forward(ck.epoch)
+            ck.apply(loader)
+            assert loader._target == target_before
+            assert loader._epoch == 2
+            batch_sh = NamedSharding(mesh, P("dp"))
+            losses = []
+            for _epoch in range(2):
+                for x, y in loader:
+                    state, loss = step_fn(state, (make_global_array(x, batch_sh),
+                                                  make_global_array(y, batch_sh)))
+                    losses.append(float(loss))
+                    loader.mark(Marker.END_OF_BATCH)
+                loader.mark(Marker.END_OF_EPOCH)
+            assert losses and all(np.isfinite(v) for v in losses)
+            assert state.step == step_before + len(losses)
+            record("ckpt", losses=np.array(losses))
+
+        run_ckpt_resume()
+
+    dist.destroy_process_group()
+    print(f"MULTIHOST OK process={rank}", flush=True)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]))
