@@ -212,15 +212,47 @@ process, the dp step across processes, ``DeviceGlobalShuffler`` lanes
 across processes keeping the rows and moving some), ``stream``
 (``windows()`` over a process-spanning sharding), ``dpsp`` and ``ppdp``
 (full-width fits over ``{"dp": 2, "sp": 2}`` and ``{"dp": 2, "pp": 2}``,
-2 layers, global B = 4), ``packed`` (K4-K6 at a small width), ``ckpt``
-(rank 0 writes, every rank restores and fast-forwards); the dpsp and ppdp
-losses against the port's one-process run over the same global mesh and
-batches within ``MH_LOSS_TOL``, with the gloo all-reduce's ms and bytes
-a step and each process's peak.  (c) ``shuffle_impl="xla"`` beside
+2 layers, global B = 4), ``packed`` (K4-K6 at a small width; the two
+processes' mask counts must differ in some step), ``evaluate``
+(``Trainer.evaluate`` over a process-spanning mesh on the token stream,
+K1, and on the documents, K4: both processes return one value), ``ckpt``
+(rank 0 writes, every rank restores and fast-forwards); the dpsp, ppdp
+and packed losses, and both evaluate values, against the port's
+one-process runs over the same global mesh and batches within
+``MH_LOSS_TOL``, with the gloo all-reduce's ms and bytes a step and each
+process's peak.  (c) ``shuffle_impl="xla"`` beside
 ``"ring"`` at phase 4's geometry: byte-identical streams, K9 on the ring
 route only, one round's ms each.  Run alone: ``python3 -c "import sys,
 tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
 c.phase_build(); print(c.phase_pipeline(tempfile.mkdtemp(), card))"``.
+
+Phase 13 is observability (``ddl_tpu_torch.obs``, ``profiling``).  (a)
+Phase 6's token cell again, disarmed and with span tracing and the
+flight recorder armed (exported: the PROCESS producers arm themselves at
+import), in turns: THREAD disarmed, armed, armed, disarmed, then PROCESS
+armed, disarmed.  Gates: every fit's losses and K1-K3 launches bit-equal
+to phase 6's fit of its mode; every served window's ``producer.fill``,
+``producer.commit``, ``consumer.acquire``, ``ingest.transfer``,
+``trainer.consume`` and ``consumer.release`` events, keyed on its
+trailer identity; in PROCESS mode the producers' lanes arrive through
+ObsReports, the merger adopts ``producer.<idx>.*`` and the Chrome trace
+has one flow per served window; ``north_star_report``'s window latency
+p99 >= p50 > 0; no dump in a clean fit.  It prints ms/step armed and
+disarmed (wall and steady), the ratios of their means, the disarmed
+fits' spread, events a window and each ObsReport's pickled bytes.  (b) One
+armed window inside ``profiling.trace``: the Chrome trace holds the
+``ddl.window_wait`` and ``ddl.ingest_put_window`` ranges and K1-K3, K1's
+events as many as its counter's launches; phase 5's geometry drained
+onto ``{"dp": 4}`` (``distribute="ici"``) under armed spans: one
+``ici.fanout`` span and one K8 launch a window.  (c) Phase 6's token
+stream drained onto cuda:0 with spans and the recorder armed and producer 1's
+second commit corrupted: exactly one dump names the quarantined window,
+``python -m ddl_tpu_torch.obs dump`` prints it (exit code 0), and the
+stream equals the undisturbed drain's.  Run alone (after phase 6, whose
+fits it compares with): ``python3 -c "import sys, tempfile; sys.path.
+insert(0, '.'); import chip_smoke as c; card = c.phase_build(); tmp =
+tempfile.mkdtemp(); s = c.phase_train(tmp, card)[1];
+print(c.phase_obs(tmp, card, s))"``.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
@@ -1900,13 +1932,16 @@ def _shm_free_bytes() -> int:
 
 
 def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
-              **loader_kw):
+              around=None, keep_metrics=False, **loader_kw):
     """One training path in one producer mode at full width: a fresh
     ``Trainer`` from ``init_params(seed=0)``, a one-window warm-up fit
     (cuBLAS handles, allocator pools, the producers' first spawn), then
     the measured fit with the flash launch counts set to 0 just before it
     and read just after; ``loader_kw`` are further ``LoaderConfig`` fields
-    of both fits.  Everything it allocated is dropped on return."""
+    of both fits.  ``around`` (a context-manager factory) wraps the
+    measured fit only (phase 13 arms the observability there);
+    ``keep_metrics`` returns its registry as ``summary["metrics"]``.
+    Everything else it allocated is dropped on return."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
@@ -1938,11 +1973,12 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.metrics = m = Metrics()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = run(tr["n_epochs"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with (around() if around is not None else contextlib.nullcontext()):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run(tr["n_epochs"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
     sm90 = {fn.__name__: fn.sm90_launches for fn in fa.KERNELS}
     steps_per_window = tr["window_rows"] // tr["batch_size"]
@@ -1993,6 +2029,8 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
         f"trainer.window_wait {summary['window_wait_s'] * 1e3:.2f} ms; "
         f"/dev/shm free {_shm_free_bytes()} bytes ({card})")
     log(f"{tag} {mode}: counters {json.dumps(summary['counters'])}")
+    if keep_metrics:
+        summary["metrics"] = m
     del result
     if profile:
         profile_run(lambda: run(tr["n_epochs"]), f"{tag} {mode} fit")
@@ -5067,6 +5105,73 @@ def _mh_fit(tag, cfg, loss_of, params_of, producer, mesh, spec, out, rank,
     return s
 
 
+def _eval_metrics(small):
+    """The evaluate leg's metrics: the token stream's next-token loss
+    (K1) and the packed documents' segment-masked loss (K4, whose mask
+    counts differ between the processes)."""
+    from ddl_tpu_torch.models import llama
+
+    return {
+        "tokens": lambda p, b: llama.next_token_loss(p, b[0], small),
+        "packed": lambda p, b: llama.next_token_loss(p, b[0], small,
+                                                     segment_ids=b[1]),
+    }
+
+
+def _mh_evaluate(small, out, rank):
+    """The evaluate leg of a child: ``Trainer.evaluate(window_stream=
+    True)`` over a mesh whose dp spans the processes, on the token stream
+    and on the packed documents; each batch it saw is saved for the
+    parent's one-process value."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
+    from ddl_tpu_torch.trainer import Trainer
+
+    c, tr = PIPE, TRAIN
+    metrics = _eval_metrics(small)
+    trainer = Trainer(metrics["tokens"], adamw(1e-5),
+                      llama.init_params(small, seed=SEED, device="cuda"),
+                      device="cuda", metrics=Metrics(),
+                      mesh=make_mesh({"dp": 2}, ["cuda:0"]),
+                      param_specs=llama.param_specs(small),
+                      batch_spec=P(("dp",)))
+    state = trainer._init_fn(trainer._init_params)
+    producers = {
+        "tokens": TokenStreamProducer(os.path.join(out, "tokens.bin"),
+                                      tr["seq_len"], c["mh_rows"], seed=SEED),
+        "packed": PackedTokenProducer(os.path.join(out, "docs.bin"),
+                                      tr["seq_len"], c["mh_rows"],
+                                      delimiter=EOT, seed=SEED),
+    }
+    res = {}
+    for name, producer in producers.items():
+        seen = []
+
+        def metric(p, b, fn=metrics[name]):
+            seen.append(torch.cat(b, -1).cpu().numpy().copy())
+            return fn(p, b)
+
+        fa.reset_launch_counts()
+        value = trainer.evaluate(producer, state, metric,
+                                 batch_size=c["mh_batch"], n_producers=2,
+                                 mode="multihost", window_stream=True,
+                                 n_epochs=c["mh_epochs"])
+        np.save(os.path.join(out, f"eval_{name}_{rank}.npy"), np.stack(seen))
+        res[name] = {"value": value, "batches": len(seen),
+                     "launches": {fn.__name__: fn.launches
+                                  for fn in fa.KERNELS}}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res
+
+
 def _card_of(out):
     """The card's name and power limit, as the parent wrote them."""
     with open(os.path.join(out, "card.txt")) as f:
@@ -5189,6 +5294,8 @@ def multihost_child(rank, port, out):
                             c["mh_rows"], delimiter=EOT, seed=SEED),
         make_mesh({"dp": 2}, ["cuda:0"]), P(("dp",)), out, rank,
         c["mh_epochs"], c["mh_rows"], c["mh_batch"], llama.param_specs(small))
+    report["evaluate"] = _mh_evaluate(small, out, rank)
+    log(f"[mh {rank}] evaluate: {report['evaluate']} ({_card_of(out)})")
 
     # ckpt: rank 0 writes, every rank restores and fast-forwards.
     from ddl_tpu_torch.checkpoint import (
@@ -5257,11 +5364,13 @@ def multihost_child(rank, port, out):
     log(f"MULTIHOST OK process={rank}")
 
 
-def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows):
+def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows,
+                           split=None):
     """The port's one-process run over the same global mesh and batches:
     a multistep a window over the two processes' local windows joined
     along the batch dim (rank 0's rows first, as the global array holds
-    them)."""
+    them).  ``split`` cuts each window's last dim into its columns (the
+    packed windows' tokens and segment ids)."""
     import numpy as np
     import torch
 
@@ -5273,10 +5382,20 @@ def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows):
     state = init_fn(params)
     losses = []
     for w in windows:
-        state, ls = multi(state, (torch.from_numpy(w).cuda(),), per_step=True)
+        w = torch.from_numpy(w).cuda()
+        cols = (w,) if split is None else (w[..., :split], w[..., split:])
+        state, ls = multi(state, cols, per_step=True)
         losses.append(float(ls.mean()))
     del state
     return losses
+
+
+def _packed_counts(windows, seq_len):
+    """Per window and step, the positions the packed loss keeps in a
+    process's rows: every row's first T - 1 positions whose next token is
+    in the same document."""
+    seg = windows[..., seq_len:]
+    return (seg[..., :-1] == seg[..., 1:]).sum(axis=(-2, -1))
 
 
 def multihost_run(tmpdir, card):
@@ -5346,25 +5465,41 @@ def multihost_run(tmpdir, card):
             faults.append(f"{leg}: the processes report different losses")
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=c["mh_layers"])
+    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
+    T = TRAIN["seq_len"]
+    # C4: the packed leg's processes keep different token counts.
+    counts = [_packed_counts(np.load(os.path.join(out, f"packed_{i}.npy")), T)
+              for i in range(2)]
+    differ = int((counts[0] != counts[1]).sum())
+    log(f"[mh] packed: kept positions per window and step, process 0 "
+        f"{counts[0].tolist()}, process 1 {counts[1].tolist()}: they differ "
+        f"in {differ} of {counts[0].size} steps")
+    if not differ:
+        faults.append("packed: the processes' mask counts never differ")
     gaps = {}
-    for leg, axes, spec, specs, loss, params in (
-        ("dpsp", {"dp": 2, "sp": 2}, P(("dp",), "sp"), llama.param_specs(cfg),
+    for leg, model, axes, spec, specs, loss, params, split in (
+        ("dpsp", cfg, {"dp": 2, "sp": 2}, P(("dp",), "sp"),
+         llama.param_specs(cfg),
          lambda mesh: (lambda p, b: llama.next_token_loss(p, b[0], cfg,
                                                           mesh=mesh)),
-         lambda: llama.init_params(cfg, seed=SEED, device="cpu")),
-        ("ppdp", {"dp": 2, "pp": 2}, P(("dp",)), llama.pp_param_specs(cfg),
+         lambda: llama.init_params(cfg, seed=SEED, device="cpu"), None),
+        ("ppdp", cfg, {"dp": 2, "pp": 2}, P(("dp",)), llama.pp_param_specs(cfg),
          # Microbatches of one row, as each process's 2 rows in 2.
          lambda mesh: (lambda p, b: llama.next_token_loss_pp(p, b[0], cfg,
                                                              mesh, 4)),
          lambda: llama.stage_params(
-             llama.init_params(cfg, seed=SEED, device="cpu"), 2)),
+             llama.init_params(cfg, seed=SEED, device="cpu"), 2), None),
+        ("packed", small, {"dp": 2}, P(("dp",)), llama.param_specs(small),
+         lambda mesh: (lambda p, b: llama.next_token_loss(
+             p, b[0], small, mesh=mesh, segment_ids=b[1])),
+         lambda: llama.init_params(small, seed=SEED, device="cuda"), T),
     ):
         wins = np.concatenate([np.load(os.path.join(out, f"{leg}_{i}.npy"))
                                for i in range(2)], axis=2)
-        mesh = make_mesh(axes, ["cuda:0"] * 4)
+        mesh = make_mesh(axes, ["cuda:0"] * int(math.prod(axes.values())))
         fa.reset_launch_counts()
-        ref = _one_process_reference(cfg, loss(mesh), params(), specs, spec,
-                                     mesh, wins)
+        ref = _one_process_reference(model, loss(mesh), params(), specs, spec,
+                                     mesh, wins, split)
         free_device_memory()
         got = reports[0][leg]["losses"]
         gaps[leg] = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
@@ -5373,6 +5508,41 @@ def multihost_run(tmpdir, card):
             f"({card})")
         if not gaps[leg] <= MH_LOSS_TOL:
             faults.append(f"{leg} gap {gaps[leg]}")
+    # C5: evaluate returns one value on every process, the one-process
+    # value over the global batches.
+    import torch
+
+    params = llama.init_params(small, seed=SEED, device="cuda")
+    for name, metric in _eval_metrics(small).items():
+        vals = [r["evaluate"][name]["value"] for r in reports]
+        joined = np.concatenate([np.load(os.path.join(out, f"eval_{name}_{i}.npy"))
+                                 for i in range(2)], axis=1)
+        with torch.no_grad():
+            per_batch = []
+            for rows in joined:
+                t = torch.from_numpy(rows).cuda()
+                cols = (t,) if name == "tokens" else (t[:, :T], t[:, T:])
+                per_batch.append(float(metric(params, cols)))
+        want = float(np.mean(per_batch))
+        gaps[f"evaluate_{name}"] = gap = abs(vals[0] - want) / abs(want)
+        log(f"[mh] evaluate ({name}): process values {vals}, one-process "
+            f"value over the {len(per_batch)} global batches {want}: relative "
+            f"gap {gap:.3e} (tolerance {MH_LOSS_TOL}) ({card})")
+        if not (vals[0] == vals[1] and gap <= MH_LOSS_TOL):
+            faults.append(f"evaluate {name}: {vals} vs {want}")
+        # Each process: one forward call a layer and batch, K1 on the
+        # token stream, K4 on the documents, no backward.
+        ran = "flash_fwd" if name == "tokens" else "flash_fwd_seg"
+        for r in reports:
+            ev = r["evaluate"][name]
+            want_l = {fn.__name__: (ev["batches"] * small.n_layers
+                                    if fn.__name__ == ran else 0)
+                      for fn in fa.KERNELS}
+            if ev["launches"] != want_l:
+                faults.append(f"evaluate {name} launches {ev['launches']} "
+                              f"(want {want_l})")
+    del params
+    free_device_memory()
     launches = {}
     for leg in ("dpsp", "ppdp", "packed"):
         for name, (n, _) in reports[0][leg]["launches"].items():
@@ -5461,6 +5631,379 @@ def phase_pipeline(tmpdir, card):
                                         "xla": xla}
 
 
+# ------------------------------------------------------------ phase 13 ---
+
+#: Phase 13, observability: the ICI lane's windows (phase 5's geometry)
+#: and the flight recorder's drain (phase 6's token stream).
+OBS = dict(ici_epochs=3, fault_epochs=4)
+#: The stage events every served window of a fit must have.
+OBS_LIFECYCLE = ("producer.fill", "producer.commit", "consumer.acquire",
+                 "ingest.transfer", "trainer.consume", "consumer.release")
+
+
+def _obs_armed(slog, directory):
+    """A factory of the armed context: ``slog`` and a flight recorder
+    dumping into ``directory``, both exported, so PROCESS producers
+    spawned inside arm their own at import."""
+    from ddl_tpu_torch.obs import recorder, spans
+
+    @contextlib.contextmanager
+    def arm():
+        with spans.tracing(slog, export=True), recorder.armed(
+                directory=directory, export=True):
+            yield
+
+    return arm
+
+
+def _served_windows(events):
+    """The stages seen per window, for the windows the consumer served
+    (their ``consumer.yield`` instants)."""
+    stages = {}
+    for e in events:
+        if e[3] is not None:
+            stages.setdefault((e[3], e[4]), set()).add(e[2])
+    return {k: v for k, v in stages.items() if "consumer.yield" in v}
+
+
+def obs_fits(tmpdir, card, phase6):
+    """(a) Phase 6's token cell (same seed-0 weights, 3 windows of 2
+    steps) disarmed and with span tracing and the flight recorder armed
+    (exported: PROCESS producers arm themselves at import), in turns:
+    THREAD disarmed, armed, armed, disarmed, then PROCESS armed,
+    disarmed.  Gates: every fit's losses and K1-K3 launches bit-equal to
+    phase 6's fit of its mode; every served window's stage events keyed
+    on its trailer identity; in PROCESS mode the producers' lanes arrive
+    through ObsReports, the merger adopts ``producer.<idx>.*`` and the
+    Chrome trace has one flow per served window; ``north_star_report``'s
+    window latency p99 >= p50 > 0; no flight dump in a clean fit.
+    Reports ms/step armed and disarmed (wall and steady, each pair's
+    spread), their ratios, events a window and the ObsReports' pickled
+    bytes."""
+    import pickle
+
+    from ddl_tpu_torch.ingest import north_star_report
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.obs import ReportMerger, SpanLog, chrome_trace
+    from ddl_tpu_torch.readers import TokenStreamProducer
+
+    tr = TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    producer = TokenStreamProducer(_token_file(tmpdir), tr["seq_len"],
+                                   tr["window_rows"], seed=SEED)
+
+    def loss_fn(p, b):
+        return llama.next_token_loss(p, b[0], cfg)
+
+    faults, runs, sizes = [], [], []
+    apply = ReportMerger.apply
+
+    def measured_apply(self, report):
+        sizes.append(len(pickle.dumps(report)))
+        return apply(self, report)
+
+    order = [("thread", False), ("thread", True), ("thread", True),
+             ("thread", False), ("process", True), ("process", False)]
+    for k, (mode, armed) in enumerate(order):
+        tag = f"[obs] {'armed' if armed else 'disarmed'}"
+        if not armed:
+            s = _fit_mode(mode, producer, loss_fn, cfg, tag, card)
+        else:
+            slog = SpanLog()
+            flight_dir = os.path.join(tmpdir, f"flight-{k}")
+            ReportMerger.apply = measured_apply
+            try:
+                s = _fit_mode(mode, producer, loss_fn, cfg, tag, card,
+                              around=_obs_armed(slog, flight_dir),
+                              keep_metrics=True)
+            finally:
+                ReportMerger.apply = apply
+        s["armed"] = armed
+        runs.append(s)
+        ref = phase6[mode]
+        if not (s["losses"] == ref["losses"]
+                and s["launches"] == ref["launches"]
+                and s["sm90_launches"] == ref["sm90_launches"]):
+            faults.append(f"{mode} {tag}: losses {s['losses']} launches "
+                          f"{s['launches']} vs phase 6's {ref['losses']} "
+                          f"{ref['launches']}")
+        if not armed:
+            continue
+        m = s.pop("metrics")
+        events = slog.events()
+        served = _served_windows(events)
+        missing = {k: sorted(set(OBS_LIFECYCLE) - v)
+                   for k, v in served.items() if not set(OBS_LIFECYCLE) <= v}
+        if len(served) != tr["n_epochs"] or missing:
+            faults.append(f"{mode}: served windows {sorted(served)}, "
+                          f"missing stages {missing}")
+        report = north_star_report(m)
+        p50, p99 = report["window_latency_p50"], report["window_latency_p99"]
+        if not p99 >= p50 > 0:
+            faults.append(f"{mode}: window latency p50 {p50} p99 {p99}")
+        flows = [e for e in chrome_trace(events)["traceEvents"]
+                 if e["ph"] == "s"]
+        pids = {e[5] for e in events}
+        producer_pids = {e[5] for e in events
+                         if e[2] in ("producer.fill", "producer.commit")}
+        s.update(events=len(events), served=len(served),
+                 events_per_window=len(events) / max(1, len(served)),
+                 flows=len(flows), pids=len(pids),
+                 window_latency_p50=p50, window_latency_p99=p99,
+                 reports_applied=m.counter("obs.reports_applied"),
+                 adopted=m.adopted_prefixes(),
+                 dumps=len(os.listdir(flight_dir))
+                 if os.path.isdir(flight_dir) else 0)
+        if mode == "process":
+            if not (os.getpid() not in producer_pids and len(pids) >= 3
+                    and s["adopted"] == ["producer.0.", "producer.1."]
+                    and s["reports_applied"] >= 2
+                    and len(flows) == len(served)):
+                faults.append(f"process: pids {len(pids)}, producer lanes "
+                              f"local {os.getpid() in producer_pids}, adopted "
+                              f"{s['adopted']}, reports "
+                              f"{s['reports_applied']}, flows {len(flows)}")
+        elif producer_pids != {os.getpid()} or flows:
+            faults.append(f"thread: producer pids {producer_pids}, flows "
+                          f"{len(flows)}")
+        if s["dumps"]:
+            faults.append(f"{mode}: {s['dumps']} flight dumps in a clean fit")
+        stages = {}
+        for e in events:
+            if e[1] is not None:
+                stages[e[2]] = stages.get(e[2], 0.0) + (e[1] - e[0])
+        log(f"[obs] {mode} armed: {len(events)} events over {len(served)} "
+            f"served windows ({s['events_per_window']:.1f} a window), "
+            f"{len(pids)} pids, {len(flows)} flows, reports applied "
+            f"{s['reports_applied']:.0f}, adopted {s['adopted']}; window "
+            f"latency p50 {p50 * 1e3:.3f} ms p99 {p99 * 1e3:.3f} ms; span "
+            f"seconds by stage {json.dumps(stages)} ({card})")
+    ratios = {}
+    for mode in ("thread", "process"):
+        arm = [r for r in runs if r["mode"] == mode and r["armed"]]
+        dis = [r for r in runs if r["mode"] == mode and not r["armed"]]
+        for key in ("step_ms", "steady_step_ms"):
+            a = [r[key] for r in arm]
+            d = [r[key] for r in dis]
+            ratios[f"{mode}_{key}"] = ratio = (sum(a) / len(a)) / (sum(d) / len(d))
+            log(f"[obs] {mode} {key.replace('_', ' ')}: armed {a}, disarmed "
+                f"{d}: ratio of the means {ratio:.4f}; spread of the "
+                f"disarmed {max(d) - min(d):.2f} ms ({card})")
+    log(f"[obs] ObsReport pickled bytes {sizes} (the warm-up fits' reports "
+        f"carry no spans) ({card})")
+    if faults:
+        raise PhaseFailed("[obs] fits failed their checks: "
+                          + "; ".join(faults))
+    keep = ("mode", "armed", "losses", "step_ms", "steady_step_ms",
+            "first_window_s", "teardown_s", "events", "served",
+            "events_per_window", "flows", "pids", "window_latency_p50",
+            "window_latency_p99", "reports_applied", "adopted")
+    return {"runs": [{k: r[k] for k in keep if k in r} for r in runs],
+            "ratios": ratios, "report_bytes": sizes}
+
+
+def obs_profile_and_ici(tmpdir, card):
+    """(b) One armed window of the token cell inside ``profiling.trace``:
+    the exported Chrome trace holds the ``ddl.window_wait`` and
+    ``ddl.ingest_put_window`` ranges and the K1-K3 kernels, K1's events as
+    many as its counter's launches.  Then phase 5's geometry drained onto
+    ``{"dp": 4}`` with ``distribute="ici"`` under armed spans: one
+    ``ici.fanout`` span and one K8 launch a window."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch import profiling
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.obs import SpanLog, spans
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import ArrayProducer, TokenStreamProducer
+    from ddl_tpu_torch.trainer import Trainer
+
+    tr, faults = TRAIN, []
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    producer = TokenStreamProducer(_token_file(tmpdir), tr["seq_len"],
+                                   tr["window_rows"], seed=SEED)
+    trainer = Trainer(lambda p, b: llama.next_token_loss(p, b[0], cfg),
+                      adamw(1e-5),
+                      llama.init_params(cfg, seed=SEED, device="cuda"),
+                      device="cuda", metrics=Metrics())
+
+    def fit():
+        return trainer.fit(producer, config=LoaderConfig(
+            batch_size=tr["batch_size"], n_epochs=1,
+            n_producers=tr["n_producers"], mode="thread", window_stream=True))
+
+    fit()  # warm-up: cuBLAS handles and allocator pools stay out of it
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with spans.tracing(SpanLog()), profiling.trace(
+            os.path.join(tmpdir, "profile")) as prof:
+        fit()
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    counted = {fn.__name__: fn.sm90_launches for fn in fa.KERNELS}
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    in_trace = {
+        "flash_fwd": sum("flash_fwd_sm90_kernel" in n for n in kernels),
+        "flash_bwd_dq": sum("flash_bwd_dq_sm90_kernel" in n for n in kernels),
+        "flash_bwd_dkv": sum("flash_bwd_dkv_sm90_kernel" in n
+                             for n in kernels),
+    }
+    ranges = {r: names.count(r) for r in ("ddl.window_wait",
+                                          "ddl.ingest_put_window",
+                                          "ddl.window_acquire",
+                                          "ddl.staging_transfer")}
+    size = os.path.getsize(prof.trace_path)
+    log(f"[obs] profiling.trace of one armed window: {len(events)} trace "
+        f"events ({size} bytes, {traced_s:.2f} s with the export), "
+        f"{len(kernels)} kernels; K1-K3 events {in_trace} against the "
+        f"counters {counted}; host ranges {ranges} ({card})")
+    if not (ranges["ddl.window_wait"] and ranges["ddl.ingest_put_window"]
+            and all(in_trace[k] > 0 for k in in_trace)
+            and in_trace["flash_fwd"] == counted["flash_fwd"]):
+        faults.append(f"profile: ranges {ranges}, kernels {in_trace} vs "
+                      f"{counted}")
+    del trainer
+    free_device_memory()
+
+    g, n = ICI, OBS["ici_epochs"]
+    data = np.random.default_rng(SEED).standard_normal(
+        (g["n_rows"], g["cols"]), dtype=np.float32)
+    host, _, _ = _ici_drain(ArrayProducer(data, window_size=g["window"],
+                                          seed=SEED), g["batch_size"], n)
+    fan.reset_launch_counts()
+    slog = SpanLog()
+    with spans.tracing(slog):
+        checks, m, wall = _ici_drain(
+            ArrayProducer(data, window_size=g["window"], seed=SEED),
+            g["batch_size"], n, host, {"dp": 4}, (None, "dp"))
+        torch.cuda.synchronize()
+    fanout = [e for e in slog.events() if e[2] == "ici.fanout"]
+    keys = {(e[3], e[4]) for e in fanout}
+    served = _served_windows(slog.events())
+    k8 = fan.fanout_shard.launches
+    log(f"[obs] armed ICI drain, dp=4: {len(checks)} windows byte-equal "
+        f"{all(checks)}, ici.fanout spans {len(fanout)} over windows "
+        f"{sorted(keys)}, K8 launches {k8}, K7 {fan.fanout_replicate.launches}"
+        f", span seconds {sum(e[1] - e[0] for e in fanout):.6f} ({card})")
+    if not (all(checks) and len(checks) == n and len(fanout) == n
+            and keys == set(served) and k8 == n
+            and fan.fanout_replicate.launches == 0
+            and m.counter("ici.fallbacks") == 0):
+        faults.append(f"ici: checks {checks}, spans {len(fanout)} keys "
+                      f"{sorted(keys)} served {sorted(served)}, K8 {k8}")
+    if faults:
+        raise PhaseFailed("[obs] " + "; ".join(faults))
+    return {"trace_events": len(events), "trace_bytes": size,
+            "kernels_in_trace": in_trace, "counted": counted,
+            "ranges": ranges, "ici_spans": len(fanout), "ici_k8": k8}
+
+
+def obs_flight(tmpdir, card):
+    """(c) Phase 6's token stream drained onto cuda:0 (THREAD, 4 windows)
+    with spans and the flight recorder armed and producer 1's second commit
+    corrupted after its stamp (a ``FaultPlan``): exactly one dump names
+    the quarantined window, ``python -m ddl_tpu_torch.obs dump`` prints
+    it with exit code 0, and the served stream equals an undisturbed
+    drain's."""
+    import torch
+
+    import ddl_tpu_torch
+    from ddl_tpu_torch import faults as flt
+    from ddl_tpu_torch.obs import recorder, spans
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.readers import TokenStreamProducer
+
+    tr, n = TRAIN, OBS["fault_epochs"]
+
+    def drain(metrics):
+        @ddl_tpu_torch.distributed_dataloader(
+            n_producers=tr["n_producers"], mode="thread", nslots=2)
+        def run(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                TokenStreamProducer(_token_file(tmpdir), tr["seq_len"],
+                                    tr["window_rows"], seed=SEED),
+                batch_size=tr["batch_size"], connection=env.connection,
+                n_epochs=n, output="device", device="cuda", metrics=metrics,
+                timeout_s=120.0)
+            wins = []
+            for win in loader.windows():
+                wins.append(win.cpu())
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            return wins
+
+        return run()
+
+    clean = drain(Metrics())
+    directory = os.path.join(tmpdir, "flight-fault")
+    plan = flt.FaultPlan([flt.FaultSpec(
+        "producer.commit", flt.FaultKind.RING_CORRUPTION, at=2,
+        producer_idx=1, param=8)], seed=SEED)
+    m = Metrics()
+    with spans.tracing(), recorder.armed(directory=directory) as rec, \
+            flt.armed(plan):
+        got = drain(m)
+    dumps = []
+    for path in sorted(rec.dumped_paths):
+        with open(path) as f:
+            dumps.append((path, json.load(f)))
+    named = [(p, d) for p, d in dumps if d["window"]["seq"] is not None]
+    same = len(got) == len(clean) and all(torch.equal(a, b)
+                                          for a, b in zip(got, clean))
+    faults = []
+    if len(named) != 1 or named[0][1]["reason"] != "integrity.corrupt_window" \
+            or named[0][1]["window"] != {"producer_idx": 1, "seq": 1}:
+        faults.append(f"dumps {[(d['reason'], d['window']) for _, d in dumps]}")
+    if not (plan.fired and same and m.counter("integrity.replays") == 1):
+        faults.append(f"fired {plan.fired}, stream equal {same}, replays "
+                      f"{m.counter('integrity.replays')}")
+    out = None
+    if named:
+        path = named[0][0]
+        out = subprocess.run([sys.executable, "-m", "ddl_tpu_torch.obs",
+                              "dump", path], capture_output=True, text=True,
+                             cwd=ROOT, timeout=120)
+        log(f"[obs] flight dump {os.path.basename(path)} "
+            f"({os.path.getsize(path)} bytes, {len(named[0][1]['events'])} "
+            f"ring events); python -m ddl_tpu_torch.obs dump -> rc "
+            f"{out.returncode}:\n" + "\n".join(out.stdout.splitlines()[:12]))
+        if out.returncode != 0 or "seq=1" not in out.stdout:
+            faults.append(f"obs dump rc {out.returncode}: {out.stderr[-500:]}")
+    log(f"[obs] corrupt window under an armed recorder: dumps "
+        f"{[(d['reason'], d['window']) for _, d in dumps]}; stream equal to "
+        f"the undisturbed drain {same}; replays "
+        f"{m.counter('integrity.replays'):.0f} ({card})")
+    if faults:
+        raise PhaseFailed("[obs] flight recorder: " + "; ".join(faults))
+    return {"dumps": [(d["reason"], d["window"]) for _, d in dumps],
+            "dump_bytes": os.path.getsize(named[0][0]),
+            "ring_events": len(named[0][1]["events"])}
+
+
+def phase_obs(tmpdir, card, phase6):
+    """Phase 13, observability: (a) the armed fits against the disarmed,
+    (b) the profiler and the ICI lane, (c) the flight recorder."""
+    t0 = time.perf_counter()
+    free_device_memory()
+    fits = obs_fits(tmpdir, card, phase6)
+    free_device_memory()
+    prof = obs_profile_and_ici(tmpdir, card)
+    flight = obs_flight(tmpdir, card)
+    free_device_memory()
+    log(f"[obs] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"fits": fits, "profile": prof, "flight": flight}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -5535,6 +6078,7 @@ def main(argv=None) -> int:
                 args.profile)
             free_device_memory()
             pipe_launches, mh_launches, pipe_summary = phase_pipeline(tmp, card)
+            obs_summary = phase_obs(tmp, card, summary)
         # Each kernel's launches come from the run of its own path; K1-K6
         # add those of the ring (phase 11) and of the two MULTIHOST
         # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
@@ -5557,6 +6101,7 @@ def main(argv=None) -> int:
         log(f"[summary-files] {json.dumps(files_summary)}")
         log(f"[summary-mesh] {json.dumps(mesh_summary)}")
         log(f"[summary-pipeline] {json.dumps(pipe_summary)}")
+        log(f"[summary-obs] {json.dumps(obs_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

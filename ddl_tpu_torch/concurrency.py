@@ -1,6 +1,5 @@
 """Named locks and the runtime lock-order sanitizer (port of
-``ddl_tpu/concurrency.py``, without the flight-recorder dump, which
-waits for ``obs/``).
+``ddl_tpu/concurrency.py``).
 
 Every lock in the port is built through these factories, so a lock has
 a name, and :data:`LOCK_ORDER` documents the hierarchy: a thread holding
@@ -11,8 +10,9 @@ a lock only takes locks that come later in it.
 - **Armed** (:func:`arm_sanitizer`, :class:`sanitized`) they return thin
   proxies that record each thread's held stack and flag an acquisition
   that inverts the order: ``violations`` holds ``(acquiring, holding,
-  thread name, held stack)``.  Only locks built while armed are watched,
-  so arm before building the pipeline.
+  thread name, held stack)``, and an armed flight recorder
+  (:mod:`ddl_tpu_torch.obs.recorder`) dumps a witness.  Only locks built
+  while armed are watched, so arm before building the pipeline.
 """
 
 from __future__ import annotations
@@ -54,7 +54,11 @@ LOCK_ORDER: Tuple[str, ...] = (
     # The fault plan's hit counter: taken by injection sites under any
     # lock above while a plan is armed.
     "faults.plan",
+    # The observability leaves: a registry, the span log's drain, the
+    # flight recorder's dump counter.
     "obs.metrics",
+    "obs.spans",
+    "obs.recorder.dump",
 )
 
 _RANK: Dict[str, int] = {name: i for i, name in enumerate(LOCK_ORDER)}
@@ -117,6 +121,7 @@ class LockOrderSanitizer:
                            tuple(stack))
                 with self._lock:
                     self.violations.append(witness)
+                self._flight_dump(name, held)
                 if self.strict:
                     raise LockOrderViolation(
                         f"acquiring {name!r} while holding {held!r} "
@@ -125,6 +130,16 @@ class LockOrderSanitizer:
 
     def push(self, name: str) -> None:
         self._stack().append(name)
+
+    @staticmethod
+    def _flight_dump(acquiring: str, holding: str) -> None:
+        """An armed flight recorder dumps the inversion's witness (the
+        import is lazy: a process that never arms one never loads the
+        obs layer)."""
+        from ddl_tpu_torch.obs import recorder as flight
+
+        if flight.armed_recorder() is not None:
+            flight.flight_dump(f"lockorder.inversion.{holding}->{acquiring}")
 
     def pop(self, name: str) -> None:
         stack = self._stack()

@@ -40,8 +40,19 @@ bytes served).  A failed decode (the ``wire.decode`` fault site's
 ``DECODE_FAIL``) is retried once and counted in ``wire.decode_fails``,
 then raises :class:`IntegrityError`.  A decoded window is not the slot's
 bytes, so a staged stream copies it through the staging pool instead of
-taking the alias route.  Loader pools, admission and observability
-shipping of the JAX package are later slices.
+taking the alias route.
+
+Observability (:mod:`ddl_tpu_torch.obs`): ``consumer.admission``,
+``consumer.acquire``, ``wire.decode``, ``consumer.yield`` and
+``consumer.release`` events keyed on each window's ``(producer_idx,
+seq)``, the ``consumer.window_latency`` histogram (blocking head
+acquires) and, with an admission gate bound (:meth:`bind_admission`),
+``consumer.admission_wait``.  PROCESS producers' ObsReports are merged
+at every window boundary and at shutdown (:meth:`drain_obs_reports`).
+The flight recorder dumps at a corrupt window, an undecodable window and
+an exhausted replay.  The acquire runs under
+``profiling.annotate("ddl.window_acquire")``.  Loader pools are a later
+slice.
 """
 
 from __future__ import annotations
@@ -64,7 +75,10 @@ from ddl_tpu_torch.exceptions import (
     StallTimeoutError,
 )
 from ddl_tpu_torch.faults import fault_point
+from ddl_tpu_torch.obs import spans as obs_spans
+from ddl_tpu_torch.obs.recorder import flight_dump
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
+from ddl_tpu_torch.profiling import annotate
 from ddl_tpu_torch.transport.connection import ConsumerConnection
 from ddl_tpu_torch.types import Marker, MetaData_Consumer_To_Producer
 from ddl_tpu_torch.utils import value_ready, wait_value
@@ -146,6 +160,10 @@ class DistributedDataLoader:
         # Shared-memory rings this loader page-locked (unlocked at
         # shutdown).
         self._page_locked: list = []
+        # Multi-tenant admission gate (bind_admission), and the merger of
+        # PROCESS producers' ObsReports (built at the first report).
+        self._admission: Any = None
+        self._obs_merger: Any = None
         if output == "device":
             from ddl_tpu_torch.ingest import DeviceIngestor
 
@@ -334,7 +352,8 @@ class DistributedDataLoader:
         def start_one(timeout_s: float):
             nonlocal cursor
             target = cursor
-            with self.metrics.timed("consumer.wait"):
+            with annotate("ddl.window_acquire"), self.metrics.timed(
+                    "consumer.wait"):
                 try:
                     slot = self._acquire_verified(target, held[target],
                                                   timeout_s)
@@ -378,9 +397,15 @@ class DistributedDataLoader:
 
                 payload = engine.submit(window, transfer,
                                         expected_crc=expected_crc,
-                                        alias_src=alias)
+                                        alias_src=alias, span_key=wkey)
             else:
-                payload = ingestor.put_window(window, defer_metrics=True)
+                # The nested transfer and fan-out spans run on this thread
+                # and key on the window through this context.
+                obs_spans.set_window(*wkey)
+                try:
+                    payload = ingestor.put_window(window, defer_metrics=True)
+                finally:
+                    obs_spans.clear_window()
             held[target] += 1
             cursor = (cursor + 1) % self.n_producers
             return [slot, target, payload, served, False, wkey]
@@ -401,6 +426,7 @@ class DistributedDataLoader:
                 if not payload.copy_done.is_set():
                     break
                 rings[target].release(slot)
+                obs_spans.mark("consumer.release", *entry[5])
                 held[target] -= 1
                 entry[4] = True
                 self._staged_orphans.append(entry)
@@ -435,6 +461,7 @@ class DistributedDataLoader:
                 # Nothing reads the slot any more (a completed staged job,
                 # or the CPU's immediate copy): hand it back now.
                 rings[target].release(slot)
+                obs_spans.mark("consumer.release", *wkey)
                 held[target] -= 1
             else:
                 # Inline on CUDA: the copy still reads the slot.  Defer the
@@ -447,6 +474,7 @@ class DistributedDataLoader:
             # This window is now SERVED: commit the rotation.
             self._target = (target + 1) % self.n_producers
             self._last_window_key = wkey
+            obs_spans.mark("consumer.yield", *wkey)
             return dev
 
         # Inherit an abandoned stream's early-released windows: they are,
@@ -465,6 +493,8 @@ class DistributedDataLoader:
                 )
             if self._finalized:
                 break
+            # PROCESS producers' ObsReports merge at the window boundary.
+            self._drain_obs_once()
             if self._release_backlog:
                 self._sweep_release_backlog(held)
             if not pending:
@@ -519,8 +549,73 @@ class DistributedDataLoader:
 
     def last_window_key(self) -> Any:
         """Identity ``(producer_idx, seq)`` of the most recently yielded
-        stream window.  None before the first yield."""
+        stream window (the trainer's consume spans key on it).  None
+        before the first yield."""
         return self._last_window_key
+
+    def bind_admission(self, admission: Any) -> None:
+        """Attach an admission gate (``None`` unbinds): ``admit(
+        timeout_s)`` blocks until this consumer may take its next window
+        (raising :class:`StallTimeoutError` on a non-blocking probe,
+        ``timeout_s <= 0``, like a window not committed yet),
+        ``note_served(nbytes)`` charges the acquired window's bytes, and
+        the optional ``note_aborted()`` returns a grant whose acquire
+        failed.  Every acquisition passes the gate, and its wait feeds
+        the ``consumer.admission_wait`` histogram and the
+        ``consumer.admission`` span."""
+        self._admission = admission
+
+    # -- cross-process observability ---------------------------------------
+
+    def _obs_reports_possible(self) -> bool:
+        """Could this loader's producers ship ObsReports at all: shipping
+        enabled and a producer in another process."""
+        from ddl_tpu_torch.obs import ship_every
+        from ddl_tpu_torch.transport.connection import ThreadChannel
+
+        return ship_every() > 0 and any(
+            not isinstance(ch, ThreadChannel)
+            for ch in self.connection.channels)
+
+    def drain_obs_reports(self, timeout_s: float = 0.0,
+                          wait_for_all: bool = False) -> int:
+        """Merge the producers' pending ObsReports into this registry
+        under ``producer.<idx>.*``, waiting up to ``timeout_s`` for
+        stragglers (a producer's final report races teardown).
+        ``wait_for_all`` returns as soon as a report applied after this
+        call started has arrived from every producer.  Returns the
+        reports applied."""
+        import threading
+
+        deadline = time.monotonic() + timeout_s
+        waiter = threading.Event()
+        start = (self._obs_merger.fence_state()
+                 if self._obs_merger is not None else {})
+        applied = 0
+        while True:
+            applied += self._drain_obs_once()
+            if wait_for_all and self._obs_merger is not None:
+                state = self._obs_merger.fence_state()
+                if all(t in state and state[t] != start.get(t)
+                       for t in range(self.n_producers)):
+                    return applied
+            if timeout_s <= 0 or time.monotonic() >= deadline:
+                return applied
+            waiter.wait(0.02)
+
+    def _drain_obs_once(self) -> int:
+        """Route the control channel once (acks to their senders, reports
+        to the inbox) and apply every report in the inbox."""
+        self.connection.drain_acks()
+        applied = 0
+        for report in self.connection.take_obs_reports():
+            if self._obs_merger is None:
+                from ddl_tpu_torch.obs import ReportMerger
+
+                self._obs_merger = ReportMerger(self.metrics, obs_spans.log)
+            if self._obs_merger.apply(report):
+                applied += 1
+        return applied
 
     # -- progress marks ------------------------------------------------------
 
@@ -566,6 +661,7 @@ class DistributedDataLoader:
         hdr = integrity.read_header(view, nbytes)
         scales = (integrity.read_scales(view, nbytes, hdr.scale_bytes)
                   if hdr.scale_bytes else None)
+        span_t0 = obs_spans.t0()
         for attempt in (1, 2):
             try:
                 fault_point("wire.decode", view=view[:nbytes])
@@ -578,10 +674,14 @@ class DistributedDataLoader:
             except DecodeError as e:
                 self.metrics.incr("wire.decode_fails")
                 if attempt == 2:
+                    flight_dump("wire.undecodable", producer_idx=target + 1,
+                                seq=hdr.seq, metrics=self.metrics,
+                                extra={"wire_dtype": hdr.wire_dtype})
                     raise IntegrityError(
                         f"window from producer {target + 1} undecodable "
                         f"after retry ({hdr.wire_dtype} wire): {e}"
                     ) from e
+        obs_spans.record("wire.decode", target + 1, hdr.seq, span_t0)
         self.metrics.incr("wire.decoded_windows")
         self.metrics.incr("wire.encoded_bytes",
                           float(nbytes + hdr.scale_bytes))
@@ -600,6 +700,7 @@ class DistributedDataLoader:
             target, slot, done = entry[:3]
             if target not in blocked and _transfer_ready(done):
                 self.connection.rings[target].release(slot)
+                obs_spans.mark("consumer.release", *entry[3])
                 if held is not None:
                     held[target] -= 1
             else:
@@ -624,6 +725,7 @@ class DistributedDataLoader:
             with self.metrics.timed("ingest.release_wait"):
                 wait_value(done)
             self.connection.rings[t].release(slot)
+            obs_spans.mark("consumer.release", *entry[3])
             if held is not None:
                 held[t] -= 1
             if target is not None:
@@ -648,12 +750,49 @@ class DistributedDataLoader:
         )
 
     def _acquire_verified(self, target: int, ahead: int, timeout_s: float) -> int:
+        """Acquire the next committed slot on ``target``, integrity-
+        verified, behind the admission gate when one is bound.  Admission
+        runs first (no ring wait before the grant) and spends from the
+        same ``timeout_s``; a grant whose acquire fails is returned
+        through ``note_aborted``."""
+        if self._admission is None:
+            return self._acquire_slot_verified(target, ahead, timeout_s)
+        t_admit = time.monotonic()
+        span_t0 = obs_spans.t0()
+        self._admission.admit(timeout_s)
+        admit_wait = time.monotonic() - t_admit
+        if timeout_s > 0:
+            timeout_s = max(0.0, timeout_s - admit_wait)
+        try:
+            slot = self._acquire_slot_verified(target, ahead, timeout_s)
+        except BaseException:
+            abort = getattr(self._admission, "note_aborted", None)
+            if abort is not None:
+                abort()
+            raise
+        # Keyed on the window the grant bought (its seq is known only
+        # after the acquire).
+        obs_spans.record("consumer.admission", target + 1,
+                         self._last_acquired_seq, span_t0,
+                         span_t0 + admit_wait if span_t0 else None)
+        self.metrics.observe("consumer.admission_wait", admit_wait)
+        self._admission.note_served(
+            int(self.connection.rings[target].slot_payload(slot)))
+        return slot
+
+    def _acquire_slot_verified(self, target: int, ahead: int,
+                               timeout_s: float) -> int:
         """Acquire the next committed slot on ``target`` and verify its
         integrity trailer.  A corrupt head window enters
         quarantine-and-replay; corruption found while deepening the
         lookahead (``ahead > 0`` or a non-blocking probe) raises
         :class:`_CorruptAhead`, uncounted: held slots forbid out-of-FIFO
-        quarantine, so the window re-verifies at the head."""
+        quarantine, so the window re-verifies at the head.  Records a
+        ``consumer.acquire`` span and, for blocking head acquires only
+        (lookahead probes would dilute it), the
+        ``consumer.window_latency`` histogram."""
+        span_t0 = obs_spans.t0()
+        t0 = time.perf_counter() if ahead == 0 and timeout_s > 0 else 0.0
         ring = self.connection.rings[target]
         slot = ring.acquire_drain_ahead(ahead, timeout_s)
         seq = self._expected_seq(target, ahead)
@@ -663,9 +802,18 @@ class DistributedDataLoader:
                 if ahead or timeout_s <= 0:
                     raise _CorruptAhead(err)
                 self.metrics.incr("integrity.corrupt_windows")
+                # The post-mortem names the quarantined window.
+                flight_dump("integrity.corrupt_window",
+                            producer_idx=target + 1, seq=seq,
+                            metrics=self.metrics,
+                            extra={"verify_error": err})
                 with self.metrics.timed("integrity.replay"):
                     slot = self._quarantine_and_replay(target, seq, err,
                                                        timeout_s)
+        if t0:
+            self.metrics.observe("consumer.window_latency",
+                                 time.perf_counter() - t0)
+        obs_spans.record("consumer.acquire", target + 1, seq, span_t0)
         self._last_acquired_seq = seq
         # The window boundary is the control plane's heartbeat: re-send
         # due envelopes and route the producers' acks.
@@ -751,6 +899,9 @@ class DistributedDataLoader:
                 self.metrics.incr("integrity.corrupt_windows")
                 reattempt = True
         self.metrics.incr("integrity.replay_exhausted")
+        flight_dump("integrity.replay_exhausted", producer_idx=target + 1,
+                    seq=seq, metrics=self.metrics,
+                    extra={"verify_error": err})
         raise IntegrityError(
             f"window {seq} from producer {target + 1} still corrupt after "
             f"{self._max_replays} replay(s): {err}"
@@ -770,7 +921,8 @@ class DistributedDataLoader:
                 "flight; drain them with a new windows() stream before "
                 "batch iteration"
             )
-        with self.metrics.timed("consumer.wait"):
+        with annotate("ddl.window_acquire"), self.metrics.timed(
+                "consumer.wait"):
             slot = self._acquire_verified(self._target, 0, self.timeout_s)
         self._cur_slot = slot
         self._cur_array = self._slot_array(self._target, slot)
@@ -829,6 +981,15 @@ class DistributedDataLoader:
                 host_register.page_unlock(ring)
             self._page_locked = []
         self.connection.shutdown_operation()
+        # PROCESS producers ship a last cumulative report on their way
+        # out: a short bounded wait, ended as soon as every producer's
+        # has landed (a crashed producer never ships).
+        if self._obs_reports_possible():
+            try:
+                self.drain_obs_reports(timeout_s=0.5, wait_for_all=True)
+            except (OSError, EOFError, ValueError) as e:
+                # A producer gone first: its report is best-effort.
+                logger.debug("consumer: final obs drain cut short (%s)", e)
         self.connection.finalize()
         logger.debug("consumer: shutdown complete after epoch %d", self._epoch)
 

@@ -35,8 +35,15 @@ a lossy wire without integrity, on a non-float window, with a forced
 Fault sites (:mod:`ddl_tpu_torch.faults`): ``producer.fill`` at the top
 of each refill, ``producer.commit`` after a raw trailer stamp,
 ``wire.encode`` after an encoded one, ``pusher.inplace_fill`` with a
-write-once slot filled but not stamped.  Cross-process observability is
-a later slice.
+write-once slot filled but not stamped.
+
+Observability (:mod:`ddl_tpu_torch.obs`): a ``producer.fill`` span
+(exchange and refill) and a ``producer.commit`` span (the free-slot wait,
+copy and stamp) per window, keyed on the trailer's ``(producer_idx,
+seq)``.  The commit span is recorded BEFORE the slot is published, so a
+served window's commit span is always in the log.  A PROCESS producer
+ships an :class:`~ddl_tpu_torch.types.ObsReport` every
+``DDL_TORCH_OBS_SHIP_EVERY`` windows and once more at shutdown.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ from ddl_tpu_torch import envspec, integrity, wire
 from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
 from ddl_tpu_torch.exceptions import DoesNotMatchError, ShutdownRequested
 from ddl_tpu_torch.faults import armed_plan, fault_point
+from ddl_tpu_torch.obs import aggregate as obs_aggregate
+from ddl_tpu_torch.obs import spans as obs_spans
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.transport.connection import NOTHING, ProducerConnection
 from ddl_tpu_torch.transport.envelope import EnvelopeReceiver
@@ -103,6 +112,14 @@ class DataPusher:
         # Acked control envelopes: dedup, fencing, and an ack per
         # envelope so the consumer's retries end.
         self._envelope_rx = EnvelopeReceiver(producer_idx=producer_idx)
+        # Cross-process observability: a PROCESS producer's registry is
+        # its own, so it ships reports; a THREAD producer's is the
+        # consumer's.
+        self._obs_ship_every = (
+            obs_aggregate.ship_every() if connection.cross_process else 0)
+        self._obs_report_idx = 0
+        # Start of the current window's commit span (obs_spans.t0()).
+        self._commit_t0 = 0.0
 
         meta: MetaData_Consumer_To_Producer = connection.recv_metadata_as_producer()
         self.batch_size = meta.batch_size
@@ -390,7 +407,7 @@ class DataPusher:
             )
         fault_point("producer.commit", producer_idx=self.producer_idx,
                     view=view[: self.window_nbytes])
-        self.ring.commit(slot, self.window_nbytes)
+        self._publish(slot, self.window_nbytes)
 
     def _encode_and_commit(self, slot: int) -> None:
         """The encoded commit: the slot carries the bf16/int8 payload, the
@@ -415,7 +432,15 @@ class DataPusher:
         )
         fault_point("wire.encode", producer_idx=self.producer_idx,
                     view=view[:enc])
-        self.ring.commit(slot, enc)
+        self._publish(slot, enc)
+
+    def _publish(self, slot: int, nbytes: int) -> None:
+        """Record the window's ``producer.commit`` span, then commit the
+        slot.  The span lands first: once committed, the window can be
+        served (and a trace closed) before this thread runs again."""
+        obs_spans.record("producer.commit", self.producer_idx,
+                         self._iteration, self._commit_t0)
+        self.ring.commit(slot, nbytes)
 
     def _commit_window(self) -> None:
         """Publish the filled window and stage the next fill target."""
@@ -526,6 +551,7 @@ class DataPusher:
                 # Exchange across instances, then the user's refill.  The
                 # exchange wait observes shutdown: a partner tearing down
                 # may never post its half.
+                span_t0 = obs_spans.t0()
                 execute_callbacks(
                     self.callbacks,
                     "global_shuffle",
@@ -539,6 +565,8 @@ class DataPusher:
                     my_ary=self.my_ary,
                     iteration=self._iteration,
                 )
+                obs_spans.record("producer.fill", self.producer_idx,
+                                 self._iteration, span_t0)
                 if self.inplace_fill and armed_plan() is not None:
                     # The write-once slot is filled but not stamped: a
                     # crash here leaves a torn slot that is never
@@ -551,11 +579,15 @@ class DataPusher:
                             : self.window_nbytes],
                         should_abort=self._should_abort,
                     )
+                # The commit span covers the free-slot wait too: producer
+                # backpressure is what a trace of a slow consumer shows.
+                self._commit_t0 = obs_spans.t0()
                 self._commit_window()
                 execute_callbacks(
                     self.callbacks, "on_shuffle_end", iteration=self._iteration
                 )
                 self._iteration += 1
+                self._maybe_ship_obs()
         except ShutdownRequested:
             # A retired incarnation's ring belongs to its replacement.
             clean = not self.connection.retired.is_set()
@@ -565,7 +597,29 @@ class DataPusher:
             )
         finally:
             execute_callbacks(self.callbacks, "on_push_end")
+            # The final report goes before the channel closes, so short
+            # runs still aggregate.
+            self._maybe_ship_obs(final=True)
             # A crashed producer leaves its ring's name linked, for a
             # respawned replacement to attach; the consumer's finalize
             # unlinks it if none comes.
             self.connection.finalize(unlink=clean)
+
+    def _maybe_ship_obs(self, final: bool = False) -> None:
+        """Ship one :class:`~ddl_tpu_torch.types.ObsReport` when due:
+        every ``_obs_ship_every`` windows, and a ``final`` one at
+        shutdown.  PROCESS producers only.  A broken channel (the
+        consumer gone first) drops the report: observability never turns
+        a clean shutdown into a failure."""
+        every = self._obs_ship_every
+        if every <= 0 or (not final and self._iteration % every):
+            return
+        self._obs_report_idx += 1
+        report = obs_aggregate.build_report(
+            self.producer_idx - 1,  # the consumer's 0-based ring index
+            self._obs_report_idx, self.metrics)
+        try:
+            self.connection.channel.send(report)
+        except (OSError, ValueError) as e:
+            logger.debug("producer %d: obs report dropped (%s)",
+                         self.producer_idx, e)

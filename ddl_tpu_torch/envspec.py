@@ -150,6 +150,18 @@ _EXPLICIT: List[Knob] = [
     # -- fault injection -------------------------------------------------
     Knob("DDL_TORCH_FAULT_PLAN", "str", None,
          "JSON FaultPlan (faults.py): spawned producers arm it at import."),
+    # -- observability ---------------------------------------------------
+    Knob("DDL_TORCH_TRACE", "int", None,
+         "Span tracing armed at import with this event capacity "
+         "(unset = tracing disarmed; obs/spans.py)."),
+    Knob("DDL_TORCH_FLIGHT", "int", None,
+         "Flight recorder armed at import with this ring capacity "
+         "(unset = disarmed; obs/recorder.py)."),
+    Knob("DDL_TORCH_FLIGHT_DIR", "str", None,
+         "Flight-record dump directory (default ./ddl_flight)."),
+    Knob("DDL_TORCH_OBS_SHIP_EVERY", "int", 32,
+         "Windows between periodic worker ObsReports (0 = disabled; "
+         "obs/aggregate.py)."),
 ]
 
 #: Every knob of the JAX package's registry → its twin here, ``"todo"``
@@ -211,10 +223,10 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_TUNE_REVERT_TOL": "todo",
     "DDL_TPU_TUNE_PARITY_HEADROOM": "todo",
     "DDL_TPU_FAULT_PLAN": "DDL_TORCH_FAULT_PLAN",
-    "DDL_TPU_TRACE": "todo",
-    "DDL_TPU_FLIGHT": "todo",
-    "DDL_TPU_FLIGHT_DIR": "todo",
-    "DDL_TPU_OBS_SHIP_EVERY": "todo",
+    "DDL_TPU_TRACE": "DDL_TORCH_TRACE",
+    "DDL_TPU_FLIGHT": "DDL_TORCH_FLIGHT",
+    "DDL_TPU_FLIGHT_DIR": "DDL_TORCH_FLIGHT_DIR",
+    "DDL_TPU_OBS_SHIP_EVERY": "DDL_TORCH_OBS_SHIP_EVERY",
     "DDL_TPU_ONCHIP": "n/a: a TPU test-harness gate (the card's tests "
                       "carry the cuda marker)",
     "DDL_TPU_BATCH_SIZE": "DDL_TORCH_BATCH_SIZE",

@@ -212,6 +212,16 @@ class FaultPlan:
                 if spec.at <= n < spec.at + spec.count:
                     self.fired.append((site, spec.kind.value, producer_idx, n))
                     due.append(spec)
+        if due:
+            # A fired site dumps the flight ring when a recorder is armed
+            # (the import is lazy: a process that never arms it never
+            # loads the obs layer).
+            from ddl_tpu_torch.obs import recorder as flight
+
+            if flight.armed_recorder() is not None:
+                for spec in due:
+                    flight.flight_dump(f"fault.{site}.{spec.kind.value}",
+                                       producer_idx=producer_idx)
         for spec in due:
             self._act(spec, view=view, should_abort=should_abort)
         # Kinds that do not raise (CONTROL_MSG_DUP) reach here: the site

@@ -27,6 +27,13 @@ once, onto the plan's anchor position, and the ICI tier
 copies its slice from the host).  The H2D copy, the tier's kernels and
 its finish all run on the side stream, and one event after them marks
 the window done.
+
+:meth:`DeviceIngestor.put_window` records the ``ingest.transfer`` span
+(:mod:`ddl_tpu_torch.obs`; the host's dispatch of the copy, keyed on the
+thread's current window) under ``profiling.annotate(
+"ddl.ingest_put_window")``.  :func:`north_star_report` reads the
+registry's counters, timers and histograms into the JAX package's report
+keys.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.concurrency import named_lock
+from ddl_tpu_torch.obs import spans as obs_spans
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.parallel.mesh import NamedSharding, P, ShardedArray, one_card
 from ddl_tpu_torch.staging import (
@@ -284,7 +292,13 @@ class DeviceIngestor:
         ``defer_metrics`` leaves the ``ingest.bytes``/``ingest.windows``
         accounting to the caller, which records it at yield.
         """
-        out = self._put(window)
+        from ddl_tpu_torch.profiling import annotate
+
+        span_t0 = obs_spans.t0()
+        with annotate("ddl.ingest_put_window"):
+            out = self._put(window)
+        obs_spans.record("ingest.transfer", *obs_spans.current_window(),
+                         span_t0)
         if not defer_metrics:
             self.metrics.incr("ingest.bytes", float(window.nbytes))
             self.metrics.incr("ingest.windows")
@@ -358,6 +372,162 @@ class DeviceIngestor:
             return Transfer(_device_split(t.value, splits), t.done), t
 
         return transfer
+
+
+def north_star_report(metrics: Optional[Metrics] = None,
+                      link_bytes_per_sec: Optional[float] = None) -> dict:
+    """The JAX package's report (``ddl_tpu/ingest.py``
+    ``north_star_report``), key for key, from a registry (the process
+    default when ``metrics`` is None).
+
+    A key whose measurement the port does not take yet reads 0 (an
+    absent counter, timer, gauge or histogram), as the JAX package
+    reports a registry that lacks it.  The ``pp.*`` and ``opt.*`` gauges
+    are read from the process-default registry, where the pipeline and
+    the sharded optimizer record them.  ``ingest_bytes_per_sec`` counts
+    transfers to the device only; pass ``link_bytes_per_sec`` for
+    ``bandwidth_utilization``.
+    """
+    m = metrics or default_metrics()
+    dm = default_metrics()
+    report = dict(m.rates())  # every rate over one elapsed snapshot
+    report["windows"] = m.counter("consumer.windows")
+    # Staged ingest.
+    report["stage_copy_s"] = m.timer("ingest.stage_copy").total_s
+    report["transfer_s"] = m.timer("ingest.transfer").total_s
+    report["stall_s"] = m.timer("ingest.stall").total_s
+    report["pool_hits"] = m.counter("staging.pool_hits")
+    report["pool_misses"] = m.counter("staging.pool_misses")
+    report["queue_depth_max"] = m.gauge("staging.queue_depth.max")
+    report["alias_windows"] = m.counter("staging.alias_windows")
+    report["alias_fallbacks"] = m.counter("staging.alias_fallbacks")
+    # The training loop's overlap.
+    report["window_wait_s"] = m.timer("trainer.window_wait").total_s
+    report["release_wait_s"] = m.timer("ingest.release_wait").total_s
+    report["pp_bubble"] = dm.gauge("pp.bubble")
+    report["pp_chunks"] = dm.gauge("pp.chunks")
+    # Recovery.
+    report["respawns"] = m.counter("watchdog.respawns")
+    report["watchdog_failures"] = m.counter("watchdog.failures")
+    report["corrupt_windows"] = m.counter("integrity.corrupt_windows")
+    report["replays"] = m.counter("integrity.replays")
+    report["shuffle_degraded"] = m.counter("shuffle.degraded")
+    report["staging_retries"] = m.counter("staging.retries")
+    report["inline_fallbacks"] = m.counter("staging.inline_fallbacks")
+    # The shard cache.
+    report["cache_hits"] = m.counter("cache.hits")
+    report["cache_misses"] = m.counter("cache.misses")
+    report["cache_evictions"] = m.counter("cache.evictions")
+    report["cache_spills"] = m.counter("cache.spills")
+    report["cache_spill_hits"] = m.counter("cache.spill_hits")
+    report["cache_quarantined"] = m.counter("cache.quarantined")
+    report["cache_resident_bytes"] = m.gauge("cache.resident_bytes")
+    report["cache_resident_bytes_max"] = m.gauge("cache.resident_bytes.max")
+    # The ICI tier.
+    report["ici_bytes"] = m.counter("ici.bytes")
+    report["ici_windows"] = m.counter("ici.windows")
+    report["ici_fallbacks"] = m.counter("ici.fallbacks")
+    report["ici_fanout_s"] = m.timer("ici.fanout").total_s
+    report["ici_redistribute_s"] = m.timer("ici.redistribute").total_s
+    report["ici_peak_bytes"] = m.gauge("ici.peak_bytes")
+    # The fused step.
+    report["ingest_overlap_s"] = m.timer("trainer.ingest_overlap").total_s
+    report["fused_windows"] = m.counter("trainer.fused_windows")
+    report["slots_in_flight"] = m.gauge("ici.slots_in_flight.max")
+    # The distributed optimizer.
+    report["opt_state_bytes_per_replica"] = dm.gauge(
+        "opt.state_bytes_per_replica")
+    report["opt_state_bytes_total"] = dm.gauge("opt.state_bytes_total")
+    report["opt_grad_comm_bytes_raw"] = dm.gauge("opt.grad_comm_bytes_raw")
+    report["opt_grad_comm_bytes_quantized"] = dm.gauge(
+        "opt.grad_comm_bytes_quantized")
+    report["opt_gather_s"] = m.timer("opt.gather").total_s
+    report["opt_scatter_s"] = m.timer("opt.scatter").total_s
+    # The cluster control plane.
+    report["view_changes"] = m.counter("cluster.view_changes")
+    report["host_losses"] = m.counter("cluster.host_losses")
+    report["host_rejoins"] = m.counter("cluster.rejoins")
+    report["heartbeats_dropped"] = m.counter("cluster.heartbeats_dropped")
+    report["shard_adoptions"] = m.counter("producer.shard_adoptions")
+    report["cluster_cache_adoptions"] = m.counter("cluster.cache_adoptions")
+    report["pool_updates"] = m.counter("consumer.pool_updates")
+    # The multi-tenant service.
+    report["serve_tenants"] = m.gauge("serve.tenants")
+    report["serve_scale_ups"] = m.counter("serve.scale_ups")
+    report["serve_scale_downs"] = m.counter("serve.scale_downs")
+    report["serve_admission_waits_s"] = m.timer(
+        "serve.admission_wait").total_s
+    # Keyed by tenant name only: the ``.max`` companions are dropped.
+    report["serve_tenant_stall"] = {
+        k: v for k, v in m.prefixed("serve.stall.").items()
+        if not k.endswith(".max")
+    }
+    # The wire formats.
+    report["wire_encoded_bytes"] = m.counter("wire.encoded_bytes")
+    report["wire_payload_bytes"] = m.counter("wire.payload_bytes")
+    report["wire_decoded_windows"] = m.counter("wire.decoded_windows")
+    report["wire_decode_fails"] = m.counter("wire.decode_fails")
+    report["wire_fallbacks"] = m.counter("wire.fallbacks")
+    # Preemption and the checkpoint tier.
+    report["resilience_notices"] = m.counter("resilience.notices")
+    report["resilience_drains"] = m.counter("resilience.drains")
+    report["resilience_drain_s"] = m.timer("resilience.drain").total_s
+    report["resilience_ckpts"] = m.counter("resilience.ckpts")
+    report["resilience_final_ckpts"] = m.counter("resilience.final_ckpts")
+    report["resilience_ckpt_submit_s"] = m.timer(
+        "resilience.ckpt_submit").total_s
+    report["resilience_ckpt_write_s"] = m.timer(
+        "resilience.ckpt_write").total_s
+    report["resilience_ckpt_quarantined"] = m.counter(
+        "resilience.ckpt_quarantined")
+    report["resilience_ckpt_cold_starts"] = m.counter(
+        "resilience.ckpt_cold_starts")
+    report["serve_revocations"] = m.counter("serve.revocations")
+    # Percentiles from the bounded histograms: the window latency (a
+    # blocking head acquire's wait for its committed window) and the
+    # fair-share admission wait.
+    report["window_latency_p50"] = m.quantile("consumer.window_latency", 0.5)
+    report["window_latency_p99"] = m.quantile("consumer.window_latency",
+                                              0.99)
+    report["admission_wait_p99"] = m.quantile("serve.admission_wait", 0.99)
+    # Per-tenant admission p99s, tenants found from the histogram names.
+    suffix = ".admission_wait"
+    report["serve_tenant_admission_p99"] = {
+        name[len("ingest."):-len(suffix)]: m.quantile(name, 0.99)
+        for name in m.hist_names("ingest.")
+        if name.endswith(suffix)
+    }
+    # Where the per-window time went, by stage: the always-on timers, and
+    # with span tracing armed the span log's per-stage totals.
+    breakdown = {
+        "acquire_wait": m.timer("consumer.wait").total_s,
+        "stage_copy": m.timer("ingest.stage_copy").total_s,
+        "transfer": m.timer("ingest.transfer").total_s,
+        "release_wait": m.timer("ingest.release_wait").total_s,
+        "window_wait": m.timer("trainer.window_wait").total_s,
+        "admission_wait": m.timer("serve.admission_wait").total_s,
+        "ici_fanout": m.timer("ici.fanout").total_s,
+    }
+    span_log = obs_spans.log()
+    if span_log is not None:
+        for stage, total in span_log.stage_totals().items():
+            breakdown[f"span.{stage}"] = total
+    report["stage_breakdown"] = breakdown
+    report["obs_reports_applied"] = m.counter("obs.reports_applied")
+    report["obs_reports_stale"] = m.counter("obs.reports_stale")
+    report["obs_flight_dumps"] = m.counter("obs.flight_dumps")
+    # Self-tuning audit (zeros until the tune slice).
+    report["tune_decisions"] = m.counter("tune.decisions")
+    report["tune_reverts"] = m.counter("tune.reverts")
+    report["tune_cost_source"] = {
+        src: m.counter(f"tune.cost_source.{src}")
+        for src in ("measured", "declared", "default")
+    }
+    if link_bytes_per_sec:
+        report["link_bytes_per_sec"] = link_bytes_per_sec
+        report["bandwidth_utilization"] = (
+            report["ingest_bytes_per_sec"] / link_bytes_per_sec)
+    return report
 
 
 class PrefetchIterator:

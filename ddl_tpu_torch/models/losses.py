@@ -3,13 +3,42 @@
 Gather-then-logsumexp cross-entropy, as in the JAX package: the target
 logit is gathered and subtracted from the row's logsumexp, so no second
 full ``(..., vocab)`` log-softmax array is materialised.
+
+Every :func:`cross_entropy` is a masked sum over a count.  Inside a
+:class:`loss_weight` scope it also notes that count, so a step whose
+batch is split over processes can weight each process's loss and grads
+by it and divide the sums by the summed count: the global batch's loss
+(the MULTIHOST step, ``parallel/train.py``; ``Trainer.evaluate``).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
+
+_SCOPE = threading.local()
+
+
+class loss_weight:
+    """Context: notes the count of every :func:`cross_entropy` call made
+    inside it on this thread.  ``weight(default)`` is the count of the
+    one call (a tensor on the loss's device, a number without a mask), or
+    ``default`` when the scope saw no call or several (whose counts do
+    not weight one sum)."""
+
+    def __enter__(self) -> "loss_weight":
+        self.counts: list = []
+        self._prev = getattr(_SCOPE, "active", None)
+        _SCOPE.active = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _SCOPE.active = self._prev
+
+    def weight(self, default):
+        return self.counts[0] if len(self.counts) == 1 else default
 
 
 def cross_entropy(
@@ -21,10 +50,16 @@ def cross_entropy(
     positions with ``mask`` 0 are excluded from the mean."""
     sel = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - sel
+    scope = getattr(_SCOPE, "active", None)
     if mask is None:
+        if scope is not None:
+            scope.counts.append(float(nll.numel()))
         return nll.mean()
     mask = torch.broadcast_to(mask.to(nll.dtype), nll.shape)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if scope is not None:
+        scope.counts.append(count.detach().float())
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def next_token_cross_entropy(

@@ -211,16 +211,24 @@ _BUCKETS: Dict[int, torch.Tensor] = {}
 
 
 def process_mean(tensors: Sequence[Optional[torch.Tensor]],
-                 like: Sequence[torch.Tensor], metrics: Any = None) -> None:
+                 like: Sequence[torch.Tensor], metrics: Any = None,
+                 weight: Any = None) -> None:
     """Average ``tensors`` over the processes of the group, in place: each
     tensor is copied into its slice of ONE flat page-locked fp32 host
     bucket, the bucket goes through ONE gloo ``all_reduce`` (sum), and
-    each slice comes back divided by the world size — one call a step,
-    not one a leaf, and no device-sized staging copy.  A ``None`` entry
-    (a leaf without a gradient) takes part as zeros shaped like its
-    ``like`` entry and stays ``None``.  ``metrics`` (a registry) records
-    ``mh.allreduce`` (seconds, the staging included) and
-    ``mh.allreduce_bytes``."""
+    each slice comes back divided — one call a step, not one a leaf, and
+    no device-sized staging copy.  A ``None`` entry (a leaf without a
+    gradient) takes part as zeros shaped like its ``like`` entry and
+    stays ``None``.
+
+    Without ``weight`` the divisor is the world size (the mean of the
+    processes' values).  With ``weight`` (this process's count, a scalar
+    tensor or number) each tensor is scaled by it before the sum, the
+    count rides the bucket's last element, and the sums are divided by
+    the summed count (at least 1): the weighted mean, which for a masked
+    sum over a count is the value over the processes' joined batches.
+    ``metrics`` (a registry) records ``mh.allreduce`` (seconds, the
+    staging included) and ``mh.allreduce_bytes``."""
     import torch.distributed as dist
 
     world = process_count()
@@ -231,32 +239,58 @@ def process_mean(tensors: Sequence[Optional[torch.Tensor]],
     if dev.type == "cuda":
         # The last call's copies out of the bucket may still be queued.
         torch.cuda.current_stream(dev).synchronize()
-    total = sum(int(l.numel()) for l in like)
+    total = sum(int(l.numel()) for l in like) + (weight is not None)
     host = _BUCKETS.get(total)
     if host is None:
         _BUCKETS.clear()
         host = torch.empty(total, dtype=torch.float32,
                            pin_memory=torch.cuda.is_available())
         _BUCKETS[total] = host
+    slices = stage_bucket(tensors, like, host, weight)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    dist.all_reduce(host)
+    unstage_bucket(tensors, slices, host, world, weight is not None)
+    if metrics is not None:
+        metrics.add_time("mh.allreduce", time.perf_counter() - t0)
+        metrics.incr("mh.allreduce_bytes", float(total * 4))
+
+
+def stage_bucket(tensors: Sequence[Optional[torch.Tensor]],
+                 like: Sequence[torch.Tensor], host: torch.Tensor,
+                 weight: Any = None) -> List[torch.Tensor]:
+    """:func:`process_mean`'s first half: copy ``tensors`` into their
+    slices of the flat fp32 ``host`` bucket (``None`` as zeros), each
+    scaled in place by ``weight`` first when given, which then rides the
+    bucket's last element.  Returns the slices."""
     slices, off = [], 0
     for t, l in zip(tensors, like):
         piece = host[off:off + l.numel()].view(l.shape)
         if t is None:
             piece.zero_()
         else:
+            if weight is not None:
+                t.mul_(weight)  # in place: no device-sized temporary
             piece.copy_(t.detach(), non_blocking=True)
         slices.append(piece)
         off += l.numel()
-    if dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
-    dist.all_reduce(host)
+    if weight is not None:
+        host[-1:].copy_(torch.as_tensor(weight, dtype=torch.float32)
+                        .reshape(1), non_blocking=True)
+    return slices
+
+
+def unstage_bucket(tensors: Sequence[Optional[torch.Tensor]],
+                   slices: Sequence[torch.Tensor], host: torch.Tensor,
+                   world: int, weighted: bool) -> None:
+    """:func:`process_mean`'s second half, on the summed bucket: each
+    tensor takes its slice divided by the summed weight (at least 1) when
+    ``weighted``, else by ``world``."""
+    divisor = max(float(host[-1]), 1.0) if weighted else world
     for t, piece in zip(tensors, slices):
         if t is not None:
             t.copy_(piece, non_blocking=True)
-            t.div_(world)
-    if metrics is not None:
-        metrics.add_time("mh.allreduce", time.perf_counter() - t0)
-        metrics.incr("mh.allreduce_bytes", float(total * 4))
+            t.div_(divisor)
 
 
 def _pairs(p: np.ndarray) -> Tuple[Tuple[int, int], ...]:

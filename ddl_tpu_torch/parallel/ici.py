@@ -536,7 +536,15 @@ class IciDistributor:
             except PlanError:
                 pass  # counted and logged once in plan()
             else:
-                return self.distribute(device_put(arr, anchor))
+                # The fan-out's dispatch span, keyed on the thread's
+                # current window (the kernels run asynchronously).
+                from ddl_tpu_torch.obs import spans as obs_spans
+
+                span_t0 = obs_spans.t0()
+                out = self.distribute(device_put(arr, anchor))
+                obs_spans.record("ici.fanout", *obs_spans.current_window(),
+                                 span_t0)
+                return out
         return device_put(arr, self.sharding)
 
     def distribute(self, block: torch.Tensor) -> ShardedArray:

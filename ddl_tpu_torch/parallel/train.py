@@ -21,18 +21,29 @@ for its attention, and the distributed-optimizer knobs
 Over a mesh whose outermost ``dp`` axis spans the processes of a gloo
 group (MULTIHOST), each process's step computes loss and grads over its
 own rows (:meth:`~ddl_tpu_torch.parallel.mesh.ShardedArray.
-assemble_local`), then the grads and the loss are averaged over the
-group in one host-staged bucket
+assemble_local`), then the grads and the loss cross the group in one
+host-staged bucket
 (:func:`~ddl_tpu_torch.parallel.collectives.process_mean`) before the
-update: every process applies the same update and reports the mean of
-the processes' losses — the loss over the global batch for a loss that
-is a mean over rows (the next-token losses are).  ZeRO-1 and int8
-gradient communication over such a dp raise ``NotImplementedError``
-(ROADMAP.md A5d).
+update, so every process applies the same update.  The rule: a loss
+built on :func:`~ddl_tpu_torch.models.losses.cross_entropy` (one call a
+step: ``next_token_cross_entropy``, ``llama.next_token_loss`` with
+``segment_ids``, the pipelined ``next_token_loss_pp``) is a masked sum
+over a count, so each process scales its loss and grads by its own
+count, the count rides the bucket, and the sums are divided by the
+summed count — the loss and gradients of the global batch, whatever
+tokens each process keeps.  A loss that makes no such call (or several)
+is averaged over the processes, which is the global value only for a
+mean over equal row blocks; a loss that is not a masked sum over a count
+(a square of means) cannot be split across processes without gathering
+the batch.  The JAX package's multihost legs train ``cross_entropy``
+losses only.  With ``accum_steps > 1`` the processes' means of
+microbatch means are averaged.  ZeRO-1 and int8 gradient communication
+over such a dp raise ``NotImplementedError`` (ROADMAP.md A5d).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -154,8 +165,9 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
     """One loss/grad/update step, shared by the single- and multi-step
     factories.  ``accum_steps > 1`` splits the batch's leading axis into
     equal microbatches, averages their grads and applies ONE update.
-    Over a mesh that spans processes the grads and the loss are averaged
-    over the group before the update (one bucket)."""
+    Over a mesh that spans processes the grads and the loss cross the
+    group before the update in one bucket, weighted by the step's
+    ``cross_entropy`` count (the module docstring's rule)."""
     across = mesh is not None and mesh.spans_processes
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -164,9 +176,15 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
     def apply_step(state: TrainState, batch: Any) -> torch.Tensor:
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
+        weight = None
         if accum_steps == 1:
-            loss = loss_fn(state.params, batch)
+            from ddl_tpu_torch.models.losses import loss_weight
+
+            with loss_weight() if across else contextlib.nullcontext() as scope:
+                loss = loss_fn(state.params, batch)
             loss.backward()
+            if across:
+                weight = scope.weight(None)
         else:
             lead = batch[0].shape[0]
             if lead % accum_steps:
@@ -197,7 +215,7 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
 
             leaves = tree_leaves(state.params)
             process_mean([p.grad for p in leaves] + [loss], leaves + [loss],
-                         metrics=_metrics())
+                         metrics=_metrics(), weight=weight)
         opt.step()
         return loss
 
@@ -265,6 +283,14 @@ def make_train_step(
     ``stochastic_rounding`` / ``grad_comm_block`` mirror
     :class:`ddl_tpu_torch.config.TrainConfig`'s fields.  ``device`` may be
     left out (the mesh's) or must name the mesh's device.
+
+    Over a mesh whose ``dp`` spans processes, a loss that makes one
+    :func:`~ddl_tpu_torch.models.losses.cross_entropy` call gives the
+    loss and gradients of the global batch (each process's are weighted
+    by its mask count).  Any other loss is averaged over the processes:
+    a loss that is not a masked sum over a count (a square of means)
+    cannot be split across processes without gathering the batch.  The
+    JAX package's multihost legs use ``cross_entropy`` losses only.
     """
     dev = _resolve(device, mesh)
     optimizer = _maybe_shard_optimizer(

@@ -26,8 +26,10 @@ Notice sources: a SIGTERM handler (:meth:`install`), the
 as its value), a programmatic :meth:`notify`, or the
 ``resilience.notice`` fault site (:mod:`ddl_tpu_torch.faults`), whose
 ``PREEMPT_NOTICE`` :meth:`poll` absorbs as a notice carrying the spec's
-grace seconds.  The flight-recorder dump waits for ``obs/`` (ROADMAP.md
-A6).
+grace seconds.  An armed flight recorder (:mod:`ddl_tpu_torch.obs.
+recorder`) dumps once per notice, at the first :meth:`poll` or
+:meth:`drain` after it — never inside :meth:`notify`, which may run in
+the SIGTERM handler.
 """
 
 from __future__ import annotations
@@ -101,6 +103,9 @@ class PreemptionGuard:
         self._notice_t: Optional[float] = None
         self._reason = ""
         self._drained = False
+        # The flight dump of a notice is deferred to poll()/drain() on
+        # the main thread (_flight_dump_once).
+        self._flight_dumped = False
         self._prev_handler: Any = None
         self._installed = False
 
@@ -150,15 +155,32 @@ class PreemptionGuard:
             "%.1fs at the next window boundary", self._reason, self.deadline_s,
         )
 
+    def _flight_dump_once(self) -> None:
+        """Dump the armed flight recorder once per notice: the pipeline's
+        state at the notice, the picture a drain that overruns its budget
+        needs.  Called on the main thread only (poll, drain): inside the
+        SIGTERM handler a dump (registry lock, recorder lock, file IO)
+        could need a lock the interrupted frame holds."""
+        if self._flight_dumped or self._notice_t is None:
+            return
+        self._flight_dumped = True
+        from ddl_tpu_torch.obs.recorder import flight_dump
+
+        flight_dump("resilience.preemption_notice", metrics=self.metrics,
+                    extra={"reason": self._reason,
+                           "grace_s": self.deadline_s})
+
     def poll(self) -> bool:
         """The trainer's once-per-window-boundary check: True once a
         notice is pending (signal, env knob, or a prior :meth:`notify`)."""
         if self._notice_t is not None:
+            self._flight_dump_once()
             return True
         try:
             fault_point("resilience.notice")
         except PreemptionNotice as n:
             self.notify("injected", deadline_s=n.deadline_s or None)
+            self._flight_dump_once()
             return True
         env = envspec.raw(NOTICE_ENV) or ""
         if env and env.lower() not in envspec.FALSY:
@@ -167,6 +189,7 @@ class PreemptionGuard:
             except ValueError:
                 deadline = None
             self.notify(f"{NOTICE_ENV}={env}", deadline_s=deadline)
+            self._flight_dump_once()
             return True
         return False
 
@@ -194,6 +217,9 @@ class PreemptionGuard:
         while budget remains.  Returns True when every applicable rung
         completed inside the budget."""
         t0 = self._clock()
+        # A notify followed by a drain with no poll between still dumps;
+        # drain runs on the main thread.
+        self._flight_dump_once()
         self.metrics.incr("resilience.drains")
         within = True
         if final_checkpoint is not None:

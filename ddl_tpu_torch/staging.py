@@ -40,7 +40,11 @@ inline path.  Counters and timers: ``staging.pool_hits``,
 ``ingest.transfer``, ``ingest.stall``; gauges ``staging.inflight`` and
 ``staging.queue_depth``.  Fault sites (:mod:`ddl_tpu_torch.faults`):
 ``staging.copy`` before each staging copy, ``staging.transfer`` before
-each transfer attempt.
+each transfer attempt.  Spans (:mod:`ddl_tpu_torch.obs`):
+``staging.copy`` and ``staging.transfer``, keyed on the job's window;
+each transfer attempt runs under ``profiling.annotate(
+"ddl.staging_transfer")`` with the window as the thread's span context,
+so the nested ``ingest.transfer`` span keys on it too.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from ddl_tpu_torch.exceptions import (
     StallTimeoutError,
 )
 from ddl_tpu_torch.faults import fault_point
+from ddl_tpu_torch.obs import spans as obs_spans
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
 from ddl_tpu_torch.utils import value_ready, wait_value
 
@@ -229,9 +234,18 @@ def _host_arrays(dev: Any) -> List[Any]:
 
 def _faulted_transfer(job: Any, src: np.ndarray) -> Any:
     """One attempt of a job's transfer, behind the ``staging.transfer``
-    fault site (a failure or a delay, retried like a real one)."""
+    fault site (a failure or a delay, retried like a real one), under the
+    ``ddl.staging_transfer`` range with the job's window as this thread's
+    span context (the attempt runs on whichever thread claimed it)."""
+    from ddl_tpu_torch.profiling import annotate
+
     fault_point("staging.transfer")
-    return job.transfer(src)
+    obs_spans.set_window(*(job.span_key or (None, None)))
+    try:
+        with annotate("ddl.staging_transfer"):
+            return job.transfer(src)
+    finally:
+        obs_spans.clear_window()
 
 
 def _may_alias(dev: Any, buf: np.ndarray) -> bool:
@@ -316,12 +330,15 @@ TransferFn = Callable[[np.ndarray], Tuple[Any, Any]]
 
 class _Job:
     __slots__ = ("handle", "src", "transfer", "expected_crc", "claimed",
-                 "worker", "alias_src")
+                 "worker", "alias_src", "span_key")
 
     def __init__(self, handle: StagedTransfer, src: np.ndarray,
                  transfer: TransferFn, expected_crc: Optional[int] = None,
-                 alias_src: bool = False):
+                 alias_src: bool = False,
+                 span_key: Optional[Tuple[int, int]] = None):
         self.handle = handle
+        #: The window's ``(producer_idx, seq)``: what its spans key on.
+        self.span_key = span_key
         self.src = src
         self.transfer = transfer
         #: The committed payload CRC: the staging copy is verified against
@@ -378,17 +395,21 @@ class TransferExecutor:
 
     def submit(self, src: np.ndarray, transfer: TransferFn,
                expected_crc: Optional[int] = None,
-               alias_src: bool = False) -> StagedTransfer:
+               alias_src: bool = False,
+               span_key: Optional[Tuple[int, int]] = None) -> StagedTransfer:
         """Enqueue one job: copy ``src`` into a pooled buffer, then run
         ``transfer`` on it.  ``src`` may be a live ring-slot view: the
         caller keeps the slot until ``handle.copy_done``.
         ``expected_crc`` verifies the copy before that release.
         ``alias_src=True`` skips the copy: the transfer sources ``src``
         and ``copy_done`` fires at transfer completion (ignored once
-        ``alias_unsafe`` latched).  Blocks while the queue is full."""
+        ``alias_unsafe`` latched).  ``span_key`` is the window's
+        ``(producer_idx, seq)`` for its spans.  Blocks while the queue is
+        full."""
         handle = StagedTransfer()
         job = _Job(handle, src, transfer, expected_crc,
-                   alias_src=alias_src and not self.alias_unsafe)
+                   alias_src=alias_src and not self.alias_unsafe,
+                   span_key=span_key)
         handle._job = job
         with self._cv:
             if self._closed:
@@ -521,6 +542,7 @@ class TransferExecutor:
     def _execute(self, job: _Job) -> None:
         """Run one claimed job to completion (worker or stealing thread)."""
         handle = job.handle
+        key = job.span_key or (None, None)
 
         def copy_phase():
             t0 = time.perf_counter()
@@ -539,6 +561,7 @@ class TransferExecutor:
                         f"0x{job.expected_crc:08x} (torn slot read)"
                     )
             self.metrics.add_time("ingest.stage_copy", time.perf_counter() - t0)
+            obs_spans.record("staging.copy", key[0], key[1], t0)
 
         try:
             if job.alias_src:
@@ -548,8 +571,10 @@ class TransferExecutor:
             self._retrying("copy", copy_phase)
             handle.copy_done.set()  # the slot may be released now
             try:
+                span_t0 = obs_spans.t0()
                 value, base = self._retrying(
                     "transfer", lambda: _faulted_transfer(job, buf))
+                obs_spans.record("staging.transfer", key[0], key[1], span_t0)
             except (ShutdownRequested, KeyboardInterrupt):
                 raise
             except Exception:
@@ -620,6 +645,8 @@ class TransferExecutor:
             return value
         _block_ready(base)
         self.metrics.add_time("ingest.transfer", time.perf_counter() - t0)
+        key = job.span_key or (None, None)
+        obs_spans.record("staging.transfer", key[0], key[1], t0)
         self.metrics.incr("staging.alias_windows")
         return value
 
@@ -701,9 +728,10 @@ class StagedIngestEngine:
 
     def submit(self, src: np.ndarray, transfer: TransferFn,
                expected_crc: Optional[int] = None,
-               alias_src: bool = False) -> StagedTransfer:
+               alias_src: bool = False,
+               span_key: Optional[Tuple[int, int]] = None) -> StagedTransfer:
         return self.executor.submit(src, transfer, expected_crc,
-                                    alias_src=alias_src)
+                                    alias_src=alias_src, span_key=span_key)
 
     def close(self) -> None:
         self.executor.close()

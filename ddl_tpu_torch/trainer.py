@@ -19,8 +19,12 @@ step factory.  A ``pp`` mesh trains the stage layout
 (``llama.stage_params`` / ``pp_param_specs``, a ``*_pp`` loss), and its
 checkpoints keep that layout.  In MULTIHOST mode (a gloo group, a mesh
 whose ``dp`` spans the processes) each process lands and trains on its
-own rows, and the step averages grads and loss over the group.
-Observability spans are a later slice.
+own rows, and the step crosses the group in one bucket (the global
+batch's loss for a ``cross_entropy`` loss, ``parallel/train.py``);
+``evaluate`` returns one global value on every process.  The window
+stream records ``trainer.consume`` spans (:mod:`ddl_tpu_torch.obs`) and
+wraps the window wait in ``annotate("ddl.window_wait")``
+(:mod:`ddl_tpu_torch.profiling`).
 """
 
 from __future__ import annotations
@@ -64,6 +68,18 @@ def _window_cols(win: torch.Tensor, col_splits: Sequence[int]) -> Tuple[Any, ...
         cols.append(win[:, :, off : off + w])
         off += w
     return tuple(cols)
+
+
+def _weighed(metric_fn: Callable[[Any, Any], Any], params: Any,
+             batch: Any) -> Tuple[Any, Any]:
+    """``(metric, weight)`` of one batch: the count of the one
+    ``cross_entropy`` call the metric made (``losses.loss_weight``), else
+    the batch's rows."""
+    from ddl_tpu_torch.models.losses import loss_weight
+
+    with loss_weight() as scope:
+        value = metric_fn(params, batch)
+    return value, scope.weight(float(batch[0].shape[0]))
 
 
 @dataclasses.dataclass
@@ -359,9 +375,17 @@ class Trainer:
         ``metric_fn(params, batch) -> scalar`` per batch under
         ``torch.no_grad()`` and returns the sample-weighted mean; no
         optimizer step runs.  ``window_stream=True`` streams each window
-        whole and evaluates all its batches in one pass, weighting the
-        window's mean by its batch count; otherwise batches come through
-        the prefetcher."""
+        whole and evaluates its batches on the card; otherwise batches
+        come through the prefetcher.  Every batch weighs the same.
+
+        Over a mesh whose ``dp`` spans processes (MULTIHOST), each
+        process evaluates its own rows of every global batch, and every
+        process returns the same value: the mean over the global batches.
+        A batch's global value is its processes' values weighted by the
+        count of the ``cross_entropy`` call ``metric_fn`` made (the
+        MULTIHOST step's rule, ``parallel/train.py``), else by their
+        rows.  The sums and counts cross the group in one gloo call, so
+        every process must serve the same number of batches."""
         from ddl_tpu_torch import DistributedDataLoader, distributed_dataloader
 
         trainer = self
@@ -381,40 +405,56 @@ class Trainer:
             try:
                 with torch.no_grad():
                     if window_stream:
-                        return trainer._eval_windows(loader, state, metric_fn)
-                    vals: List[Any] = []
-                    for _epoch in range(n_epochs):
-                        for batch in loader.prefetch():
-                            # Metrics stay on the device until the end.
-                            vals.append(metric_fn(state.params, batch))
-                            loader.mark(Marker.END_OF_BATCH)
-                        loader.mark(Marker.END_OF_EPOCH)
-                # Every batch holds batch_size samples: the plain mean is
-                # the sample-weighted mean.
-                fvals = [float(v) for v in vals]
-                return sum(fvals) / len(fvals) if fvals else float("nan")
+                        vals = trainer._eval_windows(loader, state, metric_fn)
+                    else:
+                        vals = []
+                        for _epoch in range(n_epochs):
+                            for batch in loader.prefetch():
+                                # Metrics stay on the device until the end.
+                                vals.append(_weighed(metric_fn, state.params,
+                                                     batch))
+                                loader.mark(Marker.END_OF_BATCH)
+                            loader.mark(Marker.END_OF_EPOCH)
+                return trainer._eval_mean(vals)
             finally:
                 loader.shutdown()
 
         return _run()
 
     def _eval_windows(self, loader: Any, state: Any,
-                      metric_fn: Callable[[Any, Any], Any]) -> float:
+                      metric_fn: Callable[[Any, Any], Any]) -> List[Any]:
         col_splits = _stream_splits(loader)
-        vals = []
+        vals: List[Any] = []
         for win in loader.windows():
             cols = _window_cols(win, col_splits)
-            per_batch = torch.stack([
-                metric_fn(state.params, tuple(c[i] for c in cols))
-                for i in range(win.shape[0])
-            ])
-            # Weighted by batch count: windows of different depths must
-            # not be averaged as equals.
-            vals.append((per_batch.mean(), win.shape[0]))
+            vals.extend(_weighed(metric_fn, state.params,
+                                 tuple(c[i] for c in cols))
+                        for i in range(win.shape[0]))
             loader.mark(Marker.END_OF_EPOCH)
-        total = sum(w for _, w in vals)
-        return (sum(float(v) * w for v, w in vals) / total
-                if total else float("nan"))
+        return vals
+
+    def _eval_mean(self, vals: List[Any]) -> float:
+        """The mean over the batches of ``vals`` (``(value, weight)``
+        pairs).  Over a process-spanning mesh each batch's value is the
+        weighted mean of the processes' values: the sums and weights of
+        every batch cross the group in ONE gloo ``all_reduce``."""
+        if not vals:
+            return float("nan")
+        # One read-back of every batch's value (they stay on the card
+        # until here), in float64 on the host.
+        v = torch.stack([torch.as_tensor(v).detach().reshape(())
+                         for v, _w in vals]).to("cpu", torch.float64)
+        if self.mesh is None or not self.mesh.spans_processes:
+            return float(v.mean())
+        import torch.distributed as dist
+
+        w = torch.stack([torch.as_tensor(w).detach().reshape(()).to(
+            "cpu", torch.float64) for _v, w in vals])
+        bucket = torch.cat([v * w, w])
+        dist.all_reduce(bucket)
+        n = len(vals)
+        per_batch = bucket[:n] / torch.clamp(bucket[n:], min=1.0)
+        return float(per_batch.mean())
 
     # -- window-stream epoch loop -----------------------------------------
 
@@ -488,13 +528,16 @@ class Trainer:
         steps still run accumulates into ``trainer.ingest_overlap`` (a
         lower bound on hidden ingest).
         """
+        from ddl_tpu_torch.obs import spans as obs_spans
+        from ddl_tpu_torch.profiling import annotate
+
         m = self.metrics
         pending = pending_done = None
         epoch = start_epoch
         _done = object()
         while True:
             t0 = time.perf_counter()
-            with m.timed("trainer.window_wait"):
+            with m.timed("trainer.window_wait"), annotate("ddl.window_wait"):
                 win = next(stream, _done)
             if pending_done is not None and not value_ready(pending_done, True):
                 m.add_time("trainer.ingest_overlap", time.perf_counter() - t0)
@@ -502,6 +545,8 @@ class Trainer:
                 break
             if pending is None:
                 self._clock_start(m)
+            span_t0 = obs_spans.t0()
+            wkey = loader.last_window_key() or (None, None)
             state, losses = multi_for(win.shape[0])(
                 state, _window_cols(win, col_splits), per_step=True
             )
@@ -509,6 +554,9 @@ class Trainer:
             loss_mean = losses.mean()
             done = done_event(self.device)
             loader.gate_release_on(done)
+            # The consume span is the host's dispatch of the window's
+            # steps: the fused loop never waits on the card here.
+            obs_spans.record("trainer.consume", *wkey, span_t0)
             m.incr("trainer.fused_windows")
             if pending is not None:
                 epoch_losses.append(float(pending))
@@ -562,10 +610,14 @@ class Trainer:
                           epoch_losses, start_epoch):
         """The synchronous discipline (``DDL_TORCH_FUSED=0``): the window
         lands, THEN the steps run, THEN the losses are read back."""
+        from ddl_tpu_torch.obs import spans as obs_spans
+        from ddl_tpu_torch.profiling import annotate
+
         epoch = start_epoch
         _done = object()
         while True:
-            with self.metrics.timed("trainer.window_wait"):
+            with self.metrics.timed("trainer.window_wait"), annotate(
+                    "ddl.window_wait"):
                 win = next(stream, _done)
                 if win is not _done and self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
@@ -573,11 +625,16 @@ class Trainer:
                 break
             if not epoch_losses:
                 self._clock_start(self.metrics)
+            span_t0 = obs_spans.t0()
+            wkey = loader.last_window_key() or (None, None)
             state, losses = multi_for(win.shape[0])(
                 state, _window_cols(win, col_splits), per_step=True
             )
             self._clock_steps()
             epoch_losses.append(float(losses.mean()))
+            # The synchronous consume span covers the steps and the
+            # blocking read-back.
+            obs_spans.record("trainer.consume", *wkey, span_t0)
             epoch += 1
             loader.mark(Marker.END_OF_EPOCH)
             if self._boundary(state, loader, epoch):

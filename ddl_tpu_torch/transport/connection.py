@@ -163,6 +163,10 @@ class ConsumerConnection:
         # against the consumer's sends, shutdown and finalize.
         self._lock = named_rlock("transport.connection")
         self._finalized = False
+        # ObsReports the control router met, in arrival order, until the
+        # loader takes them (take_obs_reports): the router never drops a
+        # report, and the loader's drain never takes an ack.
+        self._obs_reports: List[Any] = []
 
     @property
     def n_producers(self) -> int:
@@ -311,9 +315,13 @@ class ConsumerConnection:
             return s.ack(ack) if s is not None else False
 
     def drain_acks(self) -> int:
-        """Re-send due envelopes, then route every ack the producers sent
-        back.  Returns the acks routed."""
-        from ddl_tpu_torch.types import ControlAck
+        """Re-send due envelopes, then route everything the producers sent
+        back (:data:`~ddl_tpu_torch.types.PRODUCER_TO_CONSUMER_CONTROL`):
+        each :class:`~ddl_tpu_torch.types.ControlAck` to its sender, each
+        :class:`~ddl_tpu_torch.types.ObsReport` to the report inbox the
+        loader drains (:meth:`take_obs_reports`).  Returns the acks
+        routed."""
+        from ddl_tpu_torch.types import ControlAck, ObsReport
 
         self.pump_control()
         routed = 0
@@ -325,11 +333,21 @@ class ConsumerConnection:
                 if isinstance(msg, ControlAck):
                     self.note_ack(msg)
                     routed += 1
+                elif isinstance(msg, ObsReport):
+                    with self._lock:
+                        self._obs_reports.append(msg)
                 else:
                     logger.warning("consumer: ignoring unexpected producer "
                                    "message %r on channel %d",
                                    type(msg).__name__, target)
         return routed
+
+    def take_obs_reports(self) -> List[Any]:
+        """The ObsReports routed so far, in arrival order; the inbox is
+        emptied.  Acks never land here."""
+        with self._lock:
+            out, self._obs_reports = self._obs_reports, []
+        return out
 
     def request_replay(self, target: int, seq: int) -> None:
         """Ask producer ``target`` (0-based) to rewind and re-commit its

@@ -113,6 +113,33 @@ class ControlAck:
     fence_rejected: bool = False
 
 
+@dataclasses.dataclass
+class ObsReport:
+    """Producer → consumer: one cross-process observability report
+    (:mod:`ddl_tpu_torch.obs.aggregate`), on the control channel the
+    acks ride.  ``snapshot`` is the producer registry's CUMULATIVE
+    ``Metrics.snapshot()`` (the consumer's merge replaces, so it cannot
+    double-count), ``hists`` its ``Metrics.hist_state()``, ``spans`` the
+    armed span log's events since the last report (empty when tracing is
+    disarmed).  ``report_idx`` is monotone per producer incarnation: the
+    consumer drops stale reports.  ``view_epoch`` is the producer's
+    cluster fence (0 until the cluster slice)."""
+
+    producer_idx: int
+    report_idx: int
+    pid: int
+    snapshot: dict
+    hists: dict = dataclasses.field(default_factory=dict)
+    spans: list = dataclasses.field(default_factory=list)
+    view_epoch: int = 0
+
+
+#: The control-channel protocol, per direction.  The consumer's ABORT
+#: broadcast is a ``str`` sentinel (``env.ABORT``), outside these tuples.
+CONSUMER_TO_PRODUCER_CONTROL = (ReplayRequest, ControlEnvelope)
+PRODUCER_TO_CONSUMER_CONTROL = (ObsReport, ControlAck)
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """Process/worker topology: ``n_producers`` workers per consumer."""

@@ -197,5 +197,12 @@ class Watchdog:
             # Counted once: the monitor stops at its first failure.
             self.failures.append(reason)
             self.metrics.incr("watchdog.failures")
+            # The failure is terminal for the pipeline: dump the flight
+            # ring before on_failure escalates (a no-op disarmed).  Only a
+            # death or a replaceable stall names a producer.
+            from ddl_tpu_torch.obs.recorder import flight_dump
+
+            flight_dump("watchdog.failure", producer_idx=self._dead_idx,
+                        metrics=self.metrics, extra={"reason": reason})
             self.on_failure(reason)
             return

@@ -1941,3 +1941,134 @@ def test_pipeline_schedules_bit_equal_on_the_card():
     for out, grads in runs[1:]:
         assert torch.equal(out, runs[0][0])
         assert torch.equal(grads, runs[0][1])
+
+
+# -- observability on the card ---------------------------------------------------
+
+
+def _obs_tiny_fit(path, armed=None, mode="thread"):
+    """A tiny token fit on the card, 3 windows of 2 steps, optionally
+    inside ``armed`` (a context manager)."""
+    import contextlib
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    cfg = llama.LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512)
+    trainer = Trainer(lambda p, b: llama.next_token_loss(p, b[0], cfg),
+                      adamw(1e-3), llama.init_params(cfg, seed=0),
+                      metrics=Metrics())
+    tfa.reset_launch_counts()
+    with armed if armed is not None else contextlib.nullcontext():
+        res = trainer.fit(TokenStreamProducer(path, 128, 8), config=LoaderConfig(
+            batch_size=4, n_epochs=3, mode=mode, window_stream=True))
+        torch.cuda.synchronize()
+    return res, [fn.launches for fn in tfa.KERNELS]
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_obs_armed_fit_is_bit_equal(tmp_path, mode):
+    """Span tracing and the flight recorder armed (exported to PROCESS
+    producers) change no loss and no launch; every served window has its
+    stage events."""
+    import contextlib
+
+    from ddl_tpu_torch.obs import SpanLog, recorder, spans
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    plain, plain_launches = _obs_tiny_fit(path, mode=mode)
+    slog = SpanLog()
+    stack = contextlib.ExitStack()
+    stack.enter_context(spans.tracing(slog, export=True))
+    stack.enter_context(recorder.armed(directory=str(tmp_path / "flight"),
+                                       export=True))
+    armed, armed_launches = _obs_tiny_fit(path, stack, mode=mode)
+    assert armed.losses == plain.losses
+    assert armed_launches == plain_launches == [2 * 6] * 3 + [0, 0, 0]
+    stages = {}
+    for e in slog.events():
+        stages.setdefault((e[3], e[4]), set()).add(e[2])
+    served = {k: v for k, v in stages.items() if "consumer.yield" in v}
+    assert len(served) == 3
+    for v in served.values():
+        assert {"producer.fill", "producer.commit", "consumer.acquire",
+                "ingest.transfer", "trainer.consume", "consumer.release"} <= v
+    if mode == "process":
+        assert armed.metrics.adopted_prefixes() == ["producer.0.", "producer.1."]
+
+
+@pytest.mark.flash
+def test_obs_profiling_trace_names_k1(tmp_path):
+    """``profiling.trace`` around a tiny fit: the Chrome trace holds the
+    pipeline's host ranges and as many K1 kernel events as K1's counter."""
+    import json
+
+    from ddl_tpu_torch import profiling
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    _obs_tiny_fit(path)  # warm-up
+    with profiling.trace(str(tmp_path / "prof")) as prof:
+        _res, launches = _obs_tiny_fit(path)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    k1 = [n for e, n in zip(events, names)
+          if e.get("cat") == "kernel" and "flash_fwd_sm90_kernel" in n]
+    assert len(k1) == launches[0] == tfa.flash_fwd.sm90_launches > 0
+    assert "ddl.window_wait" in names and "ddl.ingest_put_window" in names
+
+
+def test_obs_corrupt_window_flight_dump(tmp_path):
+    """A corrupt window on the card's staged stream under an armed
+    recorder: one dump names the quarantined window, and the stream
+    equals the undisturbed one."""
+    import json
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch import faults as flt
+    from ddl_tpu_torch.obs import recorder
+    from ddl_tpu_torch.observability import Metrics
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+
+    def drain(m):
+        @distributed_dataloader(n_producers=2, mode="thread", nslots=2)
+        def run(env):
+            loader = DistributedDataLoader(
+                TokenStreamProducer(path, 128, 8), batch_size=4,
+                connection=env.connection, n_epochs=4, output="device",
+                device="cuda", metrics=m)
+            out = []
+            for win in loader.windows():
+                out.append(win.cpu())
+                loader.mark(Marker.END_OF_EPOCH)
+            return out
+
+        return run()
+
+    clean = drain(Metrics())
+    plan = flt.FaultPlan([flt.FaultSpec(
+        "producer.commit", flt.FaultKind.RING_CORRUPTION, at=2,
+        producer_idx=1, param=8)], seed=0)
+    m = Metrics()
+    with recorder.armed(directory=str(tmp_path / "flight")) as rec, \
+            flt.armed(plan):
+        got = drain(m)
+    assert plan.fired and m.counter("integrity.replays") == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, clean))
+    named = []
+    for p in rec.dumped_paths:
+        with open(p) as f:
+            d = json.load(f)
+        if d["window"]["seq"] is not None:
+            named.append(d)
+    assert [(d["reason"], d["window"]) for d in named] == [
+        ("integrity.corrupt_window", {"producer_idx": 1, "seq": 1})]

@@ -56,7 +56,8 @@ def test_every_reference_knob_is_mapped():
                  "DDL_TPU_CKPT_ASYNC", "DDL_TPU_PREEMPT_NOTICE",
                  "DDL_TPU_PREEMPT_DEADLINE_S", "DDL_TPU_FAULT_PLAN",
                  "DDL_TPU_CACHE_RETRIES", "DDL_TPU_CACHE_BACKOFF_S",
-                 "DDL_TPU_TFRECORD_CRC"):
+                 "DDL_TPU_TFRECORD_CRC", "DDL_TPU_TRACE", "DDL_TPU_FLIGHT",
+                 "DDL_TPU_FLIGHT_DIR", "DDL_TPU_OBS_SHIP_EVERY"):
         assert tenv.KNOB_MAP[name] in tenv.REGISTRY
     # The shard cache and the readers leave no knob to do.
     for ref, port in tenv.KNOB_MAP.items():

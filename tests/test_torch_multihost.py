@@ -5,7 +5,8 @@ CPU, and the ``"xla"`` exchange route.
   arguments and environments (``DDL_TORCH_*`` against ``DDL_TPU_*``, the
   SLURM variables shared).
 - Two OS processes run ``tests/torch_multihost_prog.py`` (legs ``core``,
-  ``stream``, ``ppdp``, ``dpsp``, ``ckpt``) over a gloo group, each with its own
+  ``stream``, ``ppdp``, ``dpsp``, ``ckpt``, ``packed``, ``evaluate``) over
+  a gloo group, each with its own
   PROCESS producers, as ``tests/test_multihost.py`` runs the JAX
   package's program.  Each process's batch and window streams equal the
   JAX package's for ``Topology(n_instances=2, instance_idx=i)`` byte for
@@ -15,7 +16,12 @@ CPU, and the ``"xla"`` exchange route.
   readings were 8.8e-8 for ``core`` and 1.0e-7 for ``ppdp``); the cross-process shuffle keeps the multiset
   of rows, moves some, and equals the one-process shuffler's pool byte
   for byte; the checkpoint round trip (rank 0 writes, every rank
-  restores and fast-forwards) passes inside the program.
+  restores and fast-forwards) passes inside the program.  The ``packed``
+  leg's processes keep different token counts, and its losses still
+  equal the one-process run (the step weights each process's loss and
+  grads by its count); ``evaluate`` returns one value on every process,
+  the one-process value over the global batches (rtol 1e-6), for a row
+  metric and for a masked ``cross_entropy`` metric.
 - The ``"xla"`` exchange (two ``ppermute`` lane moves) equals the
   ``"ring"`` route and the lanes ``exchange_permutation`` gives, byte for
   byte.
@@ -111,7 +117,7 @@ def cluster(tmp_path_factory):
     tokens = out / "tokens.bin"
     np.random.default_rng(5).integers(0, 64, 20_000, dtype=np.int32).tofile(tokens)
     env.update(DDL_TORCH_MH_PROCS="2", DDL_TORCH_MH_DEVS="2",
-               DDL_TORCH_MH_LEGS="core,stream,ppdp,dpsp,ckpt",
+               DDL_TORCH_MH_LEGS="core,stream,ppdp,dpsp,ckpt,packed,evaluate",
                DDL_TORCH_MH_OUT=str(out), DDL_TORCH_MH_TOKENS=str(tokens),
                DDL_TORCH_MH_DIR=str(tmp_path_factory.mktemp("mh-ckpt")))
     port = str(_free_port())
@@ -132,7 +138,8 @@ def cluster(tmp_path_factory):
         assert p.returncode == 0, f"process {i} rc={p.returncode}:\n{text}"
         assert f"MULTIHOST OK process={i}" in text, text
     return {(leg, i): dict(np.load(out / f"{leg}_{i}.npz"))
-            for leg in ("core", "stream", "ppdp", "dpsp", "ckpt")
+            for leg in ("core", "stream", "ppdp", "dpsp", "ckpt", "packed",
+                        "evaluate")
             for i in range(2)}
 
 
@@ -293,6 +300,58 @@ def test_trainer_fit_in_multihost_mode_equals_one_process_run(cluster):
         state, ls = multi(state, (torch.from_numpy(w),), per_step=True)
         losses.append(float(ls.mean()))
     np.testing.assert_allclose(r0["losses"], losses, rtol=RTOL)
+
+
+def test_packed_losses_equal_one_process_run(cluster):
+    """The twin of the JAX package's packed leg: each process streams its
+    own packed documents into a global window and takes one
+    segment-masked step a window.  The processes keep different token
+    counts in some step, and the losses (and so the updates) still equal
+    a one-process run over the joined windows within ``RTOL``."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.train import make_train_step
+
+    r0, r1 = cluster[("packed", 0)], cluster[("packed", 1)]
+    np.testing.assert_array_equal(r0["losses"], r1["losses"])
+    assert (r0["counts"] != r1["counts"]).any(), (r0["counts"], r1["counts"])
+    for r in (r0, r1):
+        assert list(r["counts"]) == [prog.packed_count(w) for w in r["windows"]]
+    mesh = make_mesh({"dp": 4}, ["cpu"] * 4)
+    init_fn, step_fn = make_train_step(
+        prog.packed_loss, lambda ps: torch.optim.SGD(ps, lr=1e-2), mesh=mesh,
+        param_specs=llama.param_specs(prog.pp_cfg()), batch_spec=P(None, ("dp",)))
+    state = init_fn(llama.init_params(prog.pp_cfg(), seed=0, device="cpu"))
+    losses = []
+    for w0, w1 in zip(r0["windows"], r1["windows"]):
+        state, loss = step_fn(state, torch.from_numpy(np.concatenate([w0, w1], 1)))
+        losses.append(float(loss))
+    np.testing.assert_allclose(r0["losses"], losses, rtol=RTOL)
+
+
+@pytest.mark.parametrize("metric", ["tag", "masked"])
+def test_evaluate_returns_the_global_value(cluster, metric):
+    """``Trainer.evaluate`` over ``{"dp": 4}`` spanning both processes:
+    one value on every process, equal to the mean over the global batches
+    of the metric on the joined rows (rtol 1e-6) — for the masked metric
+    the processes' counts differ, so a mean of their means would miss."""
+    fn = {"tag": prog.tag_metric, "masked": prog.masked_metric}[metric]
+    e0, e1 = cluster[("evaluate", 0)], cluster[("evaluate", 1)]
+    assert float(e0[metric]) == float(e1[metric])
+    b0, b1 = e0[f"{metric}_batches"], e1[f"{metric}_batches"]
+    assert len(b0) == len(b1) > 0
+
+    def split(rows):
+        t = torch.from_numpy(rows)
+        return t[:, :prog.N_VALUES - 1], t[:, prog.N_VALUES - 1:]
+
+    joined = [float(fn(None, split(np.concatenate([x, y]))))
+              for x, y in zip(b0, b1)]
+    np.testing.assert_allclose(float(e0[metric]), np.mean(joined), rtol=1e-6)
+    if metric == "masked":
+        means = [(float(fn(None, split(x))) + float(fn(None, split(y)))) / 2
+                 for x, y in zip(b0, b1)]
+        assert abs(np.mean(means) - np.mean(joined)) > 1e-4 * abs(np.mean(joined))
 
 
 def test_cross_process_shuffle_keeps_rows_and_equals_one_process(cluster):

@@ -15,7 +15,8 @@ constants agree across the pickle boundary):
 
 - ``DDL_TORCH_MH_PROCS`` (default 2): processes in the group.
 - ``DDL_TORCH_MH_DEVS`` (default 2): mesh positions a process.
-- ``DDL_TORCH_MH_LEGS`` (default ``core,stream,ppdp,dpsp,ckpt``):
+- ``DDL_TORCH_MH_LEGS`` (default
+  ``core,stream,ppdp,dpsp,ckpt,packed,evaluate``):
   ``core`` (coverage, the global train step, the cross-process shuffle),
   ``stream`` (``windows()`` with a process-spanning sharding), ``ppdp``
   (the pipelined Llama loss over each process's pp pair, dp across
@@ -23,7 +24,13 @@ constants agree across the pickle boundary):
   ``{"dp": 2, "sp": 2}``: the ring over each process's sp pair, on the
   int32 tokens of ``DDL_TORCH_MH_TOKENS``, else a seeded corpus it
   writes), ``ckpt`` (save, fresh restore,
-  loader fast-forward on ``DDL_TORCH_MH_DIR``).
+  loader fast-forward on ``DDL_TORCH_MH_DIR``), ``packed`` (the twin of
+  the JAX package's packed leg: per-process packed documents streamed
+  into a global window, a segment-masked Llama step per window, the
+  processes keeping different token counts), ``evaluate``
+  (``Trainer.evaluate`` over a process-spanning mesh, a row metric
+  through the prefetcher and a masked ``cross_entropy`` metric over
+  streamed windows).
 - ``DDL_TORCH_MH_OUT``: directory of the per-process records
   (``<leg>_<rank>.npz``) the test holds to the JAX package's streams and
   to a one-process run.
@@ -38,13 +45,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROCESSES = int(os.environ.get("DDL_TORCH_MH_PROCS", "2"))
 DEVICES_PER_PROCESS = int(os.environ.get("DDL_TORCH_MH_DEVS", "2"))
-LEGS = tuple(os.environ.get("DDL_TORCH_MH_LEGS",
-                            "core,stream,ppdp,dpsp,ckpt").split(","))
+LEGS = tuple(os.environ.get(
+    "DDL_TORCH_MH_LEGS",
+    "core,stream,ppdp,dpsp,ckpt,packed,evaluate").split(","))
 N_PRODUCERS = 2
 N_DATA, N_VALUES = 32, 8
 BATCH = 8
 SP_SEQ = 16
 LR = 1e-3
+#: The packed leg's geometry (the JAX package's packed leg).
+PACK_SEQ, PACK_ROWS, PACK_BATCH = 16, 16, 4
 
 import numpy as np  # noqa: E402
 
@@ -135,6 +145,52 @@ def pp_loss(mesh):
     cfg = pp_cfg()
     return lambda p, b: llama.next_token_loss_pp(p, b[0], cfg, mesh,
                                                  n_microbatches=2)
+
+
+def packed_corpus(rank: int, path: str) -> str:
+    """The packed leg's per-process documents (the JAX package's recipe):
+    200 documents of 3-11 tokens, each ended by the delimiter 0."""
+    rng = np.random.default_rng(100 + rank)
+    docs = [rng.integers(1, 60, size=int(n)).tolist() + [0]
+            for n in rng.integers(3, 12, size=200)]
+    np.asarray([t for d in docs for t in d], np.int32).tofile(path)
+    return path
+
+
+def packed_loss(p, win):
+    """The packed leg's loss over a whole window: tokens and segment ids
+    of every row, one segment-masked next-token loss."""
+    from ddl_tpu_torch.models import llama
+
+    tok = win[..., :PACK_SEQ].reshape(-1, PACK_SEQ)
+    seg = win[..., PACK_SEQ:].reshape(-1, PACK_SEQ)
+    return llama.next_token_loss(p, tok, pp_cfg(), segment_ids=seg)
+
+
+def packed_count(win: np.ndarray) -> int:
+    """Positions the packed loss keeps in ``win``: every row's first
+    T - 1 positions whose next token is in the same document."""
+    seg = win[..., PACK_SEQ:].reshape(-1, PACK_SEQ)
+    return int((seg[:, :-1] == seg[:, 1:]).sum())
+
+
+def tag_metric(p, b):
+    """The evaluate leg's row metric: the mean tag of the batch."""
+    return b[1][:, 0].mean()
+
+
+def masked_metric(p, b):
+    """The evaluate leg's masked metric: a ``cross_entropy`` whose mask
+    keeps the rows whose tag is not a multiple of 3, so the two
+    processes (tags 0... and 1000...) keep different counts."""
+    import torch
+
+    from ddl_tpu_torch.models.losses import cross_entropy
+
+    x, y = b[0], b[1]
+    logits = (x[:, :, None] * 1e-3 * torch.arange(1, 8)).sum(1)
+    tags = y[:, 0].long()
+    return cross_entropy(logits, tags % 7, mask=(tags % 3) != 0)
 
 
 def main(rank: int, port: int) -> None:
@@ -386,6 +442,75 @@ def main(rank: int, port: int) -> None:
             record("ckpt", losses=np.array(losses))
 
         run_ckpt_resume()
+
+    if "packed" in LEGS:
+        import tempfile
+
+        from ddl_tpu_torch.models import llama
+        from ddl_tpu_torch.readers import PackedTokenProducer
+
+        token_file = packed_corpus(rank, os.path.join(
+            tempfile.mkdtemp(prefix=f"ddl-torch-mh-{rank}-"), "pack.bin"))
+
+        @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                                pin_memory=False)
+        def run_packed(env):
+            mesh = make_mesh({"dp": total}, positions)
+            loader = DistributedDataLoader(
+                PackedTokenProducer(token_file, seq_len=PACK_SEQ,
+                                    window_rows=PACK_ROWS, delimiter=0),
+                batch_size=PACK_BATCH, connection=env.connection, n_epochs=2,
+                output="device", device="cpu",
+                sharding=NamedSharding(mesh, P(None, "dp")))
+            init_fn, step_fn = make_train_step(
+                packed_loss, sgd(1e-2), mesh=mesh,
+                param_specs=llama.param_specs(pp_cfg()),
+                batch_spec=P(None, ("dp",)))
+            state = init_fn(llama.init_params(pp_cfg(), seed=0, device="cpu"))
+            wins, counts, losses = [], [], []
+            for win in loader.windows():
+                assert win.shape == (PACK_ROWS // PACK_BATCH,
+                                     N_PROCESSES * PACK_BATCH, 2 * PACK_SEQ)
+                local = win.assemble_local().numpy().copy()
+                wins.append(local)
+                counts.append(packed_count(local))
+                state, loss = step_fn(state, win)
+                losses.append(float(loss))
+                loader.mark(Marker.END_OF_EPOCH)
+            assert len(losses) == 2 and all(np.isfinite(v) for v in losses)
+            # The packing packed: some row spans several documents.
+            assert any((w[..., PACK_SEQ:] > 0).any() for w in wins)
+            record("packed", windows=np.stack(wins), counts=np.array(counts),
+                   losses=np.array(losses))
+
+        run_packed()
+
+    if "evaluate" in LEGS:
+        from ddl_tpu_torch.observability import Metrics
+        from ddl_tpu_torch.trainer import Trainer
+
+        mesh = make_mesh({"dp": total}, positions)
+        trainer = Trainer(linear_loss, sgd(LR),
+                          {"w": np.zeros((N_VALUES - 1,), np.float32)},
+                          device="cpu", metrics=Metrics(), mesh=mesh,
+                          param_specs={"w": P(None)}, batch_spec=P(("dp",)))
+        state = trainer._init_fn(trainer._init_params)
+        got, seen = {}, {"tag": [], "masked": []}
+        for name, fn, stream in (("tag", tag_metric, False),
+                                 ("masked", masked_metric, True)):
+            def metric(p, b, fn=fn, name=name):
+                seen[name].append(np.concatenate(
+                    [np.asarray(c, dtype=np.float32) for c in b], axis=1))
+                return fn(p, b)
+
+            got[name] = trainer.evaluate(
+                TaggedProducer(rank), state, metric, batch_size=BATCH,
+                n_producers=N_PRODUCERS, mode="multihost",
+                window_stream=stream, n_epochs=2)
+        record("evaluate", tag=np.array(got["tag"]),
+               masked=np.array(got["masked"]),
+               tag_batches=np.stack(seen["tag"]),
+               masked_batches=np.stack(seen["masked"]))
 
     dist.destroy_process_group()
     print(f"MULTIHOST OK process={rank}", flush=True)
