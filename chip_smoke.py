@@ -254,10 +254,38 @@ insert(0, '.'); import chip_smoke as c; card = c.phase_build(); tmp =
 tempfile.mkdtemp(); s = c.phase_train(tmp, card)[1];
 print(c.phase_obs(tmp, card, s))"``.
 
+Phase 14 is the other model families at their published widths.  First
+K1-K3 with ``causal=False`` at the ViT-B/16 fit's shape (B = 32, T =
+196, H = Hkv = 12, D = 64, bf16) against their plain versions, forward
+and backward, at phase 2's tolerances, then timed with every tile pair
+counted as loaded, beside the plain versions, SDPA's non-causal call and
+the bound.  (a) The MoE at Mixtral-8x7B's widths (vocab 32000, d_model
+4096, 32/8 heads, d_ff 14336, 8 experts, top-2) cut to 2 layers, B = 2,
+T = 2048: one layer's MLP timed by part (routing, one-hot dispatch and
+combine, expert products), then ``Trainer.fit`` over THREAD producers
+three ways — the einsum impl on a Zipf token stream (K1-K3, profiled),
+on packed documents with ``segment_ids`` (K4-K6), the ragged impl on the
+token stream — each with finite, falling losses, one launch a layer a
+step on the wgmma kernels, its peak memory and its share of dropped
+picks; before the fits one fp32 step of each path against its
+``attn_impl="dense"`` twin at phase 3's tolerances (loss 1e-5, every
+gradient 1e-4), after them the einsum and packed fits again in fp32
+beside their dense twins (per-window losses within 1e-4: Adam and the
+capacity boundary amplify fp32 noise over the steps); greedy decode,
+and the prefill's logits against the no-cache forward.
+(b) ViT-B/16 through ``Trainer.fit`` with ``classification_loss`` over
+``.npy`` shards of ``[pixels..., label]`` rows (``FileShardProducer``,
+two splits), K1-K3 non-causal.  (c) PointNet over ``(pos, target,
+weight)`` shards, no kernel.  Run alone: ``python3 -c "import sys,
+tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
+c.phase_build(); print(c.phase_families(tempfile.mkdtemp(), card))"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
 ring of (a); ``multihost_launches`` from phase 12's two processes; K1-K3
-with ``pipeline_launches`` from phase 12's gpipe fit), the
+with ``pipeline_launches`` from phase 12's gpipe fit; ``moe_launches``
+from phase 14's MoE fits, and K1-K3 with ``vit_launches`` and the
+``vit_noncausal`` timings), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -439,28 +467,29 @@ def _doc_lengths(rng, n_tokens: int):
     return lens
 
 
-def documents(n_tokens: int, seed: int = SEED):
+def documents(n_tokens: int, seed: int = SEED, vocab: int = VOCAB,
+              eot: int = EOT):
     """A web-text-like stream of packed documents: lengths log-normal with
     median 300 tokens and sigma 1.0, clipped to [16, 8192]; bodies are
-    Zipf(1.2) ranks mod the vocabulary (draws of the delimiter remapped);
-    every document ends in ``EOT``.  int32, ``n_tokens`` long."""
+    Zipf(1.2) ranks mod ``vocab`` (draws of the delimiter remapped);
+    every document ends in ``eot``.  int32, ``n_tokens`` long."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     ends = np.cumsum(_doc_lengths(rng, n_tokens)) - 1
-    tokens = (rng.zipf(1.2, n_tokens) - 1) % VOCAB
-    tokens[tokens == EOT] = (EOT + 1) % VOCAB
-    tokens[ends[ends < n_tokens]] = EOT
+    tokens = (rng.zipf(1.2, n_tokens) - 1) % vocab
+    tokens[tokens == eot] = (eot + 1) % vocab
+    tokens[ends[ends < n_tokens]] = eot
     return tokens.astype(np.int32)
 
 
-def seg_ids(tokens):
+def seg_ids(tokens, eot: int = EOT):
     """Row-local segment ids of (rows, T) tokens, as PackedTokenProducer
-    writes them: a new document starts after each ``EOT``."""
+    writes them: a new document starts after each ``eot``."""
     import numpy as np
 
     seg = np.zeros_like(tokens)
-    seg[:, 1:] = np.cumsum(tokens[:, :-1] == EOT, axis=1)
+    seg[:, 1:] = np.cumsum(tokens[:, :-1] == eot, axis=1)
     return seg
 
 
@@ -1932,16 +1961,21 @@ def _shm_free_bytes() -> int:
 
 
 def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
-              around=None, keep_metrics=False, **loader_kw):
+              around=None, keep_metrics=False, init_params=None, train=None,
+              optimizer=None, warmup=True, **loader_kw):
     """One training path in one producer mode at full width: a fresh
-    ``Trainer`` from ``init_params(seed=0)``, a one-window warm-up fit
-    (cuBLAS handles, allocator pools, the producers' first spawn), then
-    the measured fit with the flash launch counts set to 0 just before it
-    and read just after; ``loader_kw`` are further ``LoaderConfig`` fields
-    of both fits.  ``around`` (a context-manager factory) wraps the
-    measured fit only (phase 13 arms the observability there);
-    ``keep_metrics`` returns its registry as ``summary["metrics"]``.
-    Everything else it allocated is dropped on return."""
+    ``Trainer`` from ``init_params`` (default: the Llama's of ``cfg`` at
+    seed 0), a one-window warm-up fit (cuBLAS handles, allocator pools,
+    the producers' first spawn) unless ``warmup`` is off, then the
+    measured fit with the flash launch counts set to 0 just before it and
+    read just after; ``loader_kw`` are further ``LoaderConfig`` fields of
+    both fits.  ``train`` replaces the ``TRAIN`` geometry (batch_size,
+    window_rows, n_epochs, n_producers; seq_len: the tokens a row counts)
+    and ``optimizer`` the ``adamw(1e-5)`` factory.  ``around`` (a
+    context-manager factory) wraps the measured fit only (phase 13 arms
+    the observability there); ``keep_metrics`` returns its registry as
+    ``summary["metrics"]``.  Everything else it allocated is dropped on
+    return."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
@@ -1951,13 +1985,14 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
     from ddl_tpu_torch.parallel.train import adamw
     from ddl_tpu_torch.trainer import Trainer
 
-    tr = TRAIN
+    tr = train or TRAIN
     trainer = Trainer(
         loss_fn=loss_fn,
         # No warm-up schedule in a 6-step smoke: a small rate keeps Adam's
         # first, sign-like steps from overshooting at this width.
-        optimizer=adamw(1e-5),
-        init_params=llama.init_params(cfg, seed=SEED, device="cuda"),
+        optimizer=optimizer or adamw(1e-5),
+        init_params=(llama.init_params(cfg, seed=SEED, device="cuda")
+                     if init_params is None else init_params),
         device="cuda",
         metrics=Metrics(),
     )
@@ -1968,8 +2003,10 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
             n_producers=tr["n_producers"], mode=mode, window_stream=True,
             **loader_kw))
 
-    warm = run(1)
-    del warm
+    if warmup:
+        warm = run(1)
+        del warm
+        free_device_memory()  # the warm-up's state before the next one's
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.metrics = m = Metrics()
@@ -6004,6 +6041,598 @@ def phase_obs(tmpdir, card, phase6):
     return {"fits": fits, "profile": prof, "flight": flight}
 
 
+# ------------------------------------------------------------ phase 14 ---
+
+#: Phase 14's cells.  (a) The MoE at Mixtral-8x7B's published widths
+#: (vocab 32000, d_model 4096, 32/8 heads, d_ff 14336, 8 experts, top-2)
+#: cut to 2 layers, B = 2 rows of 2048 tokens (N = 4096 routed together,
+#: C = 1280 at capacity_factor 1.25), 2 steps a window, 3 windows;
+#: packed documents end in Mixtral's ``</s>`` (id 2).  (b) ViT-B/16 on
+#: 224 x 224 x 3 images in 16 x 16 patches (196 tokens), 1000 classes,
+#: B = 32, shards of 64 ``[pixels..., label]`` rows (one window, 2 steps),
+#: 3 windows.  (c) The pointwise regressor on (pos, target, weight) rows,
+#: batches of 4096 points, windows of 16384, 3 windows.
+MOE = dict(n_layers=2, seq_len=2048, batch_size=2, window_rows=4, n_epochs=3,
+           n_producers=2, n_tokens=4_000_000, eos=2, prompt=16, new_tokens=8)
+VIT = dict(batch_size=32, window_rows=64, n_epochs=3, n_producers=2,
+           seq_len=196, n_shards=4)
+POINTS = dict(batch_size=4096, window_rows=16384, n_epochs=3, n_producers=2,
+              seq_len=1, n_shards=4)
+#: The dense-attention twins of the MoE paths, in fp32 (phase 3's
+#: tolerances are fp32 ones; the flash side takes the FMA kernels).  One
+#: step at full width from the seed-0 weights is phase 3's check: loss
+#: within 1e-5 relative, every gradient within 1e-4.  The twin fits'
+#: per-window losses within 1e-4: Adam's normalised update turns the
+#: ~1e-7 differences of near-zero gradient components into steps of the
+#: full learning rate, and at a binding capacity one flipped pick moves a
+#: token across an expert's capacity (the packed twins sit 1.38e-5 apart
+#: in their third window, PERF.md §6).
+MOE_TWIN_RTOL = (1e-5, 1e-4)
+MOE_TWIN_FIT_RTOL = 1e-4
+#: The MoE prefill's logits against the no-cache forward, both in fp32
+#: (one routing of the same prompt: ``moe.py:634-642``), absolute.
+MOE_PREFILL_ATOL = 1e-3
+
+
+def _vit_b16():
+    import torch
+
+    from ddl_tpu_torch.models import vit
+
+    return vit.ViTConfig(image_size=224, patch_size=16, d_model=768,
+                         n_layers=12, n_heads=12, d_ff=3072, n_classes=1000,
+                         dtype=torch.bfloat16)
+
+
+def vit_kernel_checks(gen):
+    """(b) first: K1-K3 with ``causal=False`` at the ViT-B/16 fit's shape
+    (B = 32, T = 196, H = Hkv = 12, D = 64, bf16, the wgmma kernels)
+    against their plain versions, forward and backward, at phase 2's
+    tolerances; then each timed with the tiles it loaded (no causal skip:
+    every tile pair is live), the plain version's time, SDPA's non-causal
+    time at this shape and the bound of the B·H·T² pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    cfg = _vit_b16()
+    B, T, H, D = VIT["batch_size"], cfg.n_patches, cfg.n_heads, cfg.head_dim
+    ok, errs, _, _ = _case(f"vit non-causal bf16 B={B} T={T} H=Hkv={H} D={D}",
+                           B, T, T, H, H, D, torch.bfloat16, 0, 0, False,
+                           TOL_BF16, gen)
+    if not ok:
+        raise PhaseFailed("[vit] a non-causal kernel disagrees with its plain "
+                          "version at the ViT-B/16 shape")
+    dt = torch.bfloat16
+    q, k, v, dout = (_rand((B, T, H, D), dt, gen, "cuda") for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, 0, 0, False)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dlse = torch.zeros_like(lse)
+    zeros = torch.zeros(B, T, dtype=torch.int32)
+    rule = H * int(fa.live_tiles(zeros, zeros, causal=False).sum())
+    rule_dkv = H * int(fa.live_tiles_dkv(zeros, zeros, causal=False).sum())
+    every = B * H * math.ceil(T / 128) ** 2
+    if rule != every:
+        raise PhaseFailed(f"[vit] live_tiles(causal=False) gives {rule} key "
+                          f"tiles, every pair is {every}")
+    ms, tiles = {}, {}
+    ms["fwd"], tiles["fwd"] = _timed_tile_visits(fa.flash_fwd, q, k, v, 0, 0,
+                                                 False, rule=rule)
+    ms["dq"], tiles["dq"] = _timed_tile_visits(
+        fa.flash_bwd_dq, q, k, v, dout, lse, delta, dlse, 0, 0, False,
+        rule=rule)
+    ms["dkv"], tiles["dkv"] = _timed_tile_visits(
+        fa.flash_bwd_dkv, q, k, v, dout, lse, delta, dlse, 0, 0, False,
+        rule=rule_dkv)
+    plain_ms = {"fwd": _time_ms(lambda: fa.attention_plain(q, k, v, causal=False))}
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o, _ = fa.attention_plain(qq, kk, vv, causal=False)
+    plain_ms["dq"] = _time_ms(lambda: torch.autograd.grad(
+        o, qq, dout, retain_graph=True))
+    plain_ms["dkv"] = _time_ms(lambda: torch.autograd.grad(
+        o, (kk, vv), dout, retain_graph=True))
+    del o, qq, kk, vv
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    qs, ks_, vs = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    so = F.scaled_dot_product_attention(qs, ks_, vs)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+        so, (qs, ks_, vs), dout.transpose(1, 2), retain_graph=True))
+    del so, qs, ks_, vs
+    pairs = B * H * T * T
+    n_q = B * T * H * D * 2
+    rows = B * H * T * 4
+    work = {"fwd": (4 * D * pairs, 4 * n_q + rows),
+            "dq": (6 * D * pairs, 5 * n_q + 3 * rows),
+            "dkv": (8 * D * pairs, 6 * n_q + 3 * rows)}
+    abs_err = {"fwd": errs["out_abs"], "dq": errs["dq_abs"],
+               "dkv": max(errs["dk_abs"], errs["dv_abs"])}
+    out_rows = {}
+    for key, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                      ("dkv", "flash_bwd_dkv")):
+        bound_ms, bound_by = _bound(*work[key])
+        out_rows[name] = {
+            "shape": f"B={B} T={T} H=Hkv={H} D={D} bf16 non-causal",
+            "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": abs_err[key],
+            "tiles_visited": tiles[key],
+            "library_ms": library if key == "fwd" else None}
+        log(f"[vit] {name} non-causal: {ms[key]:.4f} ms  plain "
+            f"{plain_ms[key]:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+            f"{'query' if key == 'dkv' else 'key'} tiles {tiles[key]}"
+            + (f"  sdpa non-causal {library:.4f} ms" if key == "fwd" else ""))
+    log(f"[vit] sdpa non-causal backward (dq, dk, dv together): "
+        f"{sdpa_bwd:.4f} ms")
+    return out_rows
+
+
+class _DropCount:
+    """Counts the einsum impl's picks and those past the capacity while
+    armed (wraps ``moe._arrival``; the sums stay on the card until read)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.picks = self.dropped = None
+
+    @contextlib.contextmanager
+    def __call__(self):
+        import torch
+
+        from ddl_tpu_torch.models import moe
+
+        orig = moe._arrival
+
+        def counted(mask):
+            pos = orig(mask)
+            C = self.cfg.capacity(pos.shape[0])
+            over = (pos >= C).sum()
+            self.dropped = over if self.dropped is None else self.dropped + over
+            self.picks = (pos.numel() if self.picks is None
+                          else self.picks + pos.numel())
+            return pos
+
+        moe._arrival = counted
+        try:
+            yield
+        finally:
+            moe._arrival = orig
+            torch.cuda.synchronize()
+
+    def share(self) -> float:
+        return 0.0 if not self.picks else float(self.dropped) / self.picks
+
+
+def moe_layer_parts(cfg, n_tokens, card):
+    """Where one MoE layer's MLP time goes at the fit's N (einsum impl,
+    bf16, seed-0 weights of one layer), forward and backward of each part
+    timed apart on the card's clock: the routing (router product,
+    softmax, top-k, the slot-major arrival, the combine tensor), the
+    one-hot dispatch and combine products, the three expert products,
+    and the whole ``moe_mlp``."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddl_tpu_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    one = dataclasses.replace(cfg, n_layers=1)
+    layer = {k: v.requires_grad_(True) for k, v in
+             moe.init_params(one, seed=SEED, device="cuda")["layers"][0].items()}
+    dt, E, D = cfg.dtype, cfg.n_experts, cfg.d_model
+    C = cfg.capacity(n_tokens)
+    x = _rand((n_tokens, D), dt, gen, "cuda").requires_grad_(True)
+
+    def combine_of(x):
+        probs, top_p, top_e = moe._router_topk(x, layer, cfg)
+        mask = F.one_hot(top_e, E).float()
+        pos = moe._arrival(mask).long()
+        gates = top_p * (pos < C)
+        slots = (pos[..., None] == torch.arange(C, device="cuda")).float()
+        return torch.einsum("nke,nkc->nec", gates[..., None] * mask, slots)
+
+    def routing():
+        comb = combine_of(x)
+        torch.autograd.grad(comb.sum(), (x, layer["w_router"]))
+
+    combine = combine_of(x).detach().requires_grad_(True)
+    dispatch = (combine > 0).to(dt)
+    expert_out = _rand((E, C, D), dt, gen, "cuda").requires_grad_(True)
+    g_out = _rand((n_tokens, D), dt, gen, "cuda")
+
+    def dispatch_combine():
+        ein = torch.einsum("nec,nd->ecd", dispatch, x)
+        out = torch.einsum("nec,ecd->nd", combine.to(dt), expert_out)
+        torch.autograd.grad((ein.float().sum(), out), (x, combine, expert_out),
+                            (None, g_out))
+
+    ein = _rand((E, C, D), dt, gen, "cuda").requires_grad_(True)
+    g_ein = _rand((E, C, D), dt, gen, "cuda")
+
+    def experts():
+        gate = F.silu(torch.bmm(ein, layer["w_gate"].to(dt)))
+        up = torch.bmm(ein, layer["w_up"].to(dt))
+        out = torch.bmm(gate * up, layer["w_down"].to(dt))
+        torch.autograd.grad(out, (ein, layer["w_gate"], layer["w_up"],
+                                  layer["w_down"]), g_ein)
+
+    def whole():
+        out, aux = moe.moe_mlp(x, layer, cfg)
+        torch.autograd.grad((out, aux), [x] + list(layer.values()),
+                            (g_out, None), allow_unused=True)
+
+    parts = {name: _time_ms(fn, reps=5) for name, fn in (
+        ("routing", routing), ("dispatch_combine", dispatch_combine),
+        ("experts", experts), ("moe_mlp", whole))}
+    flops = 6 * 2 * E * C * D * cfg.d_ff  # the three products, fwd + bwd
+    log(f"[moe-parts] one layer's MLP at N={n_tokens}, C={C}, forward + "
+        f"backward: " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; the expert products at {flops / parts['experts'] / 1e9:.0f} "
+        f"TFLOP/s ({card})")
+    del layer, x, combine, dispatch, expert_out, ein
+    free_device_memory()
+    return parts
+
+
+def moe_step_twins(params, cfg, batches, card):
+    """Phase 3's check at full width: the fp32 loss and every gradient of
+    one step from the seed-0 weights through the flash kernels (the FMA
+    route) against the dense path, on a token batch (K1-K3) and a packed
+    batch with ``segment_ids`` (K4-K6)."""
+    import torch
+
+    from ddl_tpu_torch.models import moe
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = {}
+    for name, (tokens, seg) in batches.items():
+        ref = None
+        for impl in ("dense", "flash"):
+            leaves = [t.to("cuda").requires_grad_(True) for t in _leaves(params)]
+            fa.reset_launch_counts()
+            loss = moe.next_token_loss(
+                _rebuild(params, iter(leaves)), tokens,
+                dataclasses.replace(f32, attn_impl=impl), segment_ids=seg)
+            loss.backward()
+            launches = [fn.launches for fn in fa.KERNELS]
+            if ref is None:
+                ref = (float(loss), [t.grad.cpu() for t in leaves], launches)
+            else:
+                worst = max(_rel(t.grad, g.to("cuda"))
+                            for t, g in zip(leaves, ref[1]))
+                gap = abs(float(loss) - ref[0]) / abs(ref[0])
+            del leaves, loss
+            free_device_memory()
+        n = cfg.n_layers
+        want = ([0, 0, 0, n, n, n] if seg is not None else [n, n, n, 0, 0, 0])
+        ok = (gap <= MOE_TWIN_RTOL[0] and worst <= MOE_TWIN_RTOL[1]
+              and launches == want and ref[2] == [0] * 6)
+        log(f"[moe-{name}] fp32 one step, flash vs dense at full width: loss "
+            f"gap {gap:.3e}, worst grad rel err {worst:.3e} | tol loss rel<="
+            f"{MOE_TWIN_RTOL[0]} grad rel<={MOE_TWIN_RTOL[1]}; launches "
+            f"{launches} (expected {want}) -> {'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise PhaseFailed(f"[moe] the {name} step through the kernels "
+                              "disagrees with the dense path")
+        out[name] = {"loss_gap": gap, "grad_rel": worst}
+    return out
+
+
+def _host_params(init, cfg):
+    """seed-0 weights built on the card, kept on the host: every fit of a
+    family starts from the same tree, and the Trainer's own copy on the
+    card is the only one there."""
+    from ddl_tpu_torch.parallel.train import tree_map
+
+    params = tree_map(lambda t: t.cpu(), init(cfg, seed=SEED, device="cuda"))
+    free_device_memory()
+    return params
+
+
+def moe_fits(tmpdir, card):
+    """(a) The MoE at Mixtral-8x7B's widths (2 layers): one layer's MLP
+    timed by part; one fp32 step of each path against its dense twin
+    (``moe_step_twins``); ``Trainer.fit`` over THREAD producers three
+    ways — the einsum impl on a Zipf token stream (K1-K3, profiled), the
+    einsum impl on packed documents with ``segment_ids`` (K4-K6), the
+    ragged impl on the token stream (K1-K3) — each with finite, falling
+    losses, one launch a layer a step of its kernels on the wgmma route,
+    its peak memory and its share of dropped picks; the einsum and
+    packed fits again in fp32 beside their ``attn_impl="dense"`` twins
+    (per-window losses within ``MOE_TWIN_FIT_RTOL``, the flash side on
+    the FMA kernels); then greedy decode of ``new_tokens`` and the
+    prefill's logits against the no-cache forward."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.models import moe
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
+
+    mo = MOE
+    cfg = dataclasses.replace(moe.MoeConfig.mixtral_8x7b(),
+                              n_layers=mo["n_layers"])
+    shapes = moe.param_shapes(cfg)
+    n_params = sum(t.numel() for t in _leaves(shapes))
+    per_layer = sum(t.numel() for t in _leaves(shapes["layers"][0]))
+    experts = sum(shapes["layers"][0][k].numel()
+                  for k in ("w_gate", "w_up", "w_down"))
+    n_tok = mo["batch_size"] * mo["seq_len"]
+    log(f"[moe] mixtral_8x7b widths, {cfg.n_layers} layers: {n_params / 1e9:.3f} "
+        f"B params ({per_layer / 1e9:.3f} B a layer, {experts / 1e9:.3f} B of "
+        f"it experts); B={mo['batch_size']} T={mo['seq_len']}: N={n_tok} "
+        f"tokens routed together, capacity {cfg.capacity(n_tok)} a expert")
+    token_file = os.path.join(tmpdir, "moe_tokens.bin")
+    ranks = np.random.default_rng(SEED).zipf(1.2, mo["n_tokens"]) - 1
+    (ranks % cfg.vocab).astype(np.int32).tofile(token_file)
+    doc_file = os.path.join(tmpdir, "moe_docs.bin")
+    documents(mo["n_tokens"], vocab=cfg.vocab, eot=mo["eos"]).tofile(doc_file)
+    parts = moe_layer_parts(cfg, n_tok, card)
+    params = _host_params(moe.init_params, cfg)
+    B, T = mo["batch_size"], mo["seq_len"]
+    first = np.fromfile(token_file, np.int32, B * T).reshape(B, T)
+    first_doc = np.fromfile(doc_file, np.int32, B * T).reshape(B, T)
+    step_twins = moe_step_twins(params, cfg, {
+        "einsum": (torch.tensor(first, device="cuda"), None),
+        "packed": (torch.tensor(first_doc, device="cuda"),
+                   torch.tensor(seg_ids(first_doc, mo["eos"]), device="cuda"))},
+        card)
+    tokens = TokenStreamProducer(token_file, mo["seq_len"], mo["window_rows"],
+                                 seed=SEED)
+    docs = PackedTokenProducer(doc_file, mo["seq_len"], mo["window_rows"],
+                               delimiter=mo["eos"], seed=SEED)
+    steps = mo["n_epochs"] * mo["window_rows"] // mo["batch_size"]
+    expected = cfg.n_layers * steps
+
+    def fit(tag, c, producer, packed, **kw):
+        if packed:
+            def loss_fn(p, b):
+                return moe.next_token_loss(p, b[0], c, segment_ids=b[1])
+        else:
+            def loss_fn(p, b):
+                return moe.next_token_loss(p, b[0], c)
+        return _fit_mode("thread", producer, loss_fn, c, tag, card,
+                         init_params=params, train=mo, **kw)
+
+    faults, runs = [], {}
+    for name, c, producer, packed in (
+            ("einsum", cfg, tokens, False),
+            ("packed", cfg, docs, True),
+            ("ragged", dataclasses.replace(cfg, moe_impl="ragged"), tokens,
+             False)):
+        drops = _DropCount(c)
+        s = fit(f"[moe-{name}]", c, producer, packed, around=drops,
+                profile=name == "einsum")
+        s["dropped_share"] = drops.share()
+        ran, idle = ((fa.KERNELS[3:], fa.KERNELS[:3]) if packed
+                     else (fa.KERNELS[:3], fa.KERNELS[3:]))
+        _fit_gates(s, ran, idle, expected, faults)
+        if not s["losses"][-1] < s["losses"][0]:
+            faults.append(f"{name}: losses do not fall {s['losses']}")
+        log(f"[moe-{name}] launches {s['launches']} (expected {cfg.n_layers} "
+            f"layers x {steps} steps = {expected} for "
+            f"{[fn.__name__ for fn in ran]}), wgmma {s['sm90_launches']}; "
+            f"dropped {s['dropped_share']:.3%} of the picks "
+            f"({'dropless' if c.moe_impl == 'ragged' else 'einsum'}); peak "
+            f"{s['peak_bytes'] / 2**30:.2f} GiB ({card})")
+        runs[name] = s
+
+    # The dense-attention twins, fp32 on both sides.
+    twins = {}
+    for name, producer, packed in (("einsum", tokens, False),
+                                   ("packed", docs, True)):
+        pair = {}
+        for impl in ("flash", "dense"):
+            c = dataclasses.replace(cfg, dtype=torch.float32, attn_impl=impl)
+            pair[impl] = fit(f"[moe-{name}-fp32-{impl}]", c, producer, packed,
+                             warmup=False)
+        ran = fa.KERNELS[3:] if packed else fa.KERNELS[:3]
+        want = {fn.__name__: expected if fn in ran else 0 for fn in fa.KERNELS}
+        gap = max(abs(a - b) / abs(b) for a, b in zip(pair["flash"]["losses"],
+                                                       pair["dense"]["losses"]))
+        log(f"[moe-{name}] fp32 flash vs dense: losses {pair['flash']['losses']} "
+            f"vs {pair['dense']['losses']}, max relative gap {gap:.3e} | tol "
+            f"{MOE_TWIN_FIT_RTOL}; flash launches {pair['flash']['launches']} "
+            f"(FMA route: wgmma {pair['flash']['sm90_launches']}), dense "
+            f"{pair['dense']['launches']}")
+        if not (gap <= MOE_TWIN_FIT_RTOL
+                and pair["flash"]["launches"] == want
+                and not any(pair["flash"]["sm90_launches"].values())
+                and not any(pair["dense"]["launches"].values())):
+            faults.append(f"{name} fp32 twins: gap {gap:.3e}, launches "
+                          f"{pair['flash']['launches']} / "
+                          f"{pair['dense']['launches']}")
+        twins[name] = {"gap": gap, "flash_step_ms": pair["flash"]["step_ms"],
+                       "dense_step_ms": pair["dense"]["step_ms"],
+                       "peak_bytes": max(p["peak_bytes"] for p in pair.values())}
+    decode = _moe_decode(params, cfg, token_file, faults, card)
+    del params
+    free_device_memory()
+    if faults:
+        raise PhaseFailed("[moe] " + "; ".join(faults))
+    launches = {fn.__name__: (runs["packed"] if fn in fa.KERNELS[3:]
+                              else runs["einsum"])["launches"][fn.__name__]
+                + (runs["ragged"]["launches"][fn.__name__]
+                   if fn in fa.KERNELS[:3] else 0)
+                for fn in fa.KERNELS}
+    return launches, {"runs": {k: {x: s[x] for x in (
+        "losses", "step_ms", "steady_step_ms", "peak_bytes", "dropped_share",
+        "tokens_per_s")} for k, s in runs.items()}, "twins": twins,
+        "decode": decode, "layer_parts_ms": parts, "step_twins": step_twins}
+
+
+def _moe_decode(params, cfg, token_file, faults, card):
+    """Greedy decode of ``new_tokens`` after a ``prompt``-token prefix of
+    the stream, twice (the same tokens); then the prefill's logits (one
+    routing of the whole prompt, as the training forward routes it)
+    against the no-cache forward of the prompt, both in fp32."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.models import moe
+    from ddl_tpu_torch.parallel.train import tree_map
+
+    mo = MOE
+    dev = tree_map(lambda t: t.to("cuda"), params)
+    prompt = torch.tensor(np.fromfile(token_file, np.int32, mo["prompt"])[None],
+                          device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = moe.generate(dev, prompt, cfg, max_new_tokens=mo["new_tokens"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    again = moe.generate(dev, prompt, cfg, max_new_tokens=mo["new_tokens"])
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        cache = moe.init_cache(f32, 1, mo["prompt"], device="cuda")
+        cached, _ = moe.forward_with_cache(dev, prompt, f32, cache, 0)
+        full, _ = moe.forward(dev, prompt, f32)
+    gap = float((cached - full).abs().max())
+    ok = (tuple(out.shape) == (1, mo["prompt"] + mo["new_tokens"])
+          and torch.equal(out, again) and torch.equal(out[:, :mo["prompt"]], prompt)
+          and bool(((out >= 0) & (out < cfg.vocab)).all())
+          and gap <= MOE_PREFILL_ATOL)
+    log(f"[moe-decode] greedy {mo['new_tokens']} tokens after {mo['prompt']}: "
+        f"{out[0, mo['prompt']:].tolist()} in {gen_s:.3f} s "
+        f"({gen_s / mo['new_tokens'] * 1e3:.1f} ms a token, prefill "
+        f"included; {card}); repeat equal {torch.equal(out, again)}; fp32 "
+        f"prefill vs no-cache forward max |dlogit| {gap:.3e} | tol "
+        f"{MOE_PREFILL_ATOL} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        faults.append(f"decode: tokens {out.tolist()}, prefill gap {gap:.3e}")
+    del dev
+    return {"tokens": out[0].tolist(), "seconds": gen_s, "prefill_gap": gap}
+
+
+def _npy_shards(tmpdir, name, rows_of, n_shards):
+    """``n_shards`` ``.npy`` shards ``<name>-<i>.npy`` of ``rows_of(i)``;
+    returns their glob."""
+    import numpy as np
+
+    for i in range(n_shards):
+        np.save(os.path.join(tmpdir, f"{name}-{i}.npy"), rows_of(i))
+    return os.path.join(tmpdir, f"{name}-*.npy")
+
+
+def vit_fit(tmpdir, card):
+    """(b) ViT-B/16 through ``Trainer.fit`` with ``classification_loss``
+    over ``.npy`` shards of ``[pixels..., label]`` rows (the layout
+    ``WebDatasetProducer`` serves) read by ``FileShardProducer`` with the
+    two columns as splits.  Labels are Zipf(1.5) ranks of the 1000
+    classes and each image's brightness tracks its label, so the losses
+    can fall within 6 steps; K1-K3 run non-causal, one launch a layer a
+    step on the wgmma route."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import vit
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import FileShardProducer
+
+    cfg = _vit_b16()
+    px = cfg.image_size ** 2 * cfg.n_channels
+
+    def rows(i):
+        rng = np.random.default_rng([SEED, i])
+        labels = (rng.zipf(1.5, VIT["window_rows"]) - 1) % cfg.n_classes
+        pixels = (0.5 * rng.random((VIT["window_rows"], px), dtype=np.float32)
+                  + 0.5 * (labels[:, None] / cfg.n_classes)).astype(np.float32)
+        return np.concatenate([pixels, labels[:, None].astype(np.float32)], 1)
+
+    pattern = _npy_shards(tmpdir, "vit", rows, VIT["n_shards"])
+    n_params = sum(t.numel() for t in _leaves(vit.param_shapes(cfg)))
+    log(f"[vit] ViT-B/16 widths: {n_params / 1e6:.1f} M params, "
+        f"{cfg.n_patches} patches of {cfg.patch_dim}, {cfg.n_classes} "
+        f"classes; B={VIT['batch_size']}, shards of {VIT['window_rows']} rows "
+        f"({VIT['window_rows'] * (px + 1) * 4 / 2**20:.1f} MiB)")
+    producer = FileShardProducer(pattern, splits=(px, 1), seed=SEED)
+    s = _fit_mode("thread", producer,
+                  lambda p, b: vit.classification_loss(p, b, cfg), cfg,
+                  "[vit]", card,
+                  init_params=vit.init_params(cfg, seed=SEED, device="cuda"),
+                  train=VIT, optimizer=adamw(1e-4))
+    steps = VIT["n_epochs"] * VIT["window_rows"] // VIT["batch_size"]
+    expected = cfg.n_layers * steps
+    faults = []
+    _fit_gates(s, fa.KERNELS[:3], fa.KERNELS[3:], expected, faults)
+    if not s["losses"][-1] < s["losses"][0]:
+        faults.append(f"losses do not fall {s['losses']}")
+    log(f"[vit] launches {s['launches']} (expected {cfg.n_layers} layers x "
+        f"{steps} steps = {expected} for K1-K3, non-causal), wgmma "
+        f"{s['sm90_launches']}; {s['step_ms']:.1f} ms/step wall, "
+        f"{s['steady_step_ms']:.1f} steady, {s['tokens_per_s'] / 196:.0f} "
+        f"images/s; peak {s['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    if faults:
+        raise PhaseFailed("[vit] " + "; ".join(faults))
+    return s["launches"], {k: s[k] for k in (
+        "losses", "step_ms", "steady_step_ms", "peak_bytes", "tokens_per_s")}
+
+
+def pointnet_fit(tmpdir, card):
+    """(c) The pointwise regressor through ``Trainer.fit`` on the
+    reference harness's ``(pos, target, weight)`` columns (``.npy``
+    shards: positions in [0, 1)^3, six smooth fields of them, weights in
+    [0.5, 1)); no kernel runs, the losses must fall."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import pointnet
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import FileShardProducer
+
+    freqs = np.random.default_rng(SEED).standard_normal((3, 6)) * 2.0
+
+    def rows(i):
+        rng = np.random.default_rng([SEED, 100 + i])
+        pos = rng.random((POINTS["window_rows"], 3))
+        target = np.sin(pos @ freqs)
+        weight = 0.5 + 0.5 * rng.random((POINTS["window_rows"], 1))
+        return np.concatenate([pos, target, weight], 1).astype(np.float32)
+
+    pattern = _npy_shards(tmpdir, "points", rows, POINTS["n_shards"])
+    cfg = pointnet.PointNetConfig()
+    s = _fit_mode("thread", FileShardProducer(pattern, splits=(3, 6, 1),
+                                              seed=SEED),
+                  lambda p, b: pointnet.weighted_mse_loss(p, b, cfg), cfg,
+                  "[pointnet]", card,
+                  init_params=pointnet.init_params(cfg, seed=SEED,
+                                                   device="cuda"),
+                  train=POINTS, optimizer=adamw(1e-3, weight_decay=0.0))
+    faults = []
+    _fit_gates(s, (), fa.KERNELS, 0, faults)
+    if not s["losses"][-1] < s["losses"][0]:
+        faults.append(f"losses do not fall {s['losses']}")
+    if faults:
+        raise PhaseFailed("[pointnet] " + "; ".join(faults))
+    return {k: s[k] for k in ("losses", "step_ms", "steady_step_ms")}
+
+
+def phase_families(tmpdir, card):
+    """Phase 14: the other model families at their published widths —
+    (b)'s non-causal kernel checks first, then (a) the MoE fits and
+    decode, (b) the ViT-B/16 fit, (c) the PointNet fit.  Returns the
+    kernel launches of the MoE fits and of the ViT fit, the non-causal
+    rows and a summary."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    vit_rows = vit_kernel_checks(gen)
+    free_device_memory()
+    moe_launches, moe_summary = moe_fits(tmpdir, card)
+    vit_launches, vit_summary = vit_fit(tmpdir, card)
+    free_device_memory()
+    pn_summary = pointnet_fit(tmpdir, card)
+    free_device_memory()
+    took = time.perf_counter() - t0
+    log(f"[families] phase 14 took {took:.1f} s")
+    return moe_launches, vit_launches, vit_rows, {
+        "moe": moe_summary, "vit": vit_summary, "pointnet": pn_summary,
+        "seconds": took}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -6079,6 +6708,8 @@ def main(argv=None) -> int:
             free_device_memory()
             pipe_launches, mh_launches, pipe_summary = phase_pipeline(tmp, card)
             obs_summary = phase_obs(tmp, card, summary)
+            moe_launches, vit_launches, vit_rows, families_summary = (
+                phase_families(tmp, card))
         # Each kernel's launches come from the run of its own path; K1-K6
         # add those of the ring (phase 11) and of the two MULTIHOST
         # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
@@ -6089,6 +6720,12 @@ def main(argv=None) -> int:
             row["multihost_launches"] = mh_launches[row["name"]]
             if not row["name"].endswith("_seg"):
                 row["pipeline_launches"] = pipe_launches[row["name"]]
+            # Phase 14: the MoE fits' (einsum and ragged K1-K3, packed
+            # K4-K6); the ViT-B/16 fit's and the non-causal timings.
+            row["moe_launches"] = moe_launches[row["name"]]
+            if row["name"] in vit_rows:
+                row["vit_launches"] = vit_launches[row["name"]]
+                row["vit_noncausal"] = vit_rows[row["name"]]
         kernels.append(shuffle_row)
         kernels.extend(ici_rows)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
@@ -6102,6 +6739,7 @@ def main(argv=None) -> int:
         log(f"[summary-mesh] {json.dumps(mesh_summary)}")
         log(f"[summary-pipeline] {json.dumps(pipe_summary)}")
         log(f"[summary-obs] {json.dumps(obs_summary)}")
+        log(f"[summary-families] {json.dumps(families_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,1 +1,2 @@
-"""Model families of the port (slice 1: the Llama decoder)."""
+"""Model families of the port: the Llama decoder, the MoE decoder, the
+Vision Transformer and the pointwise regressor."""

@@ -9,6 +9,9 @@ Every :func:`cross_entropy` is a masked sum over a count.  Inside a
 batch is split over processes can weight each process's loss and grads
 by it and divide the sums by the summed count: the global batch's loss
 (the MULTIHOST step, ``parallel/train.py``; ``Trainer.evaluate``).
+A term that is instead a process's share of a global sum (the MoE
+router aux over a process-spanning batch) goes through
+:func:`global_term`, which undoes that weighting for it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,33 @@ class loss_weight:
 
     def weight(self, default):
         return self.counts[0] if len(self.counts) == 1 else default
+
+
+def global_term(term: torch.Tensor) -> torch.Tensor:
+    """``term``, a loss term that is this process's additive share of a
+    sum over the processes (a global quantity split so that the shares
+    add up to it), scaled so that the way a step or ``Trainer.evaluate``
+    combines the processes' losses adds the shares unweighted.  Inside a
+    :class:`loss_weight` scope that noted one count ``c``, the processes'
+    losses are weighted by their counts and divided by the summed count
+    ``C``, so the share is scaled by ``C / c`` (one gloo ``all_reduce``
+    of the count); otherwise the losses are averaged, and the share is
+    scaled by the world size.  In a group of one process, ``term``."""
+    from ddl_tpu_torch.parallel.mesh import process_count
+
+    world = process_count()
+    if world == 1:
+        return term
+    scope = getattr(_SCOPE, "active", None)
+    count = scope.weight(None) if scope is not None else None
+    if count is None:
+        return term * world
+    import torch.distributed as dist
+
+    mine = float(count)
+    total = torch.tensor([mine], dtype=torch.float64)
+    dist.all_reduce(total)
+    return term * (float(total) / max(mine, 1.0))
 
 
 def cross_entropy(

@@ -21,8 +21,11 @@ plus the port's own small counterparts of ``jax.sharding``).
   tree for every mesh — axes the mesh lacks drop out, and an axis that
   does not divide a dimension leaves it unsharded.
 
-Meshes take any axis names: ``dp``, ``fsdp``, ``tp``, ``sp`` and the
-pipeline axis ``pp`` (:mod:`ddl_tpu_torch.parallel.pipeline`).
+Meshes take any axis names: ``dp``, ``fsdp``, ``tp``, ``sp``, the
+pipeline axis ``pp`` (:mod:`ddl_tpu_torch.parallel.pipeline`) and the
+expert axis ``ep`` (:mod:`ddl_tpu_torch.models.moe`: on one card the
+expert stacks stay whole tensors, and ``ep`` in their specs places only
+the sharded optimizer's state).
 
 MULTIHOST (``torch.distributed`` processes, a gloo group the user's main
 initialised): :func:`make_mesh` lays out ``world_size x local``

@@ -42,6 +42,7 @@ kernel does not incur; in fp32 the two agree to summation order.
 """
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -2072,3 +2073,131 @@ def test_obs_corrupt_window_flight_dump(tmp_path):
             named.append(d)
     assert [(d["reason"], d["window"]) for d in named] == [
         ("integrity.corrupt_window", {"producer_idx": 1, "seq": 1})]
+
+
+# -- the other model families (MoE, ViT) ---------------------------------------
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [196, 1000])
+def test_noncausal_kernels_match_plain(dtype, D, T):
+    """K1-K3 with ``causal=False`` at ``H == Hkv`` (the ViT's attention:
+    T = 196 is ViT-B/16's patch count, whose dK/dV query tiles end in a
+    4-row tail) against the plain version through autograd; bf16 on the
+    wgmma kernels, whose tile counters show every tile pair loaded (no
+    causal skip)."""
+    dt = getattr(torch, dtype)
+    H = 4
+    q, k, v, g_out, g_lse = _inputs(17, 2, T, T, H, H, D)
+
+    def run(fn):
+        ts = [torch.tensor(x, device="cuda").to(dt).requires_grad_(True)
+              for x in (q, k, v)]
+        out, lse = fn(*ts)
+        loss = (out.float() * torch.tensor(g_out, device="cuda")).sum() + (
+            lse * torch.tensor(g_lse, device="cuda")).sum()
+        loss.backward()
+        return [t.detach().float() for t in (out, lse, *(x.grad for x in ts))]
+
+    tfa.reset_launch_counts()
+    got = run(lambda a, b, c: tfa.flash_attention_with_lse(a, b, c, 0, 0, False, 1))
+    wgmma = 1 if dtype == "bfloat16" else 0
+    assert [(fn.launches, fn.sm90_launches) for fn in tfa.KERNELS[:3]] == [
+        (1, wgmma)] * 3
+    want = run(lambda a, b, c: tfa.attention_plain(a, b, c, 0, 0, False, 1))
+    out_tol, grad_tol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    assert float((got[0] - want[0]).abs().max()) <= out_tol
+    assert float((got[1] - want[1]).abs().max()) <= 1e-3
+    for g, w in zip(got[2:], want[2:]):
+        assert float((g - w).norm()) <= grad_tol * float(w.norm())
+    if dtype == "bfloat16":
+        ts = [torch.tensor(x, device="cuda").bfloat16() for x in (q, k, v)]
+        zeros = torch.zeros(2, T, dtype=torch.int32)
+        visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+        tfa.flash_fwd(*ts, 0, 0, False, visited=visited)
+        every = 2 * H * math.ceil(T / 128) ** 2
+        assert int(visited) == H * int(tfa.live_tiles(
+            zeros, zeros, causal=False).sum()) == every
+        inputs = _dkv_inputs(17, 2, T, T, H, H, D, 0, 0, False)
+        visited.zero_()
+        tfa.flash_bwd_dkv(*inputs, 0, 0, False, visited=visited)
+        assert int(visited) == H * int(tfa.live_tiles_dkv(
+            zeros, zeros, causal=False).sum()) == (
+                2 * H * math.ceil(T / 128) * math.ceil(T / 64))
+
+
+def _loss_grads(loss_of, params):
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in _tree_leaves(params)]
+    it = iter(leaves)
+    tree = _tree_map(lambda _: next(it), params)
+    loss = loss_of(tree)
+    loss.backward()
+    return float(loss.detach()), [t.grad for t in leaves]
+
+
+def _tree_leaves(tree):
+    from ddl_tpu_torch.parallel.train import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _tree_map(fn, tree):
+    from ddl_tpu_torch.parallel.train import tree_map
+
+    return tree_map(fn, tree)
+
+
+@pytest.mark.flash
+@pytest.mark.parametrize("impl", ["einsum", "ragged"])
+def test_moe_layer_through_the_kernels(impl):
+    """One fp32 MoE layer at a small width (binding capacity for the
+    einsum impl) through K1-K3 against the dense path: loss within 1e-5
+    relative, every gradient within 1e-4, one launch of each kernel."""
+    from ddl_tpu_torch.models import moe
+
+    cfg = moe.MoeConfig(vocab=512, d_model=256, n_layers=1, n_heads=4,
+                        n_kv_heads=2, d_ff=512, n_experts=4,
+                        capacity_factor=0.5, moe_impl=impl,
+                        dtype=torch.float32, attn_impl="flash")
+    params = moe.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 200), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    tfa.reset_launch_counts()
+    lf, gf = _loss_grads(lambda p: moe.next_token_loss(p, tokens, cfg), params)
+    assert [fn.launches for fn in tfa.KERNELS] == [1, 1, 1, 0, 0, 0]
+    ld, gd = _loss_grads(lambda p: moe.next_token_loss(
+        p, tokens, dataclasses.replace(cfg, attn_impl="dense")), params)
+    assert abs(lf - ld) <= 1e-5 * abs(ld)
+    for a, b in zip(gf, gd):
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
+
+
+@pytest.mark.flash
+def test_vit_layer_through_noncausal_kernels():
+    """A one-layer bf16 ViT on 224 x 224 images in 16 x 16 patches (T =
+    196, head_dim 64) through the non-causal wgmma kernels: one launch of
+    each of K1-K3 on the wgmma route, finite logits and gradients close
+    to the dense path's."""
+    from ddl_tpu_torch.models import vit
+
+    cfg = vit.ViTConfig(image_size=224, patch_size=16, d_model=256,
+                        n_layers=1, n_heads=4, d_ff=512, n_classes=10,
+                        dtype=torch.bfloat16)
+    params = vit.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pixels = torch.rand((4, 224 * 224 * 3), device="cuda", generator=gen)
+    labels = torch.randint(0, 10, (4, 1), device="cuda", generator=gen).float()
+    tfa.reset_launch_counts()
+    lf, gf = _loss_grads(lambda p: vit.classification_loss(
+        p, (pixels, labels), cfg), params)
+    assert [(fn.launches, fn.sm90_launches) for fn in tfa.KERNELS[:3]] == [
+        (1, 1)] * 3
+    ld, gd = _loss_grads(lambda p: vit.classification_loss(
+        p, (pixels, labels), dataclasses.replace(cfg, attn_impl="dense")), params)
+    assert np.isfinite(lf) and abs(lf - ld) <= 2e-2 * abs(ld)
+    for a, b in zip(gf, gd):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12

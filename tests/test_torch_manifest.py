@@ -53,6 +53,7 @@ def test_ported_paths_mirror_the_reference_layout():
     "parallel/ring_attention.py", "parallel/train.py", "parallel/mesh.py",
     "parallel/pipeline.py", "obs/__init__.py", "obs/__main__.py",
     "obs/aggregate.py", "obs/recorder.py", "obs/spans.py", "profiling.py",
+    "models/moe.py", "models/vit.py", "models/pointnet.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"

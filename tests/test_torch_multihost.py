@@ -5,7 +5,8 @@ CPU, and the ``"xla"`` exchange route.
   arguments and environments (``DDL_TORCH_*`` against ``DDL_TPU_*``, the
   SLURM variables shared).
 - Two OS processes run ``tests/torch_multihost_prog.py`` (legs ``core``,
-  ``stream``, ``ppdp``, ``dpsp``, ``ckpt``, ``packed``, ``evaluate``) over
+  ``stream``, ``ppdp``, ``dpep``, ``dpsp``, ``ckpt``, ``packed``,
+  ``evaluate``) over
   a gloo group, each with its own
   PROCESS producers, as ``tests/test_multihost.py`` runs the JAX
   package's program.  Each process's batch and window streams equal the
@@ -117,7 +118,7 @@ def cluster(tmp_path_factory):
     tokens = out / "tokens.bin"
     np.random.default_rng(5).integers(0, 64, 20_000, dtype=np.int32).tofile(tokens)
     env.update(DDL_TORCH_MH_PROCS="2", DDL_TORCH_MH_DEVS="2",
-               DDL_TORCH_MH_LEGS="core,stream,ppdp,dpsp,ckpt,packed,evaluate",
+               DDL_TORCH_MH_LEGS="core,stream,ppdp,dpep,dpsp,ckpt,packed,evaluate",
                DDL_TORCH_MH_OUT=str(out), DDL_TORCH_MH_TOKENS=str(tokens),
                DDL_TORCH_MH_DIR=str(tmp_path_factory.mktemp("mh-ckpt")))
     port = str(_free_port())
@@ -138,8 +139,8 @@ def cluster(tmp_path_factory):
         assert p.returncode == 0, f"process {i} rc={p.returncode}:\n{text}"
         assert f"MULTIHOST OK process={i}" in text, text
     return {(leg, i): dict(np.load(out / f"{leg}_{i}.npz"))
-            for leg in ("core", "stream", "ppdp", "dpsp", "ckpt", "packed",
-                        "evaluate")
+            for leg in ("core", "stream", "ppdp", "dpep", "dpsp", "ckpt",
+                        "packed", "evaluate")
             for i in range(2)}
 
 
@@ -272,6 +273,39 @@ def test_ppdp_losses_equal_one_process_run(cluster):
         losses.append(float(loss))
     np.testing.assert_allclose(r0["losses"], losses, rtol=RTOL)
     assert all(np.isfinite(losses))
+
+
+def test_dpep_moe_routes_the_global_batch(cluster):
+    """The einsum MoE at a binding capacity over ``{"dp": 2, "ep": 2}``,
+    dp across the processes: routed as the global batch (capacity from
+    the global token count, arrival slots offset by the other process's
+    picks, the aux each process's additive share), the losses equal the
+    port's one-process run over the same global mesh and the
+    concatenated batches within ``RTOL``.  The control, each process
+    routing its own rows, misses that tolerance."""
+    from ddl_tpu_torch.ingest import make_global_array
+    from ddl_tpu_torch.models import moe
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+    from ddl_tpu_torch.parallel.train import make_train_step
+
+    r0, r1 = cluster[("dpep", 0)], cluster[("dpep", 1)]
+    np.testing.assert_array_equal(r0["losses"], r1["losses"])
+    np.testing.assert_array_equal(r0["control"], r1["control"])
+    mesh = make_mesh({"dp": 2, "ep": 2}, ["cpu"] * 4)
+    init_fn, step_fn = make_train_step(
+        prog.moe_loss(mesh), lambda ps: torch.optim.SGD(ps, lr=1e-2),
+        mesh=mesh, param_specs=moe.param_specs(prog.moe_cfg()),
+        batch_spec=P(("dp",)))
+    state = init_fn(moe.init_params(prog.moe_cfg(), seed=0, device="cpu"))
+    sh = NamedSharding(mesh, P(("dp",)))
+    losses = []
+    for k in range(len(r0["losses"])):
+        tok = make_global_array(np.concatenate([r0["tokens"][k], r1["tokens"][k]]), sh)
+        state, loss = step_fn(state, (tok,))
+        losses.append(float(loss))
+    np.testing.assert_allclose(r0["losses"], losses, rtol=RTOL)
+    gap = np.abs(r0["control"] - losses) / np.abs(losses)
+    assert gap.max() > RTOL, gap
 
 
 def test_trainer_fit_in_multihost_mode_equals_one_process_run(cluster):

@@ -16,11 +16,14 @@ constants agree across the pickle boundary):
 - ``DDL_TORCH_MH_PROCS`` (default 2): processes in the group.
 - ``DDL_TORCH_MH_DEVS`` (default 2): mesh positions a process.
 - ``DDL_TORCH_MH_LEGS`` (default
-  ``core,stream,ppdp,dpsp,ckpt,packed,evaluate``):
+  ``core,stream,ppdp,dpep,dpsp,ckpt,packed,evaluate``):
   ``core`` (coverage, the global train step, the cross-process shuffle),
   ``stream`` (``windows()`` with a process-spanning sharding), ``ppdp``
   (the pipelined Llama loss over each process's pp pair, dp across
-  processes), ``dpsp`` (``Trainer.fit`` in MULTIHOST mode over
+  processes), ``dpep`` (a binding-capacity einsum MoE over
+  ``{"dp": processes, "ep": 2}``: the routing of the global batch, and
+  beside it the control that routes each process's rows alone),
+  ``dpsp`` (``Trainer.fit`` in MULTIHOST mode over
   ``{"dp": 2, "sp": 2}``: the ring over each process's sp pair, on the
   int32 tokens of ``DDL_TORCH_MH_TOKENS``, else a seeded corpus it
   writes), ``ckpt`` (save, fresh restore,
@@ -47,7 +50,7 @@ N_PROCESSES = int(os.environ.get("DDL_TORCH_MH_PROCS", "2"))
 DEVICES_PER_PROCESS = int(os.environ.get("DDL_TORCH_MH_DEVS", "2"))
 LEGS = tuple(os.environ.get(
     "DDL_TORCH_MH_LEGS",
-    "core,stream,ppdp,dpsp,ckpt,packed,evaluate").split(","))
+    "core,stream,ppdp,dpep,dpsp,ckpt,packed,evaluate").split(","))
 N_PRODUCERS = 2
 N_DATA, N_VALUES = 32, 8
 BATCH = 8
@@ -145,6 +148,29 @@ def pp_loss(mesh):
     cfg = pp_cfg()
     return lambda p, b: llama.next_token_loss_pp(p, b[0], cfg, mesh,
                                                  n_microbatches=2)
+
+
+def moe_cfg():
+    """The dpep leg's MoE at a binding capacity (half the picks drop), so
+    a wrong routing group changes which tokens drop."""
+    import torch
+
+    from ddl_tpu_torch.models import moe
+
+    return moe.MoeConfig(vocab=64, d_model=32, n_layers=1, n_heads=4,
+                         n_kv_heads=2, d_ff=32, n_experts=4, topk=2,
+                         capacity_factor=0.5, max_seq=SP_SEQ,
+                         dtype=torch.float32)
+
+
+def moe_loss(mesh):
+    """The dpep leg's loss, routing over ``mesh``: the global mesh routes
+    the global batch (the JAX package's GSPMD semantics); a process's
+    ``mesh.local()`` routes its own rows only (the control)."""
+    from ddl_tpu_torch.models import moe
+
+    cfg = moe_cfg()
+    return lambda p, b: moe.next_token_loss(p, b[0], cfg, mesh=mesh)
 
 
 def packed_corpus(rank: int, path: str) -> str:
@@ -319,6 +345,47 @@ def main(rank: int, port: int) -> None:
 
     if "ppdp" in LEGS:
         run_ppdp()
+
+    @distributed_dataloader(n_producers=N_PRODUCERS, mode="multihost",
+                            pin_memory=False)
+    def run_dpep(env):
+        # dp OUTER (spans processes), ep inner: the expert stacks' specs
+        # carry ep; the einsum routing is the global batch's.
+        from ddl_tpu_torch.models import moe
+        from ddl_tpu_torch.parallel.mesh import named, prune_indivisible
+
+        mesh = make_mesh({"dp": total // 2, "ep": 2}, positions)
+        specs = moe.param_specs(moe_cfg())
+        params = moe.init_params(moe_cfg(), seed=0, device="cpu")
+        w_gate = prune_indivisible(named(mesh, specs["layers"][0]["w_gate"]),
+                                   params["layers"][0]["w_gate"])
+        assert tuple(w_gate.spec)[0] == "ep", w_gate.spec
+        runs = {}
+        for name, loss_mesh in (("global", mesh), ("per_process", mesh.local())):
+            init_fn, step_fn = make_train_step(
+                moe_loss(loss_mesh), sgd(1e-2), mesh=mesh, param_specs=specs,
+                batch_spec=P(("dp",)))
+            runs[name] = [init_fn(params), step_fn, []]
+        loader = DistributedDataLoader(
+            TokenProducer(rank), batch_size=BATCH, connection=env.connection,
+            n_epochs=2, output="numpy", device="cpu")
+        toks = []
+        for _epoch in range(2):
+            for (tok,) in loader:
+                toks.append(np.array(tok, copy=True))
+                gtok = make_global_array(tok, NamedSharding(mesh, P(("dp",))))
+                for run in runs.values():
+                    run[0], loss = run[1](run[0], (gtok,))
+                    run[2].append(float(loss))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        assert all(np.isfinite(v) for run in runs.values() for v in run[2])
+        record("dpep", tokens=np.stack(toks),
+               losses=np.array(runs["global"][2]),
+               control=np.array(runs["per_process"][2]))
+
+    if "dpep" in LEGS:
+        run_dpep()
 
     if "dpsp" in LEGS:
         # Trainer.fit in MULTIHOST mode: the ring over each process's sp
