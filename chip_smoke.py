@@ -280,12 +280,53 @@ weight)`` shards, no kernel.  Run alone: ``python3 -c "import sys,
 tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
 c.phase_build(); print(c.phase_families(tempfile.mkdtemp(), card))"``.
 
+Phase 15 is the cluster ladder (``ddl_tpu_torch.cluster``) under phase 6's
+token cell: Llama-3-8B widths cut to 2 layers, bf16, seed-0 weights, T =
+2048, B = 4, 2 steps a window, ``adamw(1e-5)``, two mock hosts
+(producer 1 with the trainer on host 0, producer 2 on host 1) over 4
+shards, each a fixed window of the Zipf corpus, served by a shard-range
+producer with ``adopt_shards``; every window one multistep on cuda:0
+through ``DistributedDataLoader(..., cluster=elastic).windows()``.  After
+window 3: (a) ``kill_host(1)`` with THREAD producers (its ring shut);
+(b) the same with PROCESS producers over page-locked native rings (its
+process terminated); (c) ``HEARTBEAT_DROP`` at ``cluster.heartbeat`` for
+host 1, the consumer waiting at the boundary until the 1.5 s lease
+lapses into the view change while the producer lives on, parked; (d)
+``drain_host(1)``, then ``rejoin_host`` after window 10; (e) a
+``JournaledSupervisor`` under ``SupervisorHA`` (0.3 s lease) whose leader
+dies by ``SUPERVISOR_CRASH`` at ``cluster.supervise``, the promoted
+leader then handling ``kill_host(1)``.  Gates: every window a shard's
+bytes, all 4 shards served, producer 1 serving shards 2-3 after the
+change; one view change and one host loss (the drain: one drain, one
+rejoin, no loss; the lease leg: heartbeats dropped and the lapse at
+least the lease after the last beat; failover: one crash, one
+promotion, the replayed journal's term 2); pool updates and shard
+adoptions on both sides; no watchdog failure or respawn; K1-K3 once a
+layer a step on the wgmma route; every window on the alias route; (b)'s
+producers exiting 0 and terminated, both rings registered and
+unregistered once; each leg's per-step losses bit-equal to a control fit
+from the same weights whose one plain producer replays the shards the
+leg served.  It prints, beside the card's name and power limit, the act
+to the next and to the first survivor window, the last beat to the view
+change (c), the crash to the promoted leader and its overshoot past the
+lease (e), and ms/step before and after the change.  (f) The ``chaos``
+leg of ``tests/torch_multihost_prog.py`` in two gloo processes on cuda:0
+(``--cluster-child``), each with PROCESS producers: process 1 loses
+producer 1 at its 3rd fill (the watchdog respawns it), then its whole
+mock host; one gloo ``all_reduce`` of a cuda tensor a window in both
+(its ms printed); every shard served in both processes, one respawn and
+one host loss in process 1, no watchdog failure.  Run alone: ``python3
+-c "import sys, tempfile; sys.path.insert(0, '.'); import chip_smoke as
+c; card = c.phase_build(); print(c.phase_cluster(tempfile.mkdtemp(),
+card))"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
 ring of (a); ``multihost_launches`` from phase 12's two processes; K1-K3
 with ``pipeline_launches`` from phase 12's gpipe fit; ``moe_launches``
-from phase 14's MoE fits, and K1-K3 with ``vit_launches`` and the
-``vit_noncausal`` timings), the
+from phase 14's MoE fits, K1-K3 with ``vit_launches`` and the
+``vit_noncausal`` timings, and K1-K3 with ``cluster_launches`` from
+phase 15's five ladder fits), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -6633,6 +6674,544 @@ def phase_families(tmpdir, card):
         "seconds": took}
 
 
+# ------------------------------------------------------------ phase 15 ---
+
+#: Phase 15, the cluster ladder: phase 6's token cell (``TRAIN``) over two
+#: mock hosts (producer 1 on host 0 with the trainer, producer 2 on host
+#: 1) and 4 shards, each a fixed window of the Zipf corpus.  Each leg
+#: acts after window ``act_at``; the drain leg rejoins after
+#: ``rejoin_at`` (its survivor needs the windows between to reach the
+#: adopted shards); the expiry leg's host lease; the failover leg's HA
+#: lease; the supervisors' and the watchdog's poll.
+CLUSTER = dict(n_shards=4, windows=10, drain_windows=13, act_at=3,
+               rejoin_at=10, lease_s=1.5, ha_lease_s=0.3, poll_s=0.05,
+               chaos_timeout_s=180)
+LADDER_LEGS = ("thread", "process", "lease", "drain", "failover")
+
+
+class ShardTokenProducer:
+    """The ladder's producer: shard ``s`` is the ``s``-th window of the
+    token file (``rows`` x ``seq_len`` tokens).  It serves its host's
+    shard ranges in a cycle and ``adopt_shards`` re-partitions them; with
+    ``sequence`` it serves those shards in that order instead (the
+    replay control).  Module level: pickled to spawned producers."""
+
+    def __init__(self, token_file, seq_len, rows, ranges_by_producer=None,
+                 sequence=None):
+        self.token_file, self.seq_len, self.rows = token_file, seq_len, rows
+        self.ranges_by_producer = dict(ranges_by_producer or {})
+        self.sequence = list(sequence or ())
+        self.ranges = ()
+
+    def on_init(self, producer_idx=1, **kw):
+        import numpy as np
+
+        from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
+
+        self._tokens = np.memmap(self.token_file, dtype=np.int32, mode="r")
+        self.it = 0
+        if not self.sequence:
+            self.ranges = tuple(self.ranges_by_producer[producer_idx])
+        return DataProducerOnInitReturn(
+            nData=self.rows, nValues=self.seq_len,
+            shape=(self.rows, self.seq_len), splits=(self.seq_len,),
+            dtype=np.int32)
+
+    def post_init(self, my_ary, **kw):
+        my_ary[:] = 0
+
+    def execute_function(self, my_ary, **kw):
+        shards = self.sequence or [s for a, b in self.ranges
+                                   for s in range(a, b)]
+        shard = shards[self.it % len(shards)]
+        n = self.rows * self.seq_len
+        my_ary[:] = self._tokens[shard * n:(shard + 1) * n].reshape(
+            self.rows, self.seq_len)
+        self.it += 1
+
+    def adopt_shards(self, ranges, **kw):
+        self.ranges = tuple(tuple(r) for r in ranges)
+
+
+def _ladder_act(leg, rec, elastic, ha, window):
+    """The leg's action after ``window`` windows (its step done and
+    marked); returns the fault plan it armed, if any."""
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
+
+    c = CLUSTER
+    if leg == "drain" and window == c["rejoin_at"]:
+        rec["t_rejoin"] = time.monotonic()
+        elastic.rejoin_host(rec.pop("parked"))
+        return None
+    if window != c["act_at"]:
+        return None
+    rec["t_act"] = time.monotonic()
+    if leg in ("thread", "process"):
+        elastic.kill_host(1)
+    elif leg == "drain":
+        rec["parked"] = elastic.drain_host(1)
+    elif leg == "lease":
+        # Host 1's beats are lost from here on: the consumer waits at this
+        # boundary while host 1's producer lives on, parked on its ring,
+        # until the lease lapses into the view change.
+        plan = FaultPlan([FaultSpec("cluster.heartbeat",
+                                    FaultKind.HEARTBEAT_DROP, producer_idx=1,
+                                    count=10 ** 9)])
+        faults.arm(plan)
+        elastic.supervisor.wait_for_epoch(1, timeout_s=c["lease_s"] + 30.0)
+        return plan
+    elif leg == "failover":
+        # The leader dies at its next step; once the standby took over,
+        # the promoted leader handles the host kill.
+        plan = FaultPlan([FaultSpec("cluster.supervise",
+                                    FaultKind.SUPERVISOR_CRASH)])
+        faults.arm(plan)
+        deadline = time.monotonic() + 30.0
+        while ha.promotions < 1 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        rec["t_promoted"] = time.monotonic()
+        # The HA step renews the lease after each sweep of the leader: the
+        # crashed leader's last sweep set the deadline that lapsed.
+        rec["lease_expiry"] = rec["sweeps"][-1] + ha.lease_s
+        rec["crash_to_promotion_s"] = rec["t_promoted"] - rec["t_act"]
+        faults.arm(None)
+        rec["t_act"] = time.monotonic()
+        elastic.kill_host(1)
+        return plan
+    return None
+
+
+def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
+                journal=None, sequence=None):
+    """One fit of phase 15: ``DistributedDataLoader(..., cluster=elastic)
+    .windows()`` into the port's multistep over the two mock hosts, leg
+    ``leg`` acting at the window boundary; or, with ``sequence``, the
+    replay control: one producer serving that shard order, no cluster.
+    The flash launch counts are set to 0 just before the stream and read
+    just after.  Returns the fit's record."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch import cluster as cl
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import host_register
+    from ddl_tpu_torch.parallel.train import adamw, make_multistep
+    from ddl_tpu_torch.watchdog import Watchdog
+
+    c, tr = CLUSTER, TRAIN
+    m = Metrics()
+    control = sequence is not None
+    producer = ShardTokenProducer(
+        token_file, tr["seq_len"], tr["window_rows"],
+        ranges_by_producer={1: ((0, 2),), 2: ((2, 4),)}, sequence=sequence)
+    init_fn, multi = make_multistep(
+        lambda p, b: llama.next_token_loss(p, b[0], cfg), adamw(1e-5),
+        "cuda", n_steps=tr["window_rows"] // tr["batch_size"])
+    rec = {"leg": leg, "mode": mode, "losses": [], "shards": [],
+           "producers": [], "t_yield": [], "beats": {}, "changes": [],
+           "sweeps": []}
+    # THREAD producers count into the process-wide registry.
+    adoptions0 = default_metrics().counter("producer.shard_adoptions")
+    unlocked = []
+    real_unlock = host_register.page_unlock
+
+    def unlock(ring):
+        unlocked.append(ring)
+        real_unlock(ring)
+
+    @distributed_dataloader(n_producers=1 if control else 2, mode=mode)
+    def run(env):
+        sup = elastic = ha = wd = plan = None
+        if not control:
+            view = cl.ClusterView.bootstrap(
+                [cl.HostInfo(0, loader_ranks=(1,), trainer_ranks=(0,)),
+                 cl.HostInfo(1, loader_ranks=(2,))], n_shards=c["n_shards"])
+            kw = dict(lease_s=c["lease_s"] if leg == "lease" else 60.0,
+                      poll_interval_s=c["poll_s"], metrics=m)
+            sup = (cl.JournaledSupervisor(view, journal=journal, **kw)
+                   if leg == "failover" else cl.ClusterSupervisor(view, **kw))
+            # Every lease starts at registration; beats renew it.
+            rec["beats"] = {h.host_id: time.monotonic() for h in view.hosts}
+            beat = sup.leases.beat
+
+            def timed_beat(host_id, now=None):
+                rec["beats"][host_id] = time.monotonic()
+                beat(host_id, now)
+
+            sup.leases.beat = timed_beat
+            sup.add_listener(lambda old, new, dead: rec["changes"].append(
+                time.monotonic()))
+            elastic = cl.ElasticCluster(sup, workers=env.workers, metrics=m)
+            if leg == "failover":
+                sweep = sup.sweep
+
+                def timed_sweep(now=None):
+                    out = sweep(now)
+                    rec["sweeps"].append(time.monotonic() if now is None
+                                         else now)
+                    return out
+
+                sup.sweep = timed_sweep
+                ha = cl.SupervisorHA(sup, elastic=elastic,
+                                     lease_s=c["ha_lease_s"], standbys=1,
+                                     metrics=m).start()
+        loader = DistributedDataLoader(
+            producer, batch_size=tr["batch_size"], connection=env.connection,
+            n_epochs=n_windows, output="device", device="cuda", metrics=m,
+            cluster=elastic)
+        if not control:
+            # The failover leg's HA tier sweeps whichever supervisor leads;
+            # the others' watchdog sweeps theirs.
+            wd = Watchdog(env.workers, poll_interval_s=c["poll_s"],
+                          stall_budget_s=60.0, respawn=True, metrics=m,
+                          cluster=None if leg == "failover" else sup).start()
+        state = init_fn(host_params)
+        try:
+            fa.reset_launch_counts()
+            for i, win in enumerate(loader.windows()):
+                rec["t_yield"].append(time.monotonic())
+                host = win.cpu().numpy().reshape(tr["window_rows"], -1)
+                rec["shards"].append(next(
+                    (s for s, ref in enumerate(shards)
+                     if np.array_equal(host, ref)), -1))
+                rec["producers"].append(loader.last_window_key()[0])
+                state, losses = multi(state, (win,), per_step=True)
+                rec["losses"].extend(float(x) for x in losses.tolist())
+                loader.mark(Marker.END_OF_EPOCH)
+                if not control:
+                    plan = _ladder_act(leg, rec, elastic, ha, i + 1) or plan
+            torch.cuda.synchronize()
+            rec["launches"] = {fn.__name__: fn.launches for fn in fa.KERNELS}
+            rec["sm90_launches"] = {fn.__name__: fn.sm90_launches
+                                    for fn in fa.KERNELS}
+        finally:
+            faults.arm(None)
+            if wd is not None:
+                wd.stop()
+            if ha is not None:
+                ha.stop()
+            loader.shutdown()  # a no-op after the last window's mark
+        if sup is not None:
+            leader = sup if ha is None else ha.leader
+            rec["epoch"] = leader.view.epoch
+            rec["lost"] = sorted(leader.lost_ranks())
+        if ha is not None:
+            rec["term"] = cl.replay_journal(journal).term
+            rec["takeover_s"] = ha.last_takeover_s
+        rec["plan_fired"] = bool(plan is not None and plan.fired)
+        rec["rings"] = len(env.connection.rings)
+        return env
+
+    # The loader unlocks its rings at shutdown, at the last window's
+    # mark: count every unlock of the run.
+    host_register.page_unlock = unlock
+    try:
+        env = run()
+    finally:
+        host_register.page_unlock = real_unlock
+    rec["exitcodes"] = list(env.workers.exitcodes)
+    rec["registered"] = m.counter("ingest.registered_rings")
+    rec["unlocked"] = len(unlocked)
+    rec["counters"] = {k: m.counter(k) for k in (
+        "cluster.view_changes", "cluster.host_losses", "cluster.host_drains",
+        "cluster.rejoins", "cluster.heartbeats_dropped",
+        "cluster.shard_adoptions", "cluster.promotions",
+        "cluster.supervisor_crashes", "consumer.pool_updates",
+        "watchdog.failures", "watchdog.respawns", "consumer.windows",
+        "staging.alias_windows", "staging.alias_fallbacks",
+        "staging.inline_fallbacks", "staging.pool_alias_drops",
+        "integrity.corrupt_windows")}
+    # A PROCESS producer's count reaches this registry in its ObsReports.
+    rec["counters"]["producer.shard_adoptions"] = (
+        m.counter("producer.0.producer.shard_adoptions") if mode == "process"
+        else default_metrics().counter("producer.shard_adoptions")
+        - adoptions0)
+    return rec
+
+
+def _steady_ms(t_yield, lo, hi):
+    """Mean ms/step over the yields ``lo .. hi`` (a window's steps lie
+    between its yield and the next)."""
+    spw = TRAIN["window_rows"] // TRAIN["batch_size"]
+    gaps = [t_yield[i + 1] - t_yield[i] for i in range(lo, hi - 1)]
+    return 1e3 * sum(gaps) / len(gaps) / spw if gaps else float("nan")
+
+
+def _ladder_device_gates(rec, ctrl, cfg, faults):
+    """K1-K3 once a layer a step on the wgmma route (the leg and its
+    control); every window on the staged alias route; a PROCESS leg's
+    rings registered and unregistered."""
+    leg, c, n = rec["leg"], rec["counters"], len(rec["shards"])
+    want = cfg.n_layers * n * TRAIN["window_rows"] // TRAIN["batch_size"]
+    for r in (rec, ctrl):
+        if not all(r["launches"][fn] == r["sm90_launches"][fn] == want
+                   for fn in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            faults.append(f"{r['leg']}: K1-K3 launches {r['launches']} / "
+                          f"{r['sm90_launches']}, want {want} on wgmma")
+    if not (c["staging.alias_windows"] == n
+            and c["staging.alias_fallbacks"] == c["staging.inline_fallbacks"]
+            == c["staging.pool_alias_drops"] == 0):
+        faults.append(f"{leg}: staging counters {c}")
+    # A PROCESS leg's shared-memory rings are page-locked at attach and
+    # unlocked once each at teardown, the terminated producer's too.
+    if leg == "process" and not (rec["registered"] == rec["rings"]
+                                 == rec["unlocked"] == 2):
+        faults.append(f"process: rings {rec['rings']}, registered "
+                      f"{rec['registered']}, unlocked {rec['unlocked']}")
+
+
+def _ladder_gates(rec, ctrl, faults):
+    """Phase 15's stream, counter and loss gates for one leg against its
+    replay control.  Appends to ``faults``."""
+    c, leg = CLUSTER, rec["leg"]
+    k, n = rec["counters"], len(rec["shards"])
+    if -1 in rec["shards"] or sorted(set(rec["shards"])) != list(
+            range(c["n_shards"])):
+        faults.append(f"{leg}: shards served {rec['shards']}")
+    split = c["act_at"]
+    end = c["rejoin_at"] if leg == "drain" else n
+    after = {s for s, p in zip(rec["shards"][split:end],
+                               rec["producers"][split:end]) if p == 1}
+    if not after & {2, 3}:
+        faults.append(f"{leg}: producer 1 served {sorted(after)} after the "
+                      f"change ({rec['shards']} from {rec['producers']})")
+    if rec["losses"] != ctrl["losses"] or len(ctrl["shards"]) != n:
+        faults.append(f"{leg}: losses {rec['losses']} != the replay "
+                      f"control's {ctrl['losses']}")
+    if not (k["consumer.windows"] == n and k["consumer.pool_updates"] >= 1
+            and k["producer.shard_adoptions"] >= 1
+            and k["cluster.shard_adoptions"] >= 1
+            and k["watchdog.failures"] == k["watchdog.respawns"] == 0
+            and k["integrity.corrupt_windows"] == 0):
+        faults.append(f"{leg}: ladder counters {k}")
+    if leg == "drain":
+        back = rec["producers"][c["rejoin_at"]:]
+        if not (k["cluster.host_drains"] == k["cluster.rejoins"] == 1
+                and k["cluster.host_losses"] == 0 and 2 in back
+                and rec["epoch"] == 2 and rec["lost"] == []):
+            faults.append(f"drain: {k}, producers after the rejoin {back}, "
+                          f"epoch {rec['epoch']}")
+    elif not (k["cluster.view_changes"] == k["cluster.host_losses"] == 1
+              and rec["epoch"] == 1 and rec["lost"] == [2]):
+        faults.append(f"{leg}: view {k}, epoch {rec['epoch']}, lost "
+                      f"{rec['lost']}")
+    if leg == "lease":
+        lapse = (rec["changes"][0] - rec["beats"][1] if rec["changes"]
+                 else float("nan"))
+        if not (rec["plan_fired"] and k["cluster.heartbeats_dropped"] >= 1
+                and lapse >= c["lease_s"]):
+            faults.append(f"lease: no lapsed lease (beat to change "
+                          f"{lapse} s, {k})")
+    if leg == "failover" and not (
+            rec["term"] == 2 and rec["plan_fired"]
+            and k["cluster.promotions"] == k["cluster.supervisor_crashes"]
+            == 1):
+        faults.append(f"failover: term {rec.get('term')}, {k}")
+    if leg == "process" and not (rec["exitcodes"][0] == 0
+                                 and rec["exitcodes"][1] != 0):
+        faults.append(f"process: exit codes {rec['exitcodes']}")
+
+
+def cluster_chaos_child(rank, port, out):
+    """One process of phase 15 (f): the ``chaos`` leg of the port's
+    MULTIHOST program (``tests/torch_multihost_prog.py``) in a gloo group
+    of 2 on cuda:0; its report goes to ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_multihost_prog as prog
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+
+    def record(name, **arrays):
+        np.savez(os.path.join(out, f"{name}_{rank}.npz"), **arrays)
+
+    report = prog.run_chaos_leg(rank, 2, record, device="cuda")
+    with open(os.path.join(out, f"chaos_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    log(f"CHAOS OK process={rank}")
+
+
+def cluster_chaos(tmpdir, card):
+    """(f) Two gloo processes on cuda:0 run the chaos leg.  Gates: every
+    shard served in both; in process 1 one respawn and one host loss;
+    no watchdog failure."""
+    import socket
+
+    out = os.path.join(tmpdir, "chaos")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"child_{i}.log"), "w") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cluster-child",
+         str(i), str(port), out], stdout=logs[i], stderr=subprocess.STDOUT,
+        cwd=ROOT) for i in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=CLUSTER["chaos_timeout_s"])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=60)
+    for f in logs:
+        f.close()
+    wall = time.perf_counter() - t0
+    texts = [open(os.path.join(out, f"child_{i}.log")).read()
+             for i in range(2)]
+    if any(p.returncode != 0 for p in procs) or not all(
+            f"CHAOS OK process={i}" in t for i, t in enumerate(texts)):
+        for i, t in enumerate(texts):
+            log(f"[cluster] chaos child {i} rc {procs[i].returncode}, last "
+                "lines:\n" + "\n".join(t.splitlines()[-40:]))
+        raise PhaseFailed("[cluster] the chaos processes failed")
+    reports = [json.load(open(os.path.join(out, f"chaos_{i}.json")))
+               for i in range(2)]
+    faults = []
+    for i, r in enumerate(reports):
+        log(f"[cluster] (f) process {i}: shards {r['shards']} x "
+            f"{r['counts']}, view epoch {r['epoch']}, lost {r['lost']}, "
+            f"respawns {r['watchdog.respawns']}, failures "
+            f"{r['watchdog.failures']}, host losses "
+            f"{r['cluster.host_losses']}; gloo all_reduce of a cuda tensor "
+            f"{r['reduce_ms']:.3f} ms a window ({card})")
+        if (r["shards"] != list(range(CLUSTER["n_shards"]))
+                or r["watchdog.failures"] != 0):
+            faults.append(f"process {i}: {r}")
+    r1 = reports[1]
+    if not (r1["watchdog.respawns"] == 1 and r1["cluster.host_losses"] == 1
+            and r1["epoch"] == 1 and r1["lost"] == [2]):
+        faults.append(f"process 1's rungs: {r1}")
+    if faults:
+        raise PhaseFailed("[cluster] (f) chaos: " + "; ".join(faults))
+    log(f"[cluster] (f) two processes on cuda:0 in {wall:.1f} s ({card})")
+    return {"wall_s": wall, "reports": reports}
+
+
+def phase_cluster(tmpdir, card):
+    """Phase 15, the cluster ladder: legs (a)-(e) on phase 6's token cell
+    over two mock hosts, each against its replay control, then (f) the
+    MULTIHOST chaos leg.  Returns the summary (``launches``: each flash
+    kernel's launches summed over the five legs' fits, not the
+    controls')."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.train import tree_map
+
+    t0 = time.perf_counter()
+    c, tr = CLUSTER, TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    token_file = _token_file(tmpdir)
+    n = tr["window_rows"] * tr["seq_len"]
+    tokens = np.fromfile(token_file, np.int32, count=c["n_shards"] * n)
+    shards = [tokens[s * n:(s + 1) * n].reshape(tr["window_rows"], -1)
+              for s in range(c["n_shards"])]
+    # The seed-0 weights, kept on the host: every fit starts from them.
+    host_params = tree_map(lambda t: t.detach().cpu(),
+                           llama.init_params(cfg, seed=SEED, device="cuda"))
+    free_device_memory()
+    log(f"[cluster] {llama.param_count(cfg) / 1e9:.3f} B params, "
+        f"{c['n_shards']} shards of {tr['window_rows']} x {tr['seq_len']} "
+        f"tokens over two mock hosts ({card})")
+    faults, summary = [], {"legs": {}, "launches": {}}
+    for letter, leg in zip("abcde", LADDER_LEGS):
+        n_windows = c["drain_windows"] if leg == "drain" else c["windows"]
+        rec = _ladder_fit(leg, "process" if leg == "process" else "thread",
+                          cfg, host_params, token_file, shards, n_windows,
+                          journal=os.path.join(tmpdir, f"journal-{leg}.bin"))
+        ctrl = _ladder_fit(f"{leg}-control", "thread", cfg, host_params,
+                           token_file, shards, n_windows,
+                           sequence=rec["shards"])
+        free_device_memory()
+        _ladder_gates(rec, ctrl, faults)
+        _ladder_device_gates(rec, ctrl, cfg, faults)
+        for name, n_launch in rec["launches"].items():
+            summary["launches"][name] = (summary["launches"].get(name, 0)
+                                         + n_launch)
+        act = c["act_at"]
+        ty = rec["t_yield"]
+        # The window after the act may be one the departed host committed
+        # before it (acquired ahead): the survivor's first comes after.
+        first = next(i for i in range(act, len(ty))
+                     if rec["producers"][i] == 1)
+        out = {
+            "shards": rec["shards"], "producers": rec["producers"],
+            "losses": rec["losses"],
+            "bit_equal_to_control": rec["losses"] == ctrl["losses"],
+            "counters": rec["counters"], "epoch": rec["epoch"],
+            "act_to_next_window_ms": 1e3 * (ty[act] - rec["t_act"]),
+            "act_to_first_survivor_window_ms": 1e3 * (ty[first]
+                                                      - rec["t_act"]),
+            # One window before the act (window 0 holds the first step's
+            # warm-up): held against the control's same window.
+            "steady_ms_before": _steady_ms(ty, 1, act),
+            "control_steady_ms_before": _steady_ms(ctrl["t_yield"], 1, act),
+            "steady_ms_after": _steady_ms(
+                ty, act + 1, c["rejoin_at"] if leg == "drain" else len(ty)),
+            "control_steady_ms": _steady_ms(ctrl["t_yield"], 1,
+                                            len(ctrl["t_yield"])),
+        }
+        if leg == "lease":
+            out["beat_to_view_change_s"] = rec["changes"][0] - rec["beats"][1]
+            out["change_to_next_window_ms"] = 1e3 * (ty[act]
+                                                     - rec["changes"][0])
+            log(f"[cluster] (c) lease: host 1's last beat to the view change "
+                f"{out['beat_to_view_change_s']:.3f} s against lease_s "
+                f"{c['lease_s']} (polls every {c['poll_s']} s); the change to "
+                f"the next window {out['change_to_next_window_ms']:.1f} ms "
+                f"({card})")
+        if leg == "drain":
+            out["rejoin_to_next_window_ms"] = 1e3 * (
+                ty[c["rejoin_at"]] - rec["t_rejoin"])
+        if leg == "failover":
+            out["crash_to_promotion_s"] = rec["crash_to_promotion_s"]
+            out["lease_overshoot_s"] = rec["t_promoted"] - rec["lease_expiry"]
+            out["takeover_s"] = rec["takeover_s"]
+            log(f"[cluster] (e) failover: the crash to the promoted leader "
+                f"{out['crash_to_promotion_s'] * 1e3:.1f} ms wall, "
+                f"{out['lease_overshoot_s'] * 1e3:.1f} ms past the lapse of "
+                f"the {c['ha_lease_s']} s lease (the replay and rebuild "
+                f"{rec['takeover_s'] * 1e3:.2f} ms), journal term "
+                f"{rec['term']} ({card})")
+        if leg == "process":
+            out["exitcodes"] = rec["exitcodes"]
+        log(f"[cluster] ({letter}) {leg}: shards {rec['shards']} from "
+            f"producers {rec['producers']}; the act to the next window "
+            f"{out['act_to_next_window_ms']:.1f} ms, to the first survivor "
+            f"window {out['act_to_first_survivor_window_ms']:.1f} ms; steady "
+            f"{out['steady_ms_before']:.1f} ms/step in the one window before "
+            f"the change (the control's same window "
+            f"{out['control_steady_ms_before']:.1f}), "
+            f"{out['steady_ms_after']:.1f} after (the control "
+            f"{out['control_steady_ms']:.1f} over all windows); losses "
+            f"{'bit-equal to' if out['bit_equal_to_control'] else 'NOT'} "
+            f"the replay control's ({card})")
+        log(f"[cluster] ({letter}) {leg}: counters "
+            f"{json.dumps(rec['counters'])}")
+        summary["legs"][leg] = out
+    if faults:
+        raise PhaseFailed("[cluster] the ladder failed its checks: "
+                          + "; ".join(faults))
+    summary["chaos"] = cluster_chaos(tmpdir, card)
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"[cluster] phase 15 took {summary['phase_s']:.1f} s ({card})")
+    return summary
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -6655,6 +7234,8 @@ def main(argv=None) -> int:
                     "torch.profiler")
     ap.add_argument("--multihost-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--cluster-child", nargs=3,
+                    metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     try:
@@ -6675,6 +7256,10 @@ def main(argv=None) -> int:
     if args.multihost_child:  # one process of phase 12 (b)
         rank, port, out = args.multihost_child
         multihost_child(int(rank), int(port), out)
+        return 0
+    if args.cluster_child:  # one process of phase 15 (f)
+        rank, port, out = args.cluster_child
+        cluster_chaos_child(int(rank), int(port), out)
         return 0
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
@@ -6710,6 +7295,9 @@ def main(argv=None) -> int:
             obs_summary = phase_obs(tmp, card, summary)
             moe_launches, vit_launches, vit_rows, families_summary = (
                 phase_families(tmp, card))
+            free_device_memory()
+            cluster_summary = phase_cluster(tmp, card)
+            cluster_launches = cluster_summary["launches"]
         # Each kernel's launches come from the run of its own path; K1-K6
         # add those of the ring (phase 11) and of the two MULTIHOST
         # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
@@ -6723,6 +7311,9 @@ def main(argv=None) -> int:
             # Phase 14: the MoE fits' (einsum and ragged K1-K3, packed
             # K4-K6); the ViT-B/16 fit's and the non-causal timings.
             row["moe_launches"] = moe_launches[row["name"]]
+            # Phase 15: the five ladder legs' fits (K1-K3).
+            if not row["name"].endswith("_seg"):
+                row["cluster_launches"] = cluster_launches[row["name"]]
             if row["name"] in vit_rows:
                 row["vit_launches"] = vit_launches[row["name"]]
                 row["vit_noncausal"] = vit_rows[row["name"]]
@@ -6740,6 +7331,7 @@ def main(argv=None) -> int:
         log(f"[summary-pipeline] {json.dumps(pipe_summary)}")
         log(f"[summary-obs] {json.dumps(obs_summary)}")
         log(f"[summary-families] {json.dumps(families_summary)}")
+        log(f"[summary-cluster] {json.dumps(cluster_summary)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -31,6 +31,7 @@ __all__ = [
     "RunMode",
     "Topology",
     "Trainer",
+    "cluster",
     "distributed_dataloader",
 ]
 
@@ -49,4 +50,10 @@ def __getattr__(name: str):
         from ddl_tpu_torch.trainer import Trainer
 
         return Trainer
+    if name == "cluster":
+        # The multi-host elastic control plane (membership, placement,
+        # the loader pool, the recovery ladder, supervisor failover).
+        import ddl_tpu_torch.cluster as cluster
+
+        return cluster
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

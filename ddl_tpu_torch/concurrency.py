@@ -22,6 +22,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 #: The port's lock hierarchy, outermost first.
 LOCK_ORDER: Tuple[str, ...] = (
+    # The cluster control plane: the supervisor (and its HA tier) fans
+    # out into everything below; the lease table is taken under it.
+    "cluster.supervisor",
+    "cluster.membership",
     # The preemption guard's lock: its drain ladder runs the checkpoint
     # flush and the loader's shutdown under nothing, but a notice may
     # arrive while any lock below is held.

@@ -51,8 +51,18 @@ acquires) and, with an admission gate bound (:meth:`bind_admission`),
 at every window boundary and at shutdown (:meth:`drain_obs_reports`).
 The flight recorder dumps at a corrupt window, an undecodable window and
 an exhausted replay.  The acquire runs under
-``profiling.annotate("ddl.window_acquire")``.  Loader pools are a later
-slice.
+``profiling.annotate("ddl.window_acquire")``.
+
+Loader pools (:mod:`ddl_tpu_torch.cluster`): ``cluster=`` (an
+``ElasticCluster``, or a bare ``ClusterSupervisor``) makes the loader
+consume whatever :class:`~ddl_tpu_torch.cluster.pool.LoaderPool` the
+cluster view publishes.  :meth:`DistributedDataLoader.apply_pool` only
+records a pool (it runs on the supervisor's thread); the consumer thread
+applies it at the next window boundary.  Every rotation goes through
+``_next_target``, the pool's ``next_member``, and a cluster-managed
+acquire waits in slices, so a consumer blocked on a ring the view dropped
+moves to a survivor at the view change instead of at its ``timeout_s``.
+Counter ``consumer.pool_updates``, gauge ``consumer.pool_size``.
 """
 
 from __future__ import annotations
@@ -100,6 +110,13 @@ class _CorruptAhead(Exception):
     deepening; the window re-verifies when it reaches the head."""
 
 
+class _TargetRevoked(Exception):
+    """Internal: the target being acquired left the loader pool (a
+    cluster view change dropped its host mid-acquire).  The acquire
+    paths apply the published pool and retry on a member; never escapes
+    the loader."""
+
+
 class DistributedDataLoader:
     """Map-style loader over producer window rings.
 
@@ -123,6 +140,7 @@ class DistributedDataLoader:
         sharding: Any = None,
         distribute: str = "auto",
         staged: Optional[bool] = None,
+        cluster: Any = None,
     ):
         if output not in ("torch", "numpy", "device"):
             raise ValueError(f"output must be torch|numpy|device, got {output!r}")
@@ -160,6 +178,14 @@ class DistributedDataLoader:
         # Shared-memory rings this loader page-locked (unlocked at
         # shutdown).
         self._page_locked: list = []
+        # The loader pool (apply_pool): the APPLIED pool this loader
+        # rotates over, None for every ring.  A pool from the cluster's
+        # thread waits in _pending_pool until the consumer thread applies
+        # it at a window boundary: rotation state has one writer.
+        self._pool: Any = None
+        self._pool_generation = -1
+        self._pending_pool: Any = None
+        self._cluster = cluster
         # Multi-tenant admission gate (bind_admission), and the merger of
         # PROCESS producers' ObsReports (built at the first report).
         self._admission: Any = None
@@ -208,6 +234,17 @@ class DistributedDataLoader:
             self.metrics.incr(f"transport.rings.{type(ring).__name__}")
         if self._ingestor is not None and self._ingestor.device.type == "cuda":
             self._page_lock(rings)
+        # Consume whatever loader pool the cluster view publishes: an
+        # ElasticCluster wires the whole ladder, a bare supervisor only
+        # the pool.
+        if cluster is not None:
+            if hasattr(cluster, "attach_loader"):
+                cluster.attach_loader(self)
+            else:
+                cluster.add_listener(
+                    lambda _old, new, _dead: self.apply_pool(
+                        new.loader_pool()))
+                self.apply_pool(cluster.view.loader_pool())
 
     def _page_lock(self, rings) -> None:
         """Register each attached shared-memory ring's whole mapping with
@@ -344,29 +381,41 @@ class DistributedDataLoader:
         pending: collections.deque = collections.deque()
         # Generator-local rotation cursor: self._target only advances when
         # a window is yielded, so an abandoned stream needs no rollback
-        # (acquisition has no ring side effect; only release does).
+        # (acquisition has no ring side effect; only release does).  It
+        # moves only through _next_target.
         cursor = self._target
         token = object()
         self._stream_token = token
 
         def start_one(timeout_s: float):
             nonlocal cursor
+            self._apply_pending_pool()
+            cursor = self._next_target(cursor, include=True)
             target = cursor
             with annotate("ddl.window_acquire"), self.metrics.timed(
                     "consumer.wait"):
-                try:
-                    slot = self._acquire_verified(target, held[target],
-                                                  timeout_s)
-                except _CorruptAhead:
-                    if timeout_s <= 0 or not held[target]:
-                        raise
-                    # A corrupt window behind held slots (deferred inline
-                    # releases): free them, so it is the head, where
-                    # quarantine runs.
-                    self._flush_release_backlog(held, target=target,
-                                                every=True)
-                    slot = self._acquire_verified(target, held[target],
-                                                  timeout_s)
+                while True:
+                    try:
+                        try:
+                            slot = self._acquire_verified(
+                                target, held[target], timeout_s)
+                        except _CorruptAhead:
+                            if timeout_s <= 0 or not held[target]:
+                                raise
+                            # A corrupt window behind held slots (deferred
+                            # inline releases): free them, so it is the
+                            # head, where quarantine runs.
+                            self._flush_release_backlog(held, target=target,
+                                                        every=True)
+                            slot = self._acquire_verified(
+                                target, held[target], timeout_s)
+                        break
+                    except _TargetRevoked:
+                        # The target's host left the view mid-acquire:
+                        # apply the published pool, retry on a member.
+                        self._apply_pending_pool()
+                        cursor = self._next_target(cursor, include=True)
+                        target = cursor
             ring = rings[target]
             # Window identity: the integrity trailer's (producer_idx, seq).
             wkey = (target + 1, self._last_acquired_seq)
@@ -407,7 +456,7 @@ class DistributedDataLoader:
                 finally:
                     obs_spans.clear_window()
             held[target] += 1
-            cursor = (cursor + 1) % self.n_producers
+            cursor = self._next_target(cursor)
             return [slot, target, payload, served, False, wkey]
 
         def release_early():
@@ -472,7 +521,7 @@ class DistributedDataLoader:
                 self._release_backlog.append(backlog_entry)
                 self._last_stream_entry = backlog_entry
             # This window is now SERVED: commit the rotation.
-            self._target = (target + 1) % self.n_producers
+            self._target = self._next_target(target)
             self._last_window_key = wkey
             obs_spans.mark("consumer.yield", *wkey)
             return dev
@@ -481,7 +530,7 @@ class DistributedDataLoader:
         # by FIFO construction, exactly the next unserved windows.
         pending.extend(self._staged_orphans)
         if pending:
-            cursor = (pending[-1][1] + 1) % self.n_producers
+            cursor = self._next_target(pending[-1][1])
 
         remaining = self.n_epochs - self._epoch
         for i in range(remaining):
@@ -626,7 +675,7 @@ class DistributedDataLoader:
             if self._batches_in_window >= self._lens[self._target]:
                 self._batches_in_window = 0
                 self._release_current()
-                self._target = (self._target + 1) % self.n_producers
+                self._advance_to_next_producer()
         elif marker is Marker.END_OF_EPOCH:
             self._served_in_epoch = 0
             if self._batches_in_window:
@@ -634,14 +683,84 @@ class DistributedDataLoader:
                 # the next epoch starts on a fresh window boundary.
                 self._batches_in_window = 0
                 self._release_current()
-                self._target = (self._target + 1) % self.n_producers
+                self._advance_to_next_producer()
             self._epoch += 1
             if self._epoch >= self.n_epochs:
                 self.shutdown()
         else:
             raise ValueError(f"unknown marker {marker!r}")
 
-    # -- window rotation -----------------------------------------------------
+    # -- window rotation and the loader pool ---------------------------------
+
+    def _advance_to_next_producer(self) -> None:
+        self._apply_pending_pool()
+        self._target = self._next_target(self._target)
+
+    def _next_target(self, t: int, include: bool = False) -> int:
+        """The next ACTIVE ring target cyclically after ``t`` (or ``t``
+        itself when ``include`` and it is active).  Every rotation goes
+        through here, and with a pool applied through its
+        :meth:`~ddl_tpu_torch.cluster.pool.LoaderPool.next_member` — one
+        rotation rule, so the pool seam cannot be bypassed."""
+        if self._pool is None:
+            return t % self.n_producers if include else (
+                (t + 1) % self.n_producers)
+        return self._pool.next_member(t, include=include)
+
+    def _target_revoked(self, target: int) -> bool:
+        """True when ``target`` is outside the applied pool or about to be
+        dropped by a pending one: the sliced acquire polls this, so a
+        consumer blocked on a departed host's ring moves at the view
+        change instead of at its full timeout."""
+        if self._pool is not None and target not in self._pool:
+            return True
+        pool = self._pending_pool
+        return (pool is not None and pool.generation > self._pool_generation
+                and target not in pool)
+
+    def apply_pool(self, pool: Any) -> None:
+        """Adopt a published :class:`~ddl_tpu_torch.cluster.pool.LoaderPool`.
+
+        Thread-safe (the cluster supervisor's sweep thread calls it): the
+        pool is only RECORDED here; rotation state changes on the
+        consumer thread at the next window boundary
+        (``_apply_pending_pool``), and a consumer blocked on a ring the
+        new pool drops is unblocked by target revocation inside the
+        sliced acquire.  Generations at or below the applied one are
+        ignored — the epoch fence."""
+        cur = self._pending_pool
+        if cur is not None and cur.generation >= pool.generation:
+            return  # a newer pool is already pending
+        if pool.generation <= self._pool_generation:
+            return  # stale against what was already applied
+        self._pending_pool = pool
+
+    def _apply_pending_pool(self) -> None:
+        """The consumer thread's half of :meth:`apply_pool`."""
+        pool = self._pending_pool
+        if pool is None:
+            return
+        self._pending_pool = None
+        if pool.generation <= self._pool_generation:
+            return  # view N never undoes view N+1
+        from ddl_tpu_torch.cluster.pool import LoaderPool
+
+        members = tuple(m for m in pool.members if 0 <= m < self.n_producers)
+        if not members:
+            raise LoaderStateError(
+                "loader pool update left no local ring targets "
+                f"(pool={pool.members}, rings={self.n_producers})")
+        self._pool = LoaderPool(members=members, generation=pool.generation)
+        self._pool_generation = pool.generation
+        self.metrics.incr("consumer.pool_updates")
+        self.metrics.set_gauge("consumer.pool_size", len(members))
+        if self._target not in self._pool:
+            # The current target's host left: drop a partly served window
+            # (its shards moved to the survivors by adoption) and rotate
+            # onto the pool.
+            self._batches_in_window = 0
+            self._release_current()
+            self._target = self._next_target(self._target)
 
     def _slot_array(self, target: int, slot: int) -> np.ndarray:
         """Window array of an acquired slot, shaped for ``target``: a
@@ -794,7 +913,11 @@ class DistributedDataLoader:
         span_t0 = obs_spans.t0()
         t0 = time.perf_counter() if ahead == 0 and timeout_s > 0 else 0.0
         ring = self.connection.rings[target]
-        slot = ring.acquire_drain_ahead(ahead, timeout_s)
+        if (self._cluster is None and self._pool is None
+                and self._pending_pool is None):
+            slot = ring.acquire_drain_ahead(ahead, timeout_s)
+        else:
+            slot = self._acquire_sliced(ring, target, ahead, timeout_s)
         seq = self._expected_seq(target, ahead)
         if self._integrity:
             err = self._verify_slot(target, slot, seq)
@@ -819,6 +942,28 @@ class DistributedDataLoader:
         # due envelopes and route the producers' acks.
         self.connection.drain_acks()
         return slot
+
+    def _acquire_sliced(self, ring: Any, target: int, ahead: int,
+                        timeout_s: float) -> int:
+        """A pool-managed acquire (head and lookahead), in slices of at
+        most 0.25 s: a view change that drops ``target`` mid-wait revokes
+        it promptly (the departed host's producer never commits again).
+        A shut-down ring under a revoking pool is the same revocation,
+        not run teardown."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            if self._target_revoked(target):
+                raise _TargetRevoked(target)
+            try:
+                return ring.acquire_drain_ahead(
+                    ahead, min(0.25, max(0.0, deadline - time.monotonic())))
+            except StallTimeoutError:
+                if time.monotonic() >= deadline:
+                    raise
+            except ShutdownRequested:
+                if self._target_revoked(target):
+                    raise _TargetRevoked(target) from None
+                raise
 
     def _discard_head(self, target: int) -> None:
         """Hand ``target``'s head slot back unserved.  A slot returns to
@@ -921,9 +1066,20 @@ class DistributedDataLoader:
                 "flight; drain them with a new windows() stream before "
                 "batch iteration"
             )
+        self._apply_pending_pool()
         with annotate("ddl.window_acquire"), self.metrics.timed(
                 "consumer.wait"):
-            slot = self._acquire_verified(self._target, 0, self.timeout_s)
+            while True:
+                try:
+                    slot = self._acquire_verified(self._target, 0,
+                                                  self.timeout_s)
+                    break
+                except _TargetRevoked:
+                    # The target's host left the view mid-acquire: apply
+                    # the published pool and retry on a survivor.
+                    self._apply_pending_pool()
+                    self._target = self._next_target(self._target,
+                                                     include=True)
         self._cur_slot = slot
         self._cur_array = self._slot_array(self._target, slot)
         self.metrics.incr("consumer.windows")
@@ -945,7 +1101,7 @@ class DistributedDataLoader:
             else:
                 self._acquire_current()
                 self._release_current()
-            self._target = (self._target + 1) % self.n_producers
+            self._advance_to_next_producer()
             self.metrics.incr("consumer.windows_skipped")
 
     def _release_current(self) -> None:

@@ -23,7 +23,12 @@ predecessor left and fast-forwards its producer function to the logical
 position in the last committed slot's trailer; with a shuffler it also
 restores ``my_ary`` from that slot and re-enters the exchange schedule.
 A :class:`~ddl_tpu_torch.types.ReplayRequest` from the consumer rewinds
-the stream to a quarantined window.
+the stream to a quarantined window.  A
+:class:`~ddl_tpu_torch.types.ShardAdoption` (a cluster view change,
+:mod:`ddl_tpu_torch.cluster`) hands the producer function its host's new
+shard ranges through its ``adopt_shards`` callback and suspends or
+resumes the shuffler's exchange; adoptions at or below the last applied
+view epoch are dropped.
 
 Wire format (:mod:`ddl_tpu_torch.wire`): a reader whose ``wire_dtype``
 (or ``DDL_TORCH_WIRE_DTYPE``) is ``bf16`` or ``int8`` commits the encoded
@@ -68,6 +73,7 @@ from ddl_tpu_torch.types import (
     MetaData_Producer_To_Consumer,
     ReplayRequest,
     RunMode,
+    ShardAdoption,
     Topology,
     normalize_splits,
 )
@@ -108,6 +114,8 @@ class DataPusher:
         self.nslots = nslots
         self.metrics = metrics or default_metrics()
         self._iteration = 0
+        # Last applied cluster view epoch (the ShardAdoption fence).
+        self._view_epoch = -1
         self._integrity = integrity.integrity_enabled()
         # Acked control envelopes: dedup, fencing, and an ack per
         # envelope so the consumer's retries end.
@@ -472,7 +480,8 @@ class DataPusher:
 
         Commands arrive in :class:`ControlEnvelope` s: each is unwrapped
         through the dedup and fencing receiver and ALWAYS acked, then a
-        :class:`ReplayRequest` rewinds the stream.  The consumer's ABORT
+        :class:`ReplayRequest` rewinds the stream and a
+        :class:`ShardAdoption` re-partitions it.  The consumer's ABORT
         broadcast ends the loop like the ring flag."""
         from ddl_tpu_torch.env import ABORT
 
@@ -495,6 +504,8 @@ class DataPusher:
                 msg = payload
             if isinstance(msg, ReplayRequest):
                 self._handle_replay(msg.seq)
+            elif isinstance(msg, ShardAdoption):
+                self._handle_adoption(msg)
             elif isinstance(msg, str) and msg == ABORT:
                 raise ShutdownRequested("consumer abort broadcast")
             else:
@@ -502,6 +513,37 @@ class DataPusher:
                     "producer %d: ignoring unexpected control message %r",
                     self.producer_idx, type(msg).__name__,
                 )
+
+    def _handle_adoption(self, msg: ShardAdoption) -> None:
+        """Apply a cluster view change: adopt the re-partitioned shard
+        ranges and suspend or resume the exchange.  Epoch-fenced: a
+        message at or below the last applied view epoch is dropped, so a
+        slow or duplicated view-N message never undoes view N+1."""
+        if msg.view_epoch <= self._view_epoch:
+            logger.debug("producer %d: dropping stale adoption (epoch %d "
+                         "<= %d)", self.producer_idx, msg.view_epoch,
+                         self._view_epoch)
+            return
+        self._view_epoch = msg.view_epoch
+        logger.warning(
+            "producer %d: adopting shard ranges %s at view epoch %d (peer "
+            "%d/%d)", self.producer_idx, msg.ranges, msg.view_epoch,
+            msg.peer_idx, msg.n_peers,
+        )
+        self.metrics.incr("producer.shard_adoptions")
+        if msg.suspend_exchange is not None and self.shuffler is not None:
+            # Node-local while the exchange schedule still names a dead
+            # host; resumed at the rejoin fence.
+            toggle = getattr(self.shuffler, "suspend_exchange"
+                             if msg.suspend_exchange else "resume_exchange",
+                             None)
+            if callable(toggle):
+                toggle()
+        execute_callbacks(
+            self.callbacks, "adopt_shards",
+            ranges=msg.ranges, view_epoch=msg.view_epoch,
+            peer_idx=msg.peer_idx, n_peers=msg.n_peers, my_ary=self.my_ary,
+        )
 
     def _handle_replay(self, seq: int) -> None:
         """Rewind the producer function to logical window ``seq`` and
@@ -617,7 +659,8 @@ class DataPusher:
         self._obs_report_idx += 1
         report = obs_aggregate.build_report(
             self.producer_idx - 1,  # the consumer's 0-based ring index
-            self._obs_report_idx, self.metrics)
+            self._obs_report_idx, self.metrics,
+            view_epoch=self._view_epoch)
         try:
             self.connection.channel.send(report)
         except (OSError, ValueError) as e:

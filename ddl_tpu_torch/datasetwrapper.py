@@ -67,6 +67,16 @@ class ProducerFunctionSkeleton(abc.ABC):
     def execute_function(self, **kwargs: Any) -> None:
         """Refill/refresh the window before each handoff. Default: no-op."""
 
+    def adopt_shards(self, ranges: Any, **kwargs: Any) -> None:
+        """Adopt shard ``ranges`` mid-run (cross-host elastic recovery,
+        :mod:`ddl_tpu_torch.cluster`): a view change re-partitioned a
+        departed host's shards onto this producer's host.  ``ranges`` is
+        a tuple of half-open ``(start, stop)`` shard-index pairs — the
+        host's FULL post-change assignment, not a delta — with
+        ``peer_idx``/``n_peers`` kwargs locating this producer among its
+        host's loader ranks.  Default: no-op (producers that do not
+        partition by shard ignore adoption)."""
+
     def fast_forward(self, n: int, **kwargs: Any) -> None:
         """Advance the data position by ``n`` windows without publishing
         them.  Default: ``n`` ordinary ``execute_function`` calls."""

@@ -140,6 +140,13 @@ _EXPLICIT: List[Knob] = [
          "'<grace_s>') to trigger the graceful-drain ladder."),
     Knob("DDL_TORCH_PREEMPT_DEADLINE_S", "float", 30.0,
          "Default drain deadline after a preemption notice, seconds."),
+    # -- control-plane survivability (cluster/supervision.py) -------------
+    Knob("DDL_TORCH_SUPERVISOR_LEASE_S", "float", 2.0,
+         "Supervisor leadership lease, seconds: a standby promotes itself "
+         "when the leader's lease goes unrenewed this long."),
+    Knob("DDL_TORCH_SUPERVISOR_STANDBYS", "int", 1,
+         "Hot-standby supervisors the HA tier provisions beside the "
+         "leader (0 = a lapsed lease is not promoted)."),
     # -- control envelopes -----------------------------------------------
     Knob("DDL_TORCH_CTRL_RETRIES", "int", 5,
          "Acked control-envelope retry cap per send "
@@ -208,8 +215,8 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_CKPT_ASYNC": "DDL_TORCH_CKPT_ASYNC",
     "DDL_TPU_PREEMPT_NOTICE": "DDL_TORCH_PREEMPT_NOTICE",
     "DDL_TPU_PREEMPT_DEADLINE_S": "DDL_TORCH_PREEMPT_DEADLINE_S",
-    "DDL_TPU_SUPERVISOR_LEASE_S": "todo",
-    "DDL_TPU_SUPERVISOR_STANDBYS": "todo",
+    "DDL_TPU_SUPERVISOR_LEASE_S": "DDL_TORCH_SUPERVISOR_LEASE_S",
+    "DDL_TPU_SUPERVISOR_STANDBYS": "DDL_TORCH_SUPERVISOR_STANDBYS",
     "DDL_TPU_CTRL_RETRIES": "DDL_TORCH_CTRL_RETRIES",
     "DDL_TPU_CTRL_BACKOFF_S": "DDL_TORCH_CTRL_BACKOFF_S",
     "DDL_TPU_FABRIC_QUANTUM_BYTES": "todo",

@@ -99,3 +99,27 @@ class NetworkPartitioned(TransportError):
     nor receive control traffic for the duration (the
     ``NETWORK_PARTITION`` fault kind at ``transport.control_send``).  The
     envelope seam keeps retrying under its cap."""
+
+
+class HostLostError(DDLError):
+    """A whole host left the cluster view (lease expiry, a declared loss,
+    or the ``HOST_LOSS`` fault kind at ``cluster.heartbeat``).  The
+    membership control plane (:mod:`ddl_tpu_torch.cluster`) catches it
+    during a sweep and runs the epoch-fenced view change; it never
+    escapes a healthy supervisor loop."""
+
+
+class HeartbeatDropped(DDLError):
+    """One heartbeat was lost in flight (the ``HEARTBEAT_DROP`` fault kind
+    at ``cluster.heartbeat``).  The lease table treats a dropped beat as
+    silence: the lease keeps aging and only its expiry changes the
+    view."""
+
+
+class SupervisorCrashed(DDLError):
+    """The control-plane supervisor died mid-lease (the
+    ``SUPERVISOR_CRASH`` fault kind at ``cluster.supervise``).  The HA
+    tier (:class:`~ddl_tpu_torch.cluster.supervision.SupervisorHA`)
+    absorbs it: the leader's lease stops renewing, a standby observes the
+    expiry, replays the journal and promotes itself under the next
+    fencing term."""

@@ -47,11 +47,21 @@ Sites in the port (site — the kinds that act there):
 ``transport.control_send``  ``CONTROL_MSG_DROP`` / ``NETWORK_PARTITION``
                             lose an envelope send, ``CONTROL_MSG_DUP``
                             sends it twice
+``cluster.heartbeat``       once per host per supervisor sweep
+                            (``producer_idx`` is the HOST id):
+                            ``HEARTBEAT_DROP`` loses the beat (the lease
+                            ages), ``HOST_LOSS`` declares the host dead
+``cluster.view_change``     inside the supervisor's critical section,
+                            before the successor view is computed
+``cluster.supervise``       top of every ``SupervisorHA.step``
+                            (``producer_idx`` is the stepping node):
+                            ``SUPERVISOR_CRASH`` kills the leader,
+                            ``NETWORK_PARTITION`` skips its lease renewal
 ==========================  ==============================================
 
 Every kind of the JAX package is defined, so plans round-trip through
-JSON; the kinds whose sites are not ported yet (the cluster, serve and
-tune planes) match no site here.
+JSON; the kinds whose sites are not ported yet (the serve and tune
+planes) match no site here.
 """
 
 from __future__ import annotations
@@ -71,10 +81,13 @@ from ddl_tpu_torch.exceptions import (
     ControlSendDropped,
     DDLError,
     DecodeError,
+    HeartbeatDropped,
+    HostLostError,
     InjectedFault,
     NetworkPartitioned,
     PreemptionNotice,
     ShutdownRequested,
+    SupervisorCrashed,
 )
 
 
@@ -277,9 +290,17 @@ class FaultPlan:
             return  # the sender sends the same envelope twice
         if kind is FaultKind.SHUFFLE_PEER_LOSS:
             raise DDLError(f"shuffle peer loss {where}")
-        # The kinds of modules the port does not have yet (cluster, serve,
-        # tune): no port site names them, so only a hand-placed spec
-        # reaches here.
+        # The cluster kinds raise the real types: the supervisor's sweep
+        # and the HA step handle them as they would the real events.
+        if kind is FaultKind.HOST_LOSS:
+            raise HostLostError(f"host loss {where}")
+        if kind is FaultKind.HEARTBEAT_DROP:
+            raise HeartbeatDropped(f"heartbeat dropped {where}")
+        if kind is FaultKind.SUPERVISOR_CRASH:
+            raise SupervisorCrashed(f"supervisor crash {where}")
+        # The kinds of modules the port does not have yet (serve, tune):
+        # no port site names them, so only a hand-placed spec reaches
+        # here.
         raise InjectedFault(f"{kind.value} {where}")
 
 

@@ -154,8 +154,10 @@ class ConsumerConnection:
         self.rings: List[WindowRing] = []
         self.replies: List[MetaData_Producer_To_Consumer] = []
         self._sent_meta: Optional[MetaData_Consumer_To_Producer] = None
-        # One acked sender per target, built on first use.
+        # One acked sender per target, built on first use, each stamping
+        # the current fencing term (set_control_fence).
         self._senders: dict = {}
+        self._control_fence = 0
         #: Registry for the senders' ``ctrl.*`` counters (the loader
         #: attaches its own).
         self.control_metrics: Any = None
@@ -289,8 +291,17 @@ class ConsumerConnection:
                     lambda msg, t=target: self.send_control(t, msg),
                     target=target, metrics=self.control_metrics,
                 )
+                s.fence = self._control_fence
                 self._senders[target] = s
             return s
+
+    def set_control_fence(self, fence: int) -> None:
+        """Stamp ``fence`` on every later acked send (a supervisor
+        promotion raises the term; receivers drop older ones)."""
+        with self._lock:
+            self._control_fence = int(fence)
+            for s in self._senders.values():
+                s.fence = self._control_fence
 
     def send_control_acked(self, target: int, msg: Any) -> int:
         """Send ``msg`` in an acked envelope (retried until acked).

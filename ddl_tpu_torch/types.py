@@ -1,16 +1,15 @@
-"""Shared types (the slice's subset of ``ddl_tpu/types.py``).
+"""Shared types (port of ``ddl_tpu/types.py``).
 
-The control plane carries replay requests inside acked envelopes
-(:mod:`ddl_tpu_torch.transport.envelope`).  Shard adoption and the
-observability reports of the JAX package belong to the cluster and
-observability tiers, later slices.
+The control plane carries replay requests and shard adoptions inside
+acked envelopes (:mod:`ddl_tpu_torch.transport.envelope`); producers
+send acks and observability reports back.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import TYPE_CHECKING, Any, Sequence
+from typing import TYPE_CHECKING, Any, Optional, Sequence
 
 if TYPE_CHECKING:  # pragma: no cover
     from ddl_tpu_torch.datasetwrapper import ProducerFunctionSkeleton
@@ -84,6 +83,30 @@ class ReplayRequest:
 
 
 @dataclasses.dataclass
+class ShardAdoption:
+    """Consumer → producer: adopt shard ``ranges`` as of cluster view
+    ``view_epoch`` (cross-host elastic recovery,
+    :mod:`ddl_tpu_torch.cluster`).
+
+    Sent when a view change re-partitions a dead host's shard range
+    across the survivors.  ``ranges`` is the receiving producer's
+    HOST-level range list (half-open ``(start, stop)`` shard-index
+    pairs); ``peer_idx``/``n_peers`` locate the producer among its
+    host's loader ranks, so a host of several producers can subdivide.
+    ``suspend_exchange``: ``True`` degrades the cross-instance shuffle to
+    node-local until rejoin, ``False`` resumes it, ``None`` leaves it
+    alone.  The producer ignores a ``view_epoch`` at or below the last
+    one it applied.
+    """
+
+    ranges: tuple
+    view_epoch: int
+    peer_idx: int = 0
+    n_peers: int = 1
+    suspend_exchange: Optional[bool] = None
+
+
+@dataclasses.dataclass
 class ControlEnvelope:
     """Consumer → producer: one sequenced, fenced, acknowledged control
     command.  ``(incarnation, seq)`` identifies the send across sender
@@ -122,8 +145,8 @@ class ObsReport:
     double-count), ``hists`` its ``Metrics.hist_state()``, ``spans`` the
     armed span log's events since the last report (empty when tracing is
     disarmed).  ``report_idx`` is monotone per producer incarnation: the
-    consumer drops stale reports.  ``view_epoch`` is the producer's
-    cluster fence (0 until the cluster slice)."""
+    consumer drops stale reports.  ``view_epoch`` is the last cluster
+    view epoch the producer applied (-1 before any adoption)."""
 
     producer_idx: int
     report_idx: int
@@ -136,7 +159,7 @@ class ObsReport:
 
 #: The control-channel protocol, per direction.  The consumer's ABORT
 #: broadcast is a ``str`` sentinel (``env.ABORT``), outside these tuples.
-CONSUMER_TO_PRODUCER_CONTROL = (ReplayRequest, ControlEnvelope)
+CONSUMER_TO_PRODUCER_CONTROL = (ReplayRequest, ShardAdoption, ControlEnvelope)
 PRODUCER_TO_CONSUMER_CONTROL = (ObsReport, ControlAck)
 
 

@@ -10,10 +10,16 @@ budget) is respawned in place with ``respawn=True``, up to
 ``max_respawns`` times, then handed to ``on_failure`` (default: log and
 abort the workers).
 
+With ``cluster=`` (a :class:`~ddl_tpu_torch.cluster.ClusterSupervisor`)
+the ladder extends across hosts: every poll also drives one membership
+sweep, workers whose HOST has left the view are the cluster ladder's
+(neither respawned nor escalated), and a respawned rank is reported back
+(``rank_respawned``) so the fresh incarnation hears the current view's
+shard adoption.
+
 Counters: ``watchdog.respawns`` and ``watchdog.failures``; timer
 ``watchdog.respawn`` (terminate, spawn and rejoin handshake of each
-replacement).  The JAX package's cluster ladder (``cluster=``) belongs
-to the cluster slice.
+replacement).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ class Watchdog:
         max_respawns: int = 3,
         replay_budget_per_window_s: float = 1.0,
         metrics: Optional[Metrics] = None,
+        cluster: Any = None,
     ):
         """``respawn=True`` turns detection into recovery: a dead
         producer worker is replaced (``WorkerSet.respawn``: rejoin the
@@ -51,8 +58,13 @@ class Watchdog:
         times before ``on_failure``.  While a replacement fast-forwards
         (commits nothing) its stall budget widens to ten times
         ``stall_budget_s`` plus ``replay_budget_per_window_s`` per window
-        it replays."""
+        it replays.
+
+        ``cluster`` (a ClusterSupervisor) makes each poll sweep the
+        membership too; a rank of a host that left the view is the
+        cluster ladder's: the view change IS its handling."""
         self.workers = workers
+        self.cluster = cluster
         self.poll_interval_s = poll_interval_s
         self.stall_budget_s = stall_budget_s
         self.on_failure = on_failure or self._default_on_failure
@@ -114,16 +126,24 @@ class Watchdog:
         if rings and any(r.is_shutdown() for r in rings):
             return None
         self._dead_idx = None
+        # Workers of hosts that LEFT the cluster view are dead by design:
+        # the view change declared them, the loader pool dropped their
+        # rings and the survivors adopted their shards.
+        lost = (self.cluster.lost_ranks() if self.cluster is not None
+                else frozenset())
         for i, t in enumerate(self.workers.threads):
-            if not t.is_alive():
+            if i + 1 not in lost and not t.is_alive():
                 self._dead_idx = i + 1
                 return f"producer thread {i + 1} died"
         for i, p in enumerate(self.workers.processes):
-            if p.exitcode is not None and p.exitcode != 0:
+            if (i + 1 not in lost and p.exitcode is not None
+                    and p.exitcode != 0):
                 self._dead_idx = i + 1
                 return f"producer process {i + 1} exited with {p.exitcode}"
         now = time.monotonic()
         for i, ring in enumerate(rings):
+            if i + 1 in lost:
+                continue  # no progress expected from a departed host
             st = ring.stats()
             progress = (st["committed"], st["released"])
             if i in self._replaying and st["committed"] > self._replaying[i]:
@@ -155,6 +175,16 @@ class Watchdog:
 
     def _run(self) -> None:
         while not self._stop.wait(self.poll_interval_s):
+            if self.cluster is not None:
+                # The host-level ladder: one membership sweep a poll, with
+                # check_once's crash discipline.
+                try:
+                    self.cluster.sweep()
+                except (ShutdownRequested, KeyboardInterrupt):
+                    return
+                except Exception:
+                    logger.exception("watchdog: cluster sweep raised; "
+                                     "continuing")
             try:
                 reason = self.check_once()
             except (ShutdownRequested, KeyboardInterrupt):
@@ -166,6 +196,10 @@ class Watchdog:
             if reason is None:
                 continue
             idx = self._dead_idx
+            if (self.cluster is not None and idx is not None
+                    and idx in self.cluster.lost_ranks()):
+                continue  # declared at host level since check_once
+
             if (self.respawn and idx is not None
                     and len(self.respawns) < self.max_respawns):
                 logger.warning(
@@ -184,6 +218,10 @@ class Watchdog:
                 else:
                     self.respawns.append(idx)
                     self.metrics.incr("watchdog.respawns")
+                    if self.cluster is not None:
+                        # The fresh incarnation must hear the current
+                        # view's shard adoption.
+                        self.cluster.rank_respawned(idx)
                     # The stall clock restarts; the widened budget holds
                     # until the committed count moves past this value.
                     self._last_change[idx - 1] = time.monotonic()

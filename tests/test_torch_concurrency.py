@@ -96,12 +96,15 @@ def test_disarmed_factories_return_raw_primitives():
 
 
 def test_slice_locks_rank_as_in_the_reference():
-    """The guard ranks above the connection, the checkpoint writer's
-    condition between the connection and the staging queue."""
+    """The cluster control plane's locks come first, the guard ranks
+    above the connection, the checkpoint writer's condition between the
+    connection and the staging queue."""
     for con in (jcon, tcon):
         r = {n: i for i, n in enumerate(con.LOCK_ORDER)}
-        assert (r["resilience.guard"] < r["transport.connection"]
-                < r["resilience.ckpt.cv"] < r["staging.executor.cv"])
+        assert (r["cluster.supervisor"] == 0 and r["cluster.membership"] == 1)
+        assert (r["cluster.membership"] < r["resilience.guard"]
+                < r["transport.connection"] < r["resilience.ckpt.cv"]
+                < r["staging.executor.cv"])
 
 
 CFG = tllama.LlamaConfig(vocab=64, d_model=32, n_layers=1, n_heads=4,

@@ -14,7 +14,9 @@ no-cache forward (``-k "checkpoint or decode"``); the wire's card
 encode and encoded legs (``-k wire``); file shards through the shard
 cache onto the card — a TFRecord stream from a warm store (THREAD) and
 from a spill dir (PROCESS) on the alias route, ``.npy`` shards onto a
-mesh of positions through K8 (``-k cache``).
+mesh of positions through K8 (``-k cache``); the cluster ladder: a host
+killed under ``windows()`` on the alias route, THREAD and PROCESS (``-k
+host_kill``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -2201,3 +2203,87 @@ def test_vit_layer_through_noncausal_kernels():
     for a, b in zip(gf, gd):
         assert torch.isfinite(a).all()
         assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12
+
+
+# -- the cluster ladder on the card -------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_host_kill_under_windows_on_the_alias_route(mode):
+    """Two mock hosts under ``windows(lookahead=2)`` onto cuda:0 on the
+    staged alias route; host 1 is killed after the 4th window (its
+    thread's ring shut, or its process terminated).  Every window is its
+    shard's bytes, all four shards are served, every window took the
+    alias route with no fallback, the watchdog neither failed nor
+    respawned, and at teardown every page-locked ring was unlocked once
+    (the terminated producer's included)."""
+    from torch_cluster_producers import (
+        N_SHARDS,
+        ROWS,
+        VALS,
+        ShardRangeProducer,
+        shard_pattern,
+    )
+
+    from ddl_tpu_torch import cluster as tcl
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import host_register
+    from ddl_tpu_torch.watchdog import Watchdog
+
+    m = Metrics()
+    unlocked = []
+    real_unlock = host_register.page_unlock
+
+    def unlock(ring):
+        unlocked.append(ring)
+        real_unlock(ring)
+
+    host_register.page_unlock = unlock
+
+    @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode=mode)
+    def run(env):
+        sup = tcl.ClusterSupervisor(tcl.ClusterView.bootstrap(
+            [tcl.HostInfo(0, loader_ranks=(1,), trainer_ranks=(0,)),
+             tcl.HostInfo(1, loader_ranks=(2,))], n_shards=N_SHARDS),
+            lease_s=60.0, metrics=m)
+        elastic = tcl.ElasticCluster(sup, workers=env.workers, metrics=m)
+        loader = ddl_tpu_torch.DistributedDataLoader(
+            ShardRangeProducer({1: ((0, 2),), 2: ((2, 4),)}),
+            batch_size=ROWS, connection=env.connection, n_epochs=12,
+            output="device", device="cuda", metrics=m, cluster=elastic)
+        wd = Watchdog(env.workers, poll_interval_s=0.05, respawn=True,
+                      metrics=m, cluster=sup).start()
+        seen = {}
+        try:
+            for i, win in enumerate(loader.windows(lookahead=2)):
+                assert win.device.type == "cuda"
+                arr = win.cpu().numpy().reshape(ROWS, VALS)
+                shard = int(arr[0, 0] // 1000)
+                np.testing.assert_array_equal(arr, shard_pattern(shard))
+                seen[shard] = seen.get(shard, 0) + 1
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+                if i == 3:
+                    elastic.kill_host(1)
+        finally:
+            wd.stop()
+        return seen, sup, list(env.connection.rings)
+
+    try:
+        seen, sup, rings = run()
+    finally:
+        host_register.page_unlock = real_unlock
+    assert sorted(seen) == list(range(N_SHARDS)) and sum(seen.values()) == 12
+    assert sup.lost_ranks() == frozenset({2}) and sup.view.epoch == 1
+    assert m.counter("cluster.host_losses") == 1.0
+    assert m.counter("consumer.pool_updates") >= 2.0
+    assert m.counter("watchdog.failures") == 0.0
+    assert m.counter("watchdog.respawns") == 0.0
+    assert m.counter("consumer.windows") == 12
+    assert m.counter("staging.alias_windows") == 12
+    for c in ("staging.alias_fallbacks", "staging.inline_fallbacks",
+              "staging.pool_alias_drops", "integrity.corrupt_windows"):
+        assert m.counter(c) == 0, c
+    if mode == "process":
+        assert m.counter("ingest.registered_rings") == 2
+        assert sorted(map(id, unlocked)) == sorted(map(id, rings))
+        assert not any(r.page_locked for r in rings)

@@ -49,10 +49,13 @@ from ddl_tpu_torch import faults
 from ddl_tpu_torch.exceptions import (
     DDLError,
     DecodeError,
+    HeartbeatDropped,
+    HostLostError,
     InjectedFault,
     IntegrityError,
     PreemptionNotice,
     ShutdownRequested,
+    SupervisorCrashed,
     TransportError,
 )
 from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec, fault_point
@@ -256,6 +259,9 @@ class TestFaultEngine:
         (FaultKind.NETWORK_PARTITION, TransportError),
         (FaultKind.SHUFFLE_PEER_LOSS, DDLError),
         (FaultKind.BACKEND_FETCH_FAIL, TransportError),
+        (FaultKind.HOST_LOSS, HostLostError),
+        (FaultKind.HEARTBEAT_DROP, HeartbeatDropped),
+        (FaultKind.SUPERVISOR_CRASH, SupervisorCrashed),
     ])
     def test_each_kind_raises_the_reference_type(self, kind, exc):
         plan = FaultPlan([FaultSpec("s", kind)])

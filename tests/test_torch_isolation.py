@@ -57,7 +57,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("checkpoint", "resilience.ckpt", "resilience.guard",
                 "config", "envspec", "concurrency", "wire", "faults",
                 "readers", "cache", "cache.backends", "cache.store",
-                "cache.warmer"):
+                "cache.warmer", "cluster", "cluster.pool",
+                "cluster.membership", "cluster.topology",
+                "cluster.placement", "cluster.elastic",
+                "cluster.supervision"):
         assert f"ddl_tpu_torch.{mod}" in report["modules"]
 
 

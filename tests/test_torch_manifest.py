@@ -54,6 +54,17 @@ def test_ported_paths_mirror_the_reference_layout():
     "parallel/pipeline.py", "obs/__init__.py", "obs/__main__.py",
     "obs/aggregate.py", "obs/recorder.py", "obs/spans.py", "profiling.py",
     "models/moe.py", "models/vit.py", "models/pointnet.py",
+    "cluster/__init__.py", "cluster/pool.py", "cluster/membership.py",
+    "cluster/topology.py", "cluster/placement.py", "cluster/elastic.py",
+    "cluster/supervision.py",
 ])
 def test_this_slices_modules_are_ported(module):
     assert MANIFEST[module] == f"ddl_tpu_torch/{module}"
+
+
+def test_only_the_serve_and_tune_layers_remain():
+    todo = sorted(k for k, v in MANIFEST.items() if v == "todo")
+    assert todo == [
+        "serve/__init__.py", "serve/autoscaler.py", "serve/fabric.py",
+        "serve/jobs.py", "serve/tenancy.py", "tune/__init__.py",
+        "tune/calibrate.py", "tune/controller.py", "tune/knobs.py"]

@@ -22,12 +22,21 @@ CPU, and the ``"xla"`` exchange route.
   equal the one-process run (the step weights each process's loss and
   grads by its count); ``evaluate`` returns one value on every process,
   the one-process value over the global batches (rtol 1e-6), for a row
-  metric and for a masked ``cross_entropy`` metric.
+  metric and for a masked ``cross_entropy`` metric.  The ``chaos`` leg
+  (the JAX package's cross-host elastic leg) loses a producer and then a
+  whole mock host in process 1 under a gloo ``all_reduce`` a window:
+  both processes serve every shard byte-correct, with the reference
+  leg's counters (one respawn, one host loss, no watchdog failure).  The
+  JAX package's leg runs beside it in the same fixture
+  (``tests/torch_chaos_reference.py`` records what it served), and each
+  process's served shard sequence, counters, view epoch and lost ranks
+  are held to it.
 - The ``"xla"`` exchange (two ``ppermute`` lane moves) equals the
   ``"ring"`` route and the lanes ``exchange_permutation`` gives, byte for
   byte.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -43,6 +52,7 @@ from ddl_tpu import env as jenv
 from ddl_tpu_torch import env as tenv
 
 _PROG = os.path.join(os.path.dirname(__file__), "torch_multihost_prog.py")
+_REF_CHAOS = os.path.join(os.path.dirname(__file__), "torch_chaos_reference.py")
 _TIMEOUT_S = 240
 RTOL = 1e-5
 
@@ -111,14 +121,23 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
-    """Run the two-process program once; its per-process records."""
+    """Run the two-process program once; its per-process records.  The
+    JAX package's ``chaos`` leg runs at the same time in two processes of
+    its own: its reports and exit codes are under ``("chaos_ref", i)``."""
     out = tmp_path_factory.mktemp("mh-out")
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
+    ref_env = dict(env, DDL_MH_PROCS="2", DDL_MH_DEVS="2", DDL_MH_LEGS="chaos")
+    coord = f"127.0.0.1:{_free_port()}"
+    ref_procs = [subprocess.Popen(
+        [sys.executable, _REF_CHAOS, str(i), coord, str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=ref_env) for i in range(2)]
     tokens = out / "tokens.bin"
     np.random.default_rng(5).integers(0, 64, 20_000, dtype=np.int32).tofile(tokens)
     env.update(DDL_TORCH_MH_PROCS="2", DDL_TORCH_MH_DEVS="2",
-               DDL_TORCH_MH_LEGS="core,stream,ppdp,dpep,dpsp,ckpt,packed,evaluate",
+               DDL_TORCH_MH_LEGS=("core,stream,ppdp,dpep,dpsp,ckpt,packed,"
+                                  "evaluate,chaos"),
                DDL_TORCH_MH_OUT=str(out), DDL_TORCH_MH_TOKENS=str(tokens),
                DDL_TORCH_MH_DIR=str(tmp_path_factory.mktemp("mh-ckpt")))
     port = str(_free_port())
@@ -127,21 +146,27 @@ def cluster(tmp_path_factory):
                               text=True, env=env) for i in range(2)]
     outs = []
     try:
-        for p in procs:
+        for p in procs + ref_procs:
             text, _ = p.communicate(timeout=_TIMEOUT_S)
             outs.append(text)
     except subprocess.TimeoutExpired:
-        for p in procs:
+        for p in procs + ref_procs:
             p.kill()
         pytest.fail("multihost program timed out (deadlock?); partial "
                     "output:\n" + "\n---\n".join(outs))
     for i, (p, text) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"process {i} rc={p.returncode}:\n{text}"
         assert f"MULTIHOST OK process={i}" in text, text
-    return {(leg, i): dict(np.load(out / f"{leg}_{i}.npz"))
-            for leg in ("core", "stream", "ppdp", "dpep", "dpsp", "ckpt",
-                        "packed", "evaluate")
-            for i in range(2)}
+    records = {(leg, i): dict(np.load(out / f"{leg}_{i}.npz"))
+               for leg in ("core", "stream", "ppdp", "dpep", "dpsp", "ckpt",
+                           "packed", "evaluate", "chaos")
+               for i in range(2)}
+    for i, (p, text) in enumerate(zip(ref_procs, outs[2:])):
+        path = out / f"chaos_ref_{i}.json"
+        records[("chaos_ref", i)] = dict(
+            rc=p.returncode, output=text,
+            report=json.loads(path.read_text()) if path.exists() else None)
+    return records
 
 
 def _jax_batches(instance, producer_cls, epochs=2):
@@ -455,3 +480,78 @@ def test_xla_fabric_streams_equal_ring_fabric():
         assert fabric.legs >= 1
     for i in (0, 1):
         np.testing.assert_array_equal(streams["ring"][i][0], streams["xla"][i][0])
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_chaos_leg_recovers_both_rungs(cluster, rank):
+    """The reference chaos leg's gates (``tests/multihost_prog.py``):
+    every shard served byte-correct in both processes (the program checks
+    each window against its shard's pattern); in process 1 the producer
+    crash was respawned and the whole mock host declared lost, with no
+    watchdog failure; process 0 never changed its view."""
+    rec = cluster[("chaos", rank)]
+    assert rec["shards"].tolist() == list(range(prog.CH_SHARDS))
+    assert int(rec["counts"].sum()) == prog.CH_EPOCHS
+    assert float(rec["watchdog.failures"]) == 0.0
+    if rank == 1:
+        assert float(rec["watchdog.respawns"]) == 1.0
+        assert float(rec["cluster.host_losses"]) == 1.0
+        assert float(rec["cluster.view_changes"]) == 1.0
+        assert int(rec["epoch"]) == 1 and rec["lost"].tolist() == [2]
+        assert float(rec["cluster.shard_adoptions"]) >= 1.0
+        assert float(rec["consumer.pool_updates"]) >= 2.0
+    else:
+        assert float(rec["watchdog.respawns"]) == 0.0
+        assert float(rec["cluster.host_losses"]) == 0.0
+        assert int(rec["epoch"]) == 0 and rec["lost"].tolist() == []
+
+
+def _survivor_switch(suffix, first_it):
+    """The fill at which process 1's surviving producer took up the
+    adopted ranges, or None when ``suffix`` (the shards served after the
+    host kill) is no such stream.  The survivor serves its fills
+    ``first_it, first_it + 1, ...`` in order; a fill ``it`` before the
+    adoption reached it walks its own shards (0, 1), after it all four.
+    Where it took them up depends on how far the producer had filled
+    ahead of the consumer when the adoption arrived: at most a ring's
+    depth."""
+    for k in range(first_it, first_it + len(suffix) + 1):
+        if suffix == [it % 2 if it < k else it % prog.CH_SHARDS
+                      for it in range(first_it, first_it + len(suffix))]:
+            return k
+    return None
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_chaos_leg_equals_jax_leg(cluster, rank):
+    """The port's chaos leg against the JAX package's, run at the same
+    time on the same geometry: equal counters, view epoch and lost ranks,
+    and the same shard sequence where it is fixed.  Process 0 loses
+    nothing, so its whole sequence is.  Process 1's is up to the host
+    kill (6 windows: each producer's walk, the respawned one replaying to
+    its predecessor's position); after it the survivor serves its fills
+    from the 4th on, taking up the adopted ranges at a fill that depends
+    on how far it had filled ahead: each package's stream must be that
+    walk, and the per-shard counts follow from where it switched (the
+    7th fill in both packages in every run seen so far, which gives
+    equal sequences)."""
+    ref = cluster[("chaos_ref", rank)]
+    assert ref["rc"] == 0 and ref["report"] is not None, ref["output"][-4000:]
+    want, rec = ref["report"], cluster[("chaos", rank)]
+    got = rec["sequence"].tolist()
+    assert rec["shards"].tolist() == want["shards"]
+    assert int(rec["epoch"]) == want["epoch"]
+    assert rec["lost"].tolist() == want["lost"]
+    for c in prog.CHAOS_COUNTERS:
+        assert float(rec[c]) == want[c], c
+    assert len(got) == len(want["sequence"]) == prog.CH_EPOCHS
+    if rank == 0:
+        assert got == want["sequence"]
+        assert rec["counts"].tolist() == want["counts"]
+        return
+    assert got[:6] == want["sequence"][:6] == [0, 2, 1, 3, 0, 2]
+    for seq in (got, want["sequence"]):
+        # The adoption lands within the survivor's ring (2 slots) and the
+        # window in its hand, and it serves the departed host's shards.
+        assert _survivor_switch(seq[6:], 3) in range(3, 7), seq
+        assert {2, 3} <= set(seq[6:]), seq

@@ -2,7 +2,9 @@
 behaviour (``tests/test_resilience.py``).
 
 - ``PreemptionGuard`` units, each run through both packages: the drain
-  ladder's order and metrics, a blown deadline (the checkpoint still
+  ladder's order and metrics, the drain rung through a real
+  ``ElasticCluster`` over two mock hosts (a graceful view change that
+  drops the drained host), a blown deadline (the checkpoint still
   runs, the hygiene rungs are skipped), the env notice carrying its
   deadline, and the SIGTERM handler's install/uninstall.
 - Drain on notice, end to end on the CPU: a notice mid-``fit`` drains at
@@ -74,6 +76,43 @@ def test_drain_ladder_order_and_metrics():
     assert got == _ladder("jax")
     assert got[2] == [("ckpt",), ("revoke", True), ("drain_host", 2),
                       ("shutdown",)]
+
+
+def _elastic_ladder(pkg):
+    """The guard's drain rung through a real ``ElasticCluster`` over two
+    mock hosts: the rung is a graceful, epoch-fenced view change."""
+    import importlib
+
+    guard_cls, metrics_cls, _ = GUARDS[pkg]
+    cl = importlib.import_module(
+        ("ddl_tpu" if pkg == "jax" else "ddl_tpu_torch") + ".cluster")
+    m = metrics_cls()
+    sup = cl.ClusterSupervisor(cl.ClusterView.bootstrap(
+        [cl.HostInfo(0, loader_ranks=(1,), trainer_ranks=(0,)),
+         cl.HostInfo(1, loader_ranks=(2,))], n_shards=4), lease_s=60.0,
+        metrics=m)
+    calls = []
+    sup.add_listener(lambda old, new, dead: calls.append(
+        ("view_change", old.epoch, new.epoch, sorted(dead))))
+    elastic = cl.ElasticCluster(sup, metrics=m)
+    g = guard_cls(deadline_s=30.0, cluster=elastic, host_id=1, metrics=m)
+    g.notify("test")
+    ok = g.drain(final_checkpoint=lambda: calls.append(("ckpt",)),
+                 shutdown=lambda: calls.append(("shutdown",)))
+    view = sup.view
+    return (ok, calls, [h.host_id for h in view.hosts], view.shard_ranges,
+            view.loader_pool().members, sorted(sup.lost_ranks()),
+            m.counter("cluster.host_drains"), m.counter("cluster.host_losses"),
+            m.counter("resilience.drain_rung_failures"))
+
+
+def test_drain_rung_through_a_real_elastic_cluster():
+    got = _elastic_ladder("torch")
+    assert got == _elastic_ladder("jax")
+    assert got[:2] == (True, [("ckpt",), ("view_change", 0, 1, [1]),
+                              ("shutdown",)])
+    assert got[2:] == ([0], ((0, ((0, 2), (2, 4))),), (0,), [2], 1.0, 0.0,
+                       0.0)
 
 
 def _blown(pkg):

@@ -33,7 +33,11 @@ constants agree across the pickle boundary):
   processes keeping different token counts), ``evaluate``
   (``Trainer.evaluate`` over a process-spanning mesh, a row metric
   through the prefetcher and a masked ``cross_entropy`` metric over
-  streamed windows).
+  streamed windows), ``chaos`` (the cross-host elastic leg of the JAX
+  package's program: two mock hosts a process; process 1 loses producer 1
+  at its 3rd fill — the watchdog respawns it — and then the whole mock
+  host of producer 2, while both processes run one gloo ``all_reduce`` a
+  window and serve every shard byte-correct).
 - ``DDL_TORCH_MH_OUT``: directory of the per-process records
   (``<leg>_<rank>.npz``) the test holds to the JAX package's streams and
   to a one-process run.
@@ -41,8 +45,10 @@ constants agree across the pickle boundary):
 Usage: python torch_multihost_prog.py <rank> <port>
 """
 
+import functools
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -58,8 +64,11 @@ SP_SEQ = 16
 LR = 1e-3
 #: The packed leg's geometry (the JAX package's packed leg).
 PACK_SEQ, PACK_ROWS, PACK_BATCH = 16, 16, 4
+#: The chaos leg's geometry (the JAX package's chaos leg).
+CH_SHARDS, CH_ROWS, CH_VALS, CH_EPOCHS = 4, 8, 4, 12
 
 import numpy as np  # noqa: E402
+from torch_cluster_producers import ShardRangeProducer  # noqa: E402
 
 
 def _init_return(pkg: str):
@@ -114,6 +123,117 @@ class TokenProducer:
 
     def execute_function(self, my_ary, **kw):
         my_ary[:] = self._rng.integers(0, 64, my_ary.shape)
+
+
+def chaos_pattern(instance_idx: int, shard: int) -> np.ndarray:
+    """Byte-deterministic content of one (instance, shard) window."""
+    return (instance_idx * 100_000.0 + shard * 1000.0
+            + np.arange(CH_ROWS * CH_VALS, dtype=np.float32) % 97
+            ).reshape(CH_ROWS, CH_VALS)
+
+
+def run_chaos_leg(rank: int, n_processes: int, record, device="cpu"):
+    """The cross-host elastic leg: two LOCAL mock hosts a process, one
+    producer each, host ids globally distinct.  Process 1 arms (and
+    exports to its producers) a crash of producer 1 at its 3rd fill — rung
+    1, the watchdog's respawn — and kills its mock host B after epoch 5 —
+    rung 2, the view change, the pool shrink and the shard adoption.
+    Every window, both processes run one gloo ``all_reduce`` of a tensor on
+    ``device`` (the collective goes on through both recoveries); beside a
+    card the producers' rings are page-locked.  Returns this process's
+    report."""
+    import torch
+    import torch.distributed as dist
+
+    from ddl_tpu_torch import (
+        DistributedDataLoader,
+        Marker,
+        distributed_dataloader,
+    )
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.cluster import (
+        ClusterSupervisor,
+        ClusterView,
+        ElasticCluster,
+        HostInfo,
+    )
+    from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.watchdog import Watchdog
+
+    m = Metrics()
+    if rank == 1:
+        faults.arm(FaultPlan([FaultSpec("producer.fill",
+                                        FaultKind.PRODUCER_CRASH, at=3,
+                                        producer_idx=1)]), export=True)
+    producer = ShardRangeProducer({1: ((0, 2),), 2: ((2, 4),)},
+                                  pattern=functools.partial(chaos_pattern,
+                                                            rank))
+    report = {}
+
+    @distributed_dataloader(n_producers=2, mode="multihost",
+                            pin_memory=device != "cpu")
+    def run(env):
+        # The producers spawned at entry carry the exported plan; dropping
+        # it now makes the crash fire in one incarnation only.
+        os.environ.pop(faults.PLAN_ENV, None)
+        host_a, host_b = 2 * rank, 2 * rank + 1
+        view = ClusterView.bootstrap(
+            [HostInfo(host_a, loader_ranks=(1,), trainer_ranks=(rank,)),
+             HostInfo(host_b, loader_ranks=(2,))], n_shards=CH_SHARDS)
+        # A long lease: this leg's host death is declared (kill_host); the
+        # crash-respawn gap must never expire a lease.
+        sup = ClusterSupervisor(view, lease_s=120.0, metrics=m)
+        elastic = ElasticCluster(sup, workers=env.workers, metrics=m)
+        loader = DistributedDataLoader(
+            producer, batch_size=CH_ROWS, connection=env.connection,
+            n_epochs=CH_EPOCHS, output="numpy", timeout_s=120.0,
+            metrics=m, cluster=elastic)
+        wd = Watchdog(env.workers, poll_interval_s=0.1, stall_budget_s=60.0,
+                      respawn=True, metrics=m, cluster=sup).start()
+        served, reduce_s = [], []
+        try:
+            for ep in range(CH_EPOCHS):
+                for (win,) in loader:
+                    tag = float(win[0, 0])
+                    inst, shard = int(tag // 100_000), int(
+                        (tag % 100_000) // 1000)
+                    assert inst == rank, (inst, rank)
+                    np.testing.assert_array_equal(
+                        win, chaos_pattern(rank, shard),
+                        err_msg=f"shard {shard} epoch {ep}")
+                    served.append(shard)
+                    t = torch.ones(2, device=device)
+                    t0 = time.perf_counter()
+                    dist.all_reduce(t)
+                    total = float(t.sum())
+                    reduce_s.append(time.perf_counter() - t0)
+                    assert total == 2 * n_processes, total
+                    loader.mark(Marker.END_OF_BATCH)
+                loader.mark(Marker.END_OF_EPOCH)
+                if rank == 1 and ep == 5:
+                    elastic.kill_host(host_b)
+        finally:
+            wd.stop()
+        shards = sorted(set(served))
+        report.update(
+            sequence=served, shards=shards,
+            counts=[served.count(s) for s in shards],
+            epoch=sup.view.epoch, lost=sorted(sup.lost_ranks()),
+            reduce_ms=1e3 * float(np.mean(reduce_s)),
+            **{c: m.counter(c) for c in CHAOS_COUNTERS})
+
+    run()
+    if rank == 1:
+        faults.arm(None, export=True)
+    record("chaos", **{k: np.asarray(v) for k, v in report.items()})
+    return report
+
+
+#: The chaos leg's counters, as the JAX package's leg reads them.
+CHAOS_COUNTERS = ("watchdog.respawns", "watchdog.failures",
+                  "cluster.host_losses", "cluster.view_changes",
+                  "consumer.pool_updates", "cluster.shard_adoptions")
 
 
 def linear_loss(p, b):
@@ -578,6 +698,9 @@ def main(rank: int, port: int) -> None:
                masked=np.array(got["masked"]),
                tag_batches=np.stack(seen["tag"]),
                masked_batches=np.stack(seen["masked"]))
+
+    if "chaos" in LEGS:
+        run_chaos_leg(rank, N_PROCESSES, record)
 
     dist.destroy_process_group()
     print(f"MULTIHOST OK process={rank}", flush=True)
