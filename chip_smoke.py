@@ -320,13 +320,71 @@ one host loss in process 1, no watchdog failure.  Run alone: ``python3
 c; card = c.phase_build(); print(c.phase_cluster(tempfile.mkdtemp(),
 card))"``.
 
+Phase 16 is the serving fabric (``ddl_tpu_torch.serve``).  One
+``IngestFabric`` beside a ``JournaledSupervisor`` under ``SupervisorHA``
+(0.3 s lease), two jobs reaching it through loopback ``FabricClient`` s,
+each loader bound with ``FabricJob.bind(loader)`` and each job's
+producers stamping its ``integrity_namespace`` as ``seq_base``; a job is
+``DistributedDataLoader(...).windows()`` into the port's multistep
+(phase 15's loop).  (a) Job A, phase 6's token cell (10 windows, weight
+2), and job B, phase 14's ViT-B/16 fit (10 windows, weight 1, a byte
+budget of half its solo control's served rate), in two threads at once.
+(b) After A's window 4 the leader dies by ``SUPERVISOR_CRASH`` at
+``cluster.supervise``; once the standby is promoted the fabric is
+rebuilt with ``IngestFabric.from_journal`` and the clients rebind under
+its term; client A's last admission envelope is sent again.  (c)
+``JOB_CRASH`` at ``serve.fabric.grant`` on B's seventh grant.  Gates:
+A's per-step losses bit-equal to its solo control's, B's up to its crash;
+B's charged bytes within its token bucket's bound (budget x (wall + its
+first full second) + one window); every journaled grant with its served
+or aborted note or the crash's release, ``serve.admissions`` the
+journal's grants; the rebuilt ledger equal to the dead leader's journal;
+the re-sent envelope answered from the journaled reply with the ledger
+unchanged; B's stream raising ``JobCrashed``, one job crash releasing its
+in-flight grant; K1-K3 summed over both jobs' layers and steps, all on
+the wgmma route.  (d) The autoscaler: phase 15's token cell over hosts 0
+and 1 and a standby host 2 over 6 shards, ``Autoscaler(sustain_s=0,
+cooldown_s=0)`` on an injected signal, high after window 3 (``"up"``:
+``rejoin_host``), low after window 7 (``"down"``: a drain, then the
+release); one scale-up and one scale-down, every shard served, no
+watchdog failure, losses bit-equal to a replay control.  It prints each
+job's ms/step alone and together, B's served rate against its budget,
+the admission waits' p50/p99, the crash to the promoted fabric and the
+rebuild's ms, the crash report, and the signal to the new host's first
+window.  Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0,
+'.'); import chip_smoke as c; card = c.phase_build();
+print(c.phase_serve(tempfile.mkdtemp(), card))"``.
+
+Phase 17 is the self-tuning data plane (``ddl_tpu_torch.tune``), with
+the flight recorder armed.  (e) Phase 6's token cell from a mis-matched
+seed, ``LoaderConfig(wire_dtype="raw", prefetch_depth=1)``: a
+``Calibrator`` under ``DDL_TORCH_TUNE_DEADLINE_S`` whose link probe is
+the pinned host-to-card copy into cuda:0, its ``TunedConfig`` applied,
+then a ``KnobController`` over the loader's staging queue and pool
+stepped once a window; against the seed run as shipped (the window
+stream keeps ``prefetch_depth`` windows in flight).  (f) Phase 4's
+global shuffle drained raw through the device fabric (K9), a
+``Calibrator`` whose link probe is a simulated 16 MiB/s link, then the
+exchange on the wire it picks against a hand-set int8 control.  Gates:
+every decision with a ``cost_source``, one ``measured``, each in the
+flight recorder and in ``tune.decisions``; (e) the tuned losses
+bit-equal to the seed's and the wire kept raw on the card's link, every
+revert after a slower window; (f) int8 from a measured link, the int8
+pools byte-equal to the control's, K9 once a round on the raw drain.
+Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
+import chip_smoke as c; card = c.phase_build();
+print(c.phase_tune(tempfile.mkdtemp(), card))"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
 ring of (a); ``multihost_launches`` from phase 12's two processes; K1-K3
 with ``pipeline_launches`` from phase 12's gpipe fit; ``moe_launches``
 from phase 14's MoE fits, K1-K3 with ``vit_launches`` and the
-``vit_noncausal`` timings, and K1-K3 with ``cluster_launches`` from
-phase 15's five ladder fits), the
+``vit_noncausal`` timings, K1-K3 with ``cluster_launches`` from
+phase 15's five ladder fits, ``serve_launches`` from phase 16's two
+concurrent jobs and autoscaled fit and ``tune_launches`` from phase
+17's tuned fit, and K9 with ``tune_launches`` from phase 17's raw
+drain), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -345,6 +403,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -6556,6 +6615,27 @@ def _npy_shards(tmpdir, name, rows_of, n_shards):
     return os.path.join(tmpdir, f"{name}-*.npy")
 
 
+def _vit_shards(tmpdir, cfg):
+    """The ViT fit's ``.npy`` shards of ``[pixels..., label]`` rows:
+    labels Zipf(1.5) ranks of the classes, each image's brightness
+    tracking its label.  Returns their glob (written once a directory)."""
+    import numpy as np
+
+    px = cfg.image_size ** 2 * cfg.n_channels
+    pattern = os.path.join(tmpdir, "vit-*.npy")
+    if glob.glob(pattern):
+        return pattern
+
+    def rows(i):
+        rng = np.random.default_rng([SEED, i])
+        labels = (rng.zipf(1.5, VIT["window_rows"]) - 1) % cfg.n_classes
+        pixels = (0.5 * rng.random((VIT["window_rows"], px), dtype=np.float32)
+                  + 0.5 * (labels[:, None] / cfg.n_classes)).astype(np.float32)
+        return np.concatenate([pixels, labels[:, None].astype(np.float32)], 1)
+
+    return _npy_shards(tmpdir, "vit", rows, VIT["n_shards"])
+
+
 def vit_fit(tmpdir, card):
     """(b) ViT-B/16 through ``Trainer.fit`` with ``classification_loss``
     over ``.npy`` shards of ``[pixels..., label]`` rows (the layout
@@ -6573,15 +6653,7 @@ def vit_fit(tmpdir, card):
 
     cfg = _vit_b16()
     px = cfg.image_size ** 2 * cfg.n_channels
-
-    def rows(i):
-        rng = np.random.default_rng([SEED, i])
-        labels = (rng.zipf(1.5, VIT["window_rows"]) - 1) % cfg.n_classes
-        pixels = (0.5 * rng.random((VIT["window_rows"], px), dtype=np.float32)
-                  + 0.5 * (labels[:, None] / cfg.n_classes)).astype(np.float32)
-        return np.concatenate([pixels, labels[:, None].astype(np.float32)], 1)
-
-    pattern = _npy_shards(tmpdir, "vit", rows, VIT["n_shards"])
+    pattern = _vit_shards(tmpdir, cfg)
     n_params = sum(t.numel() for t in _leaves(vit.param_shapes(cfg)))
     log(f"[vit] ViT-B/16 widths: {n_params / 1e6:.1f} M params, "
         f"{cfg.n_patches} patches of {cfg.patch_dim}, {cfg.n_classes} "
@@ -6740,6 +6812,13 @@ def _ladder_act(leg, rec, elastic, ha, window):
     from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
 
     c = CLUSTER
+    if leg == "autoscale":
+        if window in (AUTOSCALE["up_at"], AUTOSCALE["down_at"]):
+            high = window == AUTOSCALE["up_at"]
+            rec["signal"]["stall_fraction"] = 0.9 if high else 0.0
+            rec["t_up" if high else "t_down"] = time.monotonic()
+            rec["steps"].append(rec["scaler"].step())
+        return None
     if leg == "drain" and window == c["rejoin_at"]:
         rec["t_rejoin"] = time.monotonic()
         elastic.rejoin_host(rec.pop("parked"))
@@ -6806,9 +6885,12 @@ def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
     c, tr = CLUSTER, TRAIN
     m = Metrics()
     control = sequence is not None
+    scale = leg == "autoscale"
     producer = ShardTokenProducer(
         token_file, tr["seq_len"], tr["window_rows"],
-        ranges_by_producer={1: ((0, 2),), 2: ((2, 4),)}, sequence=sequence)
+        ranges_by_producer=(AUTOSCALE["ranges"] if scale
+                            else {1: ((0, 2),), 2: ((2, 4),)}),
+        sequence=sequence)
     init_fn, multi = make_multistep(
         lambda p, b: llama.next_token_loss(p, b[0], cfg), adamw(1e-5),
         "cuda", n_steps=tr["window_rows"] // tr["batch_size"])
@@ -6824,13 +6906,15 @@ def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
         unlocked.append(ring)
         real_unlock(ring)
 
-    @distributed_dataloader(n_producers=1 if control else 2, mode=mode)
+    @distributed_dataloader(
+        n_producers=1 if control else (3 if scale else 2), mode=mode)
     def run(env):
         sup = elastic = ha = wd = plan = None
         if not control:
             view = cl.ClusterView.bootstrap(
                 [cl.HostInfo(0, loader_ranks=(1,), trainer_ranks=(0,)),
-                 cl.HostInfo(1, loader_ranks=(2,))], n_shards=c["n_shards"])
+                 cl.HostInfo(1, loader_ranks=(2,))],
+                n_shards=AUTOSCALE["n_shards"] if scale else c["n_shards"])
             kw = dict(lease_s=c["lease_s"] if leg == "lease" else 60.0,
                       poll_interval_s=c["poll_s"], metrics=m)
             sup = (cl.JournaledSupervisor(view, journal=journal, **kw)
@@ -6847,6 +6931,18 @@ def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
             sup.add_listener(lambda old, new, dead: rec["changes"].append(
                 time.monotonic()))
             elastic = cl.ElasticCluster(sup, workers=env.workers, metrics=m)
+            if scale:
+                # Phase 16 (d): host 2 (producer 3, its own shards) stands
+                # by outside the view; the policy acts on the first step
+                # its injected signal crosses a threshold.
+                from ddl_tpu_torch.serve import Autoscaler, AutoscalerPolicy
+
+                rec["signal"] = {"stall_fraction": 0.0, "queue_depth": 0.0}
+                rec["scaler"] = Autoscaler(
+                    elastic, standby=[cl.HostInfo(2, loader_ranks=(3,))],
+                    policy=AutoscalerPolicy(sustain_s=0.0, cooldown_s=0.0),
+                    metrics=m, signal=lambda: dict(rec["signal"]))
+                rec["steps"] = []
             if leg == "failover":
                 sweep = sup.sweep
 
@@ -6922,6 +7018,7 @@ def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
         "cluster.rejoins", "cluster.heartbeats_dropped",
         "cluster.shard_adoptions", "cluster.promotions",
         "cluster.supervisor_crashes", "consumer.pool_updates",
+        "serve.scale_ups", "serve.scale_downs",
         "watchdog.failures", "watchdog.respawns", "consumer.windows",
         "staging.alias_windows", "staging.alias_fallbacks",
         "staging.inline_fallbacks", "staging.pool_alias_drops",
@@ -6934,10 +7031,11 @@ def _ladder_fit(leg, mode, cfg, host_params, token_file, shards, n_windows,
     return rec
 
 
-def _steady_ms(t_yield, lo, hi):
+def _steady_ms(t_yield, lo, hi, spw=None):
     """Mean ms/step over the yields ``lo .. hi`` (a window's steps lie
-    between its yield and the next)."""
-    spw = TRAIN["window_rows"] // TRAIN["batch_size"]
+    between its yield and the next; ``spw`` steps a window, the token
+    cell's by default)."""
+    spw = spw or TRAIN["window_rows"] // TRAIN["batch_size"]
     gaps = [t_yield[i + 1] - t_yield[i] for i in range(lo, hi - 1)]
     return 1e3 * sum(gaps) / len(gaps) / spw if gaps else float("nan")
 
@@ -7212,6 +7310,819 @@ def phase_cluster(tmpdir, card):
     return summary
 
 
+# ------------------------------------------------------------ phase 16 ---
+
+#: Phase 16, the serving fabric.  (a)-(c): job A is phase 6's token cell
+#: (``TRAIN``, 2 steps a window), weight 2; job B phase 14's ViT-B/16 fit
+#: (``VIT``), weight 1, its byte budget ``b_budget_share`` of its solo
+#: control's served rate.  The leader dies after A's window
+#: ``kill_after``; B's grant ``crash_at`` (its window 7) dies by JOB_CRASH.
+SERVE = dict(a_windows=10, b_windows=10, kill_after=4, crash_at=7,
+             a_weight=2.0, b_weight=1.0, b_budget_share=0.5, ha_lease_s=0.3,
+             poll_s=0.05, promote_timeout_s=30.0, switch_timeout_s=60.0)
+#: (d): the ladder's token cell over hosts 0 and 1 and a standby host 2
+#: (producer 3) over 6 shards; the signal goes high after window
+#: ``up_at`` and low after ``down_at``.  Each producer starts on the
+#: ranges the view gives its host (host 2's once it joins).
+AUTOSCALE = dict(n_shards=6, windows=12, up_at=3, down_at=7,
+                 ranges={1: ((0, 3),), 2: ((3, 6),), 3: ((4, 6),)})
+
+
+def _job_fit(tag, producer, loss_fn, host_params, geometry, n_windows,
+             admission=None, hook=None, lookahead=1, config=None,
+             metrics=None, optimizer=None, count=True):
+    """One job of phases 16-17: ``DistributedDataLoader(...).windows()``
+    into the port's multistep from ``host_params`` (phase 15's loop:
+    ``Trainer.fit`` builds its loader inside, and neither package's has
+    an admission seam), THREAD producers, one window an epoch.
+    ``admission`` (a ``FabricJob``) is bound with ``bind(loader)``;
+    ``hook(window, loader)`` runs after each window's steps; ``config``
+    (a ``LoaderConfig``) goes to ``distributed_dataloader``.  With
+    ``count`` the flash launch counts are set to 0 just before the stream
+    and read just after.  An exception of the stream is recorded in
+    ``rec["error"]``, not raised."""
+    import torch
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw, make_multistep
+    from ddl_tpu_torch.trainer import _stream_splits, _window_cols
+
+    g = geometry
+    m = metrics if metrics is not None else Metrics()
+    steps = g["window_rows"] // g["batch_size"]
+    init_fn, multi = make_multistep(loss_fn, optimizer or adamw(1e-5), "cuda",
+                                    n_steps=steps)
+    rec = {"tag": tag, "losses": [], "t_yield": [], "keys": [],
+           "error": None, "metrics": m, "steps_per_window": steps}
+
+    @distributed_dataloader(n_producers=g["n_producers"], mode="thread",
+                            config=config)
+    def run(env):
+        loader = DistributedDataLoader(
+            producer, batch_size=g["batch_size"], connection=env.connection,
+            n_epochs=n_windows, output="device", device="cuda", metrics=m)
+        if admission is not None:
+            admission.bind(loader)
+        state = init_fn(host_params)
+        splits = _stream_splits(loader)
+        rec["t0"] = time.monotonic()
+        try:
+            if count:
+                fa.reset_launch_counts()
+            for i, win in enumerate(loader.windows(lookahead=lookahead)):
+                rec["t_yield"].append(time.monotonic())
+                rec["keys"].append(loader.last_window_key())
+                state, losses = multi(state, _window_cols(win, splits),
+                                      per_step=True)
+                rec["losses"].extend(float(x) for x in losses.tolist())
+                loader.mark(Marker.END_OF_EPOCH)
+                if hook is not None:
+                    hook(i + 1, loader)
+            torch.cuda.synchronize()
+            if count:
+                rec["launches"] = {fn.__name__: fn.launches
+                                   for fn in fa.KERNELS}
+                rec["sm90_launches"] = {fn.__name__: fn.sm90_launches
+                                        for fn in fa.KERNELS}
+        except Exception as e:  # the phase gates the type
+            rec["error"] = e
+        finally:
+            rec["t_end"] = time.monotonic()
+            loader.shutdown()
+
+    run()
+    return rec
+
+
+def _job_ms(rec):
+    """A job record's steady ms/step (window 0 holds the warm-up)."""
+    return _steady_ms(rec["t_yield"], 1, len(rec["t_yield"]),
+                      rec["steps_per_window"])
+
+
+class _FabricGate:
+    """The switch between the jobs' fabric clients and the fabric that
+    leads.  An RPC enters unless a switch is under way; a switch waits
+    out the RPCs in flight (a blocked admit ends within its budget wait),
+    so no decision reaches the dead authority after the journal its
+    successor is rebuilt from was read."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._inflight = 0
+        self._switching = False
+
+    @contextlib.contextmanager
+    def rpc(self):
+        with self._cv:
+            while self._switching:
+                self._cv.wait(0.05)
+            self._inflight += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._inflight -= 1
+                self._cv.notify_all()
+
+    def switch(self, rebuild, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        with self._cv:
+            self._switching = True
+            while self._inflight:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    self._switching = False
+                    self._cv.notify_all()
+                    raise PhaseFailed("[serve] RPCs still in flight at the "
+                                      "fabric switch")
+                self._cv.wait(min(0.05, left))
+        try:
+            return rebuild()
+        finally:
+            with self._cv:
+                self._switching = False
+                self._cv.notify_all()
+
+
+def _gated_client_class():
+    """A loopback ``FabricClient`` whose every RPC passes a
+    :class:`_FabricGate`; it keeps its last admission envelope (the one
+    re-sent after the failover) and times its crash report."""
+    from ddl_tpu_torch.serve.fabric import AdmitRequest, FabricClient
+
+    class GatedClient(FabricClient):
+        def __init__(self, fabric, client_id, gate, **kw):
+            super().__init__(fabric, client_id, **kw)
+            self.gate = gate
+            self.last_admit = None
+            self.crash_report_s = None
+
+        def _rpc(self, payload):
+            with self.gate.rpc():
+                return super()._rpc(payload)
+
+        def _raw_send(self, env):
+            if isinstance(env.payload, AdmitRequest):
+                self.last_admit = env
+            super()._raw_send(env)
+
+        def report_crash(self, job_id):
+            t0 = time.perf_counter()
+            super().report_crash(job_id)
+            self.crash_report_s = time.perf_counter() - t0
+
+    return GatedClient
+
+
+def _same_ledger(rebuilt, journaled):
+    """A rebuilt scheduler's export against the journaled snapshot it
+    adopted: every field equal, the bucket stamps all shifted by one
+    amount (``adopt_state`` ages them by its clock's gap since the
+    export)."""
+    ta, tb = rebuilt["tenants"], journaled["tenants"]
+    rest = [k for k in journaled if k not in ("tenants", "now")]
+    if set(ta) != set(tb) or any(rebuilt[k] != journaled[k] for k in rest):
+        return False
+    shifts = [ta[n]["stamp"] - tb[n]["stamp"] for n in ta]
+    same = all(dict(ta[n], stamp=0) == dict(tb[n], stamp=0) for n in ta)
+    return same and (max(shifts, default=0) - min(shifts, default=0)) < 1e-6
+
+
+def _journal_audit(journal):
+    """Per job, from the fabric's journaled decisions: granted admits,
+    served and aborted notes, and the grants a crash released."""
+    from ddl_tpu_torch.cluster import replay_journal
+
+    audit = {}
+    for r in replay_journal(journal).admissions:
+        a = audit.setdefault(r["job"], dict(admits=0, served=0, aborted=0,
+                                            crash_revoked=0))
+        if not r["reply"]["ok"]:
+            continue
+        if r["op"] == "admit":
+            a["admits"] += 1
+        elif r["op"] in ("served", "aborted"):
+            a[r["op"]] += 1
+        elif r["op"] == "crash":
+            a["crash_revoked"] += int(r["reply"]["value"]["revoked_inflight"])
+    return audit
+
+
+def serve_jobs(tmpdir, card):
+    """(a)-(c): two jobs through one ``IngestFabric`` beside a journaled
+    supervisor under ``SupervisorHA``, each against its solo control;
+    the leader's crash and the fabric's rebuild mid-run; job B's crash."""
+    import torch
+
+    from ddl_tpu_torch import faults
+    from ddl_tpu_torch.cluster import (
+        ClusterView, HostInfo, JournaledSupervisor, SupervisorHA,
+        replay_journal,
+    )
+    from ddl_tpu_torch.exceptions import JobCrashed
+    from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec
+    from ddl_tpu_torch.models import llama, vit
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.readers import FileShardProducer, TokenStreamProducer
+    from ddl_tpu_torch.serve import IngestFabric, JobSpec
+
+    S, tr = SERVE, TRAIN
+    cfg_a = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                n_layers=tr["n_layers"])
+    cfg_b = _vit_b16()
+    px = cfg_b.image_size ** 2 * cfg_b.n_channels
+    token_file = _token_file(tmpdir)
+    vit_pattern = _vit_shards(tmpdir, cfg_b)
+    host_a = _host_params(llama.init_params, cfg_a)
+    host_b = _host_params(vit.init_params, cfg_b)
+
+    def prod_a():
+        return TokenStreamProducer(token_file, tr["seq_len"],
+                                   tr["window_rows"], seed=SEED)
+
+    def prod_b():
+        return FileShardProducer(vit_pattern, splits=(px, 1), seed=SEED)
+
+    def loss_a(p, b):
+        return llama.next_token_loss(p, b[0], cfg_a)
+
+    def loss_b(p, b):
+        return vit.classification_loss(p, b, cfg_b)
+
+    faults_ = []
+    # The solo controls: the same fits from the same weights, alone, with
+    # no fabric.
+    solo_a = _job_fit("A solo", prod_a(), loss_a, host_a, tr, S["a_windows"])
+    free_device_memory()
+    solo_b = _job_fit("B solo", prod_b(), loss_b, host_b, VIT, S["b_windows"],
+                      optimizer=adamw(1e-4))
+    free_device_memory()
+    for r in (solo_a, solo_b):
+        if r["error"] is not None:
+            raise PhaseFailed(f"[serve] {r['tag']}: {r['error']!r}")
+    window_b = VIT["window_rows"] * (px + 1) * 4
+    solo_b_rate = window_b * S["b_windows"] / (solo_b["t_end"] - solo_b["t0"])
+    budget = S["b_budget_share"] * solo_b_rate
+    log(f"[serve] solo controls: A {_job_ms(solo_a):.1f} ms/step steady, "
+        f"B {_job_ms(solo_b):.1f} ms/step, B served "
+        f"{solo_b_rate / 2**20:.1f} MiB/s -> B's budget "
+        f"{budget / 2**20:.1f} MiB/s ({card})")
+
+    # The fabric beside a journaled supervisor under the HA tier.
+    journal = os.path.join(tmpdir, "serve-journal.bin")
+    mc, mf = Metrics(), Metrics()
+    view = ClusterView.bootstrap(
+        [HostInfo(0, loader_ranks=(1,), trainer_ranks=(0,)),
+         HostInfo(1, loader_ranks=(2,))], n_shards=4)
+    sup = JournaledSupervisor(view, journal=journal, lease_s=60.0,
+                              poll_interval_s=S["poll_s"], metrics=mc)
+    ha = SupervisorHA(sup, lease_s=S["ha_lease_s"], standbys=1,
+                      metrics=mc).start()
+    fab = IngestFabric(journal=sup.journal, metrics=mf, snapshot_every=1)
+    gate = _FabricGate()
+    client_cls = _gated_client_class()
+    ca = client_cls(fab, "host-a", gate, metrics=mf)
+    cb = client_cls(fab, "host-b", gate, metrics=mf)
+    job_a = ca.register_job(JobSpec("llama", weight=S["a_weight"]))
+    t_reg_b = time.monotonic()
+    job_b = cb.register_job(JobSpec("vit", weight=S["b_weight"],
+                                    byte_budget_per_s=budget))
+    pa, pb = prod_a(), prod_b()
+    # Each job's producers stamp its integrity namespace.
+    pa.seq_base, pb.seq_base = job_a.seq_base, job_b.seq_base
+    plan = FaultPlan([FaultSpec("serve.fabric.grant", FaultKind.JOB_CRASH,
+                                at=S["crash_at"], producer_idx=job_b.index)])
+    fo = {}
+
+    def failover(window, loader):
+        """(b) after A's window ``kill_after``: the leader dies, the
+        standby is promoted, the fabric is rebuilt from the journal and
+        the clients rebound; then one pre-kill admission envelope is sent
+        again."""
+        if window != S["kill_after"]:
+            return
+        fo["t_kill"] = time.monotonic()
+        with plan._lock:
+            plan.specs.append(FaultSpec("cluster.supervise",
+                                        FaultKind.SUPERVISOR_CRASH))
+        deadline = time.monotonic() + S["promote_timeout_s"]
+        while ha.promotions < 1 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        fo["t_promoted"] = time.monotonic()
+
+        def rebuild():
+            fo["dead"] = replay_journal(journal)
+            t0 = time.perf_counter()
+            fab2 = IngestFabric.from_journal(journal, metrics=mf,
+                                             snapshot_every=1)
+            fo["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+            fo["t_rebuilt"] = time.monotonic()
+            for c in (ca, cb):
+                c.rebind(fab2)
+                c.set_fence(fab2.term)
+            fo["rebuilt"] = fab2.scheduler.export_state()
+            # The re-sent envelope: client A's last admission before the
+            # kill, under the successor's fence (a retry).
+            env = dataclasses.replace(ca.last_admit, fence=fab2.term)
+            now = time.monotonic()
+            before = fab2.scheduler.export_state(now=now)
+            reply, ack = fab2.handle("host-a", env)
+            fo["resend"] = dict(
+                dup=bool(ack.dup), reply=reply.to_dict(),
+                journaled=next(r["reply"] for r in fo["dead"].admissions
+                               if r["client"] == "host-a"
+                               and r["seq"] == env.seq
+                               and r["incarnation"] == env.incarnation),
+                same_ledger=fab2.scheduler.export_state(now=now) == before)
+            return fab2
+
+        fo["fab2"] = gate.switch(rebuild, S["switch_timeout_s"])
+
+    recs = {}
+
+    def run_b():
+        recs["b"] = _job_fit("B", pb, loss_b, host_b, VIT, S["b_windows"],
+                             admission=job_b, optimizer=adamw(1e-4),
+                             count=False)
+
+    faults.arm(plan)
+    try:
+        fa.reset_launch_counts()
+        tb = threading.Thread(target=run_b, name="serve-job-b")
+        tb.start()
+        rec_a = _job_fit("A", pa, loss_a, host_a, tr, S["a_windows"],
+                         admission=job_a, hook=failover, count=False)
+        tb.join(600)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
+        sm90 = {fn.__name__: fn.sm90_launches for fn in fa.KERNELS}
+    finally:
+        faults.arm(None)
+        ha.stop()
+    if tb.is_alive():
+        raise PhaseFailed("[serve] job B did not finish")
+    rec_b = recs["b"]
+    fab2 = fo.get("fab2")
+    free_device_memory()
+
+    # -- gates ----------------------------------------------------------
+    nb = len(rec_b["t_yield"])
+    if rec_a["error"] is not None:
+        faults_.append(f"job A raised {rec_a['error']!r}")
+    if not isinstance(rec_b["error"], JobCrashed):
+        faults_.append(f"job B raised {rec_b['error']!r}, not JobCrashed")
+    if rec_a["losses"] != solo_a["losses"]:
+        faults_.append(f"A's losses {rec_a['losses']} != solo "
+                       f"{solo_a['losses']}")
+    spw_b = VIT["window_rows"] // VIT["batch_size"]
+    if not (nb >= 1 and rec_b["losses"] == solo_b["losses"][:nb * spw_b]):
+        faults_.append(f"B's {nb} windows' losses {rec_b['losses']} != "
+                       f"solo's prefix")
+    wall_b = rec_b["t_end"] - t_reg_b
+    b_bytes = mf.counter("ingest.vit.bytes")
+    # The token bucket starts one second full; a grant may overshoot it
+    # by one window (charge-after).
+    bound = budget * (wall_b + 1.0) + window_b
+    if b_bytes > bound:
+        faults_.append(f"B served {b_bytes:.0f} B > bound {bound:.0f}")
+    audit = _journal_audit(journal)
+    n_admits = sum(a["admits"] for a in audit.values())
+    for job, a in audit.items():
+        if a["admits"] != a["served"] + a["aborted"] + a["crash_revoked"]:
+            faults_.append(f"{job}: grants without their note {a}")
+    if not (mf.counter("serve.admissions") == n_admits
+            and mf.counter("ingest.llama.windows") == S["a_windows"]
+            == len(rec_a["t_yield"])
+            and audit.get("llama", {}).get("served") == S["a_windows"]
+            and mf.counter("ingest.vit.windows")
+            == audit.get("vit", {}).get("served")):
+        faults_.append(f"admissions {mf.counter('serve.admissions')} vs "
+                       f"journal {audit}")
+    if fab2 is None or ha.promotions != 1:
+        faults_.append(f"failover: promotions {ha.promotions}, {fo}")
+    else:
+        if not _same_ledger(fo["rebuilt"], fo["dead"].scheduler_state):
+            faults_.append("the rebuilt ledger differs from the journal's")
+        rs = fo["resend"]
+        if not (rs["dup"] and rs["reply"] == rs["journaled"]
+                and rs["same_ledger"]):
+            faults_.append(f"the re-sent envelope: {rs}")
+    crash_revoked = audit.get("vit", {}).get("crash_revoked", 0)
+    if not (mf.counter("fabric.job_crashes") == 1 and crash_revoked >= 1):
+        faults_.append(f"crash: job_crashes "
+                       f"{mf.counter('fabric.job_crashes')}, revoked "
+                       f"{crash_revoked}")
+    want = (cfg_a.n_layers * S["a_windows"] * tr["window_rows"]
+            // tr["batch_size"] + cfg_b.n_layers * nb * spw_b)
+    if not all(launches[n] == sm90[n] == want for n in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        faults_.append(f"K1-K3 launches {launches} / {sm90}, want {want}")
+    if any(launches[fn.__name__] for fn in fa.KERNELS[3:]):
+        faults_.append(f"K4-K6 launched {launches}")
+
+    def wait_q(job, q):
+        return mf.quantile(f"ingest.{job}.admission_wait", q)
+
+    out = {
+        "a_ms_solo": _job_ms(solo_a),
+        "a_ms_with_b": _steady_ms(rec_a["t_yield"], 1, nb + 1),
+        "a_ms_after_b": _steady_ms(rec_a["t_yield"], nb + 1,
+                                   len(rec_a["t_yield"])),
+        "b_ms_solo": _job_ms(solo_b), "b_ms_with_a": _job_ms(rec_b),
+        "b_budget_bytes_per_s": budget, "b_served_bytes": b_bytes,
+        "b_wall_s": wall_b, "b_served_rate": b_bytes / wall_b,
+        "b_bound_bytes": bound, "b_windows_trained": nb,
+        "admission_wait_p50_s": {j: wait_q(j, 0.5) for j in ("llama", "vit")},
+        "admission_wait_p99_s": {j: wait_q(j, 0.99)
+                                 for j in ("llama", "vit")},
+        "crash_to_promotion_ms": 1e3 * (fo.get("t_promoted", float("nan"))
+                                        - fo.get("t_kill", float("nan"))),
+        "rebuild_ms": fo.get("rebuild_ms"),
+        "kill_to_rebuilt_ms": 1e3 * (fo.get("t_rebuilt", float("nan"))
+                                     - fo.get("t_kill", float("nan"))),
+        "crash_report_ms": (cb.crash_report_s or float("nan")) * 1e3,
+        "journal_audit": audit, "launches": launches,
+        "fabric": {k: mf.counter(k) for k in (
+            "serve.admissions", "serve.rounds", "fabric.admissions",
+            "fabric.dup_replies", "fabric.fence_drops", "fabric.job_crashes",
+            "fabric.rebuilds", "fabric.scheduler_snapshots")},
+        "term": fab2.term if fab2 is not None else None,
+    }
+    log(f"[serve] (a) A alone {out['a_ms_solo']:.1f} ms/step, with B running "
+        f"{out['a_ms_with_b']:.1f}, after B {out['a_ms_after_b']:.1f}; B alone "
+        f"{out['b_ms_solo']:.1f}, with A {out['b_ms_with_a']:.1f} ({card})")
+    log(f"[serve] (a) B served {b_bytes / 2**20:.1f} MiB in {wall_b:.3f} s = "
+        f"{out['b_served_rate'] / 2**20:.1f} MiB/s against its budget "
+        f"{budget / 2**20:.1f} MiB/s (bound {bound / 2**20:.1f} MiB); "
+        f"admission wait p50/p99: A {wait_q('llama', 0.5) * 1e3:.3f}/"
+        f"{wait_q('llama', 0.99) * 1e3:.3f} ms, B "
+        f"{wait_q('vit', 0.5) * 1e3:.3f}/{wait_q('vit', 0.99) * 1e3:.3f} ms "
+        f"({card})")
+    log(f"[serve] (b) the leader's crash to the promoted standby "
+        f"{out['crash_to_promotion_ms']:.1f} ms, the fabric's rebuild from "
+        f"the journal {out['rebuild_ms']} ms, the kill to the rebuilt "
+        f"fabric {out['kill_to_rebuilt_ms']:.1f} ms, term {out['term']}; "
+        f"re-sent envelope {fo.get('resend')} ({card})")
+    log(f"[serve] (c) B crashed after {nb} windows with "
+        f"{type(rec_b['error']).__name__}; the crash to the revocation (the "
+        f"crash report's RPC) {out['crash_report_ms']:.3f} ms; journal "
+        f"{json.dumps(audit)} ({card})")
+    log(f"[serve] K1-K3 launches {launches} (want {want} = A's 2 layers x "
+        f"{S['a_windows'] * 2} steps + B's {cfg_b.n_layers} layers x "
+        f"{nb * spw_b} steps), wgmma {sm90}")
+    log(f"[serve] fabric counters {json.dumps(out['fabric'])}")
+    return faults_, out
+
+
+def serve_autoscale(tmpdir, card):
+    """(d) the autoscaler over the ladder's token cell, against a replay
+    control."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+
+    A, tr = AUTOSCALE, TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    token_file = _token_file(tmpdir)
+    n = tr["window_rows"] * tr["seq_len"]
+    tokens = np.fromfile(token_file, np.int32, count=A["n_shards"] * n)
+    shards = [tokens[s * n:(s + 1) * n].reshape(tr["window_rows"], -1)
+              for s in range(A["n_shards"])]
+    host_params = _host_params(llama.init_params, cfg)
+    rec = _ladder_fit("autoscale", "thread", cfg, host_params, token_file,
+                      shards, A["windows"])
+    ctrl = _ladder_fit("autoscale-control", "thread", cfg, host_params,
+                       token_file, shards, A["windows"],
+                       sequence=rec["shards"])
+    free_device_memory()
+    faults_, k = [], rec["counters"]
+    if rec["steps"] != ["up", "down"]:
+        faults_.append(f"autoscaler steps {rec['steps']}")
+    if not (k["serve.scale_ups"] == k["serve.scale_downs"] == 1
+            and k["watchdog.failures"] == 0
+            and k["integrity.corrupt_windows"] == 0):
+        faults_.append(f"autoscaler counters {k}")
+    if -1 in rec["shards"] or sorted(set(rec["shards"])) != list(
+            range(A["n_shards"])):
+        faults_.append(f"shards served {rec['shards']}")
+    joined = [i for i in range(A["up_at"], len(rec["producers"]))
+              if rec["producers"][i] == 3]
+    equal = rec["losses"] == ctrl["losses"]
+    if not joined or not equal:
+        faults_.append(f"producer 3 served windows {joined}; losses "
+                       f"{'equal' if equal else 'NOT equal'} to the replay "
+                       "control's")
+    _ladder_device_gates(rec, ctrl, cfg, faults_)
+    ty = rec["t_yield"]
+    out = {
+        "shards": rec["shards"], "producers": rec["producers"],
+        "steps": rec["steps"], "counters": k, "launches": rec["launches"],
+        "signal_to_new_host_window_ms": (1e3 * (ty[joined[0]] - rec["t_up"])
+                                         if joined else float("nan")),
+        "steady_ms": _steady_ms(ty, 1, len(ty)),
+        "control_steady_ms": _steady_ms(ctrl["t_yield"], 1,
+                                        len(ctrl["t_yield"])),
+        "bit_equal_to_control": equal,
+    }
+    log(f"[serve] (d) autoscaler steps {rec['steps']}; shards "
+        f"{rec['shards']} from producers {rec['producers']}; the signal to "
+        f"the new host's first window "
+        f"{out['signal_to_new_host_window_ms']:.1f} ms; steady "
+        f"{out['steady_ms']:.1f} ms/step (control "
+        f"{out['control_steady_ms']:.1f}); losses "
+        f"{'bit-equal to' if equal else 'NOT'} the replay control's ({card})")
+    log(f"[serve] (d) counters {json.dumps(k)}")
+    return faults_, out
+
+
+def phase_serve(tmpdir, card):
+    """Phase 16, the serving fabric: (a)-(c) two concurrent jobs through
+    one fabric, its failover and a job's crash; (d) the autoscaler.
+    Returns the summary (``launches``: the flash launches of the two
+    concurrent jobs and of (d)'s fit, not the controls')."""
+    import torch
+
+    # Two jobs' steps share cuda:0's default stream from two threads: a
+    # fixed cuBLAS workspace keeps each handle's algorithm choice that of
+    # the solo controls.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    faults_, jobs = serve_jobs(tmpdir, card)
+    more, scale = serve_autoscale(tmpdir, card)
+    faults_ += more
+    if faults_:
+        raise PhaseFailed("[serve] " + "; ".join(faults_))
+    launches = {name: jobs["launches"][name] + scale["launches"][name]
+                for name in jobs["launches"]}
+    took = time.perf_counter() - t0
+    log(f"[serve] phase 16 took {took:.1f} s ({card})")
+    return {"jobs": jobs, "autoscale": scale, "launches": launches,
+            "seconds": took}
+
+
+# ------------------------------------------------------------ phase 17 ---
+
+#: Phase 17, the self-tuning data plane.  (e) the token cell from a
+#: mis-matched seed (``LoaderConfig(wire_dtype="raw", prefetch_depth=1)``)
+#: for ``windows`` windows, calibrated and controlled, against the seed
+#: as shipped; the window stream keeps ``prefetch_depth`` windows in
+#: flight (``windows(lookahead=prefetch_depth - 1)``).  (f) phase 4's
+#: global shuffle with the calibrator's link probe on a simulated link of
+#: ``slow_link_bytes_per_s`` (the JAX package bench's autotune default,
+#: ``DDL_BENCH_AUTOTUNE_LINK_MBPS`` = 16).
+TUNE = dict(windows=8, slow_link_bytes_per_s=16 << 20,
+            controller_cooldown_s=0.3)
+
+
+def tune_fit(tmpdir, card, m):
+    """(e) calibrate at boot, then a KnobController over the tuned fit,
+    against the seed run as shipped."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.env import export_tune_knobs, export_wire_knobs
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.tune import (
+        Calibrator, ControllerPolicy, KnobController, staging_pool_knob,
+        staging_queue_knob,
+    )
+
+    T, tr = TUNE, TRAIN
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=tr["n_layers"])
+    token_file = _token_file(tmpdir)
+    host_params = _host_params(llama.init_params, cfg)
+    seed = LoaderConfig(wire_dtype="raw", prefetch_depth=1,
+                        batch_size=tr["batch_size"],
+                        n_producers=tr["n_producers"], n_epochs=T["windows"],
+                        window_stream=True)
+    pinned = {}
+
+    def card_copy(a, b, payload):
+        """The link probe's transfer: the pinned host-to-card copy into
+        cuda:0 (a page-locked buffer, one copy, a synchronize)."""
+        src = pinned.get(payload.nbytes)
+        if src is None:
+            src = pinned[payload.nbytes] = torch.empty(
+                payload.nbytes, dtype=torch.uint8, pin_memory=True)
+        src.numpy()[:] = payload.view(np.uint8)
+        src.to("cuda:0", non_blocking=True)
+        torch.cuda.synchronize()
+
+    cal = Calibrator(hosts=[0, 1], transfer=card_copy, metrics=m)
+    t0 = time.perf_counter()
+    tuned = cal.calibrate(seed)
+    cal_s = time.perf_counter() - t0
+    cfg_t = tuned.apply(seed)
+
+    def loss_fn(p, b):
+        return llama.next_token_loss(p, b[0], cfg)
+
+    def producer():
+        return TokenStreamProducer(token_file, tr["seq_len"],
+                                   tr["window_rows"], seed=SEED)
+
+    control = _job_fit("seed", producer(), loss_fn, host_params, tr,
+                       T["windows"], config=seed,
+                       lookahead=seed.prefetch_depth - 1)
+    free_device_memory()
+    ctl = {}
+
+    def step(window, loader):
+        if "ctrl" not in ctl:
+            engine = loader._ingestor.engine()
+            ctl["ctrl"] = KnobController(
+                [staging_queue_knob(engine.executor),
+                 staging_pool_knob(engine.pool)],
+                policy=ControllerPolicy(
+                    sustain_s=0.0, cooldown_s=T["controller_cooldown_s"]),
+                metrics=m, poll_interval_s=1.0)
+        ctl["ctrl"].step()
+
+    fit = _job_fit("tuned", producer(), loss_fn, host_params, tr,
+                   T["windows"], config=cfg_t, metrics=m, hook=step,
+                   lookahead=cfg_t.prefetch_depth - 1)
+    free_device_memory()
+    # The fits' configs exported their wire and depth knobs: clear them,
+    # or (f)'s exchange would take the exported raw wire.
+    export_wire_knobs(LoaderConfig())
+    export_tune_knobs(LoaderConfig())
+    faults_ = []
+    for r in (control, fit):
+        if r["error"] is not None:
+            faults_.append(f"(e) {r['tag']} raised {r['error']!r}")
+    if "ctrl" not in ctl:
+        raise PhaseFailed("[tune] (e) the tuned fit served no window: "
+                          + "; ".join(faults_))
+    decisions = list(tuned.decisions) + list(ctl["ctrl"].decisions)
+    if fit["losses"] != control["losses"]:
+        faults_.append(f"(e) tuned losses {fit['losses']} != the seed's "
+                       f"{control['losses']}")
+    wire = next(d for d in tuned.decisions if d.knob == "wire_dtype")
+    if wire.cost_source != "measured" or wire.new != "raw":
+        faults_.append(f"(e) the wire decision on the card's link: {wire} "
+                       "(a lossy wire on a fast link is a failure)")
+    want = cfg.n_layers * T["windows"] * tr["window_rows"] // tr["batch_size"]
+    if not all(fit["launches"][n] == fit["sm90_launches"][n] == want
+               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        faults_.append(f"(e) K1-K3 launches {fit['launches']}")
+    tol = ctl["ctrl"].policy.revert_tol
+    for d in ctl["ctrl"].decisions:
+        if d.reason.startswith("never-worse"):
+            slower = d.signals["post_rate"] < d.signals["pre_rate"] * (1 - tol)
+            log(f"[tune] (e) revert {d.knob} {d.old} -> {d.new}: post "
+                f"{d.signals['post_rate']:.1f} < pre "
+                f"{d.signals['pre_rate']:.1f} samples/s {slower}")
+            if not slower:
+                faults_.append(f"(e) a revert without a slower window: {d}")
+    out = {"calibration_s": cal_s, "deadline_s": cal.deadline_s,
+           "report": tuned.as_report(), "overlay": tuned.overlay,
+           "controller": ctl["ctrl"].report(),
+           "seed_ms": _job_ms(control), "tuned_ms": _job_ms(fit),
+           "launches": fit["launches"],
+           "bit_equal": fit["losses"] == control["losses"]}
+    log(f"[tune] (e) calibration {cal_s * 1e3:.1f} ms against its "
+        f"{cal.deadline_s} s deadline (deadline hit {tuned.deadline_hit}); "
+        f"seed {out['seed_ms']:.1f} ms/step, tuned {out['tuned_ms']:.1f} "
+        f"ms/step; losses {'bit-equal' if out['bit_equal'] else 'NOT equal'}"
+        f" ({card})")
+    return faults_, out, decisions
+
+
+def tune_shuffle(tmpdir, card, m):
+    """(f) the wire decision on a slow link: phase 4's drain started raw
+    on the device fabric (K9), the calibrator's pick, then the exchange on
+    the picked wire against a hand-set int8 control.  The device tier
+    moves raw rows (both packages): int8 lanes take the host exchange."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+    from ddl_tpu_torch.shuffle import (
+        DeviceExchangeFabric, DeviceExchangeShuffler, Rendezvous,
+        ThreadExchangeShuffler,
+    )
+    from ddl_tpu_torch.tune import Calibrator
+
+    T, sh = TUNE, SHUFFLE
+    seed = LoaderConfig(wire_dtype="raw")
+    fabric = DeviceExchangeFabric(devices=["cuda:0"] * sh["n"])
+    dsh.reset_launch_counts()
+    raw, raw_pushers, raw_s = drain_instances(
+        lambda: DeviceExchangeShuffler.factory(fabric=fabric,
+                                               wire_dtype=seed.wire_dtype))
+    torch.cuda.synchronize()
+    k9 = dsh.exchange_ring.launches
+
+    def slow_link(a, b, payload):
+        """The simulated link: a transfer takes its bytes over the rate."""
+        time.sleep(payload.nbytes / T["slow_link_bytes_per_s"])
+
+    # The wire microbenchmark samples the shuffle's own pool rows.
+    pool = PoolProducer(0, sh["rows"], sh["cols"])
+    pool.on_init()
+    sample = np.empty((sh["rows"], sh["cols"]), np.float32)
+    pool.post_init(sample)
+    cal = Calibrator(hosts=[0, 1], transfer=slow_link, sample=sample[:256],
+                     metrics=m)
+    t0 = time.perf_counter()
+    tuned = cal.calibrate(seed)
+    cal_s = time.perf_counter() - t0
+    pick = tuned.apply(seed).wire_dtype
+
+    def lane_drain(wire_dtype):
+        rdv = Rendezvous()
+        return drain_instances(lambda: ThreadExchangeShuffler.factory(
+            rdv, wire_dtype=wire_dtype))
+
+    dsh.reset_launch_counts()
+    got, got_pushers, got_s = lane_drain(pick)
+    ctrl, _, ctrl_s = lane_drain("int8")
+    k9_int8 = dsh.exchange_ring.launches
+    faults_ = []
+    d = next(d for d in tuned.decisions if d.knob == "wire_dtype")
+    if not (pick == "int8" and d.new == "int8"
+            and d.cost_source == "measured"):
+        faults_.append(f"(f) the wire decision on the slow link: {d}")
+    if not (k9 == fabric.legs > 0 and all(
+            p.metrics.counter("shuffle.device_fallbacks") == 0
+            for p in raw_pushers.values())):
+        faults_.append(f"(f) the raw drain's K9 launches {k9}, fabric rounds "
+                       f"{fabric.legs}")
+    same = all(torch.equal(_bytes(got[i]), _bytes(ctrl[i]))
+               for i in range(sh["n"]))
+    encoded = sum(p.metrics.counter("wire.encoded_bytes")
+                  for p in got_pushers.values())
+    payload = sum(p.metrics.counter("wire.payload_bytes")
+                  for p in got_pushers.values())
+    if not (same and encoded > 0 and k9_int8 == 0):
+        faults_.append(f"(f) int8 drains: byte-equal {same}, encoded bytes "
+                       f"{encoded}, K9 launches {k9_int8}")
+    out = {"calibration_s": cal_s, "report": tuned.as_report(), "pick": pick,
+           "raw_drain_s": raw_s, "tuned_drain_s": got_s,
+           "control_drain_s": ctrl_s, "k9_launches": k9,
+           "fabric_rounds": fabric.legs,
+           "encoded_over_payload": (encoded / payload if payload
+                                    else float("nan")),
+           "pools_byte_equal": same}
+    log(f"[tune] (f) on a {T['slow_link_bytes_per_s'] / 2**20:.0f} MiB/s "
+        f"simulated link the calibrator picks {pick} ({d.cost_source}; "
+        f"{d.reason}) in {cal_s * 1e3:.1f} ms; the raw drain through the "
+        f"device fabric {raw_s:.3f} s, K9 {k9} launches for {fabric.legs} "
+        f"rounds; the int8 drains (the host exchange: the device tier moves "
+        f"raw rows) {got_s:.3f} s tuned, {ctrl_s:.3f} s hand-set, pools "
+        f"byte-equal {same}, encoded/payload "
+        f"{out['encoded_over_payload']:.3f} ({card})")
+    return faults_, out, list(tuned.decisions)
+
+
+def phase_tune(tmpdir, card):
+    """Phase 17, the self-tuning data plane, with the flight recorder
+    armed: (e) a calibrated and controlled fit, (f) the wire decision on
+    a slow link.  Returns the summary (``launches``: the tuned fit's
+    flash launches; ``k9_launches``: the raw drain's)."""
+    from ddl_tpu_torch.obs import recorder as flight
+    from ddl_tpu_torch.observability import Metrics
+
+    t0 = time.perf_counter()
+    m = Metrics()
+    rec = flight.FlightRecorder(capacity=1 << 18)
+    with flight.armed(rec):
+        faults_, fit, decisions = tune_fit(tmpdir, card, m)
+        more, shuf, more_decisions = tune_shuffle(tmpdir, card, m)
+    faults_ += more
+    decisions += more_decisions
+    events = [e for e in rec.events() if e[1] == "tune"]
+    for d in decisions:
+        log(f"[tune] decision {d.knob}: {d.old!r} -> {d.new!r} "
+            f"({d.cost_source}: {d.reason})")
+    if not (decisions and all(d.cost_source in ("measured", "declared",
+                                                "default") for d in decisions)
+            and any(d.cost_source == "measured" for d in decisions)
+            and m.counter("tune.decisions") == len(events) == len(decisions)):
+        faults_.append(f"provenance: {len(decisions)} decisions, "
+                       f"tune.decisions {m.counter('tune.decisions')}, "
+                       f"{len(events)} flight events")
+    if faults_:
+        raise PhaseFailed("[tune] " + "; ".join(faults_))
+    took = time.perf_counter() - t0
+    log(f"[tune] {len(decisions)} decisions, each in the flight recorder; "
+        f"phase 17 took {took:.1f} s ({card})")
+    return {"fit": fit, "shuffle": shuf, "launches": fit["launches"],
+            "k9_launches": shuf["k9_launches"], "seconds": took,
+            "decisions": [d.as_dict() for d in decisions]}
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -7298,6 +8209,10 @@ def main(argv=None) -> int:
             free_device_memory()
             cluster_summary = phase_cluster(tmp, card)
             cluster_launches = cluster_summary["launches"]
+            free_device_memory()
+            serve_summary = phase_serve(tmp, card)
+            free_device_memory()
+            tune_summary = phase_tune(tmp, card)
         # Each kernel's launches come from the run of its own path; K1-K6
         # add those of the ring (phase 11) and of the two MULTIHOST
         # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
@@ -7311,12 +8226,18 @@ def main(argv=None) -> int:
             # Phase 14: the MoE fits' (einsum and ragged K1-K3, packed
             # K4-K6); the ViT-B/16 fit's and the non-causal timings.
             row["moe_launches"] = moe_launches[row["name"]]
-            # Phase 15: the five ladder legs' fits (K1-K3).
+            # Phase 15: the five ladder legs' fits (K1-K3).  Phase 16: the
+            # two concurrent jobs and the autoscaler's fit; phase 17: the
+            # tuned fit (K1-K3).
             if not row["name"].endswith("_seg"):
                 row["cluster_launches"] = cluster_launches[row["name"]]
+                row["serve_launches"] = serve_summary["launches"][row["name"]]
+                row["tune_launches"] = tune_summary["launches"][row["name"]]
             if row["name"] in vit_rows:
                 row["vit_launches"] = vit_launches[row["name"]]
                 row["vit_noncausal"] = vit_rows[row["name"]]
+        # Phase 17 (f): the raw drain's K9 launches.
+        shuffle_row["tune_launches"] = tune_summary["k9_launches"]
         kernels.append(shuffle_row)
         kernels.extend(ici_rows)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
@@ -7332,6 +8253,8 @@ def main(argv=None) -> int:
         log(f"[summary-obs] {json.dumps(obs_summary)}")
         log(f"[summary-families] {json.dumps(families_summary)}")
         log(f"[summary-cluster] {json.dumps(cluster_summary)}")
+        log(f"[summary-serve] {json.dumps(serve_summary, default=repr)}")
+        log(f"[summary-tune] {json.dumps(tune_summary, default=repr)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -26,6 +26,12 @@ LOCK_ORDER: Tuple[str, ...] = (
     # out into everything below; the lease table is taken under it.
     "cluster.supervisor",
     "cluster.membership",
+    # The fabric's admission authority: its apply path holds the fabric
+    # lock while consulting the job registry and driving the scheduler,
+    # never the reverse.
+    "serve.fabric",
+    "serve.fabric.jobs",
+    "serve.tenancy.cond",
     # The preemption guard's lock: its drain ladder runs the checkpoint
     # flush and the loader's shutdown under nothing, but a notice may
     # arrive while any lock below is held.

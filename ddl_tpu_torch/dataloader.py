@@ -190,6 +190,11 @@ class DistributedDataLoader:
         # PROCESS producers' ObsReports (built at the first report).
         self._admission: Any = None
         self._obs_merger: Any = None
+        # The job's integrity namespace (serve/jobs.py): producers stamp
+        # trailer seqs at seq_base + iteration and this consumer expects
+        # that slice, so a window leaking across jobs fails verification.
+        self._seq_base = int(
+            getattr(data_producer_function, "seq_base", 0) or 0)
         if output == "device":
             from ddl_tpu_torch.ingest import DeviceIngestor
 
@@ -856,9 +861,10 @@ class DistributedDataLoader:
     def _expected_seq(self, target: int, ahead: int) -> int:
         """Logical window number of the slot ``acquire_drain_ahead(ahead)``
         returns on ``target``: released count plus lookahead, minus the
-        commits past quarantine replays discarded."""
+        commits past quarantine replays discarded, offset into the job's
+        integrity namespace (``seq_base``)."""
         ring = self.connection.rings[target]
-        return (int(ring.stats()["released"]) + ahead
+        return (self._seq_base + int(ring.stats()["released"]) + ahead
                 - self._seq_skew[target])
 
     def _verify_slot(self, target: int, slot: int, seq: int) -> Optional[str]:
@@ -1091,7 +1097,15 @@ class DistributedDataLoader:
         the data position where it stopped (one window per epoch)."""
         if self._release_backlog:
             self._flush_release_backlog()
-        self._fast_forward_unadmitted(n_windows)
+        # Resume replay is bookkeeping, not service: the discarded windows
+        # never reach the tenant, so they neither pass nor are charged at
+        # the admission gate (a byte-budgeted tenant would otherwise spend
+        # history/budget seconds replaying).
+        admission, self._admission = self._admission, None
+        try:
+            self._fast_forward_unadmitted(n_windows)
+        finally:
+            self._admission = admission
 
     def _fast_forward_unadmitted(self, n_windows: int) -> None:
         for _ in range(n_windows):

@@ -133,6 +133,12 @@ class DataPusher:
         self.batch_size = meta.batch_size
         # The user's producer function is callbacks[0].
         self.callbacks: List[Any] = [meta.data_producer_function]
+        # The job's integrity namespace (serve/jobs.py): trailer seqs are
+        # stamped at seq_base + iteration.  The base rides the producer
+        # function, so it crosses a spawn with it and the consumer reads
+        # the same attribute.  A Python int: bases reach 2^64 - 2^32.
+        self.seq_base = int(
+            getattr(meta.data_producer_function, "seq_base", 0) or 0)
         init_ret = execute_callbacks(
             self.callbacks,
             "on_init",
@@ -361,7 +367,7 @@ class DataPusher:
             hdr = integrity.read_header(self.ring.slot_view(last),
                                         self._enc_nbytes)
             if hdr.valid_magic:
-                done = hdr.seq + 1
+                done = hdr.seq - self.seq_base + 1
         if done:
             execute_callbacks(self.callbacks, "fast_forward", n=done,
                               my_ary=self.my_ary)
@@ -409,7 +415,7 @@ class DataPusher:
             integrity.write_header(
                 view,
                 self.window_nbytes,
-                seq=self._iteration,
+                seq=self.seq_base + self._iteration,
                 producer_idx=self.producer_idx,
                 crc=integrity.window_crc(view[: self.window_nbytes]),
             )
@@ -432,7 +438,7 @@ class DataPusher:
             integrity.write_scales(view, enc, scales)
         integrity.write_header(
             view, enc,
-            seq=self._iteration,
+            seq=self.seq_base + self._iteration,
             producer_idx=self.producer_idx,
             crc=integrity.wire_crc(view, enc, self._scale_nbytes),
             wire_code=wire.WIRE_CODES[self.wire_dtype],
@@ -560,7 +566,9 @@ class DataPusher:
                 self.producer_idx, seq,
             )
             return
-        seq = max(0, int(seq))
+        # The request names the namespaced seq (the consumer speaks
+        # trailer seqs); the producer function's position is the rest.
+        seq = max(0, int(seq) - self.seq_base)
         logger.warning(
             "producer %d: replaying window stream from %d (corrupt-slot "
             "re-request; was at %d)", self.producer_idx, seq, self._iteration,

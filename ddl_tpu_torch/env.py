@@ -33,7 +33,8 @@ in-place fill, the wire, the shard cache, the fault plan in
 through the environment it inherits.  The ``LoaderConfig`` fields a
 producer needs are exported there before the spawn
 (:func:`export_wire_knobs`, :func:`export_cache_knobs`,
-:func:`export_cluster_knobs`, :func:`export_shuffle_knobs`).
+:func:`export_cluster_knobs`, :func:`export_shuffle_knobs`,
+:func:`export_tune_knobs`).
 """
 
 from __future__ import annotations
@@ -163,6 +164,29 @@ def export_shuffle_knobs(config: Any) -> None:
         elif var in _exported_shuffle_vars:
             os.environ.pop(var, None)
             _exported_shuffle_vars.discard(var)
+
+
+#: Tuning env vars THIS process exported from a config.
+_exported_tune_vars: set = set()
+
+
+def export_tune_knobs(config: Any) -> None:
+    """Mirror a ``LoaderConfig``'s ``prefetch_depth`` into
+    ``DDL_TORCH_PREFETCH_DEPTH`` (the seam every tuned call site reads),
+    so a :class:`~ddl_tpu_torch.tune.TunedConfig` overlay applied before
+    the loader is built reaches PROCESS workers too.  The default (2)
+    clears only this process's earlier export."""
+    if config is None:
+        return
+    for var, value, default in (
+        ("DDL_TORCH_PREFETCH_DEPTH", getattr(config, "prefetch_depth", 2), 2),
+    ):
+        if value is not None and int(value) != default:
+            os.environ[var] = str(value)
+            _exported_tune_vars.add(var)
+        elif var in _exported_tune_vars:
+            os.environ.pop(var, None)
+            _exported_tune_vars.discard(var)
 
 
 def detect_host_identity(
@@ -486,6 +510,7 @@ def distributed_dataloader(
                 export_cache_knobs(config)
                 export_wire_knobs(config)
                 export_shuffle_knobs(config)
+                export_tune_knobs(config)
             pin = pin_memory
             if pin is None:
                 import torch

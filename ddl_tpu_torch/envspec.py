@@ -154,6 +154,41 @@ _EXPLICIT: List[Knob] = [
     Knob("DDL_TORCH_CTRL_BACKOFF_S", "float", 0.02,
          "Initial acked control-envelope retry backoff, seconds "
          "(doubles per retry)."),
+    # -- the ingest fabric (serve/fabric.py) ------------------------------
+    Knob("DDL_TORCH_FABRIC_QUANTUM_BYTES", "int", 4194304,
+         "DRR quantum of the fabric's resident fair-share scheduler, bytes "
+         "of credit per job per replenish round."),
+    Knob("DDL_TORCH_FABRIC_SNAPSHOT_EVERY", "int", 1,
+         "Applied admission decisions between full scheduler snapshots in "
+         "the supervisor journal (1 = every decision, the bit-exact "
+         "failover default; 0 disables periodic snapshots)."),
+    Knob("DDL_TORCH_FABRIC_ADMIT_TIMEOUT_S", "float", 30.0,
+         "Default fabric admission deadline per window, seconds "
+         "(FabricJob.admit when the caller passes none)."),
+    Knob("DDL_TORCH_FABRIC_DRAIN_SLO_S", "float", 2.0,
+         "Preemption-drain SLO for fabric job revocation, seconds: how "
+         "long a revoke waits for granted windows to finish."),
+    # -- self-tuning (tune/) ----------------------------------------------
+    Knob("DDL_TORCH_TUNE_DEADLINE_S", "float", 2.0,
+         "Boot-time calibration budget, seconds (tune.Calibrator): probes "
+         "not finished by then leave their knobs at declared or default "
+         "costs."),
+    Knob("DDL_TORCH_TUNE_INTERVAL_S", "float", 1.0,
+         "KnobController poll cadence, seconds."),
+    Knob("DDL_TORCH_TUNE_SUSTAIN_S", "float", 2.0,
+         "How long a tuning signal must stay beyond its band before the "
+         "KnobController acts (hysteresis)."),
+    Knob("DDL_TORCH_TUNE_COOLDOWN_S", "float", 5.0,
+         "Minimum spacing between KnobController knob changes, seconds "
+         "(also the window the never-worse guard judges a change over)."),
+    Knob("DDL_TORCH_TUNE_REVERT_TOL", "float", 0.05,
+         "Never-worse tolerance: a change whose next window's throughput "
+         "drops more than this fraction below the window before is "
+         "reverted."),
+    Knob("DDL_TORCH_TUNE_PARITY_HEADROOM", "float", 0.5,
+         "Lossy-wire safety margin: past this fraction of the loss_parity "
+         "tolerance in measured drift the controller flips the wire to "
+         "raw."),
     # -- fault injection -------------------------------------------------
     Knob("DDL_TORCH_FAULT_PLAN", "str", None,
          "JSON FaultPlan (faults.py): spawned producers arm it at import."),
@@ -194,7 +229,8 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_STAGING_RETRIES": "DDL_TORCH_STAGING_RETRIES",
     "DDL_TPU_DISTRIBUTE": (
         "n/a: the route to a mesh is DeviceIngestor's distribute= "
-        "argument only (the env knob went in the ICI slice's review)"),
+        "argument only (the env knob went in the ICI slice's review); "
+        "the Calibrator's pick is TunedConfig.distribute"),
     "DDL_TPU_ICI_INGEST": (
         "n/a: the auto-mode kill switch of the ICI tier went with "
         "DDL_TPU_DISTRIBUTE; pass distribute='xla'"),
@@ -219,16 +255,16 @@ KNOB_MAP: Dict[str, str] = {
     "DDL_TPU_SUPERVISOR_STANDBYS": "DDL_TORCH_SUPERVISOR_STANDBYS",
     "DDL_TPU_CTRL_RETRIES": "DDL_TORCH_CTRL_RETRIES",
     "DDL_TPU_CTRL_BACKOFF_S": "DDL_TORCH_CTRL_BACKOFF_S",
-    "DDL_TPU_FABRIC_QUANTUM_BYTES": "todo",
-    "DDL_TPU_FABRIC_SNAPSHOT_EVERY": "todo",
-    "DDL_TPU_FABRIC_ADMIT_TIMEOUT_S": "todo",
-    "DDL_TPU_FABRIC_DRAIN_SLO_S": "todo",
-    "DDL_TPU_TUNE_DEADLINE_S": "todo",
-    "DDL_TPU_TUNE_INTERVAL_S": "todo",
-    "DDL_TPU_TUNE_SUSTAIN_S": "todo",
-    "DDL_TPU_TUNE_COOLDOWN_S": "todo",
-    "DDL_TPU_TUNE_REVERT_TOL": "todo",
-    "DDL_TPU_TUNE_PARITY_HEADROOM": "todo",
+    "DDL_TPU_FABRIC_QUANTUM_BYTES": "DDL_TORCH_FABRIC_QUANTUM_BYTES",
+    "DDL_TPU_FABRIC_SNAPSHOT_EVERY": "DDL_TORCH_FABRIC_SNAPSHOT_EVERY",
+    "DDL_TPU_FABRIC_ADMIT_TIMEOUT_S": "DDL_TORCH_FABRIC_ADMIT_TIMEOUT_S",
+    "DDL_TPU_FABRIC_DRAIN_SLO_S": "DDL_TORCH_FABRIC_DRAIN_SLO_S",
+    "DDL_TPU_TUNE_DEADLINE_S": "DDL_TORCH_TUNE_DEADLINE_S",
+    "DDL_TPU_TUNE_INTERVAL_S": "DDL_TORCH_TUNE_INTERVAL_S",
+    "DDL_TPU_TUNE_SUSTAIN_S": "DDL_TORCH_TUNE_SUSTAIN_S",
+    "DDL_TPU_TUNE_COOLDOWN_S": "DDL_TORCH_TUNE_COOLDOWN_S",
+    "DDL_TPU_TUNE_REVERT_TOL": "DDL_TORCH_TUNE_REVERT_TOL",
+    "DDL_TPU_TUNE_PARITY_HEADROOM": "DDL_TORCH_TUNE_PARITY_HEADROOM",
     "DDL_TPU_FAULT_PLAN": "DDL_TORCH_FAULT_PLAN",
     "DDL_TPU_TRACE": "DDL_TORCH_TRACE",
     "DDL_TPU_FLIGHT": "DDL_TORCH_FLIGHT",

@@ -41,6 +41,15 @@ class IntegrityError(DDLError):
     magic, wrong producer or sequence number, or a CRC mismatch)."""
 
 
+class WindowsRevoked(StallTimeoutError):
+    """A tenant's in-flight window grants were revoked under a drain SLO
+    (:meth:`~ddl_tpu_torch.serve.tenancy.FairShareScheduler.
+    revoke_inflight`, the scale-down and preemption rung).  A
+    :class:`StallTimeoutError`, so a revoked admission wait surfaces
+    through the loader's acquire as a stall deadline would, while a
+    tenant can still tell "you were preempted" from "the ring wedged"."""
+
+
 class LoaderStateError(DDLError, RuntimeError):
     """The loader was driven from an invalid state (finalized loader,
     superseded ``windows()`` stream)."""
@@ -123,3 +132,29 @@ class SupervisorCrashed(DDLError):
     absorbs it: the leader's lease stops renewing, a standby observes the
     expiry, replays the journal and promotes itself under the next
     fencing term."""
+
+
+class TenantBurst(DDLError):
+    """A tenant's demand spiked (the ``TENANT_BURST`` fault kind at
+    ``serve.admit``).  Carries ``burst_bytes``, the phantom demand the
+    fair-share scheduler charges to the bursting tenant's own deficit
+    and byte bucket, so its neighbours' shares are untouched."""
+
+    def __init__(self, message: str = "", burst_bytes: float = 0.0):
+        self.burst_bytes = float(burst_bytes)
+        super().__init__(message)
+
+
+class AdmissionDropped(TransportError):
+    """One fabric admission command was lost on the wire (the
+    ``JOB_ADMISSION_DROP`` fault kind at ``serve.fabric.admit``).  The
+    fabric client's acked envelope seam retries it, and the fabric's
+    journal-seeded dedup applies it exactly once."""
+
+
+class JobCrashed(DDLError):
+    """A training job died mid-grant: ``admit`` returned, the window is in
+    flight, and ``note_served`` will never arrive (the ``JOB_CRASH``
+    fault kind at ``serve.fabric.grant``).  The fabric revokes the job's
+    in-flight grants, drops its registration and budget, and leaves its
+    neighbours' ledgers untouched."""

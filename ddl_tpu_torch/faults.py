@@ -57,11 +57,20 @@ Sites in the port (site — the kinds that act there):
                             (``producer_idx`` is the stepping node):
                             ``SUPERVISOR_CRASH`` kills the leader,
                             ``NETWORK_PARTITION`` skips its lease renewal
+``serve.admit``             once per tenant admission attempt
+                            (``producer_idx`` is the tenant's index):
+                            ``TENANT_BURST`` charges phantom bytes
+``serve.scale``             top of every ``Autoscaler.step``:
+                            ``SCALE_DECISION_DELAY`` sleeps
+``serve.fabric.admit``      once per fabric admission wire attempt:
+                            ``JOB_ADMISSION_DROP`` loses it,
+                            ``CONTROL_MSG_DUP`` delivers it twice
+``serve.fabric.grant``      between a granted admit and its
+                            ``note_served``: ``JOB_CRASH``
+``tune.step``               top of every ``KnobController.step``
 ==========================  ==============================================
 
-Every kind of the JAX package is defined, so plans round-trip through
-JSON; the kinds whose sites are not ported yet (the serve and tune
-planes) match no site here.
+Every kind raises the type the JAX package raises for it.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ddl_tpu_torch import envspec
 from ddl_tpu_torch.concurrency import named_lock
 from ddl_tpu_torch.exceptions import (
+    AdmissionDropped,
     BackendFetchError,
     ControlSendDropped,
     DDLError,
@@ -84,10 +94,12 @@ from ddl_tpu_torch.exceptions import (
     HeartbeatDropped,
     HostLostError,
     InjectedFault,
+    JobCrashed,
     NetworkPartitioned,
     PreemptionNotice,
     ShutdownRequested,
     SupervisorCrashed,
+    TenantBurst,
 )
 
 
@@ -298,10 +310,17 @@ class FaultPlan:
             raise HeartbeatDropped(f"heartbeat dropped {where}")
         if kind is FaultKind.SUPERVISOR_CRASH:
             raise SupervisorCrashed(f"supervisor crash {where}")
-        # The kinds of modules the port does not have yet (serve, tune):
-        # no port site names them, so only a hand-placed spec reaches
-        # here.
-        raise InjectedFault(f"{kind.value} {where}")
+        # The serve kinds raise the real types: the scheduler charges a
+        # burst to the burster, the fabric client retries a lost
+        # admission, the fabric revokes a crashed job's grants.
+        if kind is FaultKind.TENANT_BURST:
+            raise TenantBurst(f"tenant burst {where}",
+                              burst_bytes=spec.param or (64 << 20))
+        if kind is FaultKind.JOB_ADMISSION_DROP:
+            raise AdmissionDropped(f"job admission dropped {where}")
+        if kind is FaultKind.JOB_CRASH:
+            raise JobCrashed(f"job crashed mid-grant {where}")
+        raise ValueError(f"unhandled fault kind {kind!r}")
 
 
 #: The armed plan, or None: read unlocked at every injection point.

@@ -567,6 +567,13 @@ class PrefetchIterator:
         self._depth = max(1, depth)
         self._queue: collections.deque = collections.deque()
 
+    def set_depth(self, depth: int) -> None:
+        """Retune the in-flight transfer count live (:mod:`ddl_tpu_torch.
+        tune`).  Takes effect at the next fill: a shrink stops refilling
+        until the queue drains below the new depth; a dispatched transfer
+        is never cancelled."""
+        self._depth = max(1, int(depth))
+
     def __iter__(self) -> "PrefetchIterator":
         return self
 

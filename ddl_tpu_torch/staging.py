@@ -149,6 +149,16 @@ class StagingPool:
         self.metrics.incr("staging.pool_misses")
         return self._allocate(*key)
 
+    def set_max_per_key(self, max_per_key: int) -> None:
+        """Retune the per-geometry free-list cap live (:mod:`ddl_tpu_torch.
+        tune`).  A shrink trims each free list at once, so a revert
+        returns memory; a growth lets later releases keep more."""
+        cap = max(1, int(max_per_key))
+        with self._lock:
+            self.max_per_key = cap
+            for free in self._free.values():
+                del free[cap:]
+
     def release(self, buf: np.ndarray) -> None:
         """Return a buffer nothing references anymore."""
         key = (buf.shape, buf.dtype)
@@ -392,6 +402,16 @@ class TransferExecutor:
         #: max_queue, or a bound of 1 would deadlock submit against a
         #: worker that never drains.
         self.worker_min_depth = min(2, self._max_queue)
+
+    def set_max_queue(self, max_queue: int) -> None:
+        """Retune the submission-queue bound live (:mod:`ddl_tpu_torch.
+        tune`): re-clamps ``worker_min_depth`` to the new bound and wakes
+        every waiter, so a submitter blocked on the old bound re-checks."""
+        with self._cv:
+            self._max_queue = max(1, int(max_queue))
+            self.worker_min_depth = min(self.worker_min_depth,
+                                        self._max_queue)
+            self._cv.notify_all()
 
     def submit(self, src: np.ndarray, transfer: TransferFn,
                expected_crc: Optional[int] = None,

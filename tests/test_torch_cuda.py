@@ -16,7 +16,9 @@ cache onto the card — a TFRecord stream from a warm store (THREAD) and
 from a spill dir (PROCESS) on the alias route, ``.npy`` shards onto a
 mesh of positions through K8 (``-k cache``); the cluster ladder: a host
 killed under ``windows()`` on the alias route, THREAD and PROCESS (``-k
-host_kill``).
+host_kill``); the serve and tune seams: two loaders under one admission
+controller with a byte budget on the alias route, ``set_depth`` on a live
+card ``PrefetchIterator`` (``-k "admission or set_depth"``).
 
 Every test here is marked ``cuda`` and skips where no card is present.
 The file imports no JAX (the card's machine has none), so it runs there
@@ -2287,3 +2289,109 @@ def test_host_kill_under_windows_on_the_alias_route(mode):
         assert m.counter("ingest.registered_rings") == 2
         assert sorted(map(id, unlocked)) == sorted(map(id, rings))
         assert not any(r.page_locked for r in rings)
+
+
+def test_two_loaders_under_one_admission_controller_on_the_alias_route():
+    """Two THREAD loaders stream ``windows()`` onto cuda:0 at once through
+    one ``AdmissionController``: a budgeted tenant (4 windows a second
+    after its first full second) and an unbudgeted one.  Every window is
+    its producer's bytes and takes the staged alias route; the budgeted
+    tenant's charged bytes stay within its token bucket's bound
+    (budget x (wall + 1 s) + one window), its wall at least the budget's
+    floor, and the unbudgeted tenant finishes first."""
+    import threading
+    import time
+
+    from torch_recovery_producers import TagProducer
+
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.serve import AdmissionController, TenantSpec
+
+    m = Metrics()
+    ctl = AdmissionController(metrics=m)
+    window = 16 * 4 * 4
+    n = {"hog": 12, "meek": 6}
+    budget = 4.0 * window
+    tenants = {"hog": ctl.register(TenantSpec("hog",
+                                              byte_budget_per_s=budget)),
+               "meek": ctl.register(TenantSpec("meek"))}
+    got, walls, errors = {}, {}, []
+
+    def run(name):
+        lm = Metrics()
+
+        @ddl_tpu_torch.distributed_dataloader(n_producers=1, mode="thread")
+        def main(env):
+            loader = ddl_tpu_torch.DistributedDataLoader(
+                TagProducer(fault_at=0), batch_size=16,
+                connection=env.connection, n_epochs=n[name],
+                output="device", device="cuda", metrics=lm)
+            tenants[name].bind(loader)
+            t0 = time.monotonic()
+            out = []
+            for win in loader.windows():
+                out.append(win.cpu().numpy().copy())
+                loader.mark(ddl_tpu_torch.Marker.END_OF_EPOCH)
+            torch.cuda.synchronize()
+            walls[name] = time.monotonic() - t0
+            return out
+
+        try:
+            got[name] = main()
+            got[name + ".alias"] = lm.counter("staging.alias_windows")
+        except Exception as e:  # ddl-lint: disable=DDL007 - a worker thread: asserted in the main thread
+            errors.append((name, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in n]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert errors == []
+    for name, count in n.items():
+        tags = [float(w[0, 0, 0]) for w in got[name]]
+        assert tags == [float(k) for k in range(1, count + 1)]
+        assert all((w == w[0, 0, 0]).all() for w in got[name])
+        assert got[name + ".alias"] == count
+        assert m.counter(f"ingest.{name}.windows") == count
+    charged = m.counter("ingest.hog.bytes")
+    assert charged == n["hog"] * window
+    assert charged <= budget * (walls["hog"] + 1.0) + window
+    # The last grant waits for the bucket to refill what the first full
+    # second and one overshooting window did not cover (10 % slack for
+    # the clock reads around the stream).
+    assert walls["hog"] >= 0.9 * (n["hog"] * window - budget - window) / budget
+    assert walls["meek"] < walls["hog"]
+
+
+def test_set_depth_on_a_live_card_prefetch_iterator():
+    """A card ``PrefetchIterator`` retuned mid-stream through
+    ``set_depth`` (and the tune seam's ``prefetch_knob``): the transfers
+    in flight follow the new depth at the next fill, and the batches on
+    cuda:0 equal the host batches in order."""
+    from ddl_tpu_torch.ingest import DeviceIngestor, PrefetchIterator
+    from ddl_tpu_torch.tune import prefetch_knob
+
+    ing = DeviceIngestor(device="cuda")
+    batches = [np.full((64, 32), i, np.float32) for i in range(24)]
+    it = PrefetchIterator(iter(batches),
+                          lambda b: ing.hand_off(ing.put_window(b)),
+                          depth=1, ingestor=ing)
+    knob = prefetch_knob(it)
+    out, depths = [], []
+    for i, dev in enumerate(it):
+        assert dev.device.type == "cuda"
+        out.append(dev.cpu().numpy())
+        depths.append(len(it._queue))
+        if i == 4:
+            knob.write(6)
+        if i == 14:
+            it.set_depth(2)
+    assert all(np.array_equal(a, b) for a, b in zip(out, batches))
+    assert len(out) == len(batches)
+    # Depth 1 keeps nothing queued past the head; depth 6 five; after
+    # the shrink to 2 the queue drains (no transfer is cancelled) down to
+    # one, then the tail of the stream empties it.
+    assert depths == [0] * 5 + [5] * 10 + [4, 3, 2] + [1] * 5 + [0]
+    assert it._depth == 2
+

@@ -59,15 +59,18 @@ def test_every_reference_knob_is_mapped():
                  "DDL_TPU_TFRECORD_CRC", "DDL_TPU_TRACE", "DDL_TPU_FLIGHT",
                  "DDL_TPU_FLIGHT_DIR", "DDL_TPU_OBS_SHIP_EVERY"):
         assert tenv.KNOB_MAP[name] in tenv.REGISTRY
-    # The supervisor knobs are ported; only the serve and tune layers'
-    # ten knobs remain.
+    # The supervisor knobs are ported, and so are the serve and tune
+    # layers' ten: no knob is left to do.
     for name in ("DDL_TPU_SUPERVISOR_LEASE_S", "DDL_TPU_SUPERVISOR_STANDBYS"):
         assert tenv.KNOB_MAP[name] == name.replace("DDL_TPU_", "DDL_TORCH_")
     todo = sorted(ref for ref, port in tenv.KNOB_MAP.items()
                   if port == "todo")
-    assert len(todo) == 10
-    assert all(ref.startswith(("DDL_TPU_FABRIC_", "DDL_TPU_TUNE_"))
-               for ref in todo), todo
+    assert todo == []
+    fabric_tune = [ref for ref in tenv.KNOB_MAP
+                   if ref.startswith(("DDL_TPU_FABRIC_", "DDL_TPU_TUNE_"))]
+    assert len(fabric_tune) == 10
+    for ref in fabric_tune:
+        assert tenv.KNOB_MAP[ref] == ref.replace("DDL_TPU_", "DDL_TORCH_")
     # The shard cache and the readers leave no knob to do.
     for ref, port in tenv.KNOB_MAP.items():
         if ref.startswith(("DDL_TPU_CACHE", "DDL_TPU_TFRECORD")):

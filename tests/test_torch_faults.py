@@ -47,15 +47,18 @@ from ddl_tpu_torch import (
 )
 from ddl_tpu_torch import faults
 from ddl_tpu_torch.exceptions import (
+    AdmissionDropped,
     DDLError,
     DecodeError,
     HeartbeatDropped,
     HostLostError,
     InjectedFault,
     IntegrityError,
+    JobCrashed,
     PreemptionNotice,
     ShutdownRequested,
     SupervisorCrashed,
+    TenantBurst,
     TransportError,
 )
 from ddl_tpu_torch.faults import FaultKind, FaultPlan, FaultSpec, fault_point
@@ -262,6 +265,9 @@ class TestFaultEngine:
         (FaultKind.HOST_LOSS, HostLostError),
         (FaultKind.HEARTBEAT_DROP, HeartbeatDropped),
         (FaultKind.SUPERVISOR_CRASH, SupervisorCrashed),
+        (FaultKind.TENANT_BURST, TenantBurst),
+        (FaultKind.JOB_ADMISSION_DROP, AdmissionDropped),
+        (FaultKind.JOB_CRASH, JobCrashed),
     ])
     def test_each_kind_raises_the_reference_type(self, kind, exc):
         plan = FaultPlan([FaultSpec("s", kind)])
@@ -272,6 +278,32 @@ class TestFaultEngine:
         with jfaults.armed(jplan), pytest.raises(Exception) as want:
             jfaults.fault_point("s")
         assert type(got.value).__name__ == type(want.value).__name__
+
+    @pytest.mark.parametrize("kind", list(FaultKind), ids=lambda k: k.name)
+    def test_every_kind_raises_what_the_reference_raises(self, kind):
+        """Every kind, fired at a bare site with a short ``param``: the
+        port raises the type the JAX package raises — by name and by the
+        names of its base classes — or, like it, raises nothing."""
+
+        def fire(mod):
+            plan = mod.FaultPlan([mod.FaultSpec("s", mod.FaultKind(kind.value),
+                                                param=0.01)])
+            with mod.armed(plan):
+                try:
+                    mod.fault_point("s", view=bytearray(8),
+                                    should_abort=lambda: False)
+                except Exception as e:  # ddl-lint: disable=DDL007 - the raised type (ShutdownRequested included) is what is compared
+                    return [c.__name__ for c in type(e).__mro__]
+            return None
+
+        assert fire(faults) == fire(jfaults)
+
+    def test_tenant_burst_carries_its_bytes(self):
+        plan = FaultPlan([FaultSpec("s", FaultKind.TENANT_BURST,
+                                    param=4096.0)])
+        with faults.armed(plan), pytest.raises(TenantBurst) as got:
+            fault_point("s")
+        assert got.value.burst_bytes == 4096.0
 
     def test_dup_returns_its_kind_without_raising(self):
         plan = FaultPlan([FaultSpec("s", FaultKind.CONTROL_MSG_DUP)])

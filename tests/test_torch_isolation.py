@@ -60,7 +60,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "cache.warmer", "cluster", "cluster.pool",
                 "cluster.membership", "cluster.topology",
                 "cluster.placement", "cluster.elastic",
-                "cluster.supervision"):
+                "cluster.supervision", "serve", "serve.tenancy",
+                "serve.jobs", "serve.autoscaler", "serve.fabric", "tune",
+                "tune.knobs", "tune.calibrate", "tune.controller"):
         assert f"ddl_tpu_torch.{mod}" in report["modules"]
 
 

@@ -4,7 +4,9 @@ behaviour (``tests/test_resilience.py``).
 - ``PreemptionGuard`` units, each run through both packages: the drain
   ladder's order and metrics, the drain rung through a real
   ``ElasticCluster`` over two mock hosts (a graceful view change that
-  drops the drained host), a blown deadline (the checkpoint still
+  drops the drained host), the revoke rung through a real
+  ``AdmissionController`` (a tenant parked in ``admit`` wakes with
+  ``WindowsRevoked`` inside the rung's SLO), a blown deadline (the checkpoint still
   runs, the hygiene rungs are skipped), the env notice carrying its
   deadline, and the SIGTERM handler's install/uninstall.
 - Drain on notice, end to end on the CPU: a notice mid-``fit`` drains at
@@ -18,6 +20,7 @@ behaviour (``tests/test_resilience.py``).
 
 import os
 import signal
+import threading
 import time
 import zlib
 
@@ -113,6 +116,71 @@ def test_drain_rung_through_a_real_elastic_cluster():
                               ("shutdown",)])
     assert got[2:] == ([0], ((0, ((0, 2), (2, 4))),), (0,), [2], 1.0, 0.0,
                        0.0)
+
+
+def _revoke_ladder(pkg):
+    """The guard's revoke rung over a REAL admission controller: a tenant
+    whose byte bucket is underwater is parked in ``admit`` when the notice
+    drains; the rung must wake it with the typed ``WindowsRevoked``
+    within the rung's SLO, between the checkpoint and the host drain."""
+    import importlib
+
+    root = "ddl_tpu" if pkg == "jax" else "ddl_tpu_torch"
+    serve = importlib.import_module(f"{root}.serve")
+    exc = importlib.import_module(f"{root}.exceptions")
+    guard_cls, metrics_cls, _ = GUARDS[pkg]
+    m = metrics_cls()
+    ctl = serve.AdmissionController(metrics=m)
+    tenant = ctl.register(serve.TenantSpec("t", byte_budget_per_s=1000.0))
+    tenant.admit(1.0)
+    tenant.note_served(1 << 20)  # the bucket ~17 minutes underwater
+    calls, woke = [], []
+    revoke = ctl.revoke_inflight
+
+    def logged_revoke(slo_s):
+        calls.append(("revoke", time.monotonic()))
+        return revoke(slo_s)
+
+    ctl.revoke_inflight = logged_revoke
+
+    def parked():
+        try:
+            tenant.admit(30.0)
+        except exc.WindowsRevoked:
+            woke.append(("revoked", time.monotonic()))
+
+    th = threading.Thread(target=parked, daemon=True)
+    th.start()
+    deadline = time.monotonic() + 5.0
+    while not ctl.scheduler._state("t").waiting:
+        assert time.monotonic() < deadline, "the tenant never parked"
+        time.sleep(0.01)
+
+    class Cluster:
+        def drain_host(self, host_id):
+            calls.append(("drain_host", time.monotonic()))
+
+    slo = 0.5
+    g = guard_cls(deadline_s=30.0, cluster=Cluster(), host_id=1,
+                  admission=ctl, revoke_slo_s=slo, metrics=m)
+    g.notify("test")
+    ok = g.drain(
+        final_checkpoint=lambda: calls.append(("ckpt", time.monotonic())),
+        shutdown=lambda: calls.append(("shutdown", time.monotonic())))
+    th.join(5.0)
+    assert not th.is_alive() and len(woke) == 1
+    t_revoke = dict(calls)["revoke"]
+    assert woke[0][1] - t_revoke <= slo, woke[0][1] - t_revoke
+    return (ok, [c[0] for c in calls], m.counter("serve.revocations"),
+            m.counter("serve.revoked_waiters"),
+            m.counter("ingest.t.revocations"))
+
+
+def test_revoke_rung_wakes_a_parked_tenant_within_its_slo():
+    got = _revoke_ladder("torch")
+    assert got == _revoke_ladder("jax")
+    assert got == (True, ["ckpt", "revoke", "drain_host", "shutdown"],
+                   1.0, 1.0, 1.0)
 
 
 def _blown(pkg):

@@ -20,10 +20,14 @@ supervision``) against the JAX package's, the twins of
   byte-identical with no watchdog failure), and the host-loss ladder
   under envelope drop and duplication.
 
-The reference's ``TestSchedulerFailover`` needs the serve layer's
-fair-share scheduler, which the port does not have yet: its twins are
-queued with that layer (ROADMAP.md, A6d).  The journal hook is held here
-with a duck-typed scheduler.
+- **scheduler failover** — the reference's ``TestSchedulerFailover``
+  over each package's real ``FairShareScheduler``: export/adopt
+  round-trips bit for bit, a scheduler adopted mid-script grants what
+  the uninterrupted one grants, an unknown snapshot version is refused;
+  and a promoted leader adopts the journaled scheduler while the fabric
+  rebuilt from the same journal adopts the job registry.
+
+The journal hook is also held with a duck-typed scheduler.
 """
 
 import pathlib
@@ -482,21 +486,146 @@ class TestHAFailover:
 
 
 # ---------------------------------------------------------------------------
+# Scheduler fairness across failover
+# ---------------------------------------------------------------------------
+
+
+def scripted_scheduler(pkg, clock):
+    serve = _serve(pkg)
+    s = serve.FairShareScheduler(quantum_bytes=1 << 20,
+                                 metrics=PKG[pkg].Metrics(), clock=clock)
+    s.register(serve.TenantSpec("heavy", weight=2.0,
+                                byte_budget_per_s=float(4 << 20)))
+    s.register(serve.TenantSpec("light", weight=1.0,
+                                byte_budget_per_s=float(1 << 20)))
+    return s
+
+
+def _serve(pkg):
+    import importlib
+
+    return importlib.import_module(f"{PKG[pkg].root}.serve")
+
+
+def run_script(pkg, sched, clock, steps):
+    """The reference's admission script: each step advances the fake
+    clock, probes both tenants non-blocking, and serves a window for
+    every grant.  Returns the grant/throttle trace."""
+    trace = []
+    for _ in range(steps):
+        clock.advance(0.25)
+        for name in ("heavy", "light"):
+            try:
+                sched.admit(name, timeout_s=0.0)
+            except PKG[pkg].exc.StallTimeoutError:
+                trace.append((name, "throttled"))
+                continue
+            sched.note_served(name, 1 << 20)
+            trace.append((name, "granted"))
+    return trace
+
+
+class TestSchedulerFailover:
+    def test_export_adopt_roundtrips_bit_exact(self):
+        def body(pkg):
+            clock = FakeClock(100.0)
+            donor = scripted_scheduler(pkg, clock)
+            run_script(pkg, donor, clock, steps=3)
+            snap = donor.export_state(now=clock())
+            heir = _serve(pkg).FairShareScheduler(
+                metrics=PKG[pkg].Metrics(), clock=clock)
+            heir.adopt_state(snap, now=clock())
+            assert heir.export_state(now=clock()) == snap
+            return snap
+
+        _both(body)
+
+    def test_post_failover_admission_order_matches_uninterrupted(self):
+        def body(pkg):
+            c1, c2 = FakeClock(100.0), FakeClock(100.0)
+            uninterrupted = scripted_scheduler(pkg, c1)
+            interrupted = scripted_scheduler(pkg, c2)
+            head1 = run_script(pkg, uninterrupted, c1, steps=4)
+            head2 = run_script(pkg, interrupted, c2, steps=4)
+            assert head1 == head2
+            snap = interrupted.export_state(now=c2())
+            standby = _serve(pkg).FairShareScheduler(
+                metrics=PKG[pkg].Metrics(), clock=c2)
+            standby.adopt_state(snap, now=c2())
+            tail_uninterrupted = run_script(pkg, uninterrupted, c1, steps=6)
+            tail_failover = run_script(pkg, standby, c2, steps=6)
+            assert tail_failover == tail_uninterrupted
+            assert any(t == ("light", "throttled") for t in tail_failover)
+            return head1 + tail_failover
+
+        _both(body)
+
+    def test_adopt_rejects_unknown_version(self):
+        def body(pkg):
+            s = _serve(pkg).FairShareScheduler(metrics=PKG[pkg].Metrics())
+            with pytest.raises(PKG[pkg].exc.DDLError):
+                s.adopt_state({"version": 99})
+            return True
+
+        _both(body)
+
+    def test_promoted_leader_adopts_journaled_scheduler_and_registry(
+            self, tmp_path):
+        """The journal hooks take the real scheduler and job registry; the
+        HA tier's promotion adopts the newest scheduler snapshot into its
+        ``scheduler=``, and a fabric rebuilt from the same journal adopts
+        the registry."""
+        def body(pkg):
+            import importlib
+
+            serve = _serve(pkg)
+            fabric = importlib.import_module(f"{PKG[pkg].root}.serve.fabric")
+            clock = FakeClock(100.0)
+            ha, sup, _, m = make_ha(pkg, tmp_path)
+            live = scripted_scheduler(pkg, clock)
+            run_script(pkg, live, clock, steps=5)
+            registry = serve.JobRegistry(metrics=m)
+            for spec in (serve.JobSpec("heavy", weight=2.0),
+                         serve.JobSpec("light")):
+                registry.register(spec)
+            sup.journal_scheduler_state(live)
+            sup.journal_job_registry(registry)
+            heir = serve.FairShareScheduler(metrics=m, clock=clock)
+            ha.scheduler = heir
+            ha.kill_leader()
+            ha.step(now=2.0)
+            assert ha.leader is not None and ha.term == 2
+            rebuilt = fabric.IngestFabric.from_journal(
+                str(tmp_path / f"{pkg}-journal.bin"), metrics=m, clock=clock)
+            assert rebuilt.registry.export_state() == registry.export_state()
+            # adopt_state ages the buckets by the adopter's clock, which
+            # is the same fake clock: the ledger comes over bit for bit.
+            assert (heir.export_state(now=clock())
+                    == live.export_state(now=clock()))
+            return (heir.export_state(now=clock()),
+                    rebuilt.registry.export_state(),
+                    m.counter("cluster.scheduler_adoptions"))
+
+        _both(body)
+
+
+# ---------------------------------------------------------------------------
 # Fault-matrix reflection
 # ---------------------------------------------------------------------------
 
 
-#: Kinds whose sites live in the serve and tune layers, not ported yet.
-UNPORTED_KINDS = {"TENANT_BURST", "SCALE_DECISION_DELAY",
-                  "JOB_ADMISSION_DROP", "JOB_CRASH"}
+#: Kinds whose sites the port does not have: none since the serve and
+#: tune layers were ported.
+UNPORTED_KINDS = set()
 
 
 def test_every_ported_fault_kind_has_a_chaos_row():
-    """Every ``FaultKind`` whose site the port has is used by some test
-    of the port; the rest are exactly the serve and tune kinds."""
+    """Every ``FaultKind`` is used by some test of the port (a
+    ``test_torch_*`` file or a case module both packages run)."""
     tests_dir = pathlib.Path(__file__).parent
     corpus = "".join(p.read_text(encoding="utf-8")
-                     for p in sorted(tests_dir.glob("test_torch_*.py")))
+                     for p in sorted(tests_dir.glob("test_torch_*.py"))
+                     + sorted(tests_dir.glob("torch_*_cases.py")))
     missing = {k.name for k in PKG["torch"].faults.FaultKind
                if f"FaultKind.{k.name}" not in corpus}
     assert missing <= UNPORTED_KINDS, missing - UNPORTED_KINDS
