@@ -220,7 +220,21 @@ K1, and on the documents, K4: both processes return one value), ``ckpt``
 and packed losses, and both evaluate values, against the port's
 one-process runs over the same global mesh and batches within
 ``MH_LOSS_TOL``, with the gloo all-reduce's ms and bytes a step and each
-process's peak.  (c) ``shuffle_impl="xla"`` beside
+process's peak.  ZeRO-1 over the processes (``MH_ZERO1_LEGS``): ``z1``
+and ``z1int8``, dpsp's fit with ``optimizer_sharding="zero1"`` (and
+``grad_comm="int8"``): one gloo reduce-scatter and one all-gather a
+step, each process's moments its replica's.  Gates: z1 bit-equal to
+dpsp; z1int8 within ``PARITY_REL_TOL`` of z1 and within ``MH_LOSS_TOL``
+of the port's one-process zero1 int8 run; each process's moments the
+reference rule's count for one replica; the fp32 gather's bytes over
+the int8 gather's in 3.7-4.1; K1-K3 launches a leg equal to dpsp's.  At
+the small width: ``i8`` (int8 alone, within ``MH_LOSS_TOL`` of the
+one-process int8 run and inside ``loss_parity`` of the fp32 run) and
+``z1ckpt`` (ZeRO-1 steps interrupted, the sync checkpoint and an async
+generation written with the moment slices gathered to rank 0, restored
+on both ranks and run on bit-equal).  Each leg prints its ms/step, the
+scatter, gather and all-reduce ms and bytes a step and each process's
+peak.  (c) ``shuffle_impl="xla"`` beside
 ``"ring"`` at phase 4's geometry: byte-identical streams, K9 on the ring
 route only, one round's ms each.  Run alone: ``python3 -c "import sys,
 tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
@@ -377,7 +391,8 @@ print(c.phase_tune(tempfile.mkdtemp(), card))"``.
 
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
-ring of (a); ``multihost_launches`` from phase 12's two processes; K1-K3
+ring of (a); ``multihost_launches`` from phase 12's two processes and
+``zero1_launches`` from their z1 and z1int8 fits (12 b); K1-K3
 with ``pipeline_launches`` from phase 12's gpipe fit; ``moe_launches``
 from phase 14's MoE fits, K1-K3 with ``vit_launches`` and the
 ``vit_noncausal`` timings, K1-K3 with ``cluster_launches`` from
@@ -5184,17 +5199,27 @@ def _row_mean_loss(p, b):
     return ((((b[0] * 1e-3) @ p["w"]) - b[1][:, 0] * 1e-3) ** 2).mean()
 
 
+#: The gloo legs a MULTIHOST step records (``mh.<leg>`` seconds,
+#: ``mh.<leg>_bytes``): the all-reduce bucket; ZeRO-1's reduce-scatter
+#: input and this process's part of its all-gather.
+MH_LEGS = ("allreduce", "scatter", "gather")
+
+
 def _mh_fit(tag, cfg, loss_of, params_of, producer, mesh, spec, out, rank,
-            n_epochs, rows, batch, specs=None):
+            n_epochs, rows, batch, specs=None, train_config=None):
     """One MULTIHOST ``Trainer.fit`` of a child: PROCESS producers under
     ``mode="multihost"``, windows landed as this process's block of the
-    global array, each local window recorded by the window hook."""
+    global array, each local window recorded by the window hook; each
+    gloo leg's ms and bytes a step, and the optimizer state this process
+    allocated."""
     import numpy as np
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
     from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
     from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import ici_fanout
+    from ddl_tpu_torch.parallel.optimizer import _state_tensors
     from ddl_tpu_torch.parallel.train import adamw
     from ddl_tpu_torch.trainer import Trainer
 
@@ -5206,13 +5231,15 @@ def _mh_fit(tag, cfg, loss_of, params_of, producer, mesh, spec, out, rank,
 
     m = Metrics()
     trainer = Trainer(loss_of(mesh), adamw(1e-5), params_of(), device="cuda",
-                      metrics=m, mesh=mesh, param_specs=specs, batch_spec=spec)
+                      metrics=m, mesh=mesh, param_specs=specs, batch_spec=spec,
+                      train_config=train_config)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    ici_fanout.reset_launch_counts()
     dm = default_metrics()
-    t_ar0 = dm.timer("mh.allreduce").total_s
-    b_ar0 = dm.counter("mh.allreduce_bytes")
+    legs0 = {leg: (dm.timer(f"mh.{leg}").total_s, dm.counter(f"mh.{leg}_bytes"))
+             for leg in MH_LEGS}
     t0 = time.perf_counter()
     res = trainer.fit(producer, config=LoaderConfig(
         batch_size=batch, n_epochs=n_epochs, n_producers=2, mode="multihost",
@@ -5223,17 +5250,27 @@ def _mh_fit(tag, cfg, loss_of, params_of, producer, mesh, spec, out, rank,
     s = {"losses": list(res.losses), "steps": steps,
          "step_ms": wall / steps * 1e3,
          "steady_step_ms": m.timer("trainer.windows").total_s / steps * 1e3,
-         "allreduce_ms": (dm.timer("mh.allreduce").total_s - t_ar0) / steps * 1e3,
-         "allreduce_bytes": (dm.counter("mh.allreduce_bytes") - b_ar0) / steps,
          "peak_bytes": torch.cuda.max_memory_allocated(),
+         "state_bytes": sum(t.numel() * t.element_size() for t in
+                            _state_tensors(res.state.optimizer) if t.dim() > 0),
+         "state_bytes_per_replica": dm.gauge("opt.state_bytes_per_replica"),
          "launches": {fn.__name__: [fn.launches, fn.sm90_launches]
-                      for fn in fa.KERNELS}}
+                      for fn in fa.KERNELS},
+         # K7/K8 run only where the ICI tier lands a window (a one-axis
+         # split; a dp x sp window takes the plain route).
+         "k7": ici_fanout.fanout_replicate.launches,
+         "k8": ici_fanout.fanout_shard.launches}
+    for leg, (t_0, b_0) in legs0.items():
+        s[f"{leg}_ms"] = (dm.timer(f"mh.{leg}").total_s - t_0) / steps * 1e3
+        s[f"{leg}_bytes"] = (dm.counter(f"mh.{leg}_bytes") - b_0) / steps
     np.save(os.path.join(out, f"{tag}_{rank}.npy"), np.stack(seen))
+    gloo = "; ".join(f"gloo {leg} {s[f'{leg}_ms']:.1f} ms and "
+                     f"{s[f'{leg}_bytes']:.0f} bytes a step" for leg in MH_LEGS)
     log(f"[mh {rank}] {tag}: losses {s['losses']}; {wall / steps * 1e3:.1f} "
-        f"ms/step (steady {s['steady_step_ms']:.1f}); gloo all-reduce "
-        f"{s['allreduce_ms']:.1f} ms and {s['allreduce_bytes']:.0f} bytes a "
-        f"step; peak {s['peak_bytes'] / 2**30:.2f} GiB; launches "
-        f"{s['launches']} ({_card_of(out)})")
+        f"ms/step (steady {s['steady_step_ms']:.1f}); {gloo}; moments "
+        f"{s['state_bytes']} bytes in this process; peak "
+        f"{s['peak_bytes'] / 2**30:.2f} GiB; launches {s['launches']}, K7 "
+        f"{s['k7']}, K8 {s['k8']} ({_card_of(out)})")
     del res, trainer
     import gc
 
@@ -5315,20 +5352,93 @@ def _card_of(out):
         return f.read().strip()
 
 
+#: Phase 12 (b)'s ZeRO-1 legs over the processes, at dpsp's full width.
+MH_ZERO1_LEGS = {"z1": dict(optimizer_sharding="zero1"),
+                 "z1int8": dict(optimizer_sharding="zero1", grad_comm="int8")}
+#: The zero1 checkpoint leg's steps, and the step it is interrupted at.
+MH_CKPT = dict(steps=4, at=2)
+
+
+def _mh_zero1_ckpt(small, out, rank):
+    """The zero1 checkpoint round trip of a child at the small width:
+    ZeRO-1 steps over ``{"dp": 2}`` (one position a process) run
+    uninterrupted, and again interrupted at ``MH_CKPT["at"]``: the
+    synchronous checkpoint and an async generation written (the moment
+    slices gathered to rank 0), each restored into a fresh state on both
+    ranks and run on.  Restored means bit-equal losses and params."""
+    import torch
+
+    from ddl_tpu_torch.checkpoint import restore_train_state, save_train_state
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.train import adamw, make_train_step, tree_leaves
+    from ddl_tpu_torch.resilience import AsyncCheckpointer, restore_latest
+
+    mesh = make_mesh({"dp": 2}, ["cuda:0"])
+    init_fn, step_fn = make_train_step(
+        lambda p, b: llama.next_token_loss(p, b[0], small, mesh=mesh),
+        adamw(1e-5), mesh=mesh, param_specs=llama.param_specs(small),
+        batch_spec=P(("dp",)), optimizer_sharding="zero1")
+    gen = torch.Generator().manual_seed(100 + rank)
+    batches = torch.randint(0, small.vocab, (MH_CKPT["steps"], PIPE["mh_batch"],
+                                             TRAIN["seq_len"]), generator=gen,
+                            dtype=torch.int32).cuda()
+    params = llama.init_params(small, seed=SEED, device="cpu")
+
+    def run(state, steps):
+        losses = []
+        for t in steps:
+            state, loss = step_fn(state, (batches[t],))
+            losses.append(float(loss))
+        return state, losses
+
+    def flat(state):
+        return torch.cat([p.detach().reshape(-1) for p in tree_leaves(state.params)])
+
+    state, full = run(init_fn(params), range(MH_CKPT["steps"]))
+    want = flat(state)
+    state, _ = run(init_fn(params), range(MH_CKPT["at"]))
+    ckpt = os.path.join(out, "z1ckpt")
+    t0 = time.perf_counter()
+    save_train_state(state, ckpt)
+    sync_s = time.perf_counter() - t0
+    gens = AsyncCheckpointer(os.path.join(out, "z1gens"))
+    t0 = time.perf_counter()
+    gens.submit(state)
+    gens.close()
+    async_s = time.perf_counter() - t0
+    del state
+    res = {"full": full, "sync_s": sync_s, "async_s": async_s}
+    for name, restore in (
+            ("sync", lambda s: restore_train_state(ckpt, s)),
+            ("async", lambda s: restore_latest(os.path.join(out, "z1gens"),
+                                               s).state)):
+        state = restore(init_fn(params))
+        state, tail = run(state, range(MH_CKPT["at"], MH_CKPT["steps"]))
+        res[name] = tail
+        res[f"{name}_restored"] = (tail == full[MH_CKPT["at"]:]
+                                   and bool(torch.equal(flat(state), want)))
+        del state
+    torch.cuda.empty_cache()
+    return res
+
+
 def multihost_child(rank, port, out):
     """One process of phase 12 (b): a gloo group of 2 on cuda:0; the legs
-    core, stream, dpsp, ppdp, packed and ckpt (``out`` holds the shared
-    inputs and every record)."""
+    core, stream, dpsp, z1, z1int8, ppdp, packed, i8, evaluate, ckpt and
+    z1ckpt (``out`` holds the shared inputs and every record)."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.config import TrainConfig
     from ddl_tpu_torch.ingest import make_global_array
     from ddl_tpu_torch.models import llama
     from ddl_tpu_torch.parallel.collectives import (
         DeviceGlobalShuffler,
         process_allgather,
+        release_host_buckets,
     )
     from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
     from ddl_tpu_torch.parallel.train import adamw, make_train_step
@@ -5414,6 +5524,18 @@ def multihost_child(rank, port, out):
         tok_producer(), make_mesh({"dp": 2, "sp": 2}, pos), P(("dp",), "sp"),
         out, rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
         llama.param_specs(cfg))
+    # ZeRO-1 over the processes, fp32 and int8: dpsp's fit with the
+    # sharded optimizer's reduce-scatter, owned update and all-gather.
+    release_host_buckets()  # dpsp's all-reduce bucket
+    for tag, tc in MH_ZERO1_LEGS.items():
+        report[tag] = _mh_fit(
+            tag, cfg, lambda mesh: (lambda p, b: llama.next_token_loss(
+                p, b[0], cfg, mesh=mesh)),
+            lambda: llama.init_params(cfg, seed=SEED, device="cpu"),
+            tok_producer(), make_mesh({"dp": 2, "sp": 2}, pos),
+            P(("dp",), "sp"), out, rank, c["mh_epochs"], c["mh_rows"],
+            c["mh_batch"], llama.param_specs(cfg), TrainConfig(**tc))
+    release_host_buckets()
     report["ppdp"] = _mh_fit(
         "ppdp", cfg, lambda mesh: (lambda p, b: llama.next_token_loss_pp(
             p, b[0], cfg, mesh, 2)),
@@ -5431,8 +5553,19 @@ def multihost_child(rank, port, out):
                             c["mh_rows"], delimiter=EOT, seed=SEED),
         make_mesh({"dp": 2}, ["cuda:0"]), P(("dp",)), out, rank,
         c["mh_epochs"], c["mh_rows"], c["mh_batch"], llama.param_specs(small))
+    # int8 gradient communication alone at the small width: the reduced
+    # grads quantized after the all-reduce.
+    report["i8"] = _mh_fit(
+        "i8", small, lambda mesh: (lambda p, b: llama.next_token_loss(
+            p, b[0], small, mesh=mesh)),
+        lambda: llama.init_params(small, seed=SEED, device="cuda"),
+        tok_producer(), make_mesh({"dp": 2}, ["cuda:0"]), P(("dp",)), out,
+        rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
+        llama.param_specs(small), TrainConfig(grad_comm="int8"))
     report["evaluate"] = _mh_evaluate(small, out, rank)
     log(f"[mh {rank}] evaluate: {report['evaluate']} ({_card_of(out)})")
+    report["z1ckpt"] = _mh_zero1_ckpt(small, out, rank)
+    log(f"[mh {rank}] z1ckpt: {report['z1ckpt']} ({_card_of(out)})")
 
     # ckpt: rank 0 writes, every rank restores and fast-forwards.
     from ddl_tpu_torch.checkpoint import (
@@ -5502,12 +5635,13 @@ def multihost_child(rank, port, out):
 
 
 def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows,
-                           split=None):
+                           split=None, **step_kw):
     """The port's one-process run over the same global mesh and batches:
     a multistep a window over the two processes' local windows joined
     along the batch dim (rank 0's rows first, as the global array holds
     them).  ``split`` cuts each window's last dim into its columns (the
-    packed windows' tokens and segment ids)."""
+    packed windows' tokens and segment ids); ``step_kw`` are the
+    distributed-optimizer knobs."""
     import numpy as np
     import torch
 
@@ -5515,7 +5649,7 @@ def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows,
 
     init_fn, multi = make_multistep(loss, adamw(1e-5), mesh=mesh,
                                     param_specs=specs, batch_spec=spec,
-                                    n_steps=windows.shape[1])
+                                    n_steps=windows.shape[1], **step_kw)
     state = init_fn(params)
     losses = []
     for w in windows:
@@ -5701,10 +5835,133 @@ def multihost_run(tmpdir, card):
         f"processes x (sp^2 x {L} layers + 2 microbatches x {L} layers) x "
         f"{steps} steps = {want_dense}, K4-K6 2 x {MH_SMALL['n_layers']} x "
         f"{steps} = {want_packed}")
+    zero1 = mh_zero1_gates(out, reports, cfg, small, card, faults)
     if faults:
         raise PhaseFailed("[mh] " + "; ".join(faults))
     return launches, {"wall_s": wall, "reports": reports, "gaps": gaps,
-                      "tol": MH_LOSS_TOL}
+                      "tol": MH_LOSS_TOL, "zero1": zero1}
+
+
+def mh_zero1_gates(out, reports, cfg, small, card, faults):
+    """Phase 12 (b)'s ZeRO-1 and int8 gates over the children's reports:
+    z1 bit-equal to dpsp (else within ``MH_LOSS_TOL``); z1int8 within
+    ``PARITY_REL_TOL`` of z1's curve and within ``MH_LOSS_TOL`` of the
+    port's one-process zero1 int8 run over the same global mesh and
+    windows; each process's moments equal to the reference rule's count
+    for one replica (``hbm_accounting``, the JAX package's rule); the int8
+    gather's bytes over fp32's in 3.7-4.1; K1-K3 launches a leg equal to
+    dpsp's; i8 within ``MH_LOSS_TOL`` of the one-process int8 run and
+    inside ``loss_parity`` of the one-process fp32 run, with nonzero
+    drift; the z1ckpt leg restored bit-equal on both ranks.  Appends to
+    ``faults``; returns the legs' numbers (K1-K6 launches over both
+    processes and every zero1 leg under ``"launches"``)."""
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.optimizer import (
+        PARITY_REL_TOL,
+        hbm_accounting,
+        loss_parity,
+    )
+
+    res = {}
+    z1, dpsp = reports[0]["z1"]["losses"], reports[0]["dpsp"]["losses"]
+    res["z1_bit_equal"] = z1 == dpsp
+    res["z1_gap"] = max(abs(a - b) / abs(b) for a, b in zip(z1, dpsp))
+    if not (res["z1_bit_equal"] or res["z1_gap"] <= MH_LOSS_TOL):
+        faults.append(f"z1 {z1} vs dpsp {dpsp}")
+    for leg in ("z1", "z1int8", "i8"):
+        if reports[0][leg]["losses"] != reports[1][leg]["losses"]:
+            faults.append(f"{leg}: the processes report different losses")
+    res["z1int8_parity"] = loss_parity(z1, reports[0]["z1int8"]["losses"])
+    if not res["z1int8_parity"]["parity"]:
+        faults.append(f"z1int8 parity {res['z1int8_parity']}")
+    wins = np.concatenate([np.load(os.path.join(out, f"z1int8_{i}.npy"))
+                           for i in range(2)], axis=2)
+    mesh = make_mesh({"dp": 2, "sp": 2}, ["cuda:0"] * 4)
+    fa.reset_launch_counts()
+    ref = _one_process_reference(
+        cfg, lambda p, b: llama.next_token_loss(p, b[0], cfg, mesh=mesh),
+        llama.init_params(cfg, seed=SEED, device="cpu"), llama.param_specs(cfg),
+        P(("dp",), "sp"), mesh, wins, **MH_ZERO1_LEGS["z1int8"])
+    free_device_memory()
+    got = reports[0]["z1int8"]["losses"]
+    res["z1int8_gap"] = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    log(f"[mh] z1int8: two-process losses {got}, one-process zero1 int8 "
+        f"{ref}: largest relative gap {res['z1int8_gap']:.3e} (tolerance "
+        f"{MH_LOSS_TOL}); against z1 {res['z1int8_parity']} ({card})")
+    if not res["z1int8_gap"] <= MH_LOSS_TOL:
+        faults.append(f"z1int8 gap {res['z1int8_gap']}")
+    want_state = hbm_accounting(llama.param_shapes(cfg), llama.param_specs(cfg),
+                                {"dp": 2, "sp": 2}, "zero1").opt_state_bytes
+    res["state_bytes"] = {leg: [r[leg]["state_bytes"] for r in reports]
+                          for leg in ("dpsp", "z1", "z1int8")}
+    res["state_bytes_rule"] = want_state
+    for leg in MH_ZERO1_LEGS:
+        if res["state_bytes"][leg] != [want_state, want_state]:
+            faults.append(f"{leg} moments {res['state_bytes'][leg]} bytes a "
+                          f"process, the rule {want_state}")
+    ratio = [r["z1"]["gather_bytes"] / r["z1int8"]["gather_bytes"]
+             for r in reports]
+    res["gather_ratio"] = ratio
+    if not all(3.7 <= x <= 4.1 for x in ratio):
+        faults.append(f"fp32 / int8 gather bytes {ratio}")
+    for r in reports:
+        for leg in MH_ZERO1_LEGS:
+            if not (r[leg]["scatter_bytes"] > 0 and r[leg]["gather_bytes"] > 0):
+                faults.append(f"{leg} moved no scatter or gather bytes")
+            if r[leg]["launches"] != r["dpsp"]["launches"]:
+                faults.append(f"{leg} launches {r[leg]['launches']} vs dpsp "
+                              f"{r['dpsp']['launches']}")
+    for leg in ("dpsp", *MH_ZERO1_LEGS, "i8"):
+        rows = [f"process {i}: {r[leg]['step_ms']:.1f} ms/step (steady "
+                f"{r[leg]['steady_step_ms']:.1f}), " + ", ".join(
+                    f"{g} {r[leg][f'{g}_ms']:.1f} ms / {r[leg][f'{g}_bytes']:.0f} B"
+                    for g in MH_LEGS)
+                + f", moments {r[leg]['state_bytes']} B, peak "
+                f"{r[leg]['peak_bytes'] / 2**30:.2f} GiB"
+                for i, r in enumerate(reports)]
+        log(f"[mh] {leg} a step: " + "; ".join(rows) + f" ({card})")
+    log(f"[mh] moments a process {res['state_bytes']}, the reference rule "
+        f"for one replica {want_state}; fp32 / int8 gather bytes {ratio} "
+        f"({card})")
+    # int8 alone at the small width, against one-process runs.
+    i8 = np.concatenate([np.load(os.path.join(out, f"i8_{i}.npy"))
+                         for i in range(2)], axis=2)
+    mesh = make_mesh({"dp": 2}, ["cuda:0"] * 2)
+
+    def small_ref(**kw):
+        return _one_process_reference(
+            small, lambda p, b: llama.next_token_loss(p, b[0], small, mesh=mesh),
+            llama.init_params(small, seed=SEED, device="cuda"),
+            llama.param_specs(small), P(("dp",)), mesh, i8, **kw)
+
+    ref_i8, ref_fp32 = small_ref(grad_comm="int8"), small_ref()
+    free_device_memory()
+    got = reports[0]["i8"]["losses"]
+    res["i8_gap"] = max(abs(a - b) / abs(b) for a, b in zip(got, ref_i8))
+    res["i8_parity"] = loss_parity(ref_fp32, got)
+    log(f"[mh] i8: two-process losses {got}, one-process int8 {ref_i8} (gap "
+        f"{res['i8_gap']:.3e}, tolerance {MH_LOSS_TOL}), one-process fp32 "
+        f"{ref_fp32}: {res['i8_parity']} ({card})")
+    if not (res["i8_gap"] <= MH_LOSS_TOL and res["i8_parity"]["parity"]
+            and res["i8_parity"]["max_rel_drift"] > 0.0):
+        faults.append(f"i8 gap {res['i8_gap']}, parity {res['i8_parity']}")
+    ck = [r["z1ckpt"] for r in reports]
+    res["z1ckpt"] = ck
+    if not all(c["sync_restored"] and c["async_restored"] for c in ck):
+        faults.append(f"z1ckpt {ck}")
+    res["launches"] = {
+        fn.__name__: sum(r[leg]["launches"][fn.__name__][0] for r in reports
+                         for leg in MH_ZERO1_LEGS) for fn in fa.KERNELS}
+    res["ici_launches"] = {leg: [(r[leg]["k7"], r[leg]["k8"]) for r in reports]
+                           for leg in ("dpsp", *MH_ZERO1_LEGS, "i8")}
+    log(f"[mh] K1-K6 launches of the zero1 legs over both processes "
+        f"{res['launches']}; (K7, K8) a process and leg "
+        f"{res['ici_launches']}; PARITY_REL_TOL {PARITY_REL_TOL} ({card})")
+    return res
 
 
 def shuffle_impl_ab(card):
@@ -8221,6 +8478,9 @@ def main(argv=None) -> int:
                                else launches)[row["name"]]
             row["ring_launches"] = ring_launches[row["name"]]
             row["multihost_launches"] = mh_launches[row["name"]]
+            # Phase 12 (b)'s ZeRO-1 legs (z1, z1int8) over both processes.
+            row["zero1_launches"] = pipe_summary["multihost"]["zero1"][
+                "launches"][row["name"]]
             if not row["name"].endswith("_seg"):
                 row["pipeline_launches"] = pipe_launches[row["name"]]
             # Phase 14: the MoE fits' (einsum and ragged K1-K3, packed

@@ -185,20 +185,25 @@ def save_train_state(state: TrainState, path: str) -> None:
     processes, so rank 0 writes the generation through the same
     temp + rename and stamps its manifest, and every rank waits at a
     barrier until it is live — the JAX package's "every process passes
-    the same path, process 0 stamps the manifest"."""
+    the same path, process 0 stamps the manifest".  A ZeRO-1 optimizer
+    over the processes holds only its slices of the moments: every rank
+    first takes part in gathering them to rank 0, which writes the
+    one-process format."""
     from ddl_tpu_torch.parallel.mesh import process_count, process_rank
 
+    # Every rank: a ZeRO-1 optimizer's gather is a collective.
+    opt_state = state.optimizer.state_dict()
     if process_count() > 1:
         import torch.distributed as dist
 
         if process_rank() == 0:
-            _save_one(state, path)
+            _save_one(state, path, opt_state)
         dist.barrier()
         return
-    _save_one(state, path)
+    _save_one(state, path, opt_state)
 
 
-def _save_one(state: TrainState, path: str) -> None:
+def _save_one(state: TrainState, path: str, opt_state: Any) -> None:
     path = os.path.abspath(path)
     final = os.path.join(path, f"step_{state.step}")
     tmp = f"{final}.tmp.{os.getpid()}"
@@ -207,7 +212,7 @@ def _save_one(state: TrainState, path: str) -> None:
     os.makedirs(tmp)
     torch.save(
         {"params": _to_cpu(state.params),
-         "optimizer": _to_cpu(state.optimizer.state_dict()),
+         "optimizer": _to_cpu(opt_state),
          "step": int(state.step)},
         os.path.join(tmp, STATE_NAME),
     )
@@ -262,7 +267,9 @@ def restore_train_state(path: str, like: TrainState,
     """Restore the newest verified checkpoint under ``path`` INTO
     ``like``: its parameter tensors are overwritten in place (the
     optimizer keeps referencing them) and its optimizer loads the saved
-    state.  Pass ``step`` when the caller already verified it."""
+    state (a ZeRO-1 optimizer over processes loads only its own
+    replicas' slices).  Pass ``step`` when the caller already verified
+    it."""
     if step is None:
         step = latest_verified_step(path)
     if step is None:

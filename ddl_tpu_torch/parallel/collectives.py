@@ -205,9 +205,31 @@ def _gather_host(t: torch.Tensor) -> List[torch.Tensor]:
     return parts
 
 
-#: Page-locked buckets of :func:`process_mean`, one per size: a full-
-#: width model's gradients are gigabytes, pinned once, not every step.
-_BUCKETS: Dict[int, torch.Tensor] = {}
+#: Page-locked staging buckets of the gloo legs, one per purpose
+#: (:func:`host_bucket`): a full-width model's gradients are gigabytes,
+#: pinned once, not every step.
+_BUCKETS: Dict[str, torch.Tensor] = {}
+
+
+def host_bucket(name: str, numel: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The flat host bucket of ``numel`` elements kept for ``name``,
+    page-locked where a card is present; a request of another size or
+    dtype frees the old one first.  Its contents are whatever the last
+    user left."""
+    host = _BUCKETS.get(name)
+    if host is None or host.numel() != numel or host.dtype != dtype:
+        _BUCKETS.pop(name, None)
+        host = torch.empty(numel, dtype=dtype,
+                           pin_memory=torch.cuda.is_available())
+        _BUCKETS[name] = host
+    return host
+
+
+def release_host_buckets() -> None:
+    """Free every staging bucket (:func:`host_bucket`): a process whose
+    next steps stage otherwise gives the pinned memory back first."""
+    _BUCKETS.clear()
 
 
 def process_mean(tensors: Sequence[Optional[torch.Tensor]],
@@ -240,12 +262,7 @@ def process_mean(tensors: Sequence[Optional[torch.Tensor]],
         # The last call's copies out of the bucket may still be queued.
         torch.cuda.current_stream(dev).synchronize()
     total = sum(int(l.numel()) for l in like) + (weight is not None)
-    host = _BUCKETS.get(total)
-    if host is None:
-        _BUCKETS.clear()
-        host = torch.empty(total, dtype=torch.float32,
-                           pin_memory=torch.cuda.is_available())
-        _BUCKETS[total] = host
+    host = host_bucket("mean", total)
     slices = stage_bucket(tensors, like, host, weight)
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
@@ -470,8 +487,18 @@ def key_generator(key: Any, device: Any) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
+def stochastic_noise(shape: Sequence[int], key: Any, device: Any) -> torch.Tensor:
+    """The ``U[0, 1)`` draws of :func:`quantize_blockwise`'s stochastic
+    rounding for an array of ``shape`` under ``key``: a slice of an array
+    rounds with the same slice of these (what a process holding one
+    shard of a leaf needs to round it as the whole leaf)."""
+    return torch.rand(tuple(shape), generator=key_generator(key, device),
+                      device=device, dtype=torch.float32)
+
+
 def quantize_blockwise(x: torch.Tensor, block: int = QUANT_BLOCK,
                        stochastic: bool = False, key: Any = None,
+                       noise: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x -> (q int8, scales fp32)`` with per-block scales.
 
@@ -479,14 +506,16 @@ def quantize_blockwise(x: torch.Tensor, block: int = QUANT_BLOCK,
     +-127 — the JAX package's bytes.  ``stochastic=True`` rounds
     ``floor(v + u)``, ``u ~ U[0, 1)`` drawn from :func:`key_generator`
     (``key`` an int or a tuple of ints): unbiased in expectation, the
-    same bytes for the same key."""
-    if stochastic and key is None:
+    same bytes for the same key.  ``noise`` (shaped like ``x``) gives the
+    draws instead of ``key``: a slice of :func:`stochastic_noise`'s for
+    the array ``x`` was cut from."""
+    if stochastic and key is None and noise is None:
         raise ValueError("stochastic rounding requires an explicit key")
     s = block_scales(x, block)
     v = x.float() / _expand_scales(s, x.shape[-1], block)
     if stochastic:
-        u = torch.rand(x.shape, generator=key_generator(key, x.device),
-                       device=x.device, dtype=torch.float32)
+        u = noise if noise is not None else stochastic_noise(x.shape, key,
+                                                             x.device)
         v = torch.floor(v + u)
     else:
         v = torch.round(v)

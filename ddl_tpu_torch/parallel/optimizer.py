@@ -30,8 +30,50 @@ elementwise and the slices are views.  Stochastic rounding keys fold
 as the JAX package's do.  Positions over distinct cards raise
 ``NotImplementedError`` (the multi-card slice).
 
+MULTIHOST (a mesh whose outermost ``dp`` axis spans the processes of a
+gloo group): replica ``j`` belongs to the process that holds the dp
+index ``j`` (``mesh.processes``), and each process builds inner
+optimizers, and allocates moments, only for the replicas it owns, so
+its state is its share of the total.  A step is the JAX package's
+lowering made explicit over gloo, in host-staged page-locked buckets
+(:meth:`Zero1Optimizer.reduce_step`):
+
+- **scatter leg**: every sharded leaf's local grad goes into one flat
+  fp32 bucket laid out replica-major (:class:`ReplicaLayout`: replica by
+  replica, leaf by leaf, block by block), so each process's share is one
+  contiguous chunk, and one ``all_to_all_single`` hands each process its
+  chunk of every process's bucket, summed in rank order (gloo's own
+  ``reduce_scatter_tensor`` is an all-reduce and a slice).  Each
+  process scales its grads by its ``cross_entropy`` count first, as
+  :func:`~ddl_tpu_torch.parallel.collectives.process_mean` does; the
+  replicated leaves' grads, the loss, the count and (under stochastic
+  int8) each sharded leaf's first grad element ride one small
+  ``all_reduce`` bucket, and the sums are divided by the summed count.
+- **shard-local update** on the owned slices (``grad_comm="int8"``
+  quantizes the reduced grad slices first, phase 0).
+- **gather leg**: fp32 — one ``all_gather_into_tensor`` of the owned
+  updated slices into every process's leaves; int8 — the owned update
+  slices (new - old) quantize (phase 1), their int8 payloads and fp32
+  block scales go through one all-gather of a byte bucket as they are,
+  and every process dequantizes and applies ``before + update``: the
+  reference's s8 all-gather.
+
+Every slice quantizes as its part of the whole leaf, as the reference
+quantizes the logical leaf: a slice along the last dim must start and
+end on a block edge (``ValueError`` naming the leaf otherwise);
+stochastic draws are the leaf's draws, sliced; the phase-1 keys' first
+elements are broadcast from replica 0's owner.  The legs record
+``mh.scatter`` / ``mh.scatter_bytes`` (the reduce-scatter's input),
+``mh.gather`` / ``mh.gather_bytes`` (this process's part of the
+all-gather) and the small bucket under ``mh.allreduce`` /
+``mh.allreduce_bytes``, on the process-wide registry.  Checkpoints gather
+the moment slices to rank 0 (:meth:`Zero1Optimizer.state_dict`,
+:meth:`Zero1Optimizer.whole_state`; every rank calls them) and write the
+one-process format; a restore loads only the owned slices.
+
 Observability: ``opt.state_bytes_per_replica`` / ``opt.state_bytes_total``
-gauges (at init), ``opt.grad_comm_bytes_raw`` /
+gauges (at init; over a process-spanning mesh ``opt.state_bytes_local``
+is what this process allocated), ``opt.grad_comm_bytes_raw`` /
 ``opt.grad_comm_bytes_quantized`` (at the first step) and the
 ``opt.gather`` / ``opt.scatter`` timers (:meth:`ShardedOptimizer.
 measure_legs`), on the process-wide registry as in the JAX package.
@@ -285,19 +327,171 @@ def _sync(leaves: Sequence[torch.Tensor]) -> None:
         torch.cuda.synchronize(leaves[0].device)
 
 
+def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
+    """Each leaf's path (``layers/0/wq``), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/") or "."]
+
+
+def owned_replicas(mesh: Any, axis: str) -> List[int]:
+    """The replicas of ``axis`` this process owns over a process-spanning
+    mesh: replica ``j`` belongs to the process holding dp index ``j``.
+    The axis must be the outermost, and every process must own an equal
+    contiguous run of replicas in rank order (what :func:`~ddl_tpu_torch.
+    parallel.mesh.make_mesh` lays out under a group), so that each
+    process's share of a replica-major bucket is one chunk."""
+    from ddl_tpu_torch.parallel.mesh import process_count, process_rank
+
+    if mesh.axis_names[0] != axis:
+        raise ValueError(
+            f"ZeRO-1 over a process-spanning mesh shards over its outermost "
+            f"axis; {axis!r} is not {mesh.axis_names[0]!r}")
+    n = mesh.shape[axis]
+    owners = mesh.processes.reshape(n, -1)[:, 0]
+    world, rank = process_count(), process_rank()
+    k = n // world
+    if n % world or owners.tolist() != [j // k for j in range(n)]:
+        raise ValueError(
+            f"ZeRO-1 over processes needs each of the {world} processes to "
+            f"own an equal contiguous run of the {n} {axis!r} replicas in "
+            f"rank order; the owners are {owners.tolist()}")
+    return list(range(rank * k, (rank + 1) * k))
+
+
+class ReplicaLayout:
+    """The replica-major layout of the sharded leaves' slices in a flat
+    bucket: replica ``j``'s region is ``[j * size, (j + 1) * size)`` (or
+    its position among the replicas a bucket holds); inside it, leaf by
+    leaf in the optimizer's order of sharded leaves, block by block, each
+    block's elements in C order of its shape.  Every replica's region has
+    the same structure, since its blocks have equal shapes.
+
+    :meth:`quantized` gives the byte layout of the int8 gather: per
+    replica the fp32 block scales of every block, then the int8 payloads,
+    the region padded to 4 bytes (so every replica's scales stay
+    fp32-aligned)."""
+
+    def __init__(self, leaves: Sequence["_Leaf"]):
+        self.leaves = list(leaves)
+        self.offsets: List[List[Tuple[int, Tuple[int, ...]]]] = []
+        off = 0
+        for lf in self.leaves:
+            row = []
+            for _s, n in lf.index[0]:
+                shape = list(lf.param.shape)
+                shape[lf.dim] = n
+                row.append((off, tuple(shape)))
+                off += int(np.prod(shape))
+            self.offsets.append(row)
+        #: Elements of one replica's region.
+        self.size = off
+
+    def pieces(self, host: torch.Tensor, replicas: Sequence[int],
+               regions: Optional[Sequence[int]] = None):
+        """``(replica, leaf position, block position, view of host)`` for
+        every block of ``replicas`` (their regions ``regions``, default
+        ``0, 1, ...``), in bucket order."""
+        regions = range(len(replicas)) if regions is None else regions
+        for r, j in zip(regions, replicas):
+            base = r * self.size
+            for li, row in enumerate(self.offsets):
+                for b, (o, shape) in enumerate(row):
+                    numel = int(np.prod(shape))
+                    yield j, li, b, host[base + o:base + o + numel].view(shape)
+
+    def quantized(self, block: int) -> Tuple[int, List[List[Tuple[int, Tuple[int, ...], int]]]]:
+        """``(region bytes, [[(scale offset, scale shape, payload offset)
+        per block] per leaf])`` of the int8 gather's byte bucket; offsets
+        in bytes from the region's start."""
+        rows, off = [], 0
+        for row in self.offsets:
+            out = []
+            for _o, shape in row:
+                sshape = tuple(shape[:-1]) + (-(-shape[-1] // block),)
+                out.append([off, sshape, 0])
+                off += 4 * int(np.prod(sshape))
+            rows.append(out)
+        for row, orow in zip(self.offsets, rows):
+            for (_o, shape), entry in zip(row, orow):
+                entry[2] = off
+                off += int(np.prod(shape))
+        return off + (-off) % 4, [[tuple(e) for e in r] for r in rows]
+
+    def qpieces(self, host: torch.Tensor, block: int, replicas: Sequence[int],
+                regions: Optional[Sequence[int]] = None):
+        """``(replica, leaf position, block position, scales view, payload
+        view)`` of every block of ``replicas`` in the uint8 bucket
+        ``host`` (:meth:`quantized`'s layout)."""
+        size, rows = self.quantized(block)
+        regions = range(len(replicas)) if regions is None else regions
+        for r, j in zip(regions, replicas):
+            base = r * size
+            for li, (row, qrow) in enumerate(zip(self.offsets, rows)):
+                for b, ((_o, shape), (so, sshape, po)) in enumerate(zip(row, qrow)):
+                    ns, npay = int(np.prod(sshape)), int(np.prod(shape))
+                    scales = host[base + so:base + so + 4 * ns].view(
+                        torch.float32).view(sshape)
+                    payload = host[base + po:base + po + npay].view(
+                        torch.int8).view(shape)
+                    yield j, li, b, scales, payload
+
+
+def _reduce_scatter(inp: torch.Tensor, recv: torch.Tensor,
+                    world: int) -> torch.Tensor:
+    """The scatter leg: one gloo ``all_to_all_single`` hands each process
+    its chunk of every process's bucket ``inp`` (into ``recv``), and the
+    chunks are summed here in rank order — a reduce-scatter in the bytes
+    it moves.  gloo's own ``reduce_scatter_tensor`` all-reduces the whole
+    bucket and keeps a slice, which moves an all-reduce's bytes
+    (``tools/torch_gloo_legs.py`` times both).  Returns the summed chunk,
+    a view of ``recv``."""
+    import torch.distributed as dist
+
+    dist.all_to_all_single(recv, inp)
+    size = recv.numel() // world
+    acc = recv[:size]
+    for r in range(1, world):
+        acc.add_(recv[r * size:(r + 1) * size])
+    return acc
+
+
+def _all_gather(out: torch.Tensor, inp: torch.Tensor) -> None:
+    import torch.distributed as dist
+
+    fn = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    fn(out, inp)
+
+
+def _bits(x: torch.Tensor) -> int:
+    """The fp32 bits of a tensor's first element (the stochastic keys'
+    data-derived fold)."""
+    return int(x.reshape(-1)[:1].float().view(torch.int32).item())
+
+
 class Zero1Optimizer:
     """The runtime ZeRO-1 optimizer over one params tree (what
     :meth:`ShardedOptimizer.init` returns; the train state's
     ``optimizer``).  Speaks the part of ``torch.optim.Optimizer`` the
     train step and checkpoints use: ``zero_grad``, ``step``,
     ``state_dict`` / ``load_state_dict``; :attr:`state` maps each leaf to
-    its whole-leaf Adam state."""
+    its whole-leaf Adam state.
+
+    Over a process-spanning mesh (:attr:`spans_processes`) it holds inner
+    optimizers and moments for :attr:`owned` replicas only; a step is
+    :meth:`reduce_step` (the gloo legs), and the whole moments exist only
+    as :meth:`whole_state` / :meth:`state_dict` gather them to rank 0."""
 
     def __init__(self, cfg: ShardedOptimizer, params: Any):
         self.cfg = cfg
         self.params = _leaves(params)
+        self.names = _leaf_paths(params)
         self.leaves: List[_Leaf] = []
         replicated: List[torch.Tensor] = []
+        self.spans_processes = bool(cfg.active and cfg.mesh.spans_processes)
         if cfg.active:
             for leaf, (_, z1) in zip(self.params, cfg.shardings(params)):
                 lay = _replica_slices(tuple(leaf.shape), z1, cfg.axis)
@@ -311,19 +505,29 @@ class Zero1Optimizer:
                            for rep in index], index, d))
         else:
             replicated = list(self.params)
+        #: The replicas whose inner optimizer and state this process holds.
+        self.owned = (owned_replicas(cfg.mesh, cfg.axis) if self.spans_processes
+                      else list(range(cfg.n_replicas)))
+        self._leaf_pos = {id(lf.param): i for i, lf in enumerate(self.leaves)}
+        self._index = {id(p): i for i, p in enumerate(self.params)}
         self.replicated = [leaf.detach() for leaf in replicated]
         self._replicated_of = {id(leaf): v for leaf, v in
                                zip(replicated, self.replicated)}
-        n = cfg.n_replicas
         self.replicas = [
             cfg._inner([v for lf in self.leaves for v in lf.views[j]])
-            for j in range(n)
+            for j in self.owned
         ] if self.leaves else []
         self.whole = cfg._inner(self.replicated) if self.replicated else None
         # One entry a sharded leaf, filled here and never grown.
         self._moments: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}  # ddl-lint: disable=DDL013
         if self.replicas and _is_adam(self.replicas[0]):
-            self._share_moments()
+            if self.spans_processes:
+                self._own_moments()
+            else:
+                self._share_moments()
+        self.layout = ReplicaLayout(self.leaves) if self.spans_processes else None
+        if self.spans_processes and cfg.grad_comm == "int8":
+            self._check_block_edges()
         self._comm_recorded = False
         if cfg.active:
             self._record_state_bytes()
@@ -346,21 +550,67 @@ class Zero1Optimizer:
                         "exp_avg_sq": nu.detach().narrow(lf.dim, s, n),
                     }
 
+    def _own_moments(self) -> None:
+        """Adam's moments for the owned replicas' slices only, allocated
+        now (what ``torch.optim.Adam`` would allocate at its first step):
+        this process's share of the state, not the whole."""
+        for opt, j in zip(self.replicas, self.owned):
+            for lf in self.leaves:
+                for v in lf.views[j]:
+                    opt.state[v] = {
+                        "step": _fresh_step(opt, v),
+                        "exp_avg": torch.zeros(v.shape, dtype=v.dtype,
+                                               device=v.device),
+                        "exp_avg_sq": torch.zeros(v.shape, dtype=v.dtype,
+                                                  device=v.device),
+                    }
+
+    def _check_block_edges(self) -> None:
+        """The int8 slices must be parts of the whole leaf's quantization:
+        a slice along the last dim starts and ends on a block edge."""
+        block = self.cfg.block
+        for lf in self.leaves:
+            last = lf.param.shape[-1]
+            if lf.dim != lf.param.dim() - 1:
+                continue
+            for rep in lf.index:
+                for s, n in rep:
+                    if s % block or ((s + n) % block and s + n != last):
+                        name = self.names[self._index[id(lf.param)]]
+                        raise ValueError(
+                            f"ZeRO-1 int8 over processes: leaf {name!r} of "
+                            f"shape {tuple(lf.param.shape)} is sliced along "
+                            f"its last dim into [{s}, {s + n}), which cuts its "
+                            f"quantization blocks of {block} values; pick a "
+                            "grad_comm_block that divides the slices")
+
     @property
     def is_adam(self) -> bool:
         opts = self.replicas + ([self.whole] if self.whole is not None else [])
         return bool(opts) and all(_is_adam(o) for o in opts) and (
-            not self.replicas or bool(self._moments))
+            not self.replicas or bool(self._moments) or self.spans_processes)
 
     @property
     def state(self) -> Dict[torch.Tensor, Dict[str, torch.Tensor]]:
         """Each leaf's Adam state, whole: ``step`` (a replica's), and the
-        full-shaped ``exp_avg`` / ``exp_avg_sq``."""
+        full-shaped ``exp_avg`` / ``exp_avg_sq``.  Over a process-spanning
+        mesh no process holds them whole: :meth:`whole_state` gathers
+        them (a collective)."""
+        if self.spans_processes:
+            raise RuntimeError(
+                "the moments of a ZeRO-1 optimizer over processes are "
+                "sharded; whole_state() gathers them to rank 0 (every rank "
+                "must call it)")
         out: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
         for lf in self.leaves:
             mu, nu = self._moments[id(lf.param)]
             out[lf.param] = {"step": self.replicas[0].state[lf.views[0][0]]["step"],
                              "exp_avg": mu, "exp_avg_sq": nu}
+        out.update(self._whole_entries())
+        return out
+
+    def _whole_entries(self) -> Dict[torch.Tensor, Dict[str, torch.Tensor]]:
+        out = {}
         if self.whole is not None:
             for leaf in self.params:
                 rv = self._replicated_of.get(id(leaf))
@@ -368,20 +618,91 @@ class Zero1Optimizer:
                     out[leaf] = self.whole.state[rv]
         return out
 
+    def _moment_keys(self) -> List[str]:
+        """The state entries shaped like their slice (Adam's moments), in
+        a fixed order; 0-d entries (``step``) are the same on every
+        replica."""
+        if not self.replicas:
+            return []
+        v = self.leaves[0].views[self.owned[0]][0]
+        st = self.replicas[0].state.get(v, {})
+        return sorted(k for k, t in st.items() if isinstance(t, torch.Tensor)
+                      and tuple(t.shape) == tuple(v.shape) and t.dim() > 0)
+
+    def _gather_moments(self) -> Optional[Dict[str, List[torch.Tensor]]]:
+        """Every replica's moment slices, gathered to rank 0 whole: ``{key:
+        [the whole-leaf host tensor per sharded leaf]}`` on rank 0, None on
+        the other ranks.  A collective: every rank calls it."""
+        import torch.distributed as dist
+
+        from ddl_tpu_torch.parallel.mesh import process_count, process_rank
+
+        keys, lay = self._moment_keys(), self.layout
+        k, world = len(self.owned), process_count()
+        chunk = k * lay.size
+        send = torch.empty(len(keys) * chunk, dtype=torch.float32)
+        for ki, key in enumerate(keys):
+            part = send[ki * chunk:(ki + 1) * chunk]
+            for j, li, b, piece in lay.pieces(part, self.owned):
+                opt = self.replicas[self.owned.index(j)]
+                piece.copy_(opt.state[self.leaves[li].views[j][b]][key])
+        rank0 = process_rank() == 0
+        recv = [torch.empty_like(send) for _ in range(world)] if rank0 else None
+        if keys:
+            dist.gather(send, gather_list=recv, dst=0)
+        if not rank0:
+            return None
+        out: Dict[str, List[torch.Tensor]] = {}
+        for ki, key in enumerate(keys):
+            whole = [torch.empty(lf.param.shape, dtype=lf.param.dtype)
+                     for lf in self.leaves]
+            for r in range(world):
+                part = recv[r][ki * chunk:(ki + 1) * chunk]
+                for j, li, b, piece in lay.pieces(
+                        part, list(range(r * k, (r + 1) * k))):
+                    lf = self.leaves[li]
+                    s, n = lf.index[j][b]
+                    whole[li].narrow(lf.dim, s, n).copy_(piece)
+            out[key] = whole
+        return out
+
+    def whole_state(self) -> Optional[Dict[torch.Tensor, Dict[str, torch.Tensor]]]:
+        """:attr:`state`, also over a process-spanning mesh: there every
+        rank must call it (the moment slices are gathered to rank 0, on
+        the host), and ranks other than 0 get None."""
+        if not self.spans_processes:
+            return self.state
+        moments = self._gather_moments()
+        if moments is None:
+            return None
+        out: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
+        for li, lf in enumerate(self.leaves):
+            st = {"step": self.replicas[0].state[
+                lf.views[self.owned[0]][0]]["step"]}
+            st.update({key: moments[key][li] for key in moments})
+            out[lf.param] = st
+        out.update(self._whole_entries())
+        return out
+
     def load_leaf_state(self, leaf: torch.Tensor, count: int,
                         exp_avg: torch.Tensor, exp_avg_sq: torch.Tensor) -> None:
         """Set one leaf's Adam state from whole-leaf moments (a restored
-        generation)."""
+        generation); over processes, this process's slices of them."""
         moments = self._moments.get(id(leaf))
         if moments is not None:
             with torch.no_grad():
                 moments[0].copy_(exp_avg)
                 moments[1].copy_(exp_avg_sq)
-            lf = next(x for x in self.leaves if x.param is leaf)
-            for j, opt in enumerate(self.replicas):
-                for v in lf.views[j]:
-                    opt.state[v]["step"] = torch.full_like(
-                        opt.state[v]["step"], float(count))
+        if id(leaf) in self._leaf_pos:
+            lf = self.leaves[self._leaf_pos[id(leaf)]]
+            for opt, j in zip(self.replicas, self.owned):
+                for v, (s, n) in zip(lf.views[j], lf.index[j]):
+                    st = opt.state[v]
+                    st["step"] = torch.full_like(st["step"], float(count))
+                    if moments is None:
+                        with torch.no_grad():
+                            st["exp_avg"].copy_(exp_avg.narrow(lf.dim, s, n))
+                            st["exp_avg_sq"].copy_(exp_avg_sq.narrow(lf.dim, s, n))
             return
         rv = self._replicated_of[id(leaf)]
         old = self.whole.state.get(rv)
@@ -393,14 +714,46 @@ class Zero1Optimizer:
     def _optimizers(self) -> List[torch.optim.Optimizer]:
         return self.replicas + ([self.whole] if self.whole is not None else [])
 
-    def state_dict(self) -> dict:
-        return {"replicas": [o.state_dict() for o in self.replicas],
-                "whole": None if self.whole is None else self.whole.state_dict()}
+    def state_dict(self) -> Optional[dict]:
+        """``{"replicas": [each replica's state dict], "whole": ...}``.
+        Over processes every rank must call it: the moment slices are
+        gathered to rank 0, which gets the one-process format (its host
+        tensors); the other ranks get None."""
+        whole = None if self.whole is None else self.whole.state_dict()
+        if not self.spans_processes:
+            return {"replicas": [o.state_dict() for o in self.replicas],
+                    "whole": whole}
+        moments = self._gather_moments() if self.replicas else {}
+        if moments is None:
+            return None
+        if not self.replicas:
+            return {"replicas": [], "whole": whole}
+        import copy
+
+        mine = self.replicas[0].state_dict()
+        replicas = []
+        for j in range(self.cfg.n_replicas):
+            state, slot = {}, 0
+            for li, lf in enumerate(self.leaves):
+                for b, (s, n) in enumerate(lf.index[j]):
+                    st = {"step": mine["state"][slot]["step"].clone()}
+                    st.update({key: moments[key][li].narrow(lf.dim, s, n)
+                               for key in moments})
+                    state[slot] = st
+                    slot += 1
+            replicas.append({"state": state,
+                             "param_groups": copy.deepcopy(mine["param_groups"])})
+        return {"replicas": replicas, "whole": whole}
 
     def load_state_dict(self, saved: dict) -> None:
-        for o, sd in zip(self.replicas, saved["replicas"]):
-            if self._moments:
-                # Into the shared buffers, keeping the views.
+        if len(saved["replicas"]) != (self.cfg.n_replicas if self.replicas else 0):
+            raise ValueError(
+                f"a state of {len(saved['replicas'])} replicas does not fit "
+                f"a ZeRO-1 optimizer over {self.cfg.n_replicas}")
+        for o, j in zip(self.replicas, self.owned):
+            sd = saved["replicas"][j]
+            if self._moments or self.spans_processes:
+                # Into the held buffers, keeping the views.
                 for slot, st in sd["state"].items():
                     v = o.param_groups[0]["params"][slot]
                     cur = o.state[v]
@@ -428,10 +781,12 @@ class Zero1Optimizer:
         for v in self.replicated:
             v.grad = None
 
+    def _fold(self, leaf_idx: int, bits: int, phase: int) -> Any:
+        return (self.cfg.seed + 7919 * phase, leaf_idx, bits & 0xFFFFFFFF)
+
     def _key(self, leaf_idx: int, x: torch.Tensor, phase: int) -> Any:
         """seed ⊕ phase ⊕ leaf index ⊕ the bits of the first element."""
-        first = int(x.reshape(-1)[:1].float().view(torch.int32).item())
-        return (self.cfg.seed + 7919 * phase, leaf_idx, first & 0xFFFFFFFF)
+        return self._fold(leaf_idx, _bits(x), phase)
 
     def _qdq(self, x: torch.Tensor, leaf_idx: int, phase: int) -> torch.Tensor:
         from ddl_tpu_torch.parallel.collectives import quantize_dequantize
@@ -442,9 +797,39 @@ class Zero1Optimizer:
         return quantize_dequantize(x, cfg.block,
                                    stochastic=cfg.stochastic_rounding, key=key)
 
+    def _slice_noise(self, lf: "_Leaf", bits: Optional[int], phase: int
+                     ) -> Optional[torch.Tensor]:
+        """The whole leaf's stochastic draws under its key (None when
+        rounding is deterministic): each slice rounds with its part."""
+        from ddl_tpu_torch.parallel.collectives import stochastic_noise
+
+        if not self.cfg.stochastic_rounding:
+            return None
+        key = self._fold(self._index[id(lf.param)], bits, phase)
+        return stochastic_noise(lf.param.shape, key, lf.param.device)
+
+    def quantize_slices(self, lf: "_Leaf", j: int, xs: Sequence[torch.Tensor],
+                        bits: Optional[int], phase: int
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(q, scales)`` of replica ``j``'s blocks ``xs`` of leaf ``lf``:
+        the blocks' parts of the whole leaf's quantization, whose first
+        element has the fp32 ``bits`` (the stochastic key's fold)."""
+        from ddl_tpu_torch.parallel.collectives import quantize_blockwise
+
+        cfg = self.cfg
+        noise = self._slice_noise(lf, bits, phase)
+        return [quantize_blockwise(
+            x, cfg.block, stochastic=cfg.stochastic_rounding,
+            noise=None if noise is None else noise.narrow(lf.dim, s, n))
+            for x, (s, n) in zip(xs, lf.index[j])]
+
     @torch.no_grad()
     def step(self) -> None:
-        """reduce-scatter → shard-local inner update → all-gather."""
+        """reduce-scatter → shard-local inner update → all-gather.  Over
+        processes this is :meth:`reduce_step` (the plain mean)."""
+        if self.spans_processes:
+            self.reduce_step()
+            return
         cfg = self.cfg
         int8 = cfg.grad_comm == "int8"
         if not self._comm_recorded:
@@ -477,14 +862,250 @@ class Zero1Optimizer:
             upd = self._qdq(p.detach() - before, i, phase=1)
             p.detach().copy_(before + upd)
 
+    @torch.no_grad()
+    def reduce_step(self, loss: Optional[torch.Tensor] = None, weight: Any = None,
+                    metrics: Any = None) -> Optional[torch.Tensor]:
+        """One step over a process-spanning mesh, from each process's
+        local grads (and ``loss``): the scatter leg, the small bucket, the
+        shard-local update, the gather leg (the module docstring).
+
+        Without ``weight`` the sums are divided by the world size (the
+        processes' mean); with ``weight`` (this process's count) every
+        grad and the loss are scaled by it in place, the count rides the
+        small bucket, and the sums are divided by the summed count (at
+        least 1).  ``loss`` comes back reduced, in place.  Afterwards each
+        ``p.grad`` holds the reduced grad on this process's slices only.
+        ``metrics`` (a registry, default the process-wide one) records the
+        legs' ``mh.*`` times and bytes."""
+        import torch.distributed as dist
+
+        from ddl_tpu_torch.observability import metrics as default_metrics
+        from ddl_tpu_torch.parallel.collectives import (
+            dequantize_blockwise,
+            host_bucket,
+        )
+        from ddl_tpu_torch.parallel.mesh import process_count
+
+        cfg, lay = self.cfg, self.layout
+        m = metrics if metrics is not None else default_metrics()
+        int8 = cfg.grad_comm == "int8"
+        stoch = int8 and cfg.stochastic_rounding
+        if not self._comm_recorded:
+            self._record_comm_bytes()
+        world, n = process_count(), cfg.n_replicas
+        k = len(self.owned)
+        dev = self.params[0].device
+        sync = (torch.cuda.current_stream(dev).synchronize if dev.type == "cuda"
+                else (lambda: None))
+        sharded = [lf.param for lf in self.leaves]
+        rep = [p for p in self.params if id(p) in self._replicated_of]
+
+        # The scatter leg's staging: the last step's copies out of the
+        # buckets may still be queued, then the weighted grads go in.
+        t0 = time.perf_counter()
+        sync()
+        if weight is not None:
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.mul_(weight)  # in place, as process_mean
+            if loss is not None:
+                loss.mul_(weight)
+        big = host_bucket("zero1.big", n * lay.size)
+        for j, li, b, piece in lay.pieces(big, range(n)):
+            lf = self.leaves[li]
+            g = lf.param.grad
+            if g is None:
+                piece.zero_()
+            else:
+                s, cnt = lf.index[j][b]
+                piece.copy_(g.narrow(lf.dim, s, cnt), non_blocking=True)
+        t_scatter = time.perf_counter() - t0
+        # The small bucket: replicated grads, the sharded leaves' first
+        # elements (stochastic keys), the loss, the count.
+        t0 = time.perf_counter()
+        n_small = (sum(p.numel() for p in rep) + (len(sharded) if stoch else 0)
+                   + (loss is not None) + (weight is not None))
+        small = host_bucket("zero1.small", n_small)
+        off = 0
+        for p in rep:
+            piece = small[off:off + p.numel()].view(p.shape)
+            if p.grad is None:
+                piece.zero_()
+            else:
+                piece.copy_(p.grad, non_blocking=True)
+            off += p.numel()
+        first_at = off
+        if stoch:
+            for p in sharded:
+                small[off:off + 1].copy_(
+                    p.grad.reshape(-1)[:1] if p.grad is not None
+                    else torch.zeros(1), non_blocking=True)
+                off += 1
+        if loss is not None:
+            small[off:off + 1].copy_(loss.reshape(1), non_blocking=True)
+        if weight is not None:
+            small[-1:].copy_(torch.as_tensor(weight, dtype=torch.float32)
+                             .reshape(1), non_blocking=True)
+        sync()
+        t_small = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recv = host_bucket("zero1.recv", n * lay.size)
+        chunk = (_reduce_scatter(big, recv, world) if lay.size
+                 else recv[:k * lay.size])
+        t_scatter += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist.all_reduce(small)
+        divisor = max(float(small[-1]), 1.0) if weight is not None else float(world)
+        off = 0
+        for p in rep:
+            if p.grad is not None:
+                p.grad.copy_(small[off:off + p.numel()].view(p.shape),
+                             non_blocking=True)
+                p.grad.div_(divisor)
+            off += p.numel()
+        firsts: List[Optional[int]] = [None] * len(sharded)
+        if stoch:
+            for li, p in enumerate(sharded):
+                if p.grad is not None:
+                    # The reduced element as the scatter leg's division
+                    # makes it, on the grad's device and in its dtype.
+                    t = small[first_at + li:first_at + li + 1].to(
+                        p.grad.device, p.grad.dtype, copy=True)
+                    firsts[li] = _bits(t.div_(divisor))
+        if loss is not None:
+            loss.copy_(small[-1 - (weight is not None)].reshape(loss.shape),
+                       non_blocking=True)
+            loss.div_(divisor)
+        t_small += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for j, li, b, piece in lay.pieces(chunk, self.owned):
+            lf = self.leaves[li]
+            if lf.param.grad is not None:
+                s, cnt = lf.index[j][b]
+                dst = lf.param.grad.narrow(lf.dim, s, cnt)
+                dst.copy_(piece, non_blocking=True)
+                dst.div_(divisor)
+        t_scatter += time.perf_counter() - t0
+
+        # The shard-local update (phase 0 on the reduced slices first).
+        for opt, j in zip(self.replicas, self.owned):
+            for li, lf in enumerate(self.leaves):
+                g = lf.param.grad
+                if g is None:
+                    for v in lf.views[j]:
+                        v.grad = None
+                    continue
+                xs = [g.narrow(lf.dim, s, cnt) for s, cnt in lf.index[j]]
+                if int8:
+                    xs = [dequantize_blockwise(q, sc, g.dtype, cfg.block)
+                          for q, sc in self.quantize_slices(lf, j, xs,
+                                                            firsts[li], 0)]
+                for v, x in zip(lf.views[j], xs):
+                    v.grad = x
+        for p in rep:
+            g = p.grad
+            if g is not None and int8 and g.dim() > 0:
+                g = self._qdq(g, self._index[id(p)], phase=0)
+            self._replicated_of[id(p)].grad = g
+        before = None
+        if int8:
+            before = {(j, li): [v.clone() for v in self.leaves[li].views[j]]
+                      for j in self.owned for li in range(len(self.leaves))}
+            before_rep = [p.detach().clone() for p in rep]
+        for opt in self._optimizers():
+            opt.step()
+
+        # The gather leg.
+        t0 = time.perf_counter()
+        if int8:
+            self._gather_int8(before, sync, m)
+            for p, b0 in zip(rep, before_rep):
+                if p.dim() == 0 or p.grad is None:
+                    continue
+                upd = self._qdq(p.detach() - b0, self._index[id(p)], phase=1)
+                p.detach().copy_(b0 + upd)
+        else:
+            for j, li, b, piece in lay.pieces(chunk, self.owned):
+                piece.copy_(self.leaves[li].views[j][b], non_blocking=True)
+            sync()
+            if lay.size:
+                _all_gather(big, chunk)
+            others = [j for j in range(n) if j not in self.owned]
+            for j, li, b, piece in lay.pieces(big, others, regions=others):
+                self.leaves[li].views[j][b].copy_(piece, non_blocking=True)
+            m.incr("mh.gather_bytes", float(chunk.numel() * 4))
+        m.add_time("mh.gather", time.perf_counter() - t0)
+        m.add_time("mh.scatter", t_scatter)
+        m.incr("mh.scatter_bytes", float(big.numel() * 4))
+        m.add_time("mh.allreduce", t_small)
+        m.incr("mh.allreduce_bytes", float(small.numel() * 4))
+        return loss
+
+    def _gather_int8(self, before: Dict[Tuple[int, int], List[torch.Tensor]],
+                     sync: Any, m: Any) -> None:
+        """The int8 gather leg: the owned update slices quantize (phase 1)
+        into a byte bucket of payloads and scales, one all-gather moves
+        every replica's, and each process applies ``before + update``."""
+        import torch.distributed as dist
+
+        from ddl_tpu_torch.parallel.collectives import (
+            dequantize_blockwise,
+            host_bucket,
+        )
+
+        cfg, lay = self.cfg, self.layout
+        n = cfg.n_replicas
+        region, _ = lay.quantized(cfg.block)
+        k = len(self.owned)
+        bits: List[Optional[int]] = [None] * len(self.leaves)
+        if cfg.stochastic_rounding:
+            # The phase-1 keys fold the update's first element, which only
+            # replica 0's owner holds: it broadcasts the bits.
+            vec = torch.zeros(len(self.leaves), dtype=torch.int32)
+            if 0 in self.owned:
+                for li, lf in enumerate(self.leaves):
+                    vec[li] = _bits(lf.views[0][0] - before[(0, li)][0])
+            dist.broadcast(vec, src=int(self.cfg.mesh.processes.reshape(
+                n, -1)[0, 0]))
+            bits = vec.tolist()
+        send = host_bucket("zero1.qsend", k * region, torch.uint8)
+        recv = host_bucket("zero1.qrecv", n * region, torch.uint8)
+        qs = {}
+        for j in self.owned:
+            for li, lf in enumerate(self.leaves):
+                xs = [v - b for v, b in zip(lf.views[j], before[(j, li)])]
+                qs[(j, li)] = self.quantize_slices(lf, j, xs, bits[li], 1)
+        for j, li, b, scales, payload in lay.qpieces(send, cfg.block, self.owned):
+            q, s = qs[(j, li)][b]
+            scales.copy_(s, non_blocking=True)
+            payload.copy_(q, non_blocking=True)
+        sync()
+        if region:
+            _all_gather(recv, send)
+        for j, li, b, scales, payload in lay.qpieces(recv, cfg.block, range(n)):
+            lf = self.leaves[li]
+            v = lf.views[j][b]
+            q = payload.to(v.device, non_blocking=True)
+            s = scales.to(v.device, non_blocking=True)
+            upd = dequantize_blockwise(q, s, v.dtype, cfg.block)
+            base = before[(j, li)][b] if j in self.owned else v
+            v.copy_(base + upd)
+        m.incr("mh.gather_bytes", float(send.numel()))
+
     # -- observability ----------------------------------------------------
 
     def _record_state_bytes(self) -> None:
         from ddl_tpu_torch.observability import metrics as default_metrics
 
         m = default_metrics()
-        m.set_gauge("opt.state_bytes_total", float(sum(
-            _nbytes(t) for t in _state_tensors(self))))
+        local = float(sum(_nbytes(t) for t in _state_tensors(self)))
+        total = local
+        if self.spans_processes:
+            whole = float(sum(_nbytes(t) for t in _state_tensors(self.whole))
+                          if self.whole is not None else 0)
+            total = (local - whole) * self.cfg.n_replicas / len(self.owned) + whole
+            m.set_gauge("opt.state_bytes_local", local)
+        m.set_gauge("opt.state_bytes_total", total)
         m.set_gauge("opt.state_bytes_per_replica",
                     float(state_bytes_per_replica(self, self.cfg.axis)))
 

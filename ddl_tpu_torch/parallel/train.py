@@ -37,8 +37,14 @@ mean over equal row blocks; a loss that is not a masked sum over a count
 (a square of means) cannot be split across processes without gathering
 the batch.  The JAX package's multihost legs train ``cross_entropy``
 losses only.  With ``accum_steps > 1`` the processes' means of
-microbatch means are averaged.  ZeRO-1 and int8 gradient communication
-over such a dp raise ``NotImplementedError`` (ROADMAP.md A5d).
+microbatch means are averaged.  ``grad_comm="int8"`` over such a dp
+quantizes the reduced grads, as the JAX package does after GSPMD's sum;
+``optimizer_sharding="zero1"`` replaces the bucket with the sharded
+optimizer's own legs under the same weighting: a reduce-scatter of the
+grads, the update of the replicas this process owns, an all-gather of
+the updated slices (of their int8 payloads and scales under
+``grad_comm="int8"``) —
+:meth:`~ddl_tpu_torch.parallel.optimizer.Zero1Optimizer.reduce_step`.
 """
 
 from __future__ import annotations
@@ -117,13 +123,6 @@ def _maybe_shard_optimizer(optimizer: Any, mesh: Any, param_spec_tree: Any,
         return optimizer
     if optimizer_sharding == "none" and grad_comm == "fp32":
         return optimizer
-    if mesh is not None and mesh.spans_processes:
-        raise NotImplementedError(
-            f"optimizer_sharding={optimizer_sharding!r} / grad_comm="
-            f"{grad_comm!r} over a dp axis that spans processes: the "
-            "cross-process sum is one fp32 bucket over gloo so far "
-            "(ROADMAP.md A5d)"
-        )
     if optimizer_sharding == "zero1" and mesh is None:
         raise ValueError("optimizer_sharding='zero1' needs a mesh")
     return ShardedOptimizer(
@@ -167,7 +166,8 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
     equal microbatches, averages their grads and applies ONE update.
     Over a mesh that spans processes the grads and the loss cross the
     group before the update in one bucket, weighted by the step's
-    ``cross_entropy`` count (the module docstring's rule)."""
+    ``cross_entropy`` count (the module docstring's rule); a ZeRO-1
+    optimizer over those processes moves them in its own legs."""
     across = mesh is not None and mesh.spans_processes
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -211,6 +211,10 @@ def _make_apply_step(loss_fn: Callable[..., torch.Tensor],
         loss = loss.detach()
         if across:
             from ddl_tpu_torch.observability import metrics as _metrics
+
+            if getattr(opt, "spans_processes", False):
+                opt.reduce_step(loss, weight=weight, metrics=_metrics())
+                return loss
             from ddl_tpu_torch.parallel.collectives import process_mean
 
             leaves = tree_leaves(state.params)

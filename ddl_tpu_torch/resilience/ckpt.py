@@ -184,12 +184,10 @@ def _sorted_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def _adam_state(state: TrainState) -> Tuple[List[torch.Tensor], int]:
-    """The params in the JAX package's order and the optimizer's step
-    count, checking that the optimizer keeps optax's Adam layout."""
-    opt = state.optimizer
-    # A ZeRO-1 optimizer (parallel.optimizer.Zero1Optimizer) keeps each
-    # leaf's moments whole, its replicas' slices views of them.
+def _check_adam(opt: Any) -> None:
+    """Generations carry optax's Adam layout: the optimizer must keep it."""
+    # A ZeRO-1 optimizer (parallel.optimizer.Zero1Optimizer) gives each
+    # leaf's moments whole (gathered to rank 0 over processes).
     sharded = hasattr(opt, "load_leaf_state")
     if (not opt.is_adam) if sharded else (
         not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)) or any(
@@ -198,8 +196,12 @@ def _adam_state(state: TrainState) -> Tuple[List[torch.Tensor], int]:
             "generations carry Adam/AdamW state (optax's count/mu/nu "
             f"layout); got {type(opt).__name__}"
         )
+
+
+def _adam_state(state: TrainState, held: Any) -> Tuple[List[torch.Tensor], int]:
+    """The params in the JAX package's order and the optimizer's step
+    count, from ``held`` (each param's whole state)."""
     params = _sorted_leaves(state.params)
-    held = opt.state
     steps = {float(held[p]["step"]) for p in params if held.get(p)}
     if len(steps) > 1:
         raise CheckpointError(f"params at different optimizer steps {steps}")
@@ -213,13 +215,21 @@ def _moment(held: Any, p: torch.Tensor, key: str) -> torch.Tensor:
     return torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
-def train_state_leaves(state: TrainState) -> List[Any]:
+def train_state_leaves(state: TrainState) -> Optional[List[Any]]:
     """The state's leaves in the JAX package's generation order: the
     int32 ``count`` (a numpy scalar), then every param's ``exp_avg``
     (optax's ``mu``), every ``exp_avg_sq`` (``nu``), and the params —
-    each in sorted-key tree order.  Tensors stay where they live."""
-    params, count = _adam_state(state)
-    held = state.optimizer.state
+    each in sorted-key tree order.  Tensors stay where they live, except
+    the moments of a ZeRO-1 optimizer over processes: every rank must
+    call this, their slices are gathered to rank 0 on the host, and the
+    other ranks get None."""
+    opt = state.optimizer
+    _check_adam(opt)
+    whole = getattr(opt, "whole_state", None)
+    held = whole() if whole is not None else opt.state
+    if held is None:
+        return None
+    params, count = _adam_state(state, held)
     return (
         [np.asarray(count, dtype=np.int32)]
         + [_moment(held, p, "exp_avg") for p in params]
@@ -322,8 +332,9 @@ def restore_latest(
             )
         return None
     step, path = found
-    params, _ = _adam_state(like)
     opt = like.optimizer
+    _check_adam(opt)
+    params = _sorted_leaves(like.params)
     # count, then mu, nu and the params, each shaped as its param.
     like_metas = ([((), np.dtype(np.int32))]
                   + [_leaf_meta(p) for p in params] * 3)
@@ -393,7 +404,10 @@ class AsyncCheckpointer:
     MULTIHOST (several processes of an initialised group on one shared
     ``directory``): the state is replicated, so only rank 0 snapshots and
     writes; :meth:`flush` ends at a barrier of every rank, after which the
-    generation is live for all of them to restore."""
+    generation is live for all of them to restore.  A ZeRO-1 optimizer
+    over the processes keeps only its slices of the moments: every rank
+    calls :meth:`submit`, which gathers them to rank 0 first, and a
+    restore loads each process's slices of the whole moments."""
 
     #: Idle seconds after which the parked writer thread exits.
     _IDLE_EXIT_S = 5.0
@@ -467,10 +481,12 @@ class AsyncCheckpointer:
             raise CheckpointError("checkpointer is closed")
         from ddl_tpu_torch.parallel.mesh import process_rank
 
-        if process_rank() != 0:
-            return True  # rank 0 writes the replicated generation
         t0 = time.perf_counter()
+        # Every rank: a ZeRO-1 optimizer over the processes gathers its
+        # moment slices to rank 0 here.  Rank 0 writes the generation.
         leaves = train_state_leaves(state)
+        if process_rank() != 0:
+            return True
         metas = [_leaf_meta(leaf) for leaf in leaves]
         bufs = self._acquire_buffers(metas, block=block, timeout_s=timeout_s)
         if bufs is None:

@@ -853,7 +853,10 @@ class TestElasticLadder:
             assert_full_coverage_byte_identical(seen)
         finally:
             p.cache.reset_default_store()
-            monkeypatch.delenv("DDL_TORCH_CACHE_SPILL_DIR", raising=False)
+            # The adoption exported the spill dir: drop it outright (a
+            # monkeypatch.delenv here would record it and restore it at
+            # teardown, for the next test in this process to inherit).
+            os.environ.pop("DDL_TORCH_CACHE_SPILL_DIR", None)
 
     def test_windows_stream_survives_host_kill(self, armed_sanitizer):
         """The ``windows()`` stream rides the same pool seam: a mid-stream
