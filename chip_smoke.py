@@ -389,6 +389,29 @@ Run alone: ``python3 -c "import sys, tempfile; sys.path.insert(0, '.');
 import chip_smoke as c; card = c.phase_build();
 print(c.phase_tune(tempfile.mkdtemp(), card))"``.
 
+Phase 18 is the port's entry points on the card.  (a) Sampled KV-cache
+decode at phase 8's widths from fresh seed-0 params: greedy, then
+temperature 0.8 with top_k 8 and top_p 0.9 under two seeded CUDA
+generators, then top_k 1; each sampled token must lie in the filtered
+support of the no-cache forward's logits at its step (K1, its launches
+counted; a token outside within bf16 tolerance of the support's edge is
+reported, not failed), the cached logits within ``BF16_LOGIT_ATOL`` of
+the no-cache ones, top_k 1 equal to greedy, the two seeds different; it
+prints the ms a token.  (b) ``measure_h2d_bandwidth()`` on cuda:0 (finite
+and positive).  (c) ``DeviceIngestor.put`` of three columns of a pinned
+ring slot, staged and inline, the slot overwritten as soon as ``put``
+returns: the landed columns equal the host's.  (d) ``Trainer.evaluate``
+over phase 11's ``{"dp": 4}`` positions of cuda:0: every window lands
+sharded (1/4 of the rows a position) and the loss equals the same
+evaluate landed whole within rtol 1e-5.  (e) ``examples/
+generate_torch.py``, ``run_ddl_torch.py`` (THREAD, then PROCESS, device
+output) and ``global_shuffle_torch.py`` as subprocesses, each exiting 0
+with its pass line; ``train_vit_torch.py`` needs Pillow and runs only
+where it is installed (the line says which).  Run alone: ``python3 -c
+"import sys, tempfile; sys.path.insert(0, '.'); import chip_smoke as c;
+card = c.phase_build(); print(c.phase_entry(tempfile.mkdtemp(),
+card))"``.
+
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
 ring of (a); ``multihost_launches`` from phase 12's two processes and
@@ -399,7 +422,7 @@ from phase 14's MoE fits, K1-K3 with ``vit_launches`` and the
 phase 15's five ladder fits, ``serve_launches`` from phase 16's two
 concurrent jobs and autoscaled fit and ``tune_launches`` from phase
 17's tuned fit, and K9 with ``tune_launches`` from phase 17's raw
-drain), the
+drain; every row with ``entry_launches`` from phase 18 (a) and (d)), the
 card's ``name, power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line.  Imports nothing of JAX or of the JAX package.
@@ -8380,6 +8403,361 @@ def phase_tune(tmpdir, card):
             "decisions": [d.as_dict() for d in decisions]}
 
 
+# ------------------------------------------------------------ phase 18 ---
+
+#: Phase 18's sampled decode: phase 8's model (Llama-3-8B widths at
+#: ``TRAIN["n_layers"]``), a prompt of ``prompt`` seeded tokens, the
+#: sampling knobs of ``examples/generate_torch.py``'s nucleus call.
+ENTRY = dict(prompt=16, new_tokens=16, temperature=0.8, top_k=8, top_p=0.9,
+             seeds=(42, 43), eval_epochs=2, h2d_bytes=1 << 26)
+#: The twins phase 18 (e) runs on the card: (script, arguments, the text
+#: its last line must hold).
+ENTRY_TWINS = (
+    ("generate_torch.py", (), "OK"),
+    ("run_ddl_torch.py", ("thread", "--output", "device"),
+     "(device output): OK"),
+    ("run_ddl_torch.py", ("process", "--output", "device"),
+     "(device output): OK"),
+    ("global_shuffle_torch.py", (), "PASS"),
+)
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch count, by its row name."""
+    from ddl_tpu_torch.ops import device_shuffle as ds
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.ops import ici_fanout
+
+    fns = fa.KERNELS + ici_fanout.KERNELS + (ds.exchange_ring,)
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def entry_decode(card):
+    """(a) Sampled KV-cache decode at full width: greedy, then
+    temperature + top-k + top-p under two seeded generators, then top_k=1;
+    each sampled token held to the filtered support of the no-cache
+    forward's logits at its step (through K1), the cached logits to the
+    no-cache ones."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+
+    e, tr = ENTRY, TRAIN
+    P, new, T = e["prompt"], e["new_tokens"], e["temperature"]
+    model = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                n_layers=tr["n_layers"])
+    params = llama.init_params(model, seed=SEED, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, model.vocab, (1, P), dtype=np.int64)).cuda()
+    faults = []
+
+    def gen(seed, **kw):
+        g = torch.Generator("cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = llama.generate(params, prompt, model, max_new_tokens=new,
+                             temperature=T, generator=g, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def cached_steps(seq):
+        """The cached logits that picked each new token of ``seq``."""
+        cache = llama.init_cache(model, 1, P + new, device="cuda")
+        logits, cache = llama.forward_with_cache(
+            params, seq[:, :P], model, cache, 0, last_only=True)
+        steps = [logits[:, 0]]
+        for pos in range(P, P + new - 1):
+            step, cache = llama.forward_with_cache(
+                params, seq[:, pos:pos + 1], model, cache, pos)
+            steps.append(step[:, 0])
+        return steps
+
+    with torch.no_grad():
+        # Warm-up: the first calls of the decode shapes and of the
+        # sampling filter.
+        llama.generate(params, prompt, model, max_new_tokens=2)
+        gen(0, top_k=e["top_k"], top_p=e["top_p"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy = llama.generate(params, prompt, model, max_new_tokens=new)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        knobs = dict(top_k=e["top_k"], top_p=e["top_p"])
+        sampled, sampled_s = gen(e["seeds"][0], **knobs)
+        other, _ = gen(e["seeds"][1], **knobs)
+        top1, _ = gen(e["seeds"][0], top_k=1)
+
+        # top_k=1 keeps only the largest logit, so it decodes as greedy
+        # does.  The logits are bf16 products: where two tie at the
+        # maximum, argmax takes the first and the sampler either, and the
+        # sequences part there.  Each top_k=1 token must be a maximum of
+        # the cached logits that picked it; up to the first tie on the
+        # greedy path, the two sequences are equal.
+        top1_steps = cached_steps(top1)
+        not_max = [i for i, lg in enumerate(top1_steps)
+                   if float(lg[0, int(top1[0, P + i])]) != float(lg.max())]
+        greedy_steps = cached_steps(greedy)
+        ties = [i for i, lg in enumerate(greedy_steps)
+                if int((lg[0] == lg.max()).sum()) > 1]
+        agree_to = ties[0] if ties else new
+        top1_ok = not not_max and torch.equal(top1[:, :P + agree_to],
+                                              greedy[:, :P + agree_to])
+        del top1_steps, greedy_steps
+
+        # The cached logits of the sampled sequence, step by step, and
+        # the no-cache forward of each prefix (K1, counted alone).
+        cached = cached_steps(sampled)
+        k1 = fa.flash_fwd.launches
+        full = [llama.forward(params, sampled[:, :P + i], model)[:, -1]
+                for i in range(new)]
+        torch.cuda.synchronize()
+        k1 = fa.flash_fwd.launches - k1
+        worst, outside = 0.0, []
+        for i in range(new):
+            worst = max(worst, float((cached[i] - full[i]).abs().max()))
+            filt = llama._sample_filter(full[i].float() / T, e["top_k"],
+                                        e["top_p"])[0]
+            tok = int(sampled[0, P + i])
+            if not torch.isfinite(filt[tok]):
+                # In tempered units: how far below the support's smallest
+                # logit the token sits.
+                kept = filt[torch.isfinite(filt)]
+                outside.append((i, tok, float(kept.min() - full[i][0, tok]
+                                              .float() / T)))
+    ms_tok = sampled_s / new * 1e3
+    log(f"[entry] (a) decode at Llama-3-8B widths, {model.n_layers} layers, "
+        f"a {P}-token prompt, {new} new tokens ({card}): greedy "
+        f"{greedy_s / new * 1e3:.3f} ms a token, sampled (T={T}, top_k="
+        f"{e['top_k']}, top_p={e['top_p']}) {ms_tok:.3f} ms a token")
+    log(f"[entry] (a) sampled seed {e['seeds'][0]}: "
+        f"{sampled[0, P:].tolist()}; seed {e['seeds'][1]}: "
+        f"{other[0, P:].tolist()}")
+    log(f"[entry] (a) top_k=1: {top1[0, P:].tolist()}; greedy: "
+        f"{greedy[0, P:].tolist()}; steps where top_k=1 took no maximum of "
+        f"its logits {not_max}; ties at the maximum on the greedy path at "
+        f"steps {ties}; equal up to step {agree_to}: {top1_ok}")
+    log(f"[entry] (a) cached vs no-cache logits max abs diff {worst:.4f} "
+        f"(tol {BF16_LOGIT_ATOL}); tokens outside the no-cache forward's "
+        f"filtered support {outside} (step, token, tempered gap; tol "
+        f"{BF16_LOGIT_ATOL / T:.4f}); K1 launches over the {new} no-cache "
+        f"forwards {k1} (expected {model.n_layers * new})")
+    if worst > BF16_LOGIT_ATOL:
+        faults.append(f"cached logits off by {worst}")
+    if any(gap > BF16_LOGIT_ATOL / T for _, _, gap in outside):
+        faults.append(f"sampled tokens outside the support: {outside}")
+    if k1 != model.n_layers * new:
+        faults.append(f"K1 launched {k1} times over the no-cache forwards")
+    if not top1_ok:
+        faults.append(f"top_k=1 sampling: no maximum at steps {not_max}, "
+                      f"or differs from greedy before step {agree_to}")
+    if torch.equal(sampled, other):
+        faults.append("two generator seeds sampled the same tokens")
+    if int(sampled.max()) >= model.vocab or int(sampled.min()) < 0:
+        faults.append("a sampled token outside the vocab")
+    del params, cached, full
+    return faults, {"greedy_ms_per_token": greedy_s / new * 1e3,
+                    "sampled_ms_per_token": ms_tok, "greedy_ties": ties,
+                    "decode_max_abs": worst, "outside_support": outside,
+                    "k1_no_cache": k1}
+
+
+def entry_ingest(card):
+    """(b) The host-to-card link, (c) ``DeviceIngestor.put`` out of a
+    pinned ring slot, staged and inline."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ingest import DeviceIngestor, measure_h2d_bandwidth
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.transport.ring import ThreadRing
+
+    faults = []
+    rate = measure_h2d_bandwidth(ENTRY["h2d_bytes"])
+    log(f"[entry] (b) measure_h2d_bandwidth(): {rate:.6e} bytes/s for "
+        f"{ENTRY['h2d_bytes']} bytes, pageable source, best of 3 ({card})")
+    if not (math.isfinite(rate) and rate > 0):
+        faults.append(f"h2d rate {rate}")
+    rows, cols = 4096, 512
+    # One slot for each mode: the two acquires take both.
+    ring = ThreadRing(2, rows * cols * 4, pin_memory=True)
+    put = {}
+    for staged in (True, False):
+        slot = ring.acquire_fill()
+        win = ring.slot_view(slot)[:rows * cols * 4].view(np.float32).reshape(
+            rows, cols)
+        win[...] = np.random.default_rng(SEED + staged).standard_normal(
+            (rows, cols), dtype=np.float32)
+        host = (win[:, :3].copy(), win[:, 3:cols - 1].copy(),
+                win[:, cols - 1:].copy())
+        ing = DeviceIngestor(device="cuda", staged=staged, metrics=Metrics())
+        t0 = time.perf_counter()
+        out = ing.put((win[:, :3], win[:, 3:cols - 1], win[:, cols - 1:]))
+        win[...] = -1.0  # the producer refills the slot at once
+        torch.cuda.synchronize()
+        put[staged] = time.perf_counter() - t0
+        same = all(o.is_cuda and np.array_equal(o.cpu().numpy(), h)
+                   for o, h in zip(out, host))
+        ing.close()
+        log(f"[entry] (c) put {'staged' if staged else 'inline'}: 3 columns "
+            f"of a {rows} x {cols} fp32 slot, the slot overwritten at once: "
+            f"equal to the host columns {same} ({put[staged] * 1e3:.3f} ms "
+            f"to landed, {card})")
+        if not same:
+            faults.append(f"put (staged={staged}) changed with the slot")
+    return faults, {"h2d_bytes_per_s": rate, "put_staged_ms": put[True] * 1e3,
+                    "put_inline_ms": put[False] * 1e3}
+
+
+def entry_mesh_evaluate(tmpdir, card):
+    """(d) ``Trainer.evaluate`` over phase 11's dp mesh (4 positions of
+    cuda:0) at full width: batches land sharded, the loss equals the same
+    evaluate landed whole."""
+    import torch
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel import train as ptrain
+    from ddl_tpu_torch.parallel.mesh import P, ShardedArray, make_mesh
+    from ddl_tpu_torch.readers import TokenStreamProducer
+    from ddl_tpu_torch.trainer import Trainer
+
+    tr, dp = TRAIN, MESH["dp"]
+    model = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                n_layers=tr["n_layers"])
+    params = llama.init_params(model, seed=SEED, device="cuda")
+    token_file = _token_file(tmpdir)
+    mesh = make_mesh({"dp": dp}, ["cuda:0"] * dp)
+    landed = []
+    real_global = ptrain._global
+
+    def spy(batch):
+        landed.extend(batch if isinstance(batch, (tuple, list)) else (batch,))
+        return real_global(batch)
+
+    def run(on_mesh):
+        kw = (dict(mesh=mesh, param_specs=llama.param_specs(model),
+                   batch_spec=P(("dp",))) if on_mesh else {})
+        m = mesh if on_mesh else None
+        trainer = Trainer(
+            lambda p, b: llama.next_token_loss(p, b[0], model, mesh=m),
+            ptrain.adamw(1e-5), params, device="cuda", watchdog=False,
+            metrics=Metrics(), **kw)
+        t0 = time.perf_counter()
+        got = trainer.evaluate(
+            TokenStreamProducer(token_file, tr["seq_len"], tr["window_rows"],
+                                seed=SEED + 7),
+            trainer._init_fn(params),
+            lambda p, b: llama.next_token_loss(p, b[0], model, mesh=m),
+            batch_size=tr["batch_size"], n_producers=tr["n_producers"],
+            window_stream=True, n_epochs=ENTRY["eval_epochs"])
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    whole, whole_s = run(False)
+    ptrain._global = spy
+    try:
+        sharded, sharded_s = run(True)
+    finally:
+        ptrain._global = real_global
+    rel = abs(sharded - whole) / abs(whole)
+    split = [a for a in landed if isinstance(a, ShardedArray)]
+    rows_ok = bool(split) and len(split) == len(landed) and all(
+        len(a.shards) == dp
+        and all(s.data.shape[1] * dp == a.shape[1] for s in a.shards)
+        for a in split)
+    log(f"[entry] (d) evaluate over {{'dp': {dp}}} positions of cuda:0, "
+        f"{ENTRY['eval_epochs']} windows at Llama-3-8B widths: {sharded:.6f} "
+        f"in {sharded_s:.3f} s; landed whole {whole:.6f} in {whole_s:.3f} s; "
+        f"rel gap {rel:.3e} (tol 1e-5); {len(split)} of {len(landed)} windows "
+        f"landed sharded, each position 1/{dp} of the rows: {rows_ok} ({card})")
+    faults = []
+    if not rel <= 1e-5:
+        faults.append(f"mesh evaluate {sharded} vs whole {whole}")
+    if not rows_ok:
+        faults.append(f"mesh evaluate landed {len(split)} of {len(landed)} "
+                      "windows sharded")
+    del params
+    return faults, {"eval_sharded": sharded, "eval_whole": whole,
+                    "eval_rel_gap": rel, "eval_sharded_s": sharded_s}
+
+
+def entry_twins(card):
+    """(e) The example twins as a user runs them, on the card."""
+    import importlib.util
+
+    twins = list(ENTRY_TWINS)
+    if importlib.util.find_spec("PIL") is None:
+        log("[entry] (e) examples/train_vit_torch.py skipped: it decodes PNG "
+            "shards through Pillow, which this machine lacks; it runs in "
+            "the CPU tests (tests/test_torch_example_twins.py)")
+    else:
+        twins.append(("train_vit_torch.py", (), "PASS"))
+    # All at once: each is a small run on one card, and most of its time
+    # is the interpreter and torch starting.
+    faults, took, procs = [], {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for script, args, line in twins:
+            out = open(os.path.join(tmp, f"{len(procs)}.out"), "w+")
+            procs.append((script, args, line, out, subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", script),
+                 *args], stdout=out, stderr=subprocess.STDOUT, text=True,
+                cwd=tmp)))
+        done = {}
+        while len(done) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in done and (p[4].poll() is not None
+                                      or time.perf_counter() - t0 > 300):
+                    if p[4].poll() is None:
+                        p[4].kill()
+                    done[i] = (p[4].wait(), time.perf_counter() - t0)
+            time.sleep(0.05)
+        for i, (script, args, line, out, proc) in enumerate(procs):
+            name = " ".join((script,) + args)
+            rc, took[name] = done[i]
+            out.seek(0)
+            text = out.read()
+            out.close()
+            lines = [ln for ln in text.splitlines() if ln.strip()]
+            last = lines[-1] if lines else ""
+            log(f"[entry] (e) examples/{name}: exit {rc} in {took[name]:.1f} "
+                f"s (all started together), last line {last!r}")
+            for ln in lines[-4:-1]:
+                log(f"[entry]     {ln}")
+            if rc != 0 or line not in last:
+                faults.append(f"{name} exited {rc}: {text[-800:]}")
+    return faults, took
+
+
+def phase_entry(tmpdir, card):
+    """Phase 18, the port's entry points on the card: (a) sampled decode
+    at full width, (b) the link rate, (c) ``DeviceIngestor.put``, (d) the
+    mesh ``evaluate``, (e) the example twins.  Returns the summary
+    (``launches``: every kernel's launches in (a)-(d))."""
+    t0 = time.perf_counter()
+    faults, summary, launches = [], {}, {}
+    for part in (entry_decode, entry_ingest,
+                 lambda c: entry_mesh_evaluate(tmpdir, c)):
+        before = _launch_counts()
+        f, s = part(card)
+        for k, v in _launch_counts().items():
+            launches[k] = launches.get(k, 0) + v - before[k]
+        faults += f
+        summary.update(s)
+        free_device_memory()
+    f, summary["twins_s"] = entry_twins(card)
+    faults += f
+    took = time.perf_counter() - t0
+    summary.update(launches=launches, seconds=took)
+    log(f"[entry] launches in (a)-(d): {launches}; phase 18 took {took:.1f} s "
+        f"({card})")
+    if faults:
+        raise PhaseFailed("[entry] " + "; ".join(faults))
+    return summary
+
+
 def free_device_memory() -> None:
     """Drop what a finished fit left cached, so the next full-width fit
     (~43 GiB peak each) starts on an empty card."""
@@ -8470,6 +8848,8 @@ def main(argv=None) -> int:
             serve_summary = phase_serve(tmp, card)
             free_device_memory()
             tune_summary = phase_tune(tmp, card)
+            free_device_memory()
+            entry_summary = phase_entry(tmp, card)
         # Each kernel's launches come from the run of its own path; K1-K6
         # add those of the ring (phase 11) and of the two MULTIHOST
         # processes (phase 12 b), K1-K3 those of the gpipe fit (12 a).
@@ -8500,6 +8880,11 @@ def main(argv=None) -> int:
         shuffle_row["tune_launches"] = tune_summary["k9_launches"]
         kernels.append(shuffle_row)
         kernels.extend(ici_rows)
+        # Phase 18: the entry points' launches, (a) sampled decode and its
+        # no-cache forwards (K1), (d) the mesh evaluate (K1, K8).
+        for row in kernels:
+            row["entry_launches"] = entry_summary["launches"].get(
+                row["name"], 0)
         log(f"[summary-shuffle] {json.dumps(shuffle_summary)}")
         log(f"[summary-ici] {json.dumps(ici_summary)}")
         log(f"[summary] {json.dumps(summary)}")
@@ -8515,6 +8900,7 @@ def main(argv=None) -> int:
         log(f"[summary-cluster] {json.dumps(cluster_summary)}")
         log(f"[summary-serve] {json.dumps(serve_summary, default=repr)}")
         log(f"[summary-tune] {json.dumps(tune_summary, default=repr)}")
+        log(f"[summary-entry] {json.dumps(entry_summary, default=repr)}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -36,7 +36,7 @@ import logging
 import os
 import struct
 import threading
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -225,6 +225,15 @@ class CacheStore:
                 return existing
             return self._insert(digest, arr, persisted=True)
 
+    def get_or_load(
+        self, key: CacheKey, loader: Callable[[], np.ndarray]
+    ) -> np.ndarray:
+        """``get``, or on a miss fetch-decode-insert through ``loader``."""
+        arr = self.get(key)
+        if arr is None:
+            arr = self.put(key, loader())
+        return arr
+
     def contains(self, key: CacheKey) -> bool:
         """Tier membership without touching the hit/miss counters (the
         warmer's probe)."""
@@ -240,6 +249,15 @@ class CacheStore:
     def resident_bytes(self) -> int:
         with self._lock:
             return self._ram_bytes
+
+    def stats(self) -> Dict[str, float]:
+        """Point-in-time tier sizes (the counters live in ``metrics``)."""
+        with self._lock:
+            return {
+                "entries": float(len(self._ram)),
+                "resident_bytes": float(self._ram_bytes),
+                "spill_bytes": float(self._spill_bytes),
+            }
 
     def clear(self) -> None:
         """Drop the RAM tier (disk entries stay and re-verify on read)."""

@@ -64,6 +64,9 @@ class CacheWarmer:
         )
         self._thread.start()
 
+    def should_abort(self) -> bool:
+        return self._stop.is_set()
+
     @property
     def alive(self) -> bool:
         return self._thread.is_alive()

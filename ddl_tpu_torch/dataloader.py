@@ -270,6 +270,17 @@ class DistributedDataLoader:
     def n_producers(self) -> int:
         return self.connection.n_producers
 
+    @property
+    def epoch(self) -> int:
+        """Epochs (one window each) completed by ``mark(END_OF_EPOCH)``."""
+        return self._epoch
+
+    @property
+    def batches_per_window(self) -> int:
+        """Epoch length of the CURRENT target producer: with mixed window
+        sizes it changes as the rotation advances."""
+        return self._lens[self._target]
+
     def __len__(self) -> int:
         """Epoch length of the CURRENT target producer."""
         return self._lens[self._target]

@@ -41,10 +41,16 @@ class Knob:
     type: str  # "bool" | "int" | "float" | "str"
     default: Any  # typed default; None = sentinel (unset is meaningful)
     doc: str
+    #: Spawn-boundary mirror group: ``env.export_<group>_knobs`` writes
+    #: every knob carrying its group before producers start.
+    export: Optional[str] = None
     #: LoaderConfig field this knob mirrors (the DDL_TORCH_<FIELD> family).
     config_field: Optional[str] = None
     #: TrainConfig field this knob mirrors (DDL_TORCH_TRAIN_<FIELD>).
     train_field: Optional[str] = None
+    #: Read only through a computed name (the config families), not by
+    #: name at a call site.
+    external: bool = False
 
 
 _EXPLICIT: List[Knob] = [
@@ -58,13 +64,13 @@ _EXPLICIT: List[Knob] = [
          "Ring slots (window buffers) per producer.", config_field="nslots"),
     Knob("DDL_TORCH_HOST_ID", "int", None,
          "Physical host id of this consumer (env.detect_host_identity).",
-         config_field="host_id"),
+         export="cluster", config_field="host_id"),
     Knob("DDL_TORCH_N_HOSTS", "int", None,
          "Physical host count (env.detect_host_identity).",
-         config_field="n_hosts"),
+         export="cluster", config_field="n_hosts"),
     Knob("DDL_TORCH_PROCS_PER_HOST", "int", None,
          "Consumer processes per host (env.detect_host_identity).",
-         config_field="procs_per_host"),
+         export="cluster", config_field="procs_per_host"),
     # -- transport rings -------------------------------------------------
     Knob("DDL_TORCH_FORCE_PY_RING", "bool", False,
          "Force the pure-Python ring even where the native shm ring "
@@ -98,20 +104,20 @@ _EXPLICIT: List[Knob] = [
          "synchronous loop everywhere)."),
     # -- shard cache (cache/) ---------------------------------------------
     Knob("DDL_TORCH_CACHE", "bool", False, "Shard cache gate.",
-         config_field="cache"),
+         export="cache", config_field="cache"),
     Knob("DDL_TORCH_CACHE_RAM_MB", "int", 256, "RAM tier budget, MiB.",
-         config_field="cache_ram_mb"),
+         export="cache", config_field="cache_ram_mb"),
     Knob("DDL_TORCH_CACHE_SPILL_DIR", "str", None,
          "Disk spill directory (unset = RAM tier only).",
-         config_field="cache_spill_dir"),
+         export="cache", config_field="cache_spill_dir"),
     Knob("DDL_TORCH_CACHE_SPILL_MB", "int", 1024, "Disk spill budget, MiB.",
-         config_field="cache_spill_mb"),
+         export="cache", config_field="cache_spill_mb"),
     Knob("DDL_TORCH_CACHE_WARM", "bool", True,
          "Background warmer thread prefetching the shard schedule.",
-         config_field="cache_warm"),
+         export="cache", config_field="cache_warm"),
     Knob("DDL_TORCH_CACHE_CODEC", "str", None,
          "Lossless codec for spilled cache entries.",
-         config_field="cache_codec"),
+         export="cache", config_field="cache_codec"),
     Knob("DDL_TORCH_CACHE_RETRIES", "int", 3,
          "Backend fetch retries before IntegrityError."),
     Knob("DDL_TORCH_CACHE_BACKOFF_S", "float", 0.05,
@@ -122,16 +128,20 @@ _EXPLICIT: List[Knob] = [
     # -- wire format (ROADMAP.md A3) -------------------------------------
     Knob("DDL_TORCH_WIRE_DTYPE", "str", None,
          "Wire transport override: raw = kill switch, bf16/int8 = force "
-         "the lossy tier.", config_field="wire_dtype"),
+         "the lossy tier.", export="wire", config_field="wire_dtype"),
     Knob("DDL_TORCH_WIRE_CODEC", "str", None,
          "Lossless wire codec for the shuffle exchange + shard reads.",
-         config_field="wire_codec"),
+         export="wire", config_field="wire_codec"),
     # -- global shuffle --------------------------------------------------
     Knob("DDL_TORCH_DEVICE_SHUFFLE", "str", "auto",
          "Device-tier exchange gate: auto = engage when plannable "
          "(THREAD topology, raw wire, in-process fabric), 0/off/false = "
          "host exchange only.",
-         config_field="device_shuffle"),
+         export="shuffle", config_field="device_shuffle"),
+    Knob("DDL_TORCH_SHUFFLE_IMPL", "str", "ring",
+         "Device exchange implementation: ring = the K9 kernel's rounds, "
+         "xla = the plain all-to-all route.",
+         export="shuffle", config_field="shuffle_impl"),
     # -- resilience ------------------------------------------------------
     Knob("DDL_TORCH_CKPT_ASYNC", "bool", True,
          "AsyncCheckpointer (D2H-only stall) vs synchronous writes."),
@@ -323,7 +333,7 @@ def _build_registry() -> Dict[str, Knob]:
             if name not in reg:
                 reg[name] = Knob(name, _annot_type(f.type), f.default,
                                  f"{cls.__name__}.{f.name} (see config.py).",
-                                 **{field_attr: f.name})
+                                 external=True, **{field_attr: f.name})
     return reg
 
 
@@ -367,3 +377,79 @@ def flag(name: str, override: Optional[bool] = None) -> bool:
     """Boolean read: truthy unless ``0``/``off``/``false``
     (case-insensitive)."""
     return bool(get(name, override))
+
+
+def export_group(group: str) -> List[Knob]:
+    """Registered knobs an ``env.export_<group>_knobs`` mirror must
+    cover."""
+    return [k for k in REGISTRY.values() if k.export == group]
+
+
+def validate() -> None:
+    """Cross-check the entries that mirror a config field against the
+    config dataclasses: the field exists, the knob's name is the one the
+    layered loader reads, and the defaults agree (a sentinel knob,
+    default None, may stand for a config sentinel: -1, 0, "" or None).
+    Raises ``AssertionError`` on drift; called by the tests, not at
+    import."""
+    for cls, attr in ((LoaderConfig, "config_field"),
+                      (TrainConfig, "train_field")):
+        by_name = {f.name: f for f in dataclasses.fields(cls)}
+        for knob in REGISTRY.values():
+            fname = getattr(knob, attr)
+            if fname is None:
+                continue
+            if fname not in by_name:
+                raise AssertionError(
+                    f"{knob.name} names unknown {cls.__name__} field "
+                    f"{fname!r}"
+                )
+            f = by_name[fname]
+            expect = cls._ENV_PREFIX + fname.upper()
+            if knob.name != expect:
+                raise AssertionError(
+                    f"{knob.name} mirrors {cls.__name__}.{fname} but the "
+                    f"layered loader reads {expect}"
+                )
+            if knob.default is not None and knob.default != f.default:
+                if not (f.default in (-1, 0, "", None)
+                        and knob.default is None):
+                    raise AssertionError(
+                        f"{knob.name} default {knob.default!r} != "
+                        f"{cls.__name__}.{fname} default {f.default!r}"
+                    )
+
+
+def render_table() -> str:
+    """The knob table in Markdown, generated from the registry
+    (``python -m ddl_tpu_torch.envspec``)."""
+    lines = [
+        "# Environment knobs",
+        "",
+        "Generated from `ddl_tpu_torch/envspec.py` "
+        "(`python -m ddl_tpu_torch.envspec`).  Precedence everywhere: "
+        "explicit config/kwargs win over the environment, which wins over "
+        "the registered default.",
+        "",
+        "| Knob | Type | Default | Export mirror | Description |",
+        "|---|---|---|---|---|",
+    ]
+    for name in sorted(REGISTRY):
+        k = REGISTRY[name]
+        default = "*(unset)*" if k.default is None else repr(k.default)
+        export = f"`export_{k.export}_knobs`" if k.export else ""
+        doc = k.doc.replace("|", "\\|")  # literal pipes break the table
+        lines.append(
+            f"| `{k.name}` | {k.type} | {default} | {export} | {doc} |"
+        )
+    lines.append("")
+    lines.append(
+        f"{len(REGISTRY)} registered knobs "
+        "(config-derived families included)."
+    )
+    lines.append("")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":  # pragma: no cover - doc generator
+    print(render_table(), end="")

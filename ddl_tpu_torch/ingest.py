@@ -330,6 +330,48 @@ class DeviceIngestor:
         self.metrics.add_time("ingest.stage_copy", time.perf_counter() - t0)
         return buf
 
+    def _fresh(self, arr: np.ndarray) -> Any:
+        """A fresh copy of ``arr`` to transfer from: page-locked on CUDA
+        (so the copy to the card can run asynchronously)."""
+        if self._stream is None:
+            return np.array(arr, copy=True)
+        tdtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        src = torch.empty(arr.shape, dtype=tdtype, pin_memory=True)
+        src.numpy()[...] = arr
+        return src
+
+    def put(self, cols: Sequence[np.ndarray]) -> Tuple[Any, ...]:
+        """Transfer a tuple of column arrays; returns device tensors (or
+        :class:`ShardedArray` s over ``sharding``).
+
+        Each column is copied out of its (possibly slot-backed) memory
+        before its transfer, so the producer may overwrite the slot as
+        soon as this returns: into a recycled pool buffer when
+        :attr:`batch_staged` (the buffer returns to the pool once the
+        transfer's event has fired), else into fresh memory.  The
+        transfers run on the current stream."""
+        from ddl_tpu_torch.profiling import annotate
+
+        with annotate("ddl.ingest_put"):
+            if self.batch_staged:
+                pool = self.engine().pool
+                cur = (torch.cuda.current_stream(self.device)
+                       if self._stream is not None else None)
+                out = []
+                for c in cols:
+                    buf = self._stage(c)
+                    transfer = self._put(buf, stream=cur)
+                    pool.recycle_when_ready(buf, transfer)
+                    out.append(transfer.value)
+                out = tuple(out)
+                pool.sweep()
+            else:
+                out = tuple(self._transfer(self._fresh(c)) for c in cols)
+        self.metrics.incr("ingest.bytes",
+                          float(sum(int(c.nbytes) for c in cols)))
+        self.metrics.incr("ingest.batches")
+        return out
+
     def put_batch(
         self, batch: np.ndarray, splits: Sequence[int]
     ) -> Tuple[Any, ...]:
@@ -349,11 +391,7 @@ class DeviceIngestor:
             pool.sweep()
             dev = transfer.value
         else:
-            src = batch
-            if self._stream is not None:
-                tdtype = torch.from_numpy(np.empty(0, batch.dtype)).dtype
-                src = torch.empty(batch.shape, dtype=tdtype, pin_memory=True)
-                src.numpy()[...] = batch
+            src = batch if self._stream is None else self._fresh(batch)
             dev = self._transfer(src)
         self.metrics.incr("ingest.bytes", float(batch.nbytes))
         self.metrics.incr("ingest.batches")
@@ -372,6 +410,34 @@ class DeviceIngestor:
             return Transfer(_device_split(t.value, splits), t.done), t
 
         return transfer
+
+
+def measure_h2d_bandwidth(nbytes: int = 1 << 26, device: Any = None,
+                          trials: int = 3) -> float:
+    """Measured host-to-device link rate in bytes/s: the denominator of
+    :func:`north_star_report`'s ``bandwidth_utilization``.
+
+    A pageable numpy buffer of ``nbytes``, one warm-up copy, then the
+    best of ``trials`` timed ``torch.from_numpy(buf).to(device)`` copies,
+    each closed by a synchronize.  ``device=None`` is ``cuda:0`` and
+    raises without a card; ``device="cpu"`` times the host copy."""
+    dev = resolve_device("cuda:0" if device is None else device)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    buf = np.ones(nbytes, np.uint8)
+    torch.from_numpy(buf).to(dev)  # warm-up
+    sync()
+    best = 0.0
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        out = torch.from_numpy(buf).to(dev)
+        sync()
+        best = max(best, nbytes / (time.perf_counter() - t0))
+        del out
+    return best
 
 
 def north_star_report(metrics: Optional[Metrics] = None,

@@ -87,6 +87,19 @@ class LlamaConfig:
             n_kv_heads=8, d_ff=14336, max_seq=8192,
         )
 
+    @staticmethod
+    def llama_4b() -> "LlamaConfig":
+        """~4.6B params at the 8B config's layer shape (20 layers, a
+        32768 vocab): the JAX package's ZeRO-1 accounting geometry."""
+        return LlamaConfig(
+            vocab=32768, d_model=4096, n_layers=20, n_heads=32,
+            n_kv_heads=8, d_ff=14336, max_seq=4096,
+        )
+
+    @staticmethod
+    def tiny() -> "LlamaConfig":
+        return LlamaConfig()
+
 
 def _layer_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
     d, hd = cfg.d_model, cfg.head_dim

@@ -258,6 +258,13 @@ def _resolve(device: Any, mesh: Any) -> torch.device:
     return dev
 
 
+def _spec_tree(param_specs: Any, param_spec_tree: Any) -> Any:
+    """The params' spec tree under either of its two names."""
+    if param_specs is not None and param_spec_tree is not None:
+        raise ValueError("pass param_specs or param_spec_tree, not both")
+    return param_specs if param_specs is not None else param_spec_tree
+
+
 def make_train_step(
     loss_fn: Callable[..., torch.Tensor],
     optimizer: Callable[..., Any],
@@ -270,6 +277,7 @@ def make_train_step(
     grad_comm: str = "fp32",
     stochastic_rounding: bool = False,
     grad_comm_block: int = 0,
+    param_spec_tree: Any = None,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Any]]:
     """Build ``(init_fn, step_fn)`` for a training loop.
 
@@ -287,6 +295,8 @@ def make_train_step(
     ``stochastic_rounding`` / ``grad_comm_block`` mirror
     :class:`ddl_tpu_torch.config.TrainConfig`'s fields.  ``device`` may be
     left out (the mesh's) or must name the mesh's device.
+    ``param_spec_tree`` is the JAX package's name of ``param_specs``:
+    pass one or the other.
 
     Over a mesh whose ``dp`` spans processes, a loss that makes one
     :func:`~ddl_tpu_torch.models.losses.cross_entropy` call gives the
@@ -298,7 +308,8 @@ def make_train_step(
     """
     dev = _resolve(device, mesh)
     optimizer = _maybe_shard_optimizer(
-        optimizer, mesh, param_specs, optimizer_sharding, grad_comm,
+        optimizer, mesh, _spec_tree(param_specs, param_spec_tree),
+        optimizer_sharding, grad_comm,
         stochastic_rounding, grad_comm_block,
     )
     apply_step = _make_apply_step(loss_fn, accum_steps,
@@ -324,6 +335,7 @@ def make_multistep(
     grad_comm: str = "fp32",
     stochastic_rounding: bool = False,
     grad_comm_block: int = 0,
+    param_spec_tree: Any = None,
 ) -> Tuple[Callable[..., TrainState], Callable[..., Any]]:
     """Like :func:`make_train_step`, but each call runs ``n_steps``
     optimizer steps.  ``multi_step_fn(state, batch, per_step=False) ->
@@ -333,7 +345,8 @@ def make_multistep(
     knobs wrap the optimizer once, for the init path and every step."""
     dev = _resolve(device, mesh)
     optimizer = _maybe_shard_optimizer(
-        optimizer, mesh, param_specs, optimizer_sharding, grad_comm,
+        optimizer, mesh, _spec_tree(param_specs, param_spec_tree),
+        optimizer_sharding, grad_comm,
         stochastic_rounding, grad_comm_block,
     )
     apply_step = _make_apply_step(loss_fn, accum_steps,

@@ -1021,10 +1021,12 @@ class DeviceExchangeShuffler(ThreadExchangeShuffler):
     def factory(cls, rendezvous: Any = None,
                 fabric: Optional[DeviceExchangeFabric] = None,
                 device_shuffle: Optional[str] = None,
+                shuffle_impl: Optional[str] = None,
                 **kwargs: Any) -> "DeviceExchangeShufflerFactory":
         return DeviceExchangeShufflerFactory(
             rendezvous=rendezvous, fabric=fabric,
-            device_shuffle=device_shuffle, **kwargs,
+            device_shuffle=device_shuffle, shuffle_impl=shuffle_impl,
+            **kwargs,
         )
 
 

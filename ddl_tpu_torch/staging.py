@@ -71,6 +71,25 @@ from ddl_tpu_torch.utils import value_ready, wait_value
 
 logger = logging.getLogger("ddl_tpu_torch")
 
+# The registered defaults of the three staging knobs.  The envspec table
+# states them as literals (envspec cannot import this module: faults and
+# obs read envspec while this module imports them);
+# tests/test_torch_api_surface.py holds the two equal.
+
+#: Per-(shape, dtype) cap on retained free buffers
+#: (``DDL_TORCH_STAGING_POOL_CAP``): the pool bounds worst-case host
+#: memory.
+DEFAULT_POOL_CAP = 8
+
+#: Bounded executor queue depth (``DDL_TORCH_STAGING_QUEUE``):
+#: backpressure instead of unbounded host memory when producers outrun
+#: the link.
+DEFAULT_QUEUE_DEPTH = 4
+
+#: Bounded retries per staged job phase before the inline fallback
+#: (``DDL_TORCH_STAGING_RETRIES``).
+DEFAULT_MAX_RETRIES = 2
+
 #: Bounded retries' exponential backoff, base and cap: a persistently
 #: failing link must not turn each window into a minutes-long stall
 #: before the inline fallback engages.

@@ -35,6 +35,7 @@ import os
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ddl_tpu_torch import envspec
@@ -44,6 +45,16 @@ from ddl_tpu_torch.types import Marker
 from ddl_tpu_torch.utils import done_event, resolve_device, value_ready
 
 logger = logging.getLogger("ddl_tpu_torch")
+
+
+def _loader_output(output: Optional[str]) -> str:
+    """The loader's ``output`` for ``fit``/``evaluate``: None and the JAX
+    package's ``"jax"`` both mean ``"device"``."""
+    output = "device" if output in (None, "jax") else output
+    if output not in ("device", "numpy", "torch"):
+        raise ValueError(
+            f"output must be device|jax|numpy|torch, got {output!r}")
+    return output
 
 
 def _stream_splits(loader: Any) -> Tuple[int, ...]:
@@ -218,6 +229,25 @@ class Trainer:
                 else self._batch_spec)
         return {"sharding": named(self.mesh, spec)}
 
+    def _loader_kwargs(self, output: str, window_stream: bool,
+                       extra: Optional[dict] = None) -> dict:
+        """The loader's keyword arguments beyond the common ones: the
+        mesh sharding for device output (unless ``extra`` names one),
+        then ``extra``."""
+        kw = (dict(self._loader_sharding(window_stream))
+              if output == "device" else {})
+        kw.update(extra or {})
+        return kw
+
+    def _on_device(self, batch: Any, output: str) -> Any:
+        """A served batch as the step's input: device batches as they
+        are, host batches (numpy or CPU tensors, views of a ring slot)
+        copied onto the trainer's device."""
+        if output == "device":
+            return batch
+        return tuple(torch.tensor(np.asarray(c), device=self.device)
+                     for c in batch)
+
     # -- checkpoint plumbing ----------------------------------------------
 
     def _loader_ckpt_path(self) -> str:
@@ -365,6 +395,7 @@ class Trainer:
         batch_size: int,
         n_producers: Optional[int] = None,
         mode: Optional[str] = None,
+        output: Optional[str] = None,
         window_stream: bool = False,
         n_epochs: int = 1,
     ) -> float:
@@ -377,6 +408,10 @@ class Trainer:
         optimizer step runs.  ``window_stream=True`` streams each window
         whole and evaluates its batches on the card; otherwise batches
         come through the prefetcher.  Every batch weighs the same.
+        ``output`` is ``fit``'s: device batches (the default) land over
+        the mesh as ``fit``'s do (``P(*batch_spec)``, windows one axis
+        deeper) and reach ``metric_fn`` assembled; ``"numpy"`` /
+        ``"torch"`` batches are copied to the device per batch.
 
         Over a mesh whose ``dp`` spans processes (MULTIHOST), each
         process evaluates its own rows of every global batch, and every
@@ -387,7 +422,11 @@ class Trainer:
         rows.  The sums and counts cross the group in one gloo call, so
         every process must serve the same number of batches."""
         from ddl_tpu_torch import DistributedDataLoader, distributed_dataloader
+        from ddl_tpu_torch.parallel.train import _global
 
+        output = _loader_output(output)
+        if window_stream and output != "device":
+            raise ValueError("window_stream requires output='device'")
         trainer = self
 
         @distributed_dataloader(n_producers=n_producers, mode=mode,
@@ -398,9 +437,10 @@ class Trainer:
                 batch_size=batch_size,
                 connection=env.connection,
                 n_epochs=n_epochs,
-                output="device",
+                output=output,
                 device=trainer.device,
                 metrics=trainer.metrics,
+                **trainer._loader_kwargs(output, window_stream),
             )
             try:
                 with torch.no_grad():
@@ -409,8 +449,12 @@ class Trainer:
                     else:
                         vals = []
                         for _epoch in range(n_epochs):
-                            for batch in loader.prefetch():
+                            it = (loader.prefetch() if output == "device"
+                                  else loader)
+                            for batch in it:
                                 # Metrics stay on the device until the end.
+                                batch = _global(
+                                    trainer._on_device(batch, output))
                                 vals.append(_weighed(metric_fn, state.params,
                                                      batch))
                                 loader.mark(Marker.END_OF_BATCH)
@@ -423,10 +467,12 @@ class Trainer:
 
     def _eval_windows(self, loader: Any, state: Any,
                       metric_fn: Callable[[Any, Any], Any]) -> List[Any]:
+        from ddl_tpu_torch.parallel.train import _global
+
         col_splits = _stream_splits(loader)
         vals: List[Any] = []
         for win in loader.windows():
-            cols = _window_cols(win, col_splits)
+            cols = _window_cols(_global(win), col_splits)
             vals.extend(_weighed(metric_fn, state.params,
                                  tuple(c[i] for c in cols))
                         for i in range(win.shape[0]))
@@ -660,14 +706,23 @@ class Trainer:
         global_shuffle_fraction_exchange: Optional[float] = None,
         shuffler_factory: Any = None,
         window_hook: Any = None,
+        output: Optional[str] = None,
+        loader_kwargs: Optional[dict] = None,
     ) -> FitResult:
         """Run the whole producer/consumer training job.
 
         ``config`` (a :class:`ddl_tpu_torch.config.LoaderConfig`) supplies
         defaults for batch_size, n_epochs, n_producers, mode, nslots,
-        window_stream, prefetch_depth, the exchange fraction and the ring
-        timeout; explicit arguments win, and a non-default value of a
-        field the port has not ported raises ``NotImplementedError``.
+        output, window_stream, prefetch_depth, the exchange fraction, the
+        exchange method and the ring timeout; explicit arguments win
+        (``loader_kwargs`` over the config's exchange method and
+        timeout).  ``loader_kwargs`` go to the
+        :class:`DistributedDataLoader` as they are.
+
+        ``output`` is the loader's: ``"device"`` (the default; ``"jax"``,
+        the JAX package's name, means the same) lands batches on the
+        trainer's device or mesh, ``"numpy"`` / ``"torch"`` serve host
+        batches, which each step copies to the device.
         Checkpoint and watchdog knobs are Trainer constructor arguments.
         With a checkpoint in ``checkpoint_dir`` the run resumes where it
         stopped: ``FitResult.losses`` then holds this run's epochs only.  ``mode="process"`` spawns the producers (call
@@ -691,14 +746,12 @@ class Trainer:
         from ddl_tpu_torch import DistributedDataLoader, distributed_dataloader
         from ddl_tpu_torch.watchdog import Watchdog
 
-        timeout_s = 300.0
+        loader_kwargs = dict(loader_kwargs or {})
         if config is not None:
             config.check_ported()
-            if config.output != "device":
-                raise ValueError(
-                    f"Trainer.fit serves output='device', config has "
-                    f"{config.output!r}"
-                )
+            output = config.output if output is None else output
+            loader_kwargs.setdefault("exchange_method", config.exchange_method)
+            loader_kwargs.setdefault("timeout_s", config.ring_timeout_s)
             if global_shuffle_fraction_exchange is None:
                 global_shuffle_fraction_exchange = (
                     config.global_shuffle_fraction_exchange)
@@ -713,7 +766,10 @@ class Trainer:
                 window_stream = config.window_stream
             if prefetch_depth is None:
                 prefetch_depth = config.prefetch_depth
-            timeout_s = config.ring_timeout_s
+        loader_kwargs.setdefault("timeout_s", 300.0)
+        output = _loader_output(output)
+        if window_stream and output != "device":
+            raise ValueError("window_stream requires output='device'")
         if batch_size is None or n_epochs is None:
             raise ValueError(
                 "batch_size and n_epochs are required (directly or via "
@@ -756,11 +812,11 @@ class Trainer:
                 n_epochs=n_epochs,
                 global_shuffle_fraction_exchange=(
                     global_shuffle_fraction_exchange),
-                output="device",
+                output=output,
                 device=trainer.device,
                 metrics=trainer.metrics,
-                timeout_s=timeout_s,
-                **trainer._loader_sharding(bool(window_stream)),
+                **trainer._loader_kwargs(output, bool(window_stream),
+                                         loader_kwargs),
             )
             if start_epoch >= n_epochs:
                 logger.info(
@@ -803,11 +859,12 @@ class Trainer:
                     batch_losses: List[Any] = []
                     epoch_iter = (
                         loader.prefetch(prefetch_depth)
-                        if prefetch_depth > 1
+                        if output == "device" and prefetch_depth > 1
                         else loader
                     )
                     for batch in epoch_iter:
-                        state, loss = trainer._step_fn(state, batch)
+                        state, loss = trainer._step_fn(
+                            state, trainer._on_device(batch, output))
                         # Keep losses on the device: a float() here would
                         # serialize loading against compute.
                         batch_losses.append(loss)

@@ -11,6 +11,8 @@ import dataclasses
 import enum
 from typing import TYPE_CHECKING, Any, Optional, Sequence
 
+import numpy as np
+
 if TYPE_CHECKING:  # pragma: no cover
     from ddl_tpu_torch.datasetwrapper import ProducerFunctionSkeleton
 
@@ -189,6 +191,11 @@ class Topology:
                 f"{self.host_id=} out of range for {self.n_hosts=}"
             )
 
+    @property
+    def world_size(self) -> int:
+        """Total worker count: ``1 + n_producers`` per instance."""
+        return self.n_instances * (self.n_producers + 1)
+
 
 @dataclasses.dataclass
 class DDL_Env:
@@ -197,6 +204,30 @@ class DDL_Env:
     topology: Topology
     connection: Any  # ddl_tpu_torch.transport.ConsumerConnection
     workers: Any = None  # ddl_tpu_torch.env.WorkerSet
+
+    @property
+    def is_consumer(self) -> bool:
+        return True  # the decorated main only ever runs on consumers
+
+
+@dataclasses.dataclass
+class WindowSpec:
+    """Geometry of one producer's window (one ring slot payload):
+    ``shape`` is (n_data, n_values), rows are samples and the columns
+    re-split by ``splits``."""
+
+    shape: tuple[int, ...]
+    dtype: np.dtype
+    splits: tuple[int, ...]
+    batch_size: int
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape)) * np.dtype(self.dtype).itemsize
+
+    @property
+    def batches_per_window(self) -> int:
+        return int(self.shape[0]) // self.batch_size
 
 
 def normalize_splits(splits: Sequence[int] | int, n_values: int) -> tuple[int, ...]:

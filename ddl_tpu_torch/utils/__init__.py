@@ -1,12 +1,29 @@
-"""Cross-cutting utilities: callback dispatch, device resolution and the
-non-blocking completion probe (the slice's subset of ``ddl_tpu/utils``).
+"""Cross-cutting utilities: callback dispatch, call tracing, the bool
+env gate, device resolution and the non-blocking completion probe (port
+of ``ddl_tpu/utils``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import functools
+import logging
+import time
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 from ddl_tpu_torch.protocols import CALLBACK_POSITIONS
+
+logger = logging.getLogger("ddl_tpu_torch")
+
+
+def env_flag(name: str, override: Optional[bool] = None) -> bool:
+    """The boolean env gate: an explicit ``override`` wins; otherwise the
+    ``DDL_TORCH_*`` knob is truthy unless ``0``/``off``/``false``
+    (case-insensitive).  An unregistered name raises
+    ``envspec.UnknownKnobError``."""
+    # Lazy: utils is imported everywhere, envspec pulls in config.
+    from ddl_tpu_torch import envspec
+
+    return envspec.flag(name, override)
 
 
 def execute_callbacks(
@@ -27,6 +44,61 @@ def execute_callbacks(
         if ret is not None:
             result = ret
     return result
+
+
+def with_logging(
+    fn: Callable[..., Any] | None = None, *, tag: str = ""
+) -> Callable[..., Any]:
+    """Debug-trace a callable: entry with its arguments, exit with its
+    result or exception and the duration.  Below DEBUG the wrapper only
+    passes the call through."""
+
+    def deco(f: Callable[..., Any]) -> Callable[..., Any]:
+        qual = f"{tag}{f.__qualname__}"
+
+        @functools.wraps(f)
+        def wrapper(*args: Any, **kwargs: Any) -> Any:
+            if not logger.isEnabledFor(logging.DEBUG):
+                return f(*args, **kwargs)
+            t0 = time.perf_counter()
+            logger.debug("-> %s args=%r kwargs=%r", qual, args[1:], kwargs)
+            try:
+                ret = f(*args, **kwargs)
+            except BaseException as e:
+                logger.debug(
+                    "!! %s raised %r after %.3fms",
+                    qual, e, (time.perf_counter() - t0) * 1e3,
+                )
+                raise
+            logger.debug(
+                "<- %s = %r (%.3fms)", qual, ret,
+                (time.perf_counter() - t0) * 1e3,
+            )
+            return ret
+
+        return wrapper
+
+    if fn is not None:
+        return deco(fn)
+    return deco
+
+
+def for_all_methods(
+    decorator: Callable[..., Any], exclude: Iterable[str] = ()
+) -> Callable[[type], type]:
+    """Class decorator applying ``decorator`` to every method the class
+    defines, except dunders and the names in ``exclude``."""
+    exclude = set(exclude)
+
+    def deco(cls: type) -> type:
+        for name, attr in list(vars(cls).items()):
+            if name in exclude or name.startswith("__"):
+                continue
+            if callable(attr):
+                setattr(cls, name, decorator(attr))
+        return cls
+
+    return deco
 
 
 def resolve_device(device: Any = "cuda"):

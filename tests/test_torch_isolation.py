@@ -1,8 +1,10 @@
 """ddl_tpu_torch stands alone: it imports neither JAX nor the JAX package
 (nor Pillow, which only a WebDataset producer imports when it starts),
 calls no library attention, and its entry points refuse to drift onto
-the CPU when CUDA is absent.  ``chip_smoke.py`` and the port's example
-``examples/train_llama_torch.py`` are held to the same rules.
+the CPU when CUDA is absent.  ``chip_smoke.py`` and the port's examples
+(every ``examples/*_torch.py``) are held to the same rules, and
+``_manifest.EXAMPLES`` names a twin for every example of the JAX
+package.
 
 The import check runs in a subprocess: this test process already
 imported JAX (conftest pins it to the CPU).
@@ -31,14 +33,18 @@ names = ["ddl_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # the chip script imports only the port
-import runpy
-runpy.run_path(sys.argv[1] + "/examples/train_llama_torch.py")  # and its example
+import glob, runpy
+twins = sorted(glob.glob(sys.argv[1] + "/examples/*_torch.py"))
+sys.path.insert(0, sys.argv[1] + "/examples")  # as a script run sees it
+for path in twins:  # and its examples
+    runpy.run_path(path)
 for attr in ddl_tpu_torch.__all__:
     getattr(ddl_tpu_torch, attr)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ddl_tpu"
              or m.startswith("ddl_tpu.") or m == "PIL" or m.startswith("PIL."))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad,
+                  "twins": [p.rsplit("/", 1)[1] for p in twins]}))
 """
 
 
@@ -52,6 +58,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
+    assert report["twins"] == sorted(p.name for p in _twins())
+    assert len(report["twins"]) == 6
     assert "ddl_tpu_torch.ops.flash_attention" in report["modules"]
     assert "ddl_tpu_torch.trainer" in report["modules"]
     for mod in ("checkpoint", "resilience.ckpt", "resilience.guard",
@@ -64,6 +72,30 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "serve.jobs", "serve.autoscaler", "serve.fabric", "tune",
                 "tune.knobs", "tune.calibrate", "tune.controller"):
         assert f"ddl_tpu_torch.{mod}" in report["modules"]
+
+
+def _twins():
+    return sorted((REPO / "examples").glob("*_torch.py"))
+
+
+def test_every_reference_example_has_its_twin():
+    """``_manifest.EXAMPLES`` maps every runnable example of the JAX
+    package (the platform pin ``_common.py`` aside) to a twin that
+    exists, and names every twin; no twin reaches for the reference's
+    ``_common`` pin."""
+    from ddl_tpu_torch._manifest import EXAMPLES
+
+    ref = {f"examples/{p.name}" for p in (REPO / "examples").glob("*.py")
+           if not p.name.endswith("_torch.py") and p.name != "_common.py"}
+    assert set(EXAMPLES) == ref
+    assert len(ref) == 6
+    for src, twin in EXAMPLES.items():
+        assert twin == src[:-3] + "_torch.py", (src, twin)
+        assert (REPO / twin).is_file(), twin
+    assert sorted(EXAMPLES.values()) == [
+        p.relative_to(REPO).as_posix() for p in _twins()]
+    pin = re.compile(r"^\s*(import|from)\s+_common\b", re.MULTILINE)
+    assert [p.name for p in _twins() if pin.search(p.read_text())] == []
 
 
 @pytest.mark.parametrize("module", ["wire", "faults"])
@@ -96,7 +128,7 @@ def test_sources_name_no_jax_and_no_library_attention():
         re.MULTILINE,
     )
     sources = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
-               + [REPO / "examples" / "train_llama_torch.py"])
+               + _twins())
     assert len(sources) > 20
     hits = [
         f"{p.relative_to(REPO)}: {m.group(0).strip()}"
