@@ -72,7 +72,15 @@ its losses must equal its THREAD twin's (relative 1e-5).  Each fit
 prints its wall-time ms/step and, apart, its time to the first window
 (spawn and handshake included), its steady state (every step, from the
 first window to the end of the last steps, on the card's clock) and its
-teardown.
+teardown.  Each fit also counts its host syncs: window 1 (the first
+whose steps follow a whole window's) runs under
+``torch.cuda.set_sync_debug_mode("warn")``, its warnings grouped by
+file:line and printed; any site but the fused loop's deferred loss read
+(``float(pending)`` in ``Trainer._fused_stream_loop``, at most once a
+window) fails the phase.  Before the token fits, one call each of the
+explicit waits shows which of them the mode reports; after the token
+THREAD fit, a one-window control whose loss calls ``.item()`` must be
+counted once a step.
 
 Phase 7 is recovery in PROCESS mode, on the token cell of phase 6 over 6
 windows: a PROCESS fit, then the same fit with one producer SIGKILLed at
@@ -2100,7 +2108,8 @@ def _shm_free_bytes() -> int:
 
 def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
               around=None, keep_metrics=False, init_params=None, train=None,
-              optimizer=None, warmup=True, **loader_kw):
+              optimizer=None, warmup=True, syncs=None, after=None,
+              **loader_kw):
     """One training path in one producer mode at full width: a fresh
     ``Trainer`` from ``init_params`` (default: the Llama's of ``cfg`` at
     seed 0), a one-window warm-up fit (cuBLAS handles, allocator pools,
@@ -2112,8 +2121,11 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
     and ``optimizer`` the ``adamw(1e-5)`` factory.  ``around`` (a
     context-manager factory) wraps the measured fit only (phase 13 arms
     the observability there); ``keep_metrics`` returns its registry as
-    ``summary["metrics"]``.  Everything else it allocated is dropped on
-    return."""
+    ``summary["metrics"]``.  ``syncs`` (a :class:`SyncCount`) counts the
+    measured fit's host syncs: it records the fit and is its
+    ``window_hook``.  ``after(trainer, run)`` runs once the measured fit
+    is read, its result in ``summary["after"]``.  Everything else it
+    allocated is dropped on return."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
@@ -2135,11 +2147,11 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
         metrics=Metrics(),
     )
 
-    def run(n_epochs):
+    def run(n_epochs, **fit_kw):
         return trainer.fit(producer, config=LoaderConfig(
             batch_size=tr["batch_size"], n_epochs=n_epochs,
             n_producers=tr["n_producers"], mode=mode, window_stream=True,
-            **loader_kw))
+            **loader_kw), **fit_kw)
 
     if warmup:
         warm = run(1)
@@ -2148,10 +2160,13 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.metrics = m = Metrics()
-    with (around() if around is not None else contextlib.nullcontext()):
+    with (around() if around is not None else contextlib.nullcontext()), (
+            syncs.recording() if syncs is not None
+            else contextlib.nullcontext()):
         fa.reset_launch_counts()
         t0 = time.perf_counter()
-        result = run(tr["n_epochs"])
+        result = (run(tr["n_epochs"]) if syncs is None
+                  else run(tr["n_epochs"], window_hook=syncs.hook))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in fa.KERNELS}
@@ -2207,6 +2222,8 @@ def _fit_mode(mode, producer, loss_fn, cfg, tag, card, profile=False,
     if keep_metrics:
         summary["metrics"] = m
     del result
+    if after is not None:
+        summary["after"] = after(trainer, run)
     if profile:
         profile_run(lambda: run(tr["n_epochs"]), f"{tag} {mode} fit")
     del trainer
@@ -2250,6 +2267,226 @@ def _process_gates(s, faults) -> None:
             and c["producer.exits_clean"] == n
             and c["producer.exits_failed"] == 0):
         faults.append(f"process: rings, registration or exits {c}")
+
+
+#: The warning torch issues, under ``set_sync_debug_mode("warn")``, at each
+#: call that makes the host wait for the card.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class SyncCount:
+    """The host syncs of a fit's steady-state windows, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``.
+
+    It is the fit's ``window_hook``: at the hook of window ``first`` it
+    arms the mode and marks where that window's record starts, at each
+    later hook it marks again, and at the hook of window ``last`` it
+    disarms.  A window's record runs from its hook to the next one: the
+    dispatch of its steps (model, optimizer, ``make_multistep``), the
+    deferred read of the previous window's loss, and the loader taking
+    the next window, on every thread of this process.  ``last=None``
+    keeps the mode armed to the end of the fit (the control).
+    :meth:`recording` collects the warnings with ``catch_warnings(record=
+    True)`` under ``simplefilter("always")``: the default filter shows a
+    site only once."""
+
+    def __init__(self, first: int = 1, last=None):
+        self.first, self.last = first, last
+        self.seen = 0
+        self.marks = []
+        self.log = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        import warnings
+
+        import torch
+
+        skip = [os.path.dirname(torch.__file__)]
+        with warnings.catch_warnings(record=True) as log:
+            warnings.simplefilter("always")
+
+            def show(message, category, filename, lineno, file=None,
+                     line=None):
+                filename, lineno = _caller(filename, lineno, skip)
+                log.append(warnings.WarningMessage(
+                    message, category, filename, lineno, file, line))
+
+            # A wait reached through torch's own Python (Stream.
+            # synchronize) warns at torch's line: record its caller.
+            warnings.showwarning = show
+            self.log = log
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    def hook(self, win):
+        import torch
+
+        k, self.seen = self.seen, self.seen + 1
+        if k == self.first:
+            torch.cuda.set_sync_debug_mode("warn")
+        if k >= self.first and (self.last is None or k <= self.last):
+            self.marks.append(len(self.log))
+        if k == self.last:
+            torch.cuda.set_sync_debug_mode(0)
+        return win
+
+    @staticmethod
+    def site(w) -> str:
+        path = os.path.abspath(w.filename)
+        if path.startswith(ROOT + os.sep):
+            path = os.path.relpath(path, ROOT)
+        elif "site-packages" + os.sep in path:
+            path = path.split("site-packages" + os.sep, 1)[1]
+        return f"{path}:{w.lineno}"
+
+    def _sites(self, records):
+        counts = {}
+        for w in records:
+            if SYNC_WARNING in str(w.message):
+                s = self.site(w)
+                counts[s] = counts.get(s, 0) + 1
+        return counts
+
+    def windows(self):
+        """One ``{site: count}`` per whole window record (the last mark
+        ends the last record unless the mode stayed armed to the end)."""
+        ends = self.marks[1:] + ([len(self.log)] if self.last is None
+                                 else [])
+        return [self._sites(self.log[a:b]) for a, b in zip(self.marks, ends)]
+
+
+def _caller(filename, lineno, skip):
+    """``(filename, lineno)`` of a warning, or, where that line lies in one
+    of the ``skip`` directories (torch's package), of the first frame
+    outside them that led there, found on this thread's stack."""
+    import traceback
+
+    def inside(path):
+        path = os.path.abspath(path)
+        return any(path.startswith(d + os.sep) for d in skip)
+
+    if not inside(filename):
+        return filename, lineno
+    stack = traceback.extract_stack()
+    for i in range(len(stack) - 1, -1, -1):
+        if (os.path.abspath(stack[i].filename) == os.path.abspath(filename)
+                and stack[i].lineno == lineno):
+            for frame in reversed(stack[:i]):
+                if not inside(frame.filename):
+                    return frame.filename, frame.lineno
+    return filename, lineno
+
+
+def fused_read_sites():
+    """``trainer.py:<line>`` of the fused loop's deferred loss reads
+    (``float(pending)``): the one host sync the loop makes, once a
+    window."""
+    import ast
+    import inspect
+    import textwrap
+
+    from ddl_tpu_torch.trainer import Trainer
+
+    src, start = inspect.getsourcelines(Trainer._fused_stream_loop)
+    return {f"ddl_tpu_torch/trainer.py:{start + node.lineno - 1}"
+            for node in ast.walk(ast.parse(textwrap.dedent("".join(src))))
+            if isinstance(node, ast.Call)
+            and getattr(node.func, "id", None) == "float"
+            and getattr(node.args[0], "id", None) == "pending"}
+
+
+def sync_gates(tag, mode, syncs, faults):
+    """Print each steady window's host-sync sites with their counts and
+    fail on any site the port does not sanction: only the deferred loss
+    read, at most once a window.  Returns the per-window counts."""
+    windows = syncs.windows()
+    sanctioned = fused_read_sites()
+    if not windows:
+        faults.append(f"{mode}: no steady window was counted")
+    for i, counts in enumerate(windows):
+        log(f"{tag} {mode}: host syncs in steady window {syncs.first + i}: "
+            + (", ".join(f"{s} x{n}" for s, n in sorted(counts.items()))
+               or "none"))
+        other = {s: n for s, n in counts.items() if s not in sanctioned}
+        reads = sum(n for s, n in counts.items() if s in sanctioned)
+        if other or reads > 1:
+            faults.append(f"{mode}: host syncs outside the sanctioned "
+                          f"deferred read {sorted(sanctioned)} (at most 1 "
+                          f"a window) in steady window {syncs.first + i}: "
+                          f"{counts}")
+    return windows
+
+
+def sync_control(steps_per_window):
+    """The counter's control: one more window of the same fit, whose
+    loss calls ``.item()`` (user code, not the port's).  Returns an
+    ``after`` for :func:`_fit_mode`; it gives ``(count at the control's
+    line, every site's count, seconds)``."""
+    import inspect
+
+    def after(trainer, run):
+        base = trainer._loss_fn
+
+        def item_loss(p, b):
+            loss = base(p, b)
+            loss.item()  # the control's host sync
+            return loss
+
+        src, start = inspect.getsourcelines(item_loss)
+        line = start + next(i for i, s in enumerate(src) if ".item()" in s)
+        site = f"{os.path.basename(__file__)}:{line}"
+        trainer._loss_fn = item_loss
+        control = SyncCount(first=0)
+        t0 = time.perf_counter()
+        try:
+            with control.recording():
+                run(1, window_hook=control.hook)
+        finally:
+            trainer._loss_fn = base
+        counts = control.windows()[0] if control.windows() else {}
+        return counts.get(site, 0), counts, time.perf_counter() - t0, site
+
+    return after
+
+
+def sync_debug_coverage():
+    """Which waits ``set_sync_debug_mode("warn")`` reports on this card
+    and torch: each probe once, armed alone.  Returns ``{probe: warnings}``."""
+    import warnings
+
+    import torch
+
+    x = torch.arange(8.0, device="cuda")
+    ev = torch.cuda.Event()
+    ev.record()
+    pinned = torch.empty(8, pin_memory=True)
+    probes = {
+        "torch.cuda.synchronize()": torch.cuda.synchronize,
+        "Stream.synchronize()": torch.cuda.current_stream().synchronize,
+        "Event.synchronize()": ev.synchronize,
+        "Event.query()": ev.query,
+        "Tensor.item()": lambda: x.sum().item(),
+        "Tensor.cpu()": lambda: x.cpu(),
+        "Tensor.nonzero()": lambda: x.nonzero(),
+        "copy_ to pinned, non_blocking": lambda: pinned.copy_(
+            x, non_blocking=True),
+    }
+    out = {}
+    for name, fn in probes.items():
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out[name] = sum(SYNC_WARNING in str(w.message) for w in got)
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_train(tmpdir: str, card: str, profile: bool = False,
@@ -2299,8 +2536,21 @@ def phase_train(tmpdir: str, card: str, profile: bool = False,
         f"{llama.param_count(cfg) / 1e9:.3f} B params, dtype {cfg.dtype}, "
         f"attn_impl {cfg.attn_impl}, remat {cfg.remat}")
 
-    thread = _fit_mode("thread", producer, loss_fn, cfg, tag, card, profile)
-    proc = _fit_mode("process", producer, loss_fn, cfg, tag, card)
+    # The host-sync count rides both fits: window 1 (the first whose
+    # steps follow a whole window's) armed to the hook of window 2.  The
+    # token THREAD fit then runs the counter's control.
+    steps_per_window = tr["window_rows"] // tr["batch_size"]
+    t_sync = time.perf_counter()
+    coverage = None if packed else sync_debug_coverage()
+    t_sync = time.perf_counter() - t_sync
+    syncs = {m: SyncCount(first=1, last=tr["n_epochs"] - 1)
+             for m in ("thread", "process")}
+    thread = _fit_mode("thread", producer, loss_fn, cfg, tag, card, profile,
+                       syncs=syncs["thread"],
+                       after=None if packed else sync_control(
+                           steps_per_window))
+    proc = _fit_mode("process", producer, loss_fn, cfg, tag, card,
+                     syncs=syncs["process"])
 
     steps = thread["steps"]
     expected = cfg.n_layers * steps
@@ -2315,6 +2565,23 @@ def phase_train(tmpdir: str, card: str, profile: bool = False,
             f"wgmma kernels: {s['sm90_launches']}")
         _fit_gates(s, ran, idle, expected, faults)
     _process_gates(proc, faults)
+    host_syncs = {m: sync_gates(tag, m, syncs[m], faults) for m in syncs}
+    if not packed:
+        log(f"{tag} sync debug mode reports, one call each: "
+            f"{json.dumps(coverage)} ({card})")
+        if coverage["Tensor.item()"] < 1:
+            faults.append(f"sync debug mode reports no .item(): {coverage}")
+        n, counts, took, site = thread["after"]
+        t_sync += took
+        log(f"{tag} control: one window whose loss calls .item(): {site} "
+            f"x{n} (expected {steps_per_window}, one a step); all sites "
+            f"{counts}; the probes and the control took {t_sync:.2f} s "
+            f"({card})")
+        if n != steps_per_window:
+            faults.append(f"control: the counter saw {n} syncs at {site}, "
+                          f"expected {steps_per_window}: {counts}")
+        host_syncs.update(coverage=coverage, control=counts,
+                          control_site=site, seconds=t_sync)
     rel = max(abs(a - b) / abs(b) for a, b in zip(proc["losses"],
                                                    thread["losses"]))
     log(f"{tag} process vs thread losses: max relative difference {rel:.3e} "
@@ -2331,7 +2598,7 @@ def phase_train(tmpdir: str, card: str, profile: bool = False,
         "steps": steps, "sm90_launches": thread["sm90_launches"][fwd.__name__],
         "dq_sm90_launches": thread["sm90_launches"][dq.__name__],
         "dkv_sm90_launches": thread["sm90_launches"][dkv.__name__],
-        "thread": thread, "process": proc,
+        "thread": thread, "process": proc, "host_syncs": host_syncs,
     }
     if packed:
         summary.update(segments_per_row=segs, boundary_dropped=dropped)

@@ -522,7 +522,7 @@ class SupervisorHA:
                 # without killing it — the split-brain producer.
                 # Must sit inside the critical section: it exists to
                 # crash/delay mid-pass; disarmed it is one attr read.
-                fault_point(
+                fault_point(  # ddl-verify: disable=VP002 - chaos site inside the critical section, bounded by the plan
                     "cluster.supervise", producer_idx=self.node_id
                 )
             except SupervisorCrashed:

@@ -69,6 +69,9 @@ LOCK_ORDER: Tuple[str, ...] = (
     "obs.metrics",
     "obs.spans",
     "obs.recorder.dump",
+    # The kernels' build-and-load lock: a kernel wrapper's first call
+    # may take it under any lock above, and it holds no other.
+    "ops.build",
 )
 
 _RANK: Dict[str, int] = {name: i for i, name in enumerate(LOCK_ORDER)}

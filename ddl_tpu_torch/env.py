@@ -332,7 +332,7 @@ class WorkerSet:
         self.threads: List[threading.Thread] = []
         # Each thread producer's connection, whose ``retired`` flag ends
         # a hung producer's abort-observing wait.
-        self._thread_conns: dict = {}
+        self._thread_conns: dict = {}  # ddl-lint: disable=DDL013 - keyed by producer index, a respawn reuses its key
         self.processes: List[Any] = []
         #: Each spawned process's exit code, filled in by :meth:`join`.
         self.exitcodes: List[Optional[int]] = []

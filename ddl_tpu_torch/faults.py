@@ -201,7 +201,8 @@ class FaultPlan:
         self.seed = int(seed)
         self.fired: List[Tuple[str, str, Optional[int], int]] = []
         self._lock = named_lock("faults.plan")
-        self._hits: Dict[int, int] = {}  # spec index -> matching hits
+        # Spec index -> matching hits.
+        self._hits: Dict[int, int] = {}  # ddl-lint: disable=DDL013 - bounded by len(specs)
         self._rng = np.random.default_rng(self.seed)
 
     def to_json(self) -> str:
@@ -259,9 +260,9 @@ class FaultPlan:
         where = f"injected at {spec.site!r}"
         if kind is FaultKind.PRODUCER_CRASH:
             raise InjectedFault(f"producer crash {where}")
-        if kind is FaultKind.SPURIOUS_SHUTDOWN:
+        elif kind is FaultKind.SPURIOUS_SHUTDOWN:
             raise ShutdownRequested(f"spurious shutdown {where}")
-        if kind is FaultKind.PRODUCER_HANG:
+        elif kind is FaultKind.PRODUCER_HANG:
             # A wedge, not a sleep: held until the stall budget or a
             # shutdown reacts, so teardown never strands the thread.
             deadline = time.monotonic() + (spec.param or 3600.0)
@@ -269,11 +270,9 @@ class FaultPlan:
                 if should_abort is not None and should_abort():
                     raise ShutdownRequested(f"hang aborted {where}")
                 time.sleep(0.05)
-            return
-        if kind in _DELAYS:
+        elif kind in _DELAYS:
             time.sleep(spec.param or 0.2)
-            return
-        if kind in _CORRUPTIONS:
+        elif kind in _CORRUPTIONS:
             if view is None or len(view) == 0:
                 return  # the site carries no payload to flip
             nbytes = max(1, int(spec.param))
@@ -281,46 +280,46 @@ class FaultPlan:
                 offs = self._rng.integers(0, len(view), size=nbytes)
             for off in offs:
                 view[int(off)] ^= 0xFF
-            return
-        if kind in (FaultKind.STAGING_COPY_FAIL,
-                    FaultKind.STAGED_TRANSFER_FAIL,
-                    FaultKind.ICI_DMA_FAIL):
+        elif kind in (FaultKind.STAGING_COPY_FAIL,
+                      FaultKind.STAGED_TRANSFER_FAIL,
+                      FaultKind.ICI_DMA_FAIL):
             raise InjectedFault(f"{kind.value} {where}")
-        if kind is FaultKind.BACKEND_FETCH_FAIL:
+        elif kind is FaultKind.BACKEND_FETCH_FAIL:
             # The real type, so open_with_retry's ladder takes it.
             raise BackendFetchError(f"backend fetch failure {where}")
-        if kind is FaultKind.DECODE_FAIL:
+        elif kind is FaultKind.DECODE_FAIL:
             raise DecodeError(f"decode failure {where}")
-        if kind is FaultKind.PREEMPT_NOTICE:
+        elif kind is FaultKind.PREEMPT_NOTICE:
             raise PreemptionNotice(f"preemption notice {where}",
                                    deadline_s=spec.param)
-        if kind is FaultKind.CONTROL_MSG_DROP:
+        elif kind is FaultKind.CONTROL_MSG_DROP:
             raise ControlSendDropped(f"control send dropped {where}")
-        if kind is FaultKind.NETWORK_PARTITION:
+        elif kind is FaultKind.NETWORK_PARTITION:
             raise NetworkPartitioned(f"network partitioned {where}")
-        if kind is FaultKind.CONTROL_MSG_DUP:
-            return  # the sender sends the same envelope twice
-        if kind is FaultKind.SHUFFLE_PEER_LOSS:
+        elif kind is FaultKind.CONTROL_MSG_DUP:
+            pass  # the sender sends the same envelope twice
+        elif kind is FaultKind.SHUFFLE_PEER_LOSS:
             raise DDLError(f"shuffle peer loss {where}")
         # The cluster kinds raise the real types: the supervisor's sweep
         # and the HA step handle them as they would the real events.
-        if kind is FaultKind.HOST_LOSS:
+        elif kind is FaultKind.HOST_LOSS:
             raise HostLostError(f"host loss {where}")
-        if kind is FaultKind.HEARTBEAT_DROP:
+        elif kind is FaultKind.HEARTBEAT_DROP:
             raise HeartbeatDropped(f"heartbeat dropped {where}")
-        if kind is FaultKind.SUPERVISOR_CRASH:
+        elif kind is FaultKind.SUPERVISOR_CRASH:
             raise SupervisorCrashed(f"supervisor crash {where}")
         # The serve kinds raise the real types: the scheduler charges a
         # burst to the burster, the fabric client retries a lost
         # admission, the fabric revokes a crashed job's grants.
-        if kind is FaultKind.TENANT_BURST:
+        elif kind is FaultKind.TENANT_BURST:
             raise TenantBurst(f"tenant burst {where}",
                               burst_bytes=spec.param or (64 << 20))
-        if kind is FaultKind.JOB_ADMISSION_DROP:
+        elif kind is FaultKind.JOB_ADMISSION_DROP:
             raise AdmissionDropped(f"job admission dropped {where}")
-        if kind is FaultKind.JOB_CRASH:
+        elif kind is FaultKind.JOB_CRASH:
             raise JobCrashed(f"job crashed mid-grant {where}")
-        raise ValueError(f"unhandled fault kind {kind!r}")
+        else:  # FaultKind is closed above
+            raise ValueError(f"unhandled fault kind {kind!r}")
 
 
 #: The armed plan, or None: read unlocked at every injection point.

@@ -81,7 +81,7 @@ class ReportMerger:
         # counter) must not be fenced out by its predecessor's higher
         # report_idx — the pid change resets the fence.  Bounded by
         # the producer set by construction.
-        self._applied: Dict[int, tuple] = {}
+        self._applied: Dict[int, tuple] = {}  # ddl-lint: disable=DDL013 - one entry per producer
         self.applied_reports = 0
         self.stale_dropped = 0
 

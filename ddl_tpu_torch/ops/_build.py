@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List
+
+from ddl_tpu_torch.concurrency import named_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -30,8 +31,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}  # ddl-lint: disable=DDL013 - one entry per csrc source
+_lock = named_lock("ops.build")
 
 
 def nvcc_path() -> str:

@@ -139,7 +139,7 @@ class StagingPool:
         self._lock = named_lock("staging.pool")
         # At most max_per_key free buffers per geometry, and a run's
         # geometries are a small closed set: bounded by construction.
-        self._free: Dict[Tuple[Tuple[int, ...], Any], List[np.ndarray]] = {}
+        self._free: Dict[Tuple[Tuple[int, ...], Any], List[np.ndarray]] = {}  # ddl-lint: disable=DDL013 - one entry per geometry
         #: FIFO of (transfer to poll, buffer, dispatch timestamp).
         self._inflight: Deque[Tuple[Any, np.ndarray, float]] = (
             collections.deque()
@@ -623,9 +623,11 @@ class TransferExecutor:
                 raise
             self.pool.recycle_when_ready(buf, base)
             handle._value = value
-        except Exception as e:
-            # ShutdownRequested included: the consumer's result()
+        except (ShutdownRequested, KeyboardInterrupt) as e:
+            # Teardown racing the queue: the consumer's result()
             # re-raises it; swallowing it would hang result() forever.
+            handle.error = e
+        except Exception as e:
             handle.error = e
         finally:
             handle.copy_done.set()

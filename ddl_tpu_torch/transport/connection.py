@@ -156,7 +156,7 @@ class ConsumerConnection:
         self._sent_meta: Optional[MetaData_Consumer_To_Producer] = None
         # One acked sender per target, built on first use, each stamping
         # the current fencing term (set_control_fence).
-        self._senders: dict = {}
+        self._senders: dict = {}  # ddl-lint: disable=DDL013 - one sender per target
         self._control_fence = 0
         #: Registry for the senders' ``ctrl.*`` counters (the loader
         #: attaches its own).

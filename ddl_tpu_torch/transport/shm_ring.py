@@ -80,32 +80,46 @@ def _load_native() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build_native()))
+    # Every restype is explicit, None for void: ctypes defaults to c_int,
+    # which would cut a returned pointer to 32 bits.
     vp, u32, u64, i64 = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64,
                          ctypes.c_int64)
-    for fn, restype, argtypes in (
-        ("ddlr_create", vp, [ctypes.c_char_p, u32, u64]),
-        ("ddlr_open", vp, [ctypes.c_char_p]),
-        ("ddlr_acquire_fill", ctypes.c_int, [vp, i64]),
-        ("ddlr_commit", None, [vp, u32, u64]),
-        ("ddlr_acquire_drain", ctypes.c_int, [vp, i64]),
-        ("ddlr_acquire_drain_ahead", ctypes.c_int, [vp, u32, i64]),
-        ("ddlr_release", None, [vp, u32]),
-        ("ddlr_slot_ptr", vp, [vp, u32]),
-        ("ddlr_slot_payload", u64, [vp, u32]),
-        ("ddlr_shutdown", None, [vp]),
-        ("ddlr_is_shutdown", ctypes.c_int, [vp]),
-        ("ddlr_stat", u64, [vp, ctypes.c_int]),
-        ("ddlr_nslots", u32, [vp]),
-        ("ddlr_slot_bytes", u64, [vp]),
-        ("ddlr_map_base", vp, [vp]),
-        ("ddlr_map_bytes", u64, [vp]),
-        ("ddlr_close", None, [vp]),
-        ("ddlr_unlink", None, [ctypes.c_char_p]),
-    ):
-        # Every restype is explicit: ctypes defaults to c_int, which would
-        # cut a returned pointer to 32 bits.
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
+    lib.ddlr_create.restype = vp
+    lib.ddlr_create.argtypes = [ctypes.c_char_p, u32, u64]
+    lib.ddlr_open.restype = vp
+    lib.ddlr_open.argtypes = [ctypes.c_char_p]
+    lib.ddlr_acquire_fill.restype = ctypes.c_int
+    lib.ddlr_acquire_fill.argtypes = [vp, i64]
+    lib.ddlr_commit.restype = None
+    lib.ddlr_commit.argtypes = [vp, u32, u64]
+    lib.ddlr_acquire_drain.restype = ctypes.c_int
+    lib.ddlr_acquire_drain.argtypes = [vp, i64]
+    lib.ddlr_acquire_drain_ahead.restype = ctypes.c_int
+    lib.ddlr_acquire_drain_ahead.argtypes = [vp, u32, i64]
+    lib.ddlr_release.restype = None
+    lib.ddlr_release.argtypes = [vp, u32]
+    lib.ddlr_slot_ptr.restype = vp
+    lib.ddlr_slot_ptr.argtypes = [vp, u32]
+    lib.ddlr_slot_payload.restype = u64
+    lib.ddlr_slot_payload.argtypes = [vp, u32]
+    lib.ddlr_shutdown.restype = None
+    lib.ddlr_shutdown.argtypes = [vp]
+    lib.ddlr_is_shutdown.restype = ctypes.c_int
+    lib.ddlr_is_shutdown.argtypes = [vp]
+    lib.ddlr_stat.restype = u64
+    lib.ddlr_stat.argtypes = [vp, ctypes.c_int]
+    lib.ddlr_nslots.restype = u32
+    lib.ddlr_nslots.argtypes = [vp]
+    lib.ddlr_slot_bytes.restype = u64
+    lib.ddlr_slot_bytes.argtypes = [vp]
+    lib.ddlr_map_base.restype = vp
+    lib.ddlr_map_base.argtypes = [vp]
+    lib.ddlr_map_bytes.restype = u64
+    lib.ddlr_map_bytes.argtypes = [vp]
+    lib.ddlr_close.restype = None
+    lib.ddlr_close.argtypes = [vp]
+    lib.ddlr_unlink.restype = None
+    lib.ddlr_unlink.argtypes = [ctypes.c_char_p]
     _lib = lib
     return lib
 
@@ -346,7 +360,7 @@ class PyShmRing(WindowRing):
                 )
         self.nslots = int(self._u64[3])
         self.slot_bytes = int(self._u64[4])
-        self._stall = {"producer_stall_s": 0.0, "consumer_stall_s": 0.0}
+        self._stall = {"producer_stall_s": 0.0, "consumer_stall_s": 0.0}  # ddl-lint: disable=DDL013 - two fixed keys
 
     @classmethod
     def create(cls, name: str, nslots: int, slot_bytes: int) -> "PyShmRing":

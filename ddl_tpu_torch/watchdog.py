@@ -77,8 +77,8 @@ class Watchdog:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # Keyed by ring index: bounded by n_producers.
-        self._last_progress: Dict[int, tuple] = {}
-        self._last_change: Dict[int, float] = {}
+        self._last_progress: Dict[int, tuple] = {}  # ddl-lint: disable=DDL013 - one entry per ring
+        self._last_change: Dict[int, float] = {}  # ddl-lint: disable=DDL013 - one entry per ring
         self._dead_idx: Optional[int] = None  # set by check_once
         # ring index -> committed count at respawn.  While present the
         # replacement is replaying, and its budget is widened; the entry
