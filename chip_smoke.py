@@ -42,20 +42,30 @@ each a ``DataPusher`` over a pool producer and a
 ``DistributedDataLoader``, drained in turn over the host exchange, the
 one-card ``DeviceExchangeFabric`` twice, and the host exchange again —
 the served streams must be byte-identical, mixed across instances, with
-no device fallback and one K9 launch per fabric round.
+no device fallback and one K9 launch per fabric round, each round an
+``exchange_start`` ticket in a landing slot (the rounds alternating
+slots 0 and 1) waited on before the next.
 Phase 5 is the ICI ingest tier: the fan-out kernels K7 (broadcast) and K8
 (scatter) held byte for byte against their plain versions (n = 2, 3, 4,
 8; fp32, int32, uint8, bf16; 7-byte rows; row counts that leave the
 reference's chunk pipeline a tail or undercut its chunks; src != 0;
 sources off 16-byte alignment; the 2-D views the path hands them; the
 full-size (65536, 256) fp32 block), timed there with the ``copy_``
-yardstick, then the path: 64 MiB ``ArrayProducer`` windows (32, 2048,
+yardstick; the landing slots at the full-size block (``slot_gates``:
+``fanout_start`` returns before a 200 ms sleep on the caller's stream
+ends and lands the anchor's final value, a dropped anchor's bytes land
+though a new tensor is filled behind the start, and K7, K8 and K9
+tickets in flight on both slots at once, each byte-equal to its plain
+version); then the
+path: 64 MiB ``ArrayProducer`` windows (32, 2048,
 256) fp32 drained in THREAD mode through ``DistributedDataLoader(...,
 sharding=..., distribute="ici")`` onto three meshes of positions of
 cuda:0 (dp=4 split, dp=2 x fsdp=2 split, dp=4 replicated) and a token
 stream at the Llama path's window, every position's shard byte-equal to
-its slice of the host window, one K7/K8 launch per window and no
-fallback; a ragged geometry through the plain route; and the A/B of the
+its slice of the host window, one K7/K8 launch per window, every window
+a fused one (``ici.fused_windows == ici.windows``) and no fallback; a
+ragged geometry through the plain route; and
+the A/B of the
 tier against the plain per-position route.
 Phase 6 runs the port's two training paths at Llama-3-8B's published
 widths cut to 2 layers, with random weights from a seed: ``Trainer.fit``
@@ -191,9 +201,14 @@ K1-K3 sp^2 times a layer and step; one K8 launch a window.  (c) Phase 6's
 token cell over ``{"dp": 4}``: optimizer sharding none, zero1, zero1 with
 int8 gradient communication, and with stochastic rounding — zero1's
 losses bit-equal to none's, each int8 fit inside ``loss_parity``, the
-moments per replica at 1/4, one K8 launch a window; the zero1 fit stopped
-after 2 windows (one async generation) and resumed by a fresh Trainer,
-bit-equal.  (d) ``quantized_all_reduce`` of 4 x 16 M fp32 values within
+moments per replica at 1/4, one K8 launch a window, every window a
+fused one; the fit without optimizer sharding with two landing slots
+and with one (``DDL_TORCH_FUSED=0`` for the distributor), ``SLOT_PAIRS``
+pairs in alternating order, every fit bit-equal to the first, the
+one-slot fits counting no fused window, both sides' ms/step printed
+(alone: ``python3 chip_smoke.py --slots-ab``); the zero1 fit stopped after 2 windows (one async
+generation) and resumed by a fresh Trainer, bit-equal.  (d)
+``quantized_all_reduce`` of 4 x 16 M fp32 values within
 the reference's bound of the fp32 mean, and ``DeviceGlobalShuffler`` over
 8 rounds at phase 4's geometry, both strategies, every pool
 byte-identical to a host oracle built from ``exchange_permutation``.
@@ -1550,11 +1565,29 @@ def phase_shuffle(profile: bool = False):
         return drain_instances(lambda: ThreadExchangeShuffler.factory(rdv))
 
     def device_drain():
+        """One drain through the fabric, its rounds' tickets recorded
+        (each ticket's slot, and whether its wait was a host wait)."""
         fabric = DeviceExchangeFabric(devices=["cuda:0"] * n)
-        dsh.reset_launch_counts()
-        streams, pushers, wall = drain_instances(
-            lambda: DeviceExchangeShuffler.factory(fabric=fabric))
-        torch.cuda.synchronize()
+        real_start, real_wait = dsh.exchange_start, dsh.exchange_wait
+        started, waited = [], []
+
+        def start(*a, **kw):
+            started.append(real_start(*a, **kw))
+            return started[-1]
+
+        def wait(ticket, sync=False):
+            waited.append((ticket, sync))
+            return real_wait(ticket, sync)
+
+        dsh.exchange_start, dsh.exchange_wait = start, wait
+        try:
+            dsh.reset_launch_counts()
+            streams, pushers, wall = drain_instances(
+                lambda: DeviceExchangeShuffler.factory(fabric=fabric))
+            torch.cuda.synchronize()
+        finally:
+            dsh.exchange_start, dsh.exchange_wait = real_start, real_wait
+        fabric.tickets = started, waited
         return streams, pushers, wall, fabric, dsh.exchange_ring.launches
 
     host, host_pushers, host_s = host_drain()
@@ -1583,7 +1616,21 @@ def phase_shuffle(profile: bool = False):
         counted = launches == fabric.legs and launches > 0
         log(f"[shuffle] device drain {k + 1}: K9 launches {launches}, "
             f"fabric rounds {fabric.legs} -> {'ok' if counted else 'FAIL'}")
-        ok &= counted
+        # Every round went through a ticket, the rounds alternating
+        # slots, each waited on (a host wait: the round's hand-back)
+        # before the next was started.
+        started, waited = fabric.tickets
+        slots = [t.slot for t in started]
+        ticketed = (len(started) == launches
+                    and slots == [r % 2 for r in range(len(slots))]
+                    and all(t.done is not None for t in started)
+                    and len(waited) == len(started)
+                    and all(w is t and sync is True
+                            for (w, sync), t in zip(waited, started)))
+        log(f"[shuffle] device drain {k + 1}: {len(started)} exchange "
+            f"tickets, slots {slots}, each with a done event and waited "
+            f"(sync) -> {'ok' if ticketed else 'FAIL'}")
+        ok &= ticketed
     host_rounds = min(p.shuffler.exchange_round for p in host_pushers.values())
     dev_rounds = [run[3].legs for run in device_runs]
     host_walls = [host_s, host2_s]
@@ -1788,6 +1835,137 @@ def fanout_kernel_checks():
     return rows_out
 
 
+def _sleep_cycles(ms):
+    """The ``torch.cuda._sleep`` argument that keeps the current stream
+    busy for about ``ms`` milliseconds on this card (from one timed
+    probe)."""
+    import torch
+
+    probe = 10_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * ms / start.elapsed_time(end))
+
+
+def slot_gates():
+    """The landing slots at the path's full-size geometry (64 MiB fp32
+    over 4 positions).  (1) Ordering: the anchor block is written by a
+    copy queued on the caller's stream behind a 200 ms sleep;
+    ``fanout_start`` must return within 50 ms with its ticket in flight,
+    and land the block's final value.  (2) Lifetime: the anchor block is
+    dropped right after ``start`` and a block of its size allocated and
+    filled on the caller's stream; the allocator may hand it the dropped
+    block's memory only behind the kernel, so ``wait`` must land the
+    original bytes.  (3) Two slots in flight: a K7 ticket on slot 0 and a K8
+    ticket on slot 1, and a K9 ticket on each slot at phase 4's
+    geometry, all started behind a sleep, in flight together, each
+    byte-equal to its plain version.  Launches here are checks: the
+    path's counts are read in its own runs."""
+    import torch
+
+    from ddl_tpu_torch.ops import device_shuffle as dsh
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    t_gates = time.perf_counter()
+    g = ICI
+    n, rows, cols = g["n"], g["rows"], g["cols"]
+    devs = ["cuda:0"] * n
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    final = torch.randn((rows, cols), generator=gen, device="cuda")
+    plain = {"replicate": fan.replicate_plain(final, n),
+             "shard": [b.clone() for b in fan.shard_plain(final, n)]}
+
+    def same(out, want):
+        return all(torch.equal(_bytes(s.data), _bytes(w))
+                   for s, w in zip(out.shards, want))
+
+    cycles = _sleep_cycles(200.0)
+    ok, summary = True, {"sleep_cycles": cycles}
+    for mode in ("replicate", "shard"):
+        block = torch.zeros_like(final)
+        fan.fanout_wait(fan.fanout_start(mode, block, devs, slot=1), sync=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        block.copy_(final)
+        ticket = fan.fanout_start(mode, block, devs, slot=1)
+        returned_ms = (time.perf_counter() - t0) * 1e3
+        in_flight = not ticket.done.query()
+        out = fan.fanout_wait(ticket)
+        torch.cuda.synchronize()
+        waited_ms = (time.perf_counter() - t0) * 1e3
+        good = returned_ms < 50.0 and in_flight and same(out, plain[mode])
+        log(f"[slots] ordering, {mode}: start returned after "
+            f"{returned_ms:.3f} ms of a 200 ms sleep (landed at "
+            f"{waited_ms:.1f} ms), in flight {in_flight}, the block's final "
+            f"value landed {same(out, plain[mode])} -> "
+            f"{'ok' if good else 'FAIL'}")
+        summary[f"start_returned_ms_{mode}"] = returned_ms
+        ok &= good
+        del block, out, ticket
+
+    block = final.clone()
+    fan.fanout_wait(fan.fanout_start("shard", block, devs), sync=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    ticket = fan.fanout_start("shard", block, devs)
+    ptr = block.data_ptr()
+    del block
+    other = torch.empty_like(final)
+    other.fill_(-1.0)
+    in_flight = not ticket.done.query()
+    out = fan.fanout_wait(ticket)
+    torch.cuda.synchronize()
+    reused = other.data_ptr() == ptr
+    good = in_flight and same(out, plain["shard"])
+    log(f"[slots] lifetime: the kernel still reading when the anchor block "
+        f"was dropped {in_flight}, its memory handed to the new tensor "
+        f"{reused}, the original bytes landed {same(out, plain['shard'])} "
+        f"-> {'ok' if good else 'FAIL'}")
+    ok &= good
+    del other, out, ticket
+
+    sh = SHUFFLE
+    half = int(sh["rows"] * sh["fraction"]) // 2
+    gins = [torch.randn((sh["n"] * 2 * half, sh["cols"]), generator=gen,
+                        device="cuda") for _ in range(2)]
+    p, routes = _routes(sh["n"], 0)
+    exchanged = [dsh.exchange_plain(x, routes) for x in gins]
+    blocks = [final, final.clone()]
+    # First use of K9's library and of the ticket path on each slot, so
+    # that the timed starts below cost only their launches.
+    for s in range(fan.N_SLOTS):
+        dsh.exchange_wait(dsh.exchange_start(
+            "ring", gins[s], ["cuda:0"] * sh["n"], p, slot=s), sync=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    fts = [fan.fanout_start(m, blocks[s], devs, slot=s)
+           for s, m in enumerate(("replicate", "shard"))]
+    ets = [dsh.exchange_start("ring", gins[s], ["cuda:0"] * sh["n"], p,
+                              slot=s) for s in range(2)]
+    in_flight = [not t.done.query() for t in fts + ets]
+    outs = [fan.fanout_wait(t) for t in fts]
+    exs = [dsh.exchange_wait(t) for t in ets]
+    torch.cuda.synchronize()
+    equal = ([same(outs[0], plain["replicate"]), same(outs[1], plain["shard"])]
+             + [torch.equal(_bytes(e), _bytes(w))
+                for e, w in zip(exs, exchanged)])
+    good = all(in_flight) and all(equal)
+    log(f"[slots] two slots in flight: K7 on slot 0, K8 on slot 1, K9 on "
+        f"both; in flight together {in_flight}, each byte-equal to its plain "
+        f"version {equal} -> {'ok' if good else 'FAIL'}")
+    ok &= good
+    if not ok:
+        raise PhaseFailed("the landing slots failed their gates")
+    summary["ok"] = bool(ok)
+    summary["s"] = time.perf_counter() - t_gates
+    log(f"[slots] the gates took {summary['s']:.1f} s")
+    return summary
+
+
 def _sharding(axes, spec):
     from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
 
@@ -1948,6 +2126,8 @@ def phase_ici(tmpdir: str, profile: bool = False):
     from ddl_tpu_torch.readers import ArrayProducer, TokenStreamProducer
 
     rows = fanout_kernel_checks()
+    slots = slot_gates()
+    free_device_memory()
     g = ICI
     data = np.random.default_rng(SEED).standard_normal(
         (g["n_rows"], g["cols"]), dtype=np.float32)
@@ -1980,7 +2160,7 @@ def phase_ici(tmpdir: str, profile: bool = False):
     ]
     ok = True
     launches = {fn.__name__: 0 for fn in fan.KERNELS}
-    summary = {"host_drain_s": host_s}
+    summary = {"host_drain_s": host_s, "slots": slots}
     for label, make, batch, want, axes, spec, kernel in runs:
         torch.cuda.synchronize()
         fan.reset_launch_counts()
@@ -1990,20 +2170,27 @@ def phase_ici(tmpdir: str, profile: bool = False):
         counts = {fn.__name__: fn.launches for fn in fan.KERNELS}
         windows = m.counter("ici.windows")
         fallbacks = m.counter("ici.fallbacks")
+        fused = m.counter("ici.fused_windows")
+        in_flight = m.gauge("ici.slots_in_flight.max")
         idle = [fn for fn in fan.KERNELS if fn is not kernel]
         run_ok = (all(checks) and len(checks) == g["n_epochs"]
                   and fallbacks == 0 and windows == g["n_epochs"]
+                  and fused == windows
                   and counts[kernel.__name__] == windows
                   and all(counts[fn.__name__] == 0 for fn in idle))
         for name, c in counts.items():
             launches[name] += c
         log(f"[ici] {label}: {len(checks)} windows, every shard byte-equal to "
             f"its slice of the host window {all(checks)}, ici.windows "
-            f"{windows:.0f}, ici.fallbacks {fallbacks:.0f}, launches {counts}, "
+            f"{windows:.0f}, ici.fused_windows {fused:.0f}, "
+            f"ici.slots_in_flight.max {in_flight:.0f}, ici.fallbacks "
+            f"{fallbacks:.0f}, launches {counts}, "
             f"drain {wall:.3f} s, ici.fanout {m.timer('ici.fanout').total_s * 1e3:.2f} ms"
             f", ici.redistribute {m.timer('ici.redistribute').total_s * 1e3:.2f} ms"
             f" (host clock, dispatch) -> {'ok' if run_ok else 'FAIL'}")
         summary[label] = {"drain_s": wall, "windows": windows,
+                          "fused_windows": fused,
+                          "slots_in_flight_max": in_flight,
                           "launches": counts}
         ok &= run_ok
 
@@ -4677,6 +4864,8 @@ MESH = dict(sp=4, dp=4, B=1, T=8192, H=32, Hkv=8, D=128, sp_rows=2,
 #: mask) must exceed it.  Set from phase 11's first readings (PERF.md, PR
 #: 14; NVIDIA H100 80GB HBM3, 700 W): gap 1.9e-05, control 8.9e-03.
 SP_LOSS_TOL = 1e-3
+#: Phase 11 (c)'s pairs of the dp fit with two landing slots and with one.
+SLOT_PAIRS = 6
 
 
 def _plain_chunked(q, k, v, dout, ids, rep, chunk=1024):
@@ -4880,13 +5069,13 @@ def _token_file(tmpdir):
 
 def _mesh_fit(tag, cfg, token_file, seq_len, rows, batch_size, mesh,
               batch_spec, card, train_config=None, n_epochs=None,
-              checkpoint_dir=None, profile=False, **trainer_kw):
+              checkpoint_dir=None, profile=False, fit_kw=None, **trainer_kw):
     """One full-width THREAD fit over a mesh of cuda:0 positions (or
     ``mesh=None``): a fresh Trainer from ``init_params(seed=0)``, the
     flash and K8 counts set to 0 just before the fit and read just
-    after; with ``profile``, one more fit of the same Trainer under
-    ``torch.profiler``.  Returns its summary; everything it allocated is
-    dropped."""
+    after; ``fit_kw`` goes to ``fit``; with ``profile``, one more fit of
+    the same Trainer under ``torch.profiler``.  Returns its summary;
+    everything it allocated is dropped."""
     import torch
 
     from ddl_tpu_torch.config import LoaderConfig
@@ -4916,7 +5105,7 @@ def _mesh_fit(tag, cfg, token_file, seq_len, rows, batch_size, mesh,
             TokenStreamProducer(token_file, seq_len, rows, seed=SEED),
             config=LoaderConfig(batch_size=batch_size, n_epochs=n_epochs,
                                 n_producers=2, mode="thread",
-                                window_stream=True))
+                                window_stream=True), **(fit_kw or {}))
 
     t0 = time.perf_counter()
     res = run()
@@ -4939,7 +5128,9 @@ def _mesh_fit(tag, cfg, token_file, seq_len, rows, batch_size, mesh,
         "k8": ici_fanout.fanout_shard.launches,
         "k7": ici_fanout.fanout_replicate.launches,
         "windows": m.counter("consumer.windows"),
-        "ici": {k: m.counter(k) for k in ("ici.windows", "ici.fallbacks")},
+        "ici": {k: m.counter(k) for k in ("ici.windows", "ici.fallbacks",
+                                          "ici.fused_windows")},
+        "slots_in_flight_max": m.gauge("ici.slots_in_flight.max"),
         "moments_per_replica": state_bytes_per_replica(
             res.state.optimizer, moments_only=True),
         "restores": m.counter("resilience.ckpt_restores"),
@@ -5060,6 +5251,10 @@ def mesh_dp_fits(tmpdir, card, profile=False):
                                profile=profile and name != "zero1")
     faults = []
     ref = runs["none"]["losses"]
+    pairs = slot_fit_pairs(args, ref, card, faults)
+    for name, s in runs.items():
+        if s["ici"]["ici.fused_windows"] != s["ici"]["ici.windows"]:
+            faults.append(f"{name}: {s['ici']}")
     if runs["zero1"]["losses"] != ref:
         faults.append(f"zero1 losses {runs['zero1']['losses']} != {ref}")
     parity = {}
@@ -5103,7 +5298,90 @@ def mesh_dp_fits(tmpdir, card, profile=False):
                       f"{runs['zero1']['losses']}")
     if faults:
         raise PhaseFailed("[mesh-dp] " + "; ".join(faults))
-    return {"runs": runs, "parity": parity, "resumed": second}
+    return {"runs": runs, "slot_pairs": pairs, "parity": parity,
+            "resumed": second}
+
+
+def slot_fit_pairs(args, ref, card, faults, pairs=SLOT_PAIRS):
+    """The ``{"dp": 4}`` fit of ``args`` with two landing slots and with
+    one (``DDL_TORCH_FUSED=0`` for the distributor; both fits
+    ``fit(fused=True)``), ``pairs`` pairs in alternating order (two
+    slots first in the odd pairs, one slot first in the even ones), so
+    that neither the order nor the card's drift favours one side.  Every
+    fit's losses must be bit-equal to ``ref``; the two-slot fits count
+    a fused window a window, the one-slot fits none.  Appends what
+    failed to ``faults``; returns each side's steady ms/step in run
+    order, and their medians."""
+    import statistics
+
+    from ddl_tpu_torch.config import TrainConfig
+
+    n_epochs = MESH["n_epochs"]
+    ms = {"two": [], "one": []}
+    first = {"two": [], "one": []}
+    t0 = time.perf_counter()
+    for k in range(pairs):
+        order = ("two", "one") if k % 2 == 0 else ("one", "two")
+        for pos, side in enumerate(order):
+            if side == "one":
+                os.environ["DDL_TORCH_FUSED"] = "0"
+            try:
+                s = _mesh_fit(f"[mesh-dp] pair {k + 1}, {side} slot(s)", *args,
+                              train_config=TrainConfig(),
+                              fit_kw={"fused": True})
+            finally:
+                os.environ.pop("DDL_TORCH_FUSED", None)
+            ms[side].append(s["steady_step_ms"])
+            if pos == 0:
+                first[side].append(s["steady_step_ms"])
+            fused, windows = (s["ici"][k_] for k_ in ("ici.fused_windows",
+                                                      "ici.windows"))
+            want_fused = windows if side == "two" else 0
+            if not (s["losses"] == ref and windows == n_epochs
+                    and s["k8"] == n_epochs and fused == want_fused
+                    and s["ici"]["ici.fallbacks"] == 0):
+                faults.append(f"pair {k + 1}, {side} slot(s): losses "
+                              f"{s['losses']} vs {ref}, {s['ici']}, K8 "
+                              f"{s['k8']}")
+            log(f"[mesh-dp] pair {k + 1}, {side} slot(s): ici.fused_windows "
+                f"{fused:.0f} of {windows:.0f}, ici.slots_in_flight.max "
+                f"{s['slots_in_flight_max']:.0f}")
+    med = {side: statistics.median(v) for side, v in ms.items()}
+    out = {"steady_step_ms": ms, "median_ms": med,
+           "first_in_pair_ms": first, "s": time.perf_counter() - t0}
+    log(f"[mesh-dp] two slots vs one, {pairs} pairs in alternating order: "
+        f"steady ms/step two {[round(x, 2) for x in ms['two']]}, one "
+        f"{[round(x, 2) for x in ms['one']]}; medians {med['two']:.2f} vs "
+        f"{med['one']:.2f}; losses bit-equal to the reference fit in every "
+        f"fit; {out['s']:.1f} s ({card})")
+    return out
+
+
+def slots_ab(card):
+    """The slot pairs of phase 11 (c) alone: a warm-up window, the
+    two-slot reference fit, then :func:`slot_fit_pairs`.  Run with
+    ``python3 chip_smoke.py --slots-ab``."""
+    import dataclasses as dc
+
+    from ddl_tpu_torch.config import TrainConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+
+    tr, c = TRAIN, MESH
+    cfg = dc.replace(llama.LlamaConfig.llama3_8b(), n_layers=tr["n_layers"])
+    with tempfile.TemporaryDirectory() as tmp:
+        token_file = _token_file(tmp)
+        mesh = make_mesh({"dp": c["dp"]}, ["cuda:0"] * c["dp"])
+        args = (cfg, token_file, tr["seq_len"], tr["window_rows"],
+                tr["batch_size"], mesh, P(("dp",)), card)
+        _mesh_fit("[mesh-dp] warm-up, one window", *args, n_epochs=1)
+        ref = _mesh_fit("[mesh-dp] reference", *args,
+                        train_config=TrainConfig())["losses"]
+        faults = []
+        out = slot_fit_pairs(args, ref, card, faults)
+    if faults:
+        raise PhaseFailed("[slots-ab] " + "; ".join(faults))
+    return out
 
 
 def mesh_collectives(card):
@@ -6282,11 +6560,13 @@ def shuffle_impl_ab(card):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gin = torch.randn((n * 2 * half, sh["cols"]), generator=gen, device="cuda")
     p = exchange_permutation(n, SEED, 0)
-    ms = {impl: _time_ms(lambda impl=impl: dsh.exchange_start(
-        impl, gin, ["cuda:0"] * n, p), reps=20, warmup=3)
-        for impl in ("ring", "xla")}
-    equal_out = torch.equal(dsh.exchange_start("ring", gin, ["cuda:0"] * n, p),
-                            dsh.exchange_start("xla", gin, ["cuda:0"] * n, p))
+    def round_(impl):
+        ring = ["cuda:0"] * n
+        return dsh.exchange_wait(dsh.exchange_start(impl, gin, ring, p))
+
+    ms = {impl: _time_ms(lambda impl=impl: round_(impl), reps=20, warmup=3)
+          for impl in ("ring", "xla")}
+    equal_out = torch.equal(round_("ring"), round_("xla"))
     log(f"[xla] streams byte-identical {same}; one round's outputs equal "
         f"{equal_out}; K9 launches ring {launches['ring']} (rounds "
         f"{legs['ring']}), xla {launches['xla']} (rounds {legs['xla']}); one "
@@ -9045,6 +9325,9 @@ def main(argv=None) -> int:
                     help="also profile one more of each fit, of the "
                     "device-fabric drain and of a dp=4 ICI drain with "
                     "torch.profiler")
+    ap.add_argument("--slots-ab", action="store_true",
+                    help="build, then run only phase 11 (c)'s pairs of the "
+                    "dp fit with two landing slots and with one")
     ap.add_argument("--multihost-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     ap.add_argument("--cluster-child", nargs=3,
@@ -9077,6 +9360,14 @@ def main(argv=None) -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
+    if args.slots_ab:
+        try:
+            summary = slots_ab(phase_build())
+        except PhaseFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        log(f"[summary-slots-ab] {json.dumps(summary)}")
+        return 0
     try:
         card = phase_build()
         kernels = phase_kernels()

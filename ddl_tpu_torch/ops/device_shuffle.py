@@ -17,7 +17,10 @@ several distinct cards is the multi-card slice and raises here.
 :func:`exchange_start` picks the round's route by name: ``"ring"`` (K9,
 the default) or ``"xla"`` (:func:`exchange_xla`, two
 ``collectives.ppermute`` lane moves, the JAX package's second route);
-neither falls back to the other.
+neither falls back to the other.  It starts the round in landing slot
+``slot`` on the caller's current stream and returns an
+:class:`ExchangeTicket` without waiting on the host;
+:func:`exchange_wait` makes the consumer's stream wait on it.
 
 Beside the kernel:
 
@@ -43,7 +46,13 @@ import numpy as np
 import torch
 
 from ddl_tpu_torch.concurrency import named_lock
+from ddl_tpu_torch.ops.ici_fanout import (
+    N_SLOTS,
+    _check_slot,
+    await_done,
+)
 from ddl_tpu_torch.parallel.mesh import one_card
+from ddl_tpu_torch.utils import done_event
 
 #: Held by a caller from a round's landing to its hand-back: the landing
 #: buffers of a geometry are reused by its next round.
@@ -111,13 +120,15 @@ def exchange_plain(gin: torch.Tensor, routes: Any) -> torch.Tensor:
 
 
 def exchange_ring(gin: torch.Tensor, devices: Sequence[Any],
-                  routes: Any) -> torch.Tensor:
+                  routes: Any, slot: int = 0) -> torch.Tensor:
     """K9: one exchange round over the global input ``gin`` (n ring
     positions of ``2*half`` rows each, one allocation), into a new
     tensor, on the current stream.  ``routes`` is the (2, n) ``[p, pinv]``
     of this round (data, not code).  A CPU tensor takes
-    :func:`exchange_plain`; a CUDA tensor reaches the kernel or raises."""
+    :func:`exchange_plain`; a CUDA tensor reaches the kernel or raises.
+    ``slot`` is checked as the reference checks it."""
     devices = tuple(devices)
+    _check_slot(slot)
     n = len(devices)
     if n == 1:
         return gin
@@ -187,21 +198,49 @@ def exchange_xla(gin: torch.Tensor, devices: Sequence[Any],
     return torch.cat([torch.cat([a[i], b[i]]) for i in range(n)])
 
 
+@dataclasses.dataclass(frozen=True)
+class ExchangeTicket:
+    """A started exchange round: ``value`` is its output, still being
+    written on the launching stream until ``done`` (None for CPU tensors)
+    has fired; at most one round in flight a slot."""
+
+    value: Any
+    impl: str  #: "ring" | "xla"
+    slot: int
+    done: Any = None
+
+
 def exchange_start(impl: str, gin: torch.Tensor, devices: Sequence[Any],
-                   perm: Sequence[int]) -> torch.Tensor:
-    """Start one exchange round on the current stream and return its
-    output: ``impl="ring"`` launches K9 (:func:`exchange_ring`), ``"xla"``
-    moves the two lanes through ``ppermute`` (:func:`exchange_xla`).  The
-    route is the caller's choice by name; neither falls back to the
-    other."""
+                   perm: Sequence[int], *, slot: int = 0) -> ExchangeTicket:
+    """Start one exchange round in landing slot ``slot``; never waits on
+    the host.  ``impl="ring"`` launches K9 (:func:`exchange_ring`),
+    ``"xla"`` moves the two lanes through ``ppermute``
+    (:func:`exchange_xla`); on a card either runs on the caller's
+    current stream, after its enqueued work.  The route is the caller's
+    choice by name; neither falls back to the other.  Pair with
+    :func:`exchange_wait`."""
+    slot = _check_slot(slot)  # before any launch
     if impl == "ring":
         from ddl_tpu_torch.shuffle import inverse_permutation
 
         p = np.asarray(perm)  # ddl-lint: disable=DDL016 - the route table (host metadata), not window rows
-        return exchange_ring(gin, devices, np.stack([p, inverse_permutation(p)]))
-    if impl == "xla":
-        return exchange_xla(gin, devices, perm)
-    raise ValueError(f"impl must be ring|xla, got {impl!r}")
+        out = exchange_ring(gin, devices,
+                            np.stack([p, inverse_permutation(p)]), slot=slot)
+    elif impl == "xla":
+        out = exchange_xla(gin, devices, perm)
+    else:
+        raise ValueError(f"impl must be ring|xla, got {impl!r}")
+    return ExchangeTicket(out, impl, slot, done_event(gin.device))
+
+
+def exchange_wait(ticket: ExchangeTicket, sync: bool = False) -> torch.Tensor:
+    """The wait half: the caller's current stream waits on the round's
+    ``done`` on the device, and the output is handed on.  ``sync=True``
+    also waits on the host (the fabric's round boundary, where a kernel
+    fault must surface inside the round)."""
+    await_done(ticket.done, [ticket.value], sync)
+    return ticket.value
+
 
 #: The kernel wrappers of this module (K9).
 KERNELS = (exchange_ring,)

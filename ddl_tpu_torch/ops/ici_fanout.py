@@ -24,11 +24,29 @@ CUDA tensor reaches the kernel or raises.  The pricing
 (:func:`wire_bytes`, :func:`payload_bytes`, :func:`bcast_grid`) is the
 reference's, verbatim: the planner prices the ICI ring the reference
 runs.
+
+**Landing slots** (the fused step's split start/wait surface):
+:func:`fanout_start` launches a window's fan-out into landing slot
+``slot`` (< :data:`N_SLOTS`) on the caller's current stream and returns
+a :class:`FanoutTicket` without waiting on the host; the ticket's
+``done`` event is recorded behind the launch.  :func:`fanout_wait` makes
+the consumer's current stream wait on ``done`` on the device, never the
+host (``sync=True`` adds a host wait: bring-up validation only), and
+ties the outputs to that stream (``record_stream``), so the caching
+allocator keeps them while a consumer on another stream reads them.
+The slot is the window's place in the reference's double buffer: it is
+checked and carried in the ticket.  On one card no consumer overlaps
+two windows yet, so the slots share the caller's stream.  The reference
+also keeps a cached set of landing buffers a slot
+(``_landing_buffers``): SPMD placeholders, since ``shard_map`` needs an
+input block on every device.  The CUDA kernels write fresh position
+tensors, so the port has no such cache.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -41,6 +59,7 @@ from ddl_tpu_torch.parallel.mesh import (
     ShardedArray,
     one_card,
 )
+from ddl_tpu_torch.utils import done_event
 
 #: The fan-out ring's private mesh axis (always 1-axis; the
 #: redistribution planner owns the mapping onto dp x fsdp x tp).
@@ -50,8 +69,9 @@ AXIS = "x"
 #: plan prices it: a one-card launch has no pipeline to deepen.
 DEFAULT_CHUNKS = 4
 
-#: Landing slots the reference's fused dispatch keeps in flight at once.
-#: Only the plan prices them: a one-card launch allocates fresh outputs.
+#: Landing slots the fused dispatch may keep in flight at once (the
+#: reference's double buffer): a ticket carries its slot, and the plan
+#: prices one set of landing blocks a slot.
 N_SLOTS = 2
 
 #: Ring positions one launch addresses (the kernel's parameter table).
@@ -168,6 +188,33 @@ def _raise_on(rc: int, what: str) -> None:
         )
 
 
+# -- landing slots ------------------------------------------------------------
+
+
+def _check_slot(slot: int) -> int:
+    slot = int(slot)
+    if not 0 <= slot < N_SLOTS:
+        raise ValueError(
+            f"landing slot must be in [0, {N_SLOTS}), got {slot}"
+        )
+    return slot
+
+
+def await_done(done: Any, outputs: Sequence[torch.Tensor], sync: bool) -> None:
+    """The wait half on the device: the caller's current stream waits on
+    ``done`` and each output is tied to it for the allocator.  ``sync``
+    also waits on the host.  ``done`` None (CPU tensors) waits for
+    nothing."""
+    if done is None:
+        return
+    stream = torch.cuda.current_stream(outputs[0].device)
+    stream.wait_event(done)
+    for t in outputs:
+        t.record_stream(stream)
+    if sync:
+        done.synchronize()
+
+
 def replicate_plain(block: torch.Tensor, n: int, src: int = 0) -> List[torch.Tensor]:
     """K7's function in plain torch: every ring position's copy of the
     block (the source position keeps ``block`` itself)."""
@@ -182,17 +229,20 @@ def shard_plain(block: torch.Tensor, n: int) -> List[torch.Tensor]:
 
 
 def fanout_replicate(block: torch.Tensor, devices: Sequence[Any],
-                     src: int = 0) -> ShardedArray:
+                     src: int = 0, slot: int = 0) -> ShardedArray:
     """K7: broadcast a ``(rows, cols)`` block to every ring position, on
     the current stream.
 
     ``block`` lives on ring position ``src``.  Returns a global ``(n *
     rows, cols)`` array split ``P("x")`` over the ring, every block
     byte-identical to the source (see :func:`replicated_view`); the
-    source position's block is ``block`` itself.
+    source position's block is ``block`` itself.  ``slot`` is checked
+    as the reference checks it.
     """
     ring = _ring(devices)
     n = len(ring)
+    # Before the one-position passthrough: a bad slot fails on any ring.
+    _check_slot(slot)
     _check_block(block, ring, src)
     if n == 1:
         blocks = [block]
@@ -214,15 +264,17 @@ def fanout_replicate(block: torch.Tensor, devices: Sequence[Any],
 
 
 def fanout_shard(block: torch.Tensor, devices: Sequence[Any],
-                 src: int = 0) -> ShardedArray:
+                 src: int = 0, slot: int = 0) -> ShardedArray:
     """K8: scatter a ``(rows, cols)`` block over the ring, on the current
     stream: row-block ``i`` lands on ring position ``i``, for any
     ``src``.  ``rows`` must divide by the ring size (the planner
     guarantees it or takes the plain route).  Returns a global ``(rows,
     cols)`` array split ``P("x")``, each position's block its own
-    contiguous tensor (``block`` itself on a one-position ring)."""
+    contiguous tensor (``block`` itself on a one-position ring).
+    ``slot`` as in :func:`fanout_replicate`."""
     ring = _ring(devices)
     n = len(ring)
+    _check_slot(slot)  # before the passthrough, as in replicate
     _check_block(block, ring, src)
     rows, cols = block.shape
     if rows % n:
@@ -257,6 +309,47 @@ KERNELS = (fanout_replicate, fanout_shard)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FanoutTicket:
+    """A started fan-out: ``value`` is the kernel's output, still being
+    written on the launching stream until ``done`` (None for CPU
+    tensors, which land at once) has fired.  The ticket records the
+    landing slot the window occupies (at most one window in flight a
+    slot)."""
+
+    value: Any
+    mode: str  #: "replicate" | "shard"
+    slot: int
+    done: Any = None
+
+
+def fanout_start(mode: str, block: torch.Tensor, devices: Sequence[Any],
+                 src: int = 0, *, slot: int = 0) -> FanoutTicket:
+    """Start a fan-out into landing slot ``slot``; never waits on the
+    host.  On a CUDA tensor K7 (``"replicate"``) or K8 (``"shard"``)
+    launches on the caller's current stream, after its enqueued work; a
+    CPU tensor takes the plain version at once.  Pair with
+    :func:`fanout_wait`."""
+    slot = _check_slot(slot)  # before any launch
+    if mode == "replicate":
+        kernel = fanout_replicate
+    elif mode == "shard":
+        kernel = fanout_shard
+    else:
+        raise ValueError(f"mode must be replicate|shard, got {mode!r}")
+    out = kernel(block, devices, src=src, slot=slot)
+    return FanoutTicket(out, mode, slot, done_event(block.device))
+
+
+def fanout_wait(ticket: FanoutTicket, sync: bool = False) -> ShardedArray:
+    """The wait half: the caller's current stream waits on the ticket's
+    ``done`` on the device, and the value is handed on.  ``sync=True``
+    also waits on the host (bring-up validation, where a kernel fault
+    must surface inside the caller)."""
+    await_done(ticket.done, [s.data for s in ticket.value.shards], sync)
+    return ticket.value
 
 
 def replicated_view(out: ShardedArray, devices: Sequence[Any]) -> ShardedArray:

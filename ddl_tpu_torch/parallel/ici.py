@@ -38,6 +38,7 @@ failure included — latches the whole tier to the plain route (counted in
 decode's or an injected one — raises.
 
 Observability: ``ici.bytes`` (the plan's wire bytes), ``ici.windows``,
+``ici.fused_windows`` (windows dispatched with two landing slots),
 ``ici.fallbacks``, the ``ici.fanout`` (encode and kernel dispatch) and
 ``ici.redistribute`` (2-D view, finish and decode) timers, the
 ``ici.peak_bytes`` / ``ici.slots_in_flight`` gauges, and on an encoded
@@ -452,11 +453,15 @@ class IciDistributor:
     **Landing slots** (``n_slots``, default
     :data:`~ddl_tpu_torch.ops.ici_fanout.N_SLOTS`, 1 under
     ``DDL_TORCH_FUSED=0``): the plans price them, as the reference's
-    do; the kernels allocate fresh outputs per window.  The
-    ``ici.slots_in_flight`` gauge counts the windows whose distribution
-    has not completed on the device (at most ``n_slots``, high-water on
-    ``.max``), over weak references, so tracking never keeps a window
-    alive.
+    do.  Each window's fan-out starts in the next slot
+    (:func:`~ddl_tpu_torch.ops.ici_fanout.fanout_start`) and the finish
+    waits on it on the device
+    (:func:`~ddl_tpu_torch.ops.ici_fanout.fanout_wait`); with more than
+    one slot each dispatch that succeeds cycles the slot and counts
+    ``ici.fused_windows``.  The ``ici.slots_in_flight`` gauge counts the
+    windows whose distribution has not completed on the device (at most
+    ``n_slots``, high-water on ``.max``), over weak references, so
+    tracking never keeps a window alive.
     """
 
     def __init__(
@@ -481,6 +486,7 @@ class IciDistributor:
         self.max_memory_factor = max_memory_factor
         self.n_chunks = n_chunks
         self.faulted = False
+        self._slot = 0  # the next window's landing slot
         # (weak ref to a result, its done event): the slots_in_flight
         # gauge's view of recent windows, bounded by n_slots.
         self._in_flight: list = []
@@ -586,12 +592,13 @@ class IciDistributor:
 
             def decode(w: torch.Tensor) -> torch.Tensor:
                 return decode2d(w, cols, dtype, wd)
-        if plan.mode == "replicate":
-            out = ici_fanout.fanout_replicate(flat, ring)
-        else:
-            out = ici_fanout.fanout_shard(flat, ring)
+        slot = self._slot
+        ticket = ici_fanout.fanout_start(plan.mode, flat, ring, slot=slot)
         t2 = time.perf_counter()
         m.add_time("ici.fanout", t2 - t1)
+        # The finish consumes the landed blocks: its stream waits on the
+        # kernel on the device.
+        out = ici_fanout.fanout_wait(ticket)
         if plan.mode == "replicate":
             result = _finish_replicate(
                 ici_fanout.replicated_view(out, ring), plan, self.sharding,
@@ -601,11 +608,17 @@ class IciDistributor:
         m.add_time("ici.redistribute", (t1 - t0) + (time.perf_counter() - t2))
         key = (plan.shape, str(plan.dtype))
         if key not in self._validated:
-            # First window of a geometry: wait for it, so a fault of the
-            # kernel surfaces here rather than at the consumer.
+            # First window of a geometry: wait for the kernel and the
+            # finish, so a fault surfaces here, not at the consumer.
             if block.device.type == "cuda":
                 torch.cuda.current_stream(block.device).synchronize()  # ddl-lint: disable=TDL020 - bring-up validation, once per geometry
             self._validated.add(key)
+        # Cycle the landing slot only after a dispatch that succeeded: a
+        # fault re-routes through the ladder without using up the slot.
+        if plan.n_slots > 1:
+            self._slot = (slot + 1) % plan.n_slots
+            m.incr("ici.fused_windows")
+        # Recorded behind the finish, which waited on the kernel.
         self._track_in_flight(result, done_event(block.device))
         m.incr("ici.bytes", float(plan.wire_bytes))
         if plan.wire_dtype != "raw":

@@ -876,11 +876,15 @@ class DeviceExchangeFabric:
                 )
             blocks.append(b)
         p = exchange_permutation(n, rnd.seed, rnd.round_)
-        # Land, launch and hand back on one stream; the hand-back waits
-        # for it, so a kernel fault surfaces HERE, inside this round.
+        # Rounds alternate landing slots, as the reference's alternate
+        # collective-id pairs.  Land, launch and hand back on one stream.
+        slot = rnd.round_ % _dsh.N_SLOTS
         with _dsh.LANDING_LOCK:
             gin = _dsh.as_exchange_input(blocks, devices)
-            out = _dsh.exchange_start(self.impl, gin, devices, p)
+            ticket = _dsh.exchange_start(self.impl, gin, devices, p,
+                                         slot=slot)
+            # sync=True: a kernel fault surfaces HERE, inside this round.
+            out = _dsh.exchange_wait(ticket, sync=True)
             blocks_out = _dsh.exchange_output_blocks(out, devices)
         return {i: blocks_out[i] for i in range(n)}
 

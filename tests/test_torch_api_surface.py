@@ -56,9 +56,6 @@ _REMAT = ("the port's selective policy keeps the attention output without "
           "a checkpoint_name tag (ddl_tpu_torch/models/remat.py)")
 _QAR = ("a shard_map body's per-device value and axis: the port's "
         "quantized_all_reduce takes every position's contribution (xs)")
-_A5C = ("the ticket API of two landing slots in flight: it comes with "
-        "distinct cards (ROADMAP.md A5c); one card runs each launch to "
-        "its end on the stream")
 
 #: (reference file, qualified name, parameter or None) -> why the port
 #: differs on purpose.
@@ -86,23 +83,12 @@ ALLOWLIST = {
     ("ops/ici_fanout.py", "fanout_replicate", "n_chunks"): (
         "the Pallas ring moves a block in DMA chunks; K7's grid copies "
         "whole rows, so there is no chunk count to pick"),
-    ("ops/ici_fanout.py", "fanout_replicate", "slot"): _A5C,
-    ("ops/ici_fanout.py", "fanout_shard", "slot"): _A5C,
-    ("ops/ici_fanout.py", "FanoutTicket", None): _A5C,
-    ("ops/ici_fanout.py", "FanoutTicket.value", None): _A5C,
-    ("ops/ici_fanout.py", "FanoutTicket.mode", None): _A5C,
-    ("ops/ici_fanout.py", "FanoutTicket.slot", None): _A5C,
-    ("ops/ici_fanout.py", "fanout_start", None): _A5C,
-    ("ops/ici_fanout.py", "fanout_wait", None): _A5C,
+    ("ops/ici_fanout.py", "fanout_start", "n_chunks"): (
+        "the Pallas ring moves a block in DMA chunks; K7's grid copies "
+        "whole rows, so there is no chunk count to pick"),
+    ("ops/ici_fanout.py", "fanout_start", "interpret"): _INTERPRET,
     ("ops/device_shuffle.py", "exchange_ring", "interpret"): _INTERPRET,
-    ("ops/device_shuffle.py", "exchange_ring", "slot"): _A5C,
-    ("ops/device_shuffle.py", "exchange_start", "slot"): _A5C,
     ("ops/device_shuffle.py", "exchange_start", "interpret"): _INTERPRET,
-    ("ops/device_shuffle.py", "ExchangeTicket", None): _A5C,
-    ("ops/device_shuffle.py", "ExchangeTicket.value", None): _A5C,
-    ("ops/device_shuffle.py", "ExchangeTicket.impl", None): _A5C,
-    ("ops/device_shuffle.py", "ExchangeTicket.slot", None): _A5C,
-    ("ops/device_shuffle.py", "exchange_wait", None): _A5C,
     ("parallel/collectives.py", "quantized_all_reduce", "x"): _QAR,
     ("parallel/collectives.py", "quantized_all_reduce", "axis_name"): _QAR,
     ("parallel/collectives.py", "quantized_all_reduce", "axis_size"): _QAR,

@@ -48,6 +48,7 @@ kernel does not incur; in fp32 the two agree to summation order.
 import dataclasses
 import math
 import os
+import time
 
 import numpy as np
 import pytest
@@ -990,9 +991,150 @@ def test_ici_loader_windows_ride_the_fanout_kernels(tmp_path, axes, spec, kernel
     assert counts[kernel] == m.counter("ici.windows") == 6
     assert sum(counts.values()) == 6
     assert m.counter("ici.fallbacks") == 0
+    # Every window started in the next of the two landing slots.
+    assert m.counter("ici.fused_windows") == 6
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         assert g[-1].tobytes() == w.tobytes()
+
+
+# -- the landing slots: fan-out and exchange tickets --------------------------
+
+
+def _sleep_cycles(ms):
+    """The ``torch.cuda._sleep`` argument that keeps the current stream
+    busy for about ``ms`` milliseconds on this card."""
+    probe = 10_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * ms / start.elapsed_time(end))
+
+
+def _plain(mode, block, n, src=0):
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    return (fan.replicate_plain(block, n, src) if mode == "replicate"
+            else fan.shard_plain(block, n))
+
+
+@pytest.mark.parametrize("mode", ["replicate", "shard"])
+def test_fanout_start_orders_after_the_anchor_and_never_waits(mode):
+    """The anchor block is written by a kernel queued on the caller's
+    stream behind a 200 ms sleep: ``fanout_start`` returns long before
+    the sleep ends, its ticket is still in flight, and the landed blocks
+    are the block's final value."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    n, devs = 4, ["cuda:0"] * 4
+    block = torch.zeros((1024, 256), device="cuda")
+    final = _fanout_block(1024, 256, torch.float32, 5)
+    fan.fanout_wait(fan.fanout_start(mode, block, devs, slot=1), sync=True)
+    cycles = _sleep_cycles(200.0)
+    fan.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    block.copy_(final)
+    ticket = fan.fanout_start(mode, block, devs, slot=1)
+    returned_s = time.perf_counter() - t0
+    in_flight = not ticket.done.query()
+    out = fan.fanout_wait(ticket)
+    torch.cuda.synchronize()
+    assert returned_s < 0.05 and in_flight
+    assert (ticket.mode, ticket.slot) == (mode, 1)
+    assert sum(fn.launches for fn in fan.KERNELS) == 1
+    for s, w in zip(out.shards, _plain(mode, final, n)):
+        assert torch.equal(_bytes(s.data), _bytes(w))
+
+
+def test_fanout_start_keeps_a_dropped_block_until_the_slot_read_it():
+    """``del`` the anchor block right after ``start``, then allocate and
+    fill a same-size tensor on the caller's stream while the kernel is
+    still queued: ``wait`` lands the original bytes (the allocator may
+    hand the fill the block's memory only behind the kernel)."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    n, devs = 4, ["cuda:0"] * 4
+    block = _fanout_block(1024, 256, torch.float32, 6)
+    want = [w.clone() for w in fan.shard_plain(block, n)]
+    fan.fanout_wait(fan.fanout_start("shard", block, devs), sync=True)
+    cycles = _sleep_cycles(100.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(cycles)
+    ticket = fan.fanout_start("shard", block, devs)
+    del block
+    other = torch.empty((1024, 256), device="cuda")
+    other.fill_(-1.0)
+    in_flight = not ticket.done.query()
+    out = fan.fanout_wait(ticket)
+    torch.cuda.synchronize()
+    assert in_flight  # the kernel still read the block when it was dropped
+    for s, w in zip(out.shards, want):
+        assert torch.equal(_bytes(s.data), _bytes(w))
+
+
+def test_two_tickets_in_flight_one_a_slot():
+    """A fan-out ticket and an exchange ticket on each slot, all started
+    behind a sleep: in flight together, each byte-equal to its plain
+    version."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+    from ddl_tpu_torch.shuffle import exchange_permutation, inverse_permutation
+
+    n, devs = 4, ["cuda:0"] * 4
+    blocks = [_fanout_block(64, 256, torch.float32, 7 + s) for s in range(2)]
+    gins = [_exchange_input(n, 16, 64, torch.float32, 9 + s)
+            for s in range(2)]
+    perm = exchange_permutation(n, 3, 0)
+    routes = np.stack([perm, inverse_permutation(perm)])
+    for s in range(2):  # first use of the libraries and of each slot
+        fan.fanout_wait(fan.fanout_start("shard", blocks[s], devs, slot=s),
+                        sync=True)
+        tdsh.exchange_wait(tdsh.exchange_start("ring", gins[s], devs, perm,
+                                               slot=s), sync=True)
+    cycles = _sleep_cycles(100.0)
+    fan.reset_launch_counts()
+    tdsh.reset_launch_counts()
+    torch.cuda._sleep(cycles)
+    fts = [fan.fanout_start(m, blocks[s], devs, slot=s)
+           for s, m in enumerate(("replicate", "shard"))]
+    ets = [tdsh.exchange_start("ring", gins[s], devs, perm, slot=s)
+           for s in range(2)]
+    in_flight = [not t.done.query() for t in fts + ets]
+    outs = [fan.fanout_wait(t) for t in fts]
+    ex = [tdsh.exchange_wait(t) for t in ets]
+    torch.cuda.synchronize()
+    assert in_flight == [True] * 4
+    assert [t.slot for t in fts + ets] == [0, 1, 0, 1]
+    assert [fn.launches for fn in fan.KERNELS] == [1, 1]
+    assert tdsh.exchange_ring.launches == 2
+    for s, (m, out) in enumerate(zip(("replicate", "shard"), outs)):
+        for got, w in zip(out.shards, _plain(m, blocks[s], n)):
+            assert torch.equal(_bytes(got.data), _bytes(w))
+    for s in range(2):
+        assert torch.equal(_bytes(ex[s]),
+                           _bytes(tdsh.exchange_plain(gins[s], routes)))
+
+
+def test_a_failed_slot_launch_raises(monkeypatch):
+    """No fallback on the ticket path: a launch that fails on the slot's
+    stream raises out of ``start``, for K7, K8 and K9."""
+    from ddl_tpu_torch.ops import ici_fanout as fan
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *a: 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(fan, "_lib", Failing)
+    monkeypatch.setattr(tdsh, "_lib", Failing)
+    block = _fanout_block(64, 256, torch.float32, 8)
+    for mode in ("replicate", "shard"):
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            fan.fanout_start(mode, block, ["cuda:0"] * 4, slot=1)
+    gin = _exchange_input(4, 16, 64, torch.float32, 1)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tdsh.exchange_start("ring", gin, ["cuda:0"] * 4, [1, 2, 3, 0], slot=1)
 
 
 # -- PROCESS mode and staging -------------------------------------------------

@@ -452,8 +452,8 @@ def test_xla_exchange_equals_ring_and_permutation(n, half, cols, seed, round_):
     gin = torch.arange(n * 2 * half * cols, dtype=torch.float32).reshape(
         n * 2 * half, cols)
     p = exchange_permutation(n, seed, round_)
-    xla = dsh.exchange_start("xla", gin, ["cpu"] * n, p)
-    ring = dsh.exchange_start("ring", gin, ["cpu"] * n, p)
+    xla = dsh.exchange_wait(dsh.exchange_start("xla", gin, ["cpu"] * n, p))
+    ring = dsh.exchange_wait(dsh.exchange_start("ring", gin, ["cpu"] * n, p))
     assert torch.equal(xla, ring)
     blocks = gin.reshape(n, 2 * half, cols)
     out = xla.reshape(n, 2 * half, cols)

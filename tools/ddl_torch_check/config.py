@@ -70,10 +70,8 @@ def port_lint_config() -> LintConfig:
             # _as_ring_input: the port's ring input is the block itself,
             # checked in place by this function.
             "_check_block",
-            # exchange_wait: dropped.  The port's exchange has no wait
-            # half: exchange_start returns the output on the current
-            # stream and its consumer's first use orders on it.
-            "exchange_ring", "exchange_xla", "exchange_start",
+            "fanout_start", "fanout_wait",
+            "exchange_ring", "exchange_xla", "exchange_start", "exchange_wait",
         ],
         train_step_functions=["make_train_step", "make_multistep"],
         cluster_loop_functions=[
@@ -96,6 +94,9 @@ def port_lint_config() -> LintConfig:
             "IciDistributor._distribute_planned",
             "IciDistributor._track_in_flight",
             "exchange_start",
+            # The fan-out's start half, as exchange_start: it must not
+            # wait on the host.
+            "fanout_start",
         ],
         wire_path_functions=[
             "DataPusher._encode_and_commit",
