@@ -232,10 +232,15 @@ beside ``bubble_fraction``.  (b) Two gloo processes sharing cuda:0
 (``--multihost-child``), each with PROCESS producers under
 ``mode="multihost"``: ``core`` (every host's producers reach every
 process, the dp step across processes, ``DeviceGlobalShuffler`` lanes
-across processes keeping the rows and moving some), ``stream``
-(``windows()`` over a process-spanning sharding), ``dpsp`` and ``ppdp``
-(full-width fits over ``{"dp": 2, "sp": 2}`` and ``{"dp": 2, "pp": 2}``,
-2 layers, global B = 4), ``packed`` (K4-K6 at a small width; the two
+across processes keeping the rows and moving some across them),
+``stream`` (``windows()`` over a process-spanning sharding), ``dpsp``
+(a fit over ``{"dp": 2, "sp": 2}`` at the small width, d_model 512, 1
+layer) and ``ppdp`` (a full-width fit over ``{"dp": 2, "pp": 2}``, 2
+layers), global B = 4, ``dpep`` (``MH_DPEP``: an fp32 einsum MoE at a
+binding capacity over ``{"dp": 2, "ep": 2}``, routing the global batch,
+within ``MH_LOSS_TOL`` of the one-process run, while the control that
+routes each process's rows alone must miss it; K1-K3 once a layer and
+step), ``packed`` (K4-K6 at the small width; the two
 processes' mask counts must differ in some step), ``evaluate``
 (``Trainer.evaluate`` over a process-spanning mesh on the token stream,
 K1, and on the documents, K4: both processes return one value), ``ckpt``
@@ -243,8 +248,9 @@ K1, and on the documents, K4: both processes return one value), ``ckpt``
 and packed losses, and both evaluate values, against the port's
 one-process runs over the same global mesh and batches within
 ``MH_LOSS_TOL``, with the gloo all-reduce's ms and bytes a step and each
-process's peak.  ZeRO-1 over the processes (``MH_ZERO1_LEGS``): ``z1``
-and ``z1int8``, dpsp's fit with ``optimizer_sharding="zero1"`` (and
+process's peak.  ZeRO-1 over the processes (``MH_ZERO1_LEGS``, at the
+small width since phase 12 (d) runs it at full width over four):
+``z1`` and ``z1int8``, dpsp's fit with ``optimizer_sharding="zero1"`` (and
 ``grad_comm="int8"``): one gloo reduce-scatter and one all-gather a
 step, each process's moments its replica's.  Gates: z1 bit-equal to
 dpsp; z1int8 within ``PARITY_REL_TOL`` of z1 and within ``MH_LOSS_TOL``
@@ -257,7 +263,22 @@ one-process int8 run and inside ``loss_parity`` of the fp32 run) and
 generation written with the moment slices gathered to rank 0, restored
 on both ranks and run on bit-equal).  Each leg prints its ms/step, the
 scatter, gather and all-reduce ms and bytes a step and each process's
-peak.  (c) ``shuffle_impl="xla"`` beside
+peak.  (d) Four gloo processes sharing cuda:0, two positions each
+(``--multihost-child RANK PORT DIR 4``): ``core`` as in (b), then
+ZeRO-1 over ``{"dp": 4, "sp": 2}`` (``MH4``, ``MH4_ZERO1_LEGS``):
+``z1`` at Llama-3-8B's widths cut to 1 layer (global B = 4, T = 2048,
+2 steps; K1-K3 through the ring over each process's sp pair) and
+``z1int8`` at the small width; each against the port's one-process
+ZeRO-1 fit over the same mesh, weights and windows within
+``MH_LOSS_TOL``; each process's moments the reference rule's count for
+one replica of four, a quarter of the whole; each process's K1-K3
+launches sp^2 x layers x steps, no K4-K6.  Each process prints its
+ms/step split into the scatter, gather and all-reduce legs and the rest
+(the card's work and the loop), its moments and peak; the host's and
+the card's memory are printed first.  Run alone: ``python3 -c "import
+sys, tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
+c.phase_build(); print(c.multihost4_run(tempfile.mkdtemp(), card)[0])"``.
+(c) ``shuffle_impl="xla"`` beside
 ``"ring"`` at phase 4's geometry: byte-identical streams, K9 on the ring
 route only, one round's ms each.  Run alone: ``python3 -c "import sys,
 tempfile; sys.path.insert(0, '.'); import chip_smoke as c; card =
@@ -438,7 +459,9 @@ card))"``.
 Output: progress lines, then one JSON line ``{"kernels": [...]}`` (K1-K6
 with ``ring_launches``: K1-K3 from the sp fit, K4-K6 from the packed
 ring of (a); ``multihost_launches`` from phase 12's two processes and
-``zero1_launches`` from their z1 and z1int8 fits (12 b); K1-K3
+``zero1_launches`` from their z1 and z1int8 fits (12 b),
+``multihost4_launches`` from the four processes' z1 and z1int8 fits (12
+d); K1-K3
 with ``pipeline_launches`` from phase 12's gpipe fit; ``moe_launches``
 from phase 14's MoE fits, K1-K3 with ``vit_launches`` and the
 ``vit_noncausal`` timings, K1-K3 with ``cluster_launches`` from
@@ -5920,7 +5943,7 @@ def _card_of(out):
         return f.read().strip()
 
 
-#: Phase 12 (b)'s ZeRO-1 legs over the processes, at dpsp's full width.
+#: Phase 12 (b)'s ZeRO-1 legs over the processes, at dpsp's small width.
 MH_ZERO1_LEGS = {"z1": dict(optimizer_sharding="zero1"),
                  "z1int8": dict(optimizer_sharding="zero1", grad_comm="int8")}
 #: The zero1 checkpoint leg's steps, and the step it is interrupted at.
@@ -5991,39 +6014,27 @@ def _mh_zero1_ckpt(small, out, rank):
     return res
 
 
-def multihost_child(rank, port, out):
-    """One process of phase 12 (b): a gloo group of 2 on cuda:0; the legs
-    core, stream, dpsp, z1, z1int8, ppdp, packed, i8, evaluate, ckpt and
-    z1ckpt (``out`` holds the shared inputs and every record)."""
+def _mh_core(rank, world, out):
+    """The core leg of a child: every host's producers reach every
+    process, the dp step across the processes, ``DeviceGlobalShuffler``
+    lanes across them (two positions of cuda:0 a process)."""
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
-    from ddl_tpu_torch.config import TrainConfig
     from ddl_tpu_torch.ingest import make_global_array
-    from ddl_tpu_torch.models import llama
     from ddl_tpu_torch.parallel.collectives import (
         DeviceGlobalShuffler,
         process_allgather,
-        release_host_buckets,
     )
     from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
-    from ddl_tpu_torch.parallel.train import adamw, make_train_step
-    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
+    from ddl_tpu_torch.parallel.train import make_train_step
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=2, rank=rank)
-    c, tr = PIPE, TRAIN
-    pos = ["cuda:0"] * 2
-    report = {}
-
-    # core: coverage, the dp step across processes, the shuffle.
     @distributed_dataloader(n_producers=2, mode="multihost")
     def core(env):
-        assert (env.topology.n_instances, env.topology.instance_idx) == (2, rank)
-        mesh = make_mesh({"dp": 4}, pos)
+        assert (env.topology.n_instances, env.topology.instance_idx) == (
+            world, rank)
+        mesh = make_mesh({"dp": 2 * world}, ["cuda:0"] * 2)
         sh = NamedSharding(mesh, P("dp"))
         loader = DistributedDataLoader(TaggedProducer(rank), batch_size=8,
                                        connection=env.connection, n_epochs=2,
@@ -6047,15 +6058,241 @@ def multihost_child(rank, port, out):
         after = process_allgather(
             DeviceGlobalShuffler(mesh, num_exchange=2, seed=3).shuffle(window)
         ).cpu().numpy()
+        # Rows that left their process: some block holds another's rows.
+        crossed = any(set((after[r * 16:(r + 1) * 16, 0] // 1000).tolist())
+                      != {r} for r in range(world))
         return {"instances": sorted({t // 1000 for t in seen}),
                 "producers": len({(t // 1000, (t % 1000) // 100) for t in seen}),
                 "rows_kept": sorted(before[:, 0].tolist())
                 == sorted(after[:, 0].tolist()),
-                "moved": not np.array_equal(before, after),
+                "moved": not np.array_equal(before, after), "crossed": crossed,
                 "loss": float(loss)}
 
-    report["core"] = core()
-    log(f"[mh {rank}] core: {report['core']} ({_card_of(out)})")
+    res = core()
+    log(f"[mh {rank}] core: {res} ({_card_of(out)})")
+    return res
+
+
+def _core_faults(reports, world):
+    """The core leg's gates over every process's report."""
+    faults = []
+    for i, r in enumerate(reports):
+        core = r["core"]
+        if not (core["instances"] == list(range(world))
+                and core["producers"] == 2 * world and core["rows_kept"]
+                and core["moved"] and core["crossed"]):
+            faults.append(f"core {i}: {core}")
+    if len({r["core"]["loss"] for r in reports}) != 1:
+        faults.append("core: the processes report different losses")
+    return faults
+
+
+#: The dpep leg of phase 12 (b): the einsum MoE at a binding capacity
+#: (half the picks drop) over ``{"dp": 2, "ep": 2}``, fp32 at
+#: ``tests/test_torch_cuda.py``'s card width (head_dim 64: the CPU leg's
+#: head_dim 8 has no kernel), int32 token rows from a seed a producer.
+MH_DPEP = dict(vocab=512, d_model=256, n_layers=1, n_heads=4, n_kv_heads=2,
+               d_ff=512, n_experts=4, topk=2, capacity_factor=0.5, seq=128,
+               rows=16, batch=8, epochs=2)
+
+
+def _dpep_cfg():
+    import torch
+
+    from ddl_tpu_torch.models import moe
+
+    d = {k: v for k, v in MH_DPEP.items()
+         if k not in ("seq", "rows", "batch", "epochs")}
+    return moe.MoeConfig(**d, max_seq=MH_DPEP["seq"], dtype=torch.float32,
+                         attn_impl="flash")
+
+
+class MoeTokenProducer:
+    """The dpep leg's int32 token rows, from a seed a (instance, producer)
+    (module level: pickled to the spawned producers)."""
+
+    def __init__(self, instance_idx):
+        self.instance_idx = instance_idx
+
+    def on_init(self, producer_idx=0, **kw):
+        import numpy as np
+
+        from ddl_tpu_torch.datasetwrapper import DataProducerOnInitReturn
+
+        self._rng = np.random.default_rng(100 * self.instance_idx + producer_idx)
+        n, t = MH_DPEP["rows"], MH_DPEP["seq"]
+        return DataProducerOnInitReturn(nData=n, nValues=t, shape=(n, t),
+                                        splits=(t,), dtype=np.int32)
+
+    def post_init(self, my_ary, **kw):
+        my_ary[:] = self._rng.integers(0, MH_DPEP["vocab"], my_ary.shape)
+
+    def execute_function(self, my_ary, **kw):
+        my_ary[:] = self._rng.integers(0, MH_DPEP["vocab"], my_ary.shape)
+
+
+def _dpep_run(mesh, loss_mesh, batches):
+    """SGD steps of the dpep MoE over ``mesh``, routing over
+    ``loss_mesh``, one a batch: the losses."""
+    import torch
+
+    from ddl_tpu_torch.models import moe
+    from ddl_tpu_torch.parallel.mesh import P
+    from ddl_tpu_torch.parallel.train import make_train_step
+
+    cfg = _dpep_cfg()
+    init_fn, step_fn = make_train_step(
+        lambda p, b: moe.next_token_loss(p, b[0], cfg, mesh=loss_mesh),
+        lambda ps: torch.optim.SGD(ps, lr=1e-2), mesh=mesh,
+        param_specs=moe.param_specs(cfg), batch_spec=P(("dp",)))
+    state = init_fn(moe.init_params(cfg, seed=SEED, device="cuda"))
+    losses = []
+    for b in batches:
+        state, loss = step_fn(state, (b,))
+        losses.append(float(loss))
+    return losses
+
+
+def _mh_dpep(rank, out):
+    """The dpep leg of a child: the MoE steps over ``{"dp": 2, "ep": 2}``
+    (dp across the processes) routing the global batch, and beside them
+    the control that routes this process's rows alone
+    (``mesh.local()``); the local batches are saved for the parent."""
+    import numpy as np
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.ingest import make_global_array
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+
+    d = MH_DPEP
+
+    @distributed_dataloader(n_producers=2, mode="multihost")
+    def tokens(env):
+        loader = DistributedDataLoader(
+            MoeTokenProducer(rank), batch_size=d["batch"],
+            connection=env.connection, n_epochs=d["epochs"], output="numpy",
+            device="cuda")
+        toks = []
+        for _ in range(d["epochs"]):
+            for (tok,) in loader:
+                toks.append(np.array(tok, copy=True))
+                loader.mark(Marker.END_OF_BATCH)
+            loader.mark(Marker.END_OF_EPOCH)
+        return np.stack(toks)
+
+    toks = tokens()
+    np.save(os.path.join(out, f"dpep_{rank}.npy"), toks)
+    mesh = make_mesh({"dp": 2, "ep": 2}, ["cuda:0"] * 2)
+    sh = NamedSharding(mesh, P(("dp",)))
+    batches = [make_global_array(t, sh) for t in toks]
+    fa.reset_launch_counts()
+    res = {"losses": _dpep_run(mesh, mesh, batches),
+           "launches": {fn.__name__: fn.launches for fn in fa.KERNELS}}
+    res["control"] = _dpep_run(mesh, mesh.local(), batches)
+    log(f"[mh {rank}] dpep: {res} ({_card_of(out)})")
+    return res
+
+
+def _mh_dense_fit(tag, model, out, rank, geometry, mesh_axes, train_config=None):
+    """A MULTIHOST Llama fit of a child over ``mesh_axes`` (dp across the
+    processes, sp within), ``P(("dp",), "sp")`` batches, phase 6's token
+    stream at ``geometry``'s rows, batch and epochs; the weights start on
+    the host (the Trainer keeps its init tree, and the processes share the
+    card)."""
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.readers import TokenStreamProducer
+
+    g = geometry
+    return _mh_fit(
+        tag, model, lambda mesh: (lambda p, b: llama.next_token_loss(
+            p, b[0], model, mesh=mesh)),
+        lambda: llama.init_params(model, seed=SEED, device="cpu"),
+        TokenStreamProducer(os.path.join(out, "tokens.bin"), TRAIN["seq_len"],
+                            g["rows"], seed=SEED),
+        make_mesh(mesh_axes, ["cuda:0"] * mesh_axes["sp"]), P(("dp",), "sp"),
+        out, rank, g["epochs"], g["rows"], g["batch"], llama.param_specs(model),
+        train_config)
+
+
+def multihost_child(rank, port, out, world=2):
+    """One process of phase 12's MULTIHOST runs: a gloo group of
+    ``world`` on cuda:0 (``out`` holds the shared inputs and every
+    record).  Two processes, (b): the legs core, stream, dpsp, z1,
+    z1int8, dpep, ppdp, packed, i8, evaluate, z1ckpt and ckpt.  Four,
+    (d): core, z1 at Llama-3-8B's widths and z1int8 at the small width."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    report = {"core": _mh_core(rank, world, out)}
+    if world == 2:
+        _two_process_legs(rank, out, report)
+    else:
+        _four_process_legs(rank, out, report)
+    with open(os.path.join(out, f"report_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    log(f"MULTIHOST OK process={rank}")
+
+
+#: Phase 12 (d)'s geometry: four processes, a local batch of 1 row
+#: (global B = 4), two windows of 1 row: 2 steps a fit, a loss each (a
+#: step of the full-width z1 takes 22-29 s, all but 1.4-2.5 s of it in
+#: gloo's legs).  One
+#: layer: at 2 layers each process holds ~19.5 GiB on the card (fp32
+#: params, grads and a quarter of the moments) and the four ran out of
+#: the 79.18 GiB (PERF.md, NVIDIA H100 80GB HBM3, 700 W).
+MH4 = dict(layers=1, rows=1, batch=1, epochs=2, timeout_s=900)
+#: (d)'s ZeRO-1 legs: int8 blocks of 128, since the small model's
+#: 512-wide norms split into four slices of 128 (a block of 256 would cut
+#: them, which ``Zero1Optimizer`` refuses).
+MH4_ZERO1_LEGS = {"z1": MH_ZERO1_LEGS["z1"],
+                  "z1int8": dict(MH_ZERO1_LEGS["z1int8"], grad_comm_block=128)}
+
+
+def _four_process_legs(rank, out, report):
+    """(d): ZeRO-1 over ``{"dp": 4, "sp": 2}`` (dp across the four
+    processes): z1 at Llama-3-8B's widths cut to ``MH4["layers"]``, then
+    z1int8 at the small width."""
+    from ddl_tpu_torch.config import TrainConfig
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.collectives import release_host_buckets
+
+    axes = {"dp": 4, "sp": 2}
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=MH4["layers"])
+    report["z1"] = _mh_dense_fit("z1", cfg, out, rank, MH4, axes,
+                                 TrainConfig(**MH4_ZERO1_LEGS["z1"]))
+    release_host_buckets()  # the full-width scatter and gather buckets
+    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
+    report["z1int8"] = _mh_dense_fit("z1int8", small, out, rank, MH4, axes,
+                                     TrainConfig(**MH4_ZERO1_LEGS["z1int8"]))
+    release_host_buckets()
+
+
+def _two_process_legs(rank, out, report):
+    """(b)'s legs after core."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch import DistributedDataLoader, Marker, distributed_dataloader
+    from ddl_tpu_torch.config import TrainConfig
+    from ddl_tpu_torch.ingest import make_global_array
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.parallel.collectives import (
+        process_allgather,
+        release_host_buckets,
+    )
+    from ddl_tpu_torch.parallel.mesh import NamedSharding, P, make_mesh
+    from ddl_tpu_torch.parallel.train import adamw, make_train_step
+    from ddl_tpu_torch.readers import PackedTokenProducer, TokenStreamProducer
+
+    c, tr = PIPE, TRAIN
+    pos = ["cuda:0"] * 2
 
     @distributed_dataloader(n_producers=2, mode="multihost")
     def stream(env):
@@ -6078,32 +6315,25 @@ def multihost_child(rank, port, out):
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=c["mh_layers"])
+    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
     tokens = os.path.join(out, "tokens.bin")
 
     def tok_producer():
         return TokenStreamProducer(tokens, tr["seq_len"], c["mh_rows"], seed=SEED)
 
-    # The full-width weights start on the host: the Trainer keeps its
-    # init tree for the whole fit, and two processes share the card.
-    report["dpsp"] = _mh_fit(
-        "dpsp", cfg, lambda mesh: (lambda p, b: llama.next_token_loss(
-            p, b[0], cfg, mesh=mesh)),
-        lambda: llama.init_params(cfg, seed=SEED, device="cpu"),
-        tok_producer(), make_mesh({"dp": 2, "sp": 2}, pos), P(("dp",), "sp"),
-        out, rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
-        llama.param_specs(cfg))
-    # ZeRO-1 over the processes, fp32 and int8: dpsp's fit with the
-    # sharded optimizer's reduce-scatter, owned update and all-gather.
+    geometry = dict(rows=c["mh_rows"], batch=c["mh_batch"], epochs=c["mh_epochs"])
+    # dpsp and ZeRO-1 over the processes, fp32 and int8, at the small
+    # width (phase 12 (d) runs ZeRO-1 at full width over four): dpsp's fit
+    # with the sharded optimizer's reduce-scatter, owned update and
+    # all-gather.
+    axes = {"dp": 2, "sp": 2}
+    report["dpsp"] = _mh_dense_fit("dpsp", small, out, rank, geometry, axes)
     release_host_buckets()  # dpsp's all-reduce bucket
     for tag, tc in MH_ZERO1_LEGS.items():
-        report[tag] = _mh_fit(
-            tag, cfg, lambda mesh: (lambda p, b: llama.next_token_loss(
-                p, b[0], cfg, mesh=mesh)),
-            lambda: llama.init_params(cfg, seed=SEED, device="cpu"),
-            tok_producer(), make_mesh({"dp": 2, "sp": 2}, pos),
-            P(("dp",), "sp"), out, rank, c["mh_epochs"], c["mh_rows"],
-            c["mh_batch"], llama.param_specs(cfg), TrainConfig(**tc))
+        report[tag] = _mh_dense_fit(tag, small, out, rank, geometry, axes,
+                                    TrainConfig(**tc))
     release_host_buckets()
+    report["dpep"] = _mh_dpep(rank, out)
     report["ppdp"] = _mh_fit(
         "ppdp", cfg, lambda mesh: (lambda p, b: llama.next_token_loss_pp(
             p, b[0], cfg, mesh, 2)),
@@ -6112,7 +6342,7 @@ def multihost_child(rank, port, out):
         tok_producer(), make_mesh({"dp": 2, "pp": 2}, pos), P(("dp",)),
         out, rank, c["mh_epochs"], c["mh_rows"], c["mh_batch"],
         llama.pp_param_specs(cfg))
-    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
+    release_host_buckets()
     report["packed"] = _mh_fit(
         "packed", small, lambda mesh: (lambda p, b: llama.next_token_loss(
             p, b[0], small, mesh=mesh, segment_ids=b[1])),
@@ -6196,10 +6426,6 @@ def multihost_child(rank, port, out):
 
     report["ckpt"] = ckpt_resume()
     log(f"[mh {rank}] ckpt: {report['ckpt']} ({_card_of(out)})")
-    with open(os.path.join(out, f"report_{rank}.json"), "w") as f:
-        json.dump(report, f)
-    dist.destroy_process_group()
-    log(f"MULTIHOST OK process={rank}")
 
 
 def _one_process_reference(cfg, loss, params, specs, spec, mesh, windows,
@@ -6237,6 +6463,64 @@ def _packed_counts(windows, seq_len):
     return (seg[..., :-1] == seg[..., 1:]).sum(axis=(-2, -1))
 
 
+def _launch_children(out, world, card, timeout_s):
+    """Start ``world`` gloo processes of ``chip_smoke.py --multihost-child``
+    on cuda:0 (logs in ``out/child_<rank>.log``), wait for them (killed at
+    ``timeout_s``) and read their reports; a child that fails, or finds
+    no card, or whose kernel fails to build or launch, fails the phase.
+    Returns (wall seconds, reports)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out, f"child_{i}.log"), "w") for i in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child",
+         str(i), str(port), out, str(world)], stdout=logs[i],
+        stderr=subprocess.STDOUT, cwd=ROOT) for i in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait(timeout=60)
+    for f in logs:
+        f.close()
+    wall = time.perf_counter() - t0
+    texts = [open(os.path.join(out, f"child_{i}.log")).read()
+             for i in range(world)]
+    for i, text in enumerate(texts):
+        for line in text.splitlines():
+            if line.startswith(f"[mh {i}]") or line.startswith("MULTIHOST"):
+                log(line)
+    if any(p.returncode != 0 for p in procs) or not all(
+            f"MULTIHOST OK process={i}" in t for i, t in enumerate(texts)):
+        for i, t in enumerate(texts):
+            log(f"[mh] child {i} of {world} rc {procs[i].returncode}, last "
+                "lines:\n" + "\n".join(t.splitlines()[-40:]))
+        raise PhaseFailed(f"[mh] the {world} multihost processes failed")
+    log(f"[mh] {world} processes on cuda:0 ran every leg in {wall:.1f} s "
+        f"({card})")
+    return wall, [json.load(open(os.path.join(out, f"report_{i}.json")))
+                  for i in range(world)]
+
+
+def _mh_inputs(tmpdir, name, card):
+    """The children's directory under ``tmpdir``: phase 6's token file,
+    the card's name and the packed documents."""
+    out = os.path.join(tmpdir, name)
+    os.makedirs(out, exist_ok=True)
+    os.link(_token_file(tmpdir), os.path.join(out, "tokens.bin"))
+    with open(os.path.join(out, "card.txt"), "w") as f:
+        f.write(card)
+    documents(TRAIN["n_tokens"]).tofile(os.path.join(out, "docs.bin"))
+    return out
+
+
 def multihost_run(tmpdir, card):
     """(b) Two gloo processes on cuda:0 run the legs; then the port's
     one-process runs over the same global meshes and batches."""
@@ -6247,53 +6531,10 @@ def multihost_run(tmpdir, card):
     from ddl_tpu_torch.parallel.mesh import P, make_mesh
 
     c = PIPE
-    out = os.path.join(tmpdir, "mh")
-    os.makedirs(out, exist_ok=True)
-    os.link(_token_file(tmpdir), os.path.join(out, "tokens.bin"))
-    with open(os.path.join(out, "card.txt"), "w") as f:
-        f.write(card)
-    documents(TRAIN["n_tokens"]).tofile(os.path.join(out, "docs.bin"))
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    t0 = time.perf_counter()
-    logs = [open(os.path.join(out, f"child_{i}.log"), "w") for i in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--multihost-child",
-         str(i), str(port), out], stdout=logs[i], stderr=subprocess.STDOUT,
-        cwd=ROOT) for i in range(2)]
-    try:
-        for p in procs:
-            p.wait(timeout=c["mh_timeout_s"])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.wait(timeout=60)
-    for f in logs:
-        f.close()
-    wall = time.perf_counter() - t0
-    texts = [open(os.path.join(out, f"child_{i}.log")).read() for i in range(2)]
-    for i, text in enumerate(texts):
-        for line in text.splitlines():
-            if line.startswith(f"[mh {i}]") or line.startswith("MULTIHOST"):
-                log(line)
-    if any(p.returncode != 0 for p in procs) or not all(
-            f"MULTIHOST OK process={i}" in t for i, t in enumerate(texts)):
-        for i, t in enumerate(texts):
-            log(f"[mh] child {i} rc {procs[i].returncode}, last lines:\n"
-                + "\n".join(t.splitlines()[-40:]))
-        raise PhaseFailed("[mh] the multihost processes failed")
-    log(f"[mh] two processes on cuda:0 ran every leg in {wall:.1f} s ({card})")
-    reports = [json.load(open(os.path.join(out, f"report_{i}.json")))
-               for i in range(2)]
-    faults = []
+    out = _mh_inputs(tmpdir, "mh", card)
+    wall, reports = _launch_children(out, 2, card, c["mh_timeout_s"])
+    faults = _core_faults(reports, 2)
     for i, r in enumerate(reports):
-        core = r["core"]
-        if not (core["instances"] == [0, 1] and core["producers"] == 4
-                and core["rows_kept"] and core["moved"]):
-            faults.append(f"core {i}: {core}")
         if r["stream"]["instances"] != [0, 1] or r["stream"]["shapes"] != [
                 [4, 16, 8]]:
             faults.append(f"stream {i}: {r['stream']}")
@@ -6317,11 +6558,11 @@ def multihost_run(tmpdir, card):
         faults.append("packed: the processes' mask counts never differ")
     gaps = {}
     for leg, model, axes, spec, specs, loss, params, split in (
-        ("dpsp", cfg, {"dp": 2, "sp": 2}, P(("dp",), "sp"),
-         llama.param_specs(cfg),
-         lambda mesh: (lambda p, b: llama.next_token_loss(p, b[0], cfg,
+        ("dpsp", small, {"dp": 2, "sp": 2}, P(("dp",), "sp"),
+         llama.param_specs(small),
+         lambda mesh: (lambda p, b: llama.next_token_loss(p, b[0], small,
                                                           mesh=mesh)),
-         lambda: llama.init_params(cfg, seed=SEED, device="cpu"), None),
+         lambda: llama.init_params(small, seed=SEED, device="cpu"), None),
         ("ppdp", cfg, {"dp": 2, "pp": 2}, P(("dp",)), llama.pp_param_specs(cfg),
          # Microbatches of one row, as each process's 2 rows in 2.
          lambda mesh: (lambda p, b: llama.next_token_loss_pp(p, b[0], cfg,
@@ -6382,17 +6623,19 @@ def multihost_run(tmpdir, card):
                               f"(want {want_l})")
     del params
     free_device_memory()
+    gaps.update(_dpep_gates(out, reports, card, faults))
     launches = {}
     for leg in ("dpsp", "ppdp", "packed"):
         for name, (n, _) in reports[0][leg]["launches"].items():
             launches[name] = launches.get(name, 0) + sum(
                 r[leg]["launches"][name][0] for r in reports)
-    # A process's steps: the dpsp ring is sp^2 = 4 calls a layer a step, the
-    # ppdp pipeline 2 microbatches a layer a step, the packed fit 1.
+    # A process's steps: the dpsp ring is sp^2 = 4 calls a layer a step
+    # (at the small width), the ppdp pipeline 2 microbatches a layer a
+    # step, the packed fit 1.
     steps = reports[0]["dpsp"]["steps"]
-    L = cfg.n_layers
-    want_dense = 2 * (4 * L * steps + 2 * L * steps)
-    want_packed = 2 * MH_SMALL["n_layers"] * steps
+    L, Ls = cfg.n_layers, small.n_layers
+    want_dense = 2 * (4 * Ls * steps + 2 * L * steps)
+    want_packed = 2 * Ls * steps
     for i, fn in enumerate(fa.KERNELS):
         want = want_packed if fn.__name__.endswith("_seg") else want_dense
         if launches[fn.__name__] != want:
@@ -6400,18 +6643,19 @@ def multihost_run(tmpdir, card):
                           f"{fn.__name__})")
             break
     log(f"[mh] K1-K6 launches over both processes {launches}: K1-K3 2 "
-        f"processes x (sp^2 x {L} layers + 2 microbatches x {L} layers) x "
-        f"{steps} steps = {want_dense}, K4-K6 2 x {MH_SMALL['n_layers']} x "
-        f"{steps} = {want_packed}")
-    zero1 = mh_zero1_gates(out, reports, cfg, small, card, faults)
+        f"processes x (sp^2 x {Ls} layer + 2 microbatches x {L} layers) x "
+        f"{steps} steps = {want_dense}, K4-K6 2 x {Ls} x {steps} = "
+        f"{want_packed}")
+    zero1 = mh_zero1_gates(out, reports, small, card, faults)
     if faults:
         raise PhaseFailed("[mh] " + "; ".join(faults))
     return launches, {"wall_s": wall, "reports": reports, "gaps": gaps,
                       "tol": MH_LOSS_TOL, "zero1": zero1}
 
 
-def mh_zero1_gates(out, reports, cfg, small, card, faults):
-    """Phase 12 (b)'s ZeRO-1 and int8 gates over the children's reports:
+def mh_zero1_gates(out, reports, small, card, faults):
+    """Phase 12 (b)'s ZeRO-1 and int8 gates over the children's reports
+    (dpsp, z1 and z1int8 at the small width ``small``):
     z1 bit-equal to dpsp (else within ``MH_LOSS_TOL``); z1int8 within
     ``PARITY_REL_TOL`` of z1's curve and within ``MH_LOSS_TOL`` of the
     port's one-process zero1 int8 run over the same global mesh and
@@ -6451,8 +6695,9 @@ def mh_zero1_gates(out, reports, cfg, small, card, faults):
     mesh = make_mesh({"dp": 2, "sp": 2}, ["cuda:0"] * 4)
     fa.reset_launch_counts()
     ref = _one_process_reference(
-        cfg, lambda p, b: llama.next_token_loss(p, b[0], cfg, mesh=mesh),
-        llama.init_params(cfg, seed=SEED, device="cpu"), llama.param_specs(cfg),
+        small, lambda p, b: llama.next_token_loss(p, b[0], small, mesh=mesh),
+        llama.init_params(small, seed=SEED, device="cpu"),
+        llama.param_specs(small),
         P(("dp",), "sp"), mesh, wins, **MH_ZERO1_LEGS["z1int8"])
     free_device_memory()
     got = reports[0]["z1int8"]["losses"]
@@ -6462,8 +6707,9 @@ def mh_zero1_gates(out, reports, cfg, small, card, faults):
         f"{MH_LOSS_TOL}); against z1 {res['z1int8_parity']} ({card})")
     if not res["z1int8_gap"] <= MH_LOSS_TOL:
         faults.append(f"z1int8 gap {res['z1int8_gap']}")
-    want_state = hbm_accounting(llama.param_shapes(cfg), llama.param_specs(cfg),
-                                {"dp": 2, "sp": 2}, "zero1").opt_state_bytes
+    want_state = hbm_accounting(llama.param_shapes(small),
+                                llama.param_specs(small), {"dp": 2, "sp": 2},
+                                "zero1").opt_state_bytes
     res["state_bytes"] = {leg: [r[leg]["state_bytes"] for r in reports]
                           for leg in ("dpsp", "z1", "z1int8")}
     res["state_bytes_rule"] = want_state
@@ -6532,6 +6778,179 @@ def mh_zero1_gates(out, reports, cfg, small, card, faults):
     return res
 
 
+def _dpep_gates(out, reports, card, faults):
+    """(b)'s dpep gates, as ``tests/test_torch_multihost.py::
+    test_dpep_moe_routes_the_global_batch`` holds the CPU leg: both
+    processes report the same losses and controls; the losses equal the
+    port's one-process run over the same global ``{"dp": 2, "ep": 2}``
+    and the joined batches within ``MH_LOSS_TOL``, and the control (each
+    process routing its own rows) misses it; each process launches K1-K3
+    once a layer and step.  Appends to ``faults``; returns the gaps."""
+    import numpy as np
+    import torch
+
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import make_mesh
+
+    r0, r1 = (r["dpep"] for r in reports)
+    if r0["losses"] != r1["losses"] or r0["control"] != r1["control"]:
+        faults.append("dpep: the processes report different losses")
+    toks = np.concatenate([np.load(os.path.join(out, f"dpep_{i}.npy"))
+                           for i in range(2)], axis=1)
+    mesh = make_mesh({"dp": 2, "ep": 2}, ["cuda:0"] * 4)
+    ref = _dpep_run(mesh, mesh, [torch.from_numpy(t).cuda() for t in toks])
+    free_device_memory()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref))
+    control = max(abs(a - b) / abs(b) for a, b in zip(r0["control"], ref))
+    log(f"[mh] dpep: two-process losses {r0['losses']}, one-process {ref}: "
+        f"largest relative gap {gap:.3e} (tolerance {MH_LOSS_TOL}); the "
+        f"per-process routing control {r0['control']}: {control:.3e}, must "
+        f"exceed it ({card})")
+    if not gap <= MH_LOSS_TOL:
+        faults.append(f"dpep gap {gap}")
+    if not control > MH_LOSS_TOL:
+        faults.append(f"dpep control gap {control} does not miss")
+    want = {fn.__name__: (len(ref) * MH_DPEP["n_layers"]
+                          if fn.__name__ in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv") else 0)
+            for fn in fa.KERNELS}
+    for i, r in enumerate(reports):
+        if r["dpep"]["launches"] != want:
+            faults.append(f"dpep launches {r['dpep']['launches']} in "
+                          f"process {i} (want {want})")
+    return {"dpep": gap, "dpep_control": control}
+
+
+def _host_memory():
+    """``(MemTotal, MemAvailable)`` of ``/proc/meminfo`` in GiB, and the
+    card's used and total memory as ``nvidia-smi`` reads them."""
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            mem[key] = int(value.split()[0]) / 2**20
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    return mem["MemTotal"], mem["MemAvailable"], smi
+
+
+def multihost4_run(tmpdir, card):
+    """(d) Four gloo processes on cuda:0 (``--multihost-child`` with a
+    world of 4, two positions each): core, then ZeRO-1 over ``{"dp": 4,
+    "sp": 2}``: z1 at Llama-3-8B's widths cut to ``MH4["layers"]`` layers
+    (global B = 4, T = 2048) and z1int8 at the small width; then the
+    port's one-process ZeRO-1 fits over the same mesh, weights and
+    windows.  Gates: core's; every process the same losses; z1 and
+    z1int8 within ``MH_LOSS_TOL`` of their one-process twins (the CPU
+    tests hold the fits to their twins at rtol 1e-5, not bit for bit:
+    the one-process step sums the global batch's grads in one backward);
+    each process's moments the reference rule's count for one replica of
+    four, a quarter of the whole; each process's K1-K3 launches sp^2 a
+    layer and step, no K4-K6.  Prints each process's ms a step split into
+    the scatter, gather and all-reduce legs and the rest (the card's work
+    and the loop), its moments, its peak and its launches.  Returns
+    (K1-K6 launches over the four processes' z1 and z1int8 legs,
+    summary)."""
+    import resource
+
+    import numpy as np
+
+    from ddl_tpu_torch.models import llama
+    from ddl_tpu_torch.ops import flash_attention as fa
+    from ddl_tpu_torch.parallel.mesh import P, make_mesh
+    from ddl_tpu_torch.parallel.optimizer import hbm_accounting
+
+    world, axes = 4, {"dp": 4, "sp": 2}
+    # The four children need most of the host: give back the page-locked
+    # blocks this process's caching host allocator still keeps from the
+    # phases before (a freed pinned tensor stays cached, not released).
+    import torch
+
+    empty = (getattr(torch._C, "_host_emptyCache", None)
+             or getattr(torch._C, "_accelerator_emptyHostCache", None))
+    free_device_memory()
+    if empty is not None:
+        empty()
+    total, avail, smi = _host_memory()
+    log(f"[mh4] before: host {total:.1f} GiB, {avail:.1f} GiB available; card "
+        f"{smi} ({card})")
+    out = _mh_inputs(tmpdir, "mh4", card)
+    wall, reports = _launch_children(out, world, card, MH4["timeout_s"])
+    rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+    faults = _core_faults(reports, world)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=MH4["layers"])
+    small = dataclasses.replace(llama.LlamaConfig.llama3_8b(), **MH_SMALL)
+    res = {"wall_s": wall, "largest_child_rss_gib": rss, "gaps": {},
+           "state_bytes": {}, "state_bytes_rule": {}, "rows": {}}
+    launches = {fn.__name__: 0 for fn in fa.KERNELS}
+    for leg, model in (("z1", cfg), ("z1int8", small)):
+        got = reports[0][leg]["losses"]
+        if any(r[leg]["losses"] != got for r in reports):
+            faults.append(f"{leg}: the processes report different losses")
+        wins = np.concatenate([np.load(os.path.join(out, f"{leg}_{i}.npy"))
+                               for i in range(world)], axis=2)
+        mesh = make_mesh(axes, ["cuda:0"] * 8)
+        ref = _one_process_reference(
+            model, lambda p, b, m=model, mesh=mesh: llama.next_token_loss(
+                p, b[0], m, mesh=mesh),
+            llama.init_params(model, seed=SEED, device="cpu"),
+            llama.param_specs(model), P(("dp",), "sp"), mesh, wins,
+            **MH4_ZERO1_LEGS[leg])
+        free_device_memory()
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        res["gaps"][leg] = gap
+        log(f"[mh4] {leg}: four-process losses {got}, one-process zero1 "
+            f"{ref}: largest relative gap {gap:.3e} (tolerance {MH_LOSS_TOL}) "
+            f"({card})")
+        if not gap <= MH_LOSS_TOL:
+            faults.append(f"{leg} gap {gap}")
+        rule = hbm_accounting(llama.param_shapes(model), llama.param_specs(model),
+                              axes, "zero1").opt_state_bytes
+        whole = hbm_accounting(llama.param_shapes(model), llama.param_specs(model),
+                               axes, "none").opt_state_bytes
+        res["state_bytes"][leg] = [r[leg]["state_bytes"] for r in reports]
+        res["state_bytes_rule"][leg] = rule
+        if res["state_bytes"][leg] != [rule] * world or 4 * rule != whole:
+            faults.append(f"{leg} moments {res['state_bytes'][leg]} bytes a "
+                          f"process, the rule {rule}, the whole {whole}")
+        steps = reports[0][leg]["steps"]
+        want = {fn.__name__: [4 * model.n_layers * steps] * 2
+                if fn.__name__ in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                else [0, 0] for fn in fa.KERNELS}
+        rows = []
+        for i, r in enumerate(reports[:world]):
+            s = r[leg]
+            if s["launches"] != want:
+                faults.append(f"{leg} launches {s['launches']} in process "
+                              f"{i} (want {want})")
+            for name, (n, _) in s["launches"].items():
+                launches[name] += n
+            legs_ms = sum(s[f"{g}_ms"] for g in MH_LEGS)
+            rows.append(
+                f"process {i}: {s['step_ms']:.1f} ms/step (steady "
+                f"{s['steady_step_ms']:.1f}) = scatter {s['scatter_ms']:.1f} + "
+                f"gather {s['gather_ms']:.1f} + all-reduce "
+                f"{s['allreduce_ms']:.1f} + the rest {s['step_ms'] - legs_ms:.1f}"
+                f"; scatter {s['scatter_bytes']:.0f} B, gather "
+                f"{s['gather_bytes']:.0f} B a step; moments "
+                f"{s['state_bytes']} B; peak {s['peak_bytes'] / 2**30:.2f} GiB;"
+                f" K1-K3 {[s['launches'][n][0] for n in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]}")
+        res["rows"][leg] = rows
+        log(f"[mh4] {leg} ({model.n_layers} layers, d_model {model.d_model}) a "
+            f"step: " + "; ".join(rows) + f"; the rule's moments {rule} B a "
+            f"process, a quarter of {whole} ({card})")
+    log(f"[mh4] K1-K6 launches over the four processes' z1 and z1int8 "
+        f"{launches}; the largest child's peak RSS {rss:.1f} GiB; four "
+        f"processes ran in {wall:.1f} s ({card})")
+    if faults:
+        raise PhaseFailed("[mh4] " + "; ".join(faults))
+    res["launches"] = launches
+    res["reports"] = reports
+    return launches, res
+
+
 def shuffle_impl_ab(card):
     """(c) ``shuffle_impl="xla"`` beside ``"ring"`` at phase 4's geometry:
     the served streams byte-identical, K9 on the ring route only, one
@@ -6588,11 +7007,14 @@ def phase_pipeline(tmpdir, card):
     pipe_launches = {name: n for name, (n, _) in
                      pipe["runs"]["gpipe"]["launches"].items()}
     mh_launches, mh = multihost_run(tmpdir, card)
+    t1 = time.perf_counter()
+    _, mh4 = multihost4_run(tmpdir, card)
+    log(f"[pipe] phase 12 (d) took {time.perf_counter() - t1:.1f} s")
     xla = shuffle_impl_ab(card)
     free_device_memory()
     log(f"[pipe] phase 12 took {time.perf_counter() - t0:.1f} s")
     return pipe_launches, mh_launches, {"pipeline": pipe, "multihost": mh,
-                                        "xla": xla}
+                                        "multihost4": mh4, "xla": xla}
 
 
 # ------------------------------------------------------------ phase 13 ---
@@ -9328,8 +9750,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slots-ab", action="store_true",
                     help="build, then run only phase 11 (c)'s pairs of the "
                     "dp fit with two landing slots and with one")
-    ap.add_argument("--multihost-child", nargs=3,
-                    metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--multihost-child", nargs=4,
+                    metavar=("RANK", "PORT", "DIR", "WORLD"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--cluster-child", nargs=3,
                     metavar=("RANK", "PORT", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -9349,9 +9772,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the ddl_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    if args.multihost_child:  # one process of phase 12 (b)
-        rank, port, out = args.multihost_child
-        multihost_child(int(rank), int(port), out)
+    if args.multihost_child:  # one process of phase 12 (b) or (d)
+        rank, port, out, world = args.multihost_child
+        multihost_child(int(rank), int(port), out, int(world))
         return 0
     if args.cluster_child:  # one process of phase 15 (f)
         rank, port, out = args.cluster_child
@@ -9416,8 +9839,11 @@ def main(argv=None) -> int:
                                else launches)[row["name"]]
             row["ring_launches"] = ring_launches[row["name"]]
             row["multihost_launches"] = mh_launches[row["name"]]
-            # Phase 12 (b)'s ZeRO-1 legs (z1, z1int8) over both processes.
+            # Phase 12 (b)'s ZeRO-1 legs (z1, z1int8) over both processes,
+            # and (d)'s over the four.
             row["zero1_launches"] = pipe_summary["multihost"]["zero1"][
+                "launches"][row["name"]]
+            row["multihost4_launches"] = pipe_summary["multihost4"][
                 "launches"][row["name"]]
             if not row["name"].endswith("_seg"):
                 row["pipeline_launches"] = pipe_launches[row["name"]]

@@ -205,10 +205,39 @@ def _gather_host(t: torch.Tensor) -> List[torch.Tensor]:
     return parts
 
 
+class _HostBucket:
+    """One staging bucket: a flat host tensor, page-locked where a card is
+    present by registering exactly its bytes (``ops/host_register.py``).
+    ``pin_memory=True`` would go through the caching host allocator,
+    which rounds a request up to a power of two and keeps a freed block:
+    a 5.1 GB bucket would pin 8 GiB until the process ends."""
+
+    def __init__(self, numel: int, dtype: torch.dtype):
+        self.tensor = torch.empty(numel, dtype=dtype)
+        self.page_locked = False
+        if torch.cuda.is_available() and numel:
+            from ddl_tpu_torch.ops import host_register
+
+            host_register.page_lock(self, torch.cuda.current_device())
+
+    def mapping(self) -> Tuple[int, int]:
+        return (self.tensor.data_ptr(),
+                self.tensor.numel() * self.tensor.element_size())
+
+    def release(self) -> None:
+        """Unregister the bytes, after every queued copy that may still
+        read or write them."""
+        if self.page_locked:
+            from ddl_tpu_torch.ops import host_register
+
+            torch.cuda.synchronize()
+            host_register.page_unlock(self)
+
+
 #: Page-locked staging buckets of the gloo legs, one per purpose
 #: (:func:`host_bucket`): a full-width model's gradients are gigabytes,
 #: pinned once, not every step.
-_BUCKETS: Dict[str, torch.Tensor] = {}
+_BUCKETS: Dict[str, _HostBucket] = {}
 
 
 def host_bucket(name: str, numel: int,
@@ -217,19 +246,20 @@ def host_bucket(name: str, numel: int,
     page-locked where a card is present; a request of another size or
     dtype frees the old one first.  Its contents are whatever the last
     user left."""
-    host = _BUCKETS.get(name)
-    if host is None or host.numel() != numel or host.dtype != dtype:
-        _BUCKETS.pop(name, None)
-        host = torch.empty(numel, dtype=dtype,
-                           pin_memory=torch.cuda.is_available())
-        _BUCKETS[name] = host
-    return host
+    bucket = _BUCKETS.get(name)
+    if (bucket is None or bucket.tensor.numel() != numel
+            or bucket.tensor.dtype != dtype):
+        if bucket is not None:
+            _BUCKETS.pop(name).release()
+        bucket = _BUCKETS[name] = _HostBucket(numel, dtype)
+    return bucket.tensor
 
 
 def release_host_buckets() -> None:
     """Free every staging bucket (:func:`host_bucket`): a process whose
     next steps stage otherwise gives the pinned memory back first."""
-    _BUCKETS.clear()
+    while _BUCKETS:
+        _BUCKETS.popitem()[1].release()
 
 
 def process_mean(tensors: Sequence[Optional[torch.Tensor]],

@@ -47,8 +47,10 @@ lowering made explicit over gloo, in host-staged page-locked buckets
   process scales its grads by its ``cross_entropy`` count first, as
   :func:`~ddl_tpu_torch.parallel.collectives.process_mean` does; the
   replicated leaves' grads, the loss, the count and (under stochastic
-  int8) each sharded leaf's first grad element ride one small
-  ``all_reduce`` bucket, and the sums are divided by the summed count.
+  int8) each process's first grad element of every sharded leaf, in its
+  rank's slot, ride one small ``all_reduce`` bucket; the sums are divided
+  by the summed count, and the first elements are summed in rank order,
+  as the chunks are (the phase-0 keys fold the reduced element's bits).
 - **shard-local update** on the owned slices (``grad_comm="int8"``
   quantizes the reduced grad slices first, phase 0).
 - **gather leg**: fp32 — one ``all_gather_into_tensor`` of the owned
@@ -884,7 +886,7 @@ class Zero1Optimizer:
             dequantize_blockwise,
             host_bucket,
         )
-        from ddl_tpu_torch.parallel.mesh import process_count
+        from ddl_tpu_torch.parallel.mesh import process_count, process_rank
 
         cfg, lay = self.cfg, self.layout
         m = metrics if metrics is not None else default_metrics()
@@ -923,7 +925,8 @@ class Zero1Optimizer:
         # The small bucket: replicated grads, the sharded leaves' first
         # elements (stochastic keys), the loss, the count.
         t0 = time.perf_counter()
-        n_small = (sum(p.numel() for p in rep) + (len(sharded) if stoch else 0)
+        n_first = world * len(sharded) if stoch else 0
+        n_small = (sum(p.numel() for p in rep) + n_first
                    + (loss is not None) + (weight is not None))
         small = host_bucket("zero1.small", n_small)
         off = 0
@@ -936,11 +939,19 @@ class Zero1Optimizer:
             off += p.numel()
         first_at = off
         if stoch:
-            for p in sharded:
-                small[off:off + 1].copy_(
-                    p.grad.reshape(-1)[:1] if p.grad is not None
-                    else torch.zeros(1), non_blocking=True)
-                off += 1
+            # Each process's first elements in its rank's slot, the other
+            # slots -0.0: the all-reduce adds -0.0s to each slot's one
+            # value, which is exact (an all-gather), and the slots are
+            # summed below in rank order, as the scatter leg sums the
+            # chunks (gloo's all-reduce adds in another order past two
+            # processes).
+            small[off:off + n_first].fill_(-0.0)
+            mine = off + process_rank() * len(sharded)
+            for li, p in enumerate(sharded):
+                if p.grad is not None:
+                    small[mine + li:mine + li + 1].copy_(
+                        p.grad.reshape(-1)[:1], non_blocking=True)
+            off += n_first
         if loss is not None:
             small[off:off + 1].copy_(loss.reshape(1), non_blocking=True)
         if weight is not None:
@@ -965,12 +976,16 @@ class Zero1Optimizer:
             off += p.numel()
         firsts: List[Optional[int]] = [None] * len(sharded)
         if stoch:
+            slots = small[first_at:first_at + n_first].view(world, len(sharded))
             for li, p in enumerate(sharded):
                 if p.grad is not None:
-                    # The reduced element as the scatter leg's division
-                    # makes it, on the grad's device and in its dtype.
-                    t = small[first_at + li:first_at + li + 1].to(
-                        p.grad.device, p.grad.dtype, copy=True)
+                    # The reduced element as the scatter leg's sum and
+                    # division make it, on the grad's device and in its
+                    # dtype.
+                    acc = slots[0, li:li + 1].clone()
+                    for r in range(1, world):
+                        acc.add_(slots[r, li:li + 1])
+                    t = acc.to(p.grad.device, p.grad.dtype, copy=True)
                     firsts[li] = _bits(t.div_(divisor))
         if loss is not None:
             loss.copy_(small[-1 - (weight is not None)].reshape(loss.shape),

@@ -1169,6 +1169,32 @@ def test_staging_registers_a_shm_ring_mapping():
         ring.unlink()
 
 
+def test_host_bucket_registers_exactly_its_bytes():
+    """A gloo staging bucket (``collectives.host_bucket``) is page-locked
+    by registering exactly its bytes, not through the caching host
+    allocator (which would round 5.1 GB up to 8 GiB and keep it); a
+    request of another size unregisters the old bucket, and
+    ``release_host_buckets`` unregisters every bucket."""
+    from ddl_tpu_torch.ops import host_register
+    from ddl_tpu_torch.parallel import collectives as coll
+
+    coll.release_host_buckets()
+    a = coll.host_bucket("test.bucket", 3 * (1 << 20) + 5)
+    assert host_register.is_registered(a.data_ptr())
+    assert coll.host_bucket("test.bucket", 3 * (1 << 20) + 5) is a
+    a.copy_(torch.arange(a.numel(), dtype=torch.float32))
+    dev = a.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dev.cpu(), a)
+    old = a.data_ptr()
+    b = coll.host_bucket("test.bucket", 1 << 20)
+    assert host_register.is_registered(b.data_ptr())
+    assert b.data_ptr() == old or not host_register.is_registered(old)
+    ptr = b.data_ptr()
+    coll.release_host_buckets()
+    assert not host_register.is_registered(ptr)
+
+
 def _process_stream(path, device, epochs, metrics):
     @ddl_tpu_torch.distributed_dataloader(n_producers=2, mode="process",
                                           nslots=2)

@@ -169,14 +169,17 @@ def cluster(tmp_path_factory):
     return records
 
 
-def _jax_batches(instance, producer_cls, epochs=2):
-    """The JAX package's batch stream of one instance of a 2-instance
-    topology: its two producers in threads, its loader drained."""
+def _jax_batches(instance, producer_cls, epochs=2, n_instances=2,
+                 batch=prog.BATCH, producer=None):
+    """The JAX package's batch stream of one instance of an
+    ``n_instances`` topology: its two producers in threads, its loader
+    drained.  The producer is ``producer_cls(instance, pkg="jax")``
+    unless ``producer`` is given."""
     from ddl_tpu import dataloader, datapusher, types
     from ddl_tpu.observability import Metrics
     from ddl_tpu.transport import connection as conn
 
-    topo = types.Topology(n_instances=2, instance_idx=instance,
+    topo = types.Topology(n_instances=n_instances, instance_idx=instance,
                           n_producers=prog.N_PRODUCERS)
     ends, threads = [], []
     for idx in range(1, prog.N_PRODUCERS + 1):
@@ -191,7 +194,8 @@ def _jax_batches(instance, producer_cls, epochs=2):
         t.start()
         threads.append(t)
     loader = dataloader.DistributedDataLoader(
-        producer_cls(instance, pkg="jax"), batch_size=prog.BATCH,
+        producer if producer is not None else producer_cls(instance, pkg="jax"),
+        batch_size=batch,
         connection=conn.ConsumerConnection(ends), n_epochs=epochs,
         output="numpy", metrics=Metrics())
     batches = []

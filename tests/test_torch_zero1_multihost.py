@@ -34,12 +34,6 @@ fixture) over ``{"dp": 2, "sp": 2}``, dp across the processes:
   with ``accum_steps=2`` bit-equal to the replicated step.
 """
 
-import os
-import pickle
-import socket
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +41,7 @@ import optax
 import pytest
 import torch
 
+import torch_zero1_cases as cases
 import torch_zero1_prog as prog
 from ddl_tpu.models import llama as jllama
 from ddl_tpu.parallel import collectives as jcoll
@@ -67,116 +62,16 @@ from ddl_tpu_torch.parallel.train import (
     tree_map,
 )
 
-_PROG = os.path.join(os.path.dirname(__file__), "torch_zero1_prog.py")
-_TIMEOUT_S = 240
 RTOL = 1e-5
-TINY = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-            d_ff=128, max_seq=64)
-JCFG = jllama.LlamaConfig(**TINY, dtype=jnp.float32)
+#: The tiny tree's config (``tests/test_torch_optimizer.py``'s TINY).
+JCFG = cases.jcfg(prog)
 
-
-def _np_params():
-    return jax.tree.map(np.asarray, jllama.init_params(JCFG, jax.random.key(0)))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _one_process_ckpt_steps():
-    """The ckpt leg's steps in one process over the same global mesh and
-    the global batches."""
-    cfg = prog.small_cfg()
-    mesh = make_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4)
-    init_fn, step_fn = make_train_step(
-        lambda p, b: tllama.next_token_loss(p, b[0], cfg, mesh=mesh),
-        adamw(1e-3), mesh=mesh, param_specs=tllama.param_specs(cfg),
-        batch_spec=P(("dp",), "sp"), optimizer_sharding="zero1")
-    batches = torch.from_numpy(prog.ckpt_batches())
-
-    def run(state, steps):
-        losses = []
-        for t in steps:
-            state, loss = step_fn(state, (batches[t],))
-            losses.append(float(loss))
-        return state, losses
-
-    def fresh():
-        return init_fn(tllama.init_params(cfg, seed=0, device="cpu"))
-
-    return fresh, run
-
-
-@pytest.fixture(scope="module")
-def cluster(tmp_path_factory):
-    """Write the inputs and the one-process checkpoint, run the two
-    processes once; their records and the one-process side's."""
-    from ddl_tpu_torch.checkpoint import save_train_state
-    from ddl_tpu_torch.resilience import AsyncCheckpointer
-
-    out = tmp_path_factory.mktemp("z1-out")
-    with open(out / "params.pkl", "wb") as f:
-        pickle.dump(_np_params(), f)
-    np.random.default_rng(5).integers(0, 64, 20_000, dtype=np.int32).tofile(
-        out / "tokens.bin")
-    fresh, run = _one_process_ckpt_steps()
-    state, _ = run(fresh(), range(prog.CKPT_AT))
-    one_moments = {p: {k: v.clone() for k, v in st.items()}
-                   for p, st in state.optimizer.state.items()}
-    save_train_state(state, str(out / "one"))
-    gens = AsyncCheckpointer(str(out / "one_gens"))
-    gens.submit(state)
-    gens.close()
-    _, one_cont = run(state, range(prog.CKPT_AT, prog.CKPT_STEPS))
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, _PROG, str(i), port, str(out)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env=env) for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            text, _ = p.communicate(timeout=_TIMEOUT_S)
-            outs.append(text)
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail("zero1 program timed out (deadlock?); partial output:\n"
-                    + "\n---\n".join(outs))
-    for i, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} rc={p.returncode}:\n{text}"
-        assert f"ZERO1 OK process={i}" in text, text
-    rec = {(leg, i): dict(np.load(out / f"{leg}_{i}.npz"))
-           for leg in ("step", "fit", "ckpt") for i in range(2)}
-    rec["out"] = out
-    rec["one_moments"] = one_moments
-    rec["one_cont"] = one_cont
-    return rec
+#: Write the inputs and the one-process checkpoint, run the two
+#: processes once (``torch_zero1_cases.run_cluster``).
+cluster = cases.cluster_fixture(2)
 
 
 # -- (a) the cross-process step -------------------------------------------------
-
-
-def _global_grads(leaves, t):
-    shapes = [tuple(x.shape) for x in leaves]
-    c0, c1 = prog.contribution(0, t, shapes), prog.contribution(1, t, shapes)
-    return [(a + b) / np.float32(2) for a, b in zip(c0, c1)]
-
-
-def _one_process_optimizer(mode, mesh=None):
-    """The port's one-process ZeRO-1 over the same global mesh, on the
-    pickled tree."""
-    mesh = mesh or make_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4)
-    params = tree_map(lambda x: torch.tensor(x, requires_grad=True),
-                      _np_params())
-    opt = topt.ShardedOptimizer(adamw(prog.STEP_LR), mesh,
-                                tllama.param_specs(prog.tiny_cfg()),
-                                block=prog.STEP_BLOCK,
-                                **prog.STEP_MODES[mode]).init(params)
-    return params, opt
 
 
 #: How near a rounding tie (in quanta) an update may lie for the two
@@ -192,7 +87,7 @@ def test_step_tracks_the_jax_sharded_optimizer(cluster, mode):
     (torch's AdamW and optax's differ in their last bits, ~1e-5 quanta
     here): such an element may differ by one quantum for each such
     step, and no other element may differ."""
-    np_params = _np_params()
+    np_params = cases.np_params(prog)
     jm = jax_mesh({"dp": 2, "sp": 2}, jax.devices()[:4])
     jo = jopt.ShardedOptimizer(optax.adamw(prog.STEP_LR), jm,
                                jllama.param_specs(JCFG), block=prog.STEP_BLOCK,
@@ -208,7 +103,8 @@ def test_step_tracks_the_jax_sharded_optimizer(cluster, mode):
     slack = [np.zeros(x.shape, np.float64) for x in leaves]
     for t in range(prog.N_STEPS):
         grads = jax.tree.map(jnp.asarray,
-                             jax.tree.unflatten(treedef, _global_grads(leaves, t)))
+                             jax.tree.unflatten(
+                                 treedef, cases.rank_order_mean(prog, leaves, t)))
         if mode == "int8":
             for i, u in enumerate(jax.tree.leaves(raw(grads, js, jp))):
                 q, sc = jcoll.quantize_blockwise(u, prog.STEP_BLOCK)
@@ -226,56 +122,30 @@ def test_step_tracks_the_jax_sharded_optimizer(cluster, mode):
                     + slack[i] * (1 + 1e-6)).all(), (i, np.abs(got - want).max())
 
 
-def _whole(step, mode, t, phase, i, lf, what):
-    """Leaf ``i``'s whole array of a recorded ``what`` (``x`` the slices'
-    inputs, ``q`` their payloads, ``s`` their scales) at step ``t`` and
-    ``phase``, joined from both processes' slices."""
-    parts = {}
-    for r in range(2):
-        for j in range(2):
-            for b in range(len(lf.index[j])):
-                key = f"{mode}/{t}/{phase}/{i}/{j}/{b}/{what}"
-                if key in step[r]:
-                    parts[(j, b)] = step[r][key]
-    if not parts:
-        return None
-    shape = list(lf.param.shape)
-    if what == "s":
-        shape[-1] = -(-shape[-1] // prog.STEP_BLOCK)
-    dt = next(iter(parts.values())).dtype
-    out = np.zeros(shape, dt)
-    for (j, b), a in parts.items():
-        s, n = lf.index[j][b]
-        if what == "s" and lf.dim == lf.param.dim() - 1:
-            s, n = s // prog.STEP_BLOCK, a.shape[-1]
-        idx = [slice(None)] * len(shape)
-        idx[lf.dim] = slice(s, s + n)
-        out[tuple(idx)] = a
-    return out
-
-
 def test_int8_payloads_equal_the_reference_bytes(cluster):
     """Deterministic int8: each slice the processes quantized is its part
     of the whole leaf — phase 0's inputs are the reduced grad ``G``
     exactly, and both phases' payloads and scales equal the JAX package's
     ``quantize_blockwise`` of the whole leaf byte for byte."""
     step = [cluster[("step", r)] for r in range(2)]
-    _, opt = _one_process_optimizer("int8")
-    leaves = jax.tree.leaves(_np_params())
+    _, opt = cases.one_process_optimizer(prog, "int8")
+    leaves = jax.tree.leaves(cases.np_params(prog))
     checked = 0
     for t in range(prog.N_STEPS):
-        grads = _global_grads(leaves, t)
+        grads = cases.rank_order_mean(prog, leaves, t)
         for phase in (0, 1):
             for lf in opt.leaves:
                 i = opt._index[id(lf.param)]
-                x = _whole(step, "int8", t, phase, i, lf, "x")
+                x = cases.whole_leaf(step, prog, t, phase, i, lf, "x")
                 if phase == 0:
                     np.testing.assert_array_equal(x, grads[i])
                 q, s = jcoll.quantize_blockwise(jnp.asarray(x), prog.STEP_BLOCK)
                 np.testing.assert_array_equal(
-                    _whole(step, "int8", t, phase, i, lf, "q"), np.asarray(q))
+                    cases.whole_leaf(step, prog, t, phase, i, lf, "q"),
+                    np.asarray(q))
                 np.testing.assert_array_equal(
-                    _whole(step, "int8", t, phase, i, lf, "s"), np.asarray(s))
+                    cases.whole_leaf(step, prog, t, phase, i, lf, "s"),
+                    np.asarray(s))
                 checked += 1
     assert checked == prog.N_STEPS * 2 * len(opt.leaves) and checked > 0
 
@@ -285,10 +155,10 @@ def test_step_equals_the_one_process_port(cluster, mode):
     """Both processes end with the params of the port's one-process
     ZeRO-1 fed ``G``, bit for bit, in every mode (stochastic rounding
     draws the whole leaf's numbers under the whole leaf's key)."""
-    params, opt = _one_process_optimizer(mode)
+    params, opt = cases.one_process_optimizer(prog, mode)
     leaves = tree_leaves(params)
     for t in range(prog.N_STEPS):
-        for p, g in zip(leaves, _global_grads(leaves, t)):
+        for p, g in zip(leaves, cases.rank_order_mean(prog, leaves, t)):
             p.grad = torch.from_numpy(g)
         opt.step()
     for r in range(2):
@@ -313,7 +183,7 @@ def test_a_slice_that_cuts_a_block_raises(cluster):
 @pytest.mark.parametrize("n", [2, 4])
 def test_layout_packs_and_unpacks_the_views(n):
     mesh = make_mesh({"dp": n}, ["cpu"] * n)
-    params, opt = _one_process_optimizer("fp32", mesh)
+    params, opt = cases.one_process_optimizer(prog, "fp32", mesh)
     lay = topt.ReplicaLayout(opt.leaves)
     leaves = [lf.param.detach() for lf in opt.leaves]
     host = torch.empty(n * lay.size)
@@ -344,7 +214,7 @@ def test_slice_quantization_equals_the_whole_leaf(n, stochastic):
     ``_qdq``, for both phases' keys."""
     block = 16
     mesh = make_mesh({"dp": n}, ["cpu"] * n)
-    params = tree_map(lambda x: torch.tensor(x), _np_params())
+    params = tree_map(lambda x: torch.tensor(x), cases.np_params(prog))
     opt = topt.ShardedOptimizer(adamw(1e-2), mesh,
                                 tllama.param_specs(prog.tiny_cfg()),
                                 grad_comm="int8", stochastic_rounding=stochastic,
@@ -378,7 +248,7 @@ def test_slice_quantization_equals_the_whole_leaf(n, stochastic):
 
 def test_quantized_layout_round_trips():
     mesh = make_mesh({"dp": 4}, ["cpu"] * 4)
-    _, opt = _one_process_optimizer("int8", mesh)
+    _, opt = cases.one_process_optimizer(prog, "int8", mesh)
     lay = topt.ReplicaLayout(opt.leaves)
     region, rows = lay.quantized(prog.STEP_BLOCK)
     n_scales = sum(int(np.prod(sh)) for row in rows for _, sh, _ in row)
@@ -437,23 +307,6 @@ def test_fit_int8_legs_keep_parity_and_equal_one_process(cluster, leg):
     np.testing.assert_allclose(f0[f"{leg}/losses"], losses, rtol=RTOL)
 
 
-def _predicted_bytes(block=None):
-    """(reduce-scatter input, this process's all-gather part) bytes a step
-    of the fit's ZeRO-1: every leaf of the small model splits its dim 0
-    over dp = 2 (fp32 values; int8 payloads plus fp32 scales a block)."""
-    shapes = [tuple(p.shape) for p in tree_leaves(
-        tllama.init_params(prog.small_cfg(), seed=0, device="cpu"))]
-    total = sum(int(np.prod(s)) for s in shapes)
-    if block is None:
-        return 4 * total, 4 * total // 2
-    scales = 0
-    for s in shapes:
-        half = (s[0] // 2,) + s[1:]
-        scales += int(np.prod(half[:-1])) * -(-half[-1] // block)
-    payload = total // 2
-    return 4 * total, 4 * scales + payload + (-payload) % 4
-
-
 @pytest.mark.parametrize("leg", ["z1", "z1i8", "rep"])
 def test_fit_byte_counters_equal_the_layout(cluster, leg):
     steps = len(cluster[("fit", 0)][f"{leg}/losses"]) * 2  # 2 steps a window
@@ -463,8 +316,8 @@ def test_fit_byte_counters_equal_the_layout(cluster, leg):
             assert float(fit["rep/mh.scatter_bytes"]) == 0.0
             assert float(fit["rep/mh.gather_bytes"]) == 0.0
             continue
-        scatter, gather = _predicted_bytes(
-            prog.FIT_BLOCK if leg == "z1i8" else None)
+        scatter, gather = cases.predicted_bytes(
+            prog, prog.FIT_BLOCK if leg == "z1i8" else None)
         assert float(fit[f"{leg}/mh.scatter_bytes"]) == steps * scatter
         assert float(fit[f"{leg}/mh.gather_bytes"]) == steps * gather
         assert int(fit[f"{leg}/mh.scatter_bytes/calls"]) == steps
@@ -472,7 +325,8 @@ def test_fit_byte_counters_equal_the_layout(cluster, leg):
         # The small bucket: the loss and the count.
         assert float(fit[f"{leg}/mh.allreduce_bytes"]) == steps * 8
     if leg == "z1i8":
-        ratio = _predicted_bytes()[1] / _predicted_bytes(prog.FIT_BLOCK)[1]
+        ratio = (cases.predicted_bytes(prog)[1]
+                 / cases.predicted_bytes(prog, prog.FIT_BLOCK)[1])
         assert 3.0 < ratio < 4.0, ratio
 
 
@@ -525,34 +379,17 @@ def test_accumulated_zero1_steps_equal_the_replicated(cluster):
         np.testing.assert_array_equal(ck["accum_z1_params"], ck["accum_rep_params"])
 
 
-def _slices(opt_like, moments, rank):
-    """Rank ``rank``'s owned moment slices of whole moments, flattened in
-    the bucket order (``torch_zero1_prog.owned_moments``)."""
-    out = []
-    for lf in opt_like.leaves:
-        for s, n in lf.index[rank]:
-            st = moments[lf.param]
-            out += [st["exp_avg"].narrow(lf.dim, s, n).reshape(-1),
-                    st["exp_avg_sq"].narrow(lf.dim, s, n).reshape(-1)]
-    return out
-
-
-def _by_rank(opt_like, moments):
-    """Both ranks' flattened slices, each in its bucket order."""
-    return [torch.cat(_slices(opt_like, moments, r)).numpy() for r in range(2)]
-
-
 @pytest.mark.parametrize("path", ["sync", "async"])
 def test_two_process_checkpoint_restores_into_one_process(cluster, path):
     from ddl_tpu_torch.checkpoint import restore_train_state
     from ddl_tpu_torch.resilience import restore_latest
 
-    fresh, run = _one_process_ckpt_steps()
+    fresh, run = cases.one_process_ckpt_steps(prog)
     out = cluster["out"]
     state = (restore_train_state(str(out / "two"), fresh()) if path == "sync"
              else restore_latest(str(out / "two_gens"), fresh()).state)
     assert state.step == prog.CKPT_AT
-    got = _by_rank(state.optimizer, state.optimizer.state)
+    got = cases.by_rank(state.optimizer, state.optimizer.state, 2)
     for r in range(2):
         np.testing.assert_array_equal(got[r], cluster[("ckpt", r)]["moments_at"])
     _, losses = run(state, range(prog.CKPT_AT, prog.CKPT_STEPS))
@@ -562,13 +399,13 @@ def test_two_process_checkpoint_restores_into_one_process(cluster, path):
 
 @pytest.mark.parametrize("path", ["one_sync", "one_async"])
 def test_one_process_checkpoint_restores_into_two_processes(cluster, path):
-    fresh, _ = _one_process_ckpt_steps()
+    fresh, _ = cases.one_process_ckpt_steps(prog)
     like = fresh().optimizer
     moments = {lf.param: cluster["one_moments"][p]
                for lf, p in zip(like.leaves, cluster["one_moments"])}
     # The fixture's moments are keyed by its own optimizer's leaves, in
     # the same order as any fresh optimizer's.
-    want = _by_rank(like, moments)
+    want = cases.by_rank(like, moments, 2)
     for r in range(2):
         ck = cluster[("ckpt", r)]
         np.testing.assert_array_equal(ck[f"{path}_moments"], want[r])

@@ -13,7 +13,10 @@ shared directory.  It imports no JAX.  Driven by
 Parameterized by env (inherited by the spawned producers, so module
 constants agree across the pickle boundary):
 
-- ``DDL_TORCH_MH_PROCS`` (default 2): processes in the group.
+- ``DDL_TORCH_MH_PROCS`` (default 2): processes in the group
+  (``tests/test_torch_multihost_four.py`` runs 4, the JAX package's
+  four-process shapes: legs ``core,ckpt`` at one position a process and
+  ``core,dpsp`` at two).
 - ``DDL_TORCH_MH_DEVS`` (default 2): mesh positions a process.
 - ``DDL_TORCH_MH_LEGS`` (default
   ``core,stream,ppdp,dpep,dpsp,ckpt,packed,evaluate``):
@@ -24,7 +27,8 @@ constants agree across the pickle boundary):
   ``{"dp": processes, "ep": 2}``: the routing of the global batch, and
   beside it the control that routes each process's rows alone),
   ``dpsp`` (``Trainer.fit`` in MULTIHOST mode over
-  ``{"dp": 2, "sp": 2}``: the ring over each process's sp pair, on the
+  ``{"dp": processes * positions / 2, "sp": 2}``: the ring over each
+  process's sp pair, on the
   int32 tokens of ``DDL_TORCH_MH_TOKENS``, else a seeded corpus it
   writes), ``ckpt`` (save, fresh restore,
   loader fast-forward on ``DDL_TORCH_MH_DIR``), ``packed`` (the twin of

@@ -1,7 +1,15 @@
-"""Two-process program of ``tests/test_torch_zero1_multihost.py``: one
-process of a gloo group on the CPU, training over a ``{"dp": 2, "sp": 2}``
-mesh whose dp spans the two processes, with ZeRO-1 and int8 gradient
-communication (``ddl_tpu_torch.parallel.optimizer``).  It imports no JAX.
+"""Program of ``tests/test_torch_zero1_multihost.py`` (two processes) and
+``tests/test_torch_zero1_worlds.py`` (three and four): one process of a
+gloo group on the CPU, training over a ``{"dp": N, "sp": 2}`` mesh whose
+dp spans the ``N`` processes, with ZeRO-1 and int8 gradient communication
+(``ddl_tpu_torch.parallel.optimizer``).  It imports no JAX.
+
+``DDL_TORCH_Z1_PROCS`` (default 2) is ``N``.  The models' widths are
+those of ``tests/test_torch_optimizer.py``'s TINY and
+``torch_multihost_prog.pp_cfg`` where they divide by ``N`` (2 and 4), and
+3/2 of them at 3 processes (:data:`SCALE`), so that ZeRO-1 shards every
+leaf; the int8 blocks are the 1-D norms' slices (:data:`STEP_BLOCK`,
+:data:`FIT_BLOCK`).
 
 Legs (``DDL_TORCH_Z1_LEGS``, default ``step,fit,ckpt``):
 
@@ -32,22 +40,27 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-N_PROCESSES = 2
+N_PROCESSES = int(os.environ.get("DDL_TORCH_Z1_PROCS", "2"))
 LEGS = tuple(os.environ.get("DDL_TORCH_Z1_LEGS", "step,fit,ckpt").split(","))
-#: The step leg's modes, its block (the tree's 64-wide norms split into
-#: 32-wide slices: a block of 32 keeps them whole blocks) and its steps.
+#: Twice the widths' factor over the 2-process models: 2 where the world
+#: divides them (2, 4), 3 at a world of 3.
+SCALE = 3 if N_PROCESSES % 3 == 0 else 2
+#: The step leg's modes, its block (the tree's 32 * SCALE-wide norms
+#: split into N slices: a block of one slice keeps them whole blocks;
+#: 32 at 2 processes) and its steps.
 STEP_MODES = {
     "fp32": {},
     "int8": {"grad_comm": "int8"},
     "int8_sr": {"grad_comm": "int8", "stochastic_rounding": True},
 }
-STEP_BLOCK = 32
+STEP_BLOCK = 32 * SCALE // N_PROCESSES
 N_STEPS = 4
 STEP_LR = 1e-2
-#: The fit and ckpt legs' model (``torch_multihost_prog.pp_cfg``'s): its
-#: 32-wide norms split into 16-wide slices, hence the block of 16.
+#: The fit and ckpt legs' model (``torch_multihost_prog.pp_cfg``'s at 2
+#: and 4 processes): its 16 * SCALE-wide norms split into N slices, hence
+#: the block (16 at 2 processes).
 SEQ = 16
-FIT_BLOCK = 16
+FIT_BLOCK = 16 * SCALE // N_PROCESSES
 FIT_LEGS = {
     "rep": {},
     "z1": {"optimizer_sharding": "zero1"},
@@ -60,7 +73,7 @@ CKPT_STEPS, CKPT_AT = 4, 2
 
 def contribution(rank, step, shapes):
     """Process ``rank``'s gradient contribution at ``step``, one array a
-    leaf: the step's global grad is the two processes' mean."""
+    leaf: the step's global grad is the processes' mean."""
     rng = np.random.default_rng(1000 * step + rank)
     return [(0.1 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
 
@@ -70,20 +83,30 @@ def small_cfg():
 
     from ddl_tpu_torch.models import llama
 
-    return llama.LlamaConfig(vocab=64, d_model=32, n_layers=2, n_heads=4,
-                             n_kv_heads=2, d_ff=64, max_seq=SEQ,
-                             dtype=torch.float32)
+    return llama.LlamaConfig(**small_widths(), dtype=torch.float32)
+
+
+def small_widths():
+    """The fit and ckpt legs' widths (``torch_multihost_prog.pp_cfg``'s
+    times ``SCALE / 2``)."""
+    return dict(vocab=32 * SCALE, d_model=16 * SCALE, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=32 * SCALE, max_seq=SEQ)
+
+
+def tiny_widths():
+    """The step leg's widths: ``tests/test_torch_optimizer.py``'s TINY
+    times ``SCALE / 2``."""
+    return dict(vocab=64 * SCALE, d_model=32 * SCALE, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=64 * SCALE, max_seq=64)
 
 
 def tiny_cfg():
-    """The step leg's tree: ``tests/test_torch_optimizer.py``'s TINY."""
+    """The step leg's tree."""
     import torch
 
     from ddl_tpu_torch.models import llama
 
-    return llama.LlamaConfig(vocab=128, d_model=64, n_layers=2, n_heads=4,
-                             n_kv_heads=2, d_ff=128, max_seq=64,
-                             dtype=torch.float32)
+    return llama.LlamaConfig(**tiny_widths(), dtype=torch.float32)
 
 
 def ckpt_batches():
@@ -165,7 +188,17 @@ def main(rank, port, out):
                 opt.step()
             for i, p in enumerate(leaves):
                 rec[f"{mode}/param/{i}"] = p.detach().numpy().copy()
-        # The default block (256) against the 32-wide norm slices.
+        # The same contributions through gloo's all-reduce (the
+        # replicated step's bucket), summed in whatever order gloo adds.
+        from ddl_tpu_torch.parallel.collectives import process_mean
+
+        shapes = [tuple(x.shape) for x in tree_leaves(np_tree)]
+        for t in range(N_STEPS):
+            grads = [torch.from_numpy(g) for g in contribution(rank, t, shapes)]
+            process_mean(grads, grads)
+            for i, g in enumerate(grads):
+                rec[f"mean/{t}/{i}"] = g.numpy().copy()
+        # The default block (256) against the norm slices.
         rec["cut_error"] = np.array("")
         try:
             ShardedOptimizer(adamw(STEP_LR), mesh, llama.param_specs(tiny_cfg()),
@@ -215,6 +248,8 @@ def main(rank, port, out):
                 rec[f"{leg}/{c}/calls"] = np.array(
                     dm.timer(c.replace("_bytes", "")).count - counts[c])
             rec[f"{leg}/moment_bytes"] = np.array(moment_bytes(res.state.optimizer))
+            for g in ("opt.state_bytes_local", "opt.state_bytes_total"):
+                rec[f"{leg}/{g}"] = np.array(dm.gauge(g))
             rec[f"{leg}/spans"] = np.array(
                 getattr(res.state.optimizer, "spans_processes", False))
         np.savez(os.path.join(out, f"fit_{rank}.npz"), **rec)
