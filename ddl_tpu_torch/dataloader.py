@@ -51,7 +51,9 @@ acquires) and, with an admission gate bound (:meth:`bind_admission`),
 at every window boundary and at shutdown (:meth:`drain_obs_reports`).
 The flight recorder dumps at a corrupt window, an undecodable window and
 an exhausted replay.  The acquire runs under
-``profiling.annotate("ddl.window_acquire")``.
+``profiling.annotate("ddl.window_acquire")`` (timer ``consumer.wait``),
+its ring wait under ``ddl.ring_wait`` and its CRC check under
+``ddl.integrity_verify``.
 
 Loader pools (:mod:`ddl_tpu_torch.cluster`): ``cluster=`` (an
 ``ElasticCluster``, or a bare ``ClusterSupervisor``) makes the loader
@@ -408,8 +410,8 @@ class DistributedDataLoader:
             self._apply_pending_pool()
             cursor = self._next_target(cursor, include=True)
             target = cursor
-            with annotate("ddl.window_acquire"), self.metrics.timed(
-                    "consumer.wait"):
+            with annotate("ddl.window_acquire", self.metrics,
+                          timer="consumer.wait"):
                 while True:
                     try:
                         try:
@@ -930,14 +932,16 @@ class DistributedDataLoader:
         span_t0 = obs_spans.t0()
         t0 = time.perf_counter() if ahead == 0 and timeout_s > 0 else 0.0
         ring = self.connection.rings[target]
-        if (self._cluster is None and self._pool is None
-                and self._pending_pool is None):
-            slot = ring.acquire_drain_ahead(ahead, timeout_s)
-        else:
-            slot = self._acquire_sliced(ring, target, ahead, timeout_s)
+        with annotate("ddl.ring_wait"):
+            if (self._cluster is None and self._pool is None
+                    and self._pending_pool is None):
+                slot = ring.acquire_drain_ahead(ahead, timeout_s)
+            else:
+                slot = self._acquire_sliced(ring, target, ahead, timeout_s)
         seq = self._expected_seq(target, ahead)
         if self._integrity:
-            err = self._verify_slot(target, slot, seq)
+            with annotate("ddl.integrity_verify"):
+                err = self._verify_slot(target, slot, seq)
             if err is not None:
                 if ahead or timeout_s <= 0:
                     raise _CorruptAhead(err)
@@ -1084,8 +1088,8 @@ class DistributedDataLoader:
                 "batch iteration"
             )
         self._apply_pending_pool()
-        with annotate("ddl.window_acquire"), self.metrics.timed(
-                "consumer.wait"):
+        with annotate("ddl.window_acquire", self.metrics,
+                      timer="consumer.wait"):
             while True:
                 try:
                     slot = self._acquire_verified(self._target, 0,

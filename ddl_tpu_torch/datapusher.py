@@ -46,8 +46,10 @@ Observability (:mod:`ddl_tpu_torch.obs`): a ``producer.fill`` span
 (exchange and refill) and a ``producer.commit`` span (the free-slot wait,
 copy and stamp) per window, keyed on the trailer's ``(producer_idx,
 seq)``.  The commit span is recorded BEFORE the slot is published, so a
-served window's commit span is always in the log.  A PROCESS producer
-ships an :class:`~ddl_tpu_torch.types.ObsReport` every
+served window's commit span is always in the log.  The refill runs under
+the ``producer.fill`` range (:mod:`ddl_tpu_torch.profiling`), the
+copy, stamp and commit after the free-slot wait under ``producer.stamp``.  A PROCESS producer ships an
+:class:`~ddl_tpu_torch.types.ObsReport` every
 ``DDL_TORCH_OBS_SHIP_EVERY`` windows and once more at shutdown.
 """
 
@@ -65,6 +67,7 @@ from ddl_tpu_torch.faults import armed_plan, fault_point
 from ddl_tpu_torch.obs import aggregate as obs_aggregate
 from ddl_tpu_torch.obs import spans as obs_spans
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
+from ddl_tpu_torch.profiling import annotate
 from ddl_tpu_torch.transport.connection import NOTHING, ProducerConnection
 from ddl_tpu_torch.transport.envelope import EnvelopeReceiver
 from ddl_tpu_torch.types import (
@@ -461,14 +464,17 @@ class DataPusher:
         if self.inplace_fill:
             # my_ary IS the slot: publish it, then point my_ary at the
             # next free slot for the coming refill.
-            self._stamp_and_commit(self._fill_slot)
+            with annotate("producer.stamp"):
+                self._stamp_and_commit(self._fill_slot)
         elif self.wire_dtype != "raw":
             slot = self.ring.acquire_fill()  # raises ShutdownRequested on stop
-            self._encode_and_commit(slot)
+            with annotate("producer.stamp"):
+                self._encode_and_commit(slot)
         else:
             slot = self.ring.acquire_fill()  # raises ShutdownRequested on stop
-            np.copyto(self._slot_array(slot), self.my_ary)
-            self._stamp_and_commit(slot)
+            with annotate("producer.stamp"):
+                np.copyto(self._slot_array(slot), self.my_ary)
+                self._stamp_and_commit(slot)
         self.metrics.incr("producer.windows")
         self.metrics.incr("producer.bytes", self.window_nbytes)
         if self.inplace_fill:
@@ -602,19 +608,20 @@ class DataPusher:
                 # exchange wait observes shutdown: a partner tearing down
                 # may never post its half.
                 span_t0 = obs_spans.t0()
-                execute_callbacks(
-                    self.callbacks,
-                    "global_shuffle",
-                    my_ary=self.my_ary,
-                    iteration=self._iteration,
-                    should_abort=self._should_abort,
-                )
-                execute_callbacks(
-                    self.callbacks,
-                    "execute_function",
-                    my_ary=self.my_ary,
-                    iteration=self._iteration,
-                )
+                with annotate("producer.fill"):
+                    execute_callbacks(
+                        self.callbacks,
+                        "global_shuffle",
+                        my_ary=self.my_ary,
+                        iteration=self._iteration,
+                        should_abort=self._should_abort,
+                    )
+                    execute_callbacks(
+                        self.callbacks,
+                        "execute_function",
+                        my_ary=self.my_ary,
+                        iteration=self._iteration,
+                    )
                 obs_spans.record("producer.fill", self.producer_idx,
                                  self._iteration, span_t0)
                 if self.inplace_fill and armed_plan() is not None:

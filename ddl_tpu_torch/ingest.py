@@ -31,7 +31,9 @@ the window done.
 :meth:`DeviceIngestor.put_window` records the ``ingest.transfer`` span
 (:mod:`ddl_tpu_torch.obs`; the host's dispatch of the copy, keyed on the
 thread's current window) under ``profiling.annotate(
-"ddl.ingest_put_window")``.  :func:`north_star_report` reads the
+"ddl.ingest_put_window")`` (``ingest.put_window`` on a staging worker;
+:meth:`DeviceIngestor.put`'s range is ``ddl.ingest_put`` /
+``ingest.put``).  :func:`north_star_report` reads the
 registry's counters, timers and histograms into the JAX package's report
 keys.
 """
@@ -295,7 +297,7 @@ class DeviceIngestor:
         from ddl_tpu_torch.profiling import annotate
 
         span_t0 = obs_spans.t0()
-        with annotate("ddl.ingest_put_window"):
+        with annotate("ddl.ingest_put_window", worker="ingest.put_window"):
             out = self._put(window)
         obs_spans.record("ingest.transfer", *obs_spans.current_window(),
                          span_t0)
@@ -352,7 +354,7 @@ class DeviceIngestor:
         transfers run on the current stream."""
         from ddl_tpu_torch.profiling import annotate
 
-        with annotate("ddl.ingest_put"):
+        with annotate("ddl.ingest_put", worker="ingest.put"):
             if self.batch_staged:
                 pool = self.engine().pool
                 cur = (torch.cuda.current_stream(self.device)

@@ -24,11 +24,14 @@ counters ``staging.pool_hits``, ``staging.pool_misses``,
 ``staging.inline_fallbacks`` and ``integrity.staging_verify_failures``;
 timers ``ingest.stage_copy``, ``ingest.transfer`` and ``ingest.stall``.
 The loader adds ``consumer.handshake``, ``ingest.registered_rings`` and
-``transport.rings.<ring class>``, and the histograms
-``consumer.window_latency`` and ``consumer.admission_wait``; the trainer
-the timers ``trainer.first_window`` (start-up), ``trainer.windows``
-(every step after it, on the card's clock) and ``trainer.window_wait``,
-and ``producer.exits_clean`` / ``producer.exits_failed``.
+``transport.rings.<ring class>``, the timer ``consumer.wait``, and the
+histograms ``consumer.window_latency`` and ``consumer.admission_wait``;
+the trainer the timers ``trainer.first_window`` (start-up),
+``trainer.windows`` (every step after it, on the card's clock) and
+``trainer.window_wait``, and ``producer.exits_clean`` /
+``producer.exits_failed``.  ``profiling.annotate`` feeds the timers
+that share a host range's stage (:mod:`ddl_tpu_torch.profiling` lists
+the pairs).
 """
 
 from __future__ import annotations

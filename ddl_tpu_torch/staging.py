@@ -43,8 +43,10 @@ inline path.  Counters and timers: ``staging.pool_hits``,
 each transfer attempt.  Spans (:mod:`ddl_tpu_torch.obs`):
 ``staging.copy`` and ``staging.transfer``, keyed on the job's window;
 each transfer attempt runs under ``profiling.annotate(
-"ddl.staging_transfer")`` with the window as the thread's span context,
-so the nested ``ingest.transfer`` span keys on it too.
+"ddl.staging_transfer")`` (``staging.transfer`` on the worker thread)
+with the window as the thread's span context, so the nested
+``ingest.transfer`` span keys on it too; the consumer's wait on a
+worker's job runs under ``ddl.staging_wait``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from ddl_tpu_torch.exceptions import (
 from ddl_tpu_torch.faults import fault_point
 from ddl_tpu_torch.obs import spans as obs_spans
 from ddl_tpu_torch.observability import Metrics, metrics as default_metrics
+from ddl_tpu_torch.profiling import annotate, mark_worker_thread
 from ddl_tpu_torch.utils import value_ready, wait_value
 
 logger = logging.getLogger("ddl_tpu_torch")
@@ -264,14 +267,13 @@ def _host_arrays(dev: Any) -> List[Any]:
 def _faulted_transfer(job: Any, src: np.ndarray) -> Any:
     """One attempt of a job's transfer, behind the ``staging.transfer``
     fault site (a failure or a delay, retried like a real one), under the
-    ``ddl.staging_transfer`` range with the job's window as this thread's
-    span context (the attempt runs on whichever thread claimed it)."""
-    from ddl_tpu_torch.profiling import annotate
-
+    ``ddl.staging_transfer`` range (``staging.transfer`` on the worker)
+    with the job's window as this thread's span context (the attempt runs
+    on whichever thread claimed it)."""
     fault_point("staging.transfer")
     obs_spans.set_window(*(job.span_key or (None, None)))
     try:
-        with annotate("ddl.staging_transfer"):
+        with annotate("ddl.staging_transfer", worker="staging.transfer"):
             return job.transfer(src)
     finally:
         obs_spans.clear_window()
@@ -473,7 +475,8 @@ class TransferExecutor:
                  timeout_s: Optional[float] = None) -> Any:
         """The handle's result, stealing its job if still unclaimed: an
         unstarted job runs here; a worker-claimed one is a genuine wait,
-        counted into ``ingest.stall``."""
+        counted into ``ingest.stall`` under the ``ddl.staging_wait``
+        range."""
         job = handle._job
         if job is not None and self._claim(job):
             self._execute(job)
@@ -481,7 +484,7 @@ class TransferExecutor:
             # every job, a worker-only sweep would never run.
             self.pool.sweep()
             return handle.result(timeout_s)
-        with self.metrics.timed("ingest.stall"):
+        with annotate("ddl.staging_wait", self.metrics, timer="ingest.stall"):
             return handle.result(timeout_s)
 
     def flush_copies(self, timeout_s: float = 30.0) -> None:
@@ -692,6 +695,7 @@ class TransferExecutor:
         return value
 
     def _run(self) -> None:
+        mark_worker_thread()
         while True:
             with self._cv:
                 # Take work only at worker_min_depth, from the NEWEST end:

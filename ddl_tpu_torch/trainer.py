@@ -22,9 +22,12 @@ whose ``dp`` spans the processes) each process lands and trains on its
 own rows, and the step crosses the group in one bucket (the global
 batch's loss for a ``cross_entropy`` loss, ``parallel/train.py``);
 ``evaluate`` returns one global value on every process.  The window
-stream records ``trainer.consume`` spans (:mod:`ddl_tpu_torch.obs`) and
-wraps the window wait in ``annotate("ddl.window_wait")``
-(:mod:`ddl_tpu_torch.profiling`).
+stream records ``trainer.consume`` spans (:mod:`ddl_tpu_torch.obs`), and
+its loop's work runs under ``ddl.`` ranges (:mod:`ddl_tpu_torch.profiling`):
+the window wait (``ddl.window_wait``, timer ``trainer.window_wait``, with
+the caller's ``window_hook`` under ``ddl.window_hook``), the steps'
+dispatch (``ddl.step_dispatch``), the loss read-back
+(``ddl.loss_readback``) and the window boundary (``ddl.boundary``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,17 @@ def _loader_output(output: Optional[str]) -> str:
         raise ValueError(
             f"output must be device|jax|numpy|torch, got {output!r}")
     return output
+
+
+def _hooked(stream: Any, window_hook: Callable[[Any], Any]) -> Any:
+    """``stream`` with ``window_hook`` applied to each window, under the
+    ``ddl.window_hook`` range."""
+    from ddl_tpu_torch.profiling import annotate
+
+    for win in stream:
+        with annotate("ddl.window_hook"):
+            win = window_hook(win)
+        yield win
 
 
 def _stream_splits(loader: Any) -> Tuple[int, ...]:
@@ -541,7 +555,7 @@ class Trainer:
             # arrays (the rolled targets cross the shard cuts).
             stream = (w.assemble_local() for w in stream)
         if window_hook is not None:
-            stream = map(window_hook, stream)
+            stream = _hooked(stream, window_hook)
         loop = self._fused_stream_loop if fused else self._sync_stream_loop
         state = loop(loader, stream, state, multi_for, col_splits,
                      epoch_losses, start_epoch)
@@ -583,38 +597,42 @@ class Trainer:
         _done = object()
         while True:
             t0 = time.perf_counter()
-            with m.timed("trainer.window_wait"), annotate("ddl.window_wait"):
+            with annotate("ddl.window_wait", m, timer="trainer.window_wait"):
                 win = next(stream, _done)
             if pending_done is not None and not value_ready(pending_done, True):
                 m.add_time("trainer.ingest_overlap", time.perf_counter() - t0)
             if win is _done:
                 break
-            if pending is None:
-                self._clock_start(m)
-            span_t0 = obs_spans.t0()
-            wkey = loader.last_window_key() or (None, None)
-            state, losses = multi_for(win.shape[0])(
-                state, _window_cols(win, col_splits), per_step=True
-            )
-            self._clock_steps()
-            loss_mean = losses.mean()
-            done = done_event(self.device)
-            loader.gate_release_on(done)
-            # The consume span is the host's dispatch of the window's
-            # steps: the fused loop never waits on the card here.
-            obs_spans.record("trainer.consume", *wkey, span_t0)
-            m.incr("trainer.fused_windows")
+            with annotate("ddl.step_dispatch"):
+                if pending is None:
+                    self._clock_start(m)
+                span_t0 = obs_spans.t0()
+                wkey = loader.last_window_key() or (None, None)
+                state, losses = multi_for(win.shape[0])(
+                    state, _window_cols(win, col_splits), per_step=True
+                )
+                self._clock_steps()
+                loss_mean = losses.mean()
+                done = done_event(self.device)
+                loader.gate_release_on(done)
+                # The consume span is the host's dispatch of the window's
+                # steps: the fused loop never waits on the card here.
+                obs_spans.record("trainer.consume", *wkey, span_t0)
+                m.incr("trainer.fused_windows")
             if pending is not None:
-                epoch_losses.append(float(pending))
+                with annotate("ddl.loss_readback"):
+                    epoch_losses.append(float(pending))
             pending, pending_done = loss_mean, done
             epoch += 1
-            loader.mark(Marker.END_OF_EPOCH)
             # A checkpoint's snapshot waits for the steps just enqueued;
             # a drain's final checkpoint loses no completed window.
-            if self._boundary(state, loader, epoch):
-                break
+            with annotate("ddl.boundary"):
+                loader.mark(Marker.END_OF_EPOCH)
+                if self._boundary(state, loader, epoch):
+                    break
         if pending is not None:
-            epoch_losses.append(float(pending))
+            with annotate("ddl.loss_readback"):
+                epoch_losses.append(float(pending))
         self._clock_finish(m)
         return state
 
@@ -659,33 +677,36 @@ class Trainer:
         from ddl_tpu_torch.obs import spans as obs_spans
         from ddl_tpu_torch.profiling import annotate
 
+        m = self.metrics
         epoch = start_epoch
         _done = object()
         while True:
-            with self.metrics.timed("trainer.window_wait"), annotate(
-                    "ddl.window_wait"):
+            with annotate("ddl.window_wait", m, timer="trainer.window_wait"):
                 win = next(stream, _done)
                 if win is not _done and self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
             if win is _done:
                 break
-            if not epoch_losses:
-                self._clock_start(self.metrics)
-            span_t0 = obs_spans.t0()
-            wkey = loader.last_window_key() or (None, None)
-            state, losses = multi_for(win.shape[0])(
-                state, _window_cols(win, col_splits), per_step=True
-            )
-            self._clock_steps()
-            epoch_losses.append(float(losses.mean()))
+            with annotate("ddl.step_dispatch"):
+                if not epoch_losses:
+                    self._clock_start(m)
+                span_t0 = obs_spans.t0()
+                wkey = loader.last_window_key() or (None, None)
+                state, losses = multi_for(win.shape[0])(
+                    state, _window_cols(win, col_splits), per_step=True
+                )
+                self._clock_steps()
+            with annotate("ddl.loss_readback"):
+                epoch_losses.append(float(losses.mean()))
             # The synchronous consume span covers the steps and the
             # blocking read-back.
             obs_spans.record("trainer.consume", *wkey, span_t0)
             epoch += 1
-            loader.mark(Marker.END_OF_EPOCH)
-            if self._boundary(state, loader, epoch):
-                break
-        self._clock_finish(self.metrics)
+            with annotate("ddl.boundary"):
+                loader.mark(Marker.END_OF_EPOCH)
+                if self._boundary(state, loader, epoch):
+                    break
+        self._clock_finish(m)
         return state
 
     # -- the run -----------------------------------------------------------
