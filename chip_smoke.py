@@ -86,11 +86,14 @@ teardown.  Each fit also counts its host syncs: window 1 (the first
 whose steps follow a whole window's) runs under
 ``torch.cuda.set_sync_debug_mode("warn")``, its warnings grouped by
 file:line and printed; any site but the fused loop's deferred loss read
-(``float(pending)`` in ``Trainer._fused_stream_loop``, at most once a
-window) fails the phase.  Before the token fits, one call each of the
-explicit waits shows which of them the mode reports; after the token
-THREAD fit, a one-window control whose loss calls ``.item()`` must be
-counted once a step.
+(the annotated wait on the previous window's event in
+``Trainer._fused_stream_loop``) fails the phase.  That wait,
+``Event.synchronize()``, is one the mode does not report, so the fit's
+events count their own waits by site: a steady window must wait there
+exactly once.  Before the token fits, one call each of the explicit
+waits shows which of them the mode reports; after the token THREAD fit,
+a one-window control whose loss calls ``.item()`` must be counted once
+a step.
 
 Phase 7 is recovery in PROCESS mode, on the token cell of phase 6 over 6
 windows: a PROCESS fit, then the same fit with one producer SIGKILLed at
@@ -2498,13 +2501,16 @@ class SyncCount:
     keeps the mode armed to the end of the fit (the control).
     :meth:`recording` collects the warnings with ``catch_warnings(record=
     True)`` under ``simplefilter("always")``: the default filter shows a
-    site only once."""
+    site only once.  It also hands the trainer events that log each
+    ``synchronize()`` by its caller's site (:attr:`waits`), since the mode
+    does not report an event's wait."""
 
     def __init__(self, first: int = 1, last=None):
         self.first, self.last = first, last
         self.seen = 0
         self.marks = []
         self.log = []
+        self.waits = []
 
     @contextlib.contextmanager
     def recording(self):
@@ -2526,9 +2532,27 @@ class SyncCount:
             # synchronize) warns at torch's line: record its caller.
             warnings.showwarning = show
             self.log = log
+            waits = self.waits
+
+            class CountedEvent(torch.cuda.Event):
+                def synchronize(self):
+                    f = sys._getframe(1)
+                    waits.append(SyncCount.site(f.f_code.co_filename,
+                                                f.f_lineno))
+                    super().synchronize()
+
+            def done_event(device):
+                ev = CountedEvent()
+                ev.record(torch.cuda.current_stream(device))
+                return ev
+
+            from ddl_tpu_torch import trainer
+
+            real, trainer.done_event = trainer.done_event, done_event
             try:
                 yield self
             finally:
+                trainer.done_event = real
                 torch.cuda.set_sync_debug_mode(0)
 
     def hook(self, win):
@@ -2538,34 +2562,46 @@ class SyncCount:
         if k == self.first:
             torch.cuda.set_sync_debug_mode("warn")
         if k >= self.first and (self.last is None or k <= self.last):
-            self.marks.append(len(self.log))
+            self.marks.append((len(self.log), len(self.waits)))
         if k == self.last:
             torch.cuda.set_sync_debug_mode(0)
         return win
 
     @staticmethod
-    def site(w) -> str:
-        path = os.path.abspath(w.filename)
+    def site(filename, lineno) -> str:
+        path = os.path.abspath(filename)
         if path.startswith(ROOT + os.sep):
             path = os.path.relpath(path, ROOT)
         elif "site-packages" + os.sep in path:
             path = path.split("site-packages" + os.sep, 1)[1]
-        return f"{path}:{w.lineno}"
+        return f"{path}:{lineno}"
 
     def _sites(self, records):
         counts = {}
         for w in records:
             if SYNC_WARNING in str(w.message):
-                s = self.site(w)
+                s = self.site(w.filename, w.lineno)
                 counts[s] = counts.get(s, 0) + 1
         return counts
 
     def windows(self):
         """One ``{site: count}`` per whole window record (the last mark
-        ends the last record unless the mode stayed armed to the end)."""
-        ends = self.marks[1:] + ([len(self.log)] if self.last is None
-                                 else [])
-        return [self._sites(self.log[a:b]) for a, b in zip(self.marks, ends)]
+        ends the last record unless the mode stayed armed to the end):
+        the mode's warnings, and at each site where the events counted
+        waits, the larger of the two counts (a wait the mode also
+        reported is one wait)."""
+        ends = self.marks[1:] + ([(len(self.log), len(self.waits))]
+                                 if self.last is None else [])
+        out = []
+        for (a, wa), (b, wb) in zip(self.marks, ends):
+            counts = self._sites(self.log[a:b])
+            waited = {}
+            for s in self.waits[wa:wb]:
+                waited[s] = waited.get(s, 0) + 1
+            for s, n in waited.items():
+                counts[s] = max(counts.get(s, 0), n)
+            out.append(counts)
+        return out
 
 
 def _caller(filename, lineno, skip):
@@ -2590,10 +2626,16 @@ def _caller(filename, lineno, skip):
     return filename, lineno
 
 
+#: The pragma that marks the fused loop's one sanctioned wait.
+READ_PRAGMA = "# ddl-lint: disable=TDL020"
+
+
 def fused_read_sites():
-    """``trainer.py:<line>`` of the fused loop's deferred loss reads
-    (``float(pending)``): the one host sync the loop makes, once a
-    window."""
+    """``{"ddl_tpu_torch/trainer.py:<line>"}``: the fused loop's deferred
+    loss read, the ``<event>.synchronize()`` in
+    ``Trainer._fused_stream_loop`` whose line carries TDL020's pragma —
+    the one host sync the loop makes, once a window.  Raises unless there
+    is exactly one such line."""
     import ast
     import inspect
     import textwrap
@@ -2601,17 +2643,21 @@ def fused_read_sites():
     from ddl_tpu_torch.trainer import Trainer
 
     src, start = inspect.getsourcelines(Trainer._fused_stream_loop)
-    return {f"ddl_tpu_torch/trainer.py:{start + node.lineno - 1}"
-            for node in ast.walk(ast.parse(textwrap.dedent("".join(src))))
-            if isinstance(node, ast.Call)
-            and getattr(node.func, "id", None) == "float"
-            and getattr(node.args[0], "id", None) == "pending"}
+    sites = {f"ddl_tpu_torch/trainer.py:{start + node.lineno - 1}"
+             for node in ast.walk(ast.parse(textwrap.dedent("".join(src))))
+             if isinstance(node, ast.Call)
+             and getattr(node.func, "attr", None) == "synchronize"
+             and READ_PRAGMA in src[node.lineno - 1]}
+    if len(sites) != 1:
+        raise PhaseFailed(f"the fused loop has {len(sites)} annotated "
+                          f"synchronize() lines, not one: {sorted(sites)}")
+    return sites
 
 
 def sync_gates(tag, mode, syncs, faults):
     """Print each steady window's host-sync sites with their counts and
     fail on any site the port does not sanction: only the deferred loss
-    read, at most once a window.  Returns the per-window counts."""
+    read, exactly once a window.  Returns the per-window counts."""
     windows = syncs.windows()
     sanctioned = fused_read_sites()
     if not windows:
@@ -2622,10 +2668,10 @@ def sync_gates(tag, mode, syncs, faults):
                or "none"))
         other = {s: n for s, n in counts.items() if s not in sanctioned}
         reads = sum(n for s, n in counts.items() if s in sanctioned)
-        if other or reads > 1:
+        if other or reads != 1:
             faults.append(f"{mode}: host syncs outside the sanctioned "
-                          f"deferred read {sorted(sanctioned)} (at most 1 "
-                          f"a window) in steady window {syncs.first + i}: "
+                          f"deferred read {sorted(sanctioned)}, or not one "
+                          f"read, in steady window {syncs.first + i}: "
                           f"{counts}")
     return windows
 

@@ -28,10 +28,11 @@ The loader adds ``consumer.handshake``, ``ingest.registered_rings`` and
 histograms ``consumer.window_latency`` and ``consumer.admission_wait``;
 the trainer the timers ``trainer.first_window`` (start-up),
 ``trainer.windows`` (every step after it, on the card's clock) and
-``trainer.window_wait``, and ``producer.exits_clean`` /
-``producer.exits_failed``.  ``profiling.annotate`` feeds the timers
-that share a host range's stage (:mod:`ddl_tpu_torch.profiling` lists
-the pairs).
+``trainer.window_wait``, the counter ``trainer.overlapped_windows``
+(fused-loop windows taken while the previous window's steps still ran),
+and ``producer.exits_clean`` / ``producer.exits_failed``.
+``profiling.annotate`` feeds the timers that share a host range's stage
+(:mod:`ddl_tpu_torch.profiling` lists the pairs).
 """
 
 from __future__ import annotations

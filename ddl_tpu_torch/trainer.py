@@ -527,7 +527,9 @@ class Trainer:
           ``DDL_TORCH_FUSED`` gate): window N+1's copy is in flight while
           step N's kernels run, the slot release is gated on the
           consuming step's event, and the loss read-back is deferred by
-          one window.
+          one window: it waits on the previous window's event, never on
+          the steps just enqueued, so the host takes window N+1 while
+          the card runs window N.
         - **Synchronous** (:meth:`_sync_stream_loop`, ``DDL_TORCH_FUSED=0``):
           the window lands, then the steps run, then the losses are read
           back.  Loss-identical to the fused loop.
@@ -578,15 +580,20 @@ class Trainer:
     def _fused_stream_loop(self, loader, stream, state, multi_for, col_splits,
                            epoch_losses, start_epoch):
         """The fused compute/ingest step: no host sync but the deferred
-        ``float(pending)``.
+        loss read, which waits on the previous window's event.
 
         Per window: take it from the stream (its copy was started under
-        the previous window's steps), enqueue its optimizer steps, gate
-        its slot release on an event recorded behind them, then read back
-        the PREVIOUS window's loss — a read that waits on steps already
-        one window old.  Time spent acquiring window k+1 while window k's
-        steps still run accumulates into ``trainer.ingest_overlap`` (a
-        lower bound on hidden ingest).
+        the previous window's steps), enqueue its optimizer steps and, on
+        the card, a non-blocking copy of their mean loss into a fresh
+        page-locked scalar, record an event behind both and gate the
+        window's slot release on it, then read back the PREVIOUS window's
+        loss: wait on that window's event (never on the stream's tail)
+        and read its scalar, so the card runs window k's steps while the
+        host takes window k+1.  On the CPU there is no event and the read
+        is the loss itself.  Time spent acquiring window k+1 while window
+        k's steps still run accumulates into ``trainer.ingest_overlap`` (a
+        lower bound on hidden ingest), and each such window counts in
+        ``trainer.overlapped_windows``.
         """
         from ddl_tpu_torch.obs import spans as obs_spans
         from ddl_tpu_torch.profiling import annotate
@@ -595,12 +602,21 @@ class Trainer:
         pending = pending_done = None
         epoch = start_epoch
         _done = object()
+
+        def read_back(loss, event):
+            with annotate("ddl.loss_readback"):
+                if event is not None:
+                    event.synchronize()  # ddl-lint: disable=TDL020 - the deferred read waits only on the previous window's steps
+                epoch_losses.append(float(loss))
+
         while True:
             t0 = time.perf_counter()
             with annotate("ddl.window_wait", m, timer="trainer.window_wait"):
                 win = next(stream, _done)
             if pending_done is not None and not value_ready(pending_done, True):
                 m.add_time("trainer.ingest_overlap", time.perf_counter() - t0)
+                if win is not _done:
+                    m.incr("trainer.overlapped_windows")
             if win is _done:
                 break
             with annotate("ddl.step_dispatch"):
@@ -612,7 +628,10 @@ class Trainer:
                     state, _window_cols(win, col_splits), per_step=True
                 )
                 self._clock_steps()
-                loss_mean = losses.mean()
+                # From the card, a non-blocking copy lands in page-locked
+                # memory behind the steps, before the event that covers it;
+                # on the CPU it is the loss itself.
+                loss_mean = losses.mean().to("cpu", non_blocking=True)
                 done = done_event(self.device)
                 loader.gate_release_on(done)
                 # The consume span is the host's dispatch of the window's
@@ -620,8 +639,7 @@ class Trainer:
                 obs_spans.record("trainer.consume", *wkey, span_t0)
                 m.incr("trainer.fused_windows")
             if pending is not None:
-                with annotate("ddl.loss_readback"):
-                    epoch_losses.append(float(pending))
+                read_back(pending, pending_done)
             pending, pending_done = loss_mean, done
             epoch += 1
             # A checkpoint's snapshot waits for the steps just enqueued;
@@ -631,8 +649,7 @@ class Trainer:
                 if self._boundary(state, loader, epoch):
                     break
         if pending is not None:
-            with annotate("ddl.loss_readback"):
-                epoch_losses.append(float(pending))
+            read_back(pending, pending_done)
         self._clock_finish(m)
         return state
 

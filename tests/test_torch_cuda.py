@@ -278,6 +278,49 @@ def test_tiny_fit_runs_through_the_kernels(tmp_path):
     assert res.metrics.counter("ingest.fused_gated") == 0
 
 
+def test_fused_fit_takes_the_next_window_under_the_running_steps(
+        tmp_path, monkeypatch):
+    """The fused loop's deferred read waits only for the previous
+    window: with ~50 ms of card time a step (``torch.cuda._sleep`` in the
+    loss) and little host work a window, window k+1's acquire begins
+    while window k's steps still run — every window after the first
+    counts in ``trainer.overlapped_windows`` but at most one — and the
+    losses equal the synchronous loop's bit for bit."""
+    from ddl_tpu_torch.config import LoaderConfig
+    from ddl_tpu_torch.observability import Metrics
+    from ddl_tpu_torch.parallel.train import adamw
+    from ddl_tpu_torch.trainer import Trainer
+
+    path = os.path.join(tmp_path, "tokens.bin")
+    np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.int32).tofile(path)
+    windows, seq = 6, 128
+    # ~50 ms at the H100's 1.98 GHz boost clock.
+    sleep_cycles = 100_000_000
+
+    def loss_fn(p, b):
+        torch.cuda._sleep(sleep_cycles)
+        x = b[0].float() / 256.0
+        return ((x @ p["w"]) ** 2).mean()
+
+    def fit():
+        g = torch.Generator().manual_seed(0)
+        params = {"w": torch.randn(seq, 4, generator=g).cuda()}
+        trainer = Trainer(loss_fn, adamw(1e-3), params, metrics=Metrics())
+        return trainer.fit(TokenStreamProducer(path, seq, 8),
+                           config=LoaderConfig(batch_size=4, n_epochs=windows,
+                                               window_stream=True))
+
+    fused = fit()
+    monkeypatch.setenv("DDL_TORCH_FUSED", "0")
+    sync = fit()
+    m = fused.metrics
+    assert m.counter("trainer.fused_windows") == windows
+    assert m.counter("trainer.overlapped_windows") >= windows - 2
+    assert sync.metrics.counter("trainer.fused_windows") == 0
+    assert len(fused.losses) == windows and all(np.isfinite(fused.losses))
+    assert fused.losses == sync.losses
+
+
 def _doc_ids(rng, B, T, mean_len):
     """Row-local segment ids of packed documents with random lengths."""
     ids = np.zeros((B, T), np.int32)

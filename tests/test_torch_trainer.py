@@ -28,8 +28,10 @@ from ddl_tpu.parallel.mesh import make_mesh
 from ddl_tpu.readers import PackedTokenProducer as JaxPacked
 from ddl_tpu.readers import TokenStreamProducer as JaxTokens
 from ddl_tpu.trainer import Trainer as JaxTrainer
+from ddl_tpu_torch import trainer as trainer_mod
 from ddl_tpu_torch.config import LoaderConfig, TrainConfig
 from ddl_tpu_torch.models import llama as tllama
+from ddl_tpu_torch.observability import Metrics
 from ddl_tpu_torch.parallel.train import adamw
 from ddl_tpu_torch.readers import PackedTokenProducer as TorchPacked
 from ddl_tpu_torch.readers import TokenStreamProducer as TorchTokens
@@ -53,12 +55,13 @@ def setup(tmp_path_factory):
     return path, params
 
 
-def _torch_fit(path, params, **fit_kw):
+def _torch_fit(path, params, metrics=None, **fit_kw):
     trainer = Trainer(
         loss_fn=lambda p, b: tllama.next_token_loss(p, b[0], TCFG),
         optimizer=adamw(LR),
         init_params=tllama.params_from_numpy(params, device="cpu"),
         device="cpu",
+        metrics=metrics,
     )
     cfg = LoaderConfig(batch_size=BATCH, n_epochs=EPOCHS, n_producers=2,
                        window_stream=fit_kw.pop("window_stream", True))
@@ -93,6 +96,72 @@ def test_fused_and_sync_loops_give_equal_losses(setup):
     sync = _torch_fit(path, params, fused=False).losses
     assert fused == sync
     assert all(np.isfinite(fused))
+
+
+class _FakeEvents:
+    """Stands in for the trainer's ``done_event``: one fake event a
+    window, numbered from 0, each logging ``(call, window, events made
+    so far)`` for every ``query()`` and ``synchronize()``.  ``query()``
+    reads not ready for the windows in ``busy`` (steps still on the
+    card)."""
+
+    def __init__(self, busy=()):
+        self.busy, self.log, self.made = set(busy), [], 0
+
+    def __call__(self, device):
+        k, self.made = self.made, self.made + 1
+        events = self
+
+        class Event:
+            def query(self):
+                events.log.append(("query", k, events.made))
+                return k not in events.busy
+
+            def synchronize(self):
+                events.log.append(("synchronize", k, events.made))
+
+        return Event()
+
+    def calls(self, name):
+        return [(k, made) for call, k, made in self.log if call == name]
+
+
+def test_fused_read_waits_on_the_previous_window_event(setup, monkeypatch):
+    """Each window's read waits on its own event once, after the next
+    window's steps were dispatched (its event made), and never on the
+    event of the window just dispatched; the losses are the synchronous
+    loop's."""
+    path, params = setup
+    sync = _torch_fit(path, params, fused=False).losses
+    events = _FakeEvents()
+    monkeypatch.setattr(trainer_mod, "done_event", events)
+    assert _torch_fit(path, params, fused=True).losses == sync
+    assert events.made == EPOCHS
+    waits = events.calls("synchronize")
+    assert [k for k, _ in waits] == list(range(EPOCHS))
+    # Window k's read comes after window k+1's dispatch; the last read
+    # follows the loop.
+    assert [made for _, made in waits] == (
+        [k + 2 for k in range(EPOCHS - 1)] + [EPOCHS])
+    # The overlap probe asks about the previous window only.
+    assert all(k == made - 1 for k, made in events.calls("query"))
+
+
+@pytest.mark.parametrize("busy,overlapped", [
+    ((), 0), ((1,), 1), (tuple(range(EPOCHS)), EPOCHS - 1)])
+def test_overlapped_windows_counts_acquires_under_running_steps(
+        setup, monkeypatch, busy, overlapped):
+    """``trainer.overlapped_windows`` counts the windows whose acquire
+    found the previous window's event not ready (the stream's end is no
+    window), beside the ``trainer.ingest_overlap`` time."""
+    path, params = setup
+    monkeypatch.setattr(trainer_mod, "done_event", _FakeEvents(busy))
+    m = Metrics()
+    res = _torch_fit(path, params, metrics=m, fused=True)
+    assert len(res.losses) == EPOCHS
+    assert m.counter("trainer.overlapped_windows") == overlapped
+    assert m.counter("trainer.fused_windows") == EPOCHS
+    assert (m.timer("trainer.ingest_overlap").count > 0) == bool(busy)
 
 
 def test_batch_fit_matches_window_stream(setup):

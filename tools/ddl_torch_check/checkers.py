@@ -104,9 +104,9 @@ def _is_cpu(expr: ast.AST) -> bool:
 
 def _reads_device(arg: ast.AST) -> bool:
     """A cast's argument that may be a tensor computed on the card: a
-    call or a subscript.  A plain name or attribute (``float(pending)``,
-    DDL020's carve-out: the deferred read of a value one window old) is
-    not flagged, nor is a host-valued call or a ``.shape`` index."""
+    call or a subscript.  A plain name or attribute (``float(loss)``,
+    DDL020's carve-out) is not flagged, nor is a host-valued call or a
+    ``.shape`` index."""
     if isinstance(arg, ast.Call):
         seg = (dotted_name(arg.func) or "").rsplit(".", 1)[-1]
         return seg not in _HOST_VALUED
@@ -153,11 +153,18 @@ class FusedStepCudaSync(Checker):
     ``torch.cuda.current_stream(d)``); ``.item()``, ``.tolist()``,
     ``.cpu()``, ``.numpy()``, ``.to("cpu")`` / ``.to(device="cpu")``;
     ``float`` / ``int`` / ``bool`` of a call or subscript (not of a plain
-    name or attribute: ``float(pending)`` is the deferred read);
-    ``nonzero`` / ``masked_select`` / ``unique`` / one-argument
-    ``torch.where``; ``torch.equal`` / ``torch.allclose``; and
-    ``.any()`` / ``.all()`` deciding a branch.  Non-blocking probes
+    name or attribute); ``nonzero`` / ``masked_select`` / ``unique`` /
+    one-argument ``torch.where``; ``torch.equal`` / ``torch.allclose``;
+    and ``.any()`` / ``.all()`` deciding a branch.  Non-blocking probes
     (``Event.query()``, ``value_ready``) stay clean.
+
+    The trainer's deferred loss read is the one wait the fused loop
+    makes: it copies each window's mean loss into page-locked memory
+    behind the window's steps, and reads the PREVIOUS window's copy after
+    ``<event>.synchronize()`` on that window's event, an annotated line
+    (``# ddl-lint: disable=TDL020 - <reason>``).  A ``float`` of the
+    device loss would queue behind the steps just enqueued and wait for
+    the stream's tail; the event waits for steps one window old.
     """
 
     code = "TDL020"
